@@ -5,6 +5,12 @@ operator H pinned on an explicit torch device, with its dtype checked.
 Grid padding and the reduced-precision shadows belong to later slices
 (multi-GPU, the precision ladder).
 
+An f32 H on a CUDA device (the one dtype the ring kernel takes) is kept
+where the kernel's TMA loads can read it without a copy: 16-byte aligned,
+with a row stride that is a multiple of 4 elements.  When N % 4 != 0 it is
+the first N columns of an (N, ⌈N/4⌉·4) allocation.  Any other operator is
+stored contiguous, as given.
+
 Placement never falls back: asking for a CUDA device on a machine without
 one raises RuntimeError instead of solving on the CPU.
 """
@@ -14,9 +20,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.ring_hemm import tma_ld, tma_row_stride
 from ..types import as_torch_dtype, require_real
 
-__all__ = ["DenseOperator", "resolve_device"]
+__all__ = ["DenseOperator", "resolve_device", "padded_empty"]
 
 
 def resolve_device(device) -> torch.device:
@@ -45,6 +52,21 @@ def to_device(a, device: torch.device, dtype=None) -> torch.Tensor:
     return torch.tensor(arr, dtype=dt, device=device)
 
 
+def padded_empty(N: int, dtype, device) -> torch.Tensor:
+    """An uninitialised (N, N) tensor laid out as a CUDA operator is
+    stored: for float32 a view whose row stride is N rounded up to a
+    multiple of 4 (``tma_ld``), otherwise contiguous."""
+    ld = tma_ld(N) if dtype == torch.float32 else N
+    return torch.empty((N, ld), dtype=dtype, device=device)[:, :N]
+
+
+def _has_operator_layout(H: torch.Tensor) -> bool:
+    """Whether H already has a layout :func:`padded_empty`'s rule accepts."""
+    if H.dtype == torch.float32:
+        return H.stride(1) == 1 and tma_row_stride(H) is not None
+    return H.is_contiguous()
+
+
 class DenseOperator:
     """Dense Hermitian operator resident on one torch device."""
 
@@ -56,7 +78,15 @@ class DenseOperator:
         require_real(dtype)
         if dtype not in (torch.float32, torch.float64):
             raise TypeError(f"unsupported dtype for eigensolver: {dtype}")
-        if isinstance(H, torch.Tensor) and H.device == self.device:
+        resident = isinstance(H, torch.Tensor) and H.device == self.device
+        if self.device.type == "cuda":
+            if resident and _has_operator_layout(H):
+                self.H = H        # used as is (no N² copy)
+            else:
+                self.H = padded_empty(H.shape[0], dtype, self.device)
+                self.H.copy_(H if isinstance(H, torch.Tensor)
+                             else torch.from_numpy(np.ascontiguousarray(H)))
+        elif resident:
             # a device-resident operator is used as is (no N² copy)
             self.H = H if H.is_contiguous() else H.contiguous()
         else:

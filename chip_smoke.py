@@ -7,14 +7,22 @@ no result line) on any fault:
 
   device  require CUDA; print the card's name and power limit
   build   compile the port's CUDA kernels from csrc/ (nvcc, sm_90a)
-  kernel  ring_hemm against its plain version (torch.matmul) at the
-          filter's shapes, both held against an f64 product; times both
+  kernel  ring_hemm (TMA + wgmma, 3xTF32) against its plain version
+          (torch.matmul) at the filter's shapes, both held against an f64
+          product, timed, with TFLOP/s and the share of the 165 TFLOP/s
+          3xTF32 ceiling; its TF32 split pre-pass against its plain
+          version (bit-exact); a strided window, a two-chunk ring step and
+          an N=1001 operator whose row stride DenseOperator pads to 1004
   filter  the p=1 ring Chebyshev filter (every HEMM on the kernel)
           against the plain filter at N=30000, width 750, degree 10
   slice   eigsh on the Clement matrix at the solver's reference scale
           (N=30000, nev=2250, nex=750, f32, ring_backend="pallas"):
           convergence, eigenvalues against the exact spectrum, true
-          residuals, and ring_hemm launches == the filter's HEMM steps
+          residuals, and ring_hemm and tf32_split launches == the
+          filter's HEMM steps
+  profile warm solves of the slice on the ring path and on the windowed
+          (cuBLAS) path, then a torch.profiler trace of one warm
+          ring-path solve: device busy share and time by kernel name
 
 Each phase prints one line with its numbers and seconds.  A full run
 then prints the kernels' JSON summary and, last,
@@ -35,8 +43,9 @@ import torch
 # slice configuration: the repo's north-star shape, f32 at an absolute
 # tolerance of ~1e-5·‖H‖ (‖H‖ = N - 1 for Clement)
 SLICE = dict(N=30000, nev=2250, nex=750, tol=0.3)
-KERNEL_SHAPES = ((1000, 37), (30000, 750), (30000, 3000))
+KERNEL_SHAPES = ((1000, 37), (30000, 750), (30000, 2250), (30000, 3000))
 SEED = 20261016
+PEAK_3XTF32 = 495.0 / 3     # TFLOP/s: the H100's dense TF32 rate, 3 passes
 
 
 def log(phase: str, msg: str) -> None:
@@ -103,11 +112,16 @@ def phase_build() -> float:
     dt = time.perf_counter() - t0
     log("build", f"ring_hemm built and loaded in {dt:.2f} s "
                  f"(nvcc {_build.nvcc_path()}, {_build.BUILD_DIR})")
+    for line in _build.build_log("ring_hemm").splitlines():
+        if "registers" in line or "spill" in line:
+            log("build", line.strip())
     return dt
 
 
 def phase_kernel(dev) -> dict:
-    from chase_tpu_torch.ops.ring_hemm import ring_hemm, ring_hemm_reference
+    from chase_tpu_torch.ops.ring_hemm import (ring_hemm, ring_hemm_reference,
+                                               tf32_split,
+                                               tf32_split_reference)
     t_phase = time.perf_counter()
     g = torch.Generator(device=dev).manual_seed(SEED)
     summary = {}
@@ -129,12 +143,15 @@ def phase_kernel(dev) -> dict:
         reps = 20 if N * N * k < 1e11 else 3
         plain_ms, kern_ms = time_pair(lambda: ring_hemm_reference(H, V),
                                       lambda: ring_hemm(H, V), reps)
-        mflop = 2.0 * N * N * k / 1e6        # MFLOP / ms = GFLOP/s
+        gflop = 2.0 * N * N * k / 1e9        # GFLOP / ms = TFLOP/s
+        rate = gflop / kern_ms
         log("kernel", f"(N, k)=({N}, {k}): rel err kernel {err:.3e} plain "
                       f"{errp:.3e}; max abs err {abs_err:.3e}; kernel "
-                      f"{kern_ms:.3f} ms ({mflop / kern_ms:.0f} GFLOP/s), "
-                      f"plain {plain_ms:.3f} ms ({mflop / plain_ms:.0f} "
-                      f"GFLOP/s); {time.perf_counter() - t0:.2f} s")
+                      f"{kern_ms:.3f} ms ({rate:.1f} TFLOP/s, "
+                      f"{rate / PEAK_3XTF32:.1%} of the {PEAK_3XTF32:.0f} "
+                      f"TFLOP/s 3xTF32 ceiling), plain {plain_ms:.3f} ms "
+                      f"({gflop / plain_ms:.1f} TFLOP/s); "
+                      f"{time.perf_counter() - t0:.2f} s")
         # f32 sums over K terms in two orders: 1e-5 of the largest entry,
         # and no worse than 4x the plain version's own error
         if not (err <= 1e-5 and err <= 4 * errp):
@@ -142,6 +159,25 @@ def phase_kernel(dev) -> dict:
                                  f"exceeds 1e-5 or 4x plain ({errp:.3e})")
         summary[(N, k)] = dict(err=err, errp=errp, abs_err=abs_err,
                                ms=kern_ms, plain_ms=plain_ms)
+        if k == KERNEL_SHAPES[-1][1]:
+            # the pre-pass alone at the largest window: bit-exact against
+            # its plain version, and hi + lo within 2^-22 of V
+            Vt, Vr = tf32_split(V), tf32_split_reference(V)
+            torch.cuda.synchronize()
+            split_err = float((Vt - Vr).abs().max())
+            rebuild = float(((Vt[0] + Vt[1])[:k, :N] - V.T).abs().max()
+                            / V.abs().max())
+            del Vt, Vr
+            sp_plain, sp_ms = time_pair(lambda: tf32_split_reference(V),
+                                        lambda: tf32_split(V), reps)
+            log("kernel", f"tf32_split ({N}, {k}): max |kernel - plain| "
+                          f"{split_err}; hi + lo vs V rel {rebuild:.3e}; "
+                          f"kernel {sp_ms:.3f} ms, plain {sp_plain:.3f} ms")
+            if not (split_err == 0.0 and rebuild <= 2.0 ** -22):
+                raise AssertionError("tf32_split disagrees with its plain "
+                                     "version")
+            summary["split"] = dict(abs_err=split_err, ms=sp_ms,
+                                    plain_ms=sp_plain)
         del W, Wp, ref
 
     # a strided column window of V, accumulated into a strided window of
@@ -178,6 +214,30 @@ def phase_kernel(dev) -> dict:
         raise AssertionError("two-chunk ring_hemm failed")
     del H, H64
     torch.cuda.empty_cache()
+
+    # N = 1001: TMA needs a row stride that is a multiple of 4 floats, so
+    # DenseOperator pads it to 1004; an unpadded CUDA H is refused
+    from chase_tpu_torch import DenseOperator
+    H1 = np.random.default_rng(SEED).standard_normal(
+        (1001, 1001)).astype(np.float32)
+    op = DenseOperator(H1, device=dev)
+    V = torch.randn((1001, 37), generator=g, device=dev)
+    W = ring_hemm(op.H, V)
+    torch.cuda.synchronize()
+    ref = op.H.double() @ V.double()
+    err1 = rel_err(W, ref)
+    errp1 = rel_err(ring_hemm_reference(op.H, V), ref)
+    try:
+        ring_hemm(torch.as_tensor(H1, device=dev), V)
+        refused = False
+    except ValueError:
+        refused = True
+    log("kernel", f"N=1001 DenseOperator: row stride {op.H.stride(0)}; rel "
+                  f"err kernel {err1:.3e} plain {errp1:.3e}; contiguous "
+                  f"(stride 1001) H refused with ValueError: {refused}")
+    if not (op.H.stride(0) == 1004 and err1 <= 1e-5 and err1 <= 4 * errp1
+            and refused):
+        raise AssertionError("N=1001 operator check failed")
     log("kernel", f"phase ok in {time.perf_counter() - t_phase:.2f} s")
     return summary
 
@@ -214,14 +274,14 @@ def phase_filter(dev, H) -> None:
         raise AssertionError("ring filter disagrees with the plain filter")
 
 
-def phase_slice(dev, H) -> int:
+def phase_slice(dev, H) -> dict:
     import chase_tpu_torch as ct
     from chase_tpu_torch.models import clement_eigenvalues
-    from chase_tpu_torch.ops.ring_hemm import ring_hemm
+    from chase_tpu_torch.ops.ring_hemm import ring_hemm, tf32_split
     N, nev, nex, tol = SLICE["N"], SLICE["nev"], SLICE["nex"], SLICE["tol"]
     cfg = ct.ChaseConfig(ring_backend="pallas")
     torch.cuda.reset_peak_memory_stats(dev)
-    ring_hemm.launches = 0
+    ring_hemm.launches = tf32_split.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = ct.eigsh(H, nev, nex, tol=tol, config=cfg, device=dev,
@@ -229,6 +289,7 @@ def phase_slice(dev, H) -> int:
     torch.cuda.synchronize()
     tts = time.perf_counter() - t0
     launches = ring_hemm.launches
+    split_launches = tf32_split.launches
     perf = res.perf
     ev_err = float(np.abs(res.ritzv - clement_eigenvalues(N)[:nev]).max())
     V = res.V[:, :nev]
@@ -245,7 +306,8 @@ def phase_slice(dev, H) -> int:
                  f"filter {filter_rate:.0f} GFLOP/s (useful FLOP model); "
                  f"max eigenvalue err {ev_err:.3e}; max true residual "
                  f"{true_res:.3e}; reported max resid {res.resid.max():.3e}; "
-                 f"ring_hemm launches {launches}, filter HEMM steps "
+                 f"ring_hemm launches {launches}, tf32_split launches "
+                 f"{split_launches}, filter HEMM steps "
                  f"{perf.filter_hemm_steps}; peak device memory "
                  f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB")
     if not res.converged:
@@ -254,10 +316,53 @@ def phase_slice(dev, H) -> int:
         raise AssertionError(f"eigenvalue error {ev_err} > 0.5")
     if not true_res <= 10 * tol:
         raise AssertionError(f"true residual {true_res} > {10 * tol}")
-    if launches == 0 or launches != perf.filter_hemm_steps:
-        raise AssertionError(f"ring_hemm launched {launches} times, the "
-                             f"filter ran {perf.filter_hemm_steps} HEMM steps")
-    return launches
+    if not (0 < launches == split_launches == perf.filter_hemm_steps):
+        raise AssertionError(f"ring_hemm launched {launches} times and "
+                             f"tf32_split {split_launches}, the filter ran "
+                             f"{perf.filter_hemm_steps} HEMM steps")
+    return dict(ring_hemm=launches, tf32_split=split_launches)
+
+
+def phase_profile(dev, H) -> None:
+    """Warm solves of the slice (ring path, then windowed path) and a
+    torch.profiler trace of one warm ring-path solve."""
+    import chase_tpu_torch as ct
+    from torch.profiler import ProfilerActivity, profile
+    N, nev, nex, tol = SLICE["N"], SLICE["nev"], SLICE["nex"], SLICE["tol"]
+
+    def solve(backend):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = ct.eigsh(H, nev, nex, tol=tol, device=dev, collect_perf=True,
+                       config=ct.ChaseConfig(ring_backend=backend))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, res
+
+    for backend in ("pallas", "xla"):
+        tts, res = solve(backend)
+        t = res.perf.timings
+        log("profile", f"warm solve ring_backend={backend}: TTS {tts:.3f} s, "
+                       f"iterations {res.iterations}, Filter "
+                       f"{t['Filter']:.3f} RR {t['Rr']:.3f} QR {t['Qr']:.3f} "
+                       f"s, converged={res.converged}")
+        if not res.converged:
+            raise AssertionError(f"warm {backend} solve did not converge")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tts, res = solve("pallas")
+    rows = [(e.key, e.device_time_total, e.count)
+            for e in prof.key_averages() if e.device_time_total > 0]
+    kernels = [r for r in rows if not r[0].startswith("aten::")]
+    busy = sum(r[1] for r in kernels) / 1e6
+    log("profile", f"traced warm ring solve: TTS {tts:.3f} s; summed device "
+                   f"kernel time {busy:.3f} s, busy share {busy / tts:.3f}")
+    for key, us, count in sorted(kernels, key=lambda r: -r[1])[:15]:
+        log("profile", f"  {us / 1e6:8.3f} s {us / 1e6 / busy:6.1%} "
+                       f"x{count:<5d} {key[:90]}")
+    if not (res.converged
+            and any("ring_hemm_tf32x3" in key for key, _, _ in kernels)):
+        raise AssertionError("traced solve did not converge or the trace "
+                             "shows no ring_hemm kernel on the device")
 
 
 def main() -> int:
@@ -278,13 +383,17 @@ def main() -> int:
                  f"{time.perf_counter() - t0:.2f} s")
     phase_filter(dev, H)
     launches = phase_slice(dev, H)
-    big = kern[KERNEL_SHAPES[-1]]
-    print(json.dumps({"kernels": [{
-        "name": "ring_hemm", "route": "cuda",
-        "source": "chase_tpu_torch/csrc/ring_hemm.cu",
-        "replaces": "chase_tpu/ops/pallas_ring.py:34",
-        "launches": launches, "max_abs_err": big["abs_err"],
-        "ms": big["ms"], "plain_ms": big["plain_ms"]}]}), flush=True)
+    phase_profile(dev, H)
+    big, split = kern[KERNEL_SHAPES[-1]], kern["split"]
+    src = dict(route="cuda", source="chase_tpu_torch/csrc/ring_hemm.cu",
+               replaces="chase_tpu/ops/pallas_ring.py:34")
+    print(json.dumps({"kernels": [
+        dict(name="ring_hemm", **src, launches=launches["ring_hemm"],
+             max_abs_err=big["abs_err"], ms=big["ms"],
+             plain_ms=big["plain_ms"]),
+        dict(name="tf32_split", **src, launches=launches["tf32_split"],
+             max_abs_err=split["abs_err"], ms=split["ms"],
+             plain_ms=split["plain_ms"])]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"],
         "count": torch.cuda.device_count()}}), flush=True)

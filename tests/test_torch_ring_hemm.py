@@ -7,6 +7,10 @@ checked by the ``gpu``-marked tests at the end (and by chip_smoke.py).
 Tolerance: the JAX kernel and torch.matmul are both f32 dots with f32
 accumulation in different orders, so 1e-5 relative to the largest entry.
 
+The card's kernel multiplies in 3xTF32 on the tensor cores; the CPU tests
+in the middle emulate that numerical design (the split by bit arithmetic,
+the three-term product) so it is documented and checked without a card.
+
 JAX is imported only by the parity tests (the ``jx`` fixture), so the
 card-only tests also run where JAX is not installed:
 
@@ -19,7 +23,11 @@ import numpy as np
 import pytest
 import torch
 
-from chase_tpu_torch.ops.ring_hemm import ring_hemm, ring_hemm_reference
+from chase_tpu_torch.ops.ring_hemm import (ring_hemm, ring_hemm_reference,
+                                           split_shape, tf32_split,
+                                           tf32_split_reference, tma_ld,
+                                           tma_row_stride)
+from chase_tpu_torch.parallel.operator import padded_empty
 
 torch.set_num_threads(1)
 
@@ -159,11 +167,123 @@ def test_non_cpu_non_cuda_tensor_raises_instead_of_falling_back():
         ring_hemm(H, V)
 
 
+# ---- 3xTF32, emulated on the CPU -------------------------------------------
+
+def _tf32_np(x):
+    """Round f32 to TF32 (10-bit mantissa), nearest, ties away from zero —
+    cvt.rna.tf32.f32 — on the sign-magnitude bits: add half a TF32 ulp,
+    clear the 13 dropped bits."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def _split_np(x):
+    hi = _tf32_np(x)
+    return hi, _tf32_np(x - hi)          # x - hi is exact in f32
+
+
+def test_tf32_split_rebuilds_x_to_2_pow_minus_22():
+    rng = np.random.default_rng(5)
+    x = (rng.standard_normal(20000)
+         * 10.0 ** rng.uniform(-6, 6, 20000)).astype(np.float32)
+    hi, lo = _split_np(x)
+    assert not (hi.view(np.uint32) & 0x1FFF).any()      # 10-bit mantissas
+    assert not (lo.view(np.uint32) & 0x1FFF).any()
+    x64 = x.astype(np.float64)
+    assert np.all(np.abs(hi - x64) <= 2.0 ** -11 * np.abs(x64))
+    rebuilt = hi.astype(np.float64) + lo.astype(np.float64)
+    assert np.all(np.abs(rebuilt - x64) <= 2.0 ** -22 * np.abs(x64))
+
+
+def test_3xtf32_product_within_4x_of_f32_matmul_at_k4096():
+    """lo·Vhi + hi·Vlo + hi·Vhi (small terms first, lo·lo dropped) in f32
+    stays within 4x of torch.matmul's own f32 error against f64, as the
+    card's gate asks; one TF32 pass alone is ~100x worse."""
+    rng = np.random.default_rng(6)
+    H = rng.standard_normal((64, 4096)).astype(np.float32)
+    V = rng.standard_normal((4096, 48)).astype(np.float32)
+    ref = H.astype(np.float64) @ V.astype(np.float64)
+    (Hh, Hl), (Vh, Vl) = _split_np(H), _split_np(V)
+    t = {n: torch.from_numpy(a) for n, a in
+         dict(H=H, V=V, Hh=Hh, Hl=Hl, Vh=Vh, Vl=Vl).items()}
+    small = t["Hl"] @ t["Vh"] + t["Hh"] @ t["Vl"]
+    w3 = (small + t["Hh"] @ t["Vh"]).numpy()
+    err3 = _rel(w3, ref)
+    errp = _rel((t["H"] @ t["V"]).numpy(), ref)
+    err1 = _rel((t["Hh"] @ t["Vh"]).numpy(), ref)
+    assert err3 <= 4 * errp
+    assert err1 >= 100 * errp
+
+
+@pytest.mark.parametrize("off", [0, 3])
+def test_tf32_split_plain_version_layout(off):
+    """The pre-pass's plain version: Vᵀ split into hi/lo, K-major, starting
+    at column ``off``, zero-padded to whole tiles; bit-identical to the
+    emulation above."""
+    rng = np.random.default_rng(7 + off)
+    V = rng.standard_normal((45, 130)).astype(np.float32)
+    Vt = tf32_split(torch.from_numpy(V)[:, :129], off)     # CPU: plain
+    b_pad, w_pad = split_shape(45, 129, off)
+    assert (b_pad, w_pad) == (64, 256) and tuple(Vt.shape) == (2, 256, 64)
+    hi, lo = _split_np(V[:, :129])
+    np.testing.assert_array_equal(Vt[0, :129, off:off + 45].numpy(), hi.T)
+    np.testing.assert_array_equal(Vt[1, :129, off:off + 45].numpy(), lo.T)
+    zero = torch.ones_like(Vt, dtype=torch.bool)
+    zero[:, :129, off:off + 45] = False
+    assert not Vt[zero].any()
+    with pytest.raises(ValueError):
+        tf32_split(torch.from_numpy(V), 4)
+
+
+@pytest.mark.parametrize("case", ["padded", "f64_not_padded",
+                                  "contiguous_n1001", "unaligned_base",
+                                  "one_row"])
+def test_tma_row_stride_rule(case):
+    """What the wrapper demands of a CUDA H, and what DenseOperator pads an
+    f32 CUDA H to (checked here on CPU tensors, the rule is the same):
+    16-byte base, row stride a multiple of 4 floats.  An f64 operator never
+    reaches the kernel and is stored contiguous."""
+    if case == "padded":
+        H = padded_empty(1001, torch.float32, "cpu")
+        assert H.shape == (1001, 1001) and H.stride() == (1004, 1)
+        assert tma_row_stride(H) == 1004 == tma_ld(1001)
+    elif case == "f64_not_padded":
+        H = padded_empty(1001, torch.float64, "cpu")
+        assert H.shape == (1001, 1001) and H.is_contiguous()
+    elif case == "contiguous_n1001":
+        assert tma_row_stride(torch.zeros((1001, 1001))) is None
+    elif case == "unaligned_base":
+        assert tma_row_stride(torch.zeros(16 * 20 + 1)[1:].view(16, 20)) \
+            is None
+    else:
+        assert tma_row_stride(torch.zeros((1, 7))) == 8
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     return torch.device("cuda")
+
+
+def _padded_randn(m, n_cols, g, dev):
+    """(m, n_cols) with the row stride TMA needs (a multiple of 4)."""
+    return torch.randn((m, tma_ld(n_cols)), generator=g,
+                       device=dev)[:, :n_cols]
+
+
+def _check_against_plain(H, V, col0=0):
+    before = ring_hemm.launches
+    W = ring_hemm(H, V, col0=col0)
+    torch.cuda.synchronize()
+    assert ring_hemm.launches == before + 1
+    Hb = H[:, col0:col0 + V.shape[0]]
+    ref = Hb.double() @ V.double()
+    err = float((W.double() - ref).abs().max() / ref.abs().max())
+    errp = float((ring_hemm_reference(H, V, col0=col0).double() - ref)
+                 .abs().max() / ref.abs().max())
+    assert err <= RTOL and err <= 4 * max(errp, 1e-7)
 
 
 @pytest.mark.gpu
@@ -174,17 +294,86 @@ def test_cuda_kernel_matches_plain_version(cuda, m, n_cols, k):
     """The hand-written kernel against torch.matmul on the card: error vs
     an f64 product within 1e-5 and within 4x the plain version's."""
     g = torch.Generator(device=cuda).manual_seed(m)
-    H = torch.randn((m, n_cols), generator=g, device=cuda)
+    H = _padded_randn(m, n_cols, g, cuda)
     V = torch.randn((n_cols, k), generator=g, device=cuda)
-    before = ring_hemm.launches
-    W = ring_hemm(H, V)
+    _check_against_plain(H, V)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n_cols,k,col0,b", [
+    (190, 300, 40, 0, 300), (257, 300, 40, 0, 300),
+    (130, 256, 13, 0, 256), (130, 256, 1, 0, 256),
+    (200, 512, 64, 0, 45), (200, 512, 64, 0, 1),
+    (200, 512, 64, 1, 100), (200, 512, 64, 3, 77), (200, 512, 64, 6, 300),
+], ids=["m190", "m257", "k13", "k1", "b45", "b1", "col0_1", "col0_3",
+        "col0_6"])
+def test_cuda_kernel_ragged_edges(cuda, m, n_cols, k, col0, b):
+    """m not a multiple of the 64-row wgmma or the 128-row tile, k not a
+    multiple of 8, b not a multiple of the 32-deep K tile, and col0 off
+    the 16-byte grid TMA's boxes start on."""
+    g = torch.Generator(device=cuda).manual_seed(m + k + col0 + b)
+    H = _padded_randn(m, n_cols, g, cuda)
+    V = torch.randn((b, k), generator=g, device=cuda)
+    _check_against_plain(H, V, col0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,k,off", [(1000, 37, 0), (61, 129, 3),
+                                     (300, 256, 1)])
+def test_cuda_split_prepass(cuda, b, k, off):
+    """The pre-pass on the card: bit-identical to its plain version, and
+    Vt_hi + Vt_lo rebuilds Vᵀ to 2^-22."""
+    g = torch.Generator(device=cuda).manual_seed(b)
+    V = torch.randn((b, 3 * k), generator=g, device=cuda)[:, k:2 * k]
+    before = tf32_split.launches
+    Vt = tf32_split(V, off)
     torch.cuda.synchronize()
-    assert ring_hemm.launches == before + 1
-    ref = H.double() @ V.double()
-    err = float((W.double() - ref).abs().max() / ref.abs().max())
-    errp = float((ring_hemm_reference(H, V).double() - ref).abs().max()
-                 / ref.abs().max())
-    assert err <= RTOL and err <= 4 * max(errp, 1e-7)
+    assert tf32_split.launches == before + 1
+    assert torch.equal(Vt, tf32_split_reference(V, off))
+    rebuilt = (Vt[0] + Vt[1])[:k, off:off + b]
+    assert float((rebuilt - V.T).abs().max() / V.abs().max()) <= 2.0 ** -22
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["stride_67", "unaligned_base"])
+def test_cuda_h_that_tma_cannot_read_raises(cuda, case):
+    if case == "stride_67":
+        H = torch.randn((64, 67), device=cuda)
+    else:
+        H = torch.randn(64 * 68 + 1, device=cuda)[1:].view(64, 68)
+    V = torch.randn((H.shape[1], 8), device=cuda)
+    before = ring_hemm.launches
+    with pytest.raises(ValueError, match="TMA"):
+        ring_hemm(H, V)
+    assert ring_hemm.launches == before
+
+
+@pytest.mark.gpu
+def test_cuda_dense_operator_pads_n1001_and_eigsh_runs_on_the_kernel(cuda):
+    """DenseOperator stores an N=1001 H with row stride 1004, so the f32
+    ring-path eigsh reaches the kernel without a copy and converges."""
+    import chase_tpu_torch as ct
+    from chase_tpu_torch.models import clement, clement_eigenvalues
+    op = ct.DenseOperator(clement(1001).astype(np.float32), device=cuda)
+    assert op.H.shape == (1001, 1001) and op.H.stride() == (1004, 1)
+    ring_hemm.launches = 0
+    res = ct.eigsh(op, 40, 20, tol=1e-2, collect_perf=True,
+                   config=ct.ChaseConfig(ring_backend="pallas"))
+    assert res.converged
+    assert ring_hemm.launches == res.perf.filter_hemm_steps > 0
+    # f32 at ‖H‖ = 1000: residual tol 1e-2, eigenvalues to ~1e-4·‖H‖
+    assert np.abs(res.ritzv - clement_eigenvalues(1001)[:40]).max() <= 0.1
+
+
+@pytest.mark.gpu
+def test_cuda_dense_operator_keeps_f64_as_given(cuda):
+    """Only f32 operators are padded: an f64 CUDA H (it never reaches the
+    kernel) is used as is when resident, and copied contiguous otherwise."""
+    import chase_tpu_torch as ct
+    H = torch.randn((1001, 1001), dtype=torch.float64, device=cuda)
+    assert ct.DenseOperator(H, device=cuda).H is H
+    op = ct.DenseOperator(H.cpu().numpy(), device=cuda)
+    assert op.H.is_contiguous() and op.H.stride() == (1001, 1)
 
 
 @pytest.mark.gpu

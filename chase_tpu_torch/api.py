@@ -1,17 +1,22 @@
 """User-facing API.
 
-Port of ``chase_tpu/api.py::eigsh`` on one torch device:
+Port of ``chase_tpu/api.py``'s ``eigsh``, ``eigsh_sequence`` and
+``estimate_spectral_bounds`` on one torch device, for real symmetric
+(f32/f64) and complex Hermitian (c64/c128) H:
 
     res = chase_tpu_torch.eigsh(H, nev=100, nex=40, device="cuda")
     res.ritzv, res.V[:, :100], res.resid, res.converged
 
 Sequences of correlated problems (the reference's mode='A' warm start):
 
-    r2 = eigsh(H2, nev, nex, v0=r1.V, ritzv0=r1.ritzv_full, approx=True)
+    for res in eigsh_sequence(matrices, nev, nex):   # any iterable
+        ...
+    # by hand: eigsh(H2, nev, nex, v0=r1.V, ritzv0=r1.ritzv_full,
+    #                approx=True)
 
 ``device`` is explicit (default "cuda") and never falls back: without a
-card, ``device="cuda"`` raises RuntimeError.  Complex problems, fused
-solves and problem sequences are later slices.
+card, ``device="cuda"`` raises RuntimeError.  Fused solves are a later
+slice.
 """
 
 from __future__ import annotations
@@ -22,12 +27,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .config import ChaseConfig
-from .parallel.operator import DenseOperator
+from .config import ChaseConfig, set_matmul_precision
+from .parallel.operator import DenseOperator, resolve_device
 from .perf import PerfData
-from .solver import solve, SolveResult
+from .solver import solve, SolveResult, uses_ring_kernel
+from .types import as_torch_dtype
 
-__all__ = ["eigsh"]
+__all__ = ["eigsh", "eigsh_sequence", "estimate_spectral_bounds"]
 
 
 def eigsh(H, nev: int, nex: Optional[int] = None, *,
@@ -38,11 +44,12 @@ def eigsh(H, nev: int, nex: Optional[int] = None, *,
           device="cuda",
           collect_perf: bool = False,
           generator: Optional[torch.Generator] = None) -> SolveResult:
-    """Compute the ``nev`` lowest eigenpairs of a dense real symmetric H.
+    """Compute the ``nev`` lowest eigenpairs of a dense Hermitian H.
 
     Args:
-      H: (N, N) symmetric f32/f64 array (numpy or torch), or a
-         DenseOperator (which carries its own device).
+      H: (N, N) real symmetric (f32/f64) or complex Hermitian (c64/c128)
+         array (numpy or torch), or a DenseOperator (which carries its own
+         device).
       nev: number of wanted eigenpairs.
       nex: extra search-space size (default: max(nev//4, 8)).
       tol: residual tolerance (default per dtype: 1e-10 DP / 1e-5 SP).
@@ -57,7 +64,8 @@ def eigsh(H, nev: int, nex: Optional[int] = None, *,
 
     Returns:
       SolveResult with .ritzv (nev,), .V (N, nev+nex) tensor on ``device``
-      whose first nev columns are the eigenvectors, .resid, .converged, ...
+      in H's dtype whose first nev columns are the eigenvectors, .resid,
+      .converged, ...
     """
     if nex is None:
         nex = max(nev // 4, 8)
@@ -95,3 +103,86 @@ def eigsh(H, nev: int, nex: Optional[int] = None, *,
     perf = PerfData() if collect_perf else None
     return solve(op, nev, nex, config=cfg, V0=v0, ritzv0=ritzv0, perf=perf,
                  generator=generator)
+
+
+def eigsh_sequence(matrices, nev: int, nex: Optional[int] = None, *,
+                   tol: Optional[float] = None,
+                   config: Optional[ChaseConfig] = None,
+                   device="cuda",
+                   collect_perf: bool = False,
+                   warmup: bool = True):
+    """Solve a sequence of correlated Hermitian problems with automatic
+    warm-starting — the reference's flagship use case (the SCF iterations
+    of DFT codes).
+
+    ``matrices`` is an iterable of (N, N) arrays, tensors or
+    DenseOperators; a generator keeps the whole sequence out of memory.
+    Yields one SolveResult per member.  Every member after the first
+    starts from the previous result (``v0=res.V``,
+    ``ritzv0=res.ritzv_full``, ``approx=True``); the block stays on the
+    device.
+
+    ``warmup=True`` is the JAX package's precompile: here it builds (on a
+    fresh checkout) and loads the CUDA kernels' library before member 0
+    when the solve will filter on the ring kernel (a CUDA device,
+    ``ring_backend="pallas"``, an f32 or c64 problem), and does nothing
+    otherwise — PyTorch runs eagerly and has nothing else to compile.
+    """
+    v0 = ritzv0 = None
+    for H in matrices:
+        if v0 is None and warmup:
+            dev = H.device if isinstance(H, DenseOperator) \
+                else resolve_device(device)
+            dtype = as_torch_dtype(H.dtype)
+            rcfg = (config or ChaseConfig()).resolve(dtype)
+            if dev.type == "cuda" and uses_ring_kernel(rcfg, dtype):
+                from .ops.ring_hemm import load_kernels
+                load_kernels()
+        res = eigsh(H, nev, nex, tol=tol, config=config, device=device,
+                    collect_perf=collect_perf, v0=v0, ritzv0=ritzv0,
+                    approx=v0 is not None)
+        v0, ritzv0 = res.V, res.ritzv_full
+        yield res
+
+
+def estimate_spectral_bounds(H, *, num_lanczos: int = 4,
+                             lanczos_iter: int = 25, nev: int = 0,
+                             config: Optional[ChaseConfig] = None,
+                             device="cuda",
+                             generator: Optional[torch.Generator] = None
+                             ) -> dict:
+    """Standalone stochastic Lanczos + DoS spectral estimator.
+
+    The bounds machinery the solver uses internally (the reference's
+    algorithm.inc:1067-1214): a spectral upper bound, the smallest Ritz
+    value, and — when ``nev > 0`` — the DoS quantile locating the damping
+    interval's lower edge for a nev-sized subspace.  ``num_lanczos``
+    probes from ``generator`` (default: seeded from ``config.seed``) run
+    ``lanczos_iter`` steps, rounded down to an even count as in the
+    solver.
+
+    Returns {"upperb", "lambda_min", "lowerb"} (lowerb = lambda_min when
+    nev == 0).
+    """
+    from .ops import lanczos as lz
+    op = H if isinstance(H, DenseOperator) else DenseOperator(H, device)
+    rcfg = (config or ChaseConfig()).resolve(op.dtype)
+    set_matmul_precision(rcfg.matmul_precision)
+    N = op.N
+    if generator is None:
+        generator = torch.Generator(device=op.device).manual_seed(rcfg.seed)
+    m = min(N // 2, lanczos_iter)
+    m -= m % 2
+    m = max(m, 2)
+    probes = torch.randn((N, num_lanczos), generator=generator,
+                         device=op.device, dtype=op.dtype)
+    alphas, betas, _ = lz.lanczos_scan(op.H, probes, m=m, want_basis=False)
+    a_np, b_np = alphas.double().cpu().numpy(), betas.double().cpu().numpy()
+    theta, tau, _ = lz.lanczos_tridiag_host(a_np, b_np)
+    upperb = lz.upper_bound(theta, b_np[-1])
+    lam_min = float(theta.min())
+    lowerb = lam_min
+    if nev > 0:
+        _, lowerb = lz.dos_lower_bound(theta, tau, nev, N)
+    return {"upperb": float(upperb), "lambda_min": lam_min,
+            "lowerb": float(lowerb)}

@@ -47,6 +47,17 @@
 //     → Vt = [hi; lo], each (w_pad × b_pad), K-major and zero-padded.
 //     wgmma takes 32-bit B operands only K-major from shared memory (there
 //     is no transposed form for tf32), and V is N-major.
+//   * complex64 (ring_hemm_split_c64): the main kernel is the f32 one, run
+//     on the float view of a c64 H (m × 2n floats, [re, im, ...] rows).
+//     The complex pre-pass writes, for a c64 V (b × k), the real (2b × 2k)
+//     B with row 2j = V[j] and row 2j+1 = i·V[j], both viewed as floats;
+//     then Hf·B, over K = 2b from float column 2·col0, is H·V viewed as
+//     floats.  That is 8·m·b·k FLOPs, those of a complex product, where
+//     the JAX package's real-pair embedding (a 2N real problem) spends
+//     16·m·b·k.  Everything of the main kernel (masking, ragged edges,
+//     TMA alignment, strided W) carries over: the wrapper passes float
+//     strides and columns.  K doubles, and the per-tile promotion below
+//     keeps its error at f32's (the chip gate holds it to a c128 product).
 //   * the main kernel, one 128×128 W tile per block, 384 threads:
 //       - warpgroup 2 (one elected thread) is the producer: TMA loads of
 //         the f32 H tile (128 rows × 32 K, 128-byte swizzle) and the Vhi /
@@ -109,9 +120,19 @@ constexpr int NTHREADS = 384;
 constexpr int CONSUMER_WARPS = 8;
 
 // ---- pre-pass: split and transpose the V chunk ----------------------------
-// Vt[0][n][off + j] = hi(V[j][n]), Vt[1][n][off + j] = lo(V[j][n]) for
+// Vt[0][n][off + j] = hi(B[j][n]), Vt[1][n][off + j] = lo(B[j][n]) for
 // j < b, n < k; zero elsewhere in (w_pad × b_pad).  32×32 tiles through shared memory so
 // both the read (along n) and the write (along kk) are coalesced.
+//
+// CPLX = false: B = V, f32 (b × k, row stride ldv).
+// CPLX = true: V is the float view of a c64 chunk (b/2 complex rows, row
+// stride ldv floats, k = 2·columns floats) and B is the real (b × k)
+// matrix that makes the f32 product Hf·B, with Hf the float view of a c64
+// H, equal H·V viewed as floats: row 2i of B is V[i] viewed as floats
+// (re, im, ...), row 2i+1 is i·V[i] viewed as floats (-im, re, ...).
+// TF32 rounding is symmetric in sign, so the negated entries split
+// exactly as their plain version's.
+template <bool CPLX>
 __global__ void __launch_bounds__(256)
 split_transpose_kernel(const float* __restrict__ V, long long ldv,
                        float* __restrict__ Vt, int b, int k, int off,
@@ -122,8 +143,17 @@ split_transpose_kernel(const float* __restrict__ V, long long ldv,
 #pragma unroll
   for (int i = ty; i < 32; i += 8) {
     const int j = kk0 + i - off, n = n0 + tx;
-    tile[i][tx] =
-        (j >= 0 && j < b && n < k) ? V[(long long)j * ldv + n] : 0.0f;
+    float x = 0.0f;
+    if (j >= 0 && j < b && n < k) {
+      if (CPLX) {
+        const bool odd = j & 1;                  // an i·V row
+        x = V[(long long)(j >> 1) * ldv + (odd ? n ^ 1 : n)];
+        if (odd && !(n & 1)) x = -x;
+      } else {
+        x = V[(long long)j * ldv + n];
+      }
+    }
+    tile[i][tx] = x;
   }
   __syncthreads();
   const long long plane = (long long)w_pad * b_pad;
@@ -335,8 +365,25 @@ extern "C" int ring_hemm_split_f32(const float* V, long long ldv, float* Vt,
                                    int w_pad, cudaStream_t stream) {
   if (b_pad <= 0 || w_pad <= 0) return 0;
   const dim3 grid(b_pad / 32, w_pad / 32);
-  split_transpose_kernel<<<grid, dim3(32, 8), 0, stream>>>(
+  split_transpose_kernel<false><<<grid, dim3(32, 8), 0, stream>>>(
       V, ldv, Vt, b, k, off, b_pad, w_pad);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The complex pre-pass: Vt (2 × w_pad × b_pad) of the real (2b × 2k)
+// matrix B of a c64 V (b × k, row stride ldv complex elements; see
+// split_transpose_kernel), B's row r at Vt column off + r, so that
+// ring_hemm_f32 on the float view of a c64 H (row stride 2·ldh floats,
+// column 2·col0, K = 2b, width 2k) writes H[:, col0:col0+b]·V as floats.
+// w_pad >= 2k and b_pad >= 2b + off.  Launches on `stream`; returns
+// cudaGetLastError().
+extern "C" int ring_hemm_split_c64(const float* V, long long ldv, float* Vt,
+                                   int b, int k, int off, int b_pad,
+                                   int w_pad, cudaStream_t stream) {
+  if (b_pad <= 0 || w_pad <= 0) return 0;
+  const dim3 grid(b_pad / 32, w_pad / 32);
+  split_transpose_kernel<true><<<grid, dim3(32, 8), 0, stream>>>(
+      V, 2 * ldv, Vt, 2 * b, 2 * k, off, b_pad, w_pad);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,15 +1,16 @@
 """Model problem generators (plain numpy, copied from chase_tpu.models).
 
-The Clement matrix of the reference's hello-world example and a dense
-random Hermitian matrix.  Both packages' tests build their inputs here so
-the two solvers see the same numbers.
+The Clement matrix of the reference's hello-world example, a dense random
+Hermitian matrix and a sequence of correlated ones.  Both packages' tests
+build their inputs here so the two solvers see the same numbers.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["clement", "random_hermitian", "clement_eigenvalues"]
+__all__ = ["clement", "random_hermitian", "clement_eigenvalues",
+           "hermitian_sequence"]
 
 
 def clement(N: int, dtype=np.float64) -> np.ndarray:
@@ -50,3 +51,26 @@ def random_hermitian(N: int, dtype=np.complex128, seed: int = 0,
         H = (Q * w) @ Q.conj().T
         H = (H + H.conj().T) / 2
     return H.astype(dtype)
+
+
+def hermitian_sequence(N: int, count: int, dtype=np.complex128, seed: int = 0,
+                       drift: float = 0.01):
+    """A sequence of correlated Hermitian problems (warm-start feature).
+
+    Mirrors the reference's "sequence of eigenproblems" use case
+    (examples/2_input_output --sequence): each matrix is the previous plus
+    a small Hermitian perturbation of norm ~drift·‖H‖.
+    """
+    rng = np.random.default_rng(seed)
+    H = random_hermitian(N, dtype=dtype, seed=seed)
+    scale = np.linalg.norm(H, ord="fro") / N
+    out = [H]
+    for _ in range(count - 1):
+        cplx = np.issubdtype(np.dtype(dtype), np.complexfloating)
+        E = rng.standard_normal((N, N))
+        if cplx:
+            E = E + 1j * rng.standard_normal((N, N))
+        E = (E + E.conj().T) / 2
+        H = H + (drift * scale) * E.astype(dtype)
+        out.append(H.astype(dtype))
+    return out

@@ -2,4 +2,5 @@
 ``chase_tpu/ops``.  Plain products are torch; the filter's ring HEMM is
 the hand-written CUDA kernel of :mod:`.ring_hemm`."""
 
-from . import blocks, checks, filter, lanczos, qr, ring_hemm, rr  # noqa: F401
+from . import (blocks, checks, filter, lanczos, qr, residuals,  # noqa: F401
+               ring_hemm, rr)

@@ -24,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..types import numpy_scalar_type, real_dtype
+from ..types import numpy_scalar_type
 
 __all__ = ["chebyshev_filter", "filter_seg_init", "filter_seg_steps"]
 
@@ -53,7 +53,7 @@ def chebyshev_filter(H: torch.Tensor, X: torch.Tensor, degrees, lam1, lower,
     Returns: (N, w) filtered window in X's dtype (a new tensor).
     """
     carry = H.dtype
-    rt = numpy_scalar_type(real_dtype(carry))
+    rt = numpy_scalar_type(carry)
     Xc = X.to(carry)
     lam1, lower, upper = rt(lam1), rt(lower), rt(upper)
     c = (upper + lower) / rt(2)

@@ -12,14 +12,24 @@ writes V's chunk transposed and split into TF32 ``hi`` and ``lo`` parts,
 then the main kernel, which multiplies with TMA + wgmma in 3xTF32 (f32-class
 accuracy on the tensor cores; the error scheme is in the source's note).
 
+complex64 operands take the same main kernel through their float views:
+H (m × n) c64 is Hf (m × 2n) f32 with ``[re, im, re, im, …]`` rows, and
+the complex pre-pass writes the real (2b × 2k) matrix B whose row 2j is
+V[j] viewed as floats and row 2j+1 is i·V[j] viewed as floats, so that
+Hf[:, 2·col0:2·col0+2b] · B is H[:, col0:col0+b] · V viewed as floats —
+8·m·b·k FLOPs, those of a complex product.  The JAX package reaches its
+kernel with complex data only through a 2N real embedding.
+
 * :func:`ring_hemm` — the wrapper.  It validates its arguments, then
   launches the kernels for CUDA tensors and raises if a launch fails.
   Only a tensor on the CPU takes the plain version; a CUDA tensor never
-  does.  ``ring_hemm.launches`` counts main-kernel launches and nothing
-  else.  H is read through TMA: on the card it must be 16-byte aligned
-  with a row stride that is a multiple of 4 floats (``DenseOperator``
-  allocates it so), or the wrapper raises ValueError.
-* :func:`tf32_split` — the pre-pass's wrapper (``tf32_split.launches``).
+  does.  ``ring_hemm.launches`` counts main-kernel launches (f32 and c64)
+  and nothing else.  H is read through TMA: on the card it must be 16-byte
+  aligned with a row stride that is a multiple of 4 floats — an even
+  number of complex elements for c64 (``DenseOperator`` allocates it so),
+  or the wrapper raises ValueError.
+* :func:`tf32_split` — the pre-pass's wrapper, f32 or c64
+  (``tf32_split.launches`` counts both).
 * :func:`ring_hemm_reference`, :func:`tf32_split_reference` — the plain
   PyTorch versions: one ``torch.matmul`` with the same accumulate
   semantics, and the TF32 split by bit arithmetic.
@@ -36,9 +46,11 @@ import torch
 
 __all__ = ["ring_hemm", "ring_hemm_reference", "tf32_split",
            "tf32_split_reference", "split_shape", "tma_ld",
-           "tma_row_stride"]
+           "tma_row_stride", "float_view_args", "real_rows",
+           "load_kernels", "KERNEL_DTYPES"]
 
 BK, BN = 32, 128          # csrc/ring_hemm.cu's K tile and W column tile
+KERNEL_DTYPES = (torch.float32, torch.complex64)
 
 
 def ring_hemm_reference(H: torch.Tensor, V: torch.Tensor, *, col0: int = 0,
@@ -56,8 +68,25 @@ def ring_hemm_reference(H: torch.Tensor, V: torch.Tensor, *, col0: int = 0,
 def split_shape(b: int, k: int, off: int = 0) -> tuple:
     """(b_pad, w_pad): the pre-pass output's K extent (``off + b`` rounded
     up to the K tile, at least one tile) and column extent (a multiple of
-    the W column tile, at least one)."""
+    the W column tile, at least one), for a real (b × k) B — a c64 V of
+    (b × k) has the B of (2b × 2k)."""
     return BK * max(1, -(-(b + off) // BK)), BN * max(1, -(-k // BN))
+
+
+def _floats(t: torch.Tensor) -> int:
+    """Floats per element: 1 for f32, 2 for c64."""
+    return t.element_size() // 4
+
+
+def real_rows(V: torch.Tensor) -> torch.Tensor:
+    """The real (2b × 2k) B of a c64 V (b × k): row 2j is V[j] viewed as
+    floats (re, im, …), row 2j+1 is i·V[j] viewed as floats (−im, re, …)
+    — ``torch.stack([V, 1j * V], 1).reshape(2b, k)`` viewed as real, with
+    i·V written out so that it is exact."""
+    b, k = V.shape
+    Vr = torch.view_as_real(V)                       # (b, k, 2)
+    iV = torch.stack([-Vr[..., 1], Vr[..., 0]], -1)
+    return torch.stack([Vr, iV], 1).reshape(2 * b, 2 * k)
 
 
 def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
@@ -69,9 +98,12 @@ def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
 
 
 def tf32_split_reference(V: torch.Tensor, off: int = 0) -> torch.Tensor:
-    """Plain version of the pre-pass: ``Vt[0, :k, off:off+b] = hi(Vᵀ)``,
-    ``Vt[1, :k, off:off+b] = lo(Vᵀ)``, zeros elsewhere in (2, w_pad,
-    b_pad), with ``hi = tf32(x)`` and ``lo = tf32(x − hi)``."""
+    """Plain version of the pre-pass: ``Vt[0, :k, off:off+b] = hi(Bᵀ)``,
+    ``Vt[1, :k, off:off+b] = lo(Bᵀ)``, zeros elsewhere in (2, w_pad,
+    b_pad), with ``hi = tf32(x)`` and ``lo = tf32(x − hi)``; B (b × k) is
+    V itself for f32 and the real rows of :func:`real_rows` for c64."""
+    if V.is_complex():
+        V = real_rows(V)
     b, k = V.shape
     b_pad, w_pad = split_shape(b, k, off)
     Vt = torch.zeros((2, w_pad, b_pad), dtype=torch.float32, device=V.device)
@@ -82,14 +114,17 @@ def tf32_split_reference(V: torch.Tensor, off: int = 0) -> torch.Tensor:
 
 
 def _check(H, V, col0, out, accumulate):
-    """Raise on anything the kernel does not take: f32 only in this
-    port slice, 2-D operands on one device, unit column stride."""
+    """Raise on anything the kernel does not take: f32 or c64 operands of
+    one dtype, 2-D, on one device, unit column stride."""
+    if H.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"ring_hemm takes float32 or complex64 tensors; H "
+                        f"is {H.dtype}")
     for name, t in (("H", H), ("V", V), ("out", out)):
         if t is None:
             continue
-        if t.dtype != torch.float32:
-            raise TypeError(f"ring_hemm takes float32 tensors; {name} is "
-                            f"{t.dtype}")
+        if t.dtype != H.dtype:
+            raise TypeError(f"ring_hemm takes operands of one dtype; {name} "
+                            f"is {t.dtype}, H is {H.dtype}")
         if t.ndim != 2:
             raise ValueError(f"ring_hemm takes 2-D tensors; {name} has shape "
                              f"{tuple(t.shape)}")
@@ -121,17 +156,33 @@ def tma_ld(n: int) -> int:
 
 
 def tma_row_stride(H: torch.Tensor) -> Optional[int]:
-    """H's row stride as the kernel's TMA loads read it, or None where TMA
-    cannot describe H: it needs a 16-byte-aligned base and a row stride
-    that is a multiple of 4 elements (a single row may have any)."""
-    ld = H.stride(0) if H.shape[0] > 1 else tma_ld(H.shape[1])
+    """H's row stride in floats as the kernel's TMA loads read it (those
+    of its float view for c64), or None where TMA cannot describe H: it
+    needs a 16-byte-aligned base and a row stride that is a multiple of 4
+    floats (a single row may have any)."""
+    w = _floats(H)
+    ld = w * H.stride(0) if H.shape[0] > 1 else tma_ld(w * H.shape[1])
     return None if H.data_ptr() % 16 or ld % 4 else ld
 
 
+def float_view_args(H: torch.Tensor, V: torch.Tensor, col0: int,
+                    ldw: int) -> tuple:
+    """What the main kernel is given for ``out (=|+=) H[:, col0:col0+b]
+    · V`` (out with row stride ``ldw``), all in floats: (ldh, col0, off,
+    b, k, ldw).  For c64 these are the float views' (columns, widths and
+    row strides doubled: the module note's real-view identity); ``off =
+    col0 % 4`` (of the float column) is the pre-pass's shift, and ldh is
+    None where TMA cannot read H."""
+    w = _floats(H)
+    c0 = w * col0
+    return (tma_row_stride(H), c0, c0 % 4, w * V.shape[0], w * V.shape[1],
+            w * ldw)
+
+
 def _check_split_input(V: torch.Tensor):
-    if V.dtype != torch.float32 or V.ndim != 2:
-        raise TypeError(f"tf32_split takes a 2-D float32 tensor, got "
-                        f"{V.dtype} of shape {tuple(V.shape)}")
+    if V.dtype not in KERNEL_DTYPES or V.ndim != 2:
+        raise TypeError(f"tf32_split takes a 2-D float32 or complex64 "
+                        f"tensor, got {V.dtype} of shape {tuple(V.shape)}")
     if V.shape[1] > 1 and V.stride(1) != 1:
         raise ValueError(f"tf32_split needs unit column stride; V has "
                          f"strides {V.stride()}")
@@ -141,11 +192,14 @@ def _check_split_input(V: torch.Tensor):
 def _lib():
     from .. import _build
     lib = _build.load_library("ring_hemm")
-    split = lib.ring_hemm_split_f32
-    split.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_int, ctypes.c_void_p]
-    split.restype = ctypes.c_int
+    splits = {}
+    for dtype, fn in ((torch.float32, lib.ring_hemm_split_f32),
+                      (torch.complex64, lib.ring_hemm_split_c64)):
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        splits[dtype] = fn
     main = lib.ring_hemm_f32
     main.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                      ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
@@ -153,7 +207,13 @@ def _lib():
                      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                      ctypes.c_void_p]
     main.restype = ctypes.c_int
-    return types.SimpleNamespace(split=split, main=main)
+    return types.SimpleNamespace(split=splits, main=main)
+
+
+def load_kernels() -> None:
+    """Build the kernels' library if this checkout has not (nvcc, seconds)
+    and load it now rather than inside the first call."""
+    _lib()
 
 
 def _raise_on(err: int, what: str):
@@ -174,11 +234,12 @@ def _stream(dev) -> int:
 
 def tf32_split(V: torch.Tensor, off: int = 0) -> torch.Tensor:
     """The pre-pass: V (b, k) → Vt (2, w_pad, b_pad) with Vt[0] the TF32
-    ``hi`` part of Vᵀ, Vt[1] the ``lo`` part, starting at column ``off``
-    (0–3; ring_hemm passes col0 % 4 so that H's TMA boxes start on 16
-    bytes), zero-padded (K-major, the layout wgmma takes for 32-bit B
-    operands).  CPU tensors run :func:`tf32_split_reference`; CUDA
-    tensors launch the kernel."""
+    ``hi`` part of Bᵀ, Vt[1] the ``lo`` part, starting at column ``off``
+    (0–3; ring_hemm passes H's float column of col0, mod 4, so that H's
+    TMA boxes start on 16 bytes), zero-padded (K-major, the layout wgmma
+    takes for 32-bit B operands).  B is V for f32 and its (2b × 2k) real
+    rows for c64 (module note).  CPU tensors run
+    :func:`tf32_split_reference`; CUDA tensors launch the kernel."""
     _check_split_input(V)
     if not 0 <= off < 4:
         raise ValueError(f"tf32_split offset must be 0..3, got {off}")
@@ -188,11 +249,13 @@ def tf32_split(V: torch.Tensor, off: int = 0) -> torch.Tensor:
         raise RuntimeError(f"tf32_split runs on cuda or cpu tensors, not "
                            f"{V.device}")
     b, k = V.shape
-    b_pad, w_pad = split_shape(b, k, off)
+    w = _floats(V)
+    b_pad, w_pad = split_shape(w * b, w * k, off)
     Vt = torch.empty((2, w_pad, b_pad), dtype=torch.float32, device=V.device)
     with torch.cuda.device(V.device):
-        err = _lib().split(V.data_ptr(), V.stride(0), Vt.data_ptr(), b, k,
-                           off, b_pad, w_pad, _stream(V.device))
+        err = _lib().split[V.dtype](V.data_ptr(), V.stride(0), Vt.data_ptr(),
+                                    b, k, off, b_pad, w_pad,
+                                    _stream(V.device))
     _raise_on(err, f"tf32_split kernel (b={b}, k={k})")
     tf32_split.launches += 1
     return Vt
@@ -204,17 +267,19 @@ def ring_hemm(H: torch.Tensor, V: torch.Tensor, *, col0: int = 0,
     """``out (=|+=) H[:, col0:col0+b] · V`` with b = V.shape[0].
 
     Args:
-      H: (m, n_cols) f32 stripe, unit column stride; on the card 16-byte
-        aligned with a row stride that is a multiple of 4 floats.
-      V: (b, k) f32 chunk; may be a column window of a wider block.
+      H: (m, n_cols) f32 or c64 stripe, unit column stride; on the card
+        16-byte aligned with a row stride that is a multiple of 4 floats
+        (an even number of c64 elements).
+      V: (b, k) chunk of H's dtype; may be a column window of a wider block.
       col0: first H column of the block that multiplies V.
-      out: (m, k) f32 destination (a window is fine); allocated with
-        ``torch.empty`` when None.
+      out: (m, k) destination of H's dtype (a window is fine); allocated
+        with ``torch.empty`` when None.
       accumulate: add into ``out`` instead of overwriting it.
 
     CPU tensors run :func:`ring_hemm_reference`; CUDA tensors launch the
     pre-pass and the kernel on the current stream, or raise.  The
-    pre-pass's output, 2·w_pad·b_pad floats, is scratch of this call.
+    pre-pass's output, 2·w_pad·b_pad floats (of the (2b × 2k) B for c64),
+    is scratch of this call.
     """
     _check(H, V, col0, out, accumulate)
     if H.device.type == "cpu":
@@ -223,23 +288,24 @@ def ring_hemm(H: torch.Tensor, V: torch.Tensor, *, col0: int = 0,
     if H.device.type != "cuda":
         raise RuntimeError(f"ring_hemm runs on cuda or cpu tensors, not "
                            f"{H.device}")
-    ldh = tma_row_stride(H)
+    m = H.shape[0]
+    if out is None:
+        out = torch.empty((m, V.shape[1]), dtype=H.dtype, device=H.device)
+    ldh, c0, off, b_f, k_f, ldw = float_view_args(H, V, col0, out.stride(0))
     if ldh is None:
         raise ValueError(
             f"ring_hemm reads H through TMA, which needs a 16-byte-aligned "
-            f"base and a row stride that is a multiple of 4 floats; H has "
-            f"row stride {H.stride(0)} and base address {H.data_ptr():#x} — "
-            f"allocate it with a padded row stride (DenseOperator does)")
-    m, b, k = H.shape[0], V.shape[0], V.shape[1]
-    if out is None:
-        out = torch.empty((m, k), dtype=torch.float32, device=H.device)
-    Vt = tf32_split(V, col0 % 4)
+            f"base and a row stride that is a multiple of 4 floats (even, "
+            f"for complex64); H ({H.dtype}) has row stride {H.stride(0)} "
+            f"and base address {H.data_ptr():#x} — allocate it with a "
+            f"padded row stride (DenseOperator does)")
+    Vt = tf32_split(V, off)
     with torch.cuda.device(H.device):
-        err = _lib().main(H.data_ptr(), ldh, col0, Vt.data_ptr(),
-                          Vt.shape[2], Vt.shape[1], out.data_ptr(),
-                          out.stride(0), m, k, b, int(bool(accumulate)),
-                          _stream(H.device))
-    _raise_on(err, f"ring_hemm kernel (m={m}, k={k}, b={b}, col0={col0})")
+        err = _lib().main(H.data_ptr(), ldh, c0, Vt.data_ptr(), Vt.shape[2],
+                          Vt.shape[1], out.data_ptr(), ldw, m, k_f, b_f,
+                          int(bool(accumulate)), _stream(H.device))
+    _raise_on(err, f"ring_hemm kernel (m={m}, k={V.shape[1]}, "
+                   f"b={V.shape[0]}, col0={col0}, {H.dtype})")
     ring_hemm.launches += 1
     return out
 

@@ -1,15 +1,17 @@
 """Dense operator on one device.
 
 Single-device subset of ``chase_tpu/parallel/operator.py``: the Hermitian
-operator H pinned on an explicit torch device, with its dtype checked.
-Grid padding and the reduced-precision shadows belong to later slices
-(multi-GPU, the precision ladder).
+operator H (f32, f64, c64 or c128) pinned on an explicit torch device,
+with its dtype checked.  Grid padding and the reduced-precision shadows
+belong to later slices (multi-GPU, the precision ladder).
 
-An f32 H on a CUDA device (the one dtype the ring kernel takes) is kept
-where the kernel's TMA loads can read it without a copy: 16-byte aligned,
-with a row stride that is a multiple of 4 elements.  When N % 4 != 0 it is
-the first N columns of an (N, ⌈N/4⌉·4) allocation.  Any other operator is
-stored contiguous, as given.
+An f32 or c64 H on a CUDA device (the dtypes the ring kernel takes) is
+kept where the kernel's TMA loads can read it without a copy: 16-byte
+aligned, with a row stride that is a multiple of 4 floats — of 4 f32
+elements, or of 2 c64 elements (its float view's rows are twice as long).
+When N is not a multiple of that it is the first N columns of a wider
+allocation (``padded_empty``).  f64 and c128 operators never reach the
+kernel and are stored contiguous, as given.
 
 Placement never falls back: asking for a CUDA device on a machine without
 one raises RuntimeError instead of solving on the CPU.
@@ -20,8 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.ring_hemm import tma_ld, tma_row_stride
-from ..types import as_torch_dtype, require_real
+from ..ops.ring_hemm import KERNEL_DTYPES, tma_ld, tma_row_stride
+from ..types import as_torch_dtype, real_dtype
 
 __all__ = ["DenseOperator", "resolve_device", "padded_empty"]
 
@@ -54,15 +56,20 @@ def to_device(a, device: torch.device, dtype=None) -> torch.Tensor:
 
 def padded_empty(N: int, dtype, device) -> torch.Tensor:
     """An uninitialised (N, N) tensor laid out as a CUDA operator is
-    stored: for float32 a view whose row stride is N rounded up to a
-    multiple of 4 (``tma_ld``), otherwise contiguous."""
-    ld = tma_ld(N) if dtype == torch.float32 else N
+    stored: for the kernel's dtypes a view whose row stride, in floats, is
+    the float view's row rounded up to a multiple of 4 (``tma_ld``): N
+    rounded up to a multiple of 4 for float32, to an even number for
+    complex64.  Otherwise contiguous."""
+    ld = N
+    if dtype in KERNEL_DTYPES:
+        w = 2 if dtype.is_complex else 1        # floats per element
+        ld = tma_ld(w * N) // w
     return torch.empty((N, ld), dtype=dtype, device=device)[:, :N]
 
 
 def _has_operator_layout(H: torch.Tensor) -> bool:
     """Whether H already has a layout :func:`padded_empty`'s rule accepts."""
-    if H.dtype == torch.float32:
+    if H.dtype in KERNEL_DTYPES:
         return H.stride(1) == 1 and tma_row_stride(H) is not None
     return H.is_contiguous()
 
@@ -75,9 +82,7 @@ class DenseOperator:
         if H.ndim != 2 or H.shape[0] != H.shape[1]:
             raise ValueError(f"H must be square, got {tuple(H.shape)}")
         dtype = as_torch_dtype(H.dtype)
-        require_real(dtype)
-        if dtype not in (torch.float32, torch.float64):
-            raise TypeError(f"unsupported dtype for eigensolver: {dtype}")
+        real_dtype(dtype)         # TypeError for a dtype the solver lacks
         resident = isinstance(H, torch.Tensor) and H.device == self.device
         if self.device.type == "cuda":
             if resident and _has_operator_layout(H):

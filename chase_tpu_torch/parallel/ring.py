@@ -25,7 +25,9 @@ def chebyshev_filter_ring_pallas(H: torch.Tensor, X: torch.Tensor, degrees,
                                  ) -> torch.Tensor:
     """Degree-masked scaled Chebyshev filter of the window ``X`` with
     every H·Y product on the ring kernel (``1 + max(deg_max − 1, 0)``
-    launches).  Same-dtype f32 H and X only, like the JAX version.
+    launches).  Same-dtype H and X, f32 like the JAX version or c64 (the
+    kernel's complex route; the JAX version reaches its kernel with
+    complex data only through the real-pair embedding).
 
     Args:
       H: (N, N) operator.
@@ -40,8 +42,8 @@ def chebyshev_filter_ring_pallas(H: torch.Tensor, X: torch.Tensor, degrees,
     if H.dtype != X.dtype:
         raise TypeError(f"ring filter needs matching dtypes, got "
                         f"H={H.dtype} X={X.dtype}")
-    # scalars in the problem precision, like the JAX version's traced
-    # f32 scalars
+    # scalars in the problem's real precision (f32 for f32 and c64), like
+    # the JAX version's traced f32 scalars
     rt = numpy_scalar_type(X.dtype)
     lam1, lower, upper = rt(lam1), rt(lower), rt(upper)
     c = (upper + lower) / rt(2)

@@ -7,12 +7,17 @@ host-side bookkeeping (calc_degrees, locking, the DoS quantile) is the JAX
 package's, copied with its quirks; the device phases are plain torch plus
 the ring HEMM kernel.
 
+Problems are f32, f64, c64 or c128, all native: complex Hermitian H runs
+the same loop in complex arithmetic (the JAX package embeds it as a 2N
+real problem off the CPU, ``ops/realpair.py``; the port does not).
+
 One routing difference from the JAX package: with
-``ring_backend="pallas"`` on an f32 problem the filter runs as the p = 1
-ring (``parallel/ring.chebyshev_filter_ring_pallas``), every H·Y product
-on the hand-written CUDA kernel.  The JAX package has no ring on one
-device and warns, using its windowed filter; both compute the same
-filter, so the converged spectra agree.
+``ring_backend="pallas"`` on an f32 or c64 problem the filter runs as the
+p = 1 ring (``parallel/ring.chebyshev_filter_ring_pallas``), every H·Y
+product on the hand-written CUDA kernel (c64 through its float view).
+The JAX package has no ring on one device and warns, using its windowed
+filter (on the real-pair embedding, for a complex problem); both compute
+the same filter, so the converged spectra agree.
 
 Not ported here: the precision ladder (mixed_precision / bf16_filter
 raise NotImplementedError), the wide-f64 and transient-shadow modes and
@@ -33,6 +38,7 @@ from .logger import get_logger
 from .perf import PerfData
 from .types import is_double_base, numpy_scalar_type
 from .parallel.operator import DenseOperator
+from .ops.ring_hemm import KERNEL_DTYPES
 from .ops import filter as filt
 from .ops import lanczos as lz
 from .ops import qr as qrops
@@ -40,30 +46,40 @@ from .ops import rr as rrops
 from .ops.blocks import (permute_cols, set_head_cols, slice_cols,
                          update_cols)
 
-__all__ = ["solve", "SolveResult", "calc_degrees_host", "locking_host"]
+__all__ = ["solve", "SolveResult", "calc_degrees_host", "locking_host",
+           "uses_ring_kernel"]
+
+
+def uses_ring_kernel(rcfg, dtype) -> bool:
+    """Whether a solve with the resolved config ``rcfg`` on a ``dtype``
+    problem filters on the ring_hemm kernel (on a CUDA device; on the CPU
+    the same path takes the kernel's plain version)."""
+    return (rcfg.ring_filter is not False and rcfg.ring_backend == "pallas"
+            and dtype in KERNEL_DTYPES)
 
 
 def _ring_mode(rcfg, op: DenseOperator, log) -> Optional[str]:
     """'1d' (the p = 1 ring, HEMM on the ring_hemm kernel) when the
-    config asks for the kernel ring on an f32 problem; else None (the
-    windowed filter).  The JAX package needs a grid with r > 1 for any
-    ring and would warn here; the port runs the degenerate ring so the
+    config asks for the kernel ring on an f32 or c64 problem; else None
+    (the windowed filter).  The JAX package needs a grid with r > 1 for
+    any ring and would warn here; the port runs the degenerate ring so the
     kernel carries the filter on one card."""
     if rcfg.ring_filter is False:
         return None
-    eligible = (rcfg.ring_backend == "pallas"
-                and op.dtype == torch.float32)
+    eligible = uses_ring_kernel(rcfg, op.dtype)
     if rcfg.ring_backend == "pallas" and not eligible:
-        log.warn(f"ring_backend='pallas' needs an f32 problem (dtype="
-                 f"{op.dtype}) — using the windowed filter", "linalg")
+        log.warn(f"ring_backend='pallas' needs an f32 or c64 problem "
+                 f"(dtype={op.dtype}) — using the windowed filter", "linalg")
     elif rcfg.ring_filter is True and not eligible:
         log.warn("ring_filter requested but no ring schedule fits one "
                  "device without ring_backend='pallas' — using the "
                  "windowed filter", "linalg")
     if not eligible:
         return None
-    log.info("ring filter on one device: p=1 ring with the ring_hemm "
-             "kernel (the JAX package would use its windowed filter here)",
+    jax_route = ("its windowed filter on the 2N real-pair embedding"
+                 if op.dtype.is_complex else "its windowed filter")
+    log.info(f"ring filter on one device: p=1 ring with the ring_hemm "
+             f"kernel (the JAX package would use {jax_route} here)",
              "linalg")
     return "1d"
 

@@ -17,7 +17,6 @@ __all__ = [
     "real_dtype",
     "is_complex_dtype",
     "is_double_base",
-    "require_real",
     "default_tol",
     "default_deg",
     "default_max_deg",
@@ -53,10 +52,11 @@ def as_torch_dtype(dtype) -> torch.dtype:
 
 
 def numpy_scalar_type(dtype):
-    """The numpy scalar type of a real f32/f64 torch dtype — host-side
-    filter scalars are computed in the problem precision with it."""
+    """The numpy scalar type of ``dtype``'s real base (c64 → float32, c128
+    → float64) — host-side filter scalars are computed in the problem
+    precision with it."""
     return {torch.float32: np.float32,
-            torch.float64: np.float64}[as_torch_dtype(dtype)]
+            torch.float64: np.float64}[real_dtype(dtype)]
 
 
 def real_dtype(dtype) -> torch.dtype:
@@ -76,15 +76,6 @@ def is_complex_dtype(dtype) -> bool:
 def is_double_base(dtype) -> bool:
     """True for float64 / complex128 problems ("DP" in the reference)."""
     return real_dtype(dtype).itemsize == 8
-
-
-def require_real(dtype) -> None:
-    """This port solves real f32/f64 problems; complex Hermitian problems
-    are a later slice (ROADMAP queue 1, "complex")."""
-    if is_complex_dtype(dtype):
-        raise NotImplementedError(
-            f"complex dtype {as_torch_dtype(dtype)} is not ported yet "
-            f"(ROADMAP queue 1: complex Hermitian problems)")
 
 
 def eps(dtype) -> float:

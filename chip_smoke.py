@@ -2,32 +2,50 @@
 
     python3 chip_smoke.py
 
-Drives chase_tpu_torch's main path on the card and fails (non-zero exit,
+Drives chase_tpu_torch's main paths on the card and fails (non-zero exit,
 no result line) on any fault:
 
-  device  require CUDA; print the card's name and power limit
-  build   compile the port's CUDA kernels from csrc/ (nvcc, sm_90a)
-  kernel  ring_hemm (TMA + wgmma, 3xTF32) against its plain version
-          (torch.matmul) at the filter's shapes, both held against an f64
-          product, timed, with TFLOP/s and the share of the 165 TFLOP/s
-          3xTF32 ceiling; its TF32 split pre-pass against its plain
-          version (bit-exact); a strided window, a two-chunk ring step and
-          an N=1001 operator whose row stride DenseOperator pads to 1004
-  filter  the p=1 ring Chebyshev filter (every HEMM on the kernel)
-          against the plain filter at N=30000, width 750, degree 10
-  slice   eigsh on the Clement matrix at the solver's reference scale
-          (N=30000, nev=2250, nex=750, f32, ring_backend="pallas"):
-          convergence, eigenvalues against the exact spectrum, true
-          residuals, and ring_hemm and tf32_split launches == the
-          filter's HEMM steps
-  profile warm solves of the slice on the ring path and on the windowed
-          (cuBLAS) path, then a torch.profiler trace of one warm
-          ring-path solve: device busy share and time by kernel name
+  device   require CUDA; print the card's name and power limit
+  build    compile the port's CUDA kernels from csrc/ (nvcc, sm_90a)
+  kernel   ring_hemm (TMA + wgmma, 3xTF32) against its plain version
+           (torch.matmul) at the filter's shapes, both held against an f64
+           product, timed, with TFLOP/s and the share of the 165 TFLOP/s
+           3xTF32 ceiling; its TF32 split pre-pass against its plain
+           version (bit-exact); a strided window, a two-chunk ring step and
+           an N=1001 operator whose row stride DenseOperator pads to 1004
+  filter   the p=1 ring Chebyshev filter (every HEMM on the kernel)
+           against the plain filter at N=30000, width 750, degree 10
+  slice    eigsh on the Clement matrix at the solver's reference scale
+           (N=30000, nev=2250, nex=750, f32, ring_backend="pallas"):
+           convergence, eigenvalues against the exact spectrum, true
+           residuals, and ring_hemm and tf32_split launches == the
+           filter's HEMM steps
+  profile  warm solves of the slice on the ring path and on the windowed
+           (cuBLAS) path, then a torch.profiler trace of one warm
+           ring-path solve: device busy share and time by kernel name
+  ckernel  complex64 ring_hemm (the f32 kernel on the float views, with
+           the complex pre-pass) against its plain version (complex
+           torch.matmul) and a c128 product at (1001, 37) through
+           DenseOperator (row stride 1002), (30000, 750), (30000, 3000);
+           the complex pre-pass bit-exact; a two-chunk ring step at
+           col0 = 15001; an odd-stride c64 H refused
+  cslice   eigsh on a phase-rotated Clement matrix H = D·C·Dᴴ (dense
+           complex Hermitian storage, Clement's exact spectrum), N=30000,
+           nev=2250, nex=750, c64, ring_backend="pallas", with the same
+           gates and launch counts as the slice; then the cprofile phase:
+           warm solves on the ring and windowed (cuBLAS CGEMM) paths and a
+           trace of the warm ring solve
+  dp       the north star in double precision: the phase-rotated Clement
+           in c128 at N=30000, nev=2250, nex=750, tol 1e-10·‖H‖ absolute,
+           windowed path (native ZGEMM)
+  sequence eigsh_sequence over 10 correlated c128 problems (N=8000,
+           nev=400, nex=100, drift 1e-3·‖H‖_F/N per member) built on the
+           card and passed as a generator; estimate_spectral_bounds
 
-Each phase prints one line with its numbers and seconds.  A full run
-then prints the kernels' JSON summary and, last,
-{"ok": true, "device": {...}}.  There is no CPU fallback: without a GPU
-the script exits non-zero before any phase.
+Each phase prints lines with its numbers and seconds.  A full run then
+prints the kernels' JSON summary and, last, {"ok": true, "device": {...}}.
+There is no CPU fallback: without a GPU the script exits non-zero before
+any phase.
 """
 
 from __future__ import annotations
@@ -44,8 +62,12 @@ import torch
 # tolerance of ~1e-5·‖H‖ (‖H‖ = N - 1 for Clement)
 SLICE = dict(N=30000, nev=2250, nex=750, tol=0.3)
 KERNEL_SHAPES = ((1000, 37), (30000, 750), (30000, 2250), (30000, 3000))
+C64_SHAPES = ((30000, 750), (30000, 3000))
+# the sequence parity configuration (BASELINE.md): 10 correlated problems
+SEQUENCE = dict(N=8000, nev=400, nex=100, count=10, drift=1e-3)
 SEED = 20261016
 PEAK_3XTF32 = 495.0 / 3     # TFLOP/s: the H100's dense TF32 rate, 3 passes
+HBM_TBS = 3.35              # TB/s: the H100 SXM's device-memory rate
 
 
 def log(phase: str, msg: str) -> None:
@@ -64,32 +86,66 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def time_pair(fn_plain, fn_kernel, reps: int):
-    """Plain, kernel, kernel, plain after one warm-up each; returns the
-    mean ms of each."""
-    fn_plain()
-    fn_kernel()
+def time_fns(fns, reps: int) -> list:
+    """One warm-up each, then every function in order and again in reverse
+    order (plain, kernel, kernel, plain for two); the mean ms of each."""
+    for fn in fns:
+        fn()
     torch.cuda.synchronize()
-    p1 = time_ms(fn_plain, reps)
-    k1 = time_ms(fn_kernel, reps)
-    k2 = time_ms(fn_kernel, reps)
-    p2 = time_ms(fn_plain, reps)
-    return (p1 + p2) / 2, (k1 + k2) / 2
+    fwd = [time_ms(fn, reps) for fn in fns]
+    rev = [time_ms(fn, reps) for fn in reversed(fns)][::-1]
+    return [(a + b) / 2 for a, b in zip(fwd, rev)]
+
+
+def bound(flop: float, nbytes: float) -> tuple:
+    """(ms, "operations" | "bytes"): the least time the card could take —
+    the larger of the operations over the 3xTF32 ceiling (the kernels'
+    f32-accuracy route on the tensor cores) and the bytes over HBM's
+    rate."""
+    t_ops = flop / (PEAK_3XTF32 * 1e9)
+    t_mem = nbytes / (HBM_TBS * 1e9)
+    return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+
+def hemm_bound(m: int, b: int, k: int, dtype) -> tuple:
+    """ring_hemm's bound: H (m × b), V (b × k) read once, W (m × k)
+    written once; 2·m·b·k FLOPs, 8·m·b·k for complex."""
+    flop = (8 if dtype.is_complex else 2) * m * b * k
+    return bound(flop, dtype.itemsize * (m * b + b * k + m * k))
+
+
+def split_bound(b: int, k: int, dtype) -> tuple:
+    """The pre-pass's bound: V read once, the (2, w_pad, b_pad) f32 output
+    written once (of the real (2b × 2k) B for complex V)."""
+    from chase_tpu_torch.ops.ring_hemm import split_shape
+    w = dtype.itemsize // 4                  # floats per element
+    b_pad, w_pad = split_shape(w * b, w * k)
+    return bound(0.0, dtype.itemsize * b * k + 8 * w_pad * b_pad)
 
 
 def rel_err(x: torch.Tensor, ref: torch.Tensor) -> float:
-    return float((x.double() - ref).abs().max() / ref.abs().max())
+    """max |x − ref| / max |ref|, x taken to ref's (f64 or c128) type."""
+    return float((x.to(ref.dtype) - ref).abs().max() / ref.abs().max())
 
 
-def clement_on_device(N: int, dev) -> torch.Tensor:
+def clement_on_device(N: int, dev, dtype=torch.float32, seed: int = SEED
+                      ) -> torch.Tensor:
     """The Clement matrix (tridiagonal, exact spectrum ±(N-1), ±(N-3),
-    ...) built on the card in f32."""
+    ...) built on the card.  For a complex dtype it is phase-rotated,
+    H = D·C·Dᴴ with D = diag(exp(iθ_j)), θ uniform from ``seed``: complex
+    Hermitian, with Clement's spectrum."""
     i = torch.arange(N - 1, dtype=torch.float64, device=dev)
-    off = torch.sqrt((i + 1) * (N - i - 1)).float()
-    H = torch.zeros((N, N), dtype=torch.float32, device=dev)
+    off = torch.sqrt((i + 1) * (N - i - 1))
+    if dtype.is_complex:
+        g = torch.Generator(device=dev).manual_seed(seed)
+        theta = 2 * np.pi * torch.rand(N, generator=g, dtype=torch.float64,
+                                       device=dev)
+        off = off * torch.exp(1j * (theta[:-1] - theta[1:]))
+    off = off.to(dtype)
+    H = torch.zeros((N, N), dtype=dtype, device=dev)
     idx = torch.arange(N - 1, device=dev)
     H[idx, idx + 1] = off
-    H[idx + 1, idx] = off
+    H[idx + 1, idx] = off.conj()
     return H
 
 
@@ -113,72 +169,93 @@ def phase_build() -> float:
     log("build", f"ring_hemm built and loaded in {dt:.2f} s "
                  f"(nvcc {_build.nvcc_path()}, {_build.BUILD_DIR})")
     for line in _build.build_log("ring_hemm").splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Function" in line:
             log("build", line.strip())
     return dt
 
 
-def phase_kernel(dev) -> dict:
-    from chase_tpu_torch.ops.ring_hemm import (ring_hemm, ring_hemm_reference,
-                                               tf32_split,
+def _hemm_case(phase, H, V, ref, reps: int) -> dict:
+    """ring_hemm(H, V) against its plain version and the wide product
+    ``ref``, timed beside the plain version and the library call
+    (torch.matmul: cuBLAS SGEMM / CGEMM, TF32 off); raises past the gate."""
+    from chase_tpu_torch.ops.ring_hemm import ring_hemm, ring_hemm_reference
+    t0 = time.perf_counter()
+    (N, n_cols), k = H.shape, V.shape[1]
+    W = ring_hemm(H, V)
+    torch.cuda.synchronize()
+    Wp = ring_hemm_reference(H, V)
+    err, errp = rel_err(W, ref), rel_err(Wp, ref)
+    abs_err = float((W.to(ref.dtype) - ref).abs().max())
+    del W, Wp
+    plain_ms, kern_ms, lib_ms = time_fns(
+        [lambda: ring_hemm_reference(H, V), lambda: ring_hemm(H, V),
+         lambda: torch.matmul(H, V)], reps)
+    gflop = (8.0 if H.is_complex() else 2.0) * N * n_cols * k / 1e9
+    rate = gflop / kern_ms                   # GFLOP / ms = TFLOP/s
+    bound_ms, bound_by = hemm_bound(N, n_cols, k, H.dtype)
+    log(phase, f"(N, k)=({N}, {k}) {H.dtype}: rel err kernel {err:.3e} "
+               f"plain {errp:.3e}; max abs err {abs_err:.3e}; kernel "
+               f"{kern_ms:.3f} ms ({rate:.1f} TFLOP/s, "
+               f"{rate / PEAK_3XTF32:.1%} of the {PEAK_3XTF32:.0f} TFLOP/s "
+               f"3xTF32 ceiling), plain {plain_ms:.3f} ms "
+               f"({gflop / plain_ms:.1f} TFLOP/s), library (torch.matmul) "
+               f"{lib_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}); "
+               f"{time.perf_counter() - t0:.2f} s")
+    # f32 sums over K terms in two orders: 1e-5 of the largest entry,
+    # and no worse than 4x the plain version's own error
+    if not (err <= 1e-5 and err <= 4 * errp):
+        raise AssertionError(f"ring_hemm error {err:.3e} at ({N}, {k}) "
+                             f"{H.dtype} exceeds 1e-5 or 4x plain "
+                             f"({errp:.3e})")
+    return dict(err=err, errp=errp, abs_err=abs_err, ms=kern_ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def _split_case(phase, V, reps: int) -> dict:
+    """The pre-pass alone: bit-exact against its plain version, and
+    hi + lo within 2^-22 of the matrix it splits; timed."""
+    from chase_tpu_torch.ops.ring_hemm import (real_rows, tf32_split,
                                                tf32_split_reference)
+    b, k = V.shape
+    Vt, Vr = tf32_split(V), tf32_split_reference(V)
+    torch.cuda.synchronize()
+    split_err = float((Vt - Vr).abs().max())
+    B = real_rows(V) if V.is_complex() else V
+    rebuild = float(((Vt[0] + Vt[1])[:B.shape[1], :B.shape[0]] - B.T)
+                    .abs().max() / B.abs().max())
+    del Vt, Vr, B
+    sp_plain, sp_ms = time_fns([lambda: tf32_split_reference(V),
+                                lambda: tf32_split(V)], reps)
+    bound_ms, bound_by = split_bound(b, k, V.dtype)
+    log(phase, f"tf32_split ({b}, {k}) {V.dtype}: max |kernel - plain| "
+               f"{split_err}; hi + lo vs B rel {rebuild:.3e}; kernel "
+               f"{sp_ms:.3f} ms, plain {sp_plain:.3f} ms, bound "
+               f"{bound_ms:.3f} ms ({bound_by})")
+    if not (split_err == 0.0 and rebuild <= 2.0 ** -22):
+        raise AssertionError(f"tf32_split ({V.dtype}) disagrees with its "
+                             f"plain version")
+    return dict(abs_err=split_err, ms=sp_ms, plain_ms=sp_plain,
+                library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_kernel(dev) -> dict:
+    from chase_tpu_torch.ops.ring_hemm import ring_hemm, ring_hemm_reference
     t_phase = time.perf_counter()
     g = torch.Generator(device=dev).manual_seed(SEED)
     summary = {}
     H = H64 = None
     for N, k in KERNEL_SHAPES:
-        t0 = time.perf_counter()
         if H is None or H.shape[0] != N:
             H = H64 = None
             torch.cuda.empty_cache()
             H = torch.randn((N, N), generator=g, device=dev)
             H64 = H.double()
         V = torch.randn((N, k), generator=g, device=dev)
-        ref = H64 @ V.double()
-        W = ring_hemm(H, V)
-        torch.cuda.synchronize()
-        Wp = ring_hemm_reference(H, V)
-        err, errp = rel_err(W, ref), rel_err(Wp, ref)
-        abs_err = float((W.double() - ref).abs().max())
         reps = 20 if N * N * k < 1e11 else 3
-        plain_ms, kern_ms = time_pair(lambda: ring_hemm_reference(H, V),
-                                      lambda: ring_hemm(H, V), reps)
-        gflop = 2.0 * N * N * k / 1e9        # GFLOP / ms = TFLOP/s
-        rate = gflop / kern_ms
-        log("kernel", f"(N, k)=({N}, {k}): rel err kernel {err:.3e} plain "
-                      f"{errp:.3e}; max abs err {abs_err:.3e}; kernel "
-                      f"{kern_ms:.3f} ms ({rate:.1f} TFLOP/s, "
-                      f"{rate / PEAK_3XTF32:.1%} of the {PEAK_3XTF32:.0f} "
-                      f"TFLOP/s 3xTF32 ceiling), plain {plain_ms:.3f} ms "
-                      f"({gflop / plain_ms:.1f} TFLOP/s); "
-                      f"{time.perf_counter() - t0:.2f} s")
-        # f32 sums over K terms in two orders: 1e-5 of the largest entry,
-        # and no worse than 4x the plain version's own error
-        if not (err <= 1e-5 and err <= 4 * errp):
-            raise AssertionError(f"ring_hemm error {err:.3e} at ({N}, {k}) "
-                                 f"exceeds 1e-5 or 4x plain ({errp:.3e})")
-        summary[(N, k)] = dict(err=err, errp=errp, abs_err=abs_err,
-                               ms=kern_ms, plain_ms=plain_ms)
+        summary[(N, k)] = _hemm_case("kernel", H, V, H64 @ V.double(), reps)
         if k == KERNEL_SHAPES[-1][1]:
-            # the pre-pass alone at the largest window: bit-exact against
-            # its plain version, and hi + lo within 2^-22 of V
-            Vt, Vr = tf32_split(V), tf32_split_reference(V)
-            torch.cuda.synchronize()
-            split_err = float((Vt - Vr).abs().max())
-            rebuild = float(((Vt[0] + Vt[1])[:k, :N] - V.T).abs().max()
-                            / V.abs().max())
-            del Vt, Vr
-            sp_plain, sp_ms = time_pair(lambda: tf32_split_reference(V),
-                                        lambda: tf32_split(V), reps)
-            log("kernel", f"tf32_split ({N}, {k}): max |kernel - plain| "
-                          f"{split_err}; hi + lo vs V rel {rebuild:.3e}; "
-                          f"kernel {sp_ms:.3f} ms, plain {sp_plain:.3f} ms")
-            if not (split_err == 0.0 and rebuild <= 2.0 ** -22):
-                raise AssertionError("tf32_split disagrees with its plain "
-                                     "version")
-            summary["split"] = dict(abs_err=split_err, ms=sp_ms,
-                                    plain_ms=sp_plain)
-        del W, Wp, ref
+            summary["split"] = _split_case("kernel", V, reps)
 
     # a strided column window of V, accumulated into a strided window of
     # W: the solver's view of its (N, nev+nex) block
@@ -212,7 +289,7 @@ def phase_kernel(dev) -> dict:
                   f"1000-row stripe: rel err {errc:.3e}")
     if not errc <= 1e-5:
         raise AssertionError("two-chunk ring_hemm failed")
-    del H, H64
+    del H, H64, Hs
     torch.cuda.empty_cache()
 
     # N = 1001: TMA needs a row stride that is a multiple of 4 floats, so
@@ -242,6 +319,65 @@ def phase_kernel(dev) -> dict:
     return summary
 
 
+def phase_complex_kernel(dev) -> dict:
+    """The c64 route at the complex slice's shapes, against complex
+    torch.matmul (CGEMM, TF32 off) and a c128 product."""
+    from chase_tpu_torch import DenseOperator
+    from chase_tpu_torch.ops.ring_hemm import ring_hemm
+    t_phase = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    c64, c128 = torch.complex64, torch.complex128
+    summary = {}
+
+    # N = 1001 through DenseOperator: c64 rows of 1001 elements are 2002
+    # floats, so the row stride is padded to 1002 (an even count); the
+    # contiguous (odd-stride) H is refused before any launch
+    rng = np.random.default_rng(SEED + 3)
+    H1 = (rng.standard_normal((1001, 1001))
+          + 1j * rng.standard_normal((1001, 1001))).astype(np.complex64)
+    op = DenseOperator(H1, device=dev)
+    V = torch.randn((1001, 37), generator=g, device=dev, dtype=c64)
+    summary[(1001, 37)] = _hemm_case(
+        "ckernel", op.H, V, op.H.to(c128) @ V.to(c128), 20)
+    before = ring_hemm.launches
+    try:
+        ring_hemm(torch.as_tensor(H1, device=dev), V)
+        refused = False
+    except ValueError:
+        refused = ring_hemm.launches == before
+    log("ckernel", f"N=1001 DenseOperator: row stride {op.H.stride(0)}; "
+                   f"contiguous (stride 1001) c64 H refused with ValueError "
+                   f"and no launch: {refused}")
+    if not (op.H.stride(0) == 1002 and refused):
+        raise AssertionError("N=1001 c64 operator check failed")
+    del op
+
+    N = C64_SHAPES[0][0]
+    H = torch.randn((N, N), generator=g, device=dev, dtype=c64)
+    H128 = H.to(c128)
+    for _, k in C64_SHAPES:
+        V = torch.randn((N, k), generator=g, device=dev, dtype=c64)
+        summary[(N, k)] = _hemm_case("ckernel", H, V, H128 @ V.to(c128), 3)
+    summary["split"] = _split_case("ckernel", V, 3)
+
+    # ring semantics with an odd col0: its float column is 2 mod 4
+    Hs = H[:1000]
+    V = torch.randn((N, 37), generator=g, device=dev, dtype=c64)
+    half = N // 2 + 1
+    W = ring_hemm(Hs, V[:half], col0=0)
+    ring_hemm(Hs, V[half:], col0=half, out=W, accumulate=True)
+    torch.cuda.synchronize()
+    errc = rel_err(W, H128[:1000] @ V.to(c128))
+    log("ckernel", f"two-chunk ring step (col0=0 store, col0={half} add) on "
+                   f"a 1000-row stripe: rel err {errc:.3e}")
+    if not errc <= 1e-5:
+        raise AssertionError("two-chunk c64 ring_hemm failed")
+    del H, H128, Hs
+    torch.cuda.empty_cache()
+    log("ckernel", f"phase ok in {time.perf_counter() - t_phase:.2f} s")
+    return summary
+
+
 def phase_filter(dev, H) -> None:
     from chase_tpu_torch.ops.filter import chebyshev_filter
     from chase_tpu_torch.parallel.ring import chebyshev_filter_ring_pallas
@@ -260,9 +396,9 @@ def phase_filter(dev, H) -> None:
     torch.cuda.synchronize()
     err = rel_err(Yk, Yp.double())
     exact0 = bool(torch.equal(Yk[:, :50], X[:, :50]))
-    plain_ms, kern_ms = time_pair(lambda: chebyshev_filter(H, X, *args),
+    plain_ms, kern_ms = time_fns([lambda: chebyshev_filter(H, X, *args),
                                   lambda: chebyshev_filter_ring_pallas(
-                                      H, X, *args), 1)
+                                      H, X, *args)], 1)
     gf = 2.0 * N * N * (int(deg.sum())) / 1e9
     log("filter", f"N={N} w={w} deg_max={deg_max}: rel err ring vs plain "
                   f"{err:.3e}; degree-0 columns bit-exact: {exact0}; ring "
@@ -274,7 +410,10 @@ def phase_filter(dev, H) -> None:
         raise AssertionError("ring filter disagrees with the plain filter")
 
 
-def phase_slice(dev, H) -> dict:
+def phase_slice(dev, H, phase: str = "slice") -> dict:
+    """eigsh on the (phase-rotated, for complex H) Clement matrix at the
+    slice's shape on the ring path; the launch counts are set to 0 just
+    before the solve and read just after it."""
     import chase_tpu_torch as ct
     from chase_tpu_torch.models import clement_eigenvalues
     from chase_tpu_torch.ops.ring_hemm import ring_hemm, tf32_split
@@ -290,28 +429,28 @@ def phase_slice(dev, H) -> dict:
     tts = time.perf_counter() - t0
     launches = ring_hemm.launches
     split_launches = tf32_split.launches
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
     perf = res.perf
     ev_err = float(np.abs(res.ritzv - clement_eigenvalues(N)[:nev]).max())
     V = res.V[:, :nev]
-    lam = torch.as_tensor(res.ritzv, dtype=torch.float32, device=dev)
+    lam = torch.as_tensor(res.ritzv, device=dev).to(H.dtype)
     true_res = float(torch.linalg.vector_norm(H @ V - V * lam, dim=0).max())
     t = perf.timings
-    filter_rate = perf.get_filter_flops(N, torch.float32) / t["Filter"]
-    log("slice", f"eigsh Clement N={N} nev={nev} nex={nex} f32 tol={tol} "
-                 f"ring_backend=pallas: converged={res.converged} "
-                 f"iterations={res.iterations} TTS {tts:.2f} s; phases "
-                 f"Lanczos {t['Lanczos']:.2f} Filter {t['Filter']:.2f} "
-                 f"QR {t['Qr']:.2f} RR {t['Rr']:.2f} Resids_Locking "
-                 f"{t['Resids_Locking']:.2f} InitVecs {t['InitVecs']:.2f} s; "
-                 f"filter {filter_rate:.0f} GFLOP/s (useful FLOP model); "
-                 f"max eigenvalue err {ev_err:.3e}; max true residual "
-                 f"{true_res:.3e}; reported max resid {res.resid.max():.3e}; "
-                 f"ring_hemm launches {launches}, tf32_split launches "
-                 f"{split_launches}, filter HEMM steps "
-                 f"{perf.filter_hemm_steps}; peak device memory "
-                 f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB")
+    filter_rate = perf.get_filter_flops(N, H.dtype) / t["Filter"]
+    log(phase, f"eigsh Clement N={N} nev={nev} nex={nex} {H.dtype} "
+               f"tol={tol} ring_backend=pallas: converged={res.converged} "
+               f"iterations={res.iterations} TTS {tts:.2f} s; phases "
+               f"Lanczos {t['Lanczos']:.2f} Filter {t['Filter']:.2f} "
+               f"QR {t['Qr']:.2f} RR {t['Rr']:.2f} Resids_Locking "
+               f"{t['Resids_Locking']:.2f} InitVecs {t['InitVecs']:.2f} s; "
+               f"filter {filter_rate:.0f} GFLOP/s (useful FLOP model); "
+               f"max eigenvalue err {ev_err:.3e}; max true residual "
+               f"{true_res:.3e}; reported max resid {res.resid.max():.3e}; "
+               f"ring_hemm launches {launches}, tf32_split launches "
+               f"{split_launches}, filter HEMM steps "
+               f"{perf.filter_hemm_steps}; peak device memory {peak:.1f} GiB")
     if not res.converged:
-        raise AssertionError("slice did not converge")
+        raise AssertionError(f"{phase} did not converge")
     if not ev_err <= 0.5:
         raise AssertionError(f"eigenvalue error {ev_err} > 0.5")
     if not true_res <= 10 * tol:
@@ -323,7 +462,7 @@ def phase_slice(dev, H) -> dict:
     return dict(ring_hemm=launches, tf32_split=split_launches)
 
 
-def phase_profile(dev, H) -> None:
+def phase_profile(dev, H, phase: str = "profile") -> None:
     """Warm solves of the slice (ring path, then windowed path) and a
     torch.profiler trace of one warm ring-path solve."""
     import chase_tpu_torch as ct
@@ -331,6 +470,7 @@ def phase_profile(dev, H) -> None:
     N, nev, nex, tol = SLICE["N"], SLICE["nev"], SLICE["nex"], SLICE["tol"]
 
     def solve(backend):
+        torch.cuda.reset_peak_memory_stats(dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = ct.eigsh(H, nev, nex, tol=tol, device=dev, collect_perf=True,
@@ -341,10 +481,12 @@ def phase_profile(dev, H) -> None:
     for backend in ("pallas", "xla"):
         tts, res = solve(backend)
         t = res.perf.timings
-        log("profile", f"warm solve ring_backend={backend}: TTS {tts:.3f} s, "
-                       f"iterations {res.iterations}, Filter "
-                       f"{t['Filter']:.3f} RR {t['Rr']:.3f} QR {t['Qr']:.3f} "
-                       f"s, converged={res.converged}")
+        log(phase, f"warm solve {H.dtype} ring_backend={backend}: TTS "
+                   f"{tts:.3f} s, iterations {res.iterations}, Filter "
+                   f"{t['Filter']:.3f} RR {t['Rr']:.3f} QR {t['Qr']:.3f} "
+                   f"Lanczos {t['Lanczos']:.3f} s, peak device memory "
+                   f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB, "
+                   f"converged={res.converged}")
         if not res.converged:
             raise AssertionError(f"warm {backend} solve did not converge")
     with profile(activities=[ProfilerActivity.CPU,
@@ -354,15 +496,151 @@ def phase_profile(dev, H) -> None:
             for e in prof.key_averages() if e.device_time_total > 0]
     kernels = [r for r in rows if not r[0].startswith("aten::")]
     busy = sum(r[1] for r in kernels) / 1e6
-    log("profile", f"traced warm ring solve: TTS {tts:.3f} s; summed device "
-                   f"kernel time {busy:.3f} s, busy share {busy / tts:.3f}")
+    log(phase, f"traced warm ring solve {H.dtype}: TTS {tts:.3f} s; summed "
+               f"device kernel time {busy:.3f} s, busy share "
+               f"{busy / tts:.3f}")
     for key, us, count in sorted(kernels, key=lambda r: -r[1])[:15]:
-        log("profile", f"  {us / 1e6:8.3f} s {us / 1e6 / busy:6.1%} "
-                       f"x{count:<5d} {key[:90]}")
+        log(phase, f"  {us / 1e6:8.3f} s {us / 1e6 / busy:6.1%} "
+                   f"x{count:<5d} {key[:90]}")
     if not (res.converged
             and any("ring_hemm_tf32x3" in key for key, _, _ in kernels)):
         raise AssertionError("traced solve did not converge or the trace "
                              "shows no ring_hemm kernel on the device")
+
+
+def phase_north_star(dev) -> None:
+    """The repo's north star in double precision: c128 phase-rotated
+    Clement at N=30000, nev=2250, nex=750, ‖Av − λv‖ ≤ 1e-10·‖H‖ (the
+    port's tol is absolute, ‖H‖ = N − 1), windowed filter on ZGEMM."""
+    import chase_tpu_torch as ct
+    from chase_tpu_torch.models import clement_eigenvalues
+    from chase_tpu_torch.ops.residuals import residuals
+    N, nev, nex = SLICE["N"], SLICE["nev"], SLICE["nex"]
+    tol = 1e-10 * (N - 1)
+    t0 = time.perf_counter()
+    H = clement_on_device(N, dev, torch.complex128)
+    torch.cuda.synchronize()
+    log("dp", f"phase-rotated Clement N={N} c128 built on the card in "
+              f"{time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = ct.eigsh(H, nev, nex, tol=tol, device=dev, collect_perf=True)
+    torch.cuda.synchronize()
+    tts = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    perf, t = res.perf, res.perf.timings
+    ev_err = float(np.abs(res.ritzv - clement_eigenvalues(N)[:nev]).max())
+    true_res = float(residuals(H, res.V[:, :nev], res.ritzv).max())
+    filter_rate = perf.get_filter_flops(N, H.dtype) / t["Filter"]
+    log("dp", f"eigsh c128 N={N} nev={nev} nex={nex} tol={tol:.4e} "
+              f"(1e-10·‖H‖) windowed path: converged={res.converged} "
+              f"iterations={res.iterations} TTS {tts:.2f} s; phases Lanczos "
+              f"{t['Lanczos']:.2f} Filter {t['Filter']:.2f} QR {t['Qr']:.2f} "
+              f"RR {t['Rr']:.2f} Resids_Locking {t['Resids_Locking']:.2f} "
+              f"InitVecs {t['InitVecs']:.2f} s; filter {filter_rate:.0f} "
+              f"GFLOP/s (useful FLOP model), window efficiency "
+              f"{perf.filter_window_efficiency():.3f}; max eigenvalue err "
+              f"{ev_err:.3e}; max true residual {true_res:.3e}; reported "
+              f"max resid {res.resid.max():.3e}; peak device memory "
+              f"{peak:.1f} GiB")
+    if not res.converged:
+        raise AssertionError("DP north star did not converge")
+    if not (true_res <= 10 * tol and ev_err <= 10 * tol):
+        raise AssertionError(f"DP north star: true residual {true_res:.3e} "
+                             f"or eigenvalue error {ev_err:.3e} > "
+                             f"{10 * tol:.3e}")
+
+
+def hermitian_sequence_on_device(H0: torch.Tensor, count: int, drift: float,
+                                 g: torch.Generator, keep: dict):
+    """H0 then ``count - 1`` members, each the previous plus a Hermitian
+    perturbation of scale drift·‖H0‖_F/N (as models.hermitian_sequence
+    builds it in numpy), made on the card one at a time; the member last
+    yielded is ``keep["H"]``."""
+    N = H0.shape[0]
+    scale = float(torch.linalg.matrix_norm(H0)) / N
+    H = H0
+    for i in range(count):
+        if i:
+            E = torch.randn((N, N), generator=g, dtype=H.dtype,
+                            device=H.device) * np.sqrt(2.0)
+            H = H + (drift * scale) * ((E + E.mH) / 2)
+            del E
+        keep["H"] = H
+        yield H
+
+
+def phase_sequence(dev) -> None:
+    """eigsh_sequence over correlated c128 problems (the reference's SCF
+    use case) and estimate_spectral_bounds on the first member."""
+    import chase_tpu_torch as ct
+    from chase_tpu_torch.ops.residuals import residuals
+    N, nev, nex = SEQUENCE["N"], SEQUENCE["nev"], SEQUENCE["nex"]
+    count = SEQUENCE["count"]
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    A = torch.randn((N, N), generator=g, dtype=torch.complex128,
+                    device=dev) * np.sqrt(2.0)
+    H0 = (A + A.mH) / 2                      # GUE-like, as random_hermitian
+    del A
+    w0 = torch.linalg.eigvalsh(H0).cpu().numpy()
+    tol = 1e-10 * float(np.abs(w0).max())
+    log("sequence", f"member 0 (N={N} c128) and its eigvalsh on the card in "
+                    f"{time.perf_counter() - t0:.2f} s; tol = 1e-10·max|λ| = "
+                    f"{tol:.4e}")
+    keep = {}
+    members = hermitian_sequence_on_device(H0, count, SEQUENCE["drift"], g,
+                                           keep)
+    its, errs, bad = [], {}, []
+    t0 = time.perf_counter()
+    for i, res in enumerate(ct.eigsh_sequence(members, nev, nex, tol=tol,
+                                              device=dev,
+                                              collect_perf=True)):
+        r = float(residuals(keep["H"], res.V[:, :nev], res.ritzv).max())
+        its.append(res.iterations)
+        if i in (0, count - 1):
+            w = w0 if i == 0 else torch.linalg.eigvalsh(keep["H"]).cpu()\
+                .numpy()
+            errs[i] = float(np.abs(res.ritzv - w[:nev]).max())
+        if not (res.converged and r <= 10 * tol):
+            bad.append(i)
+        log("sequence", f"member {i}: converged={res.converged} iterations "
+                        f"{res.iterations} TTS {res.perf.timings['All']:.3f} "
+                        f"s; max true residual {r:.3e}"
+                        + (f"; max eigenvalue err vs eigvalsh {errs[i]:.3e}"
+                           if i in errs else ""))
+    total = time.perf_counter() - t0
+    keep.clear()
+    warm = float(np.mean(its[1:]))
+    bounds = ct.estimate_spectral_bounds(H0, nev=nev + nex, device=dev)
+    log("sequence", f"{count} members in {total:.2f} s (eigvalsh of the "
+                    f"last member included); iterations {its}, warm mean "
+                    f"{warm:.2f}; estimate_spectral_bounds(member 0, "
+                    f"nev={nev + nex}): {bounds}, eigvalsh [λ_min, λ_max] = "
+                    f"[{w0[0]:.6f}, {w0[-1]:.6f}], λ_{nev + nex} = "
+                    f"{w0[nev + nex - 1]:.6f}")
+    if bad:
+        raise AssertionError(f"sequence members {bad} did not converge to "
+                             f"a true residual <= {10 * tol:.3e}")
+    if not max(errs.values()) <= 10 * tol:
+        raise AssertionError(f"sequence eigenvalue errors {errs} > "
+                             f"{10 * tol:.3e}")
+    if not warm < its[0]:
+        raise AssertionError(f"warm members took {warm:.2f} iterations on "
+                             f"average, the cold one {its[0]}")
+    if not bounds["upperb"] >= w0[-1]:
+        raise AssertionError(f"upperb {bounds['upperb']} < λ_max {w0[-1]}")
+
+
+def _kernel_entry(name: str, launches: int, case: dict) -> dict:
+    return dict(name=name, route="cuda",
+                source="chase_tpu_torch/csrc/ring_hemm.cu",
+                replaces="chase_tpu/ops/pallas_ring.py:34",
+                launches=launches, max_abs_err=case["abs_err"],
+                ms=case["ms"], plain_ms=case["plain_ms"],
+                bound_ms=case["bound_ms"], bound_by=case["bound_by"],
+                library_ms=case["library_ms"])
 
 
 def main() -> int:
@@ -372,6 +650,7 @@ def main() -> int:
         return 2
     import chase_tpu_torch  # noqa: F401  (fails outside a checkout)
 
+    t_all = time.perf_counter()
     dev = torch.device("cuda", 0)
     info = phase_device()
     phase_build()
@@ -384,16 +663,32 @@ def main() -> int:
     phase_filter(dev, H)
     launches = phase_slice(dev, H)
     phase_profile(dev, H)
-    big, split = kern[KERNEL_SHAPES[-1]], kern["split"]
-    src = dict(route="cuda", source="chase_tpu_torch/csrc/ring_hemm.cu",
-               replaces="chase_tpu/ops/pallas_ring.py:34")
+    del H
+    torch.cuda.empty_cache()
+
+    ckern = phase_complex_kernel(dev)
+    t0 = time.perf_counter()
+    H = clement_on_device(SLICE["N"], dev, torch.complex64)
+    torch.cuda.synchronize()
+    log("setup", f"phase-rotated Clement N={SLICE['N']} c64 built on the "
+                 f"card in {time.perf_counter() - t0:.2f} s")
+    claunches = phase_slice(dev, H, "cslice")
+    phase_profile(dev, H, "cprofile")
+    del H
+    torch.cuda.empty_cache()
+
+    phase_north_star(dev)
+    torch.cuda.empty_cache()
+    phase_sequence(dev)
+
+    big, cbig = kern[KERNEL_SHAPES[-1]], ckern[C64_SHAPES[-1]]
     print(json.dumps({"kernels": [
-        dict(name="ring_hemm", **src, launches=launches["ring_hemm"],
-             max_abs_err=big["abs_err"], ms=big["ms"],
-             plain_ms=big["plain_ms"]),
-        dict(name="tf32_split", **src, launches=launches["tf32_split"],
-             max_abs_err=split["abs_err"], ms=split["ms"],
-             plain_ms=split["plain_ms"])]}), flush=True)
+        _kernel_entry("ring_hemm", launches["ring_hemm"], big),
+        _kernel_entry("tf32_split", launches["tf32_split"], kern["split"]),
+        _kernel_entry("ring_hemm[c64]", claunches["ring_hemm"], cbig),
+        _kernel_entry("tf32_split[c64]", claunches["tf32_split"],
+                      ckern["split"])]}), flush=True)
+    log("done", f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"],
         "count": torch.cuda.device_count()}}), flush=True)

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 import chase_tpu_torch as ct
+from chase_tpu_torch import convert
 from chase_tpu_torch import solver as tsolver
 
 torch.set_num_threads(1)
@@ -64,7 +65,32 @@ def test_cuda_device_without_a_card_raises(monkeypatch):
         ct.eigsh(np.eye(16), 2, 2, device="cuda")
     with pytest.raises(RuntimeError):
         ct.DenseOperator(np.eye(16), device="cuda")
+    with pytest.raises(RuntimeError, match="does not fall back"):
+        next(ct.eigsh_sequence(iter([np.eye(16)]), 2, 2))
+    with pytest.raises(RuntimeError, match="does not fall back"):
+        ct.estimate_spectral_bounds(np.eye(16))
     assert not ran
+
+
+@pytest.mark.parametrize("fn", ["array_to_torch", "warm_start_from"])
+def test_convert_defaults_to_the_card(fn):
+    """convert's helpers place on the card unless asked for the CPU, so
+    without a card their default raises, as eigsh's does."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; this checks the no-card path")
+    H = np.eye(8, dtype=np.complex64)
+    if fn == "array_to_torch":
+        call = lambda **kw: convert.array_to_torch(H, **kw)  # noqa: E731
+    else:
+        res = tsolver.SolveResult(
+            ritzv=np.zeros(2), V=H[:, :4], resid=np.zeros(2), iterations=1,
+            locked=2, converged=True, upperb=1.0, lowerb=0.0,
+            ritzv_full=np.zeros(4))
+        call = lambda **kw: convert.warm_start_from(res, **kw)[0]  # noqa: E731
+    with pytest.raises(RuntimeError, match="does not fall back"):
+        call()
+    t = call(device="cpu")
+    assert t.device.type == "cpu" and t.dtype == torch.complex64
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

@@ -33,8 +33,12 @@ torch.set_num_threads(1)
 def _problem(N, k, dtype, seed):
     rng = np.random.default_rng(seed)
     A = rng.standard_normal((N, N))
-    H = ((A + A.T) / 2).astype(dtype)
-    X = rng.standard_normal((N, k)).astype(dtype)
+    X = rng.standard_normal((N, k))
+    if np.issubdtype(dtype, np.complexfloating):
+        A = A + 1j * rng.standard_normal((N, N))
+        X = X + 1j * rng.standard_normal((N, k))
+    H = ((A + A.conj().T) / 2).astype(dtype)
+    X = X.astype(dtype)
     w = np.linalg.eigvalsh(H.astype(np.float64))
     return H, X, float(w[0]), float(w[k]), float(w[-1])
 
@@ -102,13 +106,18 @@ def test_plain_filter_matches_jax_f64():
     np.testing.assert_array_equal(Yt[:, 0], X[:, 0])
 
 
-@pytest.mark.parametrize("locked,B", [(0, 8), (5, 8), (13, 4)],
-                         ids=["unlocked", "locked5", "locked13_B4"])
-def test_segmented_filter_matches_jax_f64(locked, B):
+@pytest.mark.parametrize("locked,B,dtype", [(0, 8, np.float64),
+                                            (5, 8, np.float64),
+                                            (13, 4, np.float64),
+                                            (5, 8, np.complex128)],
+                         ids=["unlocked", "locked5", "locked13_B4",
+                              "locked5_c128"])
+def test_segmented_filter_matches_jax_f64(locked, B, dtype):
     """solver._filter_windowed in both packages: same bucket plan, same
-    shrinking windows, same executed column-steps, same V."""
+    shrinking windows, same executed column-steps, same V (also with a
+    complex carry)."""
     N, nevex = 160, 32
-    H, V, lam1, lo, up = _problem(N, nevex, np.float64, seed=3 + locked)
+    H, V, lam1, lo, up = _problem(N, nevex, dtype, seed=3 + locked)
     rng = np.random.default_rng(locked)
     degrees = np.sort(2 * rng.integers(1, 7, nevex - locked)).astype(
         np.int64)

@@ -132,9 +132,9 @@ def test_cpu_uses_plain_version_without_counting():
                                         torch.from_numpy(V)).numpy())
 
 
-@pytest.mark.parametrize("case", ["f64", "complex", "col_stride", "out_shape",
-                                  "acc_no_out", "col0_range", "ndim",
-                                  "devices"])
+@pytest.mark.parametrize("case", ["f64", "complex", "c128", "c64_f32_out",
+                                  "col_stride", "out_shape", "acc_no_out",
+                                  "col0_range", "ndim", "devices"])
 def test_rejects_what_the_kernel_does_not_take(case):
     H = torch.zeros((16, 16))
     V = torch.zeros((16, 4))
@@ -142,8 +142,14 @@ def test_rejects_what_the_kernel_does_not_take(case):
     err = ValueError
     if case == "f64":
         H, V, err = H.double(), V.double(), TypeError
-    elif case == "complex":
+    elif case == "complex":                      # mixed f32 H, c64 V
         V, err = V.to(torch.complex64), TypeError
+    elif case == "c128":
+        H, V = H.to(torch.complex128), V.to(torch.complex128)
+        err = TypeError
+    elif case == "c64_f32_out":
+        H, V = H.to(torch.complex64), V.to(torch.complex64)
+        kw, err = dict(out=torch.zeros((16, 4))), TypeError
     elif case == "col_stride":
         V = torch.zeros((4, 16)).T                 # column stride 16
     elif case == "out_shape":
@@ -267,10 +273,17 @@ def cuda():
     return torch.device("cuda")
 
 
-def _padded_randn(m, n_cols, g, dev):
-    """(m, n_cols) with the row stride TMA needs (a multiple of 4)."""
-    return torch.randn((m, tma_ld(n_cols)), generator=g,
-                       device=dev)[:, :n_cols]
+def _padded_randn(m, n_cols, g, dev, dtype=torch.float32):
+    """(m, n_cols) with the row stride TMA needs (a multiple of 4 floats:
+    of 4 f32 or 2 c64 elements)."""
+    w = 2 if dtype.is_complex else 1
+    return torch.randn((m, tma_ld(w * n_cols) // w), generator=g, device=dev,
+                       dtype=dtype)[:, :n_cols]
+
+
+def _wide(t):
+    """f64 / c128 copy: the exact-product reference's precision."""
+    return t.to(torch.complex128 if t.is_complex() else torch.float64)
 
 
 def _check_against_plain(H, V, col0=0):
@@ -278,10 +291,11 @@ def _check_against_plain(H, V, col0=0):
     W = ring_hemm(H, V, col0=col0)
     torch.cuda.synchronize()
     assert ring_hemm.launches == before + 1
+    assert W.dtype == H.dtype
     Hb = H[:, col0:col0 + V.shape[0]]
-    ref = Hb.double() @ V.double()
-    err = float((W.double() - ref).abs().max() / ref.abs().max())
-    errp = float((ring_hemm_reference(H, V, col0=col0).double() - ref)
+    ref = _wide(Hb) @ _wide(V)
+    err = float((_wide(W) - ref).abs().max() / ref.abs().max())
+    errp = float((_wide(ring_hemm_reference(H, V, col0=col0)) - ref)
                  .abs().max() / ref.abs().max())
     assert err <= RTOL and err <= 4 * max(errp, 1e-7)
 
@@ -409,3 +423,96 @@ def test_cuda_eigsh_filter_runs_on_the_kernel(cuda):
     assert res.converged and res.V.device.type == "cuda"
     assert ring_hemm.launches == res.perf.filter_hemm_steps > 0
     assert np.abs(res.ritzv - clement_eigenvalues(512)[:40]).max() <= 1e-3
+
+
+# ---- complex64 on the card: the f32 kernel through the float views ----------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n_cols,k,col0,b", [
+    (200, 200, 37, 0, 200), (257, 300, 40, 0, 300), (130, 17, 3, 0, 17),
+    (200, 512, 64, 1, 100), (200, 512, 64, 3, 77), (200, 512, 13, 6, 301),
+], ids=["200x37", "m257", "tiny", "col0_1", "col0_3", "col0_6"])
+def test_cuda_c64_kernel_matches_plain_version(cuda, m, n_cols, k, col0, b):
+    """c64 against a c128 product: within 1e-5 and within 4x the plain
+    version's (cuBLAS CGEMM) error; odd col0 puts the float column at 2
+    mod 4."""
+    g = torch.Generator(device=cuda).manual_seed(m + k + col0 + b)
+    H = _padded_randn(m, n_cols, g, cuda, torch.complex64)
+    V = torch.randn((b, k), generator=g, device=cuda, dtype=torch.complex64)
+    _check_against_plain(H, V, col0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,k,off", [(1000, 37, 0), (61, 129, 2)])
+def test_cuda_c64_split_prepass(cuda, b, k, off):
+    """The complex pre-pass on the card is bit-identical to its plain
+    version (the real rows of V, split), V a strided window."""
+    g = torch.Generator(device=cuda).manual_seed(b + 1)
+    V = torch.randn((b, 3 * k), generator=g, device=cuda,
+                    dtype=torch.complex64)[:, k:2 * k]
+    before = tf32_split.launches
+    Vt = tf32_split(V, off)
+    torch.cuda.synchronize()
+    assert tf32_split.launches == before + 1
+    assert tuple(Vt.shape) == (2, *split_shape(2 * b, 2 * k, off)[::-1])
+    assert torch.equal(Vt, tf32_split_reference(V, off))
+
+
+@pytest.mark.gpu
+def test_cuda_c64_two_chunk_ring_step_and_strided_out(cuda):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    H = _padded_randn(300, 1001, g, cuda, torch.complex64)
+    V = torch.randn((1001, 37), generator=g, device=cuda,
+                    dtype=torch.complex64)
+    half = 501                                   # odd col0 of chunk 1
+    W = ring_hemm(H, V[:half], col0=0)
+    ring_hemm(H, V[half:], col0=half, out=W, accumulate=True)
+    Wfull = torch.randn((300, 60), generator=g, device=cuda,
+                        dtype=torch.complex64)
+    before = Wfull.clone()
+    ring_hemm(H, V[:, 3:20], out=Wfull[:, 10:27], accumulate=True)
+    torch.cuda.synchronize()
+    ref = _wide(H) @ _wide(V)
+    assert float((_wide(W) - ref).abs().max() / ref.abs().max()) <= RTOL
+    ref2 = _wide(before[:, 10:27]) + _wide(H) @ _wide(V[:, 3:20])
+    assert float((_wide(Wfull[:, 10:27]) - ref2).abs().max()
+                 / ref2.abs().max()) <= RTOL
+    assert torch.equal(Wfull[:, :10], before[:, :10])
+    assert torch.equal(Wfull[:, 27:], before[:, 27:])
+
+
+@pytest.mark.gpu
+def test_cuda_c64_dense_operator_n1001_and_odd_stride_refused(cuda):
+    """DenseOperator stores an N=1001 c64 H with an even row stride
+    (1002), which the kernel reads; a contiguous one (odd stride 1001)
+    is refused before any launch."""
+    import chase_tpu_torch as ct
+    from chase_tpu_torch.models import random_hermitian
+    H1 = random_hermitian(1001, np.complex64, seed=1)
+    op = ct.DenseOperator(H1, device=cuda)
+    assert op.H.shape == (1001, 1001) and op.H.stride() == (1002, 1)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    V = torch.randn((1001, 37), generator=g, device=cuda,
+                    dtype=torch.complex64)
+    _check_against_plain(op.H, V)
+    before = ring_hemm.launches
+    with pytest.raises(ValueError, match="TMA"):
+        ring_hemm(torch.as_tensor(H1, device=cuda), V)
+    assert ring_hemm.launches == before
+
+
+@pytest.mark.gpu
+def test_cuda_c64_eigsh_filter_runs_on_the_kernel(cuda):
+    """The c64 ring-path eigsh on the card: every filter HEMM is one
+    kernel launch (and one complex pre-pass), and the spectrum is right."""
+    import chase_tpu_torch as ct
+    from chase_tpu_torch.models import random_hermitian
+    H = random_hermitian(512, np.complex64, seed=2)
+    exact = np.linalg.eigvalsh(H.astype(np.complex128))[:40]
+    ring_hemm.launches = tf32_split.launches = 0
+    res = ct.eigsh(H, 40, 20, tol=1e-3, device=cuda, collect_perf=True,
+                   config=ct.ChaseConfig(ring_backend="pallas"))
+    assert res.converged and res.V.dtype == torch.complex64
+    assert ring_hemm.launches == tf32_split.launches \
+        == res.perf.filter_hemm_steps > 0
+    assert np.abs(res.ritzv - exact).max() <= 1e-4

@@ -4,9 +4,11 @@ The Chebyshev-accelerated subspace eigensolver of the JAX package
 ``chase_tpu`` on one torch device, module for module: Lanczos bounds,
 degree-optimized Chebyshev filtering, CholQR, Rayleigh–Ritz with fused
 residuals and locking, for real symmetric and complex Hermitian problems
-and for sequences of them.  The filter's ring HEMM is a hand-written CUDA
-kernel for Hopper (``csrc/ring_hemm.cu``, f32 and c64); everything else
-is plain torch.  This package never imports JAX or ``chase_tpu``.
+and for sequences of them, natively or on the precision ladder (f64/c128
+filtered on an f32/c64 shadow, f32 on a bf16 one).  The filter's ring
+HEMM is a hand-written CUDA kernel for Hopper (``csrc/ring_hemm.cu``: f32,
+c64, and bf16 H with f32 V); everything else is plain torch.  This
+package never imports JAX or ``chase_tpu``.
 """
 
 from .api import eigsh, eigsh_sequence, estimate_spectral_bounds  # noqa: F401

@@ -14,9 +14,15 @@ Sequences of correlated problems (the reference's mode='A' warm start):
     # by hand: eigsh(H2, nev, nex, v0=r1.V, ritzv0=r1.ritzv_full,
     #                approx=True)
 
+The precision ladder is a config away, as in the JAX package:
+``ChaseConfig(mixed_precision=True)`` filters an f64/c128 problem on its
+f32/c64 shadow (the deviation-form refinement keeps tol 1e-10 reachable),
+``ChaseConfig(bf16_filter=True)`` a real f32 problem on its bf16 shadow;
+``res.perf.low_flop_fraction(...)`` says how much of the work ran there.
+
 ``device`` is explicit (default "cuda") and never falls back: without a
-card, ``device="cuda"`` raises RuntimeError.  Fused solves are a later
-slice.
+card, ``device="cuda"`` raises RuntimeError.  Fused solves are the fused
+solver's slice (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -120,13 +126,16 @@ def eigsh_sequence(matrices, nev: int, nex: Optional[int] = None, *,
     Yields one SolveResult per member.  Every member after the first
     starts from the previous result (``v0=res.V``,
     ``ritzv0=res.ritzv_full``, ``approx=True``); the block stays on the
-    device.
+    device.  The ladder's residual vectors live inside one solve: a warm
+    start carries V and the Ritz values only, as in the JAX package.
 
     ``warmup=True`` is the JAX package's precompile: here it builds (on a
-    fresh checkout) and loads the CUDA kernels' library before member 0
-    when the solve will filter on the ring kernel (a CUDA device,
-    ``ring_backend="pallas"``, an f32 or c64 problem), and does nothing
-    otherwise — PyTorch runs eagerly and has nothing else to compile.
+    fresh checkout) and loads the CUDA kernels' library — every route of
+    the kernel, the bf16 one included — before member 0 when the solve
+    will filter on the ring kernel (a CUDA device, ``ring_backend=
+    "pallas"``, an f32 or c64 problem or the ladder's f32, c64 or bf16
+    shadow), and does nothing otherwise — PyTorch runs eagerly and has
+    nothing else to compile.
     """
     v0 = ritzv0 = None
     for H in matrices:
@@ -134,7 +143,7 @@ def eigsh_sequence(matrices, nev: int, nex: Optional[int] = None, *,
             dev = H.device if isinstance(H, DenseOperator) \
                 else resolve_device(device)
             dtype = as_torch_dtype(H.dtype)
-            rcfg = (config or ChaseConfig()).resolve(dtype)
+            rcfg = (config or ChaseConfig()).resolve(dtype, dev)
             if dev.type == "cuda" and uses_ring_kernel(rcfg, dtype):
                 from .ops.ring_hemm import load_kernels
                 load_kernels()
@@ -166,7 +175,7 @@ def estimate_spectral_bounds(H, *, num_lanczos: int = 4,
     """
     from .ops import lanczos as lz
     op = H if isinstance(H, DenseOperator) else DenseOperator(H, device)
-    rcfg = (config or ChaseConfig()).resolve(op.dtype)
+    rcfg = (config or ChaseConfig()).resolve(op.dtype, op.device)
     set_matmul_precision(rcfg.matmul_precision)
     N = op.N
     if generator is None:

@@ -9,9 +9,13 @@ drives the other.  What differs on CUDA:
 * ``matmul_precision``: "highest" is IEEE f32 (TF32 off for matmuls and
   cuDNN), "high" is TF32, "default" lets f32 matmuls run in bf16 —
   :func:`set_matmul_precision`, applied at the start of every solve.
-* ``mixed_precision=None`` resolves to False: the H100 multiplies f64
-  natively, and the precision ladder is a later slice (ROADMAP queue 1).
-  Forcing it (or ``bf16_filter``) on raises NotImplementedError in solve.
+* the precision ladder (``mixed_precision``, ``bf16_filter``,
+  ``refine_filter`` and their thresholds, with the JAX package's env
+  overrides) runs as in the JAX package.  ``mixed_precision=None``
+  resolves per device, as the JAX package resolves it per backend: False
+  on the CPU and for f32/c64 problems; for f64/c128 problems on CUDA it
+  is :data:`MIXED_PRECISION_ON_CUDA` of the ``ring_backend``, the default
+  the H100 measurements of the DP north star decided (ROADMAP, PERF.md).
 * ``small_dense_backend="auto"`` resolves to "device" (cuSOLVER through
   torch.linalg); "host" is accepted and logged as a no-op.
 * ``wide_f64``, ``complex_backend`` and ``folded_filter`` work around TPU
@@ -31,7 +35,16 @@ import torch
 from . import types as _t
 from .logger import get_logger
 
-__all__ = ["ChaseConfig", "ResolvedConfig", "set_matmul_precision"]
+__all__ = ["ChaseConfig", "ResolvedConfig", "set_matmul_precision",
+           "MIXED_PRECISION_ON_CUDA"]
+
+# mixed_precision=None for f64/c128 problems on a CUDA device, by
+# ring_backend: decided by chip_smoke.py's `ladder` phase against its
+# native `dp` phase (the c128 DP north star, N=30000, on one H100 SXM at
+# 700 W; ROADMAP decisions, PERF.md).  On the kernel ring the ladder's c64
+# filter took the solve from 40.8 to 19.9 s at the same accuracy; on the
+# windowed path (cuBLAS CGEMM against ZGEMM) it took 41.3 s.
+MIXED_PRECISION_ON_CUDA = {"pallas": True, "xla": False}
 
 
 def _env_int(name: str, default):
@@ -81,7 +94,7 @@ class ChaseConfig:
     max_deg: Optional[int] = None        # degree cap (36 DP / 18 SP)
     deg_extra: int = 2                   # configuration.hpp:176
     optimization: bool = True            # per-vector degree optimization ('S' mode)
-    # precision ladder (slice 2 of the port): None resolves to False here
+    # precision ladder; None resolves per device (module note)
     mixed_precision: Optional[bool] = None
     mixed_precision_threshold: float = 1e-3
     bf16_filter: bool = False
@@ -134,8 +147,10 @@ class ChaseConfig:
     fused_tiers: int = 3                 # fused solver: a later slice
     complex_backend: str = "auto"        # no-op in the port (native complex)
 
-    def resolve(self, dtype) -> "ResolvedConfig":
-        """Bind dtype-dependent defaults and env overrides."""
+    def resolve(self, dtype, device=None) -> "ResolvedConfig":
+        """Bind dtype- and device-dependent defaults and env overrides.
+        ``device`` is the solve's torch device; None means the entry
+        points' default ("cuda" where a card is visible, else "cpu")."""
         tol = self.tol if self.tol is not None else _t.default_tol(dtype)
         deg = self.deg if self.deg is not None else _t.default_deg(dtype)
         max_deg = self.max_deg if self.max_deg is not None else _t.default_max_deg(dtype)
@@ -155,12 +170,18 @@ class ChaseConfig:
         bf16_filter = self.bf16_filter
         if os.environ.get("CHASE_BF16_FILTER"):
             bf16_filter = bool(int(os.environ["CHASE_BF16_FILTER"]))
+        ring_backend = self.ring_backend
+        if os.environ.get("CHASE_RING_BACKEND"):
+            ring_backend = os.environ["CHASE_RING_BACKEND"]
         mixed_precision = self.mixed_precision
         if os.environ.get("CHASE_MIXED_PRECISION"):
             mixed_precision = bool(int(os.environ["CHASE_MIXED_PRECISION"]))
         if mixed_precision is None:
-            # native f64 on the H100 (and the CPU): no ladder by default
-            mixed_precision = False
+            if device is None:
+                device = "cuda" if torch.cuda.is_available() else "cpu"
+            mixed_precision = (is_dp and torch.device(device).type == "cuda"
+                               and MIXED_PRECISION_ON_CUDA.get(ring_backend,
+                                                               False))
         refine_filter = self.refine_filter
         if os.environ.get("CHASE_REFINE_FILTER"):
             refine_filter = bool(int(os.environ["CHASE_REFINE_FILTER"]))
@@ -173,9 +194,6 @@ class ChaseConfig:
         ring_filter = self.ring_filter
         if os.environ.get("CHASE_RING_FILTER"):
             ring_filter = bool(int(os.environ["CHASE_RING_FILTER"]))
-        ring_backend = self.ring_backend
-        if os.environ.get("CHASE_RING_BACKEND"):
-            ring_backend = os.environ["CHASE_RING_BACKEND"]
         fused_tiers = _env_int("CHASE_FUSED_TIERS", self.fused_tiers)
         folded_filter = self.folded_filter
         if os.environ.get("CHASE_FOLDED_FILTER"):

@@ -1,19 +1,27 @@
-// hopper_tf32.cuh — building blocks of the port's TF32 tensor-core kernels
-// on Hopper (sm_90a): the 3xTF32 split, mbarriers, TMA tile loads and the
-// register-A wgmma m64n128k8 with f32 accumulation, as inline PTX.
+// hopper_tf32.cuh — building blocks of the port's tensor-core kernels on
+// Hopper (sm_90a): the 3xTF32 split, mbarriers, TMA tile loads and the
+// register-A wgmma m64n128k8 (tf32) and m64n128k16 (bf16) with f32
+// accumulation, as inline PTX.
 //
 // Layouts (PTX ISA, "Register fragments and shared memory matrix layouts"
-// for wgmma .tf32; the same as CuTe's ALayout_64x8 / CLayout_64xN):
-//   * A fragment (64 x 8, registers): warp w of the warpgroup holds rows
-//     16w..16w+15; lane l holds a[0] = (16w + l/4,     l%4),
+// for wgmma .tf32 and .bf16; the same as CuTe's ALayout_64x8 /
+// ALayout_64x16 / CLayout_64xN):
+//   * A fragment, tf32 (64 x 8, registers): warp w of the warpgroup holds
+//     rows 16w..16w+15; lane l holds a[0] = (16w + l/4,     l%4),
 //     a[1] = (+8, l%4), a[2] = (l/4, l%4 + 4), a[3] = (+8, l%4 + 4).
+//   * A fragment, bf16 (64 x 16): four 32-bit registers of two bf16 each
+//     (the lower column in the low half): a[0] = (16w + l/4, 2(l%4) + {0,
+//     1}), a[1] = (+8, same), a[2] = (l/4, 2(l%4) + 8 + {0, 1}), a[3] =
+//     (+8, same).  In bytes both are the same: register v holds the 4
+//     bytes at byte 4(l%4) of the row's 16-byte chunk 2ks + (v >> 1) of a
+//     32-byte k-step ks, row + 8 for odd v.
 //   * accumulator (64 x 128, f32): d[4j + 2h + e] sits at row
 //     16w + l/4 + 8h, column 8j + 2(l%4) + e.
-//   * B (128 x 8 of a K-major tile, shared memory): rows of 32 floats
-//     (128 bytes) with the 128-byte swizzle that TMA's
+//   * B (128 x K-step of a K-major tile, shared memory): rows of 128 bytes
+//     (32 floats or 64 bf16) with the 128-byte swizzle that TMA's
 //     CU_TENSOR_MAP_SWIZZLE_128B writes — 16-byte chunk c of row r sits
 //     at chunk c ^ (r % 8) — so the tile base must be 1024-byte aligned.
-//     32-bit operands have no transposed form, so B must be K-major.
+//     32-bit operands have no transposed form, so B is K-major for both.
 
 #pragma once
 
@@ -101,7 +109,8 @@ __device__ __forceinline__ void tma_prefetch_desc(const CUtensorMap* map) {
 // shared-memory descriptor of a K-major, 128-byte-swizzled tile: start
 // address >> 4 (bits 0-13), leading offset 1 (unused for swizzled K-major),
 // stride offset 1024 B between 8-row groups (bits 32-45), layout SW128.
-// A k-step of 8 floats inside the 128-byte row advances the start by 32 B.
+// A k-step (8 floats or 16 bf16) inside the 128-byte row advances the
+// start by 32 B.
 __device__ __forceinline__ uint64_t desc_kmajor_sw128(const void* tile) {
   const uint64_t addr = smem_u32(tile);
   return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((1024ull >> 4) << 32) |
@@ -159,6 +168,29 @@ __device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64],
       "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
       "%57, %58, %59, %60, %61, %62, %63}, "
       "{%64, %65, %66, %67}, %69, p, 1, 1;\n}\n"
+      : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24),
+        HOPPER_D8(32), HOPPER_D8(40), HOPPER_D8(48), HOPPER_D8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(accumulate),
+        "l"(desc_b));
+}
+
+// d (+)= A · B for a 64 x 128 x 16 step: A (bf16 pairs) in registers, B
+// (bf16, K-major, not transposed) by descriptor, f32 accumulator;
+// `accumulate` = 0 overwrites d.  bf16 · bf16 products are exact in f32.
+__device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64],
+                                                      const uint32_t (&a)[4],
+                                                      uint64_t desc_b,
+                                                      int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %68, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %69, p, 1, 1, 0;\n}\n"
       : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24),
         HOPPER_D8(32), HOPPER_D8(40), HOPPER_D8(48), HOPPER_D8(56)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(accumulate),

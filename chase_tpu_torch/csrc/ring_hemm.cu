@@ -1,16 +1,19 @@
 // ring_hemm — the Chebyshev filter's HEMM, W (=|+=) H[:, col0:col0+b] · V,
 // hand-written in CUDA C++ for Hopper (sm_90a): TMA loads into an mbarrier
-// pipeline feeding register-A wgmma, with 3xTF32 for f32 accuracy.
+// pipeline feeding register-A wgmma, with 3xTF32 for f32 accuracy, and a
+// bf16 route (bf16 H, f32 V rounded to bf16, f32 sums) for the bf16 rung.
 //
 // Replaces the TPU kernel chase_tpu/ops/pallas_ring.py::_ring_kernel
 // (built by make_hemm_local, run by parallel/ring.py::
 // chebyshev_filter_ring_pallas).  That kernel computes one device's rows of
 // W = H·V on a 1D ring of p devices: at ring step s it multiplies the H
 // column block of the V chunk it holds and passes the chunk on; step 0
-// stores, later steps add.  This kernel is one such step: `accumulate = 0`
-// is the TPU kernel's s == 0 store, `accumulate = 1` its s > 0 add, so the
-// multi-GPU ring can feed NCCL-received chunks into the same kernel.  On
-// one card (p = 1) a filter step is one call with accumulate = 0, K = N.
+// stores, later steps add.  H streams in its own dtype (f32, or bf16 for
+// the bf16 rung) and the dot accumulates in f32.  This kernel is one such
+// step: `accumulate = 0` is the TPU kernel's s == 0 store, `accumulate =
+// 1` its s > 0 add, so the multi-GPU ring can feed NCCL-received chunks
+// into the same kernel.  On one card (p = 1) a filter step is one call
+// with accumulate = 0, K = N.
 //
 // What bounds it on an H100: one call at the solver's shapes (K = N =
 // 30000, width k <= 3000) is 2·N²·k = 5.4 TFLOP against 3.6 GB of H, so it
@@ -29,24 +32,36 @@
 // 699 W, SM clock 1230–1590 MHz, no thermal slowdown): on that card the
 // power limit binds it as much as the tensor pipe.  Whether it does on
 // every card, and what the per-tile issue gaps cost, is open (PERF.md §7).
+// The bf16 route does one bf16 product per term at the 989 TFLOP/s dense
+// bf16 rate: at (30000, 3000) its bound is 5.46 ms of arithmetic (H is 1.8
+// GB, 0.54 ms of HBM); its per-tile promotion and 64-deep tiles make it a
+// simple first version, not a tuned one (its times are in PERF.md).
 //
-// Error scheme (measured by a probe on the H100 before this kernel was
-// written; PERF.md): x = hi + lo with hi = tf32_rna(x), lo = tf32_rna(x -
-// hi), and H·V ≈ lo·Vhi + hi·Vlo + hi·Vhi, small terms first (lo·Vlo, at
-// 2^-22 relative, is dropped).  The wgmma accumulator's adder is not IEEE
-// round-to-nearest: one accumulator over K = 30000 drifted to 2.1e-4
-// relative, 63× cuBLAS.  So each K tile (32 deep, 12 wgmma) sums into a
-// fresh accumulator that is then added, in IEEE f32, to a running sum in
-// registers (1.6e-6 at K = 30000, ≤ 1.14× cuBLAS at every probed shape;
-// every 4th tile failed the 4×-plain bound at K = 200).  Promoting every
-// 2nd tile held the bound (2.6× cuBLAS at worst) but ran 5.5% slower at
-// (30000, 3000) and 2.4% at (30000, 750) in this kernel (PERF.md).
+// Error scheme of the f32 route (measured by a probe on the H100 before
+// this kernel was written; PERF.md): x = hi + lo with hi = tf32_rna(x), lo
+// = tf32_rna(x - hi), and H·V ≈ lo·Vhi + hi·Vlo + hi·Vhi, small terms
+// first (lo·Vlo, at 2^-22 relative, is dropped).  The wgmma accumulator's
+// adder is not IEEE round-to-nearest: one accumulator over K = 30000
+// drifted to 2.1e-4 relative, 63× cuBLAS.  So each K tile (32 deep, 12
+// wgmma) sums into a fresh accumulator that is then added, in IEEE f32, to
+// a running sum in registers (1.6e-6 at K = 30000, ≤ 1.14× cuBLAS at every
+// probed shape; every 4th tile failed the 4×-plain bound at K = 200).
+// Promoting every 2nd tile held the bound (2.6× cuBLAS at worst) but ran
+// 5.5% slower at (30000, 3000) and 2.4% at (30000, 750) in this kernel
+// (PERF.md).  The bf16 route's products are exact in f32 (8-bit
+// mantissas), so its only error beyond V's rounding to bf16 is the sum:
+// it promotes each 64-deep tile the same way (the probe that measured the
+// alternative is in PERF.md).
 //
 // Design:
-//   * split_transpose_kernel (pre-pass): V (b × k, row stride ldv, N-major)
-//     → Vt = [hi; lo], each (w_pad × b_pad), K-major and zero-padded.
-//     wgmma takes 32-bit B operands only K-major from shared memory (there
-//     is no transposed form for tf32), and V is N-major.
+//   * split_transpose_kernel (f32 pre-pass): V (b × k, row stride ldv,
+//     N-major) → Vt = [hi; lo], each (w_pad × b_pad), K-major and
+//     zero-padded.  wgmma takes 32-bit B operands only K-major from shared
+//     memory (there is no transposed form for tf32), and V is N-major.
+//   * bf16_pack_kernel (bf16 pre-pass): V (b × k, f32) → Vb (w_pad ×
+//     b_pad) bf16, V rounded to nearest-even (as torch's .to(bfloat16)),
+//     transposed to K-major like the f32 route's B (wgmma could read a
+//     transposed 16-bit B, but one layout keeps one pipeline).
 //   * complex64 (ring_hemm_split_c64): the main kernel is the f32 one, run
 //     on the float view of a c64 H (m × 2n floats, [re, im, ...] rows).
 //     The complex pre-pass writes, for a c64 V (b × k), the real (2b × 2k)
@@ -58,21 +73,24 @@
 //     TMA alignment, strided W) carries over: the wrapper passes float
 //     strides and columns.  K doubles, and the per-tile promotion below
 //     keeps its error at f32's (the chip gate holds it to a c128 product).
-//   * the main kernel, one 128×128 W tile per block, 384 threads:
+//   * the main kernel, ring_hemm_kernel<E> for E = Tf32x3 (f32, c64) or
+//     Bf16, one 128×128 W tile per block, 384 threads:
 //       - warpgroup 2 (one elected thread) is the producer: TMA loads of
-//         the f32 H tile (128 rows × 32 K, 128-byte swizzle) and the Vhi /
-//         Vlo tiles (128 columns × 32 K each) into a 4-stage ring of 48 KB
+//         the H tile (128 rows × 128 bytes: 32 f32 or 64 bf16 of K,
+//         128-byte swizzle) and the B tiles (128 columns × the same K:
+//         Vhi and Vlo for f32, Vb for bf16) into a ring of E::STAGES
 //         stages, guarded by full/empty mbarriers; setmaxnreg gives its
 //         registers to the consumers (40 / 232);
 //       - warpgroups 0 and 1 are consumers, 64 rows each: per K tile they
-//         read their A fragments (f32) from the swizzled H tile, split them
-//         into hi/lo in registers and issue 12 wgmma m64n128k8 with A from
-//         registers — H is split in registers rather than in shared memory,
-//         so the H tile stays one f32 TMA load and costs no extra shared
-//         memory, barrier or copy; then they wait, release the stage and
-//         promote the tile's sum.  The next tile's fragments are read and
-//         split while this tile's wgmma run (two register sets), and two
-//         consumers keep the tensor cores busy while the other promotes;
+//         read their A fragments from the swizzled H tile into registers
+//         (f32: split into hi/lo there, so the H tile stays one f32 TMA
+//         load and costs no extra shared memory, barrier or copy; bf16:
+//         the words as they are) and issue the tile's wgmma with A from
+//         registers (f32: 12 m64n128k8, bf16: 4 m64n128k16); then they
+//         wait, release the stage and promote the tile's sum.  The next
+//         tile's fragments are read while this tile's wgmma run (two
+//         register sets), and two consumers keep the tensor cores busy
+//         while the other promotes;
 //   * grouped raster (GROUP_M = 8 row stripes per group), so the blocks
 //     resident at once share H stripes and V tiles in L2.  Measured on the
 //     H100 against one block row per column sweep: the pipelined fragments
@@ -81,22 +99,24 @@
 //   * ragged edges: the H descriptor is exactly H[:m, :col0+b] (col0 is a
 //     TMA coordinate, not a pointer offset), so TMA zero-fills rows past m
 //     and columns past col0+b.  TMA's inner coordinate must be 16-byte
-//     aligned, so the boxes start at col0 - off, off = col0 % 4: the
-//     pre-pass shifts V's rows by `off` columns of Vt (zeros before them)
-//     and the consumers zero the first tile's `off` leading A columns
-//     (so a non-finite H entry left of the block cannot leak in as
-//     0·inf).  Vt is zero-padded by the pre-pass; the
+//     aligned, so the boxes start at col0 - off, off = col0 % E::ALIGN (4
+//     f32 or 8 bf16): the pre-pass shifts V's rows by `off` columns of its
+//     output (zeros before them) and the consumers zero the first tile's
+//     `off` leading A columns (so a non-finite H entry left of the block
+//     cannot leak in as 0·inf).  The pre-pass output is zero-padded; the
 //     epilogue stores (or adds into) W with masked plain stores, so W may
 //     be a strided column window and nothing outside [0,m)×[0,k) is
-//     touched.  TMA needs H 16-byte aligned with a row stride that is a
-//     multiple of 4 floats (the wrapper checks; DenseOperator pads).
+//     touched.  TMA needs H 16-byte aligned with a row stride of a whole
+//     number of 16 bytes (4 floats, 8 bf16; the wrapper checks,
+//     DenseOperator pads).
 //   * the one driver-API call, cuTensorMapEncodeTiled, is reached through
 //     cudaGetDriverEntryPoint, so the library needs no -lcuda.
 //
-// Shared memory per block: 4 stages × (16 + 16 + 16) KB = 192 KB of
-// dynamic shared memory (plus 1 KB for alignment and 64 B of barriers).
-// Registers: 168 at launch; setmaxnreg moves the producer to 40 and the
-// consumers to 232 (2 × 64 accumulators + 2 × 32 fragments), no spills.
+// Shared memory per block: f32 4 stages × (16 + 16 + 16) KB = 192 KB, bf16
+// 6 stages × (16 + 16) KB = 192 KB of dynamic shared memory (plus 1 KB for
+// alignment and the barriers).  Registers: 168 at launch; setmaxnreg
+// moves the producer to 40 and the consumers to 232 (2 × 64 accumulators
+// + 2 sets of A fragments: 2 × 32 registers for f32, 2 × 16 for bf16).
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -110,16 +130,91 @@ using namespace hopper;
 
 constexpr int BM = 128;                  // W tile rows (2 consumers × 64)
 constexpr int BN = 128;                  // W tile columns (wgmma N)
-constexpr int BK = 32;                   // K tile: 32 f32 = one 128 B row
-constexpr int STAGES = 4;
 constexpr int GROUP_M = 8;               // row stripes per raster group
-constexpr int TILE_FLOATS = BM * BK;     // 4096 floats = 16 KB
-constexpr int STAGE_BYTES = 3 * TILE_FLOATS * 4;
-constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8;
+constexpr int TILE_BYTES = BM * 128;     // 128 rows of 128 bytes = 16 KB
 constexpr int NTHREADS = 384;
 constexpr int CONSUMER_WARPS = 8;
 
-// ---- pre-pass: split and transpose the V chunk ----------------------------
+// ---- the two routes ---------------------------------------------------------
+// Each K tile is 128 bytes of a row: BK elements.  A fragment register v
+// of k-step ks holds the 32-bit word q = lane % 4 of the row's 16-byte
+// chunk 2 ks + (v >> 1) (hopper_tf32.cuh); `col` is the tile column of the
+// word's first element.
+
+// f32 (and c64 through its float view): 3xTF32
+struct Tf32x3 {
+  static constexpr int BK = 32;              // K tile: 32 f32 = one 128 B row
+  static constexpr int ALIGN = 4;            // elements per 16 bytes
+  static constexpr int B_TILES = 2;          // V's hi and lo parts
+  static constexpr int STAGES = 4;
+  static constexpr CUtensorMapDataType TMA_TYPE =
+      CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  struct Frag { uint32_t hi[4][4], lo[4][4]; };
+
+  __device__ static void set(Frag& f, int ks, int v, uint32_t word, int q,
+                             int kmin) {
+    const int col = 8 * ks + 4 * (v >> 1) + q;
+    split_tf32(col >= kmin ? __uint_as_float(word) : 0.0f, f.hi[ks][v],
+               f.lo[ks][v]);
+  }
+  // B tiles: Vhi at `b`, Vlo at b + TILE_BYTES; small terms first
+  __device__ static void mma(float (&acc)[64], Frag& f, const void* b) {
+    const uint64_t dh = desc_kmajor_sw128(b);
+    const uint64_t dl = desc_kmajor_sw128(
+        static_cast<const unsigned char*>(b) + TILE_BYTES);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      wgmma_m64n128k8_tf32(acc, f.lo[ks], dh + 2 * ks, ks == 0 ? 0 : 1);
+      wgmma_m64n128k8_tf32(acc, f.hi[ks], dl + 2 * ks, 1);
+    }
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_m64n128k8_tf32(acc, f.hi[ks], dh + 2 * ks, 1);
+  }
+  __device__ static void fence(Frag& f) {
+    fence_regs(f.hi);
+    fence_regs(f.lo);
+  }
+};
+
+// bf16 H, V rounded to bf16 by the pre-pass: one exact product per term
+struct Bf16 {
+  static constexpr int BK = 64;              // K tile: 64 bf16 = one 128 B row
+  static constexpr int ALIGN = 8;
+  static constexpr int B_TILES = 1;
+  static constexpr int STAGES = 6;
+  static constexpr CUtensorMapDataType TMA_TYPE =
+      CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  struct Frag { uint32_t a[4][4]; };
+
+  // the word holds columns col (low half) and col + 1 (high half); a
+  // column left of the block (col < kmin) is zeroed
+  __device__ static void set(Frag& f, int ks, int v, uint32_t word, int q,
+                             int kmin) {
+    const int col = 16 * ks + 8 * (v >> 1) + 2 * q;
+    f.a[ks][v] = col >= kmin ? word
+                             : (col + 1 >= kmin ? word & 0xFFFF0000u : 0u);
+  }
+  __device__ static void mma(float (&acc)[64], Frag& f, const void* b) {
+    const uint64_t db = desc_kmajor_sw128(b);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_m64n128k16_bf16(acc, f.a[ks], db + 2 * ks, ks == 0 ? 0 : 1);
+  }
+  __device__ static void fence(Frag& f) { fence_regs(f.a); }
+};
+
+template <class E>
+__host__ __device__ constexpr int stage_bytes() {
+  return (1 + E::B_TILES) * TILE_BYTES;
+}
+
+template <class E>
+__host__ __device__ constexpr int smem_bytes() {
+  return E::STAGES * stage_bytes<E>() + 1024 + 2 * E::STAGES * 8;
+}
+
+// ---- f32 pre-pass: split and transpose the V chunk --------------------------
 // Vt[0][n][off + j] = hi(B[j][n]), Vt[1][n][off + j] = lo(B[j][n]) for
 // j < b, n < k; zero elsewhere in (w_pad × b_pad).  32×32 tiles through shared memory so
 // both the read (along n) and the write (along kk) are coalesced.
@@ -167,19 +262,51 @@ split_transpose_kernel(const float* __restrict__ V, long long ldv,
   }
 }
 
+// f32 → bf16 bits, round to nearest even; NaN → 0x7FC0.  Bit for bit what
+// torch's .to(torch.bfloat16) does (c10::BFloat16's round_to_nearest_even).
+__device__ __forceinline__ uint16_t bf16_rne(float x) {
+  const uint32_t u = __float_as_uint(x);
+  if ((u & 0x7FFFFFFFu) > 0x7F800000u) return 0x7FC0u;
+  return static_cast<uint16_t>((u + 0x7FFFu + ((u >> 16) & 1u)) >> 16);
+}
+
+// ---- bf16 pre-pass: round and transpose the V chunk --------------------------
+// Vb[n][off + j] = bf16(V[j][n]) for j < b, n < k; zero elsewhere in
+// (w_pad × b_pad).  The same 32×32 shared-memory transpose as the f32
+// pre-pass.
+__global__ void __launch_bounds__(256)
+bf16_pack_kernel(const float* __restrict__ V, long long ldv,
+                 uint16_t* __restrict__ Vb, int b, int k, int off,
+                 int b_pad) {
+  __shared__ float tile[32][33];
+  const int kk0 = blockIdx.x * 32, n0 = blockIdx.y * 32;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+#pragma unroll
+  for (int i = ty; i < 32; i += 8) {
+    const int j = kk0 + i - off, n = n0 + tx;
+    tile[i][tx] = (j >= 0 && j < b && n < k) ? V[(long long)j * ldv + n]
+                                             : 0.0f;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = ty; i < 32; i += 8)
+    Vb[(long long)(n0 + i) * b_pad + kk0 + tx] = bf16_rne(tile[tx][i]);
+}
+
 // ---- main kernel ------------------------------------------------------------
+template <class E>
 __global__ void __launch_bounds__(NTHREADS, 1)
-ring_hemm_tf32x3_kernel(const __grid_constant__ CUtensorMap tmH,
-                        const __grid_constant__ CUtensorMap tmV,
-                        float* __restrict__ W, long long ldw, int m, int k,
-                        int b, int col0, int off, int w_pad,
-                        int accumulate) {
+ring_hemm_kernel(const __grid_constant__ CUtensorMap tmH,
+                 const __grid_constant__ CUtensorMap tmV,
+                 float* __restrict__ W, long long ldw, int m, int k, int b,
+                 int col0, int off, int w_pad, int accumulate) {
+  constexpr int STAGE_BYTES = stage_bytes<E>();
   extern __shared__ unsigned char smem_raw[];
-  float* smem = reinterpret_cast<float*>(
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  // stage s: H tile, Vhi tile, Vlo tile, each TILE_FLOATS, 1024-aligned
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * 3 * TILE_FLOATS);
-  uint64_t* empty = full + STAGES;
+  // stage s: the H tile, then the B tile(s), each TILE_BYTES, 1024-aligned
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + E::STAGES * STAGE_BYTES);
+  uint64_t* empty = full + E::STAGES;
 
   // grouped raster: consecutive blocks walk GROUP_M row stripes of one
   // column tile before the next column tile, so the blocks resident at
@@ -191,13 +318,13 @@ ring_hemm_tf32x3_kernel(const __grid_constant__ CUtensorMap tmH,
   const int in_group = id % (GROUP_M * num_n);
   const int m0 = (first_m + in_group % gsize) * BM;
   const int n0 = in_group / gsize * BN;
-  const int ntiles = (b + off + BK - 1) / BK;
+  const int ntiles = (b + off + E::BK - 1) / E::BK;
   const int kbase = col0 - off;          // 16-byte-aligned TMA coordinate
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < E::STAGES; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], CONSUMER_WARPS);
     }
@@ -212,13 +339,15 @@ ring_hemm_tf32x3_kernel(const __grid_constant__ CUtensorMap tmH,
       tma_prefetch_desc(&tmH);
       tma_prefetch_desc(&tmV);
       for (int t = 0; t < ntiles; ++t) {
-        const int s = t % STAGES;
-        mbar_wait(&empty[s], ((t / STAGES) & 1) ^ 1);
-        float* st = smem + s * 3 * TILE_FLOATS;
+        const int s = t % E::STAGES;
+        mbar_wait(&empty[s], ((t / E::STAGES) & 1) ^ 1);
+        unsigned char* st = smem + s * STAGE_BYTES;
         mbar_arrive_expect_tx(&full[s], STAGE_BYTES);
-        tma_load_2d(st, &tmH, &full[s], kbase + t * BK, m0);
-        tma_load_2d(st + TILE_FLOATS, &tmV, &full[s], t * BK, n0);
-        tma_load_2d(st + 2 * TILE_FLOATS, &tmV, &full[s], t * BK, w_pad + n0);
+        tma_load_2d(st, &tmH, &full[s], kbase + t * E::BK, m0);
+#pragma unroll
+        for (int i = 0; i < E::B_TILES; ++i)
+          tma_load_2d(st + (1 + i) * TILE_BYTES, &tmV, &full[s], t * E::BK,
+                      i * w_pad + n0);
       }
     }
   } else {
@@ -227,17 +356,19 @@ ring_hemm_tf32x3_kernel(const __grid_constant__ CUtensorMap tmH,
     float run[64], acc[64];
 #pragma unroll
     for (int i = 0; i < 64; ++i) run[i] = acc[i] = 0.0f;
-    // A fragment element (v, ks): row 16 w + l/4 + 8 (v & 1) of this
-    // warpgroup's 64, column 8 ks + l%4 + 4 (v >> 1) of the tile; in the
-    // swizzled tile the column's 16-byte chunk 2 ks + (v >> 1) sits at
-    // chunk (2 ks + (v >> 1)) ^ (row % 8), and row % 8 = l/4.
+    // A fragment register (ks, v): row 16 w + l/4 + 8 (v & 1) of this
+    // warpgroup's 64, 32-bit word l%4 of the row's 16-byte chunk 2 ks +
+    // (v >> 1); in the swizzled tile that chunk sits at (2 ks + (v >> 1))
+    // ^ (row % 8), and row % 8 = l/4.
     const int arow = wg * 64 + (warp % 4) * 16 + lane / 4;
     const int q = lane % 4, r8 = lane / 4;
-    // tile t's A fragments: wait for its stage, read, split into hi/lo
-    auto load_a = [&](int t, uint32_t (&ahi)[4][4], uint32_t (&alo)[4][4]) {
-      const int s = t % STAGES;
-      mbar_wait(&full[s], (t / STAGES) & 1);
-      const float* Ht = smem + s * 3 * TILE_FLOATS;
+    using Frag = typename E::Frag;
+    // tile t's A fragments: wait for its stage, read (and split, for f32)
+    auto load_a = [&](int t, Frag& f) {
+      const int s = t % E::STAGES;
+      mbar_wait(&full[s], (t / E::STAGES) & 1);
+      const uint32_t* Ht =
+          reinterpret_cast<const uint32_t*>(smem + s * STAGE_BYTES);
       const int kmin = t == 0 ? off : 0;     // columns left of the block
 #pragma unroll
       for (int ks = 0; ks < 4; ++ks)
@@ -245,51 +376,38 @@ ring_hemm_tf32x3_kernel(const __grid_constant__ CUtensorMap tmH,
         for (int v = 0; v < 4; ++v) {
           const int r = arow + 8 * (v & 1);
           const int chunk = (2 * ks + (v >> 1)) ^ r8;
-          const float x = Ht[r * BK + chunk * 4 + q];
-          split_tf32(8 * ks + 4 * (v >> 1) + q >= kmin ? x : 0.0f,
-                     ahi[ks][v], alo[ks][v]);
+          E::set(f, ks, v, Ht[r * 32 + chunk * 4 + q], q, kmin);
         }
     };
-    // issue tile t's 12 wgmma into a fresh accumulator, small terms first
-    auto mma = [&](int t, uint32_t (&ahi)[4][4], uint32_t (&alo)[4][4]) {
-      const float* Ht = smem + (t % STAGES) * 3 * TILE_FLOATS;
-      const uint64_t dh = desc_kmajor_sw128(Ht + TILE_FLOATS);
-      const uint64_t dl = desc_kmajor_sw128(Ht + 2 * TILE_FLOATS);
+    // issue tile t's wgmma into a fresh accumulator
+    auto mma = [&](int t, Frag& f) {
       fence_regs(acc);
       wgmma_fence();
-#pragma unroll
-      for (int ks = 0; ks < 4; ++ks) {
-        wgmma_m64n128k8_tf32(acc, alo[ks], dh + 2 * ks, ks == 0 ? 0 : 1);
-        wgmma_m64n128k8_tf32(acc, ahi[ks], dl + 2 * ks, 1);
-      }
-#pragma unroll
-      for (int ks = 0; ks < 4; ++ks)
-        wgmma_m64n128k8_tf32(acc, ahi[ks], dh + 2 * ks, 1);
+      E::mma(acc, f, smem + (t % E::STAGES) * STAGE_BYTES + TILE_BYTES);
       wgmma_commit();
     };
     // wait for tile t's wgmma, release its stage, promote its sum (IEEE)
-    auto finish = [&](int t, uint32_t (&ahi)[4][4], uint32_t (&alo)[4][4]) {
+    auto finish = [&](int t, Frag& f) {
       wgmma_wait<0>();
       fence_regs(acc);
-      fence_regs(ahi);
-      fence_regs(alo);
+      E::fence(f);
       __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[t % STAGES]);
+      if (lane == 0) mbar_arrive(&empty[t % E::STAGES]);
 #pragma unroll
       for (int i = 0; i < 64; ++i) run[i] += acc[i];
     };
-    // two register sets: tile t + 1's fragments are read and split while
-    // tile t's wgmma run (unrolled by two so each set has fixed registers)
-    uint32_t a0h[4][4], a0l[4][4], a1h[4][4], a1l[4][4];
-    if (ntiles > 0) load_a(0, a0h, a0l);
+    // two register sets: tile t + 1's fragments are read while tile t's
+    // wgmma run (unrolled by two so each set has fixed registers)
+    Frag f0, f1;
+    if (ntiles > 0) load_a(0, f0);
     for (int t = 0; t < ntiles; t += 2) {
-      mma(t, a0h, a0l);
-      if (t + 1 < ntiles) load_a(t + 1, a1h, a1l);
-      finish(t, a0h, a0l);
+      mma(t, f0);
+      if (t + 1 < ntiles) load_a(t + 1, f1);
+      finish(t, f0);
       if (t + 1 < ntiles) {
-        mma(t + 1, a1h, a1l);
-        if (t + 2 < ntiles) load_a(t + 2, a0h, a0l);
-        finish(t + 1, a1h, a1l);
+        mma(t + 1, f1);
+        if (t + 2 < ntiles) load_a(t + 2, f0);
+        finish(t + 1, f1);
       }
     }
     // epilogue: d[4j + 2h + e] is row arow + 8h, column 8j + 2(l%4) + e
@@ -335,17 +453,18 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// a 2-D f32 map of a row-major (rows × cols) array with row stride `ld`
-// floats, read in (32 × 128) boxes with the 128-byte swizzle
-CUresult make_map(CUtensorMap* map, const float* base, long long cols,
+// a 2-D map of a row-major (rows × cols) array of E's element with row
+// stride `ld` elements, read in (BK × 128) boxes (128 bytes × 128 rows)
+// with the 128-byte swizzle
+template <class E>
+CUresult make_map(CUtensorMap* map, const void* base, long long cols,
                   long long rows, long long ld) {
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * 4};
-  const cuuint32_t box[2] = {BK, 128};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * (128 / E::BK)};
+  const cuuint32_t box[2] = {E::BK, 128};
   const cuuint32_t estr[2] = {1, 1};
-  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
-                        const_cast<float*>(base), dims, strides, box, estr,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+  return encode_tiled()(map, E::TMA_TYPE, 2, const_cast<void*>(base), dims,
+                        strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -354,6 +473,31 @@ CUresult make_map(CUtensorMap* map, const float* base, long long cols,
 // error codes beside cudaError_t's (which stay below 1000)
 constexpr int ERR_NO_ENCODER = 1000;   // cuTensorMapEncodeTiled not found
 constexpr int ERR_ENCODE = 2000;       // + the CUresult of a failed encode
+
+// W[0:m, 0:k] (=|+=) H[0:m, col0:col0+b] · B, B given as the pre-pass
+// output (E::B_TILES planes of w_pad × b_pad) with off = col0 % E::ALIGN
+template <class E>
+int launch(const void* H, long long ldh, int col0, const void* Vt, int b_pad,
+           int w_pad, float* W, long long ldw, int m, int k, int b,
+           int accumulate, cudaStream_t stream) {
+  if (m <= 0 || k <= 0) return 0;
+  if (!encode_tiled()) return ERR_NO_ENCODER;
+  CUtensorMap tmH, tmV;
+  // exactly H[:m, :col0+b], so TMA zero-fills past the block's last column
+  CUresult r = make_map<E>(&tmH, H, col0 + b > 0 ? col0 + b : 1, m, ldh);
+  if (r != CUDA_SUCCESS) return ERR_ENCODE + static_cast<int>(r);
+  r = make_map<E>(&tmV, Vt, b_pad, (long long)E::B_TILES * w_pad, b_pad);
+  if (r != CUDA_SUCCESS) return ERR_ENCODE + static_cast<int>(r);
+  // per call: the attribute belongs to the current device's context
+  const cudaError_t e = cudaFuncSetAttribute(
+      ring_hemm_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes<E>());
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(w_pad / BN, (m + BM - 1) / BM);
+  ring_hemm_kernel<E><<<grid, NTHREADS, smem_bytes<E>(), stream>>>(
+      tmH, tmV, W, ldw, m, k, b, col0, col0 % E::ALIGN, w_pad, accumulate);
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
@@ -387,6 +531,21 @@ extern "C" int ring_hemm_split_c64(const float* V, long long ldv, float* Vt,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The bf16 pre-pass: Vb (w_pad × b_pad bf16, contiguous) from V (b × k
+// f32, row stride ldv), V's row j rounded to bf16 at Vb column off + j.
+// b_pad a multiple of 64, w_pad of 128.  Launches on `stream`; returns
+// cudaGetLastError().
+extern "C" int ring_hemm_pack_bf16(const float* V, long long ldv,
+                                   uint16_t* Vb, int b, int k, int off,
+                                   int b_pad, int w_pad,
+                                   cudaStream_t stream) {
+  if (b_pad <= 0 || w_pad <= 0) return 0;
+  const dim3 grid(b_pad / 32, w_pad / 32);
+  bf16_pack_kernel<<<grid, dim3(32, 8), 0, stream>>>(V, ldv, Vb, b, k, off,
+                                                     b_pad);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // W[0:m, 0:k] (=|+=) H[0:m, col0:col0+b] · V with V given as the pre-pass
 // output Vt with off = col0 % 4 (2 × w_pad × b_pad, w_pad = 128·⌈k/128⌉,
 // b_pad = 32·⌈(b + off)/32⌉, at least 32 also for b = 0).
@@ -397,21 +556,19 @@ extern "C" int ring_hemm_f32(const float* H, long long ldh, int col0,
                              const float* Vt, int b_pad, int w_pad, float* W,
                              long long ldw, int m, int k, int b,
                              int accumulate, cudaStream_t stream) {
-  if (m <= 0 || k <= 0) return 0;
-  if (!encode_tiled()) return ERR_NO_ENCODER;
-  CUtensorMap tmH, tmV;
-  // exactly H[:m, :col0+b], so TMA zero-fills past the block's last column
-  CUresult r = make_map(&tmH, H, col0 + b > 0 ? col0 + b : 1, m, ldh);
-  if (r != CUDA_SUCCESS) return ERR_ENCODE + static_cast<int>(r);
-  r = make_map(&tmV, Vt, b_pad, 2LL * w_pad, b_pad);
-  if (r != CUDA_SUCCESS) return ERR_ENCODE + static_cast<int>(r);
-  // per call: the attribute belongs to the current device's context
-  const cudaError_t e = cudaFuncSetAttribute(
-      ring_hemm_tf32x3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(w_pad / BN, (m + BM - 1) / BM);
-  ring_hemm_tf32x3_kernel<<<grid, NTHREADS, SMEM_BYTES, stream>>>(
-      tmH, tmV, W, ldw, m, k, b, col0, col0 % 4, w_pad, accumulate);
-  return static_cast<int>(cudaGetLastError());
+  return launch<Tf32x3>(H, ldh, col0, Vt, b_pad, w_pad, W, ldw, m, k, b,
+                        accumulate, stream);
+}
+
+// The bf16 route: W (f32) (=|+=) H[0:m, col0:col0+b] (bf16) · V with V
+// given as the bf16 pre-pass output Vb with off = col0 % 8 (w_pad × b_pad,
+// w_pad = 128·⌈k/128⌉, b_pad = 64·⌈(b + off)/64⌉, at least 64).  H: row
+// stride ldh bf16 elements, 16-byte aligned, ldh % 8 == 0.  Otherwise as
+// ring_hemm_f32.
+extern "C" int ring_hemm_bf16(const uint16_t* H, long long ldh, int col0,
+                              const uint16_t* Vb, int b_pad, int w_pad,
+                              float* W, long long ldw, int m, int k, int b,
+                              int accumulate, cudaStream_t stream) {
+  return launch<Bf16>(H, ldh, col0, Vb, b_pad, w_pad, W, ldw, m, k, b,
+                      accumulate, stream);
 }

@@ -7,32 +7,43 @@ multi-GPU ring can feed the V chunks it receives into the same kernel.  On
 one card (p = 1) a filter step is a single call with ``col0=0``.
 
 On a CUDA tensor one call is two launches of ``csrc/ring_hemm.cu`` (built
-on first use, see ``_build``): the pre-pass :func:`tf32_split`, which
-writes V's chunk transposed and split into TF32 ``hi`` and ``lo`` parts,
-then the main kernel, which multiplies with TMA + wgmma in 3xTF32 (f32-class
-accuracy on the tensor cores; the error scheme is in the source's note).
+on first use, see ``_build``): a pre-pass that lays V's chunk out as the
+main kernel's B operand, then the main kernel (TMA + wgmma, f32 sums).
+Three routes, by H's dtype:
 
-complex64 operands take the same main kernel through their float views:
-H (m × n) c64 is Hf (m × 2n) f32 with ``[re, im, re, im, …]`` rows, and
-the complex pre-pass writes the real (2b × 2k) matrix B whose row 2j is
-V[j] viewed as floats and row 2j+1 is i·V[j] viewed as floats, so that
-Hf[:, 2·col0:2·col0+2b] · B is H[:, col0:col0+b] · V viewed as floats —
-8·m·b·k FLOPs, those of a complex product.  The JAX package reaches its
-kernel with complex data only through a 2N real embedding.
+* f32 (H, V, out f32): the pre-pass :func:`tf32_split` writes V's chunk
+  transposed and split into TF32 ``hi`` and ``lo`` parts, and the kernel
+  multiplies in 3xTF32 (f32-class accuracy on the tensor cores; the error
+  scheme is in the source's note).
+* complex64 (H, V, out c64) takes the same main kernel through the float
+  views: H (m × n) c64 is Hf (m × 2n) f32 with ``[re, im, re, im, …]``
+  rows, and the complex pre-pass writes the real (2b × 2k) matrix B whose
+  row 2j is V[j] viewed as floats and row 2j+1 is i·V[j] viewed as floats,
+  so that Hf[:, 2·col0:2·col0+2b] · B is H[:, col0:col0+b] · V viewed as
+  floats — 8·m·b·k FLOPs, those of a complex product.  The JAX package
+  reaches its kernel with complex data only through a 2N real embedding.
+* bf16 (H bf16, V and out f32; the bf16 rung of the precision ladder, as
+  the TPU kernel streams a bf16 H): the pre-pass :func:`bf16_pack` rounds
+  V's chunk to bf16 and transposes it, and the kernel multiplies bf16 ·
+  bf16 (exact in f32) with f32 sums: ``out (=|+=) H.float() @
+  V.to(bfloat16).float()``.
 
 * :func:`ring_hemm` — the wrapper.  It validates its arguments, then
   launches the kernels for CUDA tensors and raises if a launch fails.
   Only a tensor on the CPU takes the plain version; a CUDA tensor never
-  does.  ``ring_hemm.launches`` counts main-kernel launches (f32 and c64)
+  does.  ``ring_hemm.launches`` counts main-kernel launches (every route)
   and nothing else.  H is read through TMA: on the card it must be 16-byte
-  aligned with a row stride that is a multiple of 4 floats — an even
-  number of complex elements for c64 (``DenseOperator`` allocates it so),
-  or the wrapper raises ValueError.
-* :func:`tf32_split` — the pre-pass's wrapper, f32 or c64
-  (``tf32_split.launches`` counts both).
-* :func:`ring_hemm_reference`, :func:`tf32_split_reference` — the plain
-  PyTorch versions: one ``torch.matmul`` with the same accumulate
-  semantics, and the TF32 split by bit arithmetic.
+  aligned with a row stride of a whole number of 16 bytes — a multiple of
+  4 floats (an even number of complex elements for c64) or of 8 bf16
+  elements (``DenseOperator`` allocates it so), or the wrapper raises
+  ValueError.
+* :func:`tf32_split` — the f32 route's pre-pass, f32 or c64
+  (``tf32_split.launches`` counts both); :func:`bf16_pack` — the bf16
+  route's (``bf16_pack.launches``).
+* :func:`ring_hemm_reference`, :func:`tf32_split_reference`,
+  :func:`bf16_pack_reference` — the plain PyTorch versions: one
+  ``torch.matmul`` with the same accumulate semantics, the TF32 split by
+  bit arithmetic, and the rounding by ``.to(torch.bfloat16)``.
 """
 
 from __future__ import annotations
@@ -45,19 +56,32 @@ from typing import Optional
 import torch
 
 __all__ = ["ring_hemm", "ring_hemm_reference", "tf32_split",
-           "tf32_split_reference", "split_shape", "tma_ld",
-           "tma_row_stride", "float_view_args", "real_rows",
-           "load_kernels", "KERNEL_DTYPES"]
+           "tf32_split_reference", "bf16_pack", "bf16_pack_reference",
+           "split_shape", "pack_shape", "tma_ld", "tma_row_stride",
+           "float_view_args", "real_rows", "load_kernels", "KERNEL_DTYPES"]
 
-BK, BN = 32, 128          # csrc/ring_hemm.cu's K tile and W column tile
-KERNEL_DTYPES = (torch.float32, torch.complex64)
+BK, BN = 32, 128          # csrc/ring_hemm.cu's f32 K tile and W column tile
+BK_BF16 = 64              # the bf16 route's K tile (64 bf16 = 128 bytes)
+# H dtypes the kernel takes; V and out have H's dtype, f32 for a bf16 H
+KERNEL_DTYPES = (torch.float32, torch.complex64, torch.bfloat16)
+
+
+def _v_dtype(h_dtype) -> torch.dtype:
+    """V's and out's dtype for an H of ``h_dtype``."""
+    return torch.float32 if h_dtype == torch.bfloat16 else h_dtype
 
 
 def ring_hemm_reference(H: torch.Tensor, V: torch.Tensor, *, col0: int = 0,
                         out: Optional[torch.Tensor] = None,
                         accumulate: bool = False) -> torch.Tensor:
-    """Plain version: ``out (=|+=) H[:, col0:col0 + V.shape[0]] @ V``."""
-    prod = H[:, col0:col0 + V.shape[0]] @ V
+    """Plain version: ``out (=|+=) H[:, col0:col0 + V.shape[0]] @ V``; for
+    a bf16 H, ``H.float() @ V.to(bfloat16).float()`` (the bf16 products
+    are exact in f32, the sums f32)."""
+    Hb = H[:, col0:col0 + V.shape[0]]
+    if H.dtype == torch.bfloat16:
+        prod = Hb.float() @ V.to(torch.bfloat16).float()
+    else:
+        prod = Hb @ V
     if out is None:
         return prod
     if accumulate:
@@ -71,6 +95,14 @@ def split_shape(b: int, k: int, off: int = 0) -> tuple:
     the W column tile, at least one), for a real (b × k) B — a c64 V of
     (b × k) has the B of (2b × 2k)."""
     return BK * max(1, -(-(b + off) // BK)), BN * max(1, -(-k // BN))
+
+
+def pack_shape(b: int, k: int, off: int = 0) -> tuple:
+    """(b_pad, w_pad) of the bf16 pre-pass's (w_pad × b_pad) output: ``off
+    + b`` rounded up to the bf16 K tile (at least one), k to the W column
+    tile (at least one)."""
+    return (BK_BF16 * max(1, -(-(b + off) // BK_BF16)),
+            BN * max(1, -(-k // BN)))
 
 
 def _floats(t: torch.Tensor) -> int:
@@ -115,16 +147,18 @@ def tf32_split_reference(V: torch.Tensor, off: int = 0) -> torch.Tensor:
 
 def _check(H, V, col0, out, accumulate):
     """Raise on anything the kernel does not take: f32 or c64 operands of
-    one dtype, 2-D, on one device, unit column stride."""
+    one dtype, or a bf16 H with f32 V and out; 2-D, on one device, unit
+    column stride."""
     if H.dtype not in KERNEL_DTYPES:
-        raise TypeError(f"ring_hemm takes float32 or complex64 tensors; H "
-                        f"is {H.dtype}")
+        raise TypeError(f"ring_hemm takes a float32, complex64 or bfloat16 "
+                        f"H; H is {H.dtype}")
+    v_dtype = _v_dtype(H.dtype)
     for name, t in (("H", H), ("V", V), ("out", out)):
         if t is None:
             continue
-        if t.dtype != H.dtype:
-            raise TypeError(f"ring_hemm takes operands of one dtype; {name} "
-                            f"is {t.dtype}, H is {H.dtype}")
+        if t is not H and t.dtype != v_dtype:
+            raise TypeError(f"ring_hemm takes V and out of dtype {v_dtype} "
+                            f"with an H of {H.dtype}; {name} is {t.dtype}")
         if t.ndim != 2:
             raise ValueError(f"ring_hemm takes 2-D tensors; {name} has shape "
                              f"{tuple(t.shape)}")
@@ -149,38 +183,49 @@ def _check(H, V, col0, out, accumulate):
                          f"{(m, k)}")
 
 
-def tma_ld(n: int) -> int:
-    """``n`` rounded up to a multiple of 4: the smallest row stride, in
-    floats, that TMA can describe for rows of ``n`` floats."""
-    return -(-n // 4) * 4
+def tma_ld(n: int, unit_bytes: int = 4) -> int:
+    """``n`` rounded up to a whole number of 16 bytes: the smallest row
+    stride, in units of ``unit_bytes`` (4: floats, 2: bf16), that TMA can
+    describe for rows of ``n`` such units."""
+    a = 16 // unit_bytes
+    return -(-n // a) * a
+
+
+def _tma_units(dtype) -> tuple:
+    """(units per element, bytes per unit) of the kernel's TMA view of an
+    H of ``dtype``: floats for f32 and c64 (two per element), bf16
+    elements for bf16."""
+    w = 2 if dtype.is_complex else 1
+    return w, dtype.itemsize // w
 
 
 def tma_row_stride(H: torch.Tensor) -> Optional[int]:
-    """H's row stride in floats as the kernel's TMA loads read it (those
-    of its float view for c64), or None where TMA cannot describe H: it
-    needs a 16-byte-aligned base and a row stride that is a multiple of 4
-    floats (a single row may have any)."""
-    w = _floats(H)
-    ld = w * H.stride(0) if H.shape[0] > 1 else tma_ld(w * H.shape[1])
-    return None if H.data_ptr() % 16 or ld % 4 else ld
+    """H's row stride in the units the kernel's TMA loads read (floats —
+    those of its float view for c64 — or bf16 elements), or None where TMA
+    cannot describe H: it needs a 16-byte-aligned base and a row stride of
+    a whole number of 16 bytes (a single row may have any)."""
+    w, ub = _tma_units(H.dtype)
+    ld = w * H.stride(0) if H.shape[0] > 1 else tma_ld(w * H.shape[1], ub)
+    return None if H.data_ptr() % 16 or (ld * ub) % 16 else ld
 
 
 def float_view_args(H: torch.Tensor, V: torch.Tensor, col0: int,
                     ldw: int) -> tuple:
     """What the main kernel is given for ``out (=|+=) H[:, col0:col0+b]
-    · V`` (out with row stride ``ldw``), all in floats: (ldh, col0, off,
-    b, k, ldw).  For c64 these are the float views' (columns, widths and
-    row strides doubled: the module note's real-view identity); ``off =
-    col0 % 4`` (of the float column) is the pre-pass's shift, and ldh is
+    · V`` (out with row stride ``ldw``), all in the kernel's units —
+    floats, or bf16 elements for a bf16 H: (ldh, col0, off, b, k, ldw).
+    For c64 these are the float views' (columns, widths and row strides
+    doubled: the module note's real-view identity); ``off`` = the column
+    mod 16 bytes (4 floats, 8 bf16) is the pre-pass's shift, and ldh is
     None where TMA cannot read H."""
-    w = _floats(H)
+    w, ub = _tma_units(H.dtype)
     c0 = w * col0
-    return (tma_row_stride(H), c0, c0 % 4, w * V.shape[0], w * V.shape[1],
-            w * ldw)
+    return (tma_row_stride(H), c0, c0 % (16 // ub), w * V.shape[0],
+            w * V.shape[1], w * ldw)
 
 
 def _check_split_input(V: torch.Tensor):
-    if V.dtype not in KERNEL_DTYPES or V.ndim != 2:
+    if V.dtype not in (torch.float32, torch.complex64) or V.ndim != 2:
         raise TypeError(f"tf32_split takes a 2-D float32 or complex64 "
                         f"tensor, got {V.dtype} of shape {tuple(V.shape)}")
     if V.shape[1] > 1 and V.stride(1) != 1:
@@ -200,14 +245,22 @@ def _lib():
                        ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         splits[dtype] = fn
-    main = lib.ring_hemm_f32
-    main.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                     ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                     ctypes.c_void_p, ctypes.c_longlong,
+    pack = lib.ring_hemm_pack_bf16
+    pack.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
                      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                     ctypes.c_void_p]
-    main.restype = ctypes.c_int
-    return types.SimpleNamespace(split=splits, main=main)
+                     ctypes.c_int, ctypes.c_void_p]
+    pack.restype = ctypes.c_int
+    mains = {}
+    for dtype, fn in ((torch.float32, lib.ring_hemm_f32),
+                      (torch.bfloat16, lib.ring_hemm_bf16)):
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_longlong,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        mains[dtype] = fn
+    return types.SimpleNamespace(split=splits, pack=pack, main=mains)
 
 
 def load_kernels() -> None:
@@ -261,25 +314,67 @@ def tf32_split(V: torch.Tensor, off: int = 0) -> torch.Tensor:
     return Vt
 
 
+def bf16_pack_reference(V: torch.Tensor, off: int = 0) -> torch.Tensor:
+    """Plain version of the bf16 pre-pass: ``Vb[:k, off:off+b] =
+    V.to(bfloat16).T``, zeros elsewhere in (w_pad, b_pad)."""
+    b, k = V.shape
+    b_pad, w_pad = pack_shape(b, k, off)
+    Vb = torch.zeros((w_pad, b_pad), dtype=torch.bfloat16, device=V.device)
+    Vb[:k, off:off + b] = V.to(torch.bfloat16).T
+    return Vb
+
+
+def bf16_pack(V: torch.Tensor, off: int = 0) -> torch.Tensor:
+    """The bf16 route's pre-pass: V (b, k) f32 → Vb (w_pad, b_pad) bf16,
+    V's rows rounded to nearest-even bf16 (as ``.to(torch.bfloat16)``) and
+    transposed (K-major, the layout of the f32 route's B), starting at
+    column ``off`` (0–7: H's column col0 mod 8, so that H's TMA boxes
+    start on 16 bytes), zero-padded.  CPU tensors run
+    :func:`bf16_pack_reference`; CUDA tensors launch the kernel."""
+    if V.dtype != torch.float32 or V.ndim != 2:
+        raise TypeError(f"bf16_pack takes a 2-D float32 tensor, got "
+                        f"{V.dtype} of shape {tuple(V.shape)}")
+    if V.shape[1] > 1 and V.stride(1) != 1:
+        raise ValueError(f"bf16_pack needs unit column stride; V has "
+                         f"strides {V.stride()}")
+    if not 0 <= off < 8:
+        raise ValueError(f"bf16_pack offset must be 0..7, got {off}")
+    if V.device.type == "cpu":
+        return bf16_pack_reference(V, off)
+    if V.device.type != "cuda":
+        raise RuntimeError(f"bf16_pack runs on cuda or cpu tensors, not "
+                           f"{V.device}")
+    b, k = V.shape
+    b_pad, w_pad = pack_shape(b, k, off)
+    Vb = torch.empty((w_pad, b_pad), dtype=torch.bfloat16, device=V.device)
+    with torch.cuda.device(V.device):
+        err = _lib().pack(V.data_ptr(), V.stride(0), Vb.data_ptr(), b, k, off,
+                          b_pad, w_pad, _stream(V.device))
+    _raise_on(err, f"bf16_pack kernel (b={b}, k={k})")
+    bf16_pack.launches += 1
+    return Vb
+
+
 def ring_hemm(H: torch.Tensor, V: torch.Tensor, *, col0: int = 0,
               out: Optional[torch.Tensor] = None,
               accumulate: bool = False) -> torch.Tensor:
     """``out (=|+=) H[:, col0:col0+b] · V`` with b = V.shape[0].
 
     Args:
-      H: (m, n_cols) f32 or c64 stripe, unit column stride; on the card
-        16-byte aligned with a row stride that is a multiple of 4 floats
-        (an even number of c64 elements).
-      V: (b, k) chunk of H's dtype; may be a column window of a wider block.
+      H: (m, n_cols) f32, c64 or bf16 stripe, unit column stride; on the
+        card 16-byte aligned with a row stride that is a multiple of 4
+        floats (an even number of c64 elements) or of 8 bf16 elements.
+      V: (b, k) chunk of H's dtype (f32 for a bf16 H); may be a column
+        window of a wider block.
       col0: first H column of the block that multiplies V.
-      out: (m, k) destination of H's dtype (a window is fine); allocated
+      out: (m, k) destination of V's dtype (a window is fine); allocated
         with ``torch.empty`` when None.
       accumulate: add into ``out`` instead of overwriting it.
 
     CPU tensors run :func:`ring_hemm_reference`; CUDA tensors launch the
     pre-pass and the kernel on the current stream, or raise.  The
-    pre-pass's output, 2·w_pad·b_pad floats (of the (2b × 2k) B for c64),
-    is scratch of this call.
+    pre-pass's output (2·w_pad·b_pad floats — of the (2b × 2k) B for c64 —
+    or w_pad·b_pad bf16) is scratch of this call.
     """
     _check(H, V, col0, out, accumulate)
     if H.device.type == "cpu":
@@ -290,20 +385,23 @@ def ring_hemm(H: torch.Tensor, V: torch.Tensor, *, col0: int = 0,
                            f"{H.device}")
     m = H.shape[0]
     if out is None:
-        out = torch.empty((m, V.shape[1]), dtype=H.dtype, device=H.device)
-    ldh, c0, off, b_f, k_f, ldw = float_view_args(H, V, col0, out.stride(0))
+        out = torch.empty((m, V.shape[1]), dtype=V.dtype, device=H.device)
+    ldh, c0, off, b_k, k_k, ldw = float_view_args(H, V, col0, out.stride(0))
     if ldh is None:
         raise ValueError(
             f"ring_hemm reads H through TMA, which needs a 16-byte-aligned "
-            f"base and a row stride that is a multiple of 4 floats (even, "
-            f"for complex64); H ({H.dtype}) has row stride {H.stride(0)} "
-            f"and base address {H.data_ptr():#x} — allocate it with a "
-            f"padded row stride (DenseOperator does)")
-    Vt = tf32_split(V, off)
+            f"base and a row stride of a whole number of 16 bytes (a "
+            f"multiple of 4 floats, of 2 complex64 or of 8 bfloat16 "
+            f"elements); H ({H.dtype}) has row stride {H.stride(0)} and "
+            f"base address {H.data_ptr():#x} — allocate it with a padded "
+            f"row stride (DenseOperator does)")
+    bf16 = H.dtype == torch.bfloat16
+    Vt = bf16_pack(V, off) if bf16 else tf32_split(V, off)
     with torch.cuda.device(H.device):
-        err = _lib().main(H.data_ptr(), ldh, c0, Vt.data_ptr(), Vt.shape[2],
-                          Vt.shape[1], out.data_ptr(), ldw, m, k_f, b_f,
-                          int(bool(accumulate)), _stream(H.device))
+        err = _lib().main[torch.bfloat16 if bf16 else torch.float32](
+            H.data_ptr(), ldh, c0, Vt.data_ptr(), Vt.shape[-1],
+            Vt.shape[-2], out.data_ptr(), ldw, m, k_k, b_k,
+            int(bool(accumulate)), _stream(H.device))
     _raise_on(err, f"ring_hemm kernel (m={m}, k={V.shape[1]}, "
                    f"b={V.shape[0]}, col0={col0}, {H.dtype})")
     ring_hemm.launches += 1
@@ -312,3 +410,4 @@ def ring_hemm(H: torch.Tensor, V: torch.Tensor, *, col0: int = 0,
 
 ring_hemm.launches = 0
 tf32_split.launches = 0
+bf16_pack.launches = 0

@@ -97,8 +97,10 @@ def _rr_project(H: torch.Tensor, V: torch.Tensor, locked: int):
     return Q, W, A, big, active
 
 
-def _rr_finish(Q, W, V, ritz, Z, locked: int, active):
-    """Rotate, residuals, roll, merge."""
+def _rr_finish(Q, W, V, ritz, Z, locked: int, active,
+               want_vectors: bool = False):
+    """Rotate, residuals, roll, merge; with ``want_vectors`` also the
+    residual vectors, rolled like the rest."""
     Vrot = Q @ Z                    # Ritz vectors
     Wrot = W @ Z                    # = H · Vrot
     R = Wrot - Vrot * ritz[None, :].to(V.dtype)
@@ -108,11 +110,15 @@ def _rr_finish(Q, W, V, ritz, Z, locked: int, active):
     ritz = torch.roll(ritz, locked)
     resid = torch.roll(resid, locked)
     V_out = torch.where(active[None, :], Vrot, V)
+    if want_vectors:
+        # residual VECTORS feed the deviation-form refinement filter
+        # (ops/filter.chebyshev_filter_refine)
+        return V_out, ritz, resid, torch.roll(R, locked, dims=1)
     return V_out, ritz, resid
 
 
 def rayleigh_ritz_residuals(H: torch.Tensor, V: torch.Tensor, locked: int, *,
-                            polish: int = 2):
+                            polish: int = 2, want_vectors: bool = False):
     """Project H on the active columns of V, solve, rotate, and compute
     residuals.
 
@@ -122,12 +128,16 @@ def rayleigh_ritz_residuals(H: torch.Tensor, V: torch.Tensor, locked: int, *,
         excluded from the projection.
       locked: number of leading locked columns.
       polish: Ogita–Aishima passes of the projected eigensolve.
+      want_vectors: also return the residual vectors.
 
     Returns:
       V_out: (N, k) — V with columns [locked, k) replaced by the rotated
              Ritz vectors (ascending Ritz value); [0, locked) untouched.
       ritzv: (k,) real — positions [locked, k) hold the active Ritz values.
       resid: (k,) real — ‖H v_j − θ_j v_j‖₂, same layout.
+      R: (N, k) residual vectors H v_j − θ_j v_j in V's dtype, same
+         layout — only with ``want_vectors=True`` (they seed the
+         precision ladder's refinement filter).
     """
     rt = real_dtype(V.dtype)
     Q, W, A, big, active = _rr_project(H, V, locked)
@@ -140,4 +150,4 @@ def rayleigh_ritz_residuals(H: torch.Tensor, V: torch.Tensor, locked: int, *,
     wide = torch.complex128 if A.is_complex() else torch.float64
     ritz, Z = eigh_polished(A.to(wide), passes=polish, pin_cut=big / 2)
     return _rr_finish(Q, W, V, ritz.real.to(rt), Z.to(V.dtype), locked,
-                      active)
+                      active, want_vectors)

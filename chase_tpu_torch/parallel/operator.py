@@ -2,16 +2,19 @@
 
 Single-device subset of ``chase_tpu/parallel/operator.py``: the Hermitian
 operator H (f32, f64, c64 or c128) pinned on an explicit torch device,
-with its dtype checked.  Grid padding and the reduced-precision shadows
-belong to later slices (multi-GPU, the precision ladder).
+with its dtype checked, and its reduced-precision shadow ``H_low`` for the
+precision ladder.  Grid padding belongs to the multi-GPU slice; the
+transient and bf16-rebuilt shadows of the JAX package's wide-f64 mode
+(``H_filter``, ``drop_shadow``, ``engage_wide``) are TPU workarounds and
+are not ported.
 
-An f32 or c64 H on a CUDA device (the dtypes the ring kernel takes) is
-kept where the kernel's TMA loads can read it without a copy: 16-byte
-aligned, with a row stride that is a multiple of 4 floats — of 4 f32
-elements, or of 2 c64 elements (its float view's rows are twice as long).
-When N is not a multiple of that it is the first N columns of a wider
-allocation (``padded_empty``).  f64 and c128 operators never reach the
-kernel and are stored contiguous, as given.
+A CUDA H of a dtype the ring kernel reads (f32, c64, and bf16 for the f32
+problem's shadow) is kept where the kernel's TMA loads can read it without
+a copy: 16-byte aligned, with a row stride of a whole number of 16 bytes —
+4 f32 elements, 2 c64 elements (its float view's rows are twice as long)
+or 8 bf16 elements.  When N is not a multiple of that it is the first N
+columns of a wider allocation (``padded_empty``).  f64 and c128 operators
+never reach the kernel and are stored contiguous, as given.
 
 Placement never falls back: asking for a CUDA device on a machine without
 one raises RuntimeError instead of solving on the CPU.
@@ -23,7 +26,7 @@ import numpy as np
 import torch
 
 from ..ops.ring_hemm import KERNEL_DTYPES, tma_ld, tma_row_stride
-from ..types import as_torch_dtype, real_dtype
+from ..types import as_torch_dtype, low_precision_dtype, real_dtype
 
 __all__ = ["DenseOperator", "resolve_device", "padded_empty"]
 
@@ -56,14 +59,14 @@ def to_device(a, device: torch.device, dtype=None) -> torch.Tensor:
 
 def padded_empty(N: int, dtype, device) -> torch.Tensor:
     """An uninitialised (N, N) tensor laid out as a CUDA operator is
-    stored: for the kernel's dtypes a view whose row stride, in floats, is
-    the float view's row rounded up to a multiple of 4 (``tma_ld``): N
-    rounded up to a multiple of 4 for float32, to an even number for
-    complex64.  Otherwise contiguous."""
+    stored: for the kernel's dtypes a view whose row is rounded up to a
+    whole number of 16 bytes (``tma_ld``): N rounded up to a multiple of 4
+    for float32, to an even number for complex64, to a multiple of 8 for
+    bfloat16.  Otherwise contiguous."""
     ld = N
     if dtype in KERNEL_DTYPES:
-        w = 2 if dtype.is_complex else 1        # floats per element
-        ld = tma_ld(w * N) // w
+        w = 2 if dtype.is_complex else 1        # TMA units per element
+        ld = tma_ld(w * N, dtype.itemsize // w) // w
     return torch.empty((N, ld), dtype=dtype, device=device)[:, :N]
 
 
@@ -83,6 +86,7 @@ class DenseOperator:
             raise ValueError(f"H must be square, got {tuple(H.shape)}")
         dtype = as_torch_dtype(H.dtype)
         real_dtype(dtype)         # TypeError for a dtype the solver lacks
+        self._H_low = None
         resident = isinstance(H, torch.Tensor) and H.device == self.device
         if self.device.type == "cuda":
             if resident and _has_operator_layout(H):
@@ -104,6 +108,22 @@ class DenseOperator:
     @property
     def dtype(self) -> torch.dtype:
         return self.H.dtype
+
+    @property
+    def H_low(self) -> torch.Tensor:
+        """H in ``low_precision_dtype`` (f64 → f32, c128 → c64, f32 →
+        bf16): the precision ladder's filter operator, built on first use
+        and cached (the JAX package's ``H_low`` without its transient
+        mode).  On CUDA it is laid out as ``padded_empty`` lays out an
+        operator, so the ring kernel reads it without a copy."""
+        if self._H_low is None:
+            lp = low_precision_dtype(self.dtype)
+            if self.device.type == "cuda":
+                self._H_low = padded_empty(self.N, lp, self.device)
+                self._H_low.copy_(self.H)
+            else:
+                self._H_low = self.H.to(lp)
+        return self._H_low
 
     def place_block(self, V) -> torch.Tensor:
         """A private (N, k) copy of a multivector on the operator's device

@@ -60,6 +60,18 @@ class PerfData:
             return None
         return self.filtered_vecs / self.filtered_vecs_executed
 
+    def low_flop_fraction(self, N: int, lanczos_iter: int, num_lanczos: int,
+                          dtype) -> float:
+        """Share of the solve's analytic FLOPs run in a reduced precision
+        — the precision ladder's success metric (the DP north star at
+        1e-10 with the bulk of the FLOPs below f64).  Filter FLOPs count
+        by the precision they ran in (``filtered_vecs_low``); every other
+        phase at the problem's."""
+        total = self.get_flops(N, lanczos_iter, num_lanczos, dtype)
+        f = self._factor(dtype)
+        low = 2.0 * f * N * float(self.filtered_vecs_low) * N / 1e9
+        return low / total if total > 0 else 0.0
+
     # -- analytic FLOP model (performance.hpp:135-293) ---------------------
     def _factor(self, dtype) -> int:
         return 4 if is_complex_dtype(dtype) else 1
@@ -111,6 +123,8 @@ class PerfData:
         return flop * f / 1e9
 
     def report(self, N: int, lanczos_iter: int, num_lanczos: int, dtype) -> str:
+        """The reference's performance table, the FLOP rates and the
+        share of FLOPs run in a reduced precision."""
         gflops_all = self.get_flops(N, lanczos_iter, num_lanczos, dtype)
         gflops_filter = self.get_filter_flops(N, dtype)
         t = self.timings
@@ -131,4 +145,7 @@ class PerfData:
                     f" | Filter window efficiency = {100 * weff:.1f}% "
                     f"(useful/executed column-steps; masking waste "
                     f"= {self.filtered_vecs_executed - self.filtered_vecs})")
+        low = self.low_flop_fraction(N, lanczos_iter, num_lanczos, dtype)
+        lines.append(f" | Low-precision FLOP share = {100 * low:.1f}% "
+                     f"(filter FLOPs on the reduced-precision operator)")
         return "\n".join(lines)

@@ -11,17 +11,26 @@ Problems are f32, f64, c64 or c128, all native: complex Hermitian H runs
 the same loop in complex arithmetic (the JAX package embeds it as a 2N
 real problem off the CPU, ``ops/realpair.py``; the port does not).
 
-One routing difference from the JAX package: with
-``ring_backend="pallas"`` on an f32 or c64 problem the filter runs as the
-p = 1 ring (``parallel/ring.chebyshev_filter_ring_pallas``), every H·Y
-product on the hand-written CUDA kernel (c64 through its float view).
-The JAX package has no ring on one device and warns, using its windowed
-filter (on the real-pair embedding, for a complex problem); both compute
-the same filter, so the converged spectra agree.
+The precision ladder is the JAX package's (``solver.py:721-891``):
+``mixed_precision`` filters an f64/c128 problem on its f32/c64 shadow
+``DenseOperator.H_low``, ``bf16_filter`` an f32 problem on its bf16
+shadow.  Iteration 0 runs the classic filter on the shadow; from
+iteration 1 (``refine_filter``) the deviation-form refinement filter
+(``ops/filter.chebyshev_filter_refine``), seeded by RR's residual vectors
+in the problem dtype, keeps every filter FLOP on the shadow while RR and
+QR stay in the problem precision.  Complex problems never take bf16.
 
-Not ported here: the precision ladder (mixed_precision / bf16_filter
-raise NotImplementedError), the wide-f64 and transient-shadow modes and
-the multi-device rings.
+One routing difference from the JAX package: with
+``ring_backend="pallas"`` every filter whose operator is a dtype the
+kernel takes (f32 or c64 problems, and the ladder's f32, c64 and bf16
+shadows) runs as the p = 1 ring (``parallel/ring.py``), every H·Y
+product on the hand-written CUDA kernel.  The JAX package has no ring on
+one device and warns, using its windowed filter (on the real-pair
+embedding, for a complex problem); both compute the same filter, so the
+converged spectra agree.
+
+Not ported here: the wide-f64 and transient-shadow modes (TPU
+workarounds) and the multi-device rings.
 """
 
 from __future__ import annotations
@@ -36,7 +45,8 @@ import torch
 from .config import ChaseConfig, set_matmul_precision
 from .logger import get_logger
 from .perf import PerfData
-from .types import is_double_base, numpy_scalar_type
+from .types import (as_torch_dtype, filter_carry_dtype, is_double_base,
+                    low_precision_dtype, numpy_scalar_type)
 from .parallel.operator import DenseOperator
 from .ops.ring_hemm import KERNEL_DTYPES
 from .ops import filter as filt
@@ -50,38 +60,57 @@ __all__ = ["solve", "SolveResult", "calc_degrees_host", "locking_host",
            "uses_ring_kernel"]
 
 
+def _shadow_filters(rcfg, dtype) -> bool:
+    """Whether the precision ladder may filter a ``dtype`` problem on its
+    shadow ``low_precision_dtype(dtype)``: f64/c128 with
+    ``mixed_precision``, real f32 with ``bf16_filter`` (an f32 problem's
+    ``mixed_precision`` alone runs its own H at TF32)."""
+    if is_double_base(dtype):
+        return bool(rcfg.mixed_precision)
+    return bool(rcfg.bf16_filter) and not dtype.is_complex
+
+
 def uses_ring_kernel(rcfg, dtype) -> bool:
     """Whether a solve with the resolved config ``rcfg`` on a ``dtype``
-    problem filters on the ring_hemm kernel (on a CUDA device; on the CPU
-    the same path takes the kernel's plain version)."""
-    return (rcfg.ring_filter is not False and rcfg.ring_backend == "pallas"
-            and dtype in KERNEL_DTYPES)
+    problem filters on the ring_hemm kernel in some iteration (on a CUDA
+    device; on the CPU the same path takes the kernel's plain version):
+    ``ring_backend="pallas"``, and the problem's dtype or, with the
+    ladder on, its shadow's is one the kernel takes."""
+    dtype = as_torch_dtype(dtype)
+    if rcfg.ring_filter is False or rcfg.ring_backend != "pallas":
+        return False
+    return dtype in KERNEL_DTYPES or (
+        _shadow_filters(rcfg, dtype)
+        and low_precision_dtype(dtype) in KERNEL_DTYPES)
 
 
-def _ring_mode(rcfg, op: DenseOperator, log) -> Optional[str]:
-    """'1d' (the p = 1 ring, HEMM on the ring_hemm kernel) when the
-    config asks for the kernel ring on an f32 or c64 problem; else None
-    (the windowed filter).  The JAX package needs a grid with r > 1 for
-    any ring and would warn here; the port runs the degenerate ring so the
-    kernel carries the filter on one card."""
+def _ring_allowed(rcfg, op: DenseOperator, log) -> bool:
+    """Whether filters may run as the p = 1 ring (HEMM on the ring_hemm
+    kernel): the config asks for the kernel ring and some filter of this
+    solve has an operator the kernel takes; each filter then takes the
+    ring when its own operator's dtype is one of them.  The JAX package
+    needs a grid with r > 1 for any ring and would warn here; the port
+    runs the degenerate ring so the kernel carries the filter on one
+    card."""
     if rcfg.ring_filter is False:
-        return None
+        return False
     eligible = uses_ring_kernel(rcfg, op.dtype)
     if rcfg.ring_backend == "pallas" and not eligible:
-        log.warn(f"ring_backend='pallas' needs an f32 or c64 problem "
+        log.warn(f"ring_backend='pallas' needs an f32 or c64 problem or the "
+                 f"precision ladder's f32, c64 or bf16 shadow "
                  f"(dtype={op.dtype}) — using the windowed filter", "linalg")
     elif rcfg.ring_filter is True and not eligible:
         log.warn("ring_filter requested but no ring schedule fits one "
                  "device without ring_backend='pallas' — using the "
                  "windowed filter", "linalg")
     if not eligible:
-        return None
+        return False
     jax_route = ("its windowed filter on the 2N real-pair embedding"
                  if op.dtype.is_complex else "its windowed filter")
     log.info(f"ring filter on one device: p=1 ring with the ring_hemm "
              f"kernel (the JAX package would use {jax_route} here)",
              "linalg")
-    return "1d"
+    return True
 
 
 def _col_block(cfg_block, nevex: int) -> int:
@@ -135,7 +164,8 @@ def _filter_windowed(H, V, degrees_act, locked, nevex, B, lam, lo, up):
     deg_win[offset:] = degrees_act
     plan = _shrink_plan(deg_win, B, w_pad)
 
-    rt = numpy_scalar_type(H.dtype)   # scalars follow the recurrence carry
+    # scalars follow the recurrence carry
+    rt = numpy_scalar_type(filter_carry_dtype(H.dtype, V.dtype))
     lam, lo_, up_ = rt(lam), rt(lo), rt(up)
     c = (up_ + lo_) / rt(2)
     e = (up_ - lo_) / rt(2)
@@ -173,22 +203,88 @@ def _filter_windowed(H, V, degrees_act, locked, nevex, B, lam, lo, up):
     return V, executed, hemms
 
 
+def _row_major(V):
+    """torch.linalg may hand back column-major blocks; the kernel reads
+    row-major windows."""
+    return V if V.stride(1) == 1 else V.contiguous()
+
+
 def _filter_ring(H, V, degrees_act, locked, nevex, B, lam, lo, up):
     """The p = 1 ring filter on the padded window (no bucket shrink, like
-    the JAX ring path).  Returns (V, executed column-steps, HEMM calls)."""
+    the JAX ring path); H may be the ladder's shadow.  Returns (V,
+    executed column-steps, HEMM calls)."""
     from .parallel.ring import chebyshev_filter_ring_pallas
     w_pad, start = _window_pad(nevex, locked, B)
     deg_win = np.zeros(w_pad, np.int32)
     deg_win[locked - start:] = degrees_act
     deg_max = int(deg_win.max())
-    if V.stride(1) != 1:
-        # torch.linalg may hand back column-major blocks; the kernel
-        # reads row-major windows
-        V = V.contiguous()
+    V = _row_major(V)
     Y = chebyshev_filter_ring_pallas(H, slice_cols(V, start, w_pad),
                                      deg_win, lam, lo, up, deg_max)
     V = update_cols(V, Y, start)
     return V, w_pad * deg_max, 1 + max(deg_max - 1, 0)
+
+
+def _filter_refine_windowed(H_f, V, R, ritzv_act, degrees_act, locked,
+                            nevex, B, lam, lo, up, max_deg, ring=False):
+    """Deviation-form refinement filter on the padded active window.
+
+    Applies the SAME polynomial as _filter_windowed, factored as
+    y = p(λ_j)v_j + [p(Hs) − p(λs_j)]v_j with the bracket recurrence
+    running in H_f's fast dtype, seeded by the RR residual vectors R of
+    the problem dtype (ops/filter.chebyshev_filter_refine).  With
+    ``ring`` the whole padded window runs as the p = 1 ring (no bucket
+    shrink, like the JAX ring path); otherwise the segmented recurrence
+    retires buckets as _filter_windowed does.  Returns (V, executed
+    column-steps, HEMM calls)."""
+    w_pad, start = _window_pad(nevex, locked, B)
+    offset = locked - start
+    deg_win = np.zeros(w_pad, np.int32)
+    deg_win[offset:] = degrees_act
+    ritz_win = np.zeros(w_pad, np.float64)
+    ritz_win[offset:] = ritzv_act
+    deg_max = int(deg_win.max())
+    alpha1_e, alphas, betas, inj, p_final = filt.refine_tables(
+        ritz_win, deg_win, lam, lo, up, max_deg)
+    cc = (up + lo) / 2.0
+    if ring:
+        from .parallel.ring import chebyshev_filter_refine_ring
+        V = _row_major(V)
+        Y = chebyshev_filter_refine_ring(
+            H_f, slice_cols(V, start, w_pad), slice_cols(R, start, w_pad),
+            deg_win, alpha1_e, alphas, betas, inj, p_final, cc, deg_max)
+        return update_cols(V, Y, start), w_pad * deg_max, max(deg_max - 1, 0)
+
+    plan = _shrink_plan(deg_win, B, w_pad)
+    X0, Wp, Wc, Rc = filt.refine_seg_init(H_f, V, R, start, alpha1_e,
+                                          w_pad=w_pad)
+    executed = hemms = 0
+    t_done = 1
+    start0 = start
+    pend_off = 0
+    for (t_end, plan_off) in plan:
+        if t_end > t_done:
+            V, X0, Wp, Wc, Rc = filt.refine_seg_steps(
+                H_f, V, X0, Wp, Wc, Rc, deg_win, alphas, betas, inj,
+                p_final, cc, pend_off, start, t_done + 1, t_end + 1,
+                w_new=w_pad)
+            pend_off = 0
+            executed += w_pad * (t_end - t_done)
+            hemms += t_end - t_done
+            t_done = t_end
+        retire_to = start0 + plan_off
+        if retire_to < nevex:
+            new_w = nevex - retire_to
+            new_w_pad = min(-(-new_w // B) * B, w_pad)
+            new_start = nevex - new_w_pad
+            off2 = new_start - start
+            if off2 > 0:
+                deg_win = deg_win[off2:]
+                inj = inj[:, off2:]
+                p_final = p_final[off2:]
+                start, w_pad = new_start, new_w_pad
+                pend_off += off2
+    return V, executed, hemms
 
 
 # --------------------------------------------------------------------------
@@ -310,21 +406,18 @@ def solve(op: DenseOperator, nev: int, nex: int,
     Returns: SolveResult.
     """
     cfg = config or ChaseConfig()
-    rcfg = cfg.resolve(op.dtype)
+    rcfg = cfg.resolve(op.dtype, op.device)
     log = get_logger()
     N, nevex = op.N, nev + nex
     if nevex > N:
         raise ValueError(f"nev+nex = {nevex} exceeds N = {N}")
-    if rcfg.mixed_precision or rcfg.bf16_filter:
-        raise NotImplementedError(
-            "mixed_precision / bf16_filter need the precision ladder, which "
-            "is not ported yet (ROADMAP queue 1: the ladder and K-B)")
     if rcfg.small_dense_backend not in ("auto", "device"):
         log.info(f"small_dense_backend={rcfg.small_dense_backend!r} is a "
                  f"no-op in the PyTorch port (projected problems stay on "
                  f"the device)", "linalg")
     set_matmul_precision(rcfg.matmul_precision)
     is_sp = not is_double_base(op.dtype)
+    is_complex = op.dtype.is_complex
     tol = rcfg.tol
     polish = rcfg.polish_passes()
     device = op.device
@@ -442,8 +535,22 @@ def solve(op: DenseOperator, nev: int, nex: int,
     unconverged = nevex
     iteration = 0
     early_all: list = []
-    filter_fn = (_filter_ring if _ring_mode(rcfg, op, log) == "1d"
-                 else _filter_windowed)
+    ring_ok = _ring_allowed(rcfg, op, log)
+
+    # Deviation-form refinement eligibility (the precision ladder): DP
+    # problems with mixed_precision keep the filter FLOPs in f32/c64
+    # forever; real f32 problems with the bf16 rung keep them on the bf16
+    # shadow.  It needs Ritz values and residual vectors, so it engages
+    # from iteration 1.
+    refine_capable = rcfg.refine_filter and (
+        (not is_sp and rcfg.mixed_precision)
+        or (is_sp and rcfg.bf16_filter and not is_complex))
+    R_prev = None        # (N, nevex) RR residual vectors, problem dtype
+    if is_sp and rcfg.mixed_precision and ring_ok:
+        log.info("mixed_precision on an f32/c64 problem asks for TF32 filter "
+                 "products while residuals are large; the ring kernel "
+                 "multiplies in 3xTF32 whatever matmul_precision says",
+                 "linalg")
 
     resid_file = None
     if rcfg.save_residuals:
@@ -478,14 +585,61 @@ def solve(op: DenseOperator, nev: int, nex: int,
                     full_perm = np.concatenate(
                         [np.arange(locked), locked + perm])
                     V = permute_cols(V, full_perm)
+                    if R_prev is not None:
+                        R_prev = permute_cols(R_prev, full_perm)
 
             # -- filter (algorithm.inc:1546) --
             B = _col_block(rcfg.col_block, nevex)
-            V, f_executed, f_hemms = filter_fn(
-                H, V, degrees[act], locked, nevex, B, lam_filter, lowerb,
-                upperb)
+            # precision ladder (the reference's DP→SP filter switch): while
+            # the wanted pairs are far from converged, filter in reduced
+            # precision — 64-bit problems on their f32/c64 shadow, 32-bit
+            # problems with mixed_precision on their own H at TF32
+            min_resid = (float(np.min(resid[locked:nev])) if locked < nev
+                         else 0.0)
+            use_low = (rcfg.mixed_precision and locked < nev
+                       and min_resid > rcfg.mixed_precision_threshold)
+            # bf16 rung (real f32 problems): bf16 operator, f32 carry and
+            # sums.  Gated on the spectral radius's MAGNITUDE: a signed
+            # upperb (negative-definite spectrum) would make the gate
+            # negative and the rung would never disengage
+            spec_scale = max(abs(lam_filter), abs(upperb))
+            use_bf16 = (rcfg.bf16_filter and is_sp and not is_complex
+                        and locked < nev
+                        and min_resid > rcfg.bf16_filter_threshold
+                        * spec_scale)
+            use_refine = refine_capable and R_prev is not None
+            if use_refine:
+                # fast-dtype recurrence seeded by the problem-precision
+                # residuals: no threshold, never hands back
+                use_low = use_bf16 = False
+                H_f = op.H_low
+            elif use_bf16 or (use_low and not is_sp):
+                H_f = op.H_low
+            else:
+                H_f = H
+            ring = ring_ok and H_f.dtype in KERNEL_DTYPES
+            # the SP ladder's low phase: TF32 products on the windowed path
+            tf32 = use_low and is_sp and not ring
+            if tf32:
+                set_matmul_precision("high")
+            try:
+                if use_refine:
+                    V, f_executed, f_hemms = _filter_refine_windowed(
+                        H_f, V, R_prev, ritzv[act], degrees[act], locked,
+                        nevex, B, lam_filter, lowerb, upperb, rcfg.max_deg,
+                        ring=ring)
+                else:
+                    V, f_executed, f_hemms = (
+                        _filter_ring if ring else _filter_windowed)(
+                        H_f, V, degrees[act], locked, nevex, B, lam_filter,
+                        lowerb, upperb)
+            finally:
+                if tf32:
+                    set_matmul_precision(rcfg.matmul_precision)
+            H_f = None
             if perf is not None:
                 perf.add_filtered_vecs(int(np.sum(degrees[act])),
+                                       low=use_refine or use_bf16 or use_low,
                                        executed=f_executed)
                 perf.filter_hemm_steps += f_hemms
                 perf.add_iter_blocksize(unconverged)
@@ -517,15 +671,21 @@ def solve(op: DenseOperator, nev: int, nex: int,
             # -- RR + residuals (fused) --
             if use_window:
                 lw = locked - win_start
-                Vw, ritz_dev, resid_dev = rrops.rayleigh_ritz_residuals(
+                Vw, ritz_dev, resid_dev, *Rw = rrops.rayleigh_ritz_residuals(
                     H, slice_cols(V, win_start, w_pad_rr), lw,
-                    polish=polish)
+                    polish=polish, want_vectors=refine_capable)
                 V = update_cols(V, Vw, win_start)
+                if refine_capable:
+                    if R_prev is None:
+                        R_prev = torch.zeros_like(V)
+                    R_prev = update_cols(R_prev, Rw[0], win_start)
                 ritzv[act] = _host(ritz_dev)[lw:]
                 resid[act] = _host(resid_dev)[lw:]
             else:
-                V, ritz_dev, resid_dev = rrops.rayleigh_ritz_residuals(
-                    H, V, locked, polish=polish)
+                V, ritz_dev, resid_dev, *Rv = rrops.rayleigh_ritz_residuals(
+                    H, V, locked, polish=polish, want_vectors=refine_capable)
+                if refine_capable:
+                    R_prev = Rv[0]
                 ritzv[act] = _host(ritz_dev)[act]
                 resid[act] = _host(resid_dev)[act]
             t0 = toc("Rr", t0)
@@ -546,6 +706,8 @@ def solve(op: DenseOperator, nev: int, nex: int,
                                                     np.arange(unconverged)):
                 full_perm = np.concatenate([np.arange(locked), locked + perm])
                 V = permute_cols(V, full_perm)
+                if R_prev is not None:
+                    R_prev = permute_cols(R_prev, full_perm)
             locked += new_converged
             unconverged -= new_converged
             iteration += 1

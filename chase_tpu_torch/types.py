@@ -17,6 +17,8 @@ __all__ = [
     "real_dtype",
     "is_complex_dtype",
     "is_double_base",
+    "low_precision_dtype",
+    "filter_carry_dtype",
     "default_tol",
     "default_deg",
     "default_max_deg",
@@ -76,6 +78,39 @@ def is_complex_dtype(dtype) -> bool:
 def is_double_base(dtype) -> bool:
     """True for float64 / complex128 problems ("DP" in the reference)."""
     return real_dtype(dtype).itemsize == 8
+
+
+_LOW = {
+    torch.float64: torch.float32,
+    torch.complex128: torch.complex64,
+    torch.float32: torch.bfloat16,
+}
+
+
+def low_precision_dtype(dtype) -> torch.dtype:
+    """The reduced-precision dtype of the ladder's filter operator (the
+    shadow ``DenseOperator.H_low``): f64 → f32 and c128 → c64 (the
+    reference's DP → SP filter, chase_cpu.hpp:384-447), f32 → bf16 (the
+    bf16 rung, taken by f32 problems only when asked for).  A problem is
+    never bf16; c64 has no lower rung and maps to itself."""
+    dtype = as_torch_dtype(dtype)
+    return _LOW.get(dtype, dtype)
+
+
+def filter_carry_dtype(h_dtype, x_dtype) -> torch.dtype:
+    """Dtype of the Chebyshev recurrence carry for an (H, X) pair.
+
+    The f64 → f32 / c128 → c64 rung runs the whole recurrence in H's
+    reduced dtype.  A bf16 H (the bf16 storage rung) keeps the carry in
+    X's precision, capped at 32 bits (only the products take bf16 inputs,
+    with f32 sums): a three-term recurrence carried in 8 mantissa bits
+    degrades too fast, and a 64-bit carry buys nothing over a bf16
+    operator's ~1e-2 relative fidelity."""
+    h_dtype, x_dtype = as_torch_dtype(h_dtype), as_torch_dtype(x_dtype)
+    if h_dtype == torch.bfloat16:
+        return {torch.float64: torch.float32,
+                torch.complex128: torch.complex64}.get(x_dtype, x_dtype)
+    return h_dtype
 
 
 def eps(dtype) -> float:

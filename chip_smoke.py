@@ -35,12 +35,26 @@ no result line) on any fault:
            gates and launch counts as the slice; then the cprofile phase:
            warm solves on the ring and windowed (cuBLAS CGEMM) paths and a
            trace of the warm ring solve
+  bkernel  the bf16 route of ring_hemm (bf16 H, f32 V rounded to bf16 by
+           its pre-pass, f32 sums) against its plain version and the
+           library's bf16 GEMM (torch.mm, f32 out), all held against an
+           f64 product of the bf16-rounded operands, at (1000, 37),
+           (30000, 750), (30000, 3000), a strided window and a two-chunk
+           ring step at col0 = 15001; the pre-pass bit-exact
+  bslice   the f32 slice with the bf16 rung (bf16_filter=True, pallas):
+           every filter HEMM on the bf16 route, the slice's gates
   dp       the north star in double precision: the phase-rotated Clement
            in c128 at N=30000, nev=2250, nex=750, tol 1e-10·‖H‖ absolute,
-           windowed path (native ZGEMM)
+           windowed path (native ZGEMM, mixed_precision=False)
+  ladder   the same c128 H with the precision ladder (mixed_precision=True):
+           first windowed (cuBLAS CGEMM on the c64 shadow), then with
+           ring_backend="pallas", every filter HEMM on the kernel's c64
+           route; dp's gates, ≥ 80% of the FLOPs in c64, the TTS beside
+           dp's; a torch.profiler trace of one more kernel-ring solve
   sequence eigsh_sequence over 10 correlated c128 problems (N=8000,
            nev=400, nex=100, drift 1e-3·‖H‖_F/N per member) built on the
-           card and passed as a generator; estimate_spectral_bounds
+           card and passed as a generator, mixed_precision pinned to the
+           f64/c128 default on CUDA; estimate_spectral_bounds
 
 Each phase prints lines with its numbers and seconds.  A full run then
 prints the kernels' JSON summary and, last, {"ok": true, "device": {...}}.
@@ -67,6 +81,7 @@ C64_SHAPES = ((30000, 750), (30000, 3000))
 SEQUENCE = dict(N=8000, nev=400, nex=100, count=10, drift=1e-3)
 SEED = 20261016
 PEAK_3XTF32 = 495.0 / 3     # TFLOP/s: the H100's dense TF32 rate, 3 passes
+PEAK_BF16 = 989.0           # TFLOP/s: the H100's dense bf16 rate
 HBM_TBS = 3.35              # TB/s: the H100 SXM's device-memory rate
 
 
@@ -97,12 +112,12 @@ def time_fns(fns, reps: int) -> list:
     return [(a + b) / 2 for a, b in zip(fwd, rev)]
 
 
-def bound(flop: float, nbytes: float) -> tuple:
+def bound(flop: float, nbytes: float, peak: float = PEAK_3XTF32) -> tuple:
     """(ms, "operations" | "bytes"): the least time the card could take —
-    the larger of the operations over the 3xTF32 ceiling (the kernels'
-    f32-accuracy route on the tensor cores) and the bytes over HBM's
-    rate."""
-    t_ops = flop / (PEAK_3XTF32 * 1e9)
+    the larger of the operations over ``peak`` TFLOP/s (the 3xTF32 ceiling
+    of the kernels' f32-accuracy route, or the bf16 rate) and the bytes
+    over HBM's rate."""
+    t_ops = flop / (peak * 1e9)
     t_mem = nbytes / (HBM_TBS * 1e9)
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
 
@@ -112,6 +127,20 @@ def hemm_bound(m: int, b: int, k: int, dtype) -> tuple:
     written once; 2·m·b·k FLOPs, 8·m·b·k for complex."""
     flop = (8 if dtype.is_complex else 2) * m * b * k
     return bound(flop, dtype.itemsize * (m * b + b * k + m * k))
+
+
+def bf16_hemm_bound(m: int, b: int, k: int) -> tuple:
+    """The bf16 route's bound: H (m × b) bf16, V (b × k) f32 read once, W
+    (m × k) f32 written once; 2·m·b·k FLOPs at the bf16 rate."""
+    return bound(2.0 * m * b * k, 2 * m * b + 4 * (b * k + m * k), PEAK_BF16)
+
+
+def pack_bound(b: int, k: int) -> tuple:
+    """The bf16 pre-pass's bound: V (b × k) f32 read once, the (w_pad ×
+    b_pad) bf16 output written once."""
+    from chase_tpu_torch.ops.ring_hemm import pack_shape
+    b_pad, w_pad = pack_shape(b, k)
+    return bound(0.0, 4 * b * k + 2 * w_pad * b_pad)
 
 
 def split_bound(b: int, k: int, dtype) -> tuple:
@@ -378,6 +407,119 @@ def phase_complex_kernel(dev) -> dict:
     return summary
 
 
+def _bf16_case(phase, H, V, reps: int, col0: int = 0) -> dict:
+    """ring_hemm's bf16 route on (H, V) against its plain version and the
+    library's bf16 GEMM (torch.mm of H and V rounded to bf16, f32 out),
+    all against an f64 product of the bf16-rounded operands; timed; raises
+    past the gate."""
+    from chase_tpu_torch.ops.ring_hemm import ring_hemm, ring_hemm_reference
+    t0 = time.perf_counter()
+    m, (b, k) = H.shape[0], V.shape
+    Hb = H[:, col0:col0 + b]
+    ref = Hb.double() @ V.to(torch.bfloat16).double()
+
+    def library():
+        return torch.mm(Hb, V.to(torch.bfloat16), out_dtype=torch.float32)
+
+    W = ring_hemm(H, V, col0=col0)
+    torch.cuda.synchronize()
+    err, errp, errl = (rel_err(x, ref) for x in (
+        W, ring_hemm_reference(H, V, col0=col0), library()))
+    abs_err = float((W.double() - ref).abs().max())
+    del W, ref
+    plain_ms, kern_ms, lib_ms = time_fns(
+        [lambda: ring_hemm_reference(H, V, col0=col0),
+         lambda: ring_hemm(H, V, col0=col0), library], reps)
+    gflop = 2.0 * m * b * k / 1e9
+    rate = gflop / kern_ms
+    bound_ms, bound_by = bf16_hemm_bound(m, b, k)
+    log(phase, f"(m, b, k)=({m}, {b}, {k}) col0={col0} bf16 H: rel err "
+               f"kernel {err:.3e} plain {errp:.3e} library {errl:.3e}; max "
+               f"abs err {abs_err:.3e}; kernel {kern_ms:.3f} ms "
+               f"({rate:.1f} TFLOP/s, {rate / PEAK_BF16:.1%} of the "
+               f"{PEAK_BF16:.0f} TFLOP/s bf16 peak), plain {plain_ms:.3f} "
+               f"ms, library (torch.mm bf16, f32 out) {lib_ms:.3f} ms, "
+               f"bound {bound_ms:.3f} ms ({bound_by}); "
+               f"{time.perf_counter() - t0:.2f} s")
+    # exact products, f32 sums over K terms: 1e-5 of the largest entry,
+    # and no worse than 4x the library's bf16 GEMM
+    if not (err <= 1e-5 and err <= 4 * errl):
+        raise AssertionError(f"bf16 ring_hemm error {err:.3e} at "
+                             f"({m}, {b}, {k}) exceeds 1e-5 or 4x the "
+                             f"library's ({errl:.3e})")
+    return dict(err=err, errp=errp, errl=errl, abs_err=abs_err, ms=kern_ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def phase_bf16_kernel(dev) -> dict:
+    """The bf16 route at the bf16 rung's shapes, its pre-pass, a strided
+    window and a two-chunk ring step at an unaligned col0."""
+    from chase_tpu_torch.ops.ring_hemm import (bf16_pack, bf16_pack_reference,
+                                               ring_hemm)
+    t_phase = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    summary = {}
+    H1 = torch.randn((1000, 1000), generator=g, device=dev).bfloat16()
+    summary[(1000, 37)] = _bf16_case(
+        "bkernel", H1, torch.randn((1000, 37), generator=g, device=dev), 20)
+    del H1
+    N = SLICE["N"]
+    H = torch.randn((N, N), generator=g, device=dev).bfloat16()
+    for k in (750, 3000):
+        V = torch.randn((N, k), generator=g, device=dev)
+        summary[(N, k)] = _bf16_case("bkernel", H, V, 3)
+
+    # the pre-pass alone at (30000, 3000): bit-exact against V.to(bf16)
+    Vb, Vr = bf16_pack(V), bf16_pack_reference(V)
+    torch.cuda.synchronize()
+    exact = bool(torch.equal(Vb, Vr))
+    del Vb, Vr
+    pk_plain, pk_ms = time_fns([lambda: bf16_pack_reference(V),
+                                lambda: bf16_pack(V)], 3)
+    pk_bound, pk_by = pack_bound(N, 3000)
+    log("bkernel", f"bf16_pack ({N}, 3000): bit-exact against "
+                   f"V.to(bfloat16): {exact}; kernel {pk_ms:.3f} ms, plain "
+                   f"{pk_plain:.3f} ms, bound {pk_bound:.3f} ms ({pk_by})")
+    if not exact:
+        raise AssertionError("bf16_pack disagrees with V.to(bfloat16)")
+    summary["pack"] = dict(abs_err=0.0, ms=pk_ms, plain_ms=pk_plain,
+                           library_ms=None, bound_ms=pk_bound,
+                           bound_by=pk_by)
+
+    # a strided column window of V accumulated into a strided window of W
+    Hs = H[:1000]
+    Vfull = torch.randn((N, 3000), generator=g, device=dev)
+    Wfull = torch.randn((Hs.shape[0], 3000), generator=g, device=dev)
+    Wbefore = Wfull.clone()
+    Vw, Ww = Vfull[:, 1000:1750], Wfull[:, 1000:1750]
+    ring_hemm(Hs, Vw, out=Ww, accumulate=True)
+    torch.cuda.synchronize()
+    ref = Wbefore[:, 1000:1750].double() + Hs.double() \
+        @ Vw.to(torch.bfloat16).double()
+    errw = rel_err(Ww, ref)
+    outside = bool(torch.equal(Wfull[:, :1000], Wbefore[:, :1000])
+                   and torch.equal(Wfull[:, 1750:], Wbefore[:, 1750:]))
+    # ring semantics: chunk 0 stored, chunk 1 (col0 = 15001, 1 mod 8) added
+    V = Vfull[:, :37]
+    half = N // 2 + 1
+    W = ring_hemm(Hs, V[:half], col0=0)
+    ring_hemm(Hs, V[half:], col0=half, out=W, accumulate=True)
+    torch.cuda.synchronize()
+    errc = rel_err(W, Hs.double() @ V.to(torch.bfloat16).double())
+    log("bkernel", f"strided window V[:, 1000:1750] (ldv=3000) += into "
+                   f"W[:, 1000:1750]: rel err {errw:.3e}, columns outside "
+                   f"untouched: {outside}; two-chunk ring step (col0=0 "
+                   f"store, col0={half} add) on a 1000-row stripe: rel err "
+                   f"{errc:.3e}")
+    if not (errw <= 1e-5 and outside and errc <= 1e-5):
+        raise AssertionError("bf16 strided-window or two-chunk step failed")
+    del H, Hs, Vfull, Wfull, Wbefore, ref
+    torch.cuda.empty_cache()
+    log("bkernel", f"phase ok in {time.perf_counter() - t_phase:.2f} s")
+    return summary
+
+
 def phase_filter(dev, H) -> None:
     from chase_tpu_torch.ops.filter import chebyshev_filter
     from chase_tpu_torch.parallel.ring import chebyshev_filter_ring_pallas
@@ -410,17 +552,19 @@ def phase_filter(dev, H) -> None:
         raise AssertionError("ring filter disagrees with the plain filter")
 
 
-def phase_slice(dev, H, phase: str = "slice") -> dict:
+def phase_slice(dev, H, phase: str = "slice", bf16: bool = False) -> dict:
     """eigsh on the (phase-rotated, for complex H) Clement matrix at the
-    slice's shape on the ring path; the launch counts are set to 0 just
-    before the solve and read just after it."""
+    slice's shape on the ring path — with ``bf16`` the f32 problem on the
+    bf16 rung, every filter HEMM on the kernel's bf16 route; the launch
+    counts are set to 0 just before the solve and read just after it."""
     import chase_tpu_torch as ct
     from chase_tpu_torch.models import clement_eigenvalues
-    from chase_tpu_torch.ops.ring_hemm import ring_hemm, tf32_split
+    from chase_tpu_torch.ops.ring_hemm import bf16_pack, ring_hemm, tf32_split
     N, nev, nex, tol = SLICE["N"], SLICE["nev"], SLICE["nex"], SLICE["tol"]
-    cfg = ct.ChaseConfig(ring_backend="pallas")
+    cfg = ct.ChaseConfig(ring_backend="pallas", bf16_filter=bf16,
+                         mixed_precision=False)
     torch.cuda.reset_peak_memory_stats(dev)
-    ring_hemm.launches = tf32_split.launches = 0
+    ring_hemm.launches = tf32_split.launches = bf16_pack.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = ct.eigsh(H, nev, nex, tol=tol, config=cfg, device=dev,
@@ -428,7 +572,10 @@ def phase_slice(dev, H, phase: str = "slice") -> dict:
     torch.cuda.synchronize()
     tts = time.perf_counter() - t0
     launches = ring_hemm.launches
-    split_launches = tf32_split.launches
+    # the pre-pass of the route the slice runs, and the other one's
+    split_launches, other = tf32_split.launches, bf16_pack.launches
+    if bf16:
+        split_launches, other = other, split_launches
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     perf = res.perf
     ev_err = float(np.abs(res.ritzv - clement_eigenvalues(N)[:nev]).max())
@@ -437,8 +584,12 @@ def phase_slice(dev, H, phase: str = "slice") -> dict:
     true_res = float(torch.linalg.vector_norm(H @ V - V * lam, dim=0).max())
     t = perf.timings
     filter_rate = perf.get_filter_flops(N, H.dtype) / t["Filter"]
+    low = perf.low_flop_fraction(N, cfg.resolve(H.dtype).lanczos_iter, 4,
+                                 H.dtype)
+    pre = "bf16_pack" if bf16 else "tf32_split"
     log(phase, f"eigsh Clement N={N} nev={nev} nex={nex} {H.dtype} "
-               f"tol={tol} ring_backend=pallas: converged={res.converged} "
+               f"tol={tol} ring_backend=pallas bf16_filter={bf16}: "
+               f"converged={res.converged} "
                f"iterations={res.iterations} TTS {tts:.2f} s; phases "
                f"Lanczos {t['Lanczos']:.2f} Filter {t['Filter']:.2f} "
                f"QR {t['Qr']:.2f} RR {t['Rr']:.2f} Resids_Locking "
@@ -446,27 +597,54 @@ def phase_slice(dev, H, phase: str = "slice") -> dict:
                f"filter {filter_rate:.0f} GFLOP/s (useful FLOP model); "
                f"max eigenvalue err {ev_err:.3e}; max true residual "
                f"{true_res:.3e}; reported max resid {res.resid.max():.3e}; "
-               f"ring_hemm launches {launches}, tf32_split launches "
-               f"{split_launches}, filter HEMM steps "
-               f"{perf.filter_hemm_steps}; peak device memory {peak:.1f} GiB")
+               f"ring_hemm launches {launches}, {pre} launches "
+               f"{split_launches}, other pre-pass {other}, filter HEMM steps "
+               f"{perf.filter_hemm_steps}; low-precision FLOP share "
+               f"{low:.3f}; peak device memory {peak:.1f} GiB")
     if not res.converged:
         raise AssertionError(f"{phase} did not converge")
     if not ev_err <= 0.5:
         raise AssertionError(f"eigenvalue error {ev_err} > 0.5")
     if not true_res <= 10 * tol:
         raise AssertionError(f"true residual {true_res} > {10 * tol}")
-    if not (0 < launches == split_launches == perf.filter_hemm_steps):
-        raise AssertionError(f"ring_hemm launched {launches} times and "
-                             f"tf32_split {split_launches}, the filter ran "
+    if not (0 < launches == split_launches == perf.filter_hemm_steps
+            and other == 0):
+        raise AssertionError(f"ring_hemm launched {launches} times, "
+                             f"{pre} {split_launches}, the other pre-pass "
+                             f"{other}; the filter ran "
                              f"{perf.filter_hemm_steps} HEMM steps")
-    return dict(ring_hemm=launches, tf32_split=split_launches)
+    return dict(ring_hemm=launches, prepass=split_launches, tts=tts,
+                low=low)
+
+
+def trace_solve(phase: str, what: str, solve) -> tuple:
+    """``solve()`` (returning (tts, res)) under torch.profiler: logs the
+    device busy share and the top kernels by device time, and raises
+    unless it converged with a ring_hemm kernel on the device."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tts, res = solve()
+    rows = [(e.key, e.device_time_total, e.count)
+            for e in prof.key_averages() if e.device_time_total > 0]
+    kernels = [r for r in rows if not r[0].startswith("aten::")]
+    busy = sum(r[1] for r in kernels) / 1e6
+    log(phase, f"traced {what}: TTS {tts:.3f} s; summed device kernel time "
+               f"{busy:.3f} s, busy share {busy / tts:.3f}")
+    for key, us, count in sorted(kernels, key=lambda r: -r[1])[:15]:
+        log(phase, f"  {us / 1e6:8.3f} s {us / 1e6 / busy:6.1%} "
+                   f"x{count:<5d} {key[:90]}")
+    if not (res.converged
+            and any("ring_hemm_kernel" in key for key, _, _ in kernels)):
+        raise AssertionError(f"traced {what} did not converge or the trace "
+                             f"shows no ring_hemm kernel on the device")
+    return tts, res
 
 
 def phase_profile(dev, H, phase: str = "profile") -> None:
     """Warm solves of the slice (ring path, then windowed path) and a
     torch.profiler trace of one warm ring-path solve."""
     import chase_tpu_torch as ct
-    from torch.profiler import ProfilerActivity, profile
     N, nev, nex, tol = SLICE["N"], SLICE["nev"], SLICE["nex"], SLICE["tol"]
 
     def solve(backend):
@@ -474,12 +652,15 @@ def phase_profile(dev, H, phase: str = "profile") -> None:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = ct.eigsh(H, nev, nex, tol=tol, device=dev, collect_perf=True,
-                       config=ct.ChaseConfig(ring_backend=backend))
+                       config=ct.ChaseConfig(ring_backend=backend,
+                                             mixed_precision=False))
         torch.cuda.synchronize()
         return time.perf_counter() - t0, res
 
+    warm = {}
     for backend in ("pallas", "xla"):
         tts, res = solve(backend)
+        warm[backend] = tts
         t = res.perf.timings
         log(phase, f"warm solve {H.dtype} ring_backend={backend}: TTS "
                    f"{tts:.3f} s, iterations {res.iterations}, Filter "
@@ -489,67 +670,114 @@ def phase_profile(dev, H, phase: str = "profile") -> None:
                    f"converged={res.converged}")
         if not res.converged:
             raise AssertionError(f"warm {backend} solve did not converge")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        tts, res = solve("pallas")
-    rows = [(e.key, e.device_time_total, e.count)
-            for e in prof.key_averages() if e.device_time_total > 0]
-    kernels = [r for r in rows if not r[0].startswith("aten::")]
-    busy = sum(r[1] for r in kernels) / 1e6
-    log(phase, f"traced warm ring solve {H.dtype}: TTS {tts:.3f} s; summed "
-               f"device kernel time {busy:.3f} s, busy share "
-               f"{busy / tts:.3f}")
-    for key, us, count in sorted(kernels, key=lambda r: -r[1])[:15]:
-        log(phase, f"  {us / 1e6:8.3f} s {us / 1e6 / busy:6.1%} "
-                   f"x{count:<5d} {key[:90]}")
-    if not (res.converged
-            and any("ring_hemm_tf32x3" in key for key, _, _ in kernels)):
-        raise AssertionError("traced solve did not converge or the trace "
-                             "shows no ring_hemm kernel on the device")
+    trace_solve(phase, f"warm ring solve {H.dtype}",
+                lambda: solve("pallas"))
+    return warm
 
 
-def phase_north_star(dev) -> None:
-    """The repo's north star in double precision: c128 phase-rotated
-    Clement at N=30000, nev=2250, nex=750, ‖Av − λv‖ ≤ 1e-10·‖H‖ (the
-    port's tol is absolute, ‖H‖ = N − 1), windowed filter on ZGEMM."""
+def _north_star_solve(dev, H, phase: str, mixed: bool,
+                      backend: str = "xla") -> dict:
+    """eigsh of the c128 north star H at tol 1e-10·‖H‖ with
+    ``mixed_precision=mixed`` and ``ring_backend=backend`` (False, "xla":
+    the windowed path on native ZGEMM; True, "pallas": the ladder on the
+    kernel ring through the c64 shadow; True, "xla": the ladder's
+    windowed filter on cuBLAS CGEMM), with its gates; launch counts set to
+    0 just before the solve, read after."""
     import chase_tpu_torch as ct
     from chase_tpu_torch.models import clement_eigenvalues
     from chase_tpu_torch.ops.residuals import residuals
+    from chase_tpu_torch.ops.ring_hemm import bf16_pack, ring_hemm, tf32_split
     N, nev, nex = SLICE["N"], SLICE["nev"], SLICE["nex"]
     tol = 1e-10 * (N - 1)
-    t0 = time.perf_counter()
-    H = clement_on_device(N, dev, torch.complex128)
-    torch.cuda.synchronize()
-    log("dp", f"phase-rotated Clement N={N} c128 built on the card in "
-              f"{time.perf_counter() - t0:.2f} s")
+    cfg = ct.ChaseConfig(mixed_precision=mixed, ring_backend=backend)
+    def solve():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = ct.eigsh(H, nev, nex, tol=tol, device=dev, collect_perf=True,
+                       config=cfg)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, res
+
     torch.cuda.reset_peak_memory_stats(dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = ct.eigsh(H, nev, nex, tol=tol, device=dev, collect_perf=True)
-    torch.cuda.synchronize()
-    tts = time.perf_counter() - t0
+    ring_hemm.launches = tf32_split.launches = bf16_pack.launches = 0
+    tts, res = solve()
+    launches = (ring_hemm.launches, tf32_split.launches, bf16_pack.launches)
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     perf, t = res.perf, res.perf.timings
     ev_err = float(np.abs(res.ritzv - clement_eigenvalues(N)[:nev]).max())
     true_res = float(residuals(H, res.V[:, :nev], res.ritzv).max())
     filter_rate = perf.get_filter_flops(N, H.dtype) / t["Filter"]
-    log("dp", f"eigsh c128 N={N} nev={nev} nex={nex} tol={tol:.4e} "
-              f"(1e-10·‖H‖) windowed path: converged={res.converged} "
-              f"iterations={res.iterations} TTS {tts:.2f} s; phases Lanczos "
-              f"{t['Lanczos']:.2f} Filter {t['Filter']:.2f} QR {t['Qr']:.2f} "
-              f"RR {t['Rr']:.2f} Resids_Locking {t['Resids_Locking']:.2f} "
-              f"InitVecs {t['InitVecs']:.2f} s; filter {filter_rate:.0f} "
-              f"GFLOP/s (useful FLOP model), window efficiency "
-              f"{perf.filter_window_efficiency():.3f}; max eigenvalue err "
-              f"{ev_err:.3e}; max true residual {true_res:.3e}; reported "
-              f"max resid {res.resid.max():.3e}; peak device memory "
-              f"{peak:.1f} GiB")
+    low = perf.low_flop_fraction(N, cfg.resolve(H.dtype).lanczos_iter, 4,
+                                 H.dtype)
+    path = {(False, "xla"): "windowed path (ZGEMM)",
+            (True, "pallas"): "ladder (c64 shadow, kernel ring)",
+            (True, "xla"): "ladder (c64 shadow, windowed CGEMM)"}[
+                (mixed, backend)]
+    log(phase, f"eigsh c128 N={N} nev={nev} nex={nex} tol={tol:.4e} "
+               f"(1e-10·‖H‖) mixed_precision={mixed}, {path}: "
+               f"converged={res.converged} iterations={res.iterations} TTS "
+               f"{tts:.2f} s; phases Lanczos {t['Lanczos']:.2f} Filter "
+               f"{t['Filter']:.2f} QR {t['Qr']:.2f} RR {t['Rr']:.2f} "
+               f"Resids_Locking {t['Resids_Locking']:.2f} InitVecs "
+               f"{t['InitVecs']:.2f} s; filter {filter_rate:.0f} GFLOP/s "
+               f"(useful FLOP model), window efficiency "
+               f"{perf.filter_window_efficiency():.3f}; low-precision FLOP "
+               f"share {low:.3f}; max eigenvalue err {ev_err:.3e}; max true "
+               f"residual {true_res:.3e}; reported max resid "
+               f"{res.resid.max():.3e}; ring_hemm / tf32_split / bf16_pack "
+               f"launches {launches}, filter HEMM steps "
+               f"{perf.filter_hemm_steps}; peak device memory {peak:.1f} GiB")
     if not res.converged:
-        raise AssertionError("DP north star did not converge")
+        raise AssertionError(f"{phase}: the DP north star did not converge")
     if not (true_res <= 10 * tol and ev_err <= 10 * tol):
-        raise AssertionError(f"DP north star: true residual {true_res:.3e} "
-                             f"or eigenvalue error {ev_err:.3e} > "
+        raise AssertionError(f"{phase}: true residual {true_res:.3e} or "
+                             f"eigenvalue error {ev_err:.3e} > "
                              f"{10 * tol:.3e}")
+    return dict(tts=tts, iterations=res.iterations, low=low,
+                launches=launches, steps=perf.filter_hemm_steps, solve=solve)
+
+
+def phase_north_star(dev) -> tuple:
+    """The repo's north star in double precision: c128 phase-rotated
+    Clement at N=30000, nev=2250, nex=750, ‖Av − λv‖ ≤ 1e-10·‖H‖ (the
+    port's tol is absolute, ‖H‖ = N − 1), windowed filter on ZGEMM.
+    Returns (H, dp's TTS) for the ladder phase."""
+    t0 = time.perf_counter()
+    H = clement_on_device(SLICE["N"], dev, torch.complex128)
+    torch.cuda.synchronize()
+    log("dp", f"phase-rotated Clement N={SLICE['N']} c128 built on the card "
+              f"in {time.perf_counter() - t0:.2f} s")
+    return H, _north_star_solve(dev, H, "dp", mixed=False)["tts"]
+
+
+def phase_ladder(dev, H, dp_tts: float) -> dict:
+    """The DP north star on the precision ladder: dp's H and gates, every
+    filter HEMM on the kernel's c64 route (the ladder's classic first
+    filter and its refinement filters alike), ≥ 80% of the FLOPs in c64;
+    its TTS beside dp's from this run.  Then the ladder once more on the
+    windowed path (cuBLAS CGEMM), which decides the default of
+    ring_backend="xla", and a torch.profiler trace of one more kernel-ring
+    ladder solve."""
+    win = _north_star_solve(dev, H, "ladder", mixed=True, backend="xla")
+    if not (win["low"] >= 0.80 and win["launches"] == (0, 0, 0)):
+        raise AssertionError(f"windowed ladder: low-precision share "
+                             f"{win['low']:.3f}, launches {win['launches']}")
+    out = _north_star_solve(dev, H, "ladder", mixed=True, backend="pallas")
+    hemm, split, pack = out["launches"]
+    log("ladder", f"TTS {out['tts']:.2f} s on the ladder (kernel ring), "
+                  f"{win['tts']:.2f} s on the windowed ladder, {dp_tts:.2f} "
+                  f"s native c128 (dp) in this run: "
+                  f"{dp_tts / out['tts']:.2f}x and "
+                  f"{dp_tts / win['tts']:.2f}x")
+    if not out["low"] >= 0.80:
+        raise AssertionError(f"ladder: only {out['low']:.3f} of the FLOPs "
+                             f"in c64")
+    if not (0 < hemm == split == out["steps"] and pack == 0):
+        raise AssertionError(f"ladder: ring_hemm launched {hemm} times, "
+                             f"tf32_split {split}, bf16_pack {pack}; the "
+                             f"filter ran {out['steps']} HEMM steps")
+    trace_solve("ladder", "ladder solve (kernel ring)", out["solve"])
+    return out
 
 
 def hermitian_sequence_on_device(H0: torch.Tensor, count: int, drift: float,
@@ -575,6 +803,7 @@ def phase_sequence(dev) -> None:
     """eigsh_sequence over correlated c128 problems (the reference's SCF
     use case) and estimate_spectral_bounds on the first member."""
     import chase_tpu_torch as ct
+    from chase_tpu_torch.config import MIXED_PRECISION_ON_CUDA
     from chase_tpu_torch.ops.residuals import residuals
     N, nev, nex = SEQUENCE["N"], SEQUENCE["nev"], SEQUENCE["nex"]
     count = SEQUENCE["count"]
@@ -593,10 +822,15 @@ def phase_sequence(dev) -> None:
     members = hermitian_sequence_on_device(H0, count, SEQUENCE["drift"], g,
                                            keep)
     its, errs, bad = [], {}, []
+    # pinned to what mixed_precision=None resolves to for c128 on CUDA with
+    # the default ring_backend ("xla")
+    mixed = MIXED_PRECISION_ON_CUDA["xla"]
+    log("sequence", f"mixed_precision={mixed} (the f64/c128 default on "
+                    f"CUDA with ring_backend='xla')")
     t0 = time.perf_counter()
-    for i, res in enumerate(ct.eigsh_sequence(members, nev, nex, tol=tol,
-                                              device=dev,
-                                              collect_perf=True)):
+    for i, res in enumerate(ct.eigsh_sequence(
+            members, nev, nex, tol=tol, device=dev, collect_perf=True,
+            config=ct.ChaseConfig(mixed_precision=mixed))):
         r = float(residuals(keep["H"], res.V[:, :nev], res.ritzv).max())
         its.append(res.iterations)
         if i in (0, count - 1):
@@ -633,6 +867,15 @@ def phase_sequence(dev) -> None:
         raise AssertionError(f"upperb {bounds['upperb']} < λ_max {w0[-1]}")
 
 
+def phase_bslice(dev, H, f32_warm: float) -> dict:
+    """The f32 slice on the bf16 rung (one solve after bkernel loaded the
+    route), beside the f32 ring slice's warm TTS from this run."""
+    out = phase_slice(dev, H, "bslice", bf16=True)
+    log("bslice", f"TTS {out['tts']:.3f} s on the bf16 rung; the f32 ring "
+                  f"slice's warm TTS in this run {f32_warm:.3f} s")
+    return out
+
+
 def _kernel_entry(name: str, launches: int, case: dict) -> dict:
     return dict(name=name, route="cuda",
                 source="chase_tpu_torch/csrc/ring_hemm.cu",
@@ -662,7 +905,9 @@ def main() -> int:
                  f"{time.perf_counter() - t0:.2f} s")
     phase_filter(dev, H)
     launches = phase_slice(dev, H)
-    phase_profile(dev, H)
+    warm = phase_profile(dev, H)
+    bkern = phase_bf16_kernel(dev)
+    blaunches = phase_bslice(dev, H, warm["pallas"])
     del H
     torch.cuda.empty_cache()
 
@@ -677,17 +922,23 @@ def main() -> int:
     del H
     torch.cuda.empty_cache()
 
-    phase_north_star(dev)
+    H, dp_tts = phase_north_star(dev)
+    phase_ladder(dev, H, dp_tts)
+    del H
     torch.cuda.empty_cache()
     phase_sequence(dev)
 
     big, cbig = kern[KERNEL_SHAPES[-1]], ckern[C64_SHAPES[-1]]
     print(json.dumps({"kernels": [
         _kernel_entry("ring_hemm", launches["ring_hemm"], big),
-        _kernel_entry("tf32_split", launches["tf32_split"], kern["split"]),
+        _kernel_entry("tf32_split", launches["prepass"], kern["split"]),
         _kernel_entry("ring_hemm[c64]", claunches["ring_hemm"], cbig),
-        _kernel_entry("tf32_split[c64]", claunches["tf32_split"],
-                      ckern["split"])]}), flush=True)
+        _kernel_entry("tf32_split[c64]", claunches["prepass"],
+                      ckern["split"]),
+        _kernel_entry("ring_hemm[bf16]", blaunches["ring_hemm"],
+                      bkern[(SLICE["N"], 3000)]),
+        _kernel_entry("bf16_pack", blaunches["prepass"], bkern["pack"])]}),
+          flush=True)
     log("done", f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"],

@@ -23,10 +23,11 @@ import numpy as np
 import pytest
 import torch
 
-from chase_tpu_torch.ops.ring_hemm import (ring_hemm, ring_hemm_reference,
-                                           split_shape, tf32_split,
-                                           tf32_split_reference, tma_ld,
-                                           tma_row_stride)
+from chase_tpu_torch.ops.ring_hemm import (bf16_pack, bf16_pack_reference,
+                                           pack_shape, ring_hemm,
+                                           ring_hemm_reference, split_shape,
+                                           tf32_split, tf32_split_reference,
+                                           tma_ld, tma_row_stride)
 from chase_tpu_torch.parallel.operator import padded_empty
 
 torch.set_num_threads(1)
@@ -134,13 +135,22 @@ def test_cpu_uses_plain_version_without_counting():
 
 @pytest.mark.parametrize("case", ["f64", "complex", "c128", "c64_f32_out",
                                   "col_stride", "out_shape", "acc_no_out",
-                                  "col0_range", "ndim", "devices"])
+                                  "col0_range", "ndim", "devices", "bf16_v",
+                                  "bf16_h_bf16_out", "f32_h_bf16_v"])
 def test_rejects_what_the_kernel_does_not_take(case):
     H = torch.zeros((16, 16))
     V = torch.zeros((16, 4))
     kw = {}
     err = ValueError
-    if case == "f64":
+    if case.startswith("bf16"):                  # a bf16 H takes f32 V, out
+        H, err = H.to(torch.bfloat16), TypeError
+    if case == "bf16_v":
+        V = V.to(torch.bfloat16)
+    elif case == "bf16_h_bf16_out":
+        kw = dict(out=torch.zeros((16, 4), dtype=torch.bfloat16))
+    elif case == "f32_h_bf16_v":
+        V, err = V.to(torch.bfloat16), TypeError
+    elif case == "f64":
         H, V, err = H.double(), V.double(), TypeError
     elif case == "complex":                      # mixed f32 H, c64 V
         V, err = V.to(torch.complex64), TypeError
@@ -244,13 +254,25 @@ def test_tf32_split_plain_version_layout(off):
 
 @pytest.mark.parametrize("case", ["padded", "f64_not_padded",
                                   "contiguous_n1001", "unaligned_base",
-                                  "one_row"])
+                                  "one_row", "bf16_padded", "bf16_stride_1004",
+                                  "bf16_one_row"])
 def test_tma_row_stride_rule(case):
     """What the wrapper demands of a CUDA H, and what DenseOperator pads an
     f32 CUDA H to (checked here on CPU tensors, the rule is the same):
-    16-byte base, row stride a multiple of 4 floats.  An f64 operator never
-    reaches the kernel and is stored contiguous."""
-    if case == "padded":
+    16-byte base, row stride a multiple of 4 floats — of 8 elements for a
+    bf16 H (the bf16 shadow), so a stride of 1004 that f32 takes is not
+    enough.  An f64 operator never reaches the kernel and is stored
+    contiguous."""
+    if case == "bf16_padded":
+        H = padded_empty(1001, torch.bfloat16, "cpu")
+        assert H.shape == (1001, 1001) and H.stride() == (1008, 1)
+        assert tma_row_stride(H) == 1008 == tma_ld(1001, 2)
+    elif case == "bf16_stride_1004":
+        assert tma_row_stride(torch.zeros((4, 1004),
+                                          dtype=torch.bfloat16)) is None
+    elif case == "bf16_one_row":
+        assert tma_row_stride(torch.zeros((1, 7), dtype=torch.bfloat16)) == 8
+    elif case == "padded":
         H = padded_empty(1001, torch.float32, "cpu")
         assert H.shape == (1001, 1001) and H.stride() == (1004, 1)
         assert tma_row_stride(H) == 1004 == tma_ld(1001)
@@ -274,8 +296,11 @@ def cuda():
 
 
 def _padded_randn(m, n_cols, g, dev, dtype=torch.float32):
-    """(m, n_cols) with the row stride TMA needs (a multiple of 4 floats:
-    of 4 f32 or 2 c64 elements)."""
+    """(m, n_cols) with the row stride TMA needs (16 bytes: 4 f32, 2 c64 or
+    8 bf16 elements)."""
+    if dtype == torch.bfloat16:
+        return _padded_randn(m, tma_ld(n_cols, 2), g, dev).to(dtype)[
+            :, :n_cols]
     w = 2 if dtype.is_complex else 1
     return torch.randn((m, tma_ld(w * n_cols) // w), generator=g, device=dev,
                        dtype=dtype)[:, :n_cols]
@@ -516,3 +541,129 @@ def test_cuda_c64_eigsh_filter_runs_on_the_kernel(cuda):
     assert ring_hemm.launches == tf32_split.launches \
         == res.perf.filter_hemm_steps > 0
     assert np.abs(res.ritzv - exact).max() <= 1e-4
+
+
+# ---- the bf16 route: bf16 H, f32 V and out ----------------------------------
+
+def test_bf16_plain_version_is_the_product_of_the_rounded_operands():
+    """On the CPU a bf16 H takes the plain version: H · bf16(V) with f32
+    sums, within f32 summation error of the exact (f64) product of the
+    bf16-rounded operands; out is f32."""
+    rng = np.random.default_rng(8)
+    H = torch.from_numpy(rng.standard_normal((70, 300)).astype(np.float32))
+    V = torch.from_numpy(rng.standard_normal((200, 9)).astype(np.float32))
+    Hb = H.to(torch.bfloat16)
+    before = ring_hemm.launches
+    W = ring_hemm(Hb, V, col0=13)
+    assert ring_hemm.launches == before and W.dtype == torch.float32
+    ref = Hb[:, 13:213].double() @ V.to(torch.bfloat16).double()
+    assert _rel(W.numpy(), ref.numpy()) <= 1e-6
+    out = torch.ones((70, 9))
+    ring_hemm(Hb, V, col0=13, out=out, accumulate=True)
+    assert _rel(out.numpy(), (ref + 1).numpy()) <= 1e-6
+
+
+@pytest.mark.parametrize("off", [0, 5])
+def test_bf16_pack_plain_version_layout(off):
+    """The bf16 pre-pass's plain version: V rounded to bf16, transposed,
+    starting at column ``off``, zero-padded to whole 64-deep tiles."""
+    rng = np.random.default_rng(9 + off)
+    V = torch.from_numpy(rng.standard_normal((45, 130)).astype(np.float32))
+    Vb = bf16_pack(V[:, :129], off)
+    b_pad, w_pad = pack_shape(45, 129, off)
+    assert (b_pad, w_pad) == (64, 256) and tuple(Vb.shape) == (256, 64)
+    assert Vb.dtype == torch.bfloat16
+    assert torch.equal(Vb[:129, off:off + 45], V[:, :129].T.to(torch.bfloat16))
+    zero = torch.ones_like(Vb, dtype=torch.bool)
+    zero[:129, off:off + 45] = False
+    assert not Vb[zero].any()
+    with pytest.raises(ValueError):
+        bf16_pack(V, 8)
+    with pytest.raises(TypeError):
+        bf16_pack(V.double(), 0)
+
+
+def _check_bf16_against_plain(H, V, col0=0, out=None, accumulate=False):
+    """The bf16 route against the exact product of the rounded operands:
+    within 1e-5 of the largest entry and 4x the plain version's error."""
+    before, packs = ring_hemm.launches, bf16_pack.launches
+    prior = None if out is None else out.double().clone()
+    W = ring_hemm(H, V, col0=col0, out=out, accumulate=accumulate)
+    torch.cuda.synchronize()
+    assert ring_hemm.launches == before + 1 and bf16_pack.launches == packs + 1
+    assert W.dtype == torch.float32
+    ref = H[:, col0:col0 + V.shape[0]].double() \
+        @ V.to(torch.bfloat16).double()
+    if accumulate:
+        ref += prior
+    err = float((W.double() - ref).abs().max() / ref.abs().max())
+    Wp = ring_hemm_reference(H, V, col0=col0)
+    if accumulate:
+        Wp = Wp.double() + prior
+    errp = float((Wp.double() - ref).abs().max() / ref.abs().max())
+    assert err <= RTOL and err <= 4 * max(errp, 1e-7)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n_cols,k,col0,b", [
+    (1000, 1000, 37, 0, 1000), (30000, 30000, 750, 0, 30000),
+    (30000, 30000, 3000, 0, 30000), (257, 300, 40, 0, 300),
+    (130, 17, 3, 0, 17), (200, 512, 64, 1, 100), (200, 512, 64, 7, 77),
+    (200, 512, 13, 9, 301),
+], ids=["1000x37", "30000x750", "30000x3000", "m257", "tiny", "col0_1",
+        "col0_7", "col0_9"])
+def test_cuda_bf16_kernel_matches_plain_version(cuda, m, n_cols, k, col0, b):
+    g = torch.Generator(device=cuda).manual_seed(m + k + col0 + b)
+    H = _padded_randn(m, n_cols, g, cuda, torch.bfloat16)
+    V = torch.randn((b, k), generator=g, device=cuda)
+    _check_bf16_against_plain(H, V, col0)
+
+
+@pytest.mark.gpu
+def test_cuda_bf16_strided_window_and_two_chunk_step(cuda):
+    """V and out as strided column windows; a two-chunk ring step whose
+    second chunk starts at an unaligned col0 (15001 = 1 mod 8)."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    N = 30000
+    H = _padded_randn(1000, N, g, cuda, torch.bfloat16)
+    Vfull = torch.randn((N, 300), generator=g, device=cuda)
+    Wfull = torch.randn((1000, 300), generator=g, device=cuda)
+    before = Wfull.clone()
+    _check_bf16_against_plain(H, Vfull[:, 100:175], out=Wfull[:, 100:175],
+                              accumulate=True)
+    assert torch.equal(Wfull[:, :100], before[:, :100])
+    assert torch.equal(Wfull[:, 175:], before[:, 175:])
+    V = Vfull[:, :37]
+    half = N // 2 + 1
+    W = ring_hemm(H, V[:half], col0=0)
+    ring_hemm(H, V[half:], col0=half, out=W, accumulate=True)
+    torch.cuda.synchronize()
+    ref = H.double() @ V.to(torch.bfloat16).double()
+    assert float((W.double() - ref).abs().max() / ref.abs().max()) <= RTOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,k,off", [(1000, 37, 0), (61, 129, 3),
+                                     (300, 256, 7)])
+def test_cuda_bf16_pack_prepass(cuda, b, k, off):
+    """The bf16 pre-pass on the card is bit-identical to its plain version
+    (V.to(bfloat16), transposed), V a strided window."""
+    g = torch.Generator(device=cuda).manual_seed(b + 2)
+    V = torch.randn((b, 3 * k), generator=g, device=cuda)[:, k:2 * k]
+    before = bf16_pack.launches
+    Vb = bf16_pack(V, off)
+    torch.cuda.synchronize()
+    assert bf16_pack.launches == before + 1
+    assert torch.equal(Vb, bf16_pack_reference(V, off))
+
+
+@pytest.mark.gpu
+def test_cuda_bf16_h_row_stride_not_multiple_of_8_raises(cuda):
+    """A bf16 H with row stride 1004 (a multiple of 4, not of 8) is
+    refused before any launch."""
+    H = torch.randn((64, 1004), device=cuda).to(torch.bfloat16)
+    V = torch.randn((1004, 8), device=cuda)
+    before, packs = ring_hemm.launches, bf16_pack.launches
+    with pytest.raises(ValueError, match="TMA"):
+        ring_hemm(H, V)
+    assert ring_hemm.launches == before and bf16_pack.launches == packs

@@ -3,18 +3,22 @@
 The Chebyshev-accelerated subspace eigensolver of the JAX package
 ``chase_tpu`` on one torch device, module for module: Lanczos bounds,
 degree-optimized Chebyshev filtering, CholQR, Rayleigh–Ritz with fused
-residuals and locking, for real symmetric and complex Hermitian problems
-and for sequences of them, natively or on the precision ladder (f64/c128
+residuals and locking, for real symmetric and complex Hermitian problems,
+for sequences of them and for pseudo-Hermitian (Bethe–Salpeter) problems
+(``eigsh_pseudo``: the filter on H², K-conjugated mirrors, the S-metric
+pencil Rayleigh–Ritz), natively or on the precision ladder (f64/c128
 filtered on an f32/c64 shadow, f32 on a bf16 one).  The filter's ring
 HEMM is a hand-written CUDA kernel for Hopper (``csrc/ring_hemm.cu``: f32,
 c64, and bf16 H with f32 V); everything else is plain torch.  This
 package never imports JAX or ``chase_tpu``.
 """
 
-from .api import eigsh, eigsh_sequence, estimate_spectral_bounds  # noqa: F401
+from .api import (eigsh, eigsh_pseudo, eigsh_sequence,  # noqa: F401
+                  estimate_spectral_bounds)
 from .config import ChaseConfig  # noqa: F401
 from .parallel.operator import DenseOperator  # noqa: F401
 from .perf import PerfData  # noqa: F401
 from .solver import solve, SolveResult  # noqa: F401
+from .solver_pseudo import solve_pseudo  # noqa: F401
 
 __version__ = "0.1.0"

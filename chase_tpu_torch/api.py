@@ -1,8 +1,9 @@
 """User-facing API.
 
-Port of ``chase_tpu/api.py``'s ``eigsh``, ``eigsh_sequence`` and
-``estimate_spectral_bounds`` on one torch device, for real symmetric
-(f32/f64) and complex Hermitian (c64/c128) H:
+Port of ``chase_tpu/api.py``'s ``eigsh``, ``eigsh_sequence``,
+``eigsh_pseudo`` and ``estimate_spectral_bounds`` on one torch device, for
+real symmetric (f32/f64) and complex Hermitian (c64/c128) H, and for
+pseudo-Hermitian (Bethe–Salpeter) H of the same dtypes:
 
     res = chase_tpu_torch.eigsh(H, nev=100, nex=40, device="cuda")
     res.ritzv, res.V[:, :100], res.resid, res.converged
@@ -13,6 +14,12 @@ Sequences of correlated problems (the reference's mode='A' warm start):
         ...
     # by hand: eigsh(H2, nev, nex, v0=r1.V, ritzv0=r1.ritzv_full,
     #                approx=True)
+
+BSE problems H = [[A, B], [−conj(B), −conj(A)]] (spectrum real and
+symmetric about 0) take ``eigsh_pseudo``, which returns the ``nev``
+smallest positive eigenpairs:
+
+    res = chase_tpu_torch.eigsh_pseudo(H, nev=100, nex=40, device="cuda")
 
 The precision ladder is a config away, as in the JAX package:
 ``ChaseConfig(mixed_precision=True)`` filters an f64/c128 problem on its
@@ -36,10 +43,31 @@ import torch
 from .config import ChaseConfig, set_matmul_precision
 from .parallel.operator import DenseOperator, resolve_device
 from .perf import PerfData
+from . import solver_pseudo
 from .solver import solve, SolveResult, uses_ring_kernel
 from .types import as_torch_dtype
 
-__all__ = ["eigsh", "eigsh_sequence", "estimate_spectral_bounds"]
+__all__ = ["eigsh", "eigsh_sequence", "eigsh_pseudo",
+           "estimate_spectral_bounds"]
+
+
+def _nex_and_config(nev, nex, tol, v0, approx, config):
+    """The default nex (max(nev//4, 8)) and the config with ``tol`` and
+    ``approx`` applied; ValueError for ``approx`` without ``v0``."""
+    if nex is None:
+        nex = max(nev // 4, 8)
+    if approx and v0 is None:
+        raise ValueError("approx=True (warm start) needs v0 (and ritzv0) "
+                         "from a previous solve")
+    cfg = config or ChaseConfig()
+    updates = {}
+    if tol is not None:
+        updates["tol"] = tol
+    if approx:
+        updates["approx"] = True
+    if updates:
+        cfg = dataclasses.replace(cfg, **updates)
+    return nex, cfg
 
 
 def eigsh(H, nev: int, nex: Optional[int] = None, *,
@@ -73,19 +101,7 @@ def eigsh(H, nev: int, nex: Optional[int] = None, *,
       in H's dtype whose first nev columns are the eigenvectors, .resid,
       .converged, ...
     """
-    if nex is None:
-        nex = max(nev // 4, 8)
-    if approx and v0 is None:
-        raise ValueError("approx=True (warm start) needs v0 (and ritzv0) "
-                         "from a previous solve")
-    cfg = config or ChaseConfig()
-    updates = {}
-    if tol is not None:
-        updates["tol"] = tol
-    if approx:
-        updates["approx"] = True
-    if updates:
-        cfg = dataclasses.replace(cfg, **updates)
+    nex, cfg = _nex_and_config(nev, nex, tol, v0, approx, config)
 
     if largest:
         # the lowest end of -H is the top end of H
@@ -109,6 +125,40 @@ def eigsh(H, nev: int, nex: Optional[int] = None, *,
     perf = PerfData() if collect_perf else None
     return solve(op, nev, nex, config=cfg, V0=v0, ritzv0=ritzv0, perf=perf,
                  generator=generator)
+
+
+def eigsh_pseudo(H, nev: int, nex: Optional[int] = None, *,
+                 tol: Optional[float] = None,
+                 v0=None, ritzv0=None, approx: bool = False,
+                 config: Optional[ChaseConfig] = None,
+                 device="cuda",
+                 collect_perf: bool = False,
+                 generator: Optional[torch.Generator] = None) -> SolveResult:
+    """Compute the ``nev`` smallest-*positive* eigenpairs of a
+    pseudo-Hermitian (BSE) matrix H = S·M, S = diag(I, −I) (spectrum real,
+    symmetric about 0) — the reference's Solve_pseudo / ``*chase_pseudo_``.
+
+    Args as for :func:`eigsh`; H (N, N) with N even, f32/f64/c64/c128, or
+    a DenseOperator.  The search subspace holds 2·(nev+nex) vectors (the
+    negative mirrors ride along by K-conjugation), so ``v0`` is (N,
+    2·(nev+nex)) and nev+nex ≤ N/2.  ``ritzv0`` is accepted and unused, as
+    in the JAX package.
+
+    Returns:
+      SolveResult with .ritzv (nev,) ascending positive eigenvalues, .V
+      (N, 2·(nev+nex)) whose first nev columns are their eigenvectors,
+      .resid, .converged, ...
+
+    Raises ValueError on odd N, on nev+nex > N/2 and on ``approx``
+    without ``v0``; RuntimeError for ``device="cuda"`` without a card.
+    """
+    nex, cfg = _nex_and_config(nev, nex, tol, v0, approx, config)
+    op = H if isinstance(H, DenseOperator) else DenseOperator(
+        H, device, pseudo_hermitian=True)
+    perf = PerfData() if collect_perf else None
+    return solver_pseudo.solve_pseudo(op, nev, nex, config=cfg, V0=v0,
+                                      ritzv0=ritzv0, perf=perf,
+                                      generator=generator)
 
 
 def eigsh_sequence(matrices, nev: int, nex: Optional[int] = None, *,

@@ -253,7 +253,8 @@ class ResolvedConfig:
     def polish_passes(self) -> int:
         """Eigh-polish passes: 2 for DP problems (the 1e-10 tolerance needs
         LAPACK-quality Ritz vectors), 0 for SP; eigh_polish /
-        CHASE_EIGH_POLISH force a value."""
+        CHASE_EIGH_POLISH force a value.  The BSE pencil follows the same
+        rule (the JAX package's ``pseudo`` argument selects nothing)."""
         if self.eigh_polish is not None:
             return int(self.eigh_polish)
         return 2 if self.is_double else 0

@@ -11,7 +11,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["permute_cols", "slice_cols", "update_cols", "set_head_cols"]
+__all__ = ["permute_cols", "slice_cols", "update_cols", "set_head_cols",
+           "scale_lower_rows"]
 
 
 def permute_cols(V: torch.Tensor, perm) -> torch.Tensor:
@@ -39,3 +40,10 @@ def set_head_cols(V: torch.Tensor, Vd: torch.Tensor, mask) -> torch.Tensor:
     head = V[:, :m]
     head.copy_(torch.where(mask[None, :], Vd.to(V.dtype), head))
     return V
+
+
+def scale_lower_rows(V: torch.Tensor, scale: float) -> torch.Tensor:
+    """New block with rows [N/2, N) scaled by ``scale`` — the pseudo
+    initVecs' 0.001 lower-half damping (chase_cpu.hpp:310-321)."""
+    n2 = V.shape[0] // 2
+    return torch.cat([V[:n2], V[n2:] * scale])

@@ -1,10 +1,10 @@
-"""Structure checks: randomized hermiticity probe, triangle mirror.
+"""Structure checks: randomized (pseudo-)hermiticity probe, triangle mirror.
 
-Port of ``chase_tpu/ops/checks.py::check_hermitian`` and
-``force_hermitian`` (the reference's checkSymmetryEasy and
-symOrHermMatrix, linalg/internal/cpu/symOrHerm.hpp:44-140): compare
-u = H·v with Hᴴ·v for one random v, tol = 10·N·ε·‖u‖; mirror one triangle
-onto the other.
+Port of ``chase_tpu/ops/checks.py`` (the reference's checkSymmetryEasy,
+checkPseudoHermicityEasy and symOrHermMatrix,
+linalg/internal/cpu/symOrHerm.hpp:44-140, chase_cpu.hpp:272-285): compare
+u = H·v with Hᴴ·v for one random v, tol = 10·N·ε·‖u‖ (for the pseudo
+probe, S·H in place of H); mirror one triangle onto the other.
 """
 
 from __future__ import annotations
@@ -15,24 +15,38 @@ import torch
 
 from ..types import eps
 
-__all__ = ["check_hermitian", "force_hermitian"]
+__all__ = ["check_hermitian", "check_pseudo_hermitian", "force_hermitian"]
 
 
-def check_hermitian(H: torch.Tensor,
-                    generator: Optional[torch.Generator] = None) -> bool:
-    """Randomized Hermitian check: ‖Hv − Hᴴv‖ ≤ 10·N·ε·‖Hv‖.  The probe
-    comes from ``generator`` (default: a fresh one seeded 0 on H's
-    device)."""
+def _probe(H: torch.Tensor, generator, flip) -> bool:
+    """‖flip(H·v) − Hᴴ·flip(v)‖ ≤ 10·N·ε·‖flip(H·v)‖ for one random v from
+    ``generator`` (default: a fresh one seeded 0 on H's device)."""
     if generator is None:
         generator = torch.Generator(device=H.device).manual_seed(0)
     N = H.shape[0]
     v = torch.randn((N, 1), generator=generator, device=H.device,
                     dtype=H.dtype)
-    u = H @ v
-    ut = H.mH @ v
+    u = flip(H @ v)
+    ut = H.mH @ flip(v)
     diff = float(torch.linalg.vector_norm(u - ut))
     scale = float(torch.linalg.vector_norm(u))
     return diff <= 10.0 * N * eps(H.dtype) * max(scale, 1e-300)
+
+
+def check_hermitian(H: torch.Tensor,
+                    generator: Optional[torch.Generator] = None) -> bool:
+    """Randomized Hermitian check: ‖Hv − Hᴴv‖ ≤ 10·N·ε·‖Hv‖."""
+    return _probe(H, generator, lambda x: x)
+
+
+def check_pseudo_hermitian(H: torch.Tensor,
+                           generator: Optional[torch.Generator] = None
+                           ) -> bool:
+    """Randomized S-pseudo-hermiticity check: S·H must be Hermitian, i.e.
+    ‖S·(H·v) − Hᴴ·(S·v)‖ ≤ 10·N·ε·‖S·H·v‖ — the JAX package's
+    ``check_hermitian(apply_s(H))`` without its N×N copy of S·H."""
+    from .pseudo import apply_s
+    return _probe(H, generator, apply_s)
 
 
 def force_hermitian(H: torch.Tensor, *, upper: bool = True) -> torch.Tensor:

@@ -66,8 +66,24 @@ def _mask(deg, device):
     return torch.as_tensor(np.asarray(deg), device=device)[None, :]
 
 
+def _cheb_steps(H, Xp, Yc, deg, sigma, sigma1, c, e, t0: int, t1: int,
+                shift):
+    """Three-term steps t in [t0, t1) of the scaled recurrence; ``deg`` is
+    the (1, w) degree mask, scalars are numpy scalars of the carry's real
+    precision.  Returns (Xp, Yc, sigma)."""
+    rt = type(sigma1)
+    for t in range(int(t0), int(t1)):
+        sigma_new = rt(1) / (rt(2) / sigma1 - sigma)
+        Z = float(rt(2) * sigma_new / e) * shift(H, Yc, c) \
+            + float(-sigma * sigma_new) * Xp
+        Xp, Yc = Yc, torch.where(deg >= t, Z, Yc)
+        sigma = sigma_new
+    return Xp, Yc, sigma
+
+
 def chebyshev_filter(H: torch.Tensor, X: torch.Tensor, degrees, lam1, lower,
-                     upper, deg_max: int) -> torch.Tensor:
+                     upper, deg_max: int, *, shift=_hemm_shift
+                     ) -> torch.Tensor:
     """Apply the degree-masked scaled Chebyshev filter to the window ``X``.
 
     Args:
@@ -78,6 +94,8 @@ def chebyshev_filter(H: torch.Tensor, X: torch.Tensor, degrees, lam1, lower,
       lam1: estimate of the smallest eigenvalue (amplification point).
       lower, upper: interval of the spectrum to damp.
       deg_max: max(degrees); loop trip count.
+      shift: ``shift(H, X, c)`` = (op − c·I)·X for the filter's operator
+        (H itself; ``ops/pseudo._h2_shift`` filters on H²).
 
     Returns: (N, w) filtered window in X's dtype (a new tensor).
     """
@@ -91,36 +109,31 @@ def chebyshev_filter(H: torch.Tensor, X: torch.Tensor, degrees, lam1, lower,
     deg = _mask(degrees, X.device)
 
     # step 1: Y = (sigma1/e) (H - cI) X  (algorithm.inc:962-975)
-    Y = float(sigma1 / e) * _hemm_shift(H, Xc, c)
+    Y = float(sigma1 / e) * shift(H, Xc, c)
     Y = torch.where(deg >= 1, Y, Xc)
-    Xp, sigma = Xc, sigma1
-    for t in range(2, int(deg_max) + 1):
-        sigma_new = rt(1) / (rt(2) / sigma1 - sigma)
-        Z = float(rt(2) * sigma_new / e) * _hemm_shift(H, Y, c) \
-            + float(-sigma * sigma_new) * Xp
-        Xp, Y = Y, torch.where(deg >= t, Z, Y)
-        sigma = sigma_new
+    _, Y, _ = _cheb_steps(H, Xc, Y, deg, sigma1, sigma1, c, e, 2,
+                          int(deg_max) + 1, shift)
     # degree-0 (locked/padding) columns bit-exact: a reduced carry must
     # not round-trip untouched problem-dtype columns through it
     return torch.where(deg >= 1, Y.to(X.dtype), X)
 
 
 def filter_seg_init(H: torch.Tensor, V: torch.Tensor, start: int, deg_win,
-                    c, e, sigma1, *, w_pad: int):
+                    c, e, sigma1, *, w_pad: int, shift=_hemm_shift):
     """Copy the window [start, start + w_pad) out of V and run step 1.
 
     Returns (X0, Xp, Yc, sigma): the window's original columns, the two
     recurrence carries (``filter_carry_dtype(H, V)``) and σ1."""
     X0 = V[:, start:start + w_pad].clone()
     Xc = X0.to(filter_carry_dtype(H.dtype, V.dtype))
-    Y = float(sigma1 / e) * _hemm_shift(H, Xc, c)
+    Y = float(sigma1 / e) * shift(H, Xc, c)
     Y = torch.where(_mask(deg_win, V.device) >= 1, Y, Xc)
     return X0, Xc, Y, sigma1
 
 
 def filter_seg_steps(H: torch.Tensor, V: torch.Tensor, X0, Xp, Yc, deg_win,
                      sigma, sigma1, c, e, off: int, start_new: int,
-                     t0: int, t1: int, *, w_new: int):
+                     t0: int, t1: int, *, w_new: int, shift=_hemm_shift):
     """One segment: shrink the carries by ``off`` columns (0 = no
     shrink), run steps t in [t0, t1), write the masked window back into
     V's columns [start_new, start_new + w_new) in place.
@@ -130,14 +143,9 @@ def filter_seg_steps(H: torch.Tensor, V: torch.Tensor, X0, Xp, Yc, deg_win,
         X0 = X0[:, off:off + w_new]
         Xp = Xp[:, off:off + w_new]
         Yc = Yc[:, off:off + w_new]
-    rt = type(sigma1)
     deg = _mask(deg_win, V.device)
-    for t in range(int(t0), int(t1)):
-        sigma_new = rt(1) / (rt(2) / sigma1 - sigma)
-        Z = float(rt(2) * sigma_new / e) * _hemm_shift(H, Yc, c) \
-            + float(-sigma * sigma_new) * Xp
-        Xp, Yc = Yc, torch.where(deg >= t, Z, Yc)
-        sigma = sigma_new
+    Xp, Yc, sigma = _cheb_steps(H, Xp, Yc, deg, sigma, sigma1, c, e, t0, t1,
+                                shift)
     # degree-0 (locked pad) columns bit-exact from the original window
     V[:, start_new:start_new + w_new] = torch.where(deg >= 1,
                                                     Yc.to(V.dtype), X0)
@@ -216,7 +224,8 @@ def inj_table(inj, carry, device) -> torch.Tensor:
     return torch.as_tensor(arr, device=device)
 
 
-def refine_steps(H, Wp, Wc, Rc, degrees, alphas, betas, inj, cc, t0, t1):
+def refine_steps(H, Wp, Wc, Rc, degrees, alphas, betas, inj, cc, t0, t1, *,
+                 shift=_hemm_shift):
     """Deviation-recurrence steps t in [t0, t1) on a (possibly shrunk)
     window — the refine analogue of :func:`filter_seg_steps`.  ``alphas``
     and ``betas`` are the host tables, ``inj`` the device table of
@@ -226,7 +235,7 @@ def refine_steps(H, Wp, Wc, Rc, degrees, alphas, betas, inj, cc, t0, t1):
     ccf = float(rt(cc))
     deg = _mask(degrees, Wc.device)
     for t in range(int(t0), int(t1)):
-        Z = float(rt(alphas[t])) * _hemm_shift(H, Wc, ccf) \
+        Z = float(rt(alphas[t])) * shift(H, Wc, ccf) \
             + float(rt(betas[t])) * Wp + inj[t][None, :] * Rc
         Wp, Wc = Wc, torch.where(deg >= t, Z, Wc)
     return Wp, Wc
@@ -243,7 +252,8 @@ def refine_combine(V, W, p_final, degrees):
 
 
 def chebyshev_filter_refine(H, V, R, degrees, alpha1_e, alphas, betas, inj,
-                            p_final, cc, deg_max) -> torch.Tensor:
+                            p_final, cc, deg_max, *, shift=_hemm_shift
+                            ) -> torch.Tensor:
     """Deviation-form Chebyshev filter: y_j = p_final_j·v_j + w_j with the
     w recurrence in ``filter_carry_dtype(H, V)`` (see the note above).
 
@@ -255,6 +265,7 @@ def chebyshev_filter_refine(H, V, R, degrees, alpha1_e, alphas, betas, inj,
       alpha1_e, alphas, betas, inj, p_final: host tables (refine_tables).
       cc: filter interval center.
       deg_max: loop trip count.
+      shift: the operator's shifted product, as for chebyshev_filter.
 
     Returns: (N, w) filtered block, problem dtype.
     """
@@ -264,24 +275,24 @@ def chebyshev_filter_refine(H, V, R, degrees, alpha1_e, alphas, betas, inj,
     Wc = float(rt(alpha1_e)) * Rc                    # w_1 = (σ1/e)·r
     _, Wc = refine_steps(H, torch.zeros_like(Rc), Wc, Rc, degrees, alphas,
                          betas, inj_table(inj, carry, V.device), cc, 2,
-                         int(deg_max) + 1)
+                         int(deg_max) + 1, shift=shift)
     return refine_combine(V, Wc, p_final, degrees)
 
 
-def refine_seg_init(H, V, R, start: int, alpha1_e, *, w_pad: int):
-    """Copy the V window out, take R's window in the carry dtype and seed
-    w₁ = (σ1/e)·r.  ``H`` only supplies the carry dtype.  Returns (X0, Wp,
-    Wc, Rc)."""
+def refine_seg_init(H, V, R_win, start: int, alpha1_e):
+    """Copy the V window [start, start + w) out, take its residual window
+    ``R_win`` (N, w) in the carry dtype and seed w₁ = (σ1/e)·r.  ``H``
+    only supplies the carry dtype.  Returns (X0, Wp, Wc, Rc)."""
     carry = filter_carry_dtype(H.dtype, V.dtype)
-    X0 = V[:, start:start + w_pad].clone()
-    Rc = R[:, start:start + w_pad].to(carry)
+    X0 = V[:, start:start + R_win.shape[1]].clone()
+    Rc = R_win.to(carry)
     Wc = float(numpy_scalar_type(carry)(alpha1_e)) * Rc
     return X0, torch.zeros_like(Wc), Wc, Rc
 
 
 def refine_seg_steps(H, V, X0, Wp, Wc, Rc, deg_win, alphas, betas, inj,
                      p_final, cc, off: int, start_new: int, t0: int, t1: int,
-                     *, w_new: int):
+                     *, w_new: int, shift=_hemm_shift):
     """One refine segment: shrink the carries by ``off`` columns, run the
     deviation steps [t0, t1), combine y = p_final·v + w and write it back
     into V's columns [start_new, start_new + w_new) in place.  ``inj`` and
@@ -293,7 +304,8 @@ def refine_seg_steps(H, V, X0, Wp, Wc, Rc, deg_win, alphas, betas, inj,
         Wc = Wc[:, off:off + w_new]
         Rc = Rc[:, off:off + w_new]
     Wp, Wc = refine_steps(H, Wp, Wc, Rc, deg_win, alphas, betas,
-                          inj_table(inj, Wc.dtype, V.device), cc, t0, t1)
+                          inj_table(inj, Wc.dtype, V.device), cc, t0, t1,
+                          shift=shift)
     V[:, start_new:start_new + w_new] = refine_combine(X0, Wc, p_final,
                                                        deg_win)
     return V, X0, Wp, Wc, Rc

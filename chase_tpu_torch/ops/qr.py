@@ -8,6 +8,10 @@ failed chain falls back to Householder QR (``torch.linalg.qr``).  SP
 problems run the QR in f64 (``qr_hi_prec``, the QR_DOUBLE_PRECISION
 analogue) — the H100 multiplies f64 natively.
 
+The pseudo-Hermitian (BSE) solver's S-aware QR (:func:`orthonormalize_pseudo`)
+runs the same chain on a rearranged block with the locked columns'
+lower halves negated.
+
 Not ported: the host-factorized and wide-slice CholQR variants (TPU and
 relay workarounds) and the distributed TSQR (multi-GPU slice).
 """
@@ -18,11 +22,11 @@ import numpy as np
 import torch
 
 from ..logger import get_logger
-from .blocks import slice_cols, update_cols
+from .blocks import permute_cols, slice_cols, update_cols
 from ..types import eps, is_double_base
 
 __all__ = ["cholqr", "householder_qr", "mgs_cholqr", "restore_locked",
-           "orthonormalize", "orthonormalize_window"]
+           "orthonormalize", "orthonormalize_window", "orthonormalize_pseudo"]
 
 
 def _gram(V):
@@ -239,3 +243,23 @@ def orthonormalize(V: torch.Tensor, locked: int, cond: float,
         log.debug(f"QR: {variant}, cond(V) ≈ {cond:.2e}", "linalg")
     _check_ortho(rcfg, Q, "QR")
     return restore_locked(Q, V, locked)
+
+
+def orthonormalize_pseudo(V: torch.Tensor, locked: int, cond: float,
+                          rcfg) -> torch.Tensor:
+    """S-aware QR of the pseudo-Hermitian block (the pseudo branch of
+    chase_cpu.hpp:597-626 and 754-775): rearrange [L | active | R] →
+    [L | R | active], negate the lower half of the 2·locked locked
+    columns (so CholQR S-orthogonalizes the active block against them),
+    orthonormalize, restore the locked columns, undo the rearrangement.
+    Returns a new (N, K2) block."""
+    from .pseudo import flip_locked_cols
+    if locked == 0:
+        return orthonormalize(V, 0, cond, rcfg)
+    K2 = V.shape[1]
+    perm_to = np.concatenate([np.arange(locked), np.arange(K2 - locked, K2),
+                              np.arange(locked, K2 - locked)])
+    Vp = permute_cols(V, perm_to)
+    Q = orthonormalize(flip_locked_cols(Vp, 2 * locked), 0, cond, rcfg)
+    Q = restore_locked(Q, Vp, 2 * locked)
+    return permute_cols(Q, np.argsort(perm_to))

@@ -36,7 +36,9 @@ Three routes, by H's dtype:
   aligned with a row stride of a whole number of 16 bytes — a multiple of
   4 floats (an even number of complex elements for c64) or of 8 bf16
   elements (``DenseOperator`` allocates it so), or the wrapper raises
-  ValueError.
+  ValueError.  A tensor with torch's lazy conjugate or negative bit
+  (``V.conj()``) raises ValueError on every device: the kernel reads
+  ``data_ptr()``, which holds the unconjugated data.
 * :func:`tf32_split` — the f32 route's pre-pass, f32 or c64
   (``tf32_split.launches`` counts both); :func:`bf16_pack` — the bf16
   route's (``bf16_pack.launches``).
@@ -145,10 +147,23 @@ def tf32_split_reference(V: torch.Tensor, off: int = 0) -> torch.Tensor:
     return Vt
 
 
+def _check_resolved(name: str, t: torch.Tensor, what: str):
+    """Raise ValueError for a tensor with torch's lazy conjugate or
+    negative bit (``V.conj()``, ``X.conj().imag``): it shares its data with
+    the unconjugated tensor, and a kernel that reads ``data_ptr()`` would
+    compute with that.  Raised on every device, so the CPU tests catch a
+    caller that would hand the card such a view."""
+    if t.is_conj() or t.is_neg():
+        raise ValueError(f"{what} takes no lazy conjugate or negative view; "
+                         f"{name} has is_conj()={t.is_conj()}, is_neg()="
+                         f"{t.is_neg()} — pass {name}.resolve_conj()"
+                         f".resolve_neg()")
+
+
 def _check(H, V, col0, out, accumulate):
     """Raise on anything the kernel does not take: f32 or c64 operands of
     one dtype, or a bf16 H with f32 V and out; 2-D, on one device, unit
-    column stride."""
+    column stride, no lazy conjugate or negative bit."""
     if H.dtype not in KERNEL_DTYPES:
         raise TypeError(f"ring_hemm takes a float32, complex64 or bfloat16 "
                         f"H; H is {H.dtype}")
@@ -156,6 +171,7 @@ def _check(H, V, col0, out, accumulate):
     for name, t in (("H", H), ("V", V), ("out", out)):
         if t is None:
             continue
+        _check_resolved(name, t, "ring_hemm")
         if t is not H and t.dtype != v_dtype:
             raise TypeError(f"ring_hemm takes V and out of dtype {v_dtype} "
                             f"with an H of {H.dtype}; {name} is {t.dtype}")
@@ -228,6 +244,7 @@ def _check_split_input(V: torch.Tensor):
     if V.dtype not in (torch.float32, torch.complex64) or V.ndim != 2:
         raise TypeError(f"tf32_split takes a 2-D float32 or complex64 "
                         f"tensor, got {V.dtype} of shape {tuple(V.shape)}")
+    _check_resolved("V", V, "tf32_split")
     if V.shape[1] > 1 and V.stride(1) != 1:
         raise ValueError(f"tf32_split needs unit column stride; V has "
                          f"strides {V.stride()}")
@@ -334,6 +351,7 @@ def bf16_pack(V: torch.Tensor, off: int = 0) -> torch.Tensor:
     if V.dtype != torch.float32 or V.ndim != 2:
         raise TypeError(f"bf16_pack takes a 2-D float32 tensor, got "
                         f"{V.dtype} of shape {tuple(V.shape)}")
+    _check_resolved("V", V, "bf16_pack")
     if V.shape[1] > 1 and V.stride(1) != 1:
         raise ValueError(f"bf16_pack needs unit column stride; V has "
                          f"strides {V.stride()}")

@@ -1,9 +1,10 @@
 """Dense operator on one device.
 
 Single-device subset of ``chase_tpu/parallel/operator.py``: the Hermitian
-operator H (f32, f64, c64 or c128) pinned on an explicit torch device,
-with its dtype checked, and its reduced-precision shadow ``H_low`` for the
-precision ladder.  Grid padding belongs to the multi-GPU slice; the
+or pseudo-Hermitian (BSE, ``pseudo_hermitian=True``: even N, its S-halves
+unpadded) operator H (f32, f64, c64 or c128) pinned on an explicit torch
+device, with its dtype checked, and its reduced-precision shadow ``H_low``
+for the precision ladder.  Grid padding belongs to the multi-GPU slice; the
 transient and bf16-rebuilt shadows of the JAX package's wide-f64 mode
 (``H_filter``, ``drop_shadow``, ``engage_wide``) are TPU workarounds and
 are not ported.
@@ -14,7 +15,10 @@ a copy: 16-byte aligned, with a row stride of a whole number of 16 bytes —
 4 f32 elements, 2 c64 elements (its float view's rows are twice as long)
 or 8 bf16 elements.  When N is not a multiple of that it is the first N
 columns of a wider allocation (``padded_empty``).  f64 and c128 operators
-never reach the kernel and are stored contiguous, as given.
+never reach the kernel and are stored contiguous, as given.  A tensor
+with torch's lazy conjugate or negative bit (``H.conj()``) is copied, never
+kept as is: it shares the data of the unconjugated matrix, which is what
+the kernel would read.
 
 Placement never falls back: asking for a CUDA device on a machine without
 one raises RuntimeError instead of solving on the CPU.
@@ -51,6 +55,8 @@ def to_device(a, device: torch.device, dtype=None) -> torch.Tensor:
     caller's host buffer — the solver updates its blocks in place)."""
     if isinstance(a, torch.Tensor):
         t = a.to(device=device, dtype=dtype or a.dtype)
+        if t.is_conj() or t.is_neg():
+            return t.resolve_conj().resolve_neg()
         return t.clone() if t is a else t
     arr = np.asarray(a)
     dt = dtype if dtype is not None else as_torch_dtype(arr.dtype)
@@ -71,19 +77,28 @@ def padded_empty(N: int, dtype, device) -> torch.Tensor:
 
 
 def _has_operator_layout(H: torch.Tensor) -> bool:
-    """Whether H already has a layout :func:`padded_empty`'s rule accepts."""
+    """Whether H already has a layout :func:`padded_empty`'s rule accepts
+    (and no lazy conjugate or negative bit)."""
+    if H.is_conj() or H.is_neg():
+        return False
     if H.dtype in KERNEL_DTYPES:
         return H.stride(1) == 1 and tma_row_stride(H) is not None
     return H.is_contiguous()
 
 
 class DenseOperator:
-    """Dense Hermitian operator resident on one torch device."""
+    """Dense Hermitian (or, with ``pseudo_hermitian``, BSE) operator
+    resident on one torch device."""
 
-    def __init__(self, H, device="cuda"):
+    def __init__(self, H, device="cuda", *, pseudo_hermitian: bool = False):
         self.device = resolve_device(device)
         if H.ndim != 2 or H.shape[0] != H.shape[1]:
             raise ValueError(f"H must be square, got {tuple(H.shape)}")
+        if pseudo_hermitian and H.shape[0] % 2:
+            raise ValueError(f"a pseudo-Hermitian operator needs even N "
+                             f"(the metric S splits it in halves), got N = "
+                             f"{H.shape[0]}")
+        self.pseudo_hermitian = bool(pseudo_hermitian)
         dtype = as_torch_dtype(H.dtype)
         real_dtype(dtype)         # TypeError for a dtype the solver lacks
         self._H_low = None
@@ -96,8 +111,11 @@ class DenseOperator:
                 self.H.copy_(H if isinstance(H, torch.Tensor)
                              else torch.from_numpy(np.ascontiguousarray(H)))
         elif resident:
-            # a device-resident operator is used as is (no N² copy)
-            self.H = H if H.is_contiguous() else H.contiguous()
+            # a device-resident operator is used as is (no N² copy),
+            # unless it is a lazy conjugate or negative view
+            lazy = H.is_conj() or H.is_neg()
+            self.H = H if H.is_contiguous() and not lazy \
+                else H.resolve_conj().resolve_neg().contiguous()
         else:
             self.H = to_device(H, self.device)
 

@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -48,6 +48,7 @@ from .perf import PerfData
 from .types import (as_torch_dtype, filter_carry_dtype, is_double_base,
                     low_precision_dtype, numpy_scalar_type)
 from .parallel.operator import DenseOperator
+from .parallel import ring as pring
 from .ops.ring_hemm import KERNEL_DTYPES
 from .ops import filter as filt
 from .ops import lanczos as lz
@@ -149,7 +150,35 @@ def _shrink_plan(deg_win, B, w_pad):
     return plan
 
 
-def _filter_windowed(H, V, degrees_act, locked, nevex, B, lam, lo, up):
+def _shrink_window(right: int, retire_to: int, B: int, start: int, w: int):
+    """The right-aligned window [start, right) of width w after every
+    column left of ``retire_to`` retired: (columns to drop from its left,
+    new start, new width) — no change unless a whole B bucket retired."""
+    if retire_to >= right:
+        return 0, start, w
+    new_w = min(-(-(right - retire_to) // B) * B, w)
+    off = (right - new_w) - start
+    return (off, right - new_w, new_w) if off > 0 else (0, start, w)
+
+
+class FilterForm(NamedTuple):
+    """The operator the filter drivers apply: ``shift(H, X, c)`` is its
+    shifted product (ops/filter), ``ring`` and ``refine_ring`` its p = 1
+    ring filters (parallel/ring), ``products`` the HEMMs per recurrence
+    step.  The drivers return executed column-steps and HEMM calls
+    already multiplied by ``products``."""
+    shift: Callable
+    ring: Callable
+    refine_ring: Callable
+    products: int
+
+
+HERMITIAN = FilterForm(filt._hemm_shift, pring.chebyshev_filter_ring_pallas,
+                       pring.chebyshev_filter_refine_ring, 1)
+
+
+def _filter_windowed(H, V, degrees_act, locked, nevex, B, lam, lo, up, *,
+                     form: FilterForm = HERMITIAN):
     """Degree-retiring segmented filter.
 
     The active columns are sorted ascending by degree, so retirement
@@ -172,9 +201,9 @@ def _filter_windowed(H, V, degrees_act, locked, nevex, B, lam, lo, up):
     sigma1 = e / (lam - c)
 
     X0, Xp, Yc, sigma = filt.filter_seg_init(
-        H, V, start, deg_win, c, e, sigma1, w_pad=w_pad)
+        H, V, start, deg_win, c, e, sigma1, w_pad=w_pad, shift=form.shift)
     executed = w_pad                      # init step runs the full window
-    hemms = 1
+    steps = 1
     t_done = 1
     start0 = start             # V-column of the initial window's left edge
     pend_off = 0               # shrink offset staged for the next segment
@@ -182,25 +211,19 @@ def _filter_windowed(H, V, degrees_act, locked, nevex, B, lam, lo, up):
         if t_end > t_done:
             V, X0, Xp, Yc, sigma = filt.filter_seg_steps(
                 H, V, X0, Xp, Yc, deg_win, sigma, sigma1, c, e, pend_off,
-                start, t_done + 1, t_end + 1, w_new=w_pad)
+                start, t_done + 1, t_end + 1, w_new=w_pad, shift=form.shift)
             pend_off = 0
             executed += w_pad * (t_end - t_done)
-            hemms += t_end - t_done
+            steps += t_end - t_done
             t_done = t_end
         # plan offsets are positions in the INITIAL window; shrink relative
         # to the CURRENT window (right edge pinned at nevex), applied at
         # the start of the next segment
-        retire_to = start0 + plan_off
-        if retire_to < nevex:
-            new_w = nevex - retire_to
-            new_w_pad = min(-(-new_w // B) * B, w_pad)
-            new_start = nevex - new_w_pad
-            off2 = new_start - start
-            if off2 > 0:
-                deg_win = deg_win[off2:]
-                start, w_pad = new_start, new_w_pad
-                pend_off += off2
-    return V, executed, hemms
+        off, start, w_pad = _shrink_window(nevex, start0 + plan_off, B, start,
+                                           w_pad)
+        deg_win = deg_win[off:]
+        pend_off += off
+    return V, executed * form.products, steps * form.products
 
 
 def _row_major(V):
@@ -209,56 +232,63 @@ def _row_major(V):
     return V if V.stride(1) == 1 else V.contiguous()
 
 
-def _filter_ring(H, V, degrees_act, locked, nevex, B, lam, lo, up):
+def _filter_ring(H, V, degrees_act, locked, nevex, B, lam, lo, up, *,
+                 form: FilterForm = HERMITIAN):
     """The p = 1 ring filter on the padded window (no bucket shrink, like
     the JAX ring path); H may be the ladder's shadow.  Returns (V,
     executed column-steps, HEMM calls)."""
-    from .parallel.ring import chebyshev_filter_ring_pallas
     w_pad, start = _window_pad(nevex, locked, B)
     deg_win = np.zeros(w_pad, np.int32)
     deg_win[locked - start:] = degrees_act
     deg_max = int(deg_win.max())
     V = _row_major(V)
-    Y = chebyshev_filter_ring_pallas(H, slice_cols(V, start, w_pad),
-                                     deg_win, lam, lo, up, deg_max)
+    Y = form.ring(H, slice_cols(V, start, w_pad), deg_win, lam, lo, up,
+                  deg_max)
     V = update_cols(V, Y, start)
-    return V, w_pad * deg_max, 1 + max(deg_max - 1, 0)
+    return (V, w_pad * deg_max * form.products,
+            (1 + max(deg_max - 1, 0)) * form.products)
 
 
 def _filter_refine_windowed(H_f, V, R, ritzv_act, degrees_act, locked,
-                            nevex, B, lam, lo, up, max_deg, ring=False):
+                            nevex, B, lam, lo, up, max_deg, ring=False, *,
+                            form: FilterForm = HERMITIAN, seed=None):
     """Deviation-form refinement filter on the padded active window.
 
     Applies the SAME polynomial as _filter_windowed, factored as
     y = p(λ_j)v_j + [p(Hs) − p(λs_j)]v_j with the bracket recurrence
     running in H_f's fast dtype, seeded by the RR residual vectors R of
-    the problem dtype (ops/filter.chebyshev_filter_refine).  With
-    ``ring`` the whole padded window runs as the p = 1 ring (no bucket
-    shrink, like the JAX ring path); otherwise the segmented recurrence
-    retires buckets as _filter_windowed does.  Returns (V, executed
-    column-steps, HEMM calls)."""
+    the problem dtype (ops/filter.chebyshev_filter_refine).  ``seed(R_w,
+    ritz_w)`` maps the window's residuals and padded Ritz values into the
+    filter operator's space — (seed residuals, expansion points); None
+    keeps them (the H² filter passes (H + θ)·r and θ²).  With ``ring``
+    the whole padded window runs as the p = 1 ring (no bucket shrink,
+    like the JAX ring path); otherwise the segmented recurrence retires
+    buckets as _filter_windowed does.  Returns (V, executed column-steps,
+    HEMM calls)."""
     w_pad, start = _window_pad(nevex, locked, B)
     offset = locked - start
     deg_win = np.zeros(w_pad, np.int32)
     deg_win[offset:] = degrees_act
     ritz_win = np.zeros(w_pad, np.float64)
     ritz_win[offset:] = ritzv_act
+    R_win = slice_cols(R, start, w_pad)
+    if seed is not None:
+        R_win, ritz_win = seed(R_win, ritz_win)
     deg_max = int(deg_win.max())
     alpha1_e, alphas, betas, inj, p_final = filt.refine_tables(
         ritz_win, deg_win, lam, lo, up, max_deg)
     cc = (up + lo) / 2.0
     if ring:
-        from .parallel.ring import chebyshev_filter_refine_ring
         V = _row_major(V)
-        Y = chebyshev_filter_refine_ring(
-            H_f, slice_cols(V, start, w_pad), slice_cols(R, start, w_pad),
-            deg_win, alpha1_e, alphas, betas, inj, p_final, cc, deg_max)
-        return update_cols(V, Y, start), w_pad * deg_max, max(deg_max - 1, 0)
+        Y = form.refine_ring(H_f, slice_cols(V, start, w_pad), R_win,
+                             deg_win, alpha1_e, alphas, betas, inj, p_final,
+                             cc, deg_max)
+        return (update_cols(V, Y, start), w_pad * deg_max * form.products,
+                max(deg_max - 1, 0) * form.products)
 
     plan = _shrink_plan(deg_win, B, w_pad)
-    X0, Wp, Wc, Rc = filt.refine_seg_init(H_f, V, R, start, alpha1_e,
-                                          w_pad=w_pad)
-    executed = hemms = 0
+    X0, Wp, Wc, Rc = filt.refine_seg_init(H_f, V, R_win, start, alpha1_e)
+    executed = steps = 0
     t_done = 1
     start0 = start
     pend_off = 0
@@ -267,24 +297,16 @@ def _filter_refine_windowed(H_f, V, R, ritzv_act, degrees_act, locked,
             V, X0, Wp, Wc, Rc = filt.refine_seg_steps(
                 H_f, V, X0, Wp, Wc, Rc, deg_win, alphas, betas, inj,
                 p_final, cc, pend_off, start, t_done + 1, t_end + 1,
-                w_new=w_pad)
+                w_new=w_pad, shift=form.shift)
             pend_off = 0
             executed += w_pad * (t_end - t_done)
-            hemms += t_end - t_done
+            steps += t_end - t_done
             t_done = t_end
-        retire_to = start0 + plan_off
-        if retire_to < nevex:
-            new_w = nevex - retire_to
-            new_w_pad = min(-(-new_w // B) * B, w_pad)
-            new_start = nevex - new_w_pad
-            off2 = new_start - start
-            if off2 > 0:
-                deg_win = deg_win[off2:]
-                inj = inj[:, off2:]
-                p_final = p_final[off2:]
-                start, w_pad = new_start, new_w_pad
-                pend_off += off2
-    return V, executed, hemms
+        off, start, w_pad = _shrink_window(nevex, start0 + plan_off, B, start,
+                                           w_pad)
+        deg_win, inj, p_final = deg_win[off:], inj[:, off:], p_final[off:]
+        pend_off += off
+    return V, executed * form.products, steps * form.products
 
 
 # --------------------------------------------------------------------------

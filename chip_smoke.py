@@ -9,8 +9,9 @@ no result line) on any fault:
   build    compile the port's CUDA kernels from csrc/ (nvcc, sm_90a)
   kernel   ring_hemm (TMA + wgmma, 3xTF32) against its plain version
            (torch.matmul) at the filter's shapes, both held against an f64
-           product, timed, with TFLOP/s and the share of the 165 TFLOP/s
-           3xTF32 ceiling; its TF32 split pre-pass against its plain
+           product at (N, k) = (1000, 37), (30000, 750/1500/2250/3000),
+           timed, with TFLOP/s and the share of the 165 TFLOP/s 3xTF32
+           ceiling; its TF32 split pre-pass against its plain
            version (bit-exact); a strided window, a two-chunk ring step and
            an N=1001 operator whose row stride DenseOperator pads to 1004
   filter   the p=1 ring Chebyshev filter (every HEMM on the kernel)
@@ -26,7 +27,8 @@ no result line) on any fault:
   ckernel  complex64 ring_hemm (the f32 kernel on the float views, with
            the complex pre-pass) against its plain version (complex
            torch.matmul) and a c128 product at (1001, 37) through
-           DenseOperator (row stride 1002), (30000, 750), (30000, 3000);
+           DenseOperator (row stride 1002), (30000, 750), (30000, 1500),
+           (30000, 3000);
            the complex pre-pass bit-exact; a two-chunk ring step at
            col0 = 15001; an odd-stride c64 H refused
   cslice   eigsh on a phase-rotated Clement matrix H = D·C·Dᴴ (dense
@@ -39,8 +41,9 @@ no result line) on any fault:
            its pre-pass, f32 sums) against its plain version and the
            library's bf16 GEMM (torch.mm, f32 out), all held against an
            f64 product of the bf16-rounded operands, at (1000, 37),
-           (30000, 750), (30000, 3000), a strided window and a two-chunk
-           ring step at col0 = 15001; the pre-pass bit-exact
+           (30000, 750), (30000, 1500), (30000, 3000), a strided window
+           and a two-chunk ring step at col0 = 15001; the pre-pass
+           bit-exact
   bslice   the f32 slice with the bf16 rung (bf16_filter=True, pallas):
            every filter HEMM on the bf16 route, the slice's gates
   dp       the north star in double precision: the phase-rotated Clement
@@ -55,6 +58,30 @@ no result line) on any fault:
            nev=400, nex=100, drift 1e-3·‖H‖_F/N per member) built on the
            card and passed as a generator, mixed_precision pinned to the
            f64/c128 default on CUDA; estimate_spectral_bounds
+  pfilter  the p=1 H² ring filter (two ring_hemm launches per step)
+           against the plain H² filter on a structured BSE matrix (exact
+           spectrum ±√(a²−b²), built on the card), N=30000, at the BSE
+           solves' first window (width nev+nex = 1500), degree 10, on the
+           operator of each BSE solve below: the f32 route (f32 shadow,
+           f64 window), the bf16 route (bf16 shadow, f32 window) and,
+           before zpseudo, the c64 route (c64 shadow, c128 window);
+           launches = 2·10, degree-0 columns bit-exact
+  bpseudo  eigsh_pseudo on the f32 copy of that BSE matrix, tol 1e-4, on
+           the bf16 rung (bf16_filter=True, ring_backend="pallas"): every
+           filter product on the kernel's bf16 route (ring_hemm launches
+           = bf16_pack launches = the filter's HEMM steps), eigenvalues
+           and true residuals (against the f64 H) within 10·tol
+  pseudo   eigsh_pseudo on that BSE matrix in f64, N=30000, nev=1000,
+           nex=500, tol 1e-10 absolute: natively (windowed, DGEMM), then
+           on the ladder (mixed_precision=True, ring_backend="pallas":
+           every filter product on the kernel's f32 route); eigenvalues
+           against the exact spectrum and true residuals ≤ 10·tol, on the
+           ladder ≥ 80% of the FLOPs in f32 and ring_hemm launches =
+           tf32_split launches = the filter's HEMM steps; a torch.profiler
+           trace of one more ladder solve
+  zpseudo  the same BSE made complex, H_c = D·H·D⁻¹ with D = diag(d,
+           conj(d)) of random unit phases (same spectrum), c128 on the
+           ladder on the kernel's c64 route, pseudo's gates
 
 Each phase prints lines with its numbers and seconds.  A full run then
 prints the kernels' JSON summary and, last, {"ok": true, "device": {...}}.
@@ -75,10 +102,17 @@ import torch
 # slice configuration: the repo's north-star shape, f32 at an absolute
 # tolerance of ~1e-5·‖H‖ (‖H‖ = N - 1 for Clement)
 SLICE = dict(N=30000, nev=2250, nex=750, tol=0.3)
-KERNEL_SHAPES = ((1000, 37), (30000, 750), (30000, 2250), (30000, 3000))
-C64_SHAPES = ((30000, 750), (30000, 3000))
+# (30000, 1500): the BSE solves' first filter window, w = nev + nex
+KERNEL_SHAPES = ((1000, 37), (30000, 750), (30000, 1500), (30000, 2250),
+                 (30000, 3000))
+C64_SHAPES = ((30000, 750), (30000, 1500), (30000, 3000))
+BF16_WIDTHS = (750, 1500, 3000)
 # the sequence parity configuration (BASELINE.md): 10 correlated problems
 SEQUENCE = dict(N=8000, nev=400, nex=100, count=10, drift=1e-3)
+# the BSE (pseudo-Hermitian) phases: K2 = 2·(nev+nex) = 3000, the
+# Hermitian slice's block width; tol absolute, solve_pseudo's DP default
+# (f32 on the bf16 rung: the JAX package's SP BSE test tolerance)
+BSE = dict(N=30000, nev=1000, nex=500, tol=1e-10, sp_tol=1e-4)
 SEED = 20261016
 PEAK_3XTF32 = 495.0 / 3     # TFLOP/s: the H100's dense TF32 rate, 3 passes
 PEAK_BF16 = 989.0           # TFLOP/s: the H100's dense bf16 rate
@@ -195,8 +229,13 @@ def phase_build() -> float:
     t0 = time.perf_counter()
     _build.load_library("ring_hemm")
     dt = time.perf_counter() - t0
+    release = subprocess.run([_build.nvcc_path(), "--version"],
+                             capture_output=True, text=True).stdout
+    release = [ln for ln in release.splitlines() if "release" in ln]
     log("build", f"ring_hemm built and loaded in {dt:.2f} s "
-                 f"(nvcc {_build.nvcc_path()}, {_build.BUILD_DIR})")
+                 f"(nvcc {_build.nvcc_path()}: "
+                 f"{release[0].strip() if release else 'version unknown'}; "
+                 f"{_build.BUILD_DIR})")
     for line in _build.build_log("ring_hemm").splitlines():
         if "registers" in line or "spill" in line or "Function" in line:
             log("build", line.strip())
@@ -466,7 +505,7 @@ def phase_bf16_kernel(dev) -> dict:
     del H1
     N = SLICE["N"]
     H = torch.randn((N, N), generator=g, device=dev).bfloat16()
-    for k in (750, 3000):
+    for k in BF16_WIDTHS:
         V = torch.randn((N, k), generator=g, device=dev)
         summary[(N, k)] = _bf16_case("bkernel", H, V, 3)
 
@@ -867,6 +906,216 @@ def phase_sequence(dev) -> None:
         raise AssertionError(f"upperb {bounds['upperb']} < λ_max {w0[-1]}")
 
 
+def structured_bse_on_device(N: int, dev, seed: int = SEED) -> tuple:
+    """models.structured_pseudo_hermitian's BSE matrix built on the card in
+    f64: H = [[A, B], [−B, −A]], A = Q·diag(a)·Qᵀ, B = Q·diag(b)·Qᵀ, Q from
+    torch.linalg.qr of an n×n Gaussian (n = N/2), a = 1 + 2·(i + u_i)/n,
+    b = 0.5·(2u' − 1).  Returns (H, lam): lam = √(a² − b²) ascending, H's
+    exact positive spectrum."""
+    n = N // 2
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f64 = dict(dtype=torch.float64, device=dev)
+    Q, _ = torch.linalg.qr(torch.randn((n, n), generator=g, **f64))
+    a = 1.0 + 2.0 * (torch.arange(n, **f64) + torch.rand(n, generator=g,
+                                                          **f64)) / n
+    b = 0.5 * (2.0 * torch.rand(n, generator=g, **f64) - 1.0)
+    H = torch.empty((N, N), **f64)
+    for cols, d in ((slice(0, n), a), (slice(n, N), b)):
+        M = (Q * d) @ Q.T
+        H[:n, cols] = (M + M.T) / 2
+    H[n:, :n] = -H[:n, n:]
+    H[n:, n:] = -H[:n, :n]
+    return H, torch.sort(torch.sqrt(a * a - b * b)).values
+
+
+def complex_bse_on_device(H: torch.Tensor, seed: int = SEED) -> torch.Tensor:
+    """H_c = D·H·D⁻¹ in c128, D = diag(d, conj(d)) with unit phases d
+    uniform from ``seed``: the BSE structure kept (A' = dAd* Hermitian,
+    B' = dBd complex symmetric), H's spectrum exactly."""
+    N, n = H.shape[0], H.shape[0] // 2
+    g = torch.Generator(device=H.device).manual_seed(seed)
+    d = torch.exp(1j * 2 * np.pi * torch.rand(
+        n, generator=g, dtype=torch.float64, device=H.device))
+    D = torch.cat([d, d.conj()])
+    Hc = torch.empty((N, N), dtype=torch.complex128, device=H.device)
+    for r0 in range(0, N, 2048):                 # D·H·D⁻¹ = D·H·conj(D)
+        rows = slice(r0, min(r0 + 2048, N))
+        Hc[rows] = D[rows, None] * H[rows] * D.conj()[None, :]
+    return Hc
+
+
+# per route of the H² ring filter: (operator dtype, window dtype, gate).
+# f32 and c64: the filter phase's 1e-5 (the same f32/c64 recurrence, the
+# products summed in two orders).  bf16: 1e-2, the CPU tests' bound for a
+# bf16 shadow — both sides round every product's input to bf16, and an
+# intermediate that differs in its last f32 bit may round to the other
+# bf16 neighbour (2^-9 of it), which the polynomial amplifies.
+PFILTER_ROUTES = {"f32": (torch.float32, torch.float64, 1e-5),
+                  "bf16": (torch.bfloat16, torch.float32, 1e-2),
+                  "c64": (torch.complex64, torch.complex128, 1e-5)}
+
+
+def phase_pfilter(dev, H, lam, route: str) -> None:
+    """The p=1 H² ring filter (two ring_hemm launches per step) against
+    the plain H² filter (torch.matmul) at the BSE solves' first window,
+    w = nev + nex, on the operator each BSE solve filters with: the f32
+    shadow of the f64 H with an f64 window (pseudo's ladder), its bf16
+    shadow with an f32 window (bpseudo's rung) or the c64 shadow of the
+    complex H with a c128 window (zpseudo's ladder).  The kernel reads no
+    symmetry, and the BSE H's halves differ."""
+    from chase_tpu_torch.config import set_matmul_precision
+    from chase_tpu_torch.ops.pseudo import chebyshev_filter_h2
+    from chase_tpu_torch.ops.ring_hemm import bf16_pack, ring_hemm, tf32_split
+    from chase_tpu_torch.parallel.ring import chebyshev_filter_h2_ring
+    t_phase = time.perf_counter()
+    set_matmul_precision("highest")
+    op_dtype, x_dtype, gate = PFILTER_ROUTES[route]
+    H_f = H.to(op_dtype)
+    nevex = BSE["nev"] + BSE["nex"]
+    N, w, deg_max = H.shape[0], nevex, 10
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    X = torch.randn((N, w), generator=g, device=dev, dtype=x_dtype)
+    X /= torch.linalg.vector_norm(X, dim=0)
+    deg = np.full(w, deg_max, np.int32)
+    deg[:100] = 0                # locked padding
+    deg[100:600] = 6             # retired early
+    mu = (lam.double() ** 2).cpu().numpy()
+    args = (deg, mu[0], mu[nevex], mu[-1] * 1.01, deg_max)
+    ring_hemm.launches = tf32_split.launches = bf16_pack.launches = 0
+    Yk = chebyshev_filter_h2_ring(H_f, X, *args)
+    torch.cuda.synchronize()
+    pre, other = ((bf16_pack, tf32_split) if route == "bf16"
+                  else (tf32_split, bf16_pack))
+    launches = (ring_hemm.launches, pre.launches, other.launches)
+    Yp = chebyshev_filter_h2(H_f, X, *args)
+    wide = torch.complex128 if X.is_complex() else torch.float64
+    err = rel_err(Yk, Yp.to(wide))
+    exact0 = bool(torch.equal(Yk[:, :100], X[:, :100]))
+    del Yk, Yp
+    plain_ms, kern_ms = time_fns([lambda: chebyshev_filter_h2(H_f, X, *args),
+                                  lambda: chebyshev_filter_h2_ring(
+                                      H_f, X, *args)], 1)
+    gf = (16.0 if X.is_complex() else 4.0) * N * N * int(deg.sum()) / 1e9
+    log("pfilter", f"H² filter N={N} w={w} deg_max={deg_max}, {route} route "
+                   f"({op_dtype} operator, {x_dtype} window) on the "
+                   f"structured BSE H: rel err ring vs plain {err:.3e} "
+                   f"(gate {gate:.0e}); degree-0 columns bit-exact: "
+                   f"{exact0}; ring_hemm / {pre.__name__} / "
+                   f"{other.__name__} launches {launches} (2·deg_max = "
+                   f"{2 * deg_max}); ring {kern_ms:.1f} ms, plain "
+                   f"{plain_ms:.1f} ms ({gf:.0f} useful GFLOP); "
+                   f"{time.perf_counter() - t_phase:.2f} s")
+    del H_f
+    torch.cuda.empty_cache()
+    if not (err <= gate and exact0
+            and launches == (2 * deg_max, 2 * deg_max, 0)):
+        raise AssertionError(f"the {route} H² ring filter disagrees with "
+                             f"the plain H² filter or did not launch "
+                             f"2·deg_max times")
+
+
+def _bse_solve(dev, H, lam, phase: str, mixed: bool, backend: str,
+               what: str, bf16: bool = False, H_ref=None) -> dict:
+    """eigsh_pseudo of the BSE H at BSE's shape and tol (absolute; an f32
+    H at sp_tol) with ``mixed_precision=mixed``, ``bf16_filter=bf16`` and
+    ``ring_backend=backend``; gates: converged, max |θ − exact| and max
+    true residual ‖H_ref·v − θv‖ (on the card in H_ref's precision, H_ref
+    defaulting to H) ≤ 10·tol; on the ladder or the bf16 rung on the
+    ring, every filter HEMM a launch of the route and its pre-pass and
+    the low-precision FLOP share ≥ 0.80 (bf16: ≥ 0.75); launch counts set
+    to 0 just before the solve and read just after."""
+    import chase_tpu_torch as ct
+    from chase_tpu_torch.ops.pseudo import residuals_pseudo
+    from chase_tpu_torch.ops.ring_hemm import bf16_pack, ring_hemm, tf32_split
+    N, nev, nex = H.shape[0], BSE["nev"], BSE["nex"]
+    tol = BSE["sp_tol"] if H.dtype == torch.float32 else BSE["tol"]
+    H_ref = H if H_ref is None else H_ref
+    cfg = ct.ChaseConfig(mixed_precision=mixed, ring_backend=backend,
+                         bf16_filter=bf16)
+
+    def solve():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = ct.eigsh_pseudo(H, nev, nex, tol=tol, device=dev,
+                              collect_perf=True, config=cfg)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, res
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    ring_hemm.launches = tf32_split.launches = bf16_pack.launches = 0
+    tts, res = solve()
+    launches = (ring_hemm.launches, tf32_split.launches, bf16_pack.launches)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    perf, t = res.perf, res.perf.timings
+    ev_err = float(np.abs(res.ritzv - lam[:nev].cpu().numpy()).max())
+    true_res = float(residuals_pseudo(H_ref, res.V[:, :nev].to(H_ref.dtype),
+                                      res.ritzv).max())
+    low = perf.low_flop_fraction(N, cfg.resolve(H.dtype).lanczos_iter, 4,
+                                 H.dtype)
+    log(phase, f"eigsh_pseudo {H.dtype} N={N} nev={nev} nex={nex} "
+               f"tol={tol:.1e} (absolute) mixed_precision={mixed} "
+               f"bf16_filter={bf16}, {what}: "
+               f"converged={res.converged} iterations={res.iterations} TTS "
+               f"{tts:.2f} s; phases Lanczos {t['Lanczos']:.2f} Filter "
+               f"{t['Filter']:.2f} QR {t['Qr']:.2f} RR {t['Rr']:.2f} "
+               f"Kconj {t['ApplyKconjugate']:.2f} Resids_Locking "
+               f"{t['Resids_Locking']:.2f} InitVecs {t['InitVecs']:.2f} s; "
+               f"filter {perf.get_filter_flops(N, H.dtype) / t['Filter']:.0f}"
+               f" GFLOP/s (useful FLOP model), window efficiency "
+               f"{perf.filter_window_efficiency():.3f}; low-precision FLOP "
+               f"share {low:.3f}; max eigenvalue err {ev_err:.3e}; max true "
+               f"residual {true_res:.3e}; reported max resid "
+               f"{res.resid.max():.3e}; ring_hemm / tf32_split / bf16_pack "
+               f"launches {launches}, filter HEMM steps "
+               f"{perf.filter_hemm_steps}; peak device memory {peak:.1f} GiB")
+    if not res.converged:
+        raise AssertionError(f"{phase}: the BSE solve did not converge")
+    if not (true_res <= 10 * tol and ev_err <= 10 * tol):
+        raise AssertionError(f"{phase}: true residual {true_res:.3e} or "
+                             f"eigenvalue error {ev_err:.3e} > "
+                             f"{10 * tol:.3e}")
+    if (mixed or bf16) and backend == "pallas":
+        hemm, split, pack = launches
+        pre, other = (pack, split) if bf16 else (split, pack)
+        if not (low >= (0.75 if bf16 else 0.80)
+                and 0 < hemm == pre == perf.filter_hemm_steps
+                and other == 0):
+            raise AssertionError(f"{phase}: low-precision share {low:.3f}, "
+                                 f"launches {launches}, filter HEMM steps "
+                                 f"{perf.filter_hemm_steps}")
+    return dict(tts=tts, iterations=res.iterations, low=low,
+                launches=launches, solve=solve)
+
+
+def phase_pseudo(dev, H, lam) -> None:
+    """The real f64 BSE: natively (windowed filter on DGEMM), then on the
+    ladder (f32 shadow, every filter product on the kernel ring), then a
+    torch.profiler trace of one more ladder solve."""
+    native = _bse_solve(dev, H, lam, "pseudo", False, "xla",
+                        "windowed path (DGEMM)")
+    ladder = _bse_solve(dev, H, lam, "pseudo", True, "pallas",
+                        "ladder (f32 shadow, kernel ring)")
+    log("pseudo", f"TTS {ladder['tts']:.2f} s on the ladder (kernel ring), "
+                  f"{native['tts']:.2f} s native f64 in this run: "
+                  f"{native['tts'] / ladder['tts']:.2f}x")
+    trace_solve("pseudo", "BSE ladder solve (kernel ring)", ladder["solve"])
+
+
+def phase_bpseudo(dev, H32, H, lam) -> None:
+    """The f32 BSE (H's f32 copy) on the bf16 rung on the kernel ring:
+    every filter product on the bf16 route; true residuals against the
+    f64 H."""
+    _bse_solve(dev, H32, lam, "bpseudo", False, "pallas",
+               "bf16 rung (bf16 shadow, kernel ring)", bf16=True, H_ref=H)
+
+
+def phase_zpseudo(dev, Hc, lam) -> None:
+    """The BSE made complex (complex_bse_on_device), stored in c128 and
+    solved on the ladder on the kernel ring (the c64 route)."""
+    _bse_solve(dev, Hc, lam, "zpseudo", True, "pallas",
+               "ladder (c64 shadow, kernel ring)")
+
+
 def phase_bslice(dev, H, f32_warm: float) -> dict:
     """The f32 slice on the bf16 rung (one solve after bkernel loaded the
     route), beside the f32 ring slice's warm TTS from this run."""
@@ -927,6 +1176,30 @@ def main() -> int:
     del H
     torch.cuda.empty_cache()
     phase_sequence(dev)
+
+    t0 = time.perf_counter()
+    H, lam = structured_bse_on_device(BSE["N"], dev)
+    H32 = H.float()
+    torch.cuda.synchronize()
+    log("setup", f"structured BSE N={BSE['N']} (f64, and its f32 copy) "
+                 f"built on the card in {time.perf_counter() - t0:.2f} s")
+    phase_pfilter(dev, H32, lam, "f32")
+    phase_pfilter(dev, H32, lam, "bf16")
+    phase_bpseudo(dev, H32, H, lam)
+    del H32
+    torch.cuda.empty_cache()
+    phase_pseudo(dev, H, lam)
+    t0 = time.perf_counter()
+    Hc = complex_bse_on_device(H)
+    del H
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    log("setup", f"H_c = D·H·D⁻¹ (c128) built on the card in "
+                 f"{time.perf_counter() - t0:.2f} s")
+    phase_pfilter(dev, Hc, lam, "c64")
+    phase_zpseudo(dev, Hc, lam)
+    del Hc
+    torch.cuda.empty_cache()
 
     big, cbig = kern[KERNEL_SHAPES[-1]], ckern[C64_SHAPES[-1]]
     print(json.dumps({"kernels": [

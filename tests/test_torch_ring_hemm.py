@@ -183,6 +183,73 @@ def test_non_cpu_non_cuda_tensor_raises_instead_of_falling_back():
         ring_hemm(H, V)
 
 
+def _lazy_views():
+    """c64 H, V and out, and their lazy views: V.conj() (conjugate bit)
+    and X.conj().imag (a float32 view with the negative bit), which share
+    the unconjugated data a kernel would read through data_ptr()."""
+    g = torch.Generator().manual_seed(3)
+    H = torch.randn((16, 16), generator=g, dtype=torch.complex64)
+    V = torch.randn((16, 4), generator=g, dtype=torch.complex64)
+    neg = V.conj().imag
+    assert V.conj().is_conj() and neg.is_neg()
+    assert V.conj().data_ptr() == V.data_ptr()
+    return H, V, neg
+
+
+@pytest.mark.parametrize("case", ["V_conj", "H_conj", "out_conj", "V_neg",
+                                  "out_neg", "bf16_V_neg"])
+def test_ring_hemm_refuses_lazy_conj_and_neg_views(case):
+    """A lazy view raises ValueError on the CPU too (the plain version
+    would honour the bit; the card's kernel would not), before any
+    launch."""
+    H, V, neg = _lazy_views()
+    Hf = H.real.contiguous()
+    args, kw = {
+        "V_conj": ((H, V.conj()), {}),
+        "H_conj": ((H.conj(), V), {}),
+        "out_conj": ((H, V), dict(out=torch.zeros_like(V).conj())),
+        "V_neg": ((Hf, neg), {}),
+        "out_neg": ((Hf, V.real.contiguous()), dict(out=neg)),
+        "bf16_V_neg": ((Hf.to(torch.bfloat16), neg), {}),
+    }[case]
+    before = ring_hemm.launches
+    with pytest.raises(ValueError, match="lazy conjugate or negative"):
+        ring_hemm(*args, **kw)
+    assert ring_hemm.launches == before
+    # resolving the bit is all it takes
+    fixed = [a.resolve_conj().resolve_neg() for a in args]
+    if "out" in kw:
+        kw = dict(out=kw["out"].resolve_conj().resolve_neg())
+    ring_hemm(*fixed, **kw)
+
+
+def test_prepasses_refuse_lazy_conj_and_neg_views():
+    _, V, neg = _lazy_views()
+    for fn, bad in ((tf32_split, V.conj()), (tf32_split, neg),
+                    (bf16_pack, neg)):
+        with pytest.raises(ValueError, match="lazy conjugate or negative"):
+            fn(bad)
+        fn(bad.resolve_conj().resolve_neg())
+
+
+def test_dense_operator_copies_a_conj_view():
+    """A c64 operator given as H.conj() is materialized (its own data, no
+    conj bit), so the ring product uses the conjugated matrix."""
+    from chase_tpu_torch import DenseOperator
+    H, V, _ = _lazy_views()
+    op = DenseOperator(H.conj(), "cpu")
+    assert not op.H.is_conj() and op.H.data_ptr() != H.data_ptr()
+    assert torch.equal(op.H, H.conj().resolve_conj())
+    W = ring_hemm(op.H, V)
+    ref = H.to(torch.complex128).conj() @ V.to(torch.complex128)
+    assert float((W.to(torch.complex128) - ref).abs().max()
+                 / ref.abs().max()) <= RTOL
+    # a resident operator without the bit is still used as is
+    assert DenseOperator(H, "cpu").H is H
+    assert not DenseOperator(H.conj(), "cpu", pseudo_hermitian=True) \
+        .place_block(V.conj()).is_conj()
+
+
 # ---- 3xTF32, emulated on the CPU -------------------------------------------
 
 def _tf32_np(x):
@@ -527,6 +594,35 @@ def test_cuda_c64_dense_operator_n1001_and_odd_stride_refused(cuda):
 
 
 @pytest.mark.gpu
+def test_cuda_conj_views_are_refused_or_materialized(cuda):
+    """On the card a lazy conj or neg view raises before any launch; a c64
+    operator given as H.conj() is materialized by DenseOperator, and the
+    kernel's product with it agrees with the plain version's (which
+    honours the bit) on the view."""
+    import chase_tpu_torch as ct
+    g = torch.Generator(device=cuda).manual_seed(8)
+    H = _padded_randn(200, 200, g, cuda, torch.complex64)
+    V = torch.randn((200, 37), generator=g, device=cuda,
+                    dtype=torch.complex64)
+    before = (ring_hemm.launches, tf32_split.launches, bf16_pack.launches)
+    for args in ((H.conj(), V), (H, V.conj()),
+                 (H.real.contiguous(), V.conj().imag)):
+        with pytest.raises(ValueError, match="lazy conjugate or negative"):
+            ring_hemm(*args)
+    with pytest.raises(ValueError, match="lazy conjugate or negative"):
+        bf16_pack(V.conj().imag)
+    assert (ring_hemm.launches, tf32_split.launches,
+            bf16_pack.launches) == before
+    op = ct.DenseOperator(H.conj(), device=cuda)
+    assert not op.H.is_conj() and op.H.data_ptr() != H.data_ptr()
+    _check_against_plain(op.H, V)
+    W = ring_hemm(op.H, V)
+    ref = ring_hemm_reference(H.conj(), V)
+    assert float((_wide(W) - _wide(ref)).abs().max()
+                 / ref.abs().max()) <= RTOL
+
+
+@pytest.mark.gpu
 def test_cuda_c64_eigsh_filter_runs_on_the_kernel(cuda):
     """The c64 ring-path eigsh on the card: every filter HEMM is one
     kernel launch (and one complex pre-pass), and the spectrum is right."""
@@ -667,3 +763,49 @@ def test_cuda_bf16_h_row_stride_not_multiple_of_8_raises(cuda):
     with pytest.raises(ValueError, match="TMA"):
         ring_hemm(H, V)
     assert ring_hemm.launches == before and bf16_pack.launches == packs
+
+
+# ---- the BSE H² ring on the card: two launches per step ----------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["f32", "c64", "bf16"])
+def test_cuda_h2_ring_on_a_bse_h_matches_plain(cuda, route):
+    """The p = 1 H² ring (parallel/ring.chebyshev_filter_h2_ring) on a BSE
+    H whose upper and lower halves differ — the kernel reads no symmetry —
+    against the plain H² filter on torch.matmul, per column: 1e-5 (1e-2
+    on the bf16 route, whose intermediates are rounded to bf16 after f32
+    sums in two orders); degree-1 columns against the f64 product
+    (σ1/e)·(H·(H·X) − c·X) to 1e-5 (f32, c64).  2·deg_max launches, each
+    with one pre-pass of the route; degree-0 columns bit-exact."""
+    import chase_tpu_torch as ct
+    from chase_tpu_torch.models import random_pseudo_hermitian
+    from chase_tpu_torch.ops.pseudo import chebyshev_filter_h2
+    from chase_tpu_torch.parallel.ring import chebyshev_filter_h2_ring
+    N, w = 512, 40
+    cplx = route == "c64"
+    H = random_pseudo_hermitian(N, np.complex64 if cplx else np.float32,
+                                seed=9)
+    assert np.abs(H[:N // 2, :N // 2] - H[N // 2:, N // 2:]).max() > 0.1
+    op = ct.DenseOperator(H, device=cuda, pseudo_hermitian=True)
+    Hk = op.H_low if route == "bf16" else op.H
+    g = torch.Generator(device=cuda).manual_seed(10)
+    X = torch.randn((N, w), generator=g, device=cuda, dtype=op.dtype)
+    deg = np.array([0] * 4 + [1] * 6 + [4] * 30, np.int32)
+    ev2 = np.sort(np.abs(np.linalg.eigvals(H.astype(np.complex128))) ** 2)
+    lam1, lo, up = ev2[0] * 0.9, ev2[N // 3], ev2[-1] * 1.01
+    pre = bf16_pack if route == "bf16" else tf32_split
+    ring_hemm.launches = pre.launches = 0
+    Y = chebyshev_filter_h2_ring(Hk, X, deg, lam1, lo, up, 4)
+    torch.cuda.synchronize()
+    assert ring_hemm.launches == pre.launches == 2 * 4
+    Yp = chebyshev_filter_h2(Hk, X, deg, lam1, lo, up, 4)
+    num = (Y - Yp).abs().amax(dim=0)
+    assert float((num / Yp.abs().amax(dim=0))[4:].max()) <= \
+        (1e-2 if route == "bf16" else RTOL)
+    assert torch.equal(Y[:, :4], X[:, :4])
+    if route != "bf16":
+        c, e = (up + lo) / 2, (up - lo) / 2
+        H64, X64 = _wide(op.H), _wide(X[:, 4:10])
+        ref = (1.0 / (lam1 - c)) * (H64 @ (H64 @ X64) - c * X64)
+        assert float((_wide(Y[:, 4:10]) - ref).abs().max()
+                     / ref.abs().max()) <= RTOL

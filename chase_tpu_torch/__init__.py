@@ -7,18 +7,22 @@ residuals and locking, for real symmetric and complex Hermitian problems,
 for sequences of them and for pseudo-Hermitian (Bethe–Salpeter) problems
 (``eigsh_pseudo``: the filter on H², K-conjugated mirrors, the S-metric
 pencil Rayleigh–Ritz), natively or on the precision ladder (f64/c128
-filtered on an f32/c64 shadow, f32 on a bf16 one).  The filter's ring
-HEMM is a hand-written CUDA kernel for Hopper (``csrc/ring_hemm.cu``: f32,
-c64, and bf16 H with f32 V); everything else is plain torch.  This
-package never imports JAX or ``chase_tpu``.
+filtered on an f32/c64 shadow, f32 on a bf16 one); ``eigsh_fused`` and
+``eigsh_pseudo_fused`` keep the whole loop's state on the device, and
+``warmup`` does a solve's one-time work first.  The filter's ring HEMM is
+a hand-written CUDA kernel for Hopper (``csrc/ring_hemm.cu``: f32, c64,
+and bf16 H with f32 V); everything else is plain torch.  This package
+never imports JAX or ``chase_tpu``.
 """
 
-from .api import (eigsh, eigsh_pseudo, eigsh_sequence,  # noqa: F401
+from .api import (eigsh, eigsh_fused, eigsh_pseudo,  # noqa: F401
+                  eigsh_pseudo_fused, eigsh_sequence,
                   estimate_spectral_bounds)
 from .config import ChaseConfig  # noqa: F401
 from .parallel.operator import DenseOperator  # noqa: F401
 from .perf import PerfData  # noqa: F401
 from .solver import solve, SolveResult  # noqa: F401
 from .solver_pseudo import solve_pseudo  # noqa: F401
+from .warmup import warmup  # noqa: F401
 
 __version__ = "0.1.0"

@@ -27,28 +27,36 @@ f32/c64 shadow (the deviation-form refinement keeps tol 1e-10 reachable),
 ``ChaseConfig(bf16_filter=True)`` a real f32 problem on its bf16 shadow;
 ``res.perf.low_flop_fraction(...)`` says how much of the work ran there.
 
+The device-resident solvers ``eigsh_fused`` and ``eigsh_pseudo_fused``
+keep all of the loop's bookkeeping on the device (``fused.py``,
+``fused_pseudo.py``) — the serving path for small and repeated problems:
+
+    res = chase_tpu_torch.eigsh_fused(H, nev=100, device="cuda")
+
 ``device`` is explicit (default "cuda") and never falls back: without a
-card, ``device="cuda"`` raises RuntimeError.  Fused solves are the fused
-solver's slice (ROADMAP queue 1).
+card, ``device="cuda"`` raises RuntimeError, and a fused solve that fails
+raises (the JAX package retreats to its host driver; the port does not).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 
 from .config import ChaseConfig, set_matmul_precision
-from .parallel.operator import DenseOperator, resolve_device
+from .logger import get_logger
+from .ops.blocks import scale_lower_rows
+from .parallel.operator import DenseOperator
 from .perf import PerfData
 from . import solver_pseudo
-from .solver import solve, SolveResult, uses_ring_kernel
-from .types import as_torch_dtype
+from .solver import solve, SolveResult, _ring_allowed
 
-__all__ = ["eigsh", "eigsh_sequence", "eigsh_pseudo",
-           "estimate_spectral_bounds"]
+__all__ = ["eigsh", "eigsh_fused", "eigsh_sequence", "eigsh_pseudo",
+           "eigsh_pseudo_fused", "estimate_spectral_bounds"]
 
 
 def _nex_and_config(nev, nex, tol, v0, approx, config):
@@ -161,6 +169,186 @@ def eigsh_pseudo(H, nev: int, nex: Optional[int] = None, *,
                                       generator=generator)
 
 
+def _collect_fused_perf(out, iters: int, t_all: float,
+                        matrix_type: int = 0) -> PerfData:
+    """PerfData from the fused solvers' device counters: the filtered
+    vectors, the block sizes and the filter's HEMM steps; only 'All' is
+    timed (the loop has no synchronised phase boundaries)."""
+    perf = PerfData()
+    perf.matrix_type = matrix_type
+    perf.add_time("All", t_all)
+    perf.filtered_vecs = int(out["filtered_vecs"])
+    for b in out["block_history"][:iters].tolist():
+        perf.add_iter_blocksize(b)
+    perf.filter_hemm_steps = out["hemm_steps"]
+    return perf
+
+
+def _write_resid_history(path: str, out, iters: int):
+    """The CHASE_SAVE_RESIDUALS CSV from the fused solvers' residual
+    history (locked slots as -1.0)."""
+    with open(path, "w") as f:
+        f.write("iteration,residual\n")
+        for i, row in enumerate(out["resid_history"][:iters].tolist()):
+            for r in row:
+                f.write(f"{i},{r}\n")
+
+
+def _fused_result(out, nev: int, t0: float, rcfg, collect_perf: bool,
+                  matrix_type: int) -> SolveResult:
+    """SolveResult of a fused solve: the host reads of its results, the
+    perf counters, the residual CSV and the early-locked residuals."""
+    ritzv = out["ritzv"].double().cpu().numpy()
+    resid = out["resid"].double().cpu().numpy()
+    locked, iters = int(out["locked"]), int(out["iterations"])
+    t_all = time.perf_counter() - t0
+    perf = (_collect_fused_perf(out, iters, t_all, matrix_type)
+            if collect_perf else None)
+    if rcfg.save_residuals:
+        _write_resid_history(rcfg.save_residuals, out, iters)
+    eh = out["early_history"][:iters].double().cpu().numpy()
+    return SolveResult(
+        ritzv=ritzv[:nev], V=out["V"], resid=resid[:nev], iterations=iters,
+        locked=locked, converged=bool(locked >= nev),
+        upperb=float(out["upperb"]), lowerb=float(out["lowerb"]),
+        perf=perf, ritzv_full=ritzv,
+        early_locked=[float(x) for x in eh[eh >= 0]])
+
+
+def _fused_setup(op: DenseOperator, cfg: ChaseConfig, generator):
+    """The resolved config, the solve's generator and the solver keywords
+    every fused solve shares (the ladder's shadow, the ring routing)."""
+    rcfg = cfg.resolve(op.dtype, op.device)
+    if rcfg.small_dense_backend not in ("auto", "device"):
+        get_logger().info(f"small_dense_backend="
+                          f"{rcfg.small_dense_backend!r} is a no-op in the "
+                          f"PyTorch port (projected problems stay on the "
+                          f"device)", "linalg")
+    set_matmul_precision(rcfg.matmul_precision)
+    if generator is None:
+        generator = torch.Generator(device=op.device).manual_seed(rcfg.seed)
+    refine = bool(rcfg.refine_filter and rcfg.mixed_precision
+                  and rcfg.is_double)
+    bf16 = bool(rcfg.bf16_filter and not rcfg.is_double
+                and not op.dtype.is_complex)
+    kw = dict(tol=rcfg.tol, deg0=rcfg.deg, max_deg=rcfg.max_deg,
+              deg_extra=rcfg.deg_extra, max_iter=rcfg.max_iter,
+              lanczos_iter=rcfg.lanczos_iter, num_lanczos=rcfg.num_lanczos,
+              optimization=rcfg.optimization, eigh_polish=rcfg.polish_passes(),
+              bf16_filter=rcfg.bf16_filter,
+              bf16_threshold=rcfg.bf16_filter_threshold,
+              refine_filter=refine, qr_hi_prec=rcfg.qr_hi_prec,
+              H_low=op.H_low if (refine or bf16) else None,
+              ring=_ring_allowed(rcfg, op, get_logger()))
+    return rcfg, generator, kw
+
+
+def eigsh_fused(H, nev: int, nex: Optional[int] = None, *,
+                tol: Optional[float] = None, v0=None,
+                largest: bool = False,
+                config: Optional[ChaseConfig] = None,
+                device="cuda",
+                collect_perf: bool = False,
+                generator: Optional[torch.Generator] = None) -> SolveResult:
+    """Device-resident Hermitian solve (``fused.solve_fused``): every
+    piece of the loop's state stays on the device and the host reads one
+    packed control tensor, the CholQR flag and ``eigh``'s own check per
+    iteration.  Equivalent to :func:`eigsh` up to the JAX package's
+    documented deltas (locking tie order, DoS vectors, the QR choice).
+
+    Args as for :func:`eigsh`; ``v0`` (N, nev+nex) is a warm start — its
+    subspace is kept (no DoS vectors) and the bounds come from fresh
+    Lanczos probes drawn from ``generator``.  With ``collect_perf`` the
+    PerfData carries the device counters (filtered vectors, block sizes,
+    the filter's HEMM steps) and the 'All' time; ``save_residuals``
+    writes the residual history CSV.  A solve that fails raises: there is
+    no retreat to the host driver.
+    """
+    nex, cfg = _nex_and_config(nev, nex, tol, None, False, config)
+    if largest:
+        if isinstance(H, DenseOperator):
+            raise ValueError("largest=True needs a raw matrix, not an "
+                             "operator — pass -H yourself instead")
+        res = eigsh_fused(-H, nev, nex, tol=tol, v0=v0, config=config,
+                          device=device, collect_perf=collect_perf,
+                          generator=generator)
+        order = np.arange(len(res.ritzv))[::-1].copy()
+        res.ritzv = (-res.ritzv)[order]
+        res.resid = res.resid[order]
+        full = np.concatenate([order, np.arange(nev, res.V.shape[1])])
+        res.V = res.V[:, torch.as_tensor(full, device=res.V.device)]
+        res.ritzv_full = (-res.ritzv_full)[full[:len(res.ritzv_full)]]
+        return res
+    op = H if isinstance(H, DenseOperator) else DenseOperator(H, device)
+    k = nev + nex
+    if k > op.N:
+        raise ValueError(f"nev+nex = {k} exceeds N = {op.N}")
+    rcfg, generator, kw = _fused_setup(op, cfg, generator)
+    from .fused import solve_fused
+    probes = None
+    if v0 is None:
+        V0 = torch.randn((op.N, k), generator=generator, device=op.device,
+                         dtype=op.dtype)
+    else:
+        V0 = op.place_block(v0)
+        probes = torch.randn((op.N, min(rcfg.num_lanczos, k)),
+                             generator=generator, device=op.device,
+                             dtype=op.dtype)
+    t0 = time.perf_counter()
+    out = solve_fused(op.H, V0, nev=nev, nex=nex, probes=probes,
+                      inject_dos=v0 is None, phase_tiers=rcfg.fused_tiers,
+                      **kw)
+    return _fused_result(out, nev, t0, rcfg, collect_perf, 0)
+
+
+def eigsh_pseudo_fused(H, nev: int, nex: Optional[int] = None, *,
+                       tol: Optional[float] = None, v0=None,
+                       config: Optional[ChaseConfig] = None,
+                       device="cuda",
+                       collect_perf: bool = False,
+                       generator: Optional[torch.Generator] = None
+                       ) -> SolveResult:
+    """Device-resident BSE solve (``fused_pseudo.solve_pseudo_fused``):
+    the nev smallest positive eigenpairs of a pseudo-Hermitian H, with the
+    loop's state on the device as in :func:`eigsh_fused`.
+
+    Args as for :func:`eigsh_pseudo`; ``v0`` (N, 2·(nev+nex)) is a warm
+    start (fresh probes with the 0.001 lower-row damping).  The cold start
+    block is random with its lower rows damped by 0.001.  A solve that
+    fails raises.
+    """
+    nex, cfg = _nex_and_config(nev, nex, tol, None, False, config)
+    op = H if isinstance(H, DenseOperator) else DenseOperator(
+        H, device, pseudo_hermitian=True)
+    N, k = op.N, nev + nex
+    if N % 2:
+        raise ValueError("pseudo-Hermitian problems need even N")
+    if k > N // 2:
+        raise ValueError(f"nev+nex = {k} exceeds N/2 = {N // 2}")
+    if v0 is not None and v0.shape[1] != 2 * k:
+        raise ValueError(f"v0 has {v0.shape[1]} columns; the pseudo solver "
+                         f"takes 2·(nev+nex) = {2 * k}")
+    rcfg, generator, kw = _fused_setup(op, cfg, generator)
+    from .fused_pseudo import solve_pseudo_fused
+
+    def damped_randn(n):
+        return scale_lower_rows(torch.randn(
+            (N, n), generator=generator, device=op.device, dtype=op.dtype),
+            0.001)
+
+    probes = None
+    if v0 is None:
+        V0 = damped_randn(2 * k)
+    else:
+        V0 = op.place_block(v0)
+        probes = damped_randn(min(rcfg.num_lanczos, k))
+    t0 = time.perf_counter()
+    out = solve_pseudo_fused(op.H, V0, nev=nev, nex=nex, probes=probes,
+                             inject_dos=v0 is None,
+                             cluster_aware=rcfg.cluster_aware_degrees, **kw)
+    return _fused_result(out, nev, t0, rcfg, collect_perf, 1)
+
+
 def eigsh_sequence(matrices, nev: int, nex: Optional[int] = None, *,
                    tol: Optional[float] = None,
                    config: Optional[ChaseConfig] = None,
@@ -179,24 +367,19 @@ def eigsh_sequence(matrices, nev: int, nex: Optional[int] = None, *,
     device.  The ladder's residual vectors live inside one solve: a warm
     start carries V and the Ritz values only, as in the JAX package.
 
-    ``warmup=True`` is the JAX package's precompile: here it builds (on a
-    fresh checkout) and loads the CUDA kernels' library — every route of
-    the kernel, the bf16 one included — before member 0 when the solve
-    will filter on the ring kernel (a CUDA device, ``ring_backend=
-    "pallas"``, an f32 or c64 problem or the ladder's f32, c64 or bf16
-    shadow), and does nothing otherwise — PyTorch runs eagerly and has
-    nothing else to compile.
+    ``warmup=True`` runs :func:`chase_tpu_torch.warmup` on member 0's
+    operator before solving it, as the JAX package does: it builds (on a
+    fresh checkout) and loads the CUDA kernels' library when the solve
+    will filter on the ring kernel, and does nothing otherwise.
     """
     v0 = ritzv0 = None
     for H in matrices:
         if v0 is None and warmup:
-            dev = H.device if isinstance(H, DenseOperator) \
-                else resolve_device(device)
-            dtype = as_torch_dtype(H.dtype)
-            rcfg = (config or ChaseConfig()).resolve(dtype, dev)
-            if dev.type == "cuda" and uses_ring_kernel(rcfg, dtype):
-                from .ops.ring_hemm import load_kernels
-                load_kernels()
+            from .warmup import warmup as _warmup
+            if not isinstance(H, DenseOperator):
+                H = DenseOperator(H, device)
+            _warmup(H, nev, nex if nex is not None else max(nev // 4, 8),
+                    config=config)
         res = eigsh(H, nev, nex, tol=tol, config=config, device=device,
                     collect_perf=collect_perf, v0=v0, ritzv0=ritzv0,
                     approx=v0 is not None)

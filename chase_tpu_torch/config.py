@@ -144,7 +144,7 @@ class ChaseConfig:
     wide_f64: str = "auto"               # no-op in the port (native f64)
     wide_f64_min_n: int = 8192
     wide_f64_max_n: Optional[int] = None
-    fused_tiers: int = 3                 # fused solver: a later slice
+    fused_tiers: int = 3                 # fused solver phase-window tiers
     complex_backend: str = "auto"        # no-op in the port (native complex)
 
     def resolve(self, dtype, device=None) -> "ResolvedConfig":

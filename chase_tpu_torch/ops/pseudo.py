@@ -38,7 +38,7 @@ __all__ = [
     "apply_s", "flip_locked_cols", "k_conjugate_cols", "chebyshev_filter_h2",
     "chebyshev_filter_refine_h2",
     "h2_residual", "lanczos_scan_pseudo", "rayleigh_ritz_residuals_pseudo",
-    "rayleigh_ritz_pseudo_geev", "residuals_pseudo",
+    "pencil_rayleigh_ritz", "rayleigh_ritz_pseudo_geev", "residuals_pseudo",
 ]
 
 
@@ -232,14 +232,23 @@ def rayleigh_ritz_residuals_pseudo(H: torch.Tensor, V: torch.Tensor,
     ``want_vectors``); ok False when the Cholesky broke down (L is then
     the identity, as in the JAX package).
     """
+    *out, ok = pencil_rayleigh_ritz(H, V, locked, polish=polish,
+                                    want_vectors=want_vectors)
+    return (*out, bool(ok))
+
+
+def pencil_rayleigh_ritz(H: torch.Tensor, V: torch.Tensor, locked: int, *,
+                         polish: int = 0, want_vectors: bool = False):
+    """:func:`rayleigh_ritz_residuals_pseudo` with ``ok`` left on the
+    device as a 0-d bool tensor (the fused solver reads no flag here)."""
     rt = real_dtype(V.dtype)
     Q, W, A, B = _prr_project(H, V, locked)
     wide = torch.complex128 if A.is_complex() else torch.float64
     A, B = A.to(wide), B.to(wide)
     L, info = torch.linalg.cholesky_ex(A)
-    ok = bool(info == 0) and bool(torch.isfinite(L).all())
-    if not ok:
-        L = torch.eye(A.shape[0], dtype=wide, device=A.device)
+    ok = (info == 0) & torch.isfinite(L).all()
+    L = torch.where(ok, L, torch.eye(A.shape[0], dtype=wide,
+                                     device=A.device))
     C = torch.linalg.solve_triangular(L, B, upper=False)
     C = torch.linalg.solve_triangular(L.mH, C, upper=True, left=False)
     M = -(C + C.mH) / 2                        # Hermitized −L⁻¹BL⁻ᴴ

@@ -4,8 +4,8 @@ Single-device subset of ``chase_tpu/parallel/operator.py``: the Hermitian
 or pseudo-Hermitian (BSE, ``pseudo_hermitian=True``: even N, its S-halves
 unpadded) operator H (f32, f64, c64 or c128) pinned on an explicit torch
 device, with its dtype checked, and its reduced-precision shadow ``H_low``
-for the precision ladder.  Grid padding belongs to the multi-GPU slice; the
-transient and bf16-rebuilt shadows of the JAX package's wide-f64 mode
+for the precision ladder.  ``free_low`` drops the cached shadow.  Grid padding belongs to the multi-GPU
+slice; the transient and bf16-rebuilt shadows of the JAX package's wide-f64 mode
 (``H_filter``, ``drop_shadow``, ``engage_wide``) are TPU workarounds and
 are not ported.
 
@@ -126,6 +126,17 @@ class DenseOperator:
     @property
     def dtype(self) -> torch.dtype:
         return self.H.dtype
+
+    @property
+    def real_dtype(self) -> torch.dtype:
+        """The real scalar type of H's dtype (f32 for c64, f64 for c128)."""
+        return real_dtype(self.dtype)
+
+    def free_low(self) -> None:
+        """Drop the cached shadow ``H_low`` — N² elements of device memory
+        between solves (7.2 GB for the c128 north star's c64 shadow); the
+        next ``H_low`` rebuilds it."""
+        self._H_low = None
 
     @property
     def H_low(self) -> torch.Tensor:

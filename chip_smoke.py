@@ -81,7 +81,21 @@ no result line) on any fault:
            trace of one more ladder solve
   zpseudo  the same BSE made complex, H_c = D·H·D⁻¹ with D = diag(d,
            conj(d)) of random unit phases (same spectrum), c128 on the
-           ladder on the kernel's c64 route, pseudo's gates
+           ladder on the kernel's c64 route, pseudo's gates; pseudo,
+           bpseudo and zpseudo print whether the iteration-0 H² degree cap
+           engaged and which QR variant iteration 0 ran
+  fslice   eigsh_fused (the device-resident solver) on the slice's H and
+           config beside profile's warm ring solve; fsmall (Clement
+           N=1000, nev=100, f32 default tol) and fmid (N=8192, nev=512,
+           nex=256, tol 0.1) beside eigsh, both on "pallas"; fpseudo:
+           eigsh_pseudo_fused on pseudo's f64 BSE on the ladder and the
+           kernel ring beside pseudo's ladder solve; zfused: a c128 BSE at
+           N=4096, nev=200, nex=56 natively, eigsh_pseudo and
+           eigsh_pseudo_fused.  Each prints the first and warm TTS and
+           iterations of both, the host syncs per fused iteration
+           (torch.cuda.set_sync_debug_mode, at most 3) and, on the kernel
+           ring, ring_hemm and pre-pass launches against the solver's HEMM
+           steps (equal); the phase's gates hold for both solvers
 
 Each phase prints lines with its numbers and seconds.  A full run then
 prints the kernels' JSON summary and, last, {"ok": true, "device": {...}}.
@@ -113,6 +127,13 @@ SEQUENCE = dict(N=8000, nev=400, nex=100, count=10, drift=1e-3)
 # Hermitian slice's block width; tol absolute, solve_pseudo's DP default
 # (f32 on the bf16 rung: the JAX package's SP BSE test tolerance)
 BSE = dict(N=30000, nev=1000, nex=500, tol=1e-10, sp_tol=1e-4)
+# the fused Clement phases at the JAX package's fused cells
+# (BENCH_NOTES.md:100-113): (phase, N, nev, nex, tol); nex None is
+# max(nev/4, 8), tol None the f32 default 1e-5
+FUSED_CLEMENT = (("fsmall", 1000, 100, None, None),
+                 ("fmid", 8192, 512, 256, 0.1))
+# the JAX package's fused BSE cell (BENCH_NOTES.md:129-131), in c128
+ZFUSED = dict(N=4096, nev=200, nex=56)
 SEED = 20261016
 PEAK_3XTF32 = 495.0 / 3     # TFLOP/s: the H100's dense TF32 rate, 3 passes
 PEAK_BF16 = 989.0           # TFLOP/s: the H100's dense bf16 rate
@@ -669,7 +690,9 @@ def trace_solve(phase: str, what: str, solve) -> tuple:
     kernels = [r for r in rows if not r[0].startswith("aten::")]
     busy = sum(r[1] for r in kernels) / 1e6
     log(phase, f"traced {what}: TTS {tts:.3f} s; summed device kernel time "
-               f"{busy:.3f} s, busy share {busy / tts:.3f}")
+               f"{busy:.3f} s, busy share {busy / tts:.3f}; "
+               f"{sum(r[2] for r in kernels)} kernel launches in "
+               f"{res.iterations} iterations")
     for key, us, count in sorted(kernels, key=lambda r: -r[1])[:15]:
         log(phase, f"  {us / 1e6:8.3f} s {us / 1e6 / busy:6.1%} "
                    f"x{count:<5d} {key[:90]}")
@@ -700,6 +723,7 @@ def phase_profile(dev, H, phase: str = "profile") -> None:
     for backend in ("pallas", "xla"):
         tts, res = solve(backend)
         warm[backend] = tts
+        warm[backend + "_iterations"] = res.iterations
         t = res.perf.timings
         log(phase, f"warm solve {H.dtype} ring_backend={backend}: TTS "
                    f"{tts:.3f} s, iterations {res.iterations}, Filter "
@@ -944,6 +968,39 @@ def complex_bse_on_device(H: torch.Tensor, seed: int = SEED) -> torch.Tensor:
     return Hc
 
 
+def logged(fn):
+    """``fn()`` with every message of the port's logger recorded (debug
+    level included; what the configured level shows is still printed):
+    (result, messages)."""
+    from chase_tpu_torch.logger import LEVELS, ChaseLogger, get_logger
+    lg = get_logger()
+    msgs = []
+
+    def record(level, msg, category="algorithm"):
+        msgs.append(msg)
+        if LEVELS.get(level, 0) <= lg.level:
+            ChaseLogger.log(lg, level, msg, category)
+
+    lg.log = record
+    try:
+        return fn(), msgs
+    finally:
+        del lg.log
+
+
+def iteration0_report(msgs) -> str:
+    """Whether the BSE solver's iteration-0 H² degree cap engaged, and
+    which QR variant iteration 0 ran, from its log messages."""
+    cap = [m for m in msgs if m.startswith("iteration-0 H² degree capped")]
+    start = next((i for i, m in enumerate(msgs)
+                  if m.startswith("pseudo iteration 0:")), len(msgs))
+    qr = next((m for m in msgs[start:]
+               if m.startswith("QR:") or "falling back" in m), "not logged")
+    return (f"iteration-0 H² degree cap "
+            f"{'engaged: ' + cap[0] if cap else 'not engaged'}; "
+            f"iteration-0 QR: {qr}")
+
+
 # per route of the H² ring filter: (operator dtype, window dtype, gate).
 # f32 and c64: the filter phase's 1e-5 (the same f32/c64 recurrence, the
 # products summed in two orders).  bf16: 1e-2, the CPU tests' bound for a
@@ -1043,10 +1100,11 @@ def _bse_solve(dev, H, lam, phase: str, mixed: bool, backend: str,
 
     torch.cuda.reset_peak_memory_stats(dev)
     ring_hemm.launches = tf32_split.launches = bf16_pack.launches = 0
-    tts, res = solve()
+    (tts, res), msgs = logged(solve)
     launches = (ring_hemm.launches, tf32_split.launches, bf16_pack.launches)
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     perf, t = res.perf, res.perf.timings
+    log(phase, f"{what}: {iteration0_report(msgs)}")
     ev_err = float(np.abs(res.ritzv - lam[:nev].cpu().numpy()).max())
     true_res = float(residuals_pseudo(H_ref, res.V[:, :nev].to(H_ref.dtype),
                                       res.ritzv).max())
@@ -1087,7 +1145,7 @@ def _bse_solve(dev, H, lam, phase: str, mixed: bool, backend: str,
                 launches=launches, solve=solve)
 
 
-def phase_pseudo(dev, H, lam) -> None:
+def phase_pseudo(dev, H, lam) -> dict:
     """The real f64 BSE: natively (windowed filter on DGEMM), then on the
     ladder (f32 shadow, every filter product on the kernel ring), then a
     torch.profiler trace of one more ladder solve."""
@@ -1099,6 +1157,7 @@ def phase_pseudo(dev, H, lam) -> None:
                   f"{native['tts']:.2f} s native f64 in this run: "
                   f"{native['tts'] / ladder['tts']:.2f}x")
     trace_solve("pseudo", "BSE ladder solve (kernel ring)", ladder["solve"])
+    return ladder
 
 
 def phase_bpseudo(dev, H32, H, lam) -> None:
@@ -1123,6 +1182,218 @@ def phase_bslice(dev, H, f32_warm: float) -> dict:
     log("bslice", f"TTS {out['tts']:.3f} s on the bf16 rung; the f32 ring "
                   f"slice's warm TTS in this run {f32_warm:.3f} s")
     return out
+
+
+def count_syncs(fn):
+    """``fn()`` with torch's CUDA sync debug mode on: (result, a Counter
+    by source line of the synchronizing operations it reported from the
+    port's own lines — the ``torch.cuda.synchronize`` around a timed call
+    is this script's, not the solver's)."""
+    import collections
+    import os
+    import warnings
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, collections.Counter(
+        f"{os.path.basename(w.filename)}:{w.lineno}" for w in rec
+        if "synchroniz" in str(w.message)
+        and f"chase_tpu_torch{os.sep}" in w.filename)
+
+
+def timed(fn) -> tuple:
+    """(seconds, fn()) on the host clock, the device synchronized before
+    and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def fused_beside_host(phase: str, what: str, fused, host, gate,
+                      host_warm=None, kernel: bool = True,
+                      trace: bool = False) -> dict:
+    """A fused solve beside the host driver on the same input and config.
+
+    ``fused(max_iter)`` runs the fused entry point (max_iter None: the
+    config's); ``host()`` the host-driver one, unless ``host_warm`` gives
+    its warm (TTS, iterations) from an earlier phase of this run;
+    ``gate(res, who)`` raises on a wrong answer.  The first fused call
+    counts the kernel launches (set to 0 just before it) against the
+    solver's HEMM-step counter; the warm call counts the host syncs, and
+    those of a run stopped after one iteration (``max_iter=1``) are taken
+    off, over the iterations left: the syncs of an iteration.  With
+    ``trace`` one more warm call of each is traced (busy share, kernel
+    launches per iteration)."""
+    from chase_tpu_torch.ops.ring_hemm import bf16_pack, ring_hemm, tf32_split
+    ring_hemm.launches = tf32_split.launches = bf16_pack.launches = 0
+    first, res = timed(lambda: fused(None))
+    launches = (ring_hemm.launches, tf32_split.launches, bf16_pack.launches)
+    steps = res.perf.filter_hemm_steps
+    gate(res, "fused")
+    (warm, res2), sites = count_syncs(lambda: timed(lambda: fused(None)))
+    (_, res1), sites1 = count_syncs(lambda: timed(lambda: fused(1)))
+    syncs, syncs1 = sum(sites.values()), sum(sites1.values())
+    per_iter = (syncs - syncs1) / max(res2.iterations - 1, 1)
+    gate(res2, "fused (warm)")
+    if host_warm is None:
+        h_first, hres = timed(host)
+        gate(hres, "host")
+        h_warm, hres = timed(host)
+        host_warm = (h_warm, hres.iterations)
+        host_line = (f"host driver first {h_first:.3f} s, warm "
+                     f"{h_warm:.3f} s, {hres.iterations} iterations")
+    else:
+        host_line = (f"host driver warm {host_warm[0]:.3f} s, "
+                     f"{host_warm[1]} iterations (earlier phase, this run)")
+    log(phase, f"{what}: fused first {first:.3f} s, warm {warm:.3f} s, "
+               f"{res.iterations} / {res2.iterations} iterations; "
+               f"{host_line}: warm fused / host {warm / host_warm[0]:.3f}; "
+               f"host syncs {syncs} in the warm call, {syncs1} in one "
+               f"of 1 iteration: {per_iter:.2f} per iteration (by line: "
+               f"{dict(sites.most_common(8))}); ring_hemm / "
+               f"tf32_split / bf16_pack launches {launches}, the solver's "
+               f"HEMM steps {steps}; filtered vecs "
+               f"{res.perf.filtered_vecs}; max resid {res.resid.max():.3e}")
+    if res1.iterations != 1 or syncs < res2.iterations + 1:
+        raise AssertionError(f"{phase}: the sync count does not work "
+                             f"({syncs} syncs in {res2.iterations} "
+                             f"iterations)")
+    if per_iter > 3:
+        raise AssertionError(f"{phase}: {per_iter:.2f} host syncs per fused "
+                             f"iteration (at most 3)")
+    if kernel:
+        hemm, split, pack = launches
+        pre = pack if split == 0 else split
+        if not (0 < hemm == pre == steps and min(split, pack) == 0):
+            raise AssertionError(f"{phase}: launches {launches} against "
+                                 f"{steps} HEMM steps")
+    elif launches != (0, 0, 0):
+        raise AssertionError(f"{phase}: kernel launches {launches} on a "
+                             f"path with no kernel operator")
+    if trace:
+        trace_solve(phase, "warm fused solve", lambda: timed(
+            lambda: fused(None)))
+        trace_solve(phase, "warm host-driver solve", lambda: timed(host))
+    return dict(first=first, warm=warm, iterations=res2.iterations,
+                per_iter=per_iter, launches=launches, steps=steps)
+
+
+def clement_gate(phase: str, H, nev: int, ev_tol: float, res_tol: float):
+    """The Clement gates of a solve: converged, eigenvalues within
+    ``ev_tol`` of the exact spectrum, true residuals ≤ ``res_tol``."""
+    from chase_tpu_torch.models import clement_eigenvalues
+    exact = clement_eigenvalues(H.shape[0])[:nev]
+
+    def gate(res, who):
+        V = res.V[:, :nev]
+        lam = torch.as_tensor(res.ritzv, device=H.device).to(H.dtype)
+        true_res = float(torch.linalg.vector_norm(H @ V - V * lam,
+                                                  dim=0).max())
+        ev_err = float(np.abs(res.ritzv - exact).max())
+        if not (res.converged and ev_err <= ev_tol
+                and true_res <= res_tol):
+            raise AssertionError(f"{phase} ({who}): converged="
+                                 f"{res.converged}, eigenvalue err "
+                                 f"{ev_err:.3e} (gate {ev_tol}), true "
+                                 f"residual {true_res:.3e} (gate {res_tol})")
+    return gate
+
+
+def phase_fused_clement(dev, H, phase: str, nev: int, nex, tol,
+                        host_warm=None) -> dict:
+    """eigsh_fused beside eigsh on an f32 Clement H with
+    ring_backend="pallas" (mixed_precision pinned off); tol None is the
+    f32 default 1e-5, whose gates allow the early lock's 100·tol."""
+    import chase_tpu_torch as ct
+    cfg = ct.ChaseConfig(ring_backend="pallas", mixed_precision=False)
+    t = 1e-5 if tol is None else tol
+    gate = (clement_gate(phase, H, nev, 1e-2, 100 * t) if tol is None
+            else clement_gate(phase, H, nev, 0.5, 10 * t))
+
+    def fused(max_iter):
+        c = cfg if max_iter is None else ct.ChaseConfig(
+            ring_backend="pallas", mixed_precision=False, max_iter=max_iter)
+        return ct.eigsh_fused(H, nev, nex, tol=tol, config=c, device=dev,
+                              collect_perf=True)
+
+    return fused_beside_host(
+        phase, f"Clement N={H.shape[0]} nev={nev} nex={nex} f32 tol={t} "
+               f"pallas", fused,
+        lambda: ct.eigsh(H, nev, nex, tol=tol, config=cfg, device=dev),
+        gate, host_warm, trace=host_warm is None)
+
+
+def bse_gate(phase: str, H, lam, nev: int, tol: float):
+    """The BSE gates: converged, eigenvalues and true residuals (in H's
+    precision) within 10·tol."""
+    from chase_tpu_torch.ops.pseudo import residuals_pseudo
+
+    def gate(res, who):
+        ev_err = float(np.abs(res.ritzv - lam[:nev].cpu().numpy()).max())
+        true_res = float(residuals_pseudo(H, res.V[:, :nev],
+                                          res.ritzv).max())
+        if not (res.converged and ev_err <= 10 * tol
+                and true_res <= 10 * tol):
+            raise AssertionError(f"{phase} ({who}): converged="
+                                 f"{res.converged}, eigenvalue err "
+                                 f"{ev_err:.3e}, true residual "
+                                 f"{true_res:.3e} (gates {10 * tol:.1e})")
+    return gate
+
+
+def phase_fpseudo(dev, H, lam, ladder: dict) -> dict:
+    """eigsh_pseudo_fused on pseudo's f64 BSE H on the ladder with the
+    kernel ring, beside pseudo's ladder solve of this run."""
+    import chase_tpu_torch as ct
+    nev, nex, tol = BSE["nev"], BSE["nex"], BSE["tol"]
+
+    def fused(max_iter):
+        cfg = ct.ChaseConfig(mixed_precision=True, ring_backend="pallas",
+                             **({} if max_iter is None
+                                else {"max_iter": max_iter}))
+        return ct.eigsh_pseudo_fused(H, nev, nex, tol=tol, config=cfg,
+                                     device=dev, collect_perf=True)
+
+    return fused_beside_host(
+        "fpseudo", f"BSE f64 N={H.shape[0]} nev={nev} nex={nex} tol={tol} "
+                   f"ladder, pallas", fused, None,
+        bse_gate("fpseudo", H, lam, nev, tol),
+        (ladder["tts"], ladder["iterations"]))
+
+
+def phase_zfused(dev) -> dict:
+    """The c128 BSE at the JAX package's fused BSE shape (N=4096, nev=200,
+    nex=56), natively (mixed_precision=False, no kernel operator):
+    eigsh_pseudo and eigsh_pseudo_fused."""
+    import chase_tpu_torch as ct
+    N, nev, nex, tol = ZFUSED["N"], ZFUSED["nev"], ZFUSED["nex"], BSE["tol"]
+    H, lam = structured_bse_on_device(N, dev, SEED + 11)
+    Hc = complex_bse_on_device(H, SEED + 12)
+    del H
+    cfg = ct.ChaseConfig(mixed_precision=False)
+
+    def fused(max_iter):
+        c = cfg if max_iter is None else ct.ChaseConfig(
+            mixed_precision=False, max_iter=max_iter)
+        return ct.eigsh_pseudo_fused(Hc, nev, nex, tol=tol, config=c,
+                                     device=dev, collect_perf=True)
+
+    def host():
+        res, msgs = logged(lambda: ct.eigsh_pseudo(
+            Hc, nev, nex, tol=tol, config=cfg, device=dev))
+        log("zfused", f"native c128 eigsh_pseudo: "
+                      f"{iteration0_report(msgs)}")
+        return res
+
+    return fused_beside_host(
+        "zfused", f"BSE c128 N={N} nev={nev} nex={nex} tol={tol} native",
+        fused, host, bse_gate("zfused", Hc, lam, nev, tol), kernel=False)
 
 
 def _kernel_entry(name: str, launches: int, case: dict) -> dict:
@@ -1155,9 +1426,16 @@ def main() -> int:
     phase_filter(dev, H)
     launches = phase_slice(dev, H)
     warm = phase_profile(dev, H)
+    phase_fused_clement(dev, H, "fslice", SLICE["nev"], SLICE["nex"],
+                        SLICE["tol"], (warm["pallas"],
+                                       warm["pallas_iterations"]))
     bkern = phase_bf16_kernel(dev)
     blaunches = phase_bslice(dev, H, warm["pallas"])
     del H
+    torch.cuda.empty_cache()
+    for phase, N, nev, nex, tol in FUSED_CLEMENT:
+        phase_fused_clement(dev, clement_on_device(N, dev), phase, nev, nex,
+                            tol)
     torch.cuda.empty_cache()
 
     ckern = phase_complex_kernel(dev)
@@ -1188,7 +1466,8 @@ def main() -> int:
     phase_bpseudo(dev, H32, H, lam)
     del H32
     torch.cuda.empty_cache()
-    phase_pseudo(dev, H, lam)
+    ladder = phase_pseudo(dev, H, lam)
+    phase_fpseudo(dev, H, lam, ladder)
     t0 = time.perf_counter()
     Hc = complex_bse_on_device(H)
     del H
@@ -1200,6 +1479,7 @@ def main() -> int:
     phase_zpseudo(dev, Hc, lam)
     del Hc
     torch.cuda.empty_cache()
+    phase_zfused(dev)
 
     big, cbig = kern[KERNEL_SHAPES[-1]], ckern[C64_SHAPES[-1]]
     print(json.dumps({"kernels": [

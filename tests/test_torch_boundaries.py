@@ -26,6 +26,8 @@ import sys
 import chase_tpu_torch, chase_tpu_torch.convert, chase_tpu_torch._build
 import chase_tpu_torch.parallel.ring, chase_tpu_torch.ops.ring_hemm
 import chase_tpu_torch.models, chase_tpu_torch.utils
+import chase_tpu_torch.fused, chase_tpu_torch.fused_pseudo
+import chase_tpu_torch.step, chase_tpu_torch.warmup
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'chase_tpu'))
 print(','.join(bad))
@@ -108,3 +110,23 @@ def test_chip_smoke_refuses_without_a_card(where, tmp_path):
                          timeout=300)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64, np.complex64,
+                                   np.complex128],
+                         ids=["f32", "f64", "c64", "c128"])
+def test_operator_real_dtype_and_free_low_like_jax(dtype):
+    """DenseOperator.real_dtype names the JAX operator's real dtype, and
+    free_low drops the cached shadow, which the next H_low rebuilds."""
+    from chase_tpu.parallel.operator import DenseOperator as JaxOperator
+    H = np.eye(12, dtype=dtype) * 2.0
+    op = ct.DenseOperator(H, "cpu")
+    jop = JaxOperator(H)
+    assert np.dtype(str(op.real_dtype).split(".")[1]) == \
+        np.dtype(jop.real_dtype)
+    low = op.H_low
+    assert op.H_low is low                      # cached
+    assert op.free_low() is None and jop.free_low() is None
+    assert op._H_low is None and jop._H_low is None
+    rebuilt = op.H_low
+    assert rebuilt.dtype == low.dtype and torch.equal(rebuilt, low)

@@ -809,3 +809,46 @@ def test_cuda_h2_ring_on_a_bse_h_matches_plain(cuda, route):
         ref = (1.0 / (lam1 - c)) * (H64 @ (H64 @ X64) - c * X64)
         assert float((_wide(Y[:, 4:10]) - ref).abs().max()
                      / ref.abs().max()) <= RTOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["f32", "c64", "bf16", "bse-ladder",
+                                  "bse-bf16"])
+def test_cuda_fused_solvers_put_every_filter_product_on_the_kernel(cuda,
+                                                                   case):
+    """eigsh_fused / eigsh_pseudo_fused with ring_backend="pallas": the
+    kernel launches once per HEMM step the solver counts, each with its
+    route's pre-pass, and the answer holds (exact Clement spectrum; BSE
+    against numpy's eigvals)."""
+    import chase_tpu_torch as ct
+    from chase_tpu_torch.models import (clement, clement_eigenvalues,
+                                        random_pseudo_hermitian)
+    bse = case.startswith("bse")
+    cfg = ct.ChaseConfig(ring_backend="pallas",
+                         bf16_filter=case.endswith("bf16"),
+                         mixed_precision=case == "bse-ladder")
+    ring_hemm.launches = tf32_split.launches = bf16_pack.launches = 0
+    if bse:
+        H = random_pseudo_hermitian(
+            300, np.float64 if case == "bse-ladder" else np.float32, seed=5)
+        tol = 1e-9 if case == "bse-ladder" else 1e-4
+        res = ct.eigsh_pseudo_fused(H, 10, 8, tol=tol, config=cfg,
+                                    device=cuda, collect_perf=True)
+        ev = np.sort(np.linalg.eigvals(H.astype(np.float64)).real)
+        exact = ev[ev > 0][:10]
+    else:
+        H = clement(512).astype(np.complex64 if case == "c64"
+                                else np.float32)
+        tol = 1e-2
+        res = ct.eigsh_fused(H, 40, 24, tol=tol, config=cfg, device=cuda,
+                             collect_perf=True)
+        exact = clement_eigenvalues(512)[:40]
+    torch.cuda.synchronize()
+    assert res.converged
+    # the bf16 rung's far-from-converged iterations take the bf16 route,
+    # the others the f32 one
+    assert ring_hemm.launches == tf32_split.launches + bf16_pack.launches \
+        == res.perf.filter_hemm_steps > 0
+    assert (bf16_pack.launches > 0) == case.endswith("bf16")
+    np.testing.assert_allclose(res.ritzv, exact,
+                               atol=1e-7 if case == "bse-ladder" else 1e-1)

@@ -4,8 +4,9 @@ port against the JAX package.
 * ``eigsh_sequence``: ``hermitian_sequence(180, 3, seed=17,
   drift=0.004)`` in c128 and f64, nev=10, nex=8, tol 1e-9, passed as a
   generator, against ``chase_tpu.eigsh_sequence(warmup=False)``: per
-  member, eigenvalues within 1e-8 of JAX's and of eigvalsh; warm members
-  take no more iterations than the cold one.
+  member, eigenvalues within 1e-8 of JAX's and of eigvalsh, and
+  iterations within ±1 of JAX's; warm members take no more iterations
+  than the cold one.
 * ``estimate_spectral_bounds`` (c128, f64): upperb ≥ λ_max, lambda_min ≥
   λ_min − 1e-8·‖H‖, and lowerb as close to the exact spectrum as the JAX
   package's own estimates get over a few probe keys.  The frameworks'
@@ -53,6 +54,7 @@ def test_eigsh_sequence_matches_jax(dtype):
         assert np.abs(a.ritzv - b.ritzv).max() <= 1e-8
         assert np.abs(a.ritzv - np.linalg.eigvalsh(H)[:NEV]).max() <= 1e-8
         assert a.V.dtype == torch.from_numpy(H).dtype
+        assert abs(a.iterations - b.iterations) <= 1
     assert max(r.iterations for r in rt[1:]) <= rt[0].iterations
 
 

@@ -1,27 +1,29 @@
 // hopper_tf32.cuh — building blocks of the port's tensor-core kernels on
-// Hopper (sm_90a): the 3xTF32 split, mbarriers, TMA tile loads and the
-// register-A wgmma m64n128k8 (tf32) and m64n128k16 (bf16) with f32
-// accumulation, as inline PTX.
+// Hopper (sm_90a): the 3xTF32 split, mbarriers (also across a thread-block
+// cluster), TMA tile loads (also multicast to a cluster), the register-A
+// wgmma m64n128k8 (tf32) and the shared-memory wgmma m64nNk16 (bf16, N =
+// 128, 192, 256), with f32 accumulation, as inline PTX.
 //
 // Layouts (PTX ISA, "Register fragments and shared memory matrix layouts"
 // for wgmma .tf32 and .bf16; the same as CuTe's ALayout_64x8 /
-// ALayout_64x16 / CLayout_64xN):
+// CLayout_64xN):
 //   * A fragment, tf32 (64 x 8, registers): warp w of the warpgroup holds
 //     rows 16w..16w+15; lane l holds a[0] = (16w + l/4,     l%4),
-//     a[1] = (+8, l%4), a[2] = (l/4, l%4 + 4), a[3] = (+8, l%4 + 4).
-//   * A fragment, bf16 (64 x 16): four 32-bit registers of two bf16 each
-//     (the lower column in the low half): a[0] = (16w + l/4, 2(l%4) + {0,
-//     1}), a[1] = (+8, same), a[2] = (l/4, 2(l%4) + 8 + {0, 1}), a[3] =
-//     (+8, same).  In bytes both are the same: register v holds the 4
-//     bytes at byte 4(l%4) of the row's 16-byte chunk 2ks + (v >> 1) of a
-//     32-byte k-step ks, row + 8 for odd v.
-//   * accumulator (64 x 128, f32): d[4j + 2h + e] sits at row
+//     a[1] = (+8, l%4), a[2] = (l/4, l%4 + 4), a[3] = (+8, l%4 + 4).  In
+//     bytes: register v holds the 4 bytes at byte 4(l%4) of the row's
+//     16-byte chunk 2ks + (v >> 1) of a 32-byte k-step ks, row + 8 for odd
+//     v.
+//   * accumulator (64 x N, f32): d[4j + 2h + e] sits at row
 //     16w + l/4 + 8h, column 8j + 2(l%4) + e.
-//   * B (128 x K-step of a K-major tile, shared memory): rows of 128 bytes
-//     (32 floats or 64 bf16) with the 128-byte swizzle that TMA's
+//   * A and B from shared memory (K-major tiles): rows of 128 bytes (32
+//     floats or 64 bf16) with the 128-byte swizzle that TMA's
 //     CU_TENSOR_MAP_SWIZZLE_128B writes — 16-byte chunk c of row r sits
-//     at chunk c ^ (r % 8) — so the tile base must be 1024-byte aligned.
+//     at chunk c ^ (r % 8) — so a tile base must be 1024-byte aligned.
 //     32-bit operands have no transposed form, so B is K-major for both.
+//   * in a cluster, a CTA's shared-memory address names the same offset in
+//     every CTA of the cluster: a multicast TMA load writes its box, and
+//     signals its mbarrier, at that offset in each CTA of its mask, and
+//     mapa turns a local address into the one of a given CTA rank.
 
 #pragma once
 
@@ -105,6 +107,62 @@ __device__ __forceinline__ void tma_prefetch_desc(const CUtensorMap* map) {
                :: "l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
 
+// ---- clusters ---------------------------------------------------------------
+__device__ __forceinline__ uint32_t cluster_ctaid_x() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctaid.x;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_ctaid_y() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctaid.y;" : "=r"(r));
+  return r;
+}
+
+// every thread of every CTA of the cluster: arrive, then wait for all
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// arrive on the mbarrier at `bar`'s offset in the CTA of cluster rank
+// `rank` (this CTA's own rank included), with the default (CTA-scope)
+// release, as CUTLASS's ClusterBarrier does
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
+                                                    uint32_t rank) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n"
+      :: "r"(smem_u32(bar)), "r"(rank) : "memory");
+}
+
+// tma_load_2d into the same offset of every CTA whose rank is set in
+// `mask`, each completing on its own mbarrier at `bar`'s offset
+__device__ __forceinline__ void tma_load_2d_multicast(void* dst,
+                                                      const CUtensorMap* map,
+                                                      uint64_t* bar, int c0,
+                                                      int c1, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "h"(mask)
+      : "memory");
+}
+
+// make this thread's ordinary shared-memory writes visible to the async
+// proxy (TMA, wgmma) before a barrier that orders them
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// named barrier `id` (1..15) over `count` threads
+__device__ __forceinline__ void named_barrier_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" :: "r"(id), "r"(count) : "memory");
+}
+
 // ---- wgmma ------------------------------------------------------------------
 // shared-memory descriptor of a K-major, 128-byte-swizzled tile: start
 // address >> 4 (bits 0-13), leading offset 1 (unused for swizzled K-major),
@@ -174,27 +232,77 @@ __device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64],
         "l"(desc_b));
 }
 
-// d (+)= A · B for a 64 x 128 x 16 step: A (bf16 pairs) in registers, B
-// (bf16, K-major, not transposed) by descriptor, f32 accumulator;
-// `accumulate` = 0 overwrites d.  bf16 · bf16 products are exact in f32.
-__device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64],
-                                                      const uint32_t (&a)[4],
-                                                      uint64_t desc_b,
-                                                      int accumulate) {
+// d (+)= A · B for a 64 x N x 16 step, bf16 · bf16 with both operands by
+// descriptor (K-major, 128-byte swizzle, not transposed), f32 accumulator
+// of N/2 registers; `accumulate` = 0 overwrites d.  bf16 · bf16 products
+// are exact in f32.
+__device__ __forceinline__ void wgmma_ss_m64n128k16_bf16(float (&d)[64],
+                                                        uint64_t desc_a,
+                                                        uint64_t desc_b,
+                                                        int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %68, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
-      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
-      "%57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %69, p, 1, 1, 0;\n}\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
       : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24),
         HOPPER_D8(32), HOPPER_D8(40), HOPPER_D8(48), HOPPER_D8(56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(accumulate),
-        "l"(desc_b));
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_ss_m64n192k16_bf16(float (&d)[96],
+                                                        uint64_t desc_a,
+                                                        uint64_t desc_b,
+                                                        int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95"
+      "}, %96, %97, p, 1, 1, 0, 0;\n}\n"
+      : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24),
+        HOPPER_D8(32), HOPPER_D8(40), HOPPER_D8(48), HOPPER_D8(56),
+        HOPPER_D8(64), HOPPER_D8(72), HOPPER_D8(80), HOPPER_D8(88)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_ss_m64n256k16_bf16(float (&d)[128],
+                                                        uint64_t desc_a,
+                                                        uint64_t desc_b,
+                                                        int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24),
+        HOPPER_D8(32), HOPPER_D8(40), HOPPER_D8(48), HOPPER_D8(56),
+        HOPPER_D8(64), HOPPER_D8(72), HOPPER_D8(80), HOPPER_D8(88),
+        HOPPER_D8(96), HOPPER_D8(104), HOPPER_D8(112), HOPPER_D8(120)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
 #undef HOPPER_D8

@@ -1,7 +1,10 @@
 // ring_hemm — the Chebyshev filter's HEMM, W (=|+=) H[:, col0:col0+b] · V,
 // hand-written in CUDA C++ for Hopper (sm_90a): TMA loads into an mbarrier
-// pipeline feeding register-A wgmma, with 3xTF32 for f32 accuracy, and a
-// bf16 route (bf16 H, f32 V rounded to bf16, f32 sums) for the bf16 rung.
+// pipeline feeding register-A wgmma, with 3xTF32 for f32 accuracy (f32 and,
+// through its float view, c64), and the bf16 route (bf16 H, f32 V rounded
+// to bf16, f32 sums) for the bf16 rung, a kernel of its own: shared-memory
+// wgmma on a 128×192 tile in 2-CTA clusters that share V's tile by TMA
+// multicast (its note is at ring_hemm_bf16_kernel below).
 //
 // Replaces the TPU kernel chase_tpu/ops/pallas_ring.py::_ring_kernel
 // (built by make_hemm_local, run by parallel/ring.py::
@@ -32,10 +35,6 @@
 // 699 W, SM clock 1230–1590 MHz, no thermal slowdown): on that card the
 // power limit binds it as much as the tensor pipe.  Whether it does on
 // every card, and what the per-tile issue gaps cost, is open (PERF.md §7).
-// The bf16 route does one bf16 product per term at the 989 TFLOP/s dense
-// bf16 rate: at (30000, 3000) its bound is 5.46 ms of arithmetic (H is 1.8
-// GB, 0.54 ms of HBM); its per-tile promotion and 64-deep tiles make it a
-// simple first version, not a tuned one (its times are in PERF.md).
 //
 // Error scheme of the f32 route (measured by a probe on the H100 before
 // this kernel was written; PERF.md): x = hi + lo with hi = tf32_rna(x), lo
@@ -48,10 +47,8 @@
 // probed shape; every 4th tile failed the 4×-plain bound at K = 200).
 // Promoting every 2nd tile held the bound (2.6× cuBLAS at worst) but ran
 // 5.5% slower at (30000, 3000) and 2.4% at (30000, 750) in this kernel
-// (PERF.md).  The bf16 route's products are exact in f32 (8-bit
-// mantissas), so its only error beyond V's rounding to bf16 is the sum:
-// it promotes each 64-deep tile the same way (the probe that measured the
-// alternative is in PERF.md).
+// (PERF.md).  The bf16 route promotes the same way, every 2nd 64-deep
+// tile (its note).
 //
 // Design:
 //   * split_transpose_kernel (f32 pre-pass): V (b × k, row stride ldv,
@@ -61,7 +58,8 @@
 //   * bf16_pack_kernel (bf16 pre-pass): V (b × k, f32) → Vb (w_pad ×
 //     b_pad) bf16, V rounded to nearest-even (as torch's .to(bfloat16)),
 //     transposed to K-major like the f32 route's B (wgmma could read a
-//     transposed 16-bit B, but one layout keeps one pipeline).
+//     transposed 16-bit B; K-major keeps the TMA boxes and the descriptor
+//     of both operands alike).
 //   * complex64 (ring_hemm_split_c64): the main kernel is the f32 one, run
 //     on the float view of a c64 H (m × 2n floats, [re, im, ...] rows).
 //     The complex pre-pass writes, for a c64 V (b × k), the real (2b × 2k)
@@ -73,20 +71,19 @@
 //     TMA alignment, strided W) carries over: the wrapper passes float
 //     strides and columns.  K doubles, and the per-tile promotion below
 //     keeps its error at f32's (the chip gate holds it to a c128 product).
-//   * the main kernel, ring_hemm_kernel<E> for E = Tf32x3 (f32, c64) or
-//     Bf16, one 128×128 W tile per block, 384 threads:
+//   * the f32 main kernel, ring_hemm_kernel<E> for E = Tf32x3 (f32, c64),
+//     one 128×128 W tile per block, 384 threads:
 //       - warpgroup 2 (one elected thread) is the producer: TMA loads of
-//         the H tile (128 rows × 128 bytes: 32 f32 or 64 bf16 of K,
-//         128-byte swizzle) and the B tiles (128 columns × the same K:
-//         Vhi and Vlo for f32, Vb for bf16) into a ring of E::STAGES
-//         stages, guarded by full/empty mbarriers; setmaxnreg gives its
-//         registers to the consumers (40 / 232);
+//         the H tile (128 rows × 128 bytes: 32 f32 of K, 128-byte
+//         swizzle) and the B tiles (128 columns × the same K: Vhi and Vlo)
+//         into a ring of E::STAGES stages, guarded by full/empty
+//         mbarriers; setmaxnreg gives its registers to the consumers (40 /
+//         232);
 //       - warpgroups 0 and 1 are consumers, 64 rows each: per K tile they
-//         read their A fragments from the swizzled H tile into registers
-//         (f32: split into hi/lo there, so the H tile stays one f32 TMA
-//         load and costs no extra shared memory, barrier or copy; bf16:
-//         the words as they are) and issue the tile's wgmma with A from
-//         registers (f32: 12 m64n128k8, bf16: 4 m64n128k16); then they
+//         read their A fragments from the swizzled H tile into registers,
+//         split into hi/lo there (so the H tile stays one f32 TMA load and
+//         costs no extra shared memory, barrier or copy), and issue the
+//         tile's 12 m64n128k8 wgmma with A from registers; then they
 //         wait, release the stage and promote the tile's sum.  The next
 //         tile's fragments are read while this tile's wgmma run (two
 //         register sets), and two consumers keep the tensor cores busy
@@ -99,24 +96,24 @@
 //   * ragged edges: the H descriptor is exactly H[:m, :col0+b] (col0 is a
 //     TMA coordinate, not a pointer offset), so TMA zero-fills rows past m
 //     and columns past col0+b.  TMA's inner coordinate must be 16-byte
-//     aligned, so the boxes start at col0 - off, off = col0 % E::ALIGN (4
-//     f32 or 8 bf16): the pre-pass shifts V's rows by `off` columns of its
-//     output (zeros before them) and the consumers zero the first tile's
-//     `off` leading A columns (so a non-finite H entry left of the block
-//     cannot leak in as 0·inf).  The pre-pass output is zero-padded; the
-//     epilogue stores (or adds into) W with masked plain stores, so W may
-//     be a strided column window and nothing outside [0,m)×[0,k) is
-//     touched.  TMA needs H 16-byte aligned with a row stride of a whole
-//     number of 16 bytes (4 floats, 8 bf16; the wrapper checks,
-//     DenseOperator pads).
+//     aligned, so the boxes start at col0 - off, off = col0 % 4 f32 (8
+//     bf16): the pre-pass shifts V's rows by `off` columns of its output
+//     (zeros before them) and the consumers zero the first tile's `off`
+//     leading A columns, in registers (f32) or in shared memory (bf16), so
+//     that a non-finite H entry left of the block cannot leak in as 0·inf.
+//     The pre-pass output is zero-padded; the epilogue stores (or adds
+//     into) W with masked plain stores, so W may be a strided column
+//     window and nothing outside [0,m)×[0,k) is touched.  TMA needs H
+//     16-byte aligned with a row stride of a whole number of 16 bytes (4
+//     floats, 8 bf16; the wrapper checks, DenseOperator pads).
 //   * the one driver-API call, cuTensorMapEncodeTiled, is reached through
 //     cudaGetDriverEntryPoint, so the library needs no -lcuda.
 //
-// Shared memory per block: f32 4 stages × (16 + 16 + 16) KB = 192 KB, bf16
-// 6 stages × (16 + 16) KB = 192 KB of dynamic shared memory (plus 1 KB for
-// alignment and the barriers).  Registers: 168 at launch; setmaxnreg
-// moves the producer to 40 and the consumers to 232 (2 × 64 accumulators
-// + 2 sets of A fragments: 2 × 32 registers for f32, 2 × 16 for bf16).
+// Shared memory per block (f32): 4 stages × (16 + 16 + 16) KB = 192 KB of
+// dynamic shared memory (plus 1 KB for alignment and the barriers).
+// Registers: 168 at launch; setmaxnreg moves the producer to 40 and the
+// consumers to 232 (2 × 64 accumulators + 2 sets of A fragments, 2 × 32
+// registers).
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -135,7 +132,7 @@ constexpr int TILE_BYTES = BM * 128;     // 128 rows of 128 bytes = 16 KB
 constexpr int NTHREADS = 384;
 constexpr int CONSUMER_WARPS = 8;
 
-// ---- the two routes ---------------------------------------------------------
+// ---- the f32 route ----------------------------------------------------------
 // Each K tile is 128 bytes of a row: BK elements.  A fragment register v
 // of k-step ks holds the 32-bit word q = lane % 4 of the row's 16-byte
 // chunk 2 ks + (v >> 1) (hopper_tf32.cuh); `col` is the tile column of the
@@ -175,33 +172,6 @@ struct Tf32x3 {
     fence_regs(f.hi);
     fence_regs(f.lo);
   }
-};
-
-// bf16 H, V rounded to bf16 by the pre-pass: one exact product per term
-struct Bf16 {
-  static constexpr int BK = 64;              // K tile: 64 bf16 = one 128 B row
-  static constexpr int ALIGN = 8;
-  static constexpr int B_TILES = 1;
-  static constexpr int STAGES = 6;
-  static constexpr CUtensorMapDataType TMA_TYPE =
-      CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  struct Frag { uint32_t a[4][4]; };
-
-  // the word holds columns col (low half) and col + 1 (high half); a
-  // column left of the block (col < kmin) is zeroed
-  __device__ static void set(Frag& f, int ks, int v, uint32_t word, int q,
-                             int kmin) {
-    const int col = 16 * ks + 8 * (v >> 1) + 2 * q;
-    f.a[ks][v] = col >= kmin ? word
-                             : (col + 1 >= kmin ? word & 0xFFFF0000u : 0u);
-  }
-  __device__ static void mma(float (&acc)[64], Frag& f, const void* b) {
-    const uint64_t db = desc_kmajor_sw128(b);
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks)
-      wgmma_m64n128k16_bf16(acc, f.a[ks], db + 2 * ks, ks == 0 ? 0 : 1);
-  }
-  __device__ static void fence(Frag& f) { fence_regs(f.a); }
 };
 
 template <class E>
@@ -428,6 +398,357 @@ ring_hemm_kernel(const __grid_constant__ CUtensorMap tmH,
   }
 }
 
+// ---- the bf16 route's kernel ------------------------------------------------
+// ring_hemm_bf16_kernel replaces the same TPU kernel, _ring_kernel, as it
+// streams a bf16 H (the bf16 rung): W (=|+=) H[:, col0:col0+b] · bf16(V),
+// every product exact in f32 (8-bit mantissas), f32 sums.
+//
+// What bounds it on an H100: at (30000, 3000) the bf16 tensor cores
+// (989 TFLOP/s) need 5.46 ms and HBM 0.54 ms, so arithmetic — but only if
+// the tiles reach the SMs fast enough.  Each 64-deep K step of a BM × BN
+// W tile brings (BM + BN) · 128 bytes from L2 into shared memory for
+// 2·BM·BN·64 FLOPs.  Measured on an H100 80GB HBM3 SXM (power limit 700
+// W; probes/bf16_route_design.py), the variants without multicast drew
+// 5.5–7.8 TB/s of such reads: 128×128 (32 KB per 2.10 MFLOP: the
+// register-A design this kernel replaced, and its shared-memory form)
+// 12.7–15.9 ms at (30000, 3000), 128×192 (40 KB per 3.15 MFLOP) 9.9–12.2
+// ms.  The tile cannot grow past 128×192 here: the IEEE promotion keeps
+// a running sum beside the accumulators, 2 × BN/2 floats per consumer
+// thread, and 192 + addresses fit the consumers' 232 registers
+// (setmaxnreg 40 / 232 of 65,536 for 384 threads) where 256 would not.
+// Shared memory: 5 stages of 16 + 24 KB = 200 KB of 227.
+//
+// Design, against those limits:
+//   * 2×1 thread-block clusters: the two CTAs hold two row stripes of one
+//     column tile and each TMA-multicasts half of the V tile to both, so
+//     a K step reads 16 + 12 KB from L2 per 3.15 MFLOP (0.58× the 128×128
+//     tile's bytes per FLOP).  A stage is refilled only when the consumers
+//     of both CTAs have released it: each consumer warp arrives on the
+//     empty barrier of every CTA that wrote into the stage (mapa +
+//     mbarrier.arrive.shared::cluster, CTA-scope release, as CUTLASS
+//     does — a cluster-scope release on that arrive made every cluster
+//     variant 1.3–1.7× slower than its unclustered form), and the
+//     producer waits, before it exits, for the releases still owed to its
+//     barriers.  The grid's row and column counts are rounded up to whole
+//     clusters; an extra CTA reads TMA's zero fill and stores nothing.
+//   * A and B from shared memory (wgmma m64n192k16 with two descriptors):
+//     no A fragments in registers, which leaves them to the running sum.
+//     The first tile's `off` columns left of the block are zeroed in
+//     shared memory (fence.proxy.async, then a warpgroup barrier, before
+//     that tile's wgmma).
+//   * promotion every PROMOTE = 2 K tiles (128 deep): inside a group each
+//     tile's wgmma is issued before the previous one is waited for
+//     (wgmma_wait<1>, one group in flight), so a consumer idles only at
+//     the group's end, where it waits, promotes into the IEEE running sum
+//     and the other consumer keeps the tensor cores busy.
+//   * the same grouped raster as the f32 kernel, over clusters.
+// Measured beside each other (same card and limit, three calls of the
+// probe; error against an f64 product of the rounded operands at K =
+// 30000): the kept variant 9.04–9.46 ms at (30000, 3000), 4.72–4.86 ms at
+// 1500, 2.50–2.58 ms at 750, error 0.7–1.0e-6, at the 700 W cap with the
+// SM clock at 1.37–1.45 GHz (571–598 TFLOP/s, 75–79% of the tensor
+// cores' rate at that clock).  Promotion every tile: 11.35–11.40 ms
+// (1.2e-6); every 4th: 6% faster (8.85–8.86 ms, 7.7e-7), but at K = 300
+// its error reached 4.0e-7 in a card-only test, past 4× the f32
+// product's (1.0e-7), where every 2nd stays at 2.0e-7; every 8th, 16th
+// and 32nd: 8.74–9.64, 9.19–9.26, 9.09–9.55 ms (7.1e-7, 1.1e-6, 2.3e-6),
+// each past that bound on the probe's ragged shapes; never (one
+// accumulator): 3.6e-5, over the 1e-5 gate.  2×2 clusters (H multicast
+// too; only 30 clusters, 120 SMs, fit at once)
+// 9.69–9.73 ms, 9.04–9.22 at every 4th or 8th; 1×2 9.39–9.50; raster
+// groups of 4 or 16 row stripes 9.10–9.49; a 128×256 tile run as two
+// 64×128 halves in turn (SPLIT = 2, each half waited for and promoted
+// into its half of the sum) 10.29–11.15 ms, 9–23% slower than the kept
+// variant in the same call, at a higher SM clock (1.41–1.75 GHz: 1.5×
+// the waits per FLOP of the kept tile, and m64n128 steps that read A once
+// per half); cuBLAS's bf16 GEMM (f32 out) 7.88–7.91 ms at 3.6e-5; the
+// replaced design 13.01–13.38 ms.
+// The shape is fixed at compile time; probes/bf16_route_design.py builds
+// other shapes of this source with -D flags to compare them.
+#ifndef RING_HEMM_BF16_BN
+#define RING_HEMM_BF16_BN 192      // W tile columns (wgmma N)
+#endif
+#ifndef RING_HEMM_BF16_CM
+#define RING_HEMM_BF16_CM 2        // cluster: CTAs along W's rows (share V)
+#endif
+#ifndef RING_HEMM_BF16_CN
+#define RING_HEMM_BF16_CN 1        // cluster: CTAs along W's columns (share H)
+#endif
+#ifndef RING_HEMM_BF16_PROMOTE
+#define RING_HEMM_BF16_PROMOTE 2   // K tiles per IEEE promotion (0: never)
+#endif
+#ifndef RING_HEMM_BF16_GROUP
+#define RING_HEMM_BF16_GROUP 8     // row stripes per raster group
+#endif
+#ifndef RING_HEMM_BF16_SPLIT
+#define RING_HEMM_BF16_SPLIT 1     // column parts a consumer runs in turn
+#endif
+
+namespace bf16r {
+constexpr int BM = 128;                  // W tile rows (2 consumers × 64)
+constexpr int BK = 64;                   // K tile: 64 bf16 = one 128 B row
+constexpr int ALIGN = 8;                 // bf16 elements per 16 bytes
+constexpr int BN = RING_HEMM_BF16_BN;
+constexpr int CM = RING_HEMM_BF16_CM;
+constexpr int CN = RING_HEMM_BF16_CN;
+constexpr int PROMOTE = RING_HEMM_BF16_PROMOTE;
+constexpr int GROUP_M = RING_HEMM_BF16_GROUP;
+// a consumer's 64 × BN tile is computed as SPLIT parts of WN columns in
+// turn, each promoted into its slice of the running sum: only one part's
+// accumulators are live
+constexpr int SPLIT = RING_HEMM_BF16_SPLIT;
+constexpr int WN = BN / SPLIT;           // wgmma N
+constexpr int NACC = WN / 2;             // accumulator floats per thread
+constexpr int NRUN = PROMOTE > 0 ? BN / 2 : 1;   // running-sum floats
+constexpr int H_BYTES = BM * 128;        // the H tile: 16 KB
+constexpr int V_BYTES = BN * 128;        // the V tile: BN rows of 128 B
+constexpr int STAGE_BYTES = H_BYTES + V_BYTES;
+constexpr int SMEM_MAX = 232448;         // 227 KB a block can have
+constexpr int STAGES = (SMEM_MAX - 1024 - 256) / STAGE_BYTES;
+constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8;
+// a stage is filled by the CTAs of this CTA's cluster row (H slices) and
+// column (V slices): CM + CN - 1 of them, this one included
+constexpr int SENDERS = CM + CN - 1;
+static_assert(WN == 128 || WN == 192 || WN == 256, "wgmma N");
+static_assert(SPLIT == 1 || PROMOTE > 0, "parts need promotion");
+static_assert(NACC + NRUN <= 192,
+              "acc + run must fit the consumers' 232 registers");
+static_assert(CM * CN <= 8 && BM % CN == 0 && BN % (8 * CM) == 0, "cluster");
+static_assert(STAGES >= 2, "shared memory");
+
+template <int N>
+__device__ __forceinline__ void mma(float (&acc)[N / 2], uint64_t da,
+                                    uint64_t db, int accumulate) {
+  if constexpr (N == 128)
+    wgmma_ss_m64n128k16_bf16(acc, da, db, accumulate);
+  else if constexpr (N == 192)
+    wgmma_ss_m64n192k16_bf16(acc, da, db, accumulate);
+  else
+    wgmma_ss_m64n256k16_bf16(acc, da, db, accumulate);
+}
+}  // namespace bf16r
+
+// W (=|+=) H[:, col0:col0+b] · Vb for a bf16 H and the bf16 pre-pass's Vb
+// (K-major); one BM × BN W tile per CTA, CM × CN CTAs per cluster.
+__global__ void __launch_bounds__(NTHREADS, 1)
+ring_hemm_bf16_kernel(const __grid_constant__ CUtensorMap tmH,
+                      const __grid_constant__ CUtensorMap tmV,
+                      float* __restrict__ W, long long ldw, int m, int k,
+                      int b, int col0, int off, int accumulate) {
+  constexpr int BM = bf16r::BM, BK = bf16r::BK, BN = bf16r::BN;
+  constexpr int CM = bf16r::CM, CN = bf16r::CN, PROMOTE = bf16r::PROMOTE;
+  constexpr int NACC = bf16r::NACC, H_BYTES = bf16r::H_BYTES;
+  constexpr int SPLIT = bf16r::SPLIT, WN = bf16r::WN, NRUN = bf16r::NRUN;
+  constexpr int V_BYTES = bf16r::V_BYTES, STAGES = bf16r::STAGES;
+  constexpr int STAGE_BYTES = bf16r::STAGE_BYTES, SENDERS = bf16r::SENDERS;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  // stage s: the H tile (BM rows), then the V tile (BN rows), 1024-aligned
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE_BYTES);
+  uint64_t* empty = full + STAGES;
+
+  // this CTA's place in its cluster (rank = cn + CN·cm), and the grouped
+  // raster over clusters: consecutive clusters walk GROUP_M row stripes of
+  // one column tile before the next column tile
+  const int cn = CN > 1 ? static_cast<int>(cluster_ctaid_x()) : 0;
+  const int cm = CM > 1 ? static_cast<int>(cluster_ctaid_y()) : 0;
+  constexpr int GROUP = bf16r::GROUP_M / CM > 0 ? bf16r::GROUP_M / CM : 1;
+  const int num_n = gridDim.x / CN, num_m = gridDim.y / CM;
+  const int id = (blockIdx.y / CM) * num_n + blockIdx.x / CN;
+  const int first_m = id / (GROUP * num_n) * GROUP;
+  const int gsize = min(num_m - first_m, GROUP);
+  const int in_group = id % (GROUP * num_n);
+  const int m0 = ((first_m + in_group % gsize) * CM + cm) * BM;
+  const int n0 = ((in_group / gsize) * CN + cn) * BN;
+  const int ntiles = (b + off + BK - 1) / BK;
+  const int kbase = col0 - off;          // 16-byte-aligned TMA coordinate
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMER_WARPS * SENDERS);
+    }
+    mbar_init_fence();
+  }
+  if constexpr (CM * CN > 1) cluster_sync();
+  else __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer ------------------------------------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 256) {
+      tma_prefetch_desc(&tmH);
+      tma_prefetch_desc(&tmV);
+      // masks of the CTAs that share this CTA's H rows (its cluster row)
+      // and its V columns (its cluster column)
+      uint16_t row_mask = 0, col_mask = 0;
+      for (int j = 0; j < CN; ++j)
+        row_mask |= static_cast<uint16_t>(1u << (cm * CN + j));
+      for (int i = 0; i < CM; ++i)
+        col_mask |= static_cast<uint16_t>(1u << (i * CN + cn));
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % STAGES;
+        // every CTA this one writes into has released stage s
+        mbar_wait(&empty[s], ((t / STAGES) & 1) ^ 1);
+        unsigned char* st = smem + s * STAGE_BYTES;
+        mbar_arrive_expect_tx(&full[s], STAGE_BYTES);
+        const int kc = kbase + t * BK;
+        if constexpr (CN == 1) {
+          tma_load_2d(st, &tmH, &full[s], kc, m0);
+        } else {                         // slice cn of the H tile's rows
+          tma_load_2d_multicast(st + cn * (H_BYTES / CN), &tmH, &full[s], kc,
+                                m0 + cn * (BM / CN), row_mask);
+        }
+        if constexpr (CM == 1) {
+          tma_load_2d(st + H_BYTES, &tmV, &full[s], t * BK, n0);
+        } else {                         // slice cm of the V tile's rows
+          tma_load_2d_multicast(st + H_BYTES + cm * (V_BYTES / CM), &tmV,
+                                &full[s], t * BK, n0 + cm * (BN / CM),
+                                col_mask);
+        }
+      }
+      // wait for the last releases, which may come from other CTAs of the
+      // cluster, so that none arrives on this CTA's barriers after it exits
+      for (int t = ntiles; t < ntiles + STAGES; ++t)
+        mbar_wait(&empty[t % STAGES], ((t / STAGES) & 1) ^ 1);
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns rows m0 + 64 wg .. + 63 -------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    float acc[NACC], run[NRUN];
+#pragma unroll
+    for (int i = 0; i < NACC; ++i) acc[i] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < NRUN; ++i) run[i] = 0.0f;
+    // release tile t's stage: one arrive per warp on the empty barrier of
+    // every CTA that wrote into it (lane i takes sender i)
+    auto release = [&](int t) {
+      __syncwarp();
+      if constexpr (SENDERS == 1) {
+        if (lane == 0) mbar_arrive(&empty[t % STAGES]);
+      } else if (lane < SENDERS) {
+        // senders: this CTA's cluster row (cm, 0..CN-1), then the rest of
+        // its cluster column (0..CM-1 but cm, cn)
+        const int i = lane - CN, row = i < cm ? i : i + 1;
+        const int rank = lane < CN ? cm * CN + lane : row * CN + cn;
+        mbar_arrive_cluster(&empty[t % STAGES], rank);
+      }
+    };
+    auto promote = [&]() {
+      if constexpr (PROMOTE > 0) {
+#pragma unroll
+        for (int i = 0; i < NACC; ++i) run[i] += acc[i];
+      }
+    };
+    // zero the first tile's `off` columns left of the block (so that a
+    // non-finite H entry there cannot leak in as 0·inf); column c < 8 of
+    // row r sits in 16-byte chunk 0 ^ (r % 8)
+    auto zero_left = [&](unsigned char* st) {
+      const int r = wg * 64 + (threadIdx.x % 128) / 2;
+      const int half = threadIdx.x % 2;
+      uint16_t* row = reinterpret_cast<uint16_t*>(st + r * 128 + (r % 8) * 16);
+      for (int c = half; c < off; c += 2) row[c] = 0;
+      fence_proxy_async();
+      named_barrier_sync(1 + wg, 128);
+    };
+    const uint32_t a_off = wg * (H_BYTES / 2);   // this warpgroup's 64 rows
+    if constexpr (SPLIT == 1) {
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % STAGES;
+        const bool fresh = PROMOTE > 0 && t % PROMOTE == 0;
+        if (fresh && t > 0) {            // the group before t is complete
+          wgmma_wait<0>();
+          fence_regs(acc);
+          release(t - 1);
+          promote();
+        }
+        mbar_wait(&full[s], (t / STAGES) & 1);
+        unsigned char* st = smem + s * STAGE_BYTES;
+        if (t == 0 && off > 0) zero_left(st);
+        // acc is touched only where no wgmma writing it is in flight (a
+        // use under a pending wgmma makes ptxas insert a wait there)
+        if (fresh || t == 0) fence_regs(acc);
+        wgmma_fence();
+        const uint64_t da = desc_kmajor_sw128(st + a_off);
+        const uint64_t db = desc_kmajor_sw128(st + H_BYTES);
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+          bf16r::mma<WN>(acc, da + 2 * ks, db + 2 * ks,
+                         ks == 0 && (fresh || (PROMOTE == 0 && t == 0)) ? 0
+                                                                        : 1);
+        wgmma_commit();
+        if (!fresh && t > 0) {           // tile t - 1 is complete
+          wgmma_wait<1>();
+          release(t - 1);
+        }
+      }
+      // unconditional, so that ptxas sees every wgmma retired before the
+      // epilogue (with none in flight the wait returns at once)
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (ntiles > 0) release(ntiles - 1);
+      promote();
+    } else {
+      // per group of PROMOTE K tiles: the SPLIT column parts in turn, each
+      // waited for and promoted into its slice of run; then the group's
+      // stages are released
+      for (int g = 0; g < ntiles; g += PROMOTE) {
+        const int gend = min(g + PROMOTE, ntiles);
+#pragma unroll
+        for (int p = 0; p < SPLIT; ++p) {
+          for (int t = g; t < gend; ++t) {
+            unsigned char* st = smem + (t % STAGES) * STAGE_BYTES;
+            if (p == 0) {
+              mbar_wait(&full[t % STAGES], (t / STAGES) & 1);
+              if (t == 0 && off > 0) zero_left(st);
+            }
+            if (t == g) fence_regs(acc);
+            wgmma_fence();
+            const uint64_t da = desc_kmajor_sw128(st + a_off);
+            const uint64_t db =
+                desc_kmajor_sw128(st + H_BYTES + p * WN * 128);
+#pragma unroll
+            for (int ks = 0; ks < 4; ++ks)
+              bf16r::mma<WN>(acc, da + 2 * ks, db + 2 * ks,
+                             ks == 0 && t == g ? 0 : 1);
+            wgmma_commit();
+          }
+          wgmma_wait<0>();
+          fence_regs(acc);
+#pragma unroll
+          for (int i = 0; i < NACC; ++i) run[p * NACC + i] += acc[i];
+        }
+        for (int t = g; t < gend; ++t) release(t);
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+    }
+    // epilogue: d[4j + 2h + e] is row 16 (warp % 4) + lane/4 + 8h of this
+    // warpgroup's 64, column 8j + 2(lane % 4) + e
+    const int arow = wg * 64 + (warp % 4) * 16 + lane / 4;
+    const int q = lane % 4;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = m0 + arow + 8 * h;
+      if (r >= m) continue;
+      float* wrow = W + (long long)r * ldw;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = n0 + 8 * j + 2 * q + e;
+          float x;
+          if constexpr (PROMOTE > 0) x = run[4 * j + 2 * h + e];
+          else x = acc[4 * j + 2 * h + e];
+          if (c < k) wrow[c] = accumulate ? wrow[c] + x : x;
+        }
+    }
+  }
+}
+
 // ---- host side --------------------------------------------------------------
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
                                   cuuint32_t, void*, const cuuint64_t*,
@@ -470,6 +791,23 @@ CUresult make_map(CUtensorMap* map, const void* base, long long cols,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
+// a 2-D map of a row-major (rows × cols) bf16 array with row stride `ld`
+// elements, read in boxes of 64 columns (128 bytes) × box_rows with the
+// 128-byte swizzle
+CUresult make_map_bf16(CUtensorMap* map, const void* base, long long cols,
+                       long long rows, long long ld, int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
+  const cuuint32_t box[2] = {bf16r::BK, (cuuint32_t)box_rows};
+  const cuuint32_t estr[2] = {1, 1};
+  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                        const_cast<void*>(base), dims, strides, box, estr,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
 // error codes beside cudaError_t's (which stay below 1000)
 constexpr int ERR_NO_ENCODER = 1000;   // cuTensorMapEncodeTiled not found
 constexpr int ERR_ENCODE = 2000;       // + the CUresult of a failed encode
@@ -496,6 +834,58 @@ int launch(const void* H, long long ldh, int col0, const void* Vt, int b_pad,
   const dim3 grid(w_pad / BN, (m + BM - 1) / BM);
   ring_hemm_kernel<E><<<grid, NTHREADS, smem_bytes<E>(), stream>>>(
       tmH, tmV, W, ldw, m, k, b, col0, col0 % E::ALIGN, w_pad, accumulate);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// W[0:m, 0:k] (=|+=) H[0:m, col0:col0+b] · Vb on the bf16 kernel: grid
+// rows and columns rounded up to whole clusters (the extra CTAs read
+// TMA's zero fill and store nothing)
+int launch_bf16(const uint16_t* H, long long ldh, int col0, const uint16_t* Vb,
+                int b_pad, int w_pad, float* W, long long ldw, int m, int k,
+                int b, int accumulate, cudaStream_t stream) {
+  constexpr int BM = bf16r::BM, BN = bf16r::BN, CM = bf16r::CM;
+  constexpr int CN = bf16r::CN, SMEM_BYTES = bf16r::SMEM_BYTES;
+  if (m <= 0 || k <= 0) return 0;
+  if (!encode_tiled()) return ERR_NO_ENCODER;
+  CUtensorMap tmH, tmV;
+  // exactly H[:m, :col0+b], so TMA zero-fills past the block's last
+  // column; each CTA loads its slice of the tiles its cluster shares
+  CUresult r = make_map_bf16(&tmH, H, col0 + b > 0 ? col0 + b : 1, m, ldh,
+                             BM / CN);
+  if (r != CUDA_SUCCESS) return ERR_ENCODE + static_cast<int>(r);
+  r = make_map_bf16(&tmV, Vb, b_pad, w_pad, b_pad, BN / CM);
+  if (r != CUDA_SUCCESS) return ERR_ENCODE + static_cast<int>(r);
+  cudaError_t e = cudaFuncSetAttribute(
+      ring_hemm_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_BYTES);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int gx = (k + BN - 1) / BN, gy = (m + BM - 1) / BM;
+  const dim3 grid((gx + CN - 1) / CN * CN, (gy + CM - 1) / CM * CM);
+  const int off = col0 % bf16r::ALIGN;
+  if constexpr (CM * CN == 1) {
+    ring_hemm_bf16_kernel<<<grid, NTHREADS, SMEM_BYTES, stream>>>(
+        tmH, tmV, W, ldw, m, k, b, col0, off, accumulate);
+  } else {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(NTHREADS);
+    cfg.dynamicSmemBytes = SMEM_BYTES;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = CN;
+    attr[0].val.clusterDim.y = CM;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int off_arg = off;
+    void* args[] = {&tmH, &tmV, &W, &ldw, &m, &k, &b, &col0, &off_arg,
+                    &accumulate};
+    e = cudaLaunchKernelExC(&cfg,
+                            reinterpret_cast<const void*>(ring_hemm_bf16_kernel),
+                            args);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -533,7 +923,8 @@ extern "C" int ring_hemm_split_c64(const float* V, long long ldv, float* Vt,
 
 // The bf16 pre-pass: Vb (w_pad × b_pad bf16, contiguous) from V (b × k
 // f32, row stride ldv), V's row j rounded to bf16 at Vb column off + j.
-// b_pad a multiple of 64, w_pad of 128.  Launches on `stream`; returns
+// b_pad a multiple of 64, w_pad >= k of 32 (the wrapper rounds k up to the
+// bf16 kernel's 192-column tile).  Launches on `stream`; returns
 // cudaGetLastError().
 extern "C" int ring_hemm_pack_bf16(const float* V, long long ldv,
                                    uint16_t* Vb, int b, int k, int off,
@@ -562,13 +953,13 @@ extern "C" int ring_hemm_f32(const float* H, long long ldh, int col0,
 
 // The bf16 route: W (f32) (=|+=) H[0:m, col0:col0+b] (bf16) · V with V
 // given as the bf16 pre-pass output Vb with off = col0 % 8 (w_pad × b_pad,
-// w_pad = 128·⌈k/128⌉, b_pad = 64·⌈(b + off)/64⌉, at least 64).  H: row
-// stride ldh bf16 elements, 16-byte aligned, ldh % 8 == 0.  Otherwise as
-// ring_hemm_f32.
+// w_pad >= k — rows past it read as zeros —, b_pad = 64·⌈(b + off)/64⌉,
+// at least 64), on ring_hemm_bf16_kernel.  H: row stride ldh bf16
+// elements, 16-byte aligned, ldh % 8 == 0.  Otherwise as ring_hemm_f32.
 extern "C" int ring_hemm_bf16(const uint16_t* H, long long ldh, int col0,
                               const uint16_t* Vb, int b_pad, int w_pad,
                               float* W, long long ldw, int m, int k, int b,
                               int accumulate, cudaStream_t stream) {
-  return launch<Bf16>(H, ldh, col0, Vb, b_pad, w_pad, W, ldw, m, k, b,
-                      accumulate, stream);
+  return launch_bf16(H, ldh, col0, Vb, b_pad, w_pad, W, ldw, m, k, b,
+                     accumulate, stream);
 }

@@ -24,9 +24,11 @@ Three routes, by H's dtype:
   reaches its kernel with complex data only through a 2N real embedding.
 * bf16 (H bf16, V and out f32; the bf16 rung of the precision ladder, as
   the TPU kernel streams a bf16 H): the pre-pass :func:`bf16_pack` rounds
-  V's chunk to bf16 and transposes it, and the kernel multiplies bf16 ·
-  bf16 (exact in f32) with f32 sums: ``out (=|+=) H.float() @
-  V.to(bfloat16).float()``.
+  V's chunk to bf16 and transposes it, and a kernel of its own (128×192 W
+  tiles in 2-CTA clusters that share V's tile, both operands of its wgmma
+  from shared memory; the source's note) multiplies bf16 · bf16 (exact in
+  f32) with f32 sums, promoted into IEEE f32 every 128 deep: ``out (=|+=)
+  H.float() @ V.to(bfloat16).float()``.
 
 * :func:`ring_hemm` — the wrapper.  It validates its arguments, then
   launches the kernels for CUDA tensors and raises if a launch fails.
@@ -64,6 +66,7 @@ __all__ = ["ring_hemm", "ring_hemm_reference", "tf32_split",
 
 BK, BN = 32, 128          # csrc/ring_hemm.cu's f32 K tile and W column tile
 BK_BF16 = 64              # the bf16 route's K tile (64 bf16 = 128 bytes)
+BN_BF16 = 192             # its W column tile (RING_HEMM_BF16_BN)
 # H dtypes the kernel takes; V and out have H's dtype, f32 for a bf16 H
 KERNEL_DTYPES = (torch.float32, torch.complex64, torch.bfloat16)
 
@@ -101,10 +104,10 @@ def split_shape(b: int, k: int, off: int = 0) -> tuple:
 
 def pack_shape(b: int, k: int, off: int = 0) -> tuple:
     """(b_pad, w_pad) of the bf16 pre-pass's (w_pad × b_pad) output: ``off
-    + b`` rounded up to the bf16 K tile (at least one), k to the W column
-    tile (at least one)."""
+    + b`` rounded up to the bf16 K tile (at least one), k to the bf16
+    route's W column tile (at least one)."""
     return (BK_BF16 * max(1, -(-(b + off) // BK_BF16)),
-            BN * max(1, -(-k // BN)))
+            BN_BF16 * max(1, -(-k // BN_BF16)))
 
 
 def _floats(t: torch.Tensor) -> int:
@@ -346,7 +349,8 @@ def bf16_pack(V: torch.Tensor, off: int = 0) -> torch.Tensor:
     V's rows rounded to nearest-even bf16 (as ``.to(torch.bfloat16)``) and
     transposed (K-major, the layout of the f32 route's B), starting at
     column ``off`` (0–7: H's column col0 mod 8, so that H's TMA boxes
-    start on 16 bytes), zero-padded.  CPU tensors run
+    start on 16 bytes), zero-padded to whole 64-deep K tiles and 192-wide
+    column tiles (:func:`pack_shape`).  CPU tensors run
     :func:`bf16_pack_reference`; CUDA tensors launch the kernel."""
     if V.dtype != torch.float32 or V.ndim != 2:
         raise TypeError(f"bf16_pack takes a 2-D float32 tensor, got "

@@ -41,8 +41,9 @@ no result line) on any fault:
            its pre-pass, f32 sums) against its plain version and the
            library's bf16 GEMM (torch.mm, f32 out), all held against an
            f64 product of the bf16-rounded operands, at (1000, 37),
-           (30000, 750), (30000, 1500), (30000, 3000), a strided window
-           and a two-chunk ring step at col0 = 15001; the pre-pass
+           (30000, 750), (30000, 1500), (30000, 3000), with the SM clock
+           and power draw (nvidia-smi) while the kernel runs, a strided
+           window and a two-chunk ring step at col0 = 15001; the pre-pass
            bit-exact
   bslice   the f32 slice with the bf16 rung (bf16_filter=True, pallas):
            every filter HEMM on the bf16 route, the slice's gates
@@ -106,8 +107,10 @@ any phase.
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -165,6 +168,35 @@ def time_fns(fns, reps: int) -> list:
     fwd = [time_ms(fn, reps) for fn in fns]
     rev = [time_ms(fn, reps) for fn in reversed(fns)][::-1]
     return [(a + b) / 2 for a, b in zip(fwd, rev)]
+
+
+def sampled(fn):
+    """(fn(), median SM clock in MHz, median power draw in W, samples):
+    nvidia-smi polled in a thread while ``fn`` runs."""
+    out, stop = [], threading.Event()
+
+    def poll():
+        while not stop.is_set():
+            r = subprocess.run(
+                ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                 "--format=csv,noheader,nounits"], capture_output=True,
+                text=True).stdout.split(",")
+            try:
+                out.append((float(r[0]), float(r[1])))
+            except (ValueError, IndexError):
+                pass
+
+    t = threading.Thread(target=poll, daemon=True)
+    t.start()
+    try:
+        res = fn()
+    finally:
+        stop.set()
+        t.join()
+    if not out:
+        return res, float("nan"), float("nan"), 0
+    return (res, statistics.median(x[0] for x in out),
+            statistics.median(x[1] for x in out), len(out))
 
 
 def bound(flop: float, nbytes: float, peak: float = PEAK_3XTF32) -> tuple:
@@ -490,6 +522,9 @@ def _bf16_case(phase, H, V, reps: int, col0: int = 0) -> dict:
     plain_ms, kern_ms, lib_ms = time_fns(
         [lambda: ring_hemm_reference(H, V, col0=col0),
          lambda: ring_hemm(H, V, col0=col0), library], reps)
+    # the card's clock and power while the kernel alone runs for ~0.5 s
+    _, mhz, watt, ns = sampled(lambda: time_ms(
+        lambda: ring_hemm(H, V, col0=col0), max(reps, int(500 / kern_ms))))
     gflop = 2.0 * m * b * k / 1e9
     rate = gflop / kern_ms
     bound_ms, bound_by = bf16_hemm_bound(m, b, k)
@@ -499,8 +534,9 @@ def _bf16_case(phase, H, V, reps: int, col0: int = 0) -> dict:
                f"({rate:.1f} TFLOP/s, {rate / PEAK_BF16:.1%} of the "
                f"{PEAK_BF16:.0f} TFLOP/s bf16 peak), plain {plain_ms:.3f} "
                f"ms, library (torch.mm bf16, f32 out) {lib_ms:.3f} ms, "
-               f"bound {bound_ms:.3f} ms ({bound_by}); "
-               f"{time.perf_counter() - t0:.2f} s")
+               f"bound {bound_ms:.3f} ms ({bound_by}); kernel alone: SM "
+               f"{mhz:.0f} MHz, {watt:.1f} W (median of {ns} nvidia-smi "
+               f"samples); {time.perf_counter() - t0:.2f} s")
     # exact products, f32 sums over K terms: 1e-5 of the largest entry,
     # and no worse than 4x the library's bf16 GEMM
     if not (err <= 1e-5 and err <= 4 * errl):

@@ -1,10 +1,15 @@
 """Probe of the bf16 route of ring_hemm on the card: does it need the
 per-tile promotion of its sums?
 
-    python probes/bf16_accumulation.py        # on a machine with the card
+    git archive c0351d1 chase_tpu_torch/csrc | tar -x -C build/pr4
+    python probes/bf16_accumulation.py build/pr4/chase_tpu_torch/csrc
 
+It pins the bf16 route as commit c0351d1 wrote it (register-A wgmma in the
+f32 route's template): the variant it builds is that source patched by
+string, which the redesigned route no longer matches
+(probes/bf16_route_design.py measures the redesign's promotion intervals).
 Builds the port's kernels (printing ptxas's registers and spills), then a
-variant of csrc/ring_hemm.cu whose bf16 route keeps one wgmma accumulator
+variant of that ring_hemm.cu whose bf16 route keeps one wgmma accumulator
 over all of K (into build/probe/), checks that torch.mm takes
 ``out_dtype=torch.float32`` for bf16 operands, and at (N, k) = (1000,
 37), (30000, 750), (30000, 3000) prints the error against an f64 product
@@ -37,7 +42,8 @@ for line in _build.build_log("ring_hemm").splitlines():
     if "registers" in line or "spill" in line or "Function" in line:
         print("  ", line.strip())
 
-src = (_build.CSRC_DIR / "ring_hemm.cu").read_text()
+pr4 = pathlib.Path(sys.argv[1])
+src = (pr4 / "ring_hemm.cu").read_text()
 a = "wgmma_m64n128k16_bf16(acc, f.a[ks], db + 2 * ks, ks == 0 ? 0 : 1)"
 b = "for (int i = 0; i < 64; ++i) run[i] += acc[i];"
 assert a in src and b in src
@@ -45,7 +51,7 @@ src = src.replace(a, "wgmma_m64n128k16_bf16(acc, f.a[ks], db + 2 * ks, 1)")
 src = src.replace(b, "for (int i = 0; i < 64; ++i) run[i] = acc[i];")
 d = pathlib.Path("build/probe")
 d.mkdir(parents=True, exist_ok=True)
-shutil.copy(_build.CSRC_DIR / "hopper_tf32.cuh", d)
+shutil.copy(pr4 / "hopper_tf32.cuh", d)
 (d / "ring_hemm.cu").write_text(src)
 t = time.time()
 p = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",

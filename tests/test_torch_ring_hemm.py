@@ -662,12 +662,13 @@ def test_bf16_plain_version_is_the_product_of_the_rounded_operands():
 @pytest.mark.parametrize("off", [0, 5])
 def test_bf16_pack_plain_version_layout(off):
     """The bf16 pre-pass's plain version: V rounded to bf16, transposed,
-    starting at column ``off``, zero-padded to whole 64-deep tiles."""
+    starting at column ``off``, zero-padded to whole 64-deep tiles and
+    whole 192-wide column tiles."""
     rng = np.random.default_rng(9 + off)
     V = torch.from_numpy(rng.standard_normal((45, 130)).astype(np.float32))
     Vb = bf16_pack(V[:, :129], off)
     b_pad, w_pad = pack_shape(45, 129, off)
-    assert (b_pad, w_pad) == (64, 256) and tuple(Vb.shape) == (256, 64)
+    assert (b_pad, w_pad) == (64, 192) and tuple(Vb.shape) == (192, 64)
     assert Vb.dtype == torch.bfloat16
     assert torch.equal(Vb[:129, off:off + 45], V[:, :129].T.to(torch.bfloat16))
     zero = torch.ones_like(Vb, dtype=torch.bool)
@@ -734,6 +735,67 @@ def test_cuda_bf16_strided_window_and_two_chunk_step(cuda):
     W = ring_hemm(H, V[:half], col0=0)
     ring_hemm(H, V[half:], col0=half, out=W, accumulate=True)
     torch.cuda.synchronize()
+    ref = H.double() @ V.to(torch.bfloat16).double()
+    assert float((W.double() - ref).abs().max() / ref.abs().max()) <= RTOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k", [(257, 40), (385, 193), (129, 191),
+                                 (1000, 385)],
+                         ids=["odd_row_tiles", "k193", "k191", "k385"])
+def test_cuda_bf16_ragged_tiles(cuda, m, k):
+    """m past whole 128-row tiles (257: three row tiles, an odd count
+    under a 2-CTA cluster, so one CTA reads rows that are all past m) and
+    k past whole 192-column tiles."""
+    g = torch.Generator(device=cuda).manual_seed(m * k)
+    H = _padded_randn(m, 700, g, cuda, torch.bfloat16)
+    V = torch.randn((700, k), generator=g, device=cuda)
+    _check_bf16_against_plain(H, V)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("col0", range(1, 8))
+def test_cuda_bf16_unaligned_col0_ignores_non_finite_left_of_block(cuda,
+                                                                   col0):
+    """col0 % 8 from 1 to 7: the first K tile starts 8-aligned, so it
+    holds H columns left of the block; inf and nan there stay out of the
+    result."""
+    g = torch.Generator(device=cuda).manual_seed(20 + col0)
+    Hf = torch.randn((300, 520), generator=g, device=cuda)
+    Hf[:, col0 - 1] = float("inf")
+    Hf[::3, col0 - 1] = float("nan")
+    H = Hf.to(torch.bfloat16)
+    V = torch.randn((200 + col0, 70), generator=g, device=cuda)
+    _check_bf16_against_plain(H, V, col0)
+    assert torch.isfinite(ring_hemm(H, V, col0=col0)).all()
+
+
+@pytest.mark.gpu
+def test_cuda_bf16_strided_out_window_accumulates(cuda):
+    """out a strided column window of a wider W (row stride 400), added
+    into with accumulate=True at a ragged shape; the columns around it
+    are untouched."""
+    g = torch.Generator(device=cuda).manual_seed(31)
+    H = _padded_randn(257, 333, g, cuda, torch.bfloat16)
+    V = torch.randn((333, 400), generator=g, device=cuda)[:, 7:200]
+    Wfull = torch.randn((257, 400), generator=g, device=cuda)
+    before = Wfull.clone()
+    _check_bf16_against_plain(H, V, out=Wfull[:, 3:196], accumulate=True)
+    assert torch.equal(Wfull[:, :3], before[:, :3])
+    assert torch.equal(Wfull[:, 196:], before[:, 196:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shift", [0.0, 1.0], ids=["centred", "offset"])
+def test_cuda_bf16_promotion_holds_the_gate_at_k30000(cuda, shift):
+    """K = 30000: the tensor cores' sums are promoted into IEEE f32 at the
+    kept interval often enough for 1e-5 of the largest entry, also where
+    the partial sums grow (an offset of every entry)."""
+    g = torch.Generator(device=cuda).manual_seed(41)
+    H = (torch.randn((512, 30000), generator=g, device=cuda)
+         + shift).to(torch.bfloat16)
+    V = torch.randn((30000, 192), generator=g, device=cuda) + shift
+    W = ring_hemm(H, V)
     ref = H.double() @ V.to(torch.bfloat16).double()
     assert float((W.double() - ref).abs().max() / ref.abs().max()) <= RTOL
 

@@ -11,8 +11,12 @@ filtered on an f32/c64 shadow, f32 on a bf16 one); ``eigsh_fused`` and
 ``eigsh_pseudo_fused`` keep the whole loop's state on the device, and
 ``warmup`` does a solve's one-time work first.  The filter's ring HEMM is
 a hand-written CUDA kernel for Hopper (``csrc/ring_hemm.cu``: f32, c64,
-and bf16 H with f32 V); everything else is plain torch.  This package
-never imports JAX or ``chase_tpu``.
+and bf16 H with f32 V); everything else is plain torch.  ``io`` reads and
+writes ChASE binary files and checkpoints, ``interface`` is the flat
+init/solve/get session, ``cli`` the command line (``python -m
+chase_tpu_torch``), and ``_native`` builds the threaded file reader and
+the C ABI library ``libchase_tpu_torch.so``.  This package never imports
+JAX or ``chase_tpu``.
 """
 
 from .api import (eigsh, eigsh_fused, eigsh_pseudo,  # noqa: F401

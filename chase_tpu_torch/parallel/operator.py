@@ -50,9 +50,21 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def _numpy_to(arr: np.ndarray, device: torch.device, dtype) -> torch.Tensor:
+    """A copy of ``arr`` on ``device`` in the array's own strides: a
+    Fortran-ordered array (``io.load_matrix``'s) is copied as it lies, not
+    transposed on the host."""
+    if any(s < 0 for s in arr.strides):       # torch takes no negative stride
+        arr = arr.copy()
+    return torch.tensor(arr, dtype=dtype, device=device)
+
+
 def to_device(a, device: torch.device, dtype=None) -> torch.Tensor:
     """Copy a numpy array or tensor onto ``device`` (never aliasing the
-    caller's host buffer — the solver updates its blocks in place)."""
+    caller's host buffer — the solver updates its blocks in place).  A
+    numpy array lands row-major whatever its order, transposed where it
+    lands (the ring kernel's plain version takes unit column stride
+    only)."""
     if isinstance(a, torch.Tensor):
         t = a.to(device=device, dtype=dtype or a.dtype)
         if t.is_conj() or t.is_neg():
@@ -60,7 +72,7 @@ def to_device(a, device: torch.device, dtype=None) -> torch.Tensor:
         return t.clone() if t is a else t
     arr = np.asarray(a)
     dt = dtype if dtype is not None else as_torch_dtype(arr.dtype)
-    return torch.tensor(arr, dtype=dt, device=device)
+    return _numpy_to(arr, device, dt).contiguous()
 
 
 def padded_empty(N: int, dtype, device) -> torch.Tensor:
@@ -109,7 +121,7 @@ class DenseOperator:
             else:
                 self.H = padded_empty(H.shape[0], dtype, self.device)
                 self.H.copy_(H if isinstance(H, torch.Tensor)
-                             else torch.from_numpy(np.ascontiguousarray(H)))
+                             else _numpy_to(np.asarray(H), self.device, dtype))
         elif resident:
             # a device-resident operator is used as is (no N² copy),
             # unless it is a lazy conjugate or negative view

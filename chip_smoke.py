@@ -24,6 +24,32 @@ no result line) on any fault:
   profile  warm solves of the slice on the ring path and on the windowed
            (cuBLAS) path, then a torch.profiler trace of one warm
            ring-path solve: device busy share and time by kernel name
+  io       the slice's H written with io.save_matrix to a ChASE file in a
+           temporary directory (removed at the end of capi), read back by
+           io.load_matrix through the native reader (bitwise against H on
+           the card; write and read GB/s and the placement timed apart:
+           DenseOperator copies the Fortran-ordered view as it lies and
+           transposes it on the card, beside the host transpose
+           np.ascontiguousarray for comparison), solved
+           from the file on the ring (the slice's gates,
+           launches = HEMM steps), its (V, ritzv_full) through save_state /
+           load_state (bitwise) and a warm start from them (iterations
+           beside the cold solve's)
+  cli      chase_tpu_torch.cli.main in this process on that file at the
+           slice's shape (CHASE_RING_BACKEND=pallas: ring_hemm and
+           tf32_split launches equal and above 0; exit code, "converged",
+           the printed eigenvalues against Clement's spectrum), then
+           --fused at fmid's shape, then `python -m chase_tpu_torch` in a
+           child process (Clement N=1000)
+  capi     libchase_tpu_torch.so built from _native/chase_capi.cpp, the
+           unchanged examples/c_interface_demo.c (f64, N=301) and
+           examples/c_file_demo.c compiled against it and run as child
+           processes on the card: the demo must PASS; the file driver
+           reads the file through schase_init_internal_ + schase_readHam_
+           and solves the slice on the ring (its gates: eigenvalues within
+           0.5 of Clement's, true residuals ≤ 10·tol, computed in C), with
+           its init, readHam, solve and get times beside the in-process
+           warm TTS and its ring_hemm launches
   ckernel  complex64 ring_hemm (the f32 kernel on the float views, with
            the complex pre-pass) against its plain version (complex
            torch.matmul) and a c128 product at (1001, 37) through
@@ -106,12 +132,19 @@ any phase.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -137,6 +170,13 @@ FUSED_CLEMENT = (("fsmall", 1000, 100, None, None),
                  ("fmid", 8192, 512, 256, 0.1))
 # the JAX package's fused BSE cell (BENCH_NOTES.md:129-131), in c128
 ZFUSED = dict(N=4096, nev=200, nex=56)
+# the I/O and bindings phases: the CLI's fused run at fmid's shape, and the
+# module entry in a child process at fsmall's
+CLI_FUSED = ("--isMatGen", "clement", "--n", "8192", "--nev", "512", "--nex",
+             "256", "--tol", "0.1", "--dtype", "float32", "--fused")
+CLI_MODULE = ("--isMatGen", "clement", "--n", "1000", "--nev", "100",
+              "--dtype", "float32")
+ROOT = Path(__file__).resolve().parent
 SEED = 20261016
 PEAK_3XTF32 = 495.0 / 3     # TFLOP/s: the H100's dense TF32 rate, 3 passes
 PEAK_BF16 = 989.0           # TFLOP/s: the H100's dense bf16 rate
@@ -772,6 +812,236 @@ def phase_profile(dev, H, phase: str = "profile") -> None:
     trace_solve(phase, f"warm ring solve {H.dtype}",
                 lambda: solve("pallas"))
     return warm
+
+
+def _ring_counts() -> tuple:
+    from chase_tpu_torch.ops.ring_hemm import bf16_pack, ring_hemm, tf32_split
+    return ring_hemm.launches, tf32_split.launches, bf16_pack.launches
+
+
+def _zero_ring_counts() -> None:
+    from chase_tpu_torch.ops.ring_hemm import bf16_pack, ring_hemm, tf32_split
+    ring_hemm.launches = tf32_split.launches = bf16_pack.launches = 0
+
+
+def phase_io(dev, H, path: str) -> None:
+    """The slice's H through a ChASE file and back, then solved from it;
+    a checkpoint of the solve and a warm start from it."""
+    import chase_tpu_torch as ct
+    from chase_tpu_torch import _native, io as cio
+    N, nev, nex, tol = SLICE["N"], SLICE["nev"], SLICE["nex"], SLICE["tol"]
+    gb = H.numel() * H.element_size() / 1e9
+    free = shutil.disk_usage(os.path.dirname(path)).free / 1e9
+    log("io", f"{path}: {free:.1f} GB free; native reader: "
+              f"{_native.available()}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cio.save_matrix(H, path)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    Hl = cio.load_matrix(path, N, np.float32)
+    t_read = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    op = ct.DenseOperator(Hl, dev)      # copied as it lies, transposed here
+    torch.cuda.synchronize()
+    t_place = time.perf_counter() - t0
+    same = bool(torch.equal(op.H, H))
+    # for comparison, not what DenseOperator does: a transpose on the host
+    t0 = time.perf_counter()
+    Hc = np.ascontiguousarray(Hl)
+    t_copy = time.perf_counter() - t0
+    same = same and bool(np.array_equal(Hc[:2], H[:2].cpu().numpy()))
+    del Hc
+    log("io", f"save_matrix {gb:.2f} GB in {t_write:.3f} s "
+              f"({gb / t_write:.2f} GB/s, device transpose + copy to the "
+              f"host + write); load_matrix (native reader, Fortran-ordered "
+              f"view) {t_read:.3f} s ({gb / t_read:.2f} GB/s); placement "
+              f"(DenseOperator: the view's column-major block copied to the "
+              f"card as it lies, pageable, then transposed there) "
+              f"{t_place:.3f} s ({gb / t_place:.2f} GB/s); for comparison, "
+              f"np.ascontiguousarray of the view on the host {t_copy:.3f} s "
+              f"({gb / t_copy:.2f} GB/s); bitwise equal to H: {same}")
+    if not (same and Hl.flags.f_contiguous and _native.available()):
+        raise AssertionError("io: the file did not come back bitwise through "
+                             "the native reader")
+    del Hl
+    cfg = ct.ChaseConfig(ring_backend="pallas", mixed_precision=False)
+    gate = clement_gate("io", H, nev, 0.5, 10 * tol)
+    _zero_ring_counts()
+    cold, res = timed(lambda: ct.eigsh(op, nev, nex, tol=tol, config=cfg,
+                                       collect_perf=True))
+    launches = _ring_counts()
+    gate(res, "solve from the file")
+    steps = res.perf.filter_hemm_steps
+    if not 0 < launches[0] == launches[1] == steps:
+        raise AssertionError(f"io: launches {launches} against {steps} "
+                             f"HEMM steps")
+    state = path + ".state"
+    t0 = time.perf_counter()
+    cio.save_state(state, res.V, res.ritzv_full, {"N": N})
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    V, ritzv, meta = cio.load_state(state)
+    t_load = time.perf_counter() - t0
+    same_state = (bool(torch.equal(torch.from_numpy(V), res.V.cpu()))
+                  and np.array_equal(ritzv, res.ritzv_full)
+                  and meta == {"N": N})
+    warm, res2 = timed(lambda: ct.eigsh(op, nev, nex, tol=tol, config=cfg,
+                                        v0=V, ritzv0=ritzv, approx=True))
+    gate(res2, "warm start from the checkpoint")
+    os.remove(state + ".npz")
+    mb = V.nbytes / 1e6
+    log("io", f"eigsh from the file (pallas): TTS {cold:.3f} s, "
+              f"{res.iterations} iterations, ring_hemm / tf32_split / "
+              f"bf16_pack launches {launches}, HEMM steps {steps}; "
+              f"save_state of V ({V.shape[0]}x{V.shape[1]} f32, {mb:.0f} "
+              f"MB) and ritzv {t_save:.3f} s, load_state {t_load:.3f} s, "
+              f"bitwise: {same_state}; warm start from it: TTS {warm:.3f} "
+              f"s, {res2.iterations} iterations (cold {res.iterations})")
+    if not same_state:
+        raise AssertionError("io: the checkpoint did not come back bitwise")
+
+
+@contextlib.contextmanager
+def ring_backend_env(value: str):
+    """CHASE_RING_BACKEND set to ``value`` inside the block (read by
+    ChaseConfig.resolve, as the CLI and the C ABI run it)."""
+    old = os.environ.get("CHASE_RING_BACKEND")
+    os.environ["CHASE_RING_BACKEND"] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["CHASE_RING_BACKEND"]
+        else:
+            os.environ["CHASE_RING_BACKEND"] = old
+
+
+def printed_eigenvalues(out: str) -> np.ndarray:
+    """The values of the CLI's first ``eigenvalues:`` line."""
+    line = next(ln for ln in out.splitlines() if "eigenvalues:" in ln)
+    return np.array([float(x) for x in re.findall(
+        r"[-+]?\d+\.?\d*(?:[eE][-+]?\d+)?", line.split(":", 1)[1])])
+
+
+def _cli(argv) -> tuple:
+    """chase_tpu_torch.cli.main(argv) in this process on the "pallas"
+    ring, its stdout captured (and echoed): (rc, out, seconds, launches);
+    the launch counts set to 0 just before and read just after."""
+    from chase_tpu_torch import cli
+    buf = io.StringIO()
+    _zero_ring_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with ring_backend_env("pallas"), contextlib.redirect_stdout(buf):
+        rc = cli.main(list(argv))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = _ring_counts()
+    out = buf.getvalue()
+    for line in out.splitlines():
+        log("cli", "  " + line)
+    return rc, out, dt, launches
+
+
+def _cli_gate(what: str, rc, out, N: int, launches) -> None:
+    from chase_tpu_torch.models import clement_eigenvalues
+    ev = printed_eigenvalues(out)
+    err = float(np.abs(ev - clement_eigenvalues(N)[:len(ev)]).max())
+    log("cli", f"{what}: rc {rc}; printed eigenvalues' max error {err:.3e}; "
+               f"ring_hemm / tf32_split / bf16_pack launches {launches}")
+    if not (rc == 0 and "[problem 0] converged in" in out and err <= 0.5
+            and 0 < launches[0] == launches[1] and launches[2] == 0):
+        raise AssertionError(f"cli: {what} failed its gates")
+
+
+def child_env(**extra) -> dict:
+    """The environment of a child process: the checkout and this
+    interpreter's sys.path on PYTHONPATH (an embedded interpreter finds
+    torch there), solving on the card."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(ROOT)] +
+                                        [p for p in sys.path if p])
+    env.pop("CHASE_TPU_PLATFORM", None)
+    env.update(extra)
+    return env
+
+
+def run_child(phase: str, cmd, **extra) -> tuple:
+    """(stdout, seconds) of a child process that must exit 0; its output
+    echoed."""
+    t0 = time.perf_counter()
+    r = subprocess.run([str(c) for c in cmd], capture_output=True, text=True,
+                       env=child_env(**extra), cwd=ROOT, timeout=600)
+    dt = time.perf_counter() - t0
+    for line in (r.stdout + r.stderr).splitlines()[-12:]:
+        log(phase, "  " + line)
+    if r.returncode != 0:
+        raise AssertionError(f"{phase}: {Path(str(cmd[0])).name} exited "
+                             f"{r.returncode}")
+    return r.stdout, dt
+
+
+def phase_cli(dev, path: str, warm_tts: float) -> None:
+    """The CLI in this process on the slice's file and at fmid's shape
+    (--fused), then ``python -m chase_tpu_torch`` in a child process."""
+    N, nev, nex, tol = SLICE["N"], SLICE["nev"], SLICE["nex"], SLICE["tol"]
+    rc, out, tts, launches = _cli(
+        ["--n", str(N), "--nev", str(nev), "--nex", str(nex), "--dtype",
+         "float32", "--tol", str(tol), "--path_in", path, "--device",
+         str(dev)])
+    _cli_gate(f"--path_in at the slice's shape: {tts:.3f} s (the file "
+              f"read, placed and solved; in-process warm TTS {warm_tts:.3f} "
+              f"s)", rc, out, N, launches)
+    rc, out, tts, launches = _cli([*CLI_FUSED, "--device", str(dev)])
+    _cli_gate(f"--fused Clement N={CLI_FUSED[3]}: {tts:.3f} s", rc, out,
+              int(CLI_FUSED[3]), launches)
+    out, dt = run_child("cli", [sys.executable, "-m", "chase_tpu_torch",
+                                *CLI_MODULE])
+    log("cli", f"python -m chase_tpu_torch {' '.join(CLI_MODULE)}: exit 0 "
+               f"in {dt:.2f} s (process start, torch import and CUDA "
+               f"included)")
+    if "[problem 0] converged in" not in out:
+        raise AssertionError("cli: the module entry did not converge")
+
+
+def phase_capi(dev, path: str, warm_tts: float) -> None:
+    """libchase_tpu_torch.so built from the checkout, the unchanged C
+    demo (f64, N=301) and the C file driver at the slice's shape on the
+    ring, each a child process on the card."""
+    from chase_tpu_torch import _native
+    N, nev, nex, tol = SLICE["N"], SLICE["nev"], SLICE["nex"], SLICE["tol"]
+    torch.cuda.empty_cache()          # the children share the card
+    t0 = time.perf_counter()
+    lib = _native.build_capi()
+    t_build = time.perf_counter() - t0
+    d = os.path.dirname(lib)
+    exes = {}
+    for name in ("c_interface_demo", "c_file_demo"):
+        exes[name] = os.path.join(d, name)
+        subprocess.run(["cc", "-O2", str(ROOT / "examples" / f"{name}.c"),
+                        "-L", d, "-lchase_tpu_torch", "-lm",
+                        f"-Wl,-rpath,{d}", "-o", exes[name]], check=True)
+    log("capi", f"{lib} built in {t_build:.2f} s; "
+                f"{', '.join(exes)} compiled against it")
+    out, dt = run_child("capi", [exes["c_interface_demo"]])
+    if "C-interface demo: PASS" not in out:
+        raise AssertionError("capi: c_interface_demo did not pass")
+    log("capi", f"c_interface_demo (f64 Clement N=301, two inits): PASS in "
+                f"{dt:.2f} s")
+    out, dt = run_child("capi", [exes["c_file_demo"], path, N, nev, nex,
+                                 tol], CHASE_RING_BACKEND="pallas")
+    times = re.search(r"init ([\d.]+) s, readHam ([\d.]+) s, solve ([\d.]+) "
+                      r"s, get ([\d.]+) s", out)
+    launches = re.search(r"ring_hemm launches in this process: (\d+)", out)
+    if not ("c_file_demo: PASS" in out and times and launches
+            and int(launches.group(1)) > 0):
+        raise AssertionError("capi: c_file_demo did not pass on the ring")
+    init, read, solve, get = map(float, times.groups())
+    log("capi", f"c_file_demo at the slice's shape on the ring: init "
+                f"{init:.3f} s, readHam {read:.3f} s, solve {solve:.3f} s, "
+                f"get {get:.3f} s (process {dt:.2f} s); ring_hemm launches "
+                f"{launches.group(1)}; in-process warm TTS {warm_tts:.3f} s")
 
 
 def _north_star_solve(dev, H, phase: str, mixed: bool,
@@ -1462,6 +1732,11 @@ def main() -> int:
     phase_filter(dev, H)
     launches = phase_slice(dev, H)
     warm = phase_profile(dev, H)
+    with tempfile.TemporaryDirectory(prefix="chase_smoke_") as tmp:
+        path = os.path.join(tmp, f"clement{SLICE['N']}_f32.bin")
+        phase_io(dev, H, path)
+        phase_cli(dev, path, warm["pallas"])
+        phase_capi(dev, path, warm["pallas"])
     phase_fused_clement(dev, H, "fslice", SLICE["nev"], SLICE["nex"],
                         SLICE["tol"], (warm["pallas"],
                                        warm["pallas_iterations"]))

@@ -28,6 +28,8 @@ import chase_tpu_torch.parallel.ring, chase_tpu_torch.ops.ring_hemm
 import chase_tpu_torch.models, chase_tpu_torch.utils
 import chase_tpu_torch.fused, chase_tpu_torch.fused_pseudo
 import chase_tpu_torch.step, chase_tpu_torch.warmup
+import chase_tpu_torch.io, chase_tpu_torch.interface, chase_tpu_torch.cli
+import chase_tpu_torch._native
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'chase_tpu'))
 print(','.join(bad))
@@ -49,12 +51,30 @@ def test_import_pulls_in_no_jax():
 
 
 def test_sources_import_no_jax():
+    """No module of the port, nor chip_smoke.py, nor the Python that the C
+    ABI library embeds (``_native/*.cpp``), imports JAX or chase_tpu."""
     stmt = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|chase_tpu)\b",
                       re.MULTILINE)
     paths = list((REPO / "chase_tpu_torch").rglob("*.py"))
-    assert paths
-    for path in paths + [REPO / "chip_smoke.py"]:
+    embedded = list((REPO / "chase_tpu_torch" / "_native").glob("*.cpp"))
+    assert paths and embedded
+    assert any("import chase_tpu_torch" in p.read_text() for p in embedded)
+    for path in paths + embedded + [REPO / "chip_smoke.py"]:
         assert not stmt.search(path.read_text()), path
+
+
+def test_module_entry_with_cuda_without_a_card_fails():
+    """``python -m chase_tpu_torch --device cuda`` without a card exits
+    non-zero with the RuntimeError; it does not solve on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; this checks the no-card path")
+    out = subprocess.run(
+        [sys.executable, "-m", "chase_tpu_torch", "--n", "16", "--nev", "2",
+         "--isMatGen", "clement", "--device", "cuda"], cwd=REPO, env=_env(),
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert "RuntimeError" in out.stderr and "does not fall back" in out.stderr
+    assert "converged" not in out.stdout
 
 
 def test_cuda_device_without_a_card_raises(monkeypatch):

@@ -1,0 +1,243 @@
+"""The flat interface (``chase_tpu_torch.interface``) and the CLI
+(``chase_tpu_torch.cli``, ``python -m chase_tpu_torch``) held against
+``chase_tpu.interface`` and ``chase_tpu.cli`` on the same problems, on
+the CPU (``device="cpu"``, ``--device cpu``)."""
+
+import dataclasses
+import re
+
+import numpy as np
+import pytest
+import torch
+
+import chase_tpu.interface as jface
+from chase_tpu import cli as jcli
+from chase_tpu import io as jio
+
+import chase_tpu_torch.interface as tface
+from chase_tpu_torch import cli as tcli
+from chase_tpu_torch.models import clement, clement_eigenvalues, \
+    random_hermitian, random_pseudo_hermitian
+
+torch.set_num_threads(1)
+
+N, NEV, NEX = 128, 8, 8
+
+
+@pytest.fixture(autouse=True)
+def fresh_sessions():
+    yield
+    jface.finalize()
+    tface.finalize()
+
+
+def _lifecycle(iface, H, **init_kw):
+    """init, set_tol, set_deg, solve, get_eigenpairs, a mode-'A' solve;
+    (evals, evecs, warm iterations)."""
+    assert iface.init(N, NEV, NEX, H, **init_kw) == 0
+    iface.set_tol(1e-10)
+    iface.set_deg(20)
+    assert iface.solve(mode="R", opt="S", qr="C") == 0
+    evals, evecs = iface.get_eigenpairs()
+    assert iface.solve(mode="A") == 0
+    return evals, evecs, iface._require().result.iterations
+
+
+def test_interface_lifecycle_matches_jax():
+    H = clement(N)
+    ej, vj, _ = _lifecycle(jface, H)
+    et, vt, warm = _lifecycle(tface, H, device="cpu")
+    assert isinstance(et, np.ndarray) and isinstance(vt, np.ndarray)
+    assert vt.shape == vj.shape == (N, NEV)
+    np.testing.assert_allclose(et, ej, rtol=0, atol=1e-9)
+    np.testing.assert_allclose(et, clement_eigenvalues(N)[:NEV], rtol=0,
+                               atol=1e-9)
+    assert np.linalg.norm(H @ vt - vt * et, axis=0).max() < 1e-8
+    assert warm <= 2                 # mode 'A' from the previous solve
+    assert tface.finalize() == 0
+    with pytest.raises(RuntimeError):
+        tface.get_eigenpairs()
+    with pytest.raises(RuntimeError, match="init"):
+        tface.solve()
+
+
+def test_interface_warm_start_from_init_buffers():
+    """mode='A' straight from the V/ritzv buffers passed at init (the
+    reference's cross-application warm restart), from a JAX session's
+    results, as the JAX interface's own test does."""
+    H = clement(N)
+    jface.init(N, NEV, NEX, H)
+    jface.set_tol(1e-9)
+    assert jface.solve() == 0
+    V, ritzv = np.asarray(jface._session.result.V), \
+        jface._session.result.ritzv_full
+    tface.init(N, NEV, NEX, H, V=V, ritzv=ritzv, device="cpu")
+    tface.set_tol(1e-9)
+    assert tface.solve(mode="A") == 0
+    assert tface._require().result.iterations <= 2
+    np.testing.assert_allclose(tface.get_eigenpairs()[0],
+                               clement_eigenvalues(N)[:NEV], rtol=0,
+                               atol=1e-9)
+
+
+def test_interface_mode_a_without_a_start_raises():
+    tface.init(N, NEV, NEX, clement(N), device="cpu")
+    with pytest.raises(RuntimeError, match="mode='A'"):
+        tface.solve(mode="A")
+
+
+SETTERS = [("set_tol", 1e-7), ("set_deg", 14), ("set_opt", False),
+           ("set_maxiter", 9), ("set_lanczos", (17, 3)),
+           ("set_decaying_rate", 0.5), ("set_upperb_scale_rate", 1.5),
+           ("set_cluster_aware_degrees", False), ("set_max_deg", 30),
+           ("set_deg_extra", 4), ("set_cholqr", False), ("set_approx", True),
+           ("enable_sym_check", False)]
+
+
+def test_setter_names_match_jax():
+    """The C ABI calls ``'set_' + name``: the port has every setter the JAX
+    interface has."""
+    names = {n for n in dir(jface) if n.startswith("set_")}
+    assert names <= {n for n in dir(tface) if n.startswith("set_")}
+    assert names | {"enable_sym_check"} == {s for s, _ in SETTERS}
+
+
+@pytest.mark.parametrize("setter,value", SETTERS, ids=[s for s, _ in SETTERS])
+def test_setters_change_the_config_as_jax(setter, value):
+    H = clement(16)
+    jface.init(16, 2, 2, H)
+    tface.init(16, 2, 2, H, device="cpu")
+    args = value if isinstance(value, tuple) else (value,)
+    getattr(jface, setter)(*args)
+    getattr(tface, setter)(*args)
+    jc = dataclasses.asdict(jface._require().config)
+    tc = dataclasses.asdict(tface._require().config)
+    changed = {k for k, v in jc.items() if v != getattr(jface.ChaseConfig(),
+                                                        k)}
+    assert changed
+    assert {k: tc[k] for k in changed} == {k: jc[k] for k in changed}
+
+
+def test_interface_pseudo_matches_jax():
+    n, nev, nex = 64, 4, 6
+    H = np.asarray(random_pseudo_hermitian(n, dtype=np.complex128, seed=3))
+    jface.init_pseudo(n, nev, nex, H)
+    tface.init_pseudo(n, nev, nex, H, device="cpu")
+    assert jface.solve(tol=1e-9) == 0 and tface.solve(tol=1e-9) == 0
+    ej, _ = jface.get_eigenpairs()
+    et, vt = tface.get_eigenpairs()
+    full = np.sort(np.linalg.eigvals(H).real)
+    np.testing.assert_allclose(et, ej, rtol=0, atol=1e-9)
+    np.testing.assert_allclose(et, full[full > 0][:nev], rtol=0, atol=1e-9)
+    assert np.linalg.norm(H @ vt - vt * et, axis=0).max() < 1e-7
+
+
+def test_set_matrix_replaces_h_and_keeps_the_warm_start():
+    """``set_matrix`` (the C ABI's readHam) binds a matrix to a session
+    made without one, and a later one replaces it (its shadow dropped)
+    while mode 'A' starts from the previous result."""
+    tface.init(N, NEV, NEX, None, device="cpu")
+    with pytest.raises(RuntimeError, match="no matrix"):
+        tface.solve()
+    tface.set_matrix(clement(N))
+    tface.set_tol(1e-10)
+    assert tface.solve() == 0
+    op = tface._require().op
+    tface.set_matrix(2.0 * clement(N))
+    assert tface._require().op is not op
+    assert tface.solve(mode="A") == 0
+    assert tface._require().result.iterations <= 2
+    np.testing.assert_allclose(tface.get_eigenpairs()[0],
+                               2.0 * clement_eigenvalues(N)[:NEV], rtol=0,
+                               atol=1e-9)
+    with pytest.raises(ValueError, match="shape"):
+        tface.set_matrix(clement(N + 1))
+
+
+@pytest.mark.parametrize("grid", [(2, 1), (1, 2), (2, 2)])
+def test_interface_refuses_grids_until_multi_gpu(grid):
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+        tface.init(N, NEV, NEX, clement(N), distributed=True,
+                   grid_shape=grid, device="cpu")
+    assert tface.init(N, NEV, NEX, clement(N), distributed=True,
+                      grid_shape=(1, 1), device="cpu") == 0
+
+
+def test_interface_introspection():
+    assert tface.has_gpu() == torch.cuda.is_available()
+    assert tface.has_distribution() is False
+    assert tface.has_pseudo() is True
+
+
+def test_interface_cuda_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; this checks the no-card path")
+    with pytest.raises(RuntimeError, match="does not fall back"):
+        tface.init(N, NEV, NEX, clement(N))
+    with pytest.raises(RuntimeError, match="does not fall back"):
+        tcli.main(["--n", "16", "--nev", "2", "--isMatGen", "clement"])
+
+
+def _eigenvalue_lines(out: str) -> list:
+    return [np.array([float(x) for x in re.findall(
+        r"[-+]?\d+\.?\d*(?:[eE][-+]?\d+)?", line.split(":", 1)[1])])
+        for line in out.splitlines() if "eigenvalues:" in line]
+
+
+def _files(tmp_path, make, count=1):
+    paths = []
+    for i in range(count):
+        p = str(tmp_path / f"h_{i}.bin")
+        jio.save_matrix(make(i), p)
+        paths.append(p)
+    return paths
+
+
+CLI_CASES = {
+    "generated": lambda tmp: ["--n", "200", "--nev", "10", "--nex", "10",
+                              "--isMatGen", "clement", "--tol", "1e-9"],
+    "file": lambda tmp: ["--n", "150", "--nev", "8", "--nex", "8",
+                         "--path_in", _files(tmp, lambda i: random_hermitian(
+                             150, dtype=np.float64, seed=3))[0],
+                         "--dtype", "float64", "--tol", "1e-9"],
+    "sequence": lambda tmp: ["--n", "120", "--nev", "6", "--nex", "6",
+                             "--path_in", _files(tmp, lambda i: (
+                                 1.0 + 0.01 * i) * clement(120), 2)[0]
+                             .replace("h_0", "h_{}"), "--sequence", "2",
+                             "--tol", "1e-9"],
+    "fused": lambda tmp: ["--n", "200", "--nev", "10", "--nex", "10",
+                          "--isMatGen", "clement", "--tol", "1e-9",
+                          "--fused"],
+    "pseudo": lambda tmp: ["--n", "64", "--nev", "4", "--nex", "6",
+                           "--path_in", _files(tmp, lambda i: np.asarray(
+                               random_pseudo_hermitian(
+                                   64, dtype=np.complex128, seed=4)))[0],
+                           "--dtype", "complex128", "--pseudo", "--tol",
+                           "1e-9"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(CLI_CASES))
+def test_cli_matches_jax(tmp_path, capsys, case):
+    """The port's CLI on ``--device cpu`` prints the eigenvalues the JAX
+    CLI prints for the same problem (the same file for file cases):
+    numpy prints 8 significant digits, so they are compared at 1e-6
+    relative."""
+    argv = CLI_CASES[case](tmp_path)
+    assert jcli.main(argv) == 0
+    jax_out = capsys.readouterr().out
+    assert tcli.main(argv + ["--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    problems = 2 if case == "sequence" else 1
+    assert out.count("converged in") == jax_out.count("converged in") \
+        == problems
+    assert "NOT converged" not in out and "GFLOPS" in out
+    port, jax = _eigenvalue_lines(out), _eigenvalue_lines(jax_out)
+    assert len(port) == len(jax) >= 1
+    for p, j in zip(port, jax):
+        np.testing.assert_allclose(p, j, rtol=1e-6, atol=1e-9)
+
+
+def test_cli_rejects_the_grid_options():
+    with pytest.raises(SystemExit):
+        tcli.build_parser().parse_args(["--n", "8", "--nev", "2", "--grid"])

@@ -1,7 +1,7 @@
 """chase_tpu_torch — the PyTorch/CUDA port of chase_tpu.
 
 The Chebyshev-accelerated subspace eigensolver of the JAX package
-``chase_tpu`` on one torch device, module for module: Lanczos bounds,
+``chase_tpu`` on torch devices, module for module: Lanczos bounds,
 degree-optimized Chebyshev filtering, CholQR, Rayleigh–Ritz with fused
 residuals and locking, for real symmetric and complex Hermitian problems,
 for sequences of them and for pseudo-Hermitian (Bethe–Salpeter) problems
@@ -15,14 +15,17 @@ and bf16 H with f32 V); everything else is plain torch.  ``io`` reads and
 writes ChASE binary files and checkpoints, ``interface`` is the flat
 init/solve/get session, ``cli`` the command line (``python -m
 chase_tpu_torch``), and ``_native`` builds the threaded file reader and
-the C ABI library ``libchase_tpu_torch.so``.  This package never imports
-JAX or ``chase_tpu``.
+the C ABI library ``libchase_tpu_torch.so``.  ``make_grid`` / ``Grid2D``
+and ``parallel.multihost`` run the Hermitian solver on a
+``torch.distributed`` process grid (NCCL on cards, gloo on the CPU).  This
+package never imports JAX or ``chase_tpu``.
 """
 
 from .api import (eigsh, eigsh_fused, eigsh_pseudo,  # noqa: F401
                   eigsh_pseudo_fused, eigsh_sequence,
                   estimate_spectral_bounds)
 from .config import ChaseConfig  # noqa: F401
+from .parallel.mesh import Grid2D, make_grid  # noqa: F401
 from .parallel.operator import DenseOperator  # noqa: F401
 from .perf import PerfData  # noqa: F401
 from .solver import solve, SolveResult  # noqa: F401

@@ -1,7 +1,7 @@
 """User-facing API.
 
 Port of ``chase_tpu/api.py``'s ``eigsh``, ``eigsh_sequence``,
-``eigsh_pseudo`` and ``estimate_spectral_bounds`` on one torch device, for
+``eigsh_pseudo`` and ``estimate_spectral_bounds`` on torch devices, for
 real symmetric (f32/f64) and complex Hermitian (c64/c128) H, and for
 pseudo-Hermitian (Bethe–Salpeter) H of the same dtypes:
 
@@ -33,9 +33,25 @@ keep all of the loop's bookkeeping on the device (``fused.py``,
 
     res = chase_tpu_torch.eigsh_fused(H, nev=100, device="cuda")
 
-``device`` is explicit (default "cuda") and never falls back: without a
-card, ``device="cuda"`` raises RuntimeError, and a fused solve that fails
-raises (the JAX package retreats to its host driver; the port does not).
+On a process grid (``parallel/mesh.py``; ``multihost.init_grid()`` under
+``torchrun``) every rank calls the same entry point with the same
+arguments and the grid:
+
+    grid = chase_tpu_torch.parallel.multihost.init_grid()
+    res = chase_tpu_torch.eigsh(H, nev=100, nex=40, grid=grid)
+
+H is whole on every rank (numpy or tensor) or a DTensor sharded
+``(Shard(0), Shard(1))``; ``res.V`` is a DTensor ``(Shard(0),
+Replicate())`` on the grid's mesh, ``res.ritzv`` and ``res.resid`` are
+the same numpy arrays on every rank.  ``eigsh``, ``eigsh_sequence``,
+``estimate_spectral_bounds`` and ``warmup`` take any grid; the BSE and
+fused solvers take ``grid=`` with the JAX signature but only a 1×1 grid
+until ROADMAP queue 1 item 5, part 2.
+
+``device`` is explicit (default "cuda", or the grid's device) and never
+falls back: without a card, ``device="cuda"`` raises RuntimeError, and a
+fused solve that fails raises (the JAX package retreats to its host
+driver; the port does not).
 """
 
 from __future__ import annotations
@@ -50,7 +66,7 @@ import torch
 from .config import ChaseConfig, set_matmul_precision
 from .logger import get_logger
 from .ops.blocks import scale_lower_rows
-from .parallel.operator import DenseOperator
+from .parallel.operator import PART2, DenseOperator
 from .perf import PerfData
 from . import solver_pseudo
 from .solver import solve, SolveResult, _ring_allowed
@@ -78,20 +94,76 @@ def _nex_and_config(nev, nex, tol, v0, approx, config):
     return nex, cfg
 
 
+def _operator(H, device, grid, pseudo_hermitian: bool = False
+              ) -> DenseOperator:
+    """H as a DenseOperator (an operator is used as it is)."""
+    if isinstance(H, DenseOperator):
+        return H
+    return DenseOperator(H, device, grid=grid,
+                         pseudo_hermitian=pseudo_hermitian)
+
+
+def _one_device(grid, what: str) -> None:
+    """NotImplementedError for a grid larger than 1×1 where the solver
+    runs on one device only (until part 2)."""
+    if grid is not None and grid.nprocs > 1:
+        raise NotImplementedError(f"{what} on the grid {grid.shape} "
+                                  f"waits for {PART2}")
+
+
+def _unpad(res: SolveResult, op: DenseOperator) -> SolveResult:
+    """On a grid, ``res.V`` (this rank's rows of the padded block) becomes
+    a DTensor ``(Shard(0), Replicate())`` of the unpadded (N_orig, k)
+    block on the grid's mesh; where padding makes this rank's rows differ
+    from DTensor's even split, the rows are gathered over 'r' and re-cut
+    once."""
+    grid = op.grid
+    if grid is None:
+        return res
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    k = res.V.shape[1]
+    r = grid.size("r")
+    local = op.unpad_block(res.V)
+    if -(-op.N_orig // r) != op.rows[1]:
+        full = grid.all_gather(res.V, "r")[:op.N_orig]
+        chunks = torch.chunk(full, r)
+        i = grid.index("r")
+        local = chunks[i] if i < len(chunks) else full[:0]
+    res.V = DTensor.from_local(local, grid.mesh, (Shard(0), Replicate()),
+                               run_check=False,
+                               shape=torch.Size((op.N_orig, k)),
+                               stride=(k, 1))
+    return res
+
+
+def _take_cols(V, idx):
+    """V's columns ``idx`` (numpy), on a DTensor by its local rows."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(V, DTensor):
+        loc = V.to_local()
+        sel = loc[:, torch.as_tensor(idx, device=loc.device)]
+        return DTensor.from_local(sel, V.device_mesh, V.placements,
+                                  run_check=False, shape=V.shape,
+                                  stride=V.stride())
+    return V[:, torch.as_tensor(idx, device=V.device)]
+
+
 def eigsh(H, nev: int, nex: Optional[int] = None, *,
           tol: Optional[float] = None,
           v0=None, ritzv0=None, approx: bool = False,
           largest: bool = False,
           config: Optional[ChaseConfig] = None,
-          device="cuda",
+          grid=None,
+          device=None,
           collect_perf: bool = False,
           generator: Optional[torch.Generator] = None) -> SolveResult:
     """Compute the ``nev`` lowest eigenpairs of a dense Hermitian H.
 
     Args:
       H: (N, N) real symmetric (f32/f64) or complex Hermitian (c64/c128)
-         array (numpy or torch), or a DenseOperator (which carries its own
-         device).
+         array (numpy or torch; on a grid whole on every rank, or a
+         DTensor ``(Shard(0), Shard(1))``), or a DenseOperator (which
+         carries its own device and grid).
       nev: number of wanted eigenpairs.
       nex: extra search-space size (default: max(nev//4, 8)).
       tol: residual tolerance (default per dtype: 1e-10 DP / 1e-5 SP).
@@ -100,14 +172,18 @@ def eigsh(H, nev: int, nex: Optional[int] = None, *,
       approx: warm-start mode ('A' in the reference C interface).
       largest: the top end of the spectrum instead (solved as -H).
       config: full ChaseConfig for everything else.
-      device: torch device to solve on ("cuda", "cuda:1", "cpu", ...).
+      grid: a Grid2D (``make_grid``) to solve on a process grid; every
+         rank calls with the same arguments.
+      device: torch device to solve on ("cuda", "cuda:1", "cpu", ...;
+         default "cuda", or the grid's).
       collect_perf: attach a PerfData with phase timings to the result.
-      generator: torch.Generator on ``device`` (default: config.seed).
+      generator: torch.Generator on ``device`` (default: config.seed;
+         seeded alike on every rank of a grid).
 
     Returns:
       SolveResult with .ritzv (nev,), .V (N, nev+nex) tensor on ``device``
-      in H's dtype whose first nev columns are the eigenvectors, .resid,
-      .converged, ...
+      in H's dtype — on a grid a DTensor (Shard(0), Replicate()) — whose
+      first nev columns are the eigenvectors, .resid, .converged, ...
     """
     nex, cfg = _nex_and_config(nev, nex, tol, v0, approx, config)
 
@@ -118,28 +194,30 @@ def eigsh(H, nev: int, nex: Optional[int] = None, *,
                              "operator — pass -H yourself instead")
         res = eigsh(-H, nev, nex, tol=tol, v0=v0,
                     ritzv0=None if ritzv0 is None else -np.asarray(ritzv0),
-                    approx=approx, config=config, device=device,
+                    approx=approx, config=config, grid=grid, device=device,
                     collect_perf=collect_perf, generator=generator)
         order = np.arange(len(res.ritzv))[::-1].copy()
         res.ritzv = (-res.ritzv)[order]
         res.resid = res.resid[order]
         full = np.concatenate([order, np.arange(nev, res.V.shape[1])])
-        res.V = res.V[:, torch.as_tensor(full, device=res.V.device)]
+        res.V = _take_cols(res.V, full)
         if res.ritzv_full is not None:
             res.ritzv_full = (-res.ritzv_full)[full[:len(res.ritzv_full)]]
         return res
 
-    op = H if isinstance(H, DenseOperator) else DenseOperator(H, device)
+    op = _operator(H, device, grid)
     perf = PerfData() if collect_perf else None
-    return solve(op, nev, nex, config=cfg, V0=v0, ritzv0=ritzv0, perf=perf,
-                 generator=generator)
+    res = solve(op, nev, nex, config=cfg, V0=v0, ritzv0=ritzv0, perf=perf,
+                generator=generator)
+    return _unpad(res, op)
 
 
 def eigsh_pseudo(H, nev: int, nex: Optional[int] = None, *,
                  tol: Optional[float] = None,
                  v0=None, ritzv0=None, approx: bool = False,
                  config: Optional[ChaseConfig] = None,
-                 device="cuda",
+                 grid=None,
+                 device=None,
                  collect_perf: bool = False,
                  generator: Optional[torch.Generator] = None) -> SolveResult:
     """Compute the ``nev`` smallest-*positive* eigenpairs of a
@@ -158,15 +236,17 @@ def eigsh_pseudo(H, nev: int, nex: Optional[int] = None, *,
       .resid, .converged, ...
 
     Raises ValueError on odd N, on nev+nex > N/2 and on ``approx``
-    without ``v0``; RuntimeError for ``device="cuda"`` without a card.
+    without ``v0``; RuntimeError for ``device="cuda"`` without a card;
+    NotImplementedError on a grid larger than 1×1 (part 2 of the
+    multi-GPU slice).
     """
+    _one_device(grid, "eigsh_pseudo")
     nex, cfg = _nex_and_config(nev, nex, tol, v0, approx, config)
-    op = H if isinstance(H, DenseOperator) else DenseOperator(
-        H, device, pseudo_hermitian=True)
+    op = _operator(H, device, grid, pseudo_hermitian=True)
     perf = PerfData() if collect_perf else None
-    return solver_pseudo.solve_pseudo(op, nev, nex, config=cfg, V0=v0,
-                                      ritzv0=ritzv0, perf=perf,
-                                      generator=generator)
+    return _unpad(solver_pseudo.solve_pseudo(op, nev, nex, config=cfg,
+                                             V0=v0, ritzv0=ritzv0, perf=perf,
+                                             generator=generator), op)
 
 
 def _collect_fused_perf(out, iters: int, t_all: float,
@@ -247,7 +327,8 @@ def eigsh_fused(H, nev: int, nex: Optional[int] = None, *,
                 tol: Optional[float] = None, v0=None,
                 largest: bool = False,
                 config: Optional[ChaseConfig] = None,
-                device="cuda",
+                grid=None,
+                device=None,
                 collect_perf: bool = False,
                 generator: Optional[torch.Generator] = None) -> SolveResult:
     """Device-resident Hermitian solve (``fused.solve_fused``): every
@@ -262,24 +343,26 @@ def eigsh_fused(H, nev: int, nex: Optional[int] = None, *,
     PerfData carries the device counters (filtered vectors, block sizes,
     the filter's HEMM steps) and the 'All' time; ``save_residuals``
     writes the residual history CSV.  A solve that fails raises: there is
-    no retreat to the host driver.
+    no retreat to the host driver.  ``grid`` takes a 1×1 grid only
+    (NotImplementedError otherwise: part 2 of the multi-GPU slice).
     """
+    _one_device(grid, "eigsh_fused")
     nex, cfg = _nex_and_config(nev, nex, tol, None, False, config)
     if largest:
         if isinstance(H, DenseOperator):
             raise ValueError("largest=True needs a raw matrix, not an "
                              "operator — pass -H yourself instead")
         res = eigsh_fused(-H, nev, nex, tol=tol, v0=v0, config=config,
-                          device=device, collect_perf=collect_perf,
-                          generator=generator)
+                          grid=grid, device=device,
+                          collect_perf=collect_perf, generator=generator)
         order = np.arange(len(res.ritzv))[::-1].copy()
         res.ritzv = (-res.ritzv)[order]
         res.resid = res.resid[order]
         full = np.concatenate([order, np.arange(nev, res.V.shape[1])])
-        res.V = res.V[:, torch.as_tensor(full, device=res.V.device)]
+        res.V = _take_cols(res.V, full)
         res.ritzv_full = (-res.ritzv_full)[full[:len(res.ritzv_full)]]
         return res
-    op = H if isinstance(H, DenseOperator) else DenseOperator(H, device)
+    op = _operator(H, device, grid)
     k = nev + nex
     if k > op.N:
         raise ValueError(f"nev+nex = {k} exceeds N = {op.N}")
@@ -298,13 +381,14 @@ def eigsh_fused(H, nev: int, nex: Optional[int] = None, *,
     out = solve_fused(op.H, V0, nev=nev, nex=nex, probes=probes,
                       inject_dos=v0 is None, phase_tiers=rcfg.fused_tiers,
                       **kw)
-    return _fused_result(out, nev, t0, rcfg, collect_perf, 0)
+    return _unpad(_fused_result(out, nev, t0, rcfg, collect_perf, 0), op)
 
 
 def eigsh_pseudo_fused(H, nev: int, nex: Optional[int] = None, *,
                        tol: Optional[float] = None, v0=None,
                        config: Optional[ChaseConfig] = None,
-                       device="cuda",
+                       grid=None,
+                       device=None,
                        collect_perf: bool = False,
                        generator: Optional[torch.Generator] = None
                        ) -> SolveResult:
@@ -315,11 +399,12 @@ def eigsh_pseudo_fused(H, nev: int, nex: Optional[int] = None, *,
     Args as for :func:`eigsh_pseudo`; ``v0`` (N, 2·(nev+nex)) is a warm
     start (fresh probes with the 0.001 lower-row damping).  The cold start
     block is random with its lower rows damped by 0.001.  A solve that
-    fails raises.
+    fails raises.  ``grid`` takes a 1×1 grid only (NotImplementedError
+    otherwise: part 2 of the multi-GPU slice).
     """
+    _one_device(grid, "eigsh_pseudo_fused")
     nex, cfg = _nex_and_config(nev, nex, tol, None, False, config)
-    op = H if isinstance(H, DenseOperator) else DenseOperator(
-        H, device, pseudo_hermitian=True)
+    op = _operator(H, device, grid, pseudo_hermitian=True)
     N, k = op.N, nev + nex
     if N % 2:
         raise ValueError("pseudo-Hermitian problems need even N")
@@ -346,13 +431,14 @@ def eigsh_pseudo_fused(H, nev: int, nex: Optional[int] = None, *,
     out = solve_pseudo_fused(op.H, V0, nev=nev, nex=nex, probes=probes,
                              inject_dos=v0 is None,
                              cluster_aware=rcfg.cluster_aware_degrees, **kw)
-    return _fused_result(out, nev, t0, rcfg, collect_perf, 1)
+    return _unpad(_fused_result(out, nev, t0, rcfg, collect_perf, 1), op)
 
 
 def eigsh_sequence(matrices, nev: int, nex: Optional[int] = None, *,
                    tol: Optional[float] = None,
                    config: Optional[ChaseConfig] = None,
-                   device="cuda",
+                   grid=None,
+                   device=None,
                    collect_perf: bool = False,
                    warmup: bool = True):
     """Solve a sequence of correlated Hermitian problems with automatic
@@ -364,8 +450,9 @@ def eigsh_sequence(matrices, nev: int, nex: Optional[int] = None, *,
     Yields one SolveResult per member.  Every member after the first
     starts from the previous result (``v0=res.V``,
     ``ritzv0=res.ritzv_full``, ``approx=True``); the block stays on the
-    device.  The ladder's residual vectors live inside one solve: a warm
-    start carries V and the Ritz values only, as in the JAX package.
+    device (on a grid, each rank keeps its rows).  The ladder's residual
+    vectors live inside one solve: a warm start carries V and the Ritz
+    values only, as in the JAX package.
 
     ``warmup=True`` runs :func:`chase_tpu_torch.warmup` on member 0's
     operator before solving it, as the JAX package does: it builds (on a
@@ -376,21 +463,21 @@ def eigsh_sequence(matrices, nev: int, nex: Optional[int] = None, *,
     for H in matrices:
         if v0 is None and warmup:
             from .warmup import warmup as _warmup
-            if not isinstance(H, DenseOperator):
-                H = DenseOperator(H, device)
+            H = _operator(H, device, grid)
             _warmup(H, nev, nex if nex is not None else max(nev // 4, 8),
                     config=config)
-        res = eigsh(H, nev, nex, tol=tol, config=config, device=device,
-                    collect_perf=collect_perf, v0=v0, ritzv0=ritzv0,
-                    approx=v0 is not None)
+        res = eigsh(H, nev, nex, tol=tol, config=config, grid=grid,
+                    device=device, collect_perf=collect_perf, v0=v0,
+                    ritzv0=ritzv0, approx=v0 is not None)
         v0, ritzv0 = res.V, res.ritzv_full
         yield res
 
 
 def estimate_spectral_bounds(H, *, num_lanczos: int = 4,
                              lanczos_iter: int = 25, nev: int = 0,
+                             grid=None,
                              config: Optional[ChaseConfig] = None,
-                             device="cuda",
+                             device=None,
                              generator: Optional[torch.Generator] = None
                              ) -> dict:
     """Standalone stochastic Lanczos + DoS spectral estimator.
@@ -401,13 +488,14 @@ def estimate_spectral_bounds(H, *, num_lanczos: int = 4,
     interval's lower edge for a nev-sized subspace.  ``num_lanczos``
     probes from ``generator`` (default: seeded from ``config.seed``) run
     ``lanczos_iter`` steps, rounded down to an even count as in the
-    solver.
+    solver.  On ``grid`` the probes are drawn whole on every rank and each
+    keeps its rows; the result is the same dict on every rank.
 
     Returns {"upperb", "lambda_min", "lowerb"} (lowerb = lambda_min when
     nev == 0).
     """
     from .ops import lanczos as lz
-    op = H if isinstance(H, DenseOperator) else DenseOperator(H, device)
+    op = _operator(H, device, grid)
     rcfg = (config or ChaseConfig()).resolve(op.dtype, op.device)
     set_matmul_precision(rcfg.matmul_precision)
     N = op.N
@@ -416,9 +504,10 @@ def estimate_spectral_bounds(H, *, num_lanczos: int = 4,
     m = min(N // 2, lanczos_iter)
     m -= m % 2
     m = max(m, 2)
-    probes = torch.randn((N, num_lanczos), generator=generator,
-                         device=op.device, dtype=op.dtype)
-    alphas, betas, _ = lz.lanczos_scan(op.H, probes, m=m, want_basis=False)
+    probes = op.local_rows(torch.randn((N, num_lanczos), generator=generator,
+                                       device=op.device, dtype=op.dtype))
+    alphas, betas, _ = lz.lanczos_scan(op.H, probes, m=m, want_basis=False,
+                                       grid=op.grid)
     a_np, b_np = alphas.double().cpu().numpy(), betas.double().cpu().numpy()
     theta, tau, _ = lz.lanczos_tridiag_host(a_np, b_np)
     upperb = lz.upper_bound(theta, b_np[-1])

@@ -6,7 +6,7 @@ solve problems from ChASE binary files or generated matrices, optionally
 as warm-started sequences, printing the perf table.  ``--device`` (default
 ``cuda``) names the torch device; without a card ``cuda`` raises, as every
 entry point of the port does.  ``--grid``/``--mb`` wait for the multi-GPU
-slice (ROADMAP queue 1 item 5).
+slice's part 4 (ROADMAP queue 1 item 5).
 
     python -m chase_tpu_torch --n 1200 --nev 100 --nex 40 --isMatGen clement
     python -m chase_tpu_torch --n 4000 --nev 256 --path_in H.bin \

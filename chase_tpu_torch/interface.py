@@ -22,7 +22,8 @@ does); the solves of a session reuse that copy, and a mode-'A' solve
 starts from the previous result's V where it lies.  ``get_eigenpairs``
 returns host numpy arrays.  Only a 1×1 process grid is accepted: the
 distributed inits (``init_dist_local``, ``init_blockcyclic``, larger
-grids) wait for the multi-GPU slice (ROADMAP queue 1 item 5).
+grids) wait for the multi-GPU slice's part 4 (ROADMAP queue 1 item 5;
+``eigsh(..., grid=)`` solves on a process grid now).
 """
 
 from __future__ import annotations
@@ -45,8 +46,9 @@ __all__ = ["init", "init_pseudo", "solve", "get_eigenpairs", "finalize",
            "has_gpu", "has_distribution", "has_pseudo"]
 
 GRID_REFUSED = ("a process grid other than 1×1 (or a local block smaller "
-                "than the matrix) needs the multi-GPU slice, ROADMAP queue "
-                "1 item 5; the port solves on one device")
+                "than the matrix) needs the distributed bindings, ROADMAP "
+                "queue 1 item 5, part 4; this interface solves on one "
+                "device")
 
 
 @dataclasses.dataclass
@@ -254,7 +256,8 @@ def has_gpu() -> bool:
 
 
 def has_distribution() -> bool:
-    """False until the multi-GPU slice (ROADMAP queue 1 item 5)."""
+    """False until the distributed bindings (ROADMAP queue 1 item 5,
+    part 4)."""
     return False
 
 

@@ -16,7 +16,7 @@ conjugate or negative bit is written as the values it stands for); a CUDA
 matrix is transposed on the card before it is copied to the host.  Readers
 return numpy arrays, as the JAX package's do; the entry points place them
 on the device.  The sharded and block-cyclic readers and writers wait for
-the multi-GPU slice (ROADMAP queue 1 item 5).
+the multi-GPU slice's part 4 (ROADMAP queue 1 item 5).
 """
 
 from __future__ import annotations

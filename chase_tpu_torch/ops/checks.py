@@ -4,7 +4,10 @@ Port of ``chase_tpu/ops/checks.py`` (the reference's checkSymmetryEasy,
 checkPseudoHermicityEasy and symOrHermMatrix,
 linalg/internal/cpu/symOrHerm.hpp:44-140, chase_cpu.hpp:272-285): compare
 u = H·v with Hᴴ·v for one random v, tol = 10·N·ε·‖u‖ (for the pseudo
-probe, S·H in place of H); mirror one triangle onto the other.
+probe, S·H in place of H); mirror one triangle onto the other.  On a
+process grid :func:`check_hermitian` probes the distributed H with one
+vector drawn whole on every rank: H·v gathered over the grid's rows, Hᴴ·v
+over its columns, so every rank reaches the same verdict.
 """
 
 from __future__ import annotations
@@ -34,9 +37,25 @@ def _probe(H: torch.Tensor, generator, flip) -> bool:
 
 
 def check_hermitian(H: torch.Tensor,
-                    generator: Optional[torch.Generator] = None) -> bool:
-    """Randomized Hermitian check: ‖Hv − Hᴴv‖ ≤ 10·N·ε·‖Hv‖."""
-    return _probe(H, generator, lambda x: x)
+                    generator: Optional[torch.Generator] = None,
+                    grid=None) -> bool:
+    """Randomized Hermitian check: ‖Hv − Hᴴv‖ ≤ 10·N·ε·‖Hv‖.  On
+    ``grid``, H is this rank's block of ``P('r', 'c')``."""
+    if grid is None:
+        return _probe(H, generator, lambda x: x)
+    if generator is None:
+        generator = torch.Generator(device=H.device).manual_seed(0)
+    N = H.shape[0] * grid.size("r")
+    v = torch.randn((N, 1), generator=generator, device=H.device,
+                    dtype=H.dtype)
+    i0, nr = grid.block(N, "r")
+    j0, nc = grid.block(N, "c")
+    u = grid.all_reduce(H @ v[j0:j0 + nc], "c")        # rows i of H·v
+    ut = grid.all_reduce(H.mH @ v[i0:i0 + nr], "r")    # rows j of Hᴴ·v
+    u, ut = grid.all_gather(u, "r"), grid.all_gather(ut, "c")
+    diff = float(torch.linalg.vector_norm(u - ut))
+    scale = float(torch.linalg.vector_norm(u))
+    return diff <= 10.0 * N * eps(H.dtype) * max(scale, 1e-300)
 
 
 def check_pseudo_hermitian(H: torch.Tensor,

@@ -6,7 +6,11 @@ algorithm/algorithm.inc:1067-1214).  The ``numvec`` probe vectors run
 together as one (N, numvec) block, so each step is one N×N×numvec matmul;
 the JAX ``lax.scan`` becomes a Python loop of m steps.  The tridiagonal
 eigensolves and the DoS quantile walk are the JAX package's numpy
-helpers, copied verbatim.
+helpers, copied verbatim.  On a process grid (``grid=``) each rank runs
+the steps on its rows of the probes: ``H·v`` is the grid's product and
+the dots and norms are summed over the grid's rows
+(``parallel/dist.py``), so α and β — and everything the host derives
+from them — are the same on every rank.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel.dist import col_dots, col_norms, hemm
 from ..types import real_dtype
 
 __all__ = ["lanczos_scan", "lanczos_tridiag_host", "dos_lower_bound",
@@ -21,29 +26,30 @@ __all__ = ["lanczos_scan", "lanczos_tridiag_host", "dos_lower_bound",
 
 
 def lanczos_scan(H: torch.Tensor, V0: torch.Tensor, *, m: int,
-                 want_basis: bool = True):
-    """Run m Lanczos steps on each column of V0 simultaneously.
+                 want_basis: bool = True, grid=None):
+    """Run m Lanczos steps on each column of V0 simultaneously (on
+    ``grid``: H this rank's block, V0 its rows).
 
     Returns:
       alphas: (m, numvec) real — tridiagonal diagonal d.
       betas:  (m, numvec) real — ‖residual‖ per step; betas[:-1] is the
               off-diagonal e, betas[-1] feeds the upper-bound estimate.
       basis:  (m, N) — Lanczos basis vectors of the LAST probe column
-              (None if want_basis=False).
+              (this rank's rows on a grid; None if want_basis=False).
     """
     rt = real_dtype(H.dtype)
     v1 = V0.to(H.dtype)
-    nrm = torch.linalg.vector_norm(v1, dim=0)
+    nrm = col_norms(v1, grid)
     v1 = v1 / nrm[None, :].to(v1.dtype)
     v0 = torch.zeros_like(v1)
     beta_prev = torch.zeros((v1.shape[1],), dtype=rt, device=H.device)
     alphas, betas, basis = [], [], []
     for _ in range(m):
-        w = H @ v1
-        alpha = torch.sum(v1.conj() * w, dim=0).real.to(rt)
+        w = hemm(H, v1, grid)
+        alpha = col_dots(v1, w, grid).real.to(rt)
         w = w - alpha[None, :].to(w.dtype) * v1 \
             - beta_prev[None, :].to(w.dtype) * v0
-        beta = torch.linalg.vector_norm(w, dim=0).to(rt)
+        beta = col_norms(w, grid).to(rt)
         safe = torch.where(beta > 0, beta, torch.ones((), dtype=rt,
                                                       device=H.device))
         v2 = w / safe[None, :].to(w.dtype)

@@ -10,14 +10,17 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.dist import col_norms, hemm
 from ..types import real_dtype
 
 __all__ = ["residuals"]
 
 
-def residuals(H: torch.Tensor, V: torch.Tensor, ritzv) -> torch.Tensor:
+def residuals(H: torch.Tensor, V: torch.Tensor, ritzv,
+              grid=None) -> torch.Tensor:
     """(k,) residual 2-norms, in V's real dtype, of the eigenpair
-    approximations (V[:, j], ritzv[j]); ``ritzv`` may be numpy."""
+    approximations (V[:, j], ritzv[j]); ``ritzv`` may be numpy.  On
+    ``grid``, H is this rank's block and V its rows."""
     lam = torch.as_tensor(ritzv, device=V.device).to(V.dtype)
-    R = H @ V - V * lam[None, :]
-    return torch.linalg.vector_norm(R, dim=0).to(real_dtype(V.dtype))
+    R = hemm(H, V, grid) - V * lam[None, :]
+    return col_norms(R, grid).to(real_dtype(V.dtype))

@@ -12,7 +12,10 @@ Port of the device branch of ``chase_tpu/ops/rr.py`` (the reference's RR
   optionally polished by Ogita–Aishima passes (DP default 2).
 
 The rotated block is rolled right by ``locked`` so the caller merges it
-into V with a column mask.  The split-sync host eigh and the wide-slice
+into V with a column mask.  On a process grid (``grid=``) H·Q is the
+grid's product, QᴴHQ and the residual norms are summed over the grid's
+rows (``parallel/dist.py``), and every rank solves the same replicated
+k×k problem; the rotations are local.  The split-sync host eigh and the wide-slice
 variants are TPU workarounds and are not ported.
 """
 
@@ -21,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel.dist import col_norms, hemm, inner
 from ..types import is_double_base, real_dtype
 
 __all__ = ["rayleigh_ritz_residuals", "eigh_polished"]
@@ -77,7 +81,7 @@ def _pin_locked(A: torch.Tensor, active: torch.Tensor, rt):
     return A + torch.diag(pin).to(A.dtype), big
 
 
-def _rr_project(H: torch.Tensor, V: torch.Tensor, locked: int):
+def _rr_project(H: torch.Tensor, V: torch.Tensor, locked: int, grid=None):
     """Masked block, H·Q, pinned projected matrix.  DP problems
     renormalize the active columns first (a column with ‖q‖² = 1 − η
     biases its Rayleigh quotient by λ·η); SP problems skip it (the norm's
@@ -88,23 +92,23 @@ def _rr_project(H: torch.Tensor, V: torch.Tensor, locked: int):
     Q = torch.where(active[None, :], V, torch.zeros((), dtype=V.dtype,
                                                     device=V.device))
     if is_double_base(V.dtype):
-        nrm = torch.linalg.vector_norm(Q, dim=0).to(rt)
+        nrm = col_norms(Q, grid).to(rt)
         Q = Q / torch.where(nrm > 0, nrm, torch.ones_like(nrm))[None, :] \
             .to(Q.dtype)
-    W = H @ Q                       # H·Q (one big HEMM)
-    A = Q.mH @ W                    # QᴴHQ, k×k
+    W = hemm(H, Q, grid)            # H·Q (one big HEMM)
+    A = inner(Q, W, grid)           # QᴴHQ, k×k
     A, big = _pin_locked(A, active, rt)
     return Q, W, A, big, active
 
 
 def _rr_finish(Q, W, V, ritz, Z, locked: int, active,
-               want_vectors: bool = False):
+               want_vectors: bool = False, grid=None):
     """Rotate, residuals, roll, merge; with ``want_vectors`` also the
     residual vectors, rolled like the rest."""
     Vrot = Q @ Z                    # Ritz vectors
     Wrot = W @ Z                    # = H · Vrot
     R = Wrot - Vrot * ritz[None, :].to(V.dtype)
-    resid = torch.linalg.vector_norm(R, dim=0).to(real_dtype(V.dtype))
+    resid = col_norms(R, grid).to(real_dtype(V.dtype))
     # active results live at positions [0, k-locked); roll to [locked, k)
     Vrot = torch.roll(Vrot, locked, dims=1)
     ritz = torch.roll(ritz, locked)
@@ -118,7 +122,8 @@ def _rr_finish(Q, W, V, ritz, Z, locked: int, active,
 
 
 def rayleigh_ritz_residuals(H: torch.Tensor, V: torch.Tensor, locked: int, *,
-                            polish: int = 2, want_vectors: bool = False):
+                            polish: int = 2, want_vectors: bool = False,
+                            grid=None):
     """Project H on the active columns of V, solve, rotate, and compute
     residuals.
 
@@ -129,6 +134,7 @@ def rayleigh_ritz_residuals(H: torch.Tensor, V: torch.Tensor, locked: int, *,
       locked: number of leading locked columns.
       polish: Ogita–Aishima passes of the projected eigensolve.
       want_vectors: also return the residual vectors.
+      grid: the process grid (H its block, V its rows), or None.
 
     Returns:
       V_out: (N, k) — V with columns [locked, k) replaced by the rotated
@@ -140,7 +146,7 @@ def rayleigh_ritz_residuals(H: torch.Tensor, V: torch.Tensor, locked: int, *,
          precision ladder's refinement filter).
     """
     rt = real_dtype(V.dtype)
-    Q, W, A, big, active = _rr_project(H, V, locked)
+    Q, W, A, big, active = _rr_project(H, V, locked, grid)
     # The k×k eigensolve runs in f64 whatever the problem precision (the
     # reference's RR_DOUBLE_PRECISION): cuSOLVER's f32 eigh leaves
     # eigenvector residuals that stalled the f32 N=30000 Clement solve at
@@ -150,4 +156,4 @@ def rayleigh_ritz_residuals(H: torch.Tensor, V: torch.Tensor, locked: int, *,
     wide = torch.complex128 if A.is_complex() else torch.float64
     ritz, Z = eigh_polished(A.to(wide), passes=polish, pin_cut=big / 2)
     return _rr_finish(Q, W, V, ritz.real.to(rt), Z.to(V.dtype), locked,
-                      active, want_vectors)
+                      active, want_vectors, grid)

@@ -1,6 +1,6 @@
 """Chebyshev-accelerated subspace iteration driver (Hermitian path).
 
-Port of ``chase_tpu/solver.py::solve`` on one torch device: Lanczos
+Port of ``chase_tpu/solver.py::solve`` on torch devices: Lanczos
 bounds, then degrees → filter → QR → RR with residuals → locking until
 ``unconverged ≤ nex`` (the reference's algorithm.inc:1376-1788).  The
 host-side bookkeeping (calc_degrees, locking, the DoS quantile) is the JAX
@@ -29,13 +29,33 @@ one device and warns, using its windowed filter (on the real-pair
 embedding, for a complex problem); both compute the same filter, so the
 converged spectra agree.
 
+On a process grid (``DenseOperator(H, grid=grid)``, ``parallel/mesh.py``)
+the same loop runs on every rank with this rank's blocks: H's block of
+``P('r', 'c')``, the multivectors' rows of ``P('r', None)``, the k×k
+problems replicated.  The products and reductions are explicit
+(``parallel/dist.py``), and every host decision — degrees, locking, the
+convergence count, the QR choice and the CholQR flag — reads numbers that
+are bitwise equal on every rank (all-reduced and broadcast from grid
+column 0, or computed from such), so no rank leaves a collective
+another waits in.  The start block and the Lanczos probes are drawn
+whole on every rank from identically seeded generators and cut to each
+rank's rows, so a grid solve starts from ``grid=None``'s numbers.  The
+filter's route (``_ring_route``): a 1×1 grid as one device; a (p, 1) grid
+the p-step chunk ring (``parallel/ring.py``), each step on the ring_hemm
+kernel with ``ring_backend="pallas"`` and an operator of a dtype it
+takes, else on ``torch.matmul`` (the JAX package's XLA ring); an r×c grid
+with r, c > 1 the windowed filter with the grid's product (the JAX
+package takes its 2-D ring there: ROADMAP queue 1 item 5, part 3), and
+``ring_filter=True`` there raises NotImplementedError.
+
 Not ported here: the wide-f64 and transient-shadow modes (TPU
-workarounds) and the multi-device rings.
+workarounds) and the 2-D rings.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Callable, NamedTuple, Optional
 
@@ -48,6 +68,7 @@ from .perf import PerfData
 from .types import (as_torch_dtype, filter_carry_dtype, is_double_base,
                     low_precision_dtype, numpy_scalar_type)
 from .parallel.operator import DenseOperator
+from .parallel import dist as pdist
 from .parallel import ring as pring
 from .ops.ring_hemm import KERNEL_DTYPES
 from .ops import filter as filt
@@ -59,6 +80,9 @@ from .ops.blocks import (permute_cols, set_head_cols, slice_cols,
 
 __all__ = ["solve", "SolveResult", "calc_degrees_host", "locking_host",
            "uses_ring_kernel"]
+
+PART3 = ("ROADMAP queue 1 item 5, part 3 (the 2-D ping-pong rings); the "
+         "port runs the windowed filter on such grids")
 
 
 def _shadow_filters(rcfg, dtype) -> bool:
@@ -112,6 +136,49 @@ def _ring_allowed(rcfg, op: DenseOperator, log) -> bool:
              f"kernel (the JAX package would use {jax_route} here)",
              "linalg")
     return True
+
+
+def _ring_route(rcfg, op: DenseOperator, log) -> Optional[str]:
+    """The filter's ring schedule for this solve — the JAX package's
+    ``_ring_mode`` with the port's p = 1 rule: "p1" (one device or a 1×1
+    grid, :func:`_ring_allowed`), "1d" (a (p, 1) grid, p > 1: the chunk
+    ring, on by default as in the JAX package) or None (the windowed
+    filter).  An r×c grid with r, c > 1 takes the windowed filter, logged
+    at info; ``ring_filter=True`` there raises NotImplementedError, since
+    its ring (the JAX package's 2-D ping-pong) is not ported yet."""
+    grid = op.grid
+    if grid is None or grid.nprocs == 1:
+        return "p1" if _ring_allowed(rcfg, op, log) else None
+    r, c = grid.size("r"), grid.size("c")
+    if c == 1:
+        if rcfg.ring_filter is False:
+            return None
+        step = ("the ring_hemm kernel where the filter's operator is f32, "
+                "c64 or bf16" if rcfg.ring_backend == "pallas"
+                else "torch.matmul")
+        log.info(f"ring filter auto-enabled (1d schedule, grid {grid.shape}"
+                 f"): a {r}-step chunk ring, each step on {step}; opt out "
+                 f"with ring_filter=False", "linalg")
+        if rcfg.ring_backend == "pallas" \
+                and not uses_ring_kernel(rcfg, op.dtype):
+            log.warn(f"ring_backend='pallas' needs an f32 or c64 problem or "
+                     f"the precision ladder's f32, c64 or bf16 shadow "
+                     f"(dtype={op.dtype}) — the ring's steps run on "
+                     f"torch.matmul", "linalg")
+        return "1d"
+    if r > 1:
+        if rcfg.ring_filter is True:
+            raise NotImplementedError(
+                f"ring_filter=True on the grid {grid.shape}: {PART3}")
+        log.info(f"grid {grid.shape}: windowed filter with the grid's "
+                 f"product (the JAX package would take its 2-D ring, "
+                 f"{PART3})", "linalg")
+        return None
+    if rcfg.ring_filter is True:
+        log.warn(f"ring_filter requested but no ring schedule fits the grid "
+                 f"{grid.shape} (it needs r > 1) — using the windowed "
+                 f"filter", "linalg")
+    return None
 
 
 def _col_block(cfg_block, nevex: int) -> int:
@@ -175,6 +242,23 @@ class FilterForm(NamedTuple):
 
 HERMITIAN = FilterForm(filt._hemm_shift, pring.chebyshev_filter_ring_pallas,
                        pring.chebyshev_filter_refine_ring, 1)
+
+
+def hermitian_form(grid, kernel: bool = True) -> FilterForm:
+    """The Hermitian filter's form on ``grid``: the windowed shift with
+    the grid's product (``parallel/dist.grid_shift``) and the chunk ring
+    with the ring_hemm kernel (``kernel``) or ``torch.matmul`` as its
+    step.  :data:`HERMITIAN` for one device."""
+    if grid is None:
+        return HERMITIAN
+    if kernel:
+        ring = functools.partial(pring.chebyshev_filter_ring_pallas,
+                                 grid=grid)
+    else:
+        ring = functools.partial(pring.chebyshev_filter_ring, grid)
+    return FilterForm(pdist.grid_shift(grid), ring,
+                      functools.partial(pring.chebyshev_filter_refine_ring,
+                                        grid=grid, kernel=kernel), 1)
 
 
 def _filter_windowed(H, V, degrees_act, locked, nevex, B, lam, lo, up, *,
@@ -400,6 +484,16 @@ class SolveResult:
     early_locked: Optional[list] = None
 
 
+def _draw(op: DenseOperator, k: int, generator) -> torch.Tensor:
+    """An (N, k) standard normal block from ``generator``, drawn whole
+    and cut to this rank's rows on a grid (every rank's generator is
+    seeded alike, so the ranks hold the rows of one block — the block a
+    ``grid=None`` solve draws)."""
+    V = torch.randn((op.N, k), generator=generator, device=op.device,
+                    dtype=op.dtype)
+    return V if op.grid is None else op.local_rows(V).clone()
+
+
 def _host(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy().astype(np.float64)
 
@@ -457,7 +551,7 @@ def solve(op: DenseOperator, nev: int, nex: int,
 
     if rcfg.sym_check:
         from .ops.checks import check_hermitian
-        if not check_hermitian(H):
+        if not check_hermitian(H, grid=op.grid):
             log.warn("input matrix failed the randomized hermiticity probe "
                      "(checkSymmetryEasy analogue) — results may be invalid")
 
@@ -469,10 +563,9 @@ def solve(op: DenseOperator, nev: int, nex: int,
     if V0 is not None:
         V = op.place_block(V0)
     else:
-        V = torch.randn((N, nevex), generator=generator, device=device,
-                        dtype=op.dtype)
+        V = _draw(op, nevex, generator)
     if not approx:
-        V = qrops.orthonormalize(V, 0, 1.0, rcfg)
+        V = qrops.orthonormalize(V, 0, 1.0, rcfg, op.grid)
     t0 = toc("InitVecs", t0)
 
     deg0 = min(rcfg.deg + rcfg.deg % 2, rcfg.max_deg)
@@ -490,12 +583,11 @@ def solve(op: DenseOperator, nev: int, nex: int,
             # user-provided basis: probe with FRESH random vectors — a
             # Krylov space seeded with (near-)converged eigenvectors breaks
             # down immediately and the DoS bounds collapse
-            probes = torch.randn((N, numvec), generator=generator,
-                                 device=device, dtype=op.dtype)
+            probes = _draw(op, numvec, generator)
         else:
             probes = V[:, :numvec]
         alphas, betas, basis = lz.lanczos_scan(H, probes, m=m,
-                                               want_basis=True)
+                                               want_basis=True, grid=op.grid)
         a_np, b_np = _host(alphas), _host(betas)
         t0 = toc("Lanczos", t0)
         theta, tau, ritzV_last = lz.lanczos_tridiag_host(a_np, b_np)
@@ -537,9 +629,9 @@ def solve(op: DenseOperator, nev: int, nex: int,
         # bounds-only Lanczos from a FRESH random probe: a Krylov space
         # seeded with a converged eigenvector of the previous problem
         # underestimates lambda_max
-        probe = torch.randn((N, 1), generator=generator, device=device,
-                            dtype=op.dtype)
-        alphas, betas, _ = lz.lanczos_scan(H, probe, m=m, want_basis=False)
+        probe = _draw(op, 1, generator)
+        alphas, betas, _ = lz.lanczos_scan(H, probe, m=m, want_basis=False,
+                                           grid=op.grid)
         a_np, b_np = _host(alphas), _host(betas)
         t0 = toc("Lanczos", t0)
         theta, _, _ = lz.lanczos_tridiag_host(a_np, b_np, want_vectors=False)
@@ -557,7 +649,7 @@ def solve(op: DenseOperator, nev: int, nex: int,
     unconverged = nevex
     iteration = 0
     early_all: list = []
-    ring_ok = _ring_allowed(rcfg, op, log)
+    route = _ring_route(rcfg, op, log)
 
     # Deviation-form refinement eligibility (the precision ladder): DP
     # problems with mixed_precision keep the filter FLOPs in f32/c64
@@ -568,7 +660,8 @@ def solve(op: DenseOperator, nev: int, nex: int,
         (not is_sp and rcfg.mixed_precision)
         or (is_sp and rcfg.bf16_filter and not is_complex))
     R_prev = None        # (N, nevex) RR residual vectors, problem dtype
-    if is_sp and rcfg.mixed_precision and ring_ok:
+    if is_sp and rcfg.mixed_precision and route is not None \
+            and rcfg.ring_backend == "pallas":
         log.info("mixed_precision on an f32/c64 problem asks for TF32 filter "
                  "products while residuals are large; the ring kernel "
                  "multiplies in 3xTF32 whatever matmul_precision says",
@@ -639,9 +732,14 @@ def solve(op: DenseOperator, nev: int, nex: int,
                 H_f = op.H_low
             else:
                 H_f = H
-            ring = ring_ok and H_f.dtype in KERNEL_DTYPES
-            # the SP ladder's low phase: TF32 products on the windowed path
-            tf32 = use_low and is_sp and not ring
+            # the chunk product: the kernel for its dtypes on the p = 1
+            # route and with "pallas" on the (p, 1) ring
+            kernel = H_f.dtype in KERNEL_DTYPES and (
+                route == "p1" or rcfg.ring_backend == "pallas")
+            ring = route == "1d" or (route == "p1" and kernel)
+            form = hermitian_form(op.grid, kernel)
+            # the SP ladder's low phase: TF32 products off the kernel
+            tf32 = use_low and is_sp and not (ring and kernel)
             if tf32:
                 set_matmul_precision("high")
             try:
@@ -649,12 +747,12 @@ def solve(op: DenseOperator, nev: int, nex: int,
                     V, f_executed, f_hemms = _filter_refine_windowed(
                         H_f, V, R_prev, ritzv[act], degrees[act], locked,
                         nevex, B, lam_filter, lowerb, upperb, rcfg.max_deg,
-                        ring=ring)
+                        ring=ring, form=form)
                 else:
                     V, f_executed, f_hemms = (
                         _filter_ring if ring else _filter_windowed)(
                         H_f, V, degrees[act], locked, nevex, B, lam_filter,
-                        lowerb, upperb)
+                        lowerb, upperb, form=form)
             finally:
                 if tf32:
                     set_matmul_precision(rcfg.matmul_precision)
@@ -685,9 +783,9 @@ def solve(op: DenseOperator, nev: int, nex: int,
             use_window = rcfg.shrink_subspace and win_start > 0
             if use_window:
                 V = qrops.orthonormalize_window(V, win_start, w_pad_rr,
-                                                locked, cond, rcfg)
+                                                locked, cond, rcfg, op.grid)
             else:
-                V = qrops.orthonormalize(V, locked, cond, rcfg)
+                V = qrops.orthonormalize(V, locked, cond, rcfg, op.grid)
             t0 = toc("Qr", t0)
 
             # -- RR + residuals (fused) --
@@ -695,7 +793,8 @@ def solve(op: DenseOperator, nev: int, nex: int,
                 lw = locked - win_start
                 Vw, ritz_dev, resid_dev, *Rw = rrops.rayleigh_ritz_residuals(
                     H, slice_cols(V, win_start, w_pad_rr), lw,
-                    polish=polish, want_vectors=refine_capable)
+                    polish=polish, want_vectors=refine_capable,
+                    grid=op.grid)
                 V = update_cols(V, Vw, win_start)
                 if refine_capable:
                     if R_prev is None:
@@ -705,7 +804,8 @@ def solve(op: DenseOperator, nev: int, nex: int,
                 resid[act] = _host(resid_dev)[lw:]
             else:
                 V, ritz_dev, resid_dev, *Rv = rrops.rayleigh_ritz_residuals(
-                    H, V, locked, polish=polish, want_vectors=refine_capable)
+                    H, V, locked, polish=polish, want_vectors=refine_capable,
+                    grid=op.grid)
                 if refine_capable:
                     R_prev = Rv[0]
                 ritzv[act] = _host(ritz_dev)[act]

@@ -13,8 +13,11 @@ nothing but this package's CUDA kernels, so here warming up means:
   once on the operator with a tolerance met at once, so that the caching
   allocator holds the solve's blocks and cuSOLVER's handles exist.
 
-There is no thread-pool precompile, so ``max_workers`` is accepted and
-unused.  Usage::
+On a process grid (``grid=``) every rank builds and loads the library on
+its own card; the fused jobs wait for fused solvers on grids (ROADMAP
+queue 1 item 5, part 2) and raise NotImplementedError on a grid larger
+than 1×1.  There is no thread-pool precompile, so ``max_workers`` is
+accepted and unused.  Usage::
 
     op = chase_tpu_torch.DenseOperator(H, "cuda")
     chase_tpu_torch.warmup(op, nev, nex, config=cfg, fused=True)
@@ -30,7 +33,7 @@ import torch
 
 from .config import ChaseConfig
 from .logger import get_logger
-from .parallel.operator import DenseOperator
+from .parallel.operator import PART2, DenseOperator
 from .solver import _col_block, _window_pad, uses_ring_kernel
 
 __all__ = ["warmup"]
@@ -49,17 +52,18 @@ def _bucket_widths(nevex: int, B: int, pseudo: bool):
 
 
 def warmup(H, nev: int, nex: Optional[int] = None, *, config=None,
-           max_workers: int = 8, fused: bool = False,
-           device="cuda") -> dict:
+           grid=None, max_workers: int = 8, fused: bool = False,
+           device=None) -> dict:
     """Do a solve's one-time work before the solve.
 
     Args:
       H: a DenseOperator (pass the same one to the solve) or an (N, N)
-         array, placed on ``device`` here.  A BSE problem is warmed as a
-         ``DenseOperator(H, pseudo_hermitian=True)``.
+         array, placed on ``device`` (or ``grid``) here.  A BSE problem
+         is warmed as a ``DenseOperator(H, pseudo_hermitian=True)``.
       nev, nex: the solve's block (nex default max(1, int(0.4·nev)), as in
          the JAX package).
       config: the ChaseConfig the solve will use.
+      grid: the process grid of the solve (every rank calls warmup).
       max_workers: accepted for the JAX signature; unused.
       fused: also run ``eigsh_fused`` (``eigsh_pseudo_fused`` for a BSE
          operator) once cold and once from a warm start, with a tolerance
@@ -72,7 +76,11 @@ def warmup(H, nev: int, nex: Optional[int] = None, *, config=None,
     cfg = config or ChaseConfig()
     if nex is None:
         nex = max(1, int(0.4 * nev))
-    op = H if isinstance(H, DenseOperator) else DenseOperator(H, device)
+    op = H if isinstance(H, DenseOperator) else DenseOperator(
+        H, device, grid=grid)
+    if fused and op.grid is not None and op.grid.nprocs > 1:
+        raise NotImplementedError(f"warmup(fused=True) on the grid "
+                                  f"{op.grid.shape} waits for {PART2}")
     rcfg = cfg.resolve(op.dtype, op.device)
     nevex = nev + nex
     log = get_logger()

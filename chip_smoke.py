@@ -24,6 +24,33 @@ no result line) on any fault:
   profile  warm solves of the slice on the ring path and on the windowed
            (cuBLAS) path, then a torch.profiler trace of one warm
            ring-path solve: device busy share and time by kernel name
+  gridring the (p, 1) ring's stripes of a dense random H at the slice's
+           size (N=30000) at p = 2 and 4 on one card (the slice's Clement
+           H is zero off its diagonal band, so its stripes would hold the
+           kernel to a few terms per entry): each simulated rank's stripe
+           laid out as
+           DenseOperator(grid=…) lays it out, the production step loop
+           (parallel.ring.ring_steps: p ring_hemm calls with col0 = src·N/p
+           and accumulate) with an in-memory exchange standing in for
+           NCCL, on the f32 and bf16 routes here (k = 3000; 1500 too for
+           bf16) and on the c64 route after cprofile; H·V against a wide
+           product per rank and the plain version's loop at the kernel
+           gate, launches = p² per ring run; one stripe call (N/p, N/p, k)
+           timed beside its plain version, the library call and its
+           bound; the pre-pass of a received chunk beside what sending
+           the chunk in the pre-pass's layout would add (f32, c64: hi and
+           lo) or save (bf16: half the bytes) at 450 GB/s of NVLink
+  grid1    a child process with torchrun's variables at WORLD_SIZE=1:
+           multihost.init_grid() on NCCL, the grid's collectives once
+           (all_reduce f32 and c64, all_gather_into_tensor, broadcast),
+           then the f32 slice on the (1, 1) grid with ring_backend=
+           "pallas", cold and warm: [slice]'s gates and iteration count,
+           ring_hemm launches = the filter's HEMM steps, the collectives
+           issued per iteration, the warm TTS beside [profile]'s
+  gridnccl with two cards or more, p = min(cards, 4) ranks solve the f32
+           slice on a (p, 1) NCCL grid with the same gates (each rank's
+           ring_hemm launches = p × its HEMM steps); with one card it
+           prints "not run: 1 device" and counts nothing as passed
   io       the slice's H written with io.save_matrix to a ChASE file in a
            temporary directory (removed at the end of capi), read back by
            io.load_matrix through the native reader (bitwise against H on
@@ -303,6 +330,16 @@ def clement_on_device(N: int, dev, dtype=torch.float32, seed: int = SEED
     H[idx, idx + 1] = off
     H[idx + 1, idx] = off.conj()
     return H
+
+
+def dense_on_device(N: int, dev, dtype, seed: int = SEED + 7
+                    ) -> torch.Tensor:
+    """A dense N × N standard normal H built on the card (the ring
+    stripes' operand: every block of it is full, so a column block read
+    at the wrong col0 shows, and the error gate sums N terms per entry as
+    the kernel phases do)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn((N, N), generator=g, device=dev, dtype=dtype)
 
 
 def phase_device() -> dict:
@@ -750,7 +787,7 @@ def phase_slice(dev, H, phase: str = "slice", bf16: bool = False) -> dict:
                              f"{other}; the filter ran "
                              f"{perf.filter_hemm_steps} HEMM steps")
     return dict(ring_hemm=launches, prepass=split_launches, tts=tts,
-                low=low)
+                low=low, iterations=res.iterations)
 
 
 def trace_solve(phase: str, what: str, solve) -> tuple:
@@ -1702,6 +1739,381 @@ def phase_zfused(dev) -> dict:
         fused, host, bse_gate("zfused", Hc, lam, nev, tol), kernel=False)
 
 
+GRID_P = (2, 4)
+# the kernel's routes on the (p, 1) stripes: (route, widths k)
+GRIDRING = {"f32": (3000,), "bf16": (3000, 1500), "c64": (3000,)}
+NVLINK_GBS = 450.0          # GB/s each way between two H100 SXM cards
+
+
+class _SimRequests:
+    """A finished exchange: the in-memory rotation copies at once."""
+
+    @staticmethod
+    def wait() -> None:
+        pass
+
+
+def sim_exchange(chunks, me: int):
+    """The ring's exchange over len(chunks) simulated ranks in one process:
+    the call before step s hands rank ``me`` the chunk of rank (me + s +
+    1) mod p, as the NCCL exchange does on p cards."""
+    p, step = len(chunks), [0]
+
+    def swap(send, recv):
+        step[0] += 1
+        recv.copy_(chunks[(me + step[0]) % p])
+        return _SimRequests
+    return swap
+
+
+def _ring_all(stripes, chunks, **step) -> torch.Tensor:
+    """Every simulated rank's ring product (the production step loop with
+    the in-memory exchange; its kernel step unless ``step=`` is given),
+    stacked: H·V."""
+    from chase_tpu_torch.parallel.ring import ring_steps
+    p = len(chunks)
+    return torch.cat([ring_steps(stripes[i], chunks[i], me=i, p=p,
+                                 exchange=sim_exchange(chunks, i), **step)
+                      for i in range(p)])
+
+
+def phase_gridring(dev, H, route: str) -> dict:
+    """The (p, 1) ring's stripes of an N × N H on one card: for p = 2 and
+    4 simulated ranks, each rank's stripe laid out as
+    DenseOperator(grid=…) lays it out (``operator.block_of``), the
+    production step loop (``parallel.ring.ring_steps``) with an in-memory
+    exchange, on the kernel's ``route`` (f32, bf16 — the f32 H's shadow
+    — or c64); H·V held against a wide product per rank at the kernel
+    gate (the plain version's and the library call's rings beside it);
+    one stripe call (m, b, k) = (N/p, N/p, k) timed beside its plain
+    version, the library call and its bound, and the pre-pass of one
+    received chunk beside the time the chunk in the pre-pass's layout
+    would add to (f32, c64) or save on (bf16) the wire at NVLink's
+    rate.  The launch counts are set to 0 just before each
+    ring run and read after it."""
+    from chase_tpu_torch.ops.ring_hemm import (bf16_pack, float_view_args,
+                                               pack_shape, ring_hemm,
+                                               ring_hemm_reference,
+                                               split_shape, tf32_split)
+    from chase_tpu_torch.parallel.operator import block_of
+    from chase_tpu_torch.parallel.ring import matmul_step
+    t_phase = time.perf_counter()
+    N = H.shape[0]
+    h_dtype = torch.bfloat16 if route == "bf16" else H.dtype
+    v_dtype = torch.float32 if route == "bf16" else H.dtype
+    wide = torch.complex128 if v_dtype.is_complex else torch.float64
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    out = {}
+    for p in GRID_P:
+        b = N // p
+        stripes = [block_of(H, (i * b, b), (0, N), N, dtype=h_dtype,
+                            device=dev) for i in range(p)]
+        for k in GRIDRING[route]:
+            V = torch.randn((N, k), generator=g, device=dev, dtype=v_dtype)
+            chunks = [V[i * b:(i + 1) * b].contiguous() for i in range(p)]
+            Vr = (V.to(torch.bfloat16) if route == "bf16" else V).to(wide)
+            _zero_ring_counts()
+            torch.cuda.synchronize()
+            W = _ring_all(stripes, chunks)
+            torch.cuda.synchronize()
+            launches = _ring_counts()
+            # the plain version's ring, and the library call's (matmul_step:
+            # torch.matmul, or torch.mm(out_dtype=f32) of a bf16 H)
+            Wp = _ring_all(stripes, chunks, step=ring_hemm_reference)
+            Wl = _ring_all(stripes, chunks, step=matmul_step)
+            err = errp = errl = abs_err = 0.0
+            for i in range(p):
+                ref = stripes[i].to(wide) @ Vr
+                rows = slice(i * b, (i + 1) * b)
+                err = max(err, rel_err(W[rows], ref))
+                errp = max(errp, rel_err(Wp[rows], ref))
+                errl = max(errl, rel_err(Wl[rows], ref))
+                abs_err = max(abs_err,
+                              float((W[rows].to(wide) - ref).abs().max()))
+                del ref
+            del W, Wp, Wl
+            # one stripe call at the second chunk (col0 = b)
+            Hs, Vc = stripes[0], chunks[1]
+            Hb = Hs[:, b:2 * b]
+            Wc = torch.empty((b, k), dtype=v_dtype, device=dev)
+
+            def library():
+                if route == "bf16":
+                    return torch.mm(Hb, Vc.to(torch.bfloat16),
+                                    out_dtype=torch.float32)
+                return torch.matmul(Hb, Vc)
+
+            plain_ms, kern_ms, lib_ms = time_fns(
+                [lambda: ring_hemm_reference(Hs, Vc, col0=b, out=Wc),
+                 lambda: ring_hemm(Hs, Vc, col0=b, out=Wc), library], 3)
+            prepass = bf16_pack if route == "bf16" else tf32_split
+            off = float_view_args(Hs, Vc, b, k)[2]
+            pre_ms = time_fns([lambda: prepass(Vc, off)], 3)[0]
+            bound_ms, bound_by = (bf16_hemm_bound(b, b, k) if route == "bf16"
+                                  else hemm_bound(b, b, k, h_dtype))
+            # the chunk on the wire raw (each receiver runs the pre-pass)
+            # or in the pre-pass's layout (the owner runs it once): the
+            # f32 split holds hi and lo, the bf16 pack half the bytes
+            raw = Vc.numel() * Vc.element_size()
+            w = 2 if v_dtype.is_complex else 1
+            if route == "bf16":
+                b_pad, w_pad = pack_shape(b, k)
+                split = 2 * w_pad * b_pad
+            else:
+                b_pad, w_pad = split_shape(w * b, w * k)
+                split = 2 * w_pad * b_pad * 4
+            extra_ms = (split - raw) / (NVLINK_GBS * 1e6)
+            log("gridring", f"{route} p={p} (m, b, k)=({b}, {b}, {k}): ring "
+                            f"of {p} simulated ranks rel err kernel "
+                            f"{err:.3e} plain {errp:.3e} library "
+                            f"{errl:.3e}, max abs err "
+                            f"{abs_err:.3e}; launches {launches[0]} "
+                            f"(pre-pass {launches[1] + launches[2]}); "
+                            f"stripe call {kern_ms:.3f} ms, plain "
+                            f"{plain_ms:.3f} ms, library {lib_ms:.3f} ms, "
+                            f"bound {bound_ms:.3f} ms "
+                            f"({bound_by}); pre-pass of a received chunk "
+                            f"{pre_ms:.3f} ms; chunk {raw / 1e6:.1f} MB raw, "
+                            f"{split / 1e6:.1f} MB in the pre-pass's "
+                            f"layout: {extra_ms:+.3f} ms at "
+                            f"{NVLINK_GBS:.0f} GB/s of NVLink")
+            # the kernel gate (PERF.md §2): 4× the plain version's error,
+            # the library's for bf16
+            gate = 4 * (errl if route == "bf16" else errp)
+            if not (err <= 1e-5 and err <= gate
+                    and launches[0] == p * p
+                    and launches[1] + launches[2] == p * p):
+                raise AssertionError(f"gridring {route} p={p} k={k}: error "
+                                     f"{err:.3e} (gate 1e-5 and {gate:.3e})"
+                                     f" or launches {launches} != {p * p}")
+            out[(p, k)] = dict(abs_err=abs_err, ms=kern_ms,
+                               plain_ms=plain_ms, library_ms=lib_ms,
+                               bound_ms=bound_ms, bound_by=bound_by,
+                               launches=launches[0], prepass_ms=pre_ms)
+            del V, Vr, chunks, Wc, Hb, Hs, Vc
+        del stripes
+        torch.cuda.empty_cache()
+    log("gridring", f"{route} phase ok in "
+                    f"{time.perf_counter() - t_phase:.2f} s")
+    return out
+
+
+def free_port() -> int:
+    """A free TCP port on this machine's loopback (the rendezvous of
+    the children's process group)."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def torchrun_env(rank: int, world: int, port: int, **extra) -> dict:
+    """torchrun's variables for rank ``rank`` of ``world`` on this host."""
+    return dict(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
+                LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
+                MASTER_PORT=str(port), **extra)
+
+
+def _check_wiring(grid) -> str:
+    """The NCCL calls the grid issues, run once on its groups even where
+    they have one member (an f32 and a complex64 all_reduce, an
+    all_gather_into_tensor, a broadcast, and the ring's chunk exchange —
+    ``Grid2D.exchange``'s batch_isend_irecv, here a send to and a receive
+    from the rank itself), each checked."""
+    import torch.distributed as dist
+    dev, n = grid.device, grid.size("r")
+    x = torch.full((4, 3), 1.0 + 2.0j, dtype=torch.complex64, device=dev)
+    dist.all_reduce(torch.view_as_real(x), group=grid.group("r"))
+    y = torch.ones(5, device=dev)
+    dist.all_reduce(y, group=grid.group("c"))
+    z = torch.empty((n * 2, 3), device=dev)
+    dist.all_gather_into_tensor(z, torch.full((2, 3), 3.0, device=dev),
+                                group=grid.group("r"))
+    dist.broadcast(y, src=grid.global_rank("c", 0), group=grid.group("c"))
+    send = torch.arange(24, dtype=torch.float32, device=dev).reshape(6, 4)
+    send = send + 100.0 * grid.index("r")
+    recv = torch.empty_like(send)
+    grid.exchange("r")(send, recv).wait()
+    sendc = torch.full((3, 2), 1.0 - 1.0j, dtype=torch.complex64, device=dev)
+    recvc = torch.empty_like(sendc)
+    grid.exchange("r")(sendc, recvc).wait()
+    torch.cuda.synchronize(dev)
+    nxt = (grid.index("r") + 1) % n
+    ok = (bool(torch.all(x == n * (1.0 + 2.0j)))
+          and bool(torch.all(y == grid.size("c")))
+          and bool(torch.all(z == 3.0))
+          and bool(torch.equal(recv, send + 100.0 * (nxt - grid.index("r"))))
+          and bool(torch.equal(recvc, sendc)))
+    if not ok:
+        raise AssertionError("NCCL wiring check failed")
+    return (f"NCCL all_reduce (f32, c64 as its real view), "
+            f"all_gather_into_tensor, broadcast and the ring's chunk "
+            f"exchange (batch_isend_irecv, f32 and c64; {n} member(s) along "
+            f"'r') on the grid's groups: ok")
+
+
+def grid_child() -> int:
+    """One rank of [grid1] / [gridnccl], started with torchrun's
+    variables: multihost.init_grid() on NCCL, the (GRID_R, 1) grid, the
+    f32 slice on the kernel ring with its gates, twice (cold, warm); rank
+    0 prints one line ``GRID_RESULT {json}``."""
+    import torch.distributed as dist
+    import chase_tpu_torch as ct
+    from chase_tpu_torch.models import clement_eigenvalues
+    from chase_tpu_torch.ops.residuals import residuals
+    from chase_tpu_torch.parallel import multihost
+    r = int(os.environ["GRID_R"])
+    t0 = time.perf_counter()
+    grid = multihost.init_grid((r, 1), timeout=300)
+    t_init = time.perf_counter() - t0
+    wiring = _check_wiring(grid)
+    dev = grid.device
+    N, nev, nex, tol = SLICE["N"], SLICE["nev"], SLICE["nex"], SLICE["tol"]
+    H = clement_on_device(N, dev)
+    cfg = ct.ChaseConfig(ring_backend="pallas", mixed_precision=False)
+    op = ct.DenseOperator(H, grid=grid)
+    runs = []
+    for _ in range(2):
+        grid.stats.reset()
+        _zero_ring_counts()
+        torch.cuda.synchronize(dev)
+        dist.barrier()
+        t0 = time.perf_counter()
+        res = ct.eigsh(op, nev, nex, tol=tol, config=cfg, collect_perf=True)
+        torch.cuda.synchronize(dev)
+        tts = time.perf_counter() - t0
+        runs.append((tts, res, _ring_counts(), grid.stats.summary()))
+    tts, res, launches, stats = runs[-1]
+    V = res.V.full_tensor()[:, :nev]
+    ev_err = float(np.abs(res.ritzv - clement_eigenvalues(N)[:nev]).max())
+    true_res = float(residuals(H, V, res.ritzv).max())
+    steps = res.perf.filter_hemm_steps
+    ok = (res.converged and ev_err <= 0.5 and true_res <= 10 * tol
+          and launches[0] == launches[1] == r * steps and launches[2] == 0)
+    if grid.coords == (0, 0):
+        print("GRID_RESULT " + json.dumps(dict(
+            shape=[r, 1], init_s=t_init, wiring=wiring, tts_cold=runs[0][0],
+            tts=tts, iterations=res.iterations, converged=res.converged,
+            ev_err=ev_err, true_res=true_res, launches=list(launches),
+            hemm_steps=steps, executed=res.perf.filtered_vecs_executed,
+            collectives={k: list(v) for k, v in
+                                           stats.items()},
+            ok=bool(ok))), flush=True)
+    dist.destroy_process_group()
+    return 0 if ok else 1
+
+
+def _run_grid(phase: str, r: int) -> dict:
+    """The r ranks of a (r, 1) grid as child processes on cards 0…r−1
+    (torchrun's variables, a loopback rendezvous), each killed after the
+    phase's time limit; rank 0's result."""
+    port = free_port()
+    cmd = [sys.executable, "-c",
+           "import sys, chip_smoke; sys.exit(chip_smoke.grid_child())"]
+    with tempfile.TemporaryDirectory(prefix="chase_grid_") as tmp:
+        logs = [open(os.path.join(tmp, f"rank{k}.log"), "w+")
+                for k in range(r)]
+        procs = [subprocess.Popen(cmd, cwd=ROOT, env=child_env(
+            **torchrun_env(k, r, port, GRID_R=str(r))), stdout=logs[k],
+            stderr=subprocess.STDOUT, text=True) for k in range(r)]
+        deadline = time.monotonic() + 300
+        try:
+            for p in procs:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        outs = []
+        for f in logs:
+            f.seek(0)
+            outs.append(f.read())
+            f.close()
+    for k, text in enumerate(outs):
+        for line in text.splitlines()[-8:]:
+            if not line.startswith("GRID_RESULT"):
+                log(phase, f"  rank {k}: {line}")
+    codes = [p.returncode for p in procs]
+    found = [ln for ln in outs[0].splitlines()
+             if ln.startswith("GRID_RESULT ")]
+    if any(codes) or not found:
+        raise AssertionError(f"{phase}: ranks exited {codes}")
+    return json.loads(found[-1][len("GRID_RESULT "):])
+
+
+def _per_iteration(out: dict) -> dict:
+    """The collectives a grid solve issued, (calls, bytes) per
+    iteration, by kind."""
+    n = max(out["iterations"], 1)
+    return {k: (round(c / n, 2), round(b / n))
+            for k, (c, b) in out["collectives"].items()}
+
+
+def phase_grid1(slice_iterations: int, warm_tts: float) -> None:
+    """The f32 slice on an NCCL (1, 1) grid in a child process with
+    torchrun's variables at WORLD_SIZE=1: [slice]'s gates and its
+    iteration count; ring_hemm launches = the filter's HEMM steps."""
+    t0 = time.perf_counter()
+    out = _run_grid("grid1", 1)
+    per_it = _per_iteration(out)
+    log("grid1", f"{out['wiring']}; init_grid {out['init_s']:.2f} s; f32 "
+                 f"slice on the (1, 1) grid: converged={out['converged']} "
+                 f"iterations={out['iterations']} ([slice]: "
+                 f"{slice_iterations}); TTS cold {out['tts_cold']:.3f} s, "
+                 f"warm {out['tts']:.3f} s ([profile] warm on one device "
+                 f"{warm_tts:.3f} s); max eigenvalue err "
+                 f"{out['ev_err']:.3e}, max true residual "
+                 f"{out['true_res']:.3e}; ring_hemm / tf32_split / bf16_pack "
+                 f"launches {out['launches']}, filter HEMM steps "
+                 f"{out['hemm_steps']}; collectives issued per iteration "
+                 f"(calls, bytes) "
+                 f"{per_it or 'none (every axis has one member)'}; "
+                 f"{time.perf_counter() - t0:.2f} s")
+    # the chunk ring's model (probes/grid_collectives.py checks it on
+    # the CPU): each rank sends (p − 1)/p · N · 4 bytes per executed
+    # filter column-step
+    its = max(out["iterations"], 1)
+    sent = [(p, (p - 1) / p * SLICE["N"] * 4 * out["executed"] / its)
+            for p in GRID_P]
+    model = ", ".join(f"p={p}: {nb / 1e9:.2f} GB per iteration and rank, "
+                      f"{nb / (NVLINK_GBS * 1e6):.0f} ms at "
+                      f"{NVLINK_GBS:.0f} GB/s" for p, nb in sent)
+    log("grid1", f"this solve's chunk ring on a (p, 1) grid, from its "
+                 f"{out['executed']} executed filter column-steps (a model, "
+                 f"not measured): {model}")
+    if not (out["ok"] and out["iterations"] == slice_iterations):
+        raise AssertionError(f"grid1: gates failed or iterations "
+                             f"{out['iterations']} != [slice]'s "
+                             f"{slice_iterations}")
+
+
+def phase_gridnccl() -> None:
+    """The f32 slice on a (p, 1) NCCL grid, p = min(cards, 4) — only on
+    a machine with two cards or more."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        log("gridnccl", f"not run: {count} device")
+        return
+    p = min(count, 4)
+    t0 = time.perf_counter()
+    out = _run_grid("gridnccl", p)
+    per_it = _per_iteration(out)
+    log("gridnccl", f"f32 slice on the ({p}, 1) NCCL grid: converged="
+                    f"{out['converged']} iterations={out['iterations']}; TTS "
+                    f"cold {out['tts_cold']:.3f} s, warm {out['tts']:.3f} s; "
+                    f"max eigenvalue err {out['ev_err']:.3e}, max true "
+                    f"residual {out['true_res']:.3e}; rank 0's ring_hemm / "
+                    f"tf32_split launches {out['launches']} = {p} × "
+                    f"{out['hemm_steps']} HEMM steps; collectives per "
+                    f"iteration on rank 0 (calls, bytes) {per_it}; "
+                    f"{time.perf_counter() - t0:.2f} s")
+    if not out["ok"]:
+        raise AssertionError("gridnccl: gates failed")
+
+
 def _kernel_entry(name: str, launches: int, case: dict) -> dict:
     return dict(name=name, route="cuda",
                 source="chase_tpu_torch/csrc/ring_hemm.cu",
@@ -1732,6 +2144,13 @@ def main() -> int:
     phase_filter(dev, H)
     launches = phase_slice(dev, H)
     warm = phase_profile(dev, H)
+    Hr = dense_on_device(SLICE["N"], dev, torch.float32)
+    gring = {route: phase_gridring(dev, Hr, route) for route in ("f32",
+                                                                "bf16")}
+    del Hr
+    torch.cuda.empty_cache()
+    phase_grid1(launches["iterations"], warm["pallas"])
+    phase_gridnccl()
     with tempfile.TemporaryDirectory(prefix="chase_smoke_") as tmp:
         path = os.path.join(tmp, f"clement{SLICE['N']}_f32.bin")
         phase_io(dev, H, path)
@@ -1757,6 +2176,10 @@ def main() -> int:
                  f"card in {time.perf_counter() - t0:.2f} s")
     claunches = phase_slice(dev, H, "cslice")
     phase_profile(dev, H, "cprofile")
+    del H
+    torch.cuda.empty_cache()
+    H = dense_on_device(SLICE["N"], dev, torch.complex64)
+    gring["c64"] = phase_gridring(dev, H, "c64")
     del H
     torch.cuda.empty_cache()
 
@@ -1801,8 +2224,11 @@ def main() -> int:
                       ckern["split"]),
         _kernel_entry("ring_hemm[bf16]", blaunches["ring_hemm"],
                       bkern[(SLICE["N"], 3000)]),
-        _kernel_entry("bf16_pack", blaunches["prepass"], bkern["pack"])]}),
-          flush=True)
+        _kernel_entry("bf16_pack", blaunches["prepass"], bkern["pack"])]
+        + [_kernel_entry(f"ring_hemm[{route} stripe p={p} k={k}]",
+                         case["launches"], case)
+           for route, cases in gring.items()
+           for (p, k), case in cases.items()]}), flush=True)
     log("done", f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"],

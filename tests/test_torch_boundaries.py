@@ -25,6 +25,8 @@ _IMPORT_ALL = """
 import sys
 import chase_tpu_torch, chase_tpu_torch.convert, chase_tpu_torch._build
 import chase_tpu_torch.parallel.ring, chase_tpu_torch.ops.ring_hemm
+import chase_tpu_torch.parallel.mesh, chase_tpu_torch.parallel.multihost
+import chase_tpu_torch.parallel.dist, chase_tpu_torch.parallel.operator
 import chase_tpu_torch.models, chase_tpu_torch.utils
 import chase_tpu_torch.fused, chase_tpu_torch.fused_pseudo
 import chase_tpu_torch.step, chase_tpu_torch.warmup
@@ -51,15 +53,20 @@ def test_import_pulls_in_no_jax():
 
 
 def test_sources_import_no_jax():
-    """No module of the port, nor chip_smoke.py, nor the Python that the C
-    ABI library embeds (``_native/*.cpp``), imports JAX or chase_tpu."""
+    """No module of the port (the process grid's ``parallel/mesh.py``,
+    ``multihost.py`` and ``dist.py`` among them), nor chip_smoke.py, nor
+    the grid tests' worker script, nor the Python that the C ABI library
+    embeds (``_native/*.cpp``), imports JAX or chase_tpu."""
     stmt = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|chase_tpu)\b",
                       re.MULTILINE)
     paths = list((REPO / "chase_tpu_torch").rglob("*.py"))
     embedded = list((REPO / "chase_tpu_torch" / "_native").glob("*.cpp"))
     assert paths and embedded
     assert any("import chase_tpu_torch" in p.read_text() for p in embedded)
-    for path in paths + embedded + [REPO / "chip_smoke.py"]:
+    grid_modules = {p.name for p in paths if p.parent.name == "parallel"}
+    assert {"mesh.py", "multihost.py", "dist.py"} <= grid_modules
+    for path in paths + embedded + [REPO / "chip_smoke.py",
+                                    REPO / "tests" / "torch_grid_worker.py"]:
         assert not stmt.search(path.read_text()), path
 
 

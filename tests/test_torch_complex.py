@@ -40,6 +40,7 @@ from chase_tpu_torch.ops.ring_hemm import (float_view_args, real_rows,
                                            split_shape, tf32_split,
                                            tf32_split_reference, tma_ld,
                                            tma_row_stride)
+from chase_tpu_torch.ops import ring_hemm as trh
 from chase_tpu_torch.parallel import ring as tring
 from chase_tpu_torch.parallel.operator import padded_empty
 from chase_tpu_torch.utils import residual_norms, validate_result
@@ -91,13 +92,13 @@ def test_c64_ring_path_matches_jax_real_pair_pallas_ring(c64_case,
                              complex_backend="real_pair",
                              ring_backend="pallas"))
     calls = []
-    real = tring.ring_hemm
+    real = trh.ring_hemm
 
     def counting(Hm, V, **kw):
         calls.append(V.dtype)
         return real(Hm, V, **kw)
 
-    monkeypatch.setattr(tring, "ring_hemm", counting)
+    monkeypatch.setattr(trh, "ring_hemm", counting)
     rt = ct.eigsh(H, 12, 8, tol=1e-3, v0=V0, device="cpu",
                   config=ct.ChaseConfig(ring_backend="pallas"),
                   collect_perf=True)

@@ -26,7 +26,7 @@ import chase_tpu_torch as ct
 from chase_tpu_torch import convert
 from chase_tpu_torch.models import (clement, clement_eigenvalues,
                                     random_hermitian)
-from chase_tpu_torch.parallel import ring as tring
+from chase_tpu_torch.ops import ring_hemm as trh
 from chase_tpu_torch.utils import residual_norms, validate_result
 
 torch.set_num_threads(1)
@@ -53,13 +53,13 @@ def f32_case():
 def test_f32_slice_ring_pallas_matches_jax(f32_case, monkeypatch):
     H, V0, rj = f32_case
     calls = []
-    real = tring.ring_hemm
+    real = trh.ring_hemm
 
     def counting(*a, **kw):
         calls.append(1)
         return real(*a, **kw)
 
-    monkeypatch.setattr(tring, "ring_hemm", counting)
+    monkeypatch.setattr(trh, "ring_hemm", counting)
     rt = ct.eigsh(H, NEV32, NEX32, tol=TOL32, v0=V0, device="cpu",
                   config=ct.ChaseConfig(ring_backend="pallas"),
                   collect_perf=True)

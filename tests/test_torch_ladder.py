@@ -40,6 +40,7 @@ from chase_tpu_torch import solver as tsolver
 from chase_tpu_torch.models import clement, hermitian_sequence
 from chase_tpu_torch.ops import filter as tfilt
 from chase_tpu_torch.ops import rr as trr
+from chase_tpu_torch.ops import ring_hemm as trh
 from chase_tpu_torch.parallel import ring as tring
 from chase_tpu_torch.types import filter_carry_dtype, low_precision_dtype
 
@@ -195,8 +196,8 @@ def test_refine_ring_p1_matches_jax_refine(problem, tol, monkeypatch):
     tabs = tfilt.refine_tables(lam, DEGS, lam1, lo, up, 36)
     cc, dmax = (up + lo) / 2.0, int(DEGS.max())
     calls = []
-    real = tring.ring_hemm
-    monkeypatch.setattr(tring, "ring_hemm",
+    real = trh.ring_hemm
+    monkeypatch.setattr(trh, "ring_hemm",
                         lambda *a, **k: calls.append(1) or real(*a, **k))
     Ht = _t(H, low)
     Yt = tring.chebyshev_filter_refine_ring(Ht, _t(V), _t(R), DEGS, *tabs,
@@ -350,8 +351,8 @@ def test_bf16_rung_matches_jax(backend, monkeypatch):
     rj = _jax_solve(("bf16",), H, V0, 1e-3,
                     chase_tpu.ChaseConfig(bf16_filter=True))
     shapes = []
-    real = tring.ring_hemm
-    monkeypatch.setattr(tring, "ring_hemm",
+    real = trh.ring_hemm
+    monkeypatch.setattr(trh, "ring_hemm",
                         lambda Hk, *a, **k: shapes.append(Hk.dtype)
                         or real(Hk, *a, **k))
     cfg = ct.ChaseConfig(bf16_filter=True, ring_backend=backend)

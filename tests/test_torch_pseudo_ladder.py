@@ -27,7 +27,7 @@ import chase_tpu
 
 import chase_tpu_torch as ct
 from chase_tpu_torch.models import random_pseudo_hermitian
-from chase_tpu_torch.parallel import ring as tring
+from chase_tpu_torch.ops import ring_hemm as trh
 
 torch.set_num_threads(1)
 
@@ -50,8 +50,8 @@ def _true_resid(H, res, nev):
 
 def _count_ring_calls(monkeypatch):
     dtypes = []
-    real = tring.ring_hemm
-    monkeypatch.setattr(tring, "ring_hemm",
+    real = trh.ring_hemm
+    monkeypatch.setattr(trh, "ring_hemm",
                         lambda Hk, *a, **k: dtypes.append(Hk.dtype)
                         or real(Hk, *a, **k))
     return dtypes

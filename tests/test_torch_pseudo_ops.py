@@ -48,6 +48,7 @@ from chase_tpu_torch.ops import checks as tchecks
 from chase_tpu_torch.ops import filter as tfilt
 from chase_tpu_torch.ops import pseudo as tps
 from chase_tpu_torch.ops import qr as tqr
+from chase_tpu_torch.ops import ring_hemm as trh
 from chase_tpu_torch.parallel import ring as tring
 
 torch.set_num_threads(1)
@@ -376,8 +377,8 @@ def test_h2_residual_matches_jax_and_the_factorization(dtype):
 
 def _count_ring_calls(monkeypatch):
     calls = []
-    real = tring.ring_hemm
-    monkeypatch.setattr(tring, "ring_hemm",
+    real = trh.ring_hemm
+    monkeypatch.setattr(trh, "ring_hemm",
                         lambda *a, **k: calls.append(a[0].dtype)
                         or real(*a, **k))
     return calls

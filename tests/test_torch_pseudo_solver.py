@@ -34,7 +34,7 @@ import chase_tpu_torch as ct
 from chase_tpu_torch import solver_pseudo as tsp
 from chase_tpu_torch.models import (random_pseudo_hermitian,
                                     structured_pseudo_hermitian)
-from chase_tpu_torch.parallel import ring as tring
+from chase_tpu_torch.ops import ring_hemm as trh
 
 torch.set_num_threads(1)
 
@@ -81,8 +81,8 @@ def test_eigsh_pseudo_matches_jax(dtype, backend, monkeypatch):
     pos = _positive_spectrum(H, nev)
     rj = _jax_solve(("e2e", dtype), H, nev, nex, tol)
     calls = []
-    real = tring.ring_hemm
-    monkeypatch.setattr(tring, "ring_hemm",
+    real = trh.ring_hemm
+    monkeypatch.setattr(trh, "ring_hemm",
                         lambda *a, **k: calls.append(1) or real(*a, **k))
     rt = ct.eigsh_pseudo(H, nev, nex, tol=tol, device="cpu",
                          collect_perf=True,

@@ -43,10 +43,9 @@ arguments and the grid:
 H is whole on every rank (numpy or tensor) or a DTensor sharded
 ``(Shard(0), Shard(1))``; ``res.V`` is a DTensor ``(Shard(0),
 Replicate())`` on the grid's mesh, ``res.ritzv`` and ``res.resid`` are
-the same numpy arrays on every rank.  ``eigsh``, ``eigsh_sequence``,
-``estimate_spectral_bounds`` and ``warmup`` take any grid; the BSE and
-fused solvers take ``grid=`` with the JAX signature but only a 1×1 grid
-until ROADMAP queue 1 item 5, part 2.
+the same numpy arrays on every rank.  Every entry point here and
+``warmup`` take any grid; a BSE H is padded S-preservingly on it
+(``parallel/operator.py``).
 
 ``device`` is explicit (default "cuda", or the grid's device) and never
 falls back: without a card, ``device="cuda"`` raises RuntimeError, and a
@@ -57,6 +56,7 @@ driver; the port does not).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Optional
 
@@ -65,11 +65,11 @@ import torch
 
 from .config import ChaseConfig, set_matmul_precision
 from .logger import get_logger
-from .ops.blocks import scale_lower_rows
-from .parallel.operator import PART2, DenseOperator
+from .parallel.operator import DenseOperator
 from .perf import PerfData
 from . import solver_pseudo
-from .solver import solve, SolveResult, _ring_allowed
+from .solver import (solve, SolveResult, _chunk_product, _draw,
+                     _ring_route)
 
 __all__ = ["eigsh", "eigsh_fused", "eigsh_sequence", "eigsh_pseudo",
            "eigsh_pseudo_fused", "estimate_spectral_bounds"]
@@ -103,20 +103,13 @@ def _operator(H, device, grid, pseudo_hermitian: bool = False
                          pseudo_hermitian=pseudo_hermitian)
 
 
-def _one_device(grid, what: str) -> None:
-    """NotImplementedError for a grid larger than 1×1 where the solver
-    runs on one device only (until part 2)."""
-    if grid is not None and grid.nprocs > 1:
-        raise NotImplementedError(f"{what} on the grid {grid.shape} "
-                                  f"waits for {PART2}")
-
-
 def _unpad(res: SolveResult, op: DenseOperator) -> SolveResult:
     """On a grid, ``res.V`` (this rank's rows of the padded block) becomes
     a DTensor ``(Shard(0), Replicate())`` of the unpadded (N_orig, k)
     block on the grid's mesh; where padding makes this rank's rows differ
-    from DTensor's even split, the rows are gathered over 'r' and re-cut
-    once."""
+    from DTensor's even split of H's rows (always under the S-preserving
+    pad, which splits them in halves), the rows are gathered over 'r' and
+    re-cut once."""
     grid = op.grid
     if grid is None:
         return res
@@ -124,8 +117,8 @@ def _unpad(res: SolveResult, op: DenseOperator) -> SolveResult:
     k = res.V.shape[1]
     r = grid.size("r")
     local = op.unpad_block(res.V)
-    if -(-op.N_orig // r) != op.rows[1]:
-        full = grid.all_gather(res.V, "r")[:op.N_orig]
+    if -(-op.N_orig // r) != op.rows[1] or op.half is not None:
+        full = op.unpad_whole(grid.all_gather(res.V, "r"))
         chunks = torch.chunk(full, r)
         i = grid.index("r")
         local = chunks[i] if i < len(chunks) else full[:0]
@@ -235,12 +228,13 @@ def eigsh_pseudo(H, nev: int, nex: Optional[int] = None, *,
       (N, 2·(nev+nex)) whose first nev columns are their eigenvectors,
       .resid, .converged, ...
 
+    On ``grid`` H is padded S-preservingly when its halves do not divide
+    by r·c, and ``res.V`` is a DTensor of the unpadded block, as for
+    :func:`eigsh`.
+
     Raises ValueError on odd N, on nev+nex > N/2 and on ``approx``
-    without ``v0``; RuntimeError for ``device="cuda"`` without a card;
-    NotImplementedError on a grid larger than 1×1 (part 2 of the
-    multi-GPU slice).
+    without ``v0``; RuntimeError for ``device="cuda"`` without a card.
     """
-    _one_device(grid, "eigsh_pseudo")
     nex, cfg = _nex_and_config(nev, nex, tol, v0, approx, config)
     op = _operator(H, device, grid, pseudo_hermitian=True)
     perf = PerfData() if collect_perf else None
@@ -297,7 +291,9 @@ def _fused_result(out, nev: int, t0: float, rcfg, collect_perf: bool,
 
 def _fused_setup(op: DenseOperator, cfg: ChaseConfig, generator):
     """The resolved config, the solve's generator and the solver keywords
-    every fused solve shares (the ladder's shadow, the ring routing)."""
+    every fused solve shares (the ladder's shadow, the grid, and the
+    filter products' routing: ``solver._chunk_product`` on the route of
+    ``solver._ring_route``)."""
     rcfg = cfg.resolve(op.dtype, op.device)
     if rcfg.small_dense_backend not in ("auto", "device"):
         get_logger().info(f"small_dense_backend="
@@ -307,6 +303,7 @@ def _fused_setup(op: DenseOperator, cfg: ChaseConfig, generator):
     set_matmul_precision(rcfg.matmul_precision)
     if generator is None:
         generator = torch.Generator(device=op.device).manual_seed(rcfg.seed)
+    route = _ring_route(rcfg, op, get_logger())
     refine = bool(rcfg.refine_filter and rcfg.mixed_precision
                   and rcfg.is_double)
     bf16 = bool(rcfg.bf16_filter and not rcfg.is_double
@@ -319,7 +316,9 @@ def _fused_setup(op: DenseOperator, cfg: ChaseConfig, generator):
               bf16_threshold=rcfg.bf16_filter_threshold,
               refine_filter=refine, qr_hi_prec=rcfg.qr_hi_prec,
               H_low=op.H_low if (refine or bf16) else None,
-              ring=_ring_allowed(rcfg, op, get_logger()))
+              chunk=functools.partial(_chunk_product, route,
+                                      rcfg.ring_backend),
+              grid=op.grid)
     return rcfg, generator, kw
 
 
@@ -343,10 +342,9 @@ def eigsh_fused(H, nev: int, nex: Optional[int] = None, *,
     PerfData carries the device counters (filtered vectors, block sizes,
     the filter's HEMM steps) and the 'All' time; ``save_residuals``
     writes the residual history CSV.  A solve that fails raises: there is
-    no retreat to the host driver.  ``grid`` takes a 1×1 grid only
-    (NotImplementedError otherwise: part 2 of the multi-GPU slice).
+    no retreat to the host driver.  On ``grid`` the start block and the
+    probes are drawn whole on every rank and cut to its rows.
     """
-    _one_device(grid, "eigsh_fused")
     nex, cfg = _nex_and_config(nev, nex, tol, None, False, config)
     if largest:
         if isinstance(H, DenseOperator):
@@ -370,13 +368,10 @@ def eigsh_fused(H, nev: int, nex: Optional[int] = None, *,
     from .fused import solve_fused
     probes = None
     if v0 is None:
-        V0 = torch.randn((op.N, k), generator=generator, device=op.device,
-                         dtype=op.dtype)
+        V0 = _draw(op, k, generator)
     else:
         V0 = op.place_block(v0)
-        probes = torch.randn((op.N, min(rcfg.num_lanczos, k)),
-                             generator=generator, device=op.device,
-                             dtype=op.dtype)
+        probes = _draw(op, min(rcfg.num_lanczos, k), generator)
     t0 = time.perf_counter()
     out = solve_fused(op.H, V0, nev=nev, nex=nex, probes=probes,
                       inject_dos=v0 is None, phase_tiers=rcfg.fused_tiers,
@@ -398,11 +393,10 @@ def eigsh_pseudo_fused(H, nev: int, nex: Optional[int] = None, *,
 
     Args as for :func:`eigsh_pseudo`; ``v0`` (N, 2·(nev+nex)) is a warm
     start (fresh probes with the 0.001 lower-row damping).  The cold start
-    block is random with its lower rows damped by 0.001.  A solve that
-    fails raises.  ``grid`` takes a 1×1 grid only (NotImplementedError
-    otherwise: part 2 of the multi-GPU slice).
+    block is random with its lower rows damped by 0.001 (drawn whole on
+    every rank of a grid and cut to its rows).  A solve that fails
+    raises.
     """
-    _one_device(grid, "eigsh_pseudo_fused")
     nex, cfg = _nex_and_config(nev, nex, tol, None, False, config)
     op = _operator(H, device, grid, pseudo_hermitian=True)
     N, k = op.N, nev + nex
@@ -416,17 +410,13 @@ def eigsh_pseudo_fused(H, nev: int, nex: Optional[int] = None, *,
     rcfg, generator, kw = _fused_setup(op, cfg, generator)
     from .fused_pseudo import solve_pseudo_fused
 
-    def damped_randn(n):
-        return scale_lower_rows(torch.randn(
-            (N, n), generator=generator, device=op.device, dtype=op.dtype),
-            0.001)
-
     probes = None
     if v0 is None:
-        V0 = damped_randn(2 * k)
+        V0 = _draw(op, 2 * k, generator, damped=True)
     else:
         V0 = op.place_block(v0)
-        probes = damped_randn(min(rcfg.num_lanczos, k))
+        probes = _draw(op, min(rcfg.num_lanczos, k), generator,
+                       damped=True)
     t0 = time.perf_counter()
     out = solve_pseudo_fused(op.H, V0, nev=nev, nex=nex, probes=probes,
                              inject_dos=v0 is None,

@@ -25,11 +25,24 @@ degree-sorted view undone on exit.
 
 The port's own rules hold here too: the projected k×k eigensolve runs in
 f64/c128 (``ops/rr``), SP problems factor their QR in f64/c128 with
-``qr_hi_prec``, and with ``ring`` every filter product whose operator is
-f32, c64 or bf16 runs on the ``ring_hemm`` kernel (:class:`FilterProducts`)
-where the JAX version calls ``jnp.matmul`` with the same polynomial.  The
+``qr_hi_prec``, and every filter product that ``chunk`` routes to the
+kernel (f32, c64 or bf16 operators) runs on ``ring_hemm``
+(:class:`FilterProducts`) where the JAX version calls ``jnp.matmul`` with
+the same polynomial.  The
 ladder's shadow is the caller's ``H_low`` (``DenseOperator.H_low``).  Not
 ported: the ``wide_rr`` mode and ``small_dense="host"`` (TPU workarounds).
+
+On a process grid (``grid=``: H this rank's block of ``P('r', 'c')``, V
+its rows of ``P('r', None)``) the products are ``parallel/dist.hemm`` —
+on a (p, 1) grid, where ``chunk`` routes them to the kernel, the p-step
+chunk ring on it — and
+every Gram, projection, Lanczos dot and residual norm is summed over the
+grid's rows bitwise equal on every rank (``dist.inner``, ``col_norms``),
+so the k×k problems, the degrees, the control tensor, the CholQR ``ok``
+and ``eigh``'s info are the same bits everywhere: the host still reads
+three times per iteration and every rank takes the same branch.  The
+Householder rescue is the distributed ``ops/qr.tsqr``; column
+permutations need no collective.
 """
 
 from __future__ import annotations
@@ -41,8 +54,9 @@ import torch
 
 from .ops import lanczos as lz
 from .ops import rr as rrops
-from .ops.filter import narrow_matmul
-from .ops.ring_hemm import KERNEL_DTYPES, ring_hemm
+from .ops.qr import _rows, tsqr
+from .parallel.dist import hemm, inner
+from .parallel.ring import _ring_axis, ring_steps
 from .types import eps, is_double_base, low_precision_dtype, real_dtype
 
 __all__ = ["solve_fused", "FilterProducts", "gram_qr", "cheb_rho",
@@ -130,33 +144,40 @@ def _tier_offsets(k: int, tiers: int):
 
 
 class FilterProducts:
-    """The fused filters' products H·X.  With ``ring``, an H of a dtype
-    the kernel takes (f32, c64, bf16 with an f32 X) goes to ``ring_hemm``
-    (the p = 1 routing of ``solver._ring_allowed``); otherwise
-    ``torch.matmul``, or ``narrow_matmul`` for the bf16 shadow.  ``steps``
-    counts every call: the solver's HEMM-step counter, which equals the
-    kernel's launches when every filter operator is a kernel dtype."""
+    """The fused filters' products H·X.  ``chunk(dtype) -> (ring,
+    kernel)`` routes each operator (``solver._chunk_product`` bound to the
+    solve's route and backend): with both set the product runs on the
+    ``ring_hemm`` kernel through ``parallel/ring.ring_steps`` — one call
+    on one device, the p-step chunk ring with the grid's exchange on a
+    (p, 1) grid.  Otherwise, and with ``chunk`` None, ``dist.hemm``: the
+    local product (``narrow_matmul`` for the bf16 shadow) with the grid's
+    collectives.  ``steps`` counts every call: the solver's HEMM-step
+    counter, which equals the kernel's launches per rank divided by p
+    when every filter operator takes the kernel."""
 
-    def __init__(self, ring: bool):
-        self.ring = bool(ring)
+    def __init__(self, chunk=None, grid=None):
+        self.chunk = chunk
+        self.grid = grid
         self.steps = 0
 
     def __call__(self, H: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
         self.steps += 1
-        if self.ring and H.dtype in KERNEL_DTYPES:
+        if self.chunk is not None and all(self.chunk(H.dtype)):
             # the kernel reads row-major windows; torch.linalg may hand
             # back column-major blocks
-            return ring_hemm(H, X if X.stride(1) == 1 else X.contiguous())
-        return H @ X if H.dtype == X.dtype else narrow_matmul(H, X)
+            me, p, exchange = _ring_axis(self.grid)
+            return ring_steps(H, X if X.stride(1) == 1 else X.contiguous(),
+                              me=me, p=p, exchange=exchange)
+        return hemm(H, X, self.grid)
 
 
-def _cholqr_pass(Q, shift_on, *, equilibrate: bool):
+def _cholqr_pass(Q, shift_on, *, equilibrate: bool, grid=None):
     """One CholQR round: Gram (column-equilibrated when ``equilibrate``),
     a diagonal shift where the device bool ``shift_on`` is set (None: no
     shift), ``cholesky_ex`` with ``ok`` kept on the device, and the
     triangular solve (identity factor where the Cholesky failed, so the
     result stays finite).  Returns (Q, ok)."""
-    G = Q.mH @ Q
+    G = inner(Q, Q, grid)
     eye = torch.eye(G.shape[0], dtype=G.dtype, device=G.device)
     d = None
     if equilibrate:
@@ -165,7 +186,8 @@ def _cholqr_pass(Q, shift_on, *, equilibrate: bool):
         G = G / (d[:, None] * d[None, :]).to(G.dtype)
     if shift_on is not None:
         nrmf = torch.sum(torch.abs(torch.diagonal(G).real))
-        coef = math.sqrt(Q.shape[0]) if is_double_base(G.dtype) else 10.0
+        coef = (math.sqrt(_rows(Q, grid)) if is_double_base(G.dtype)
+                else 10.0)
         shift = torch.where(shift_on, coef * eps(G.dtype) * nrmf,
                             torch.zeros_like(nrmf))
         G = G + shift.to(G.dtype) * eye
@@ -179,19 +201,20 @@ def _cholqr_pass(Q, shift_on, *, equilibrate: bool):
 
 
 def gram_qr(V, shift_on, *, passes: int = 3, upcast=None,
-            equilibrate: bool = True, rescue: bool = True):
+            equilibrate: bool = True, rescue: bool = True, grid=None):
     """``passes`` CholQR rounds (the shift only on round 0), computed in
     ``upcast`` when given, then — with ``rescue`` — Householder QR where
-    any round failed.  Returns (Q in V's dtype, ok)."""
+    any round failed (``tsqr`` on ``grid``).  Returns (Q in V's dtype,
+    ok)."""
     Q = V if upcast is None else V.to(upcast)
     ok = None
     for p in range(max(int(passes), 1)):
         Q, o = _cholqr_pass(Q, shift_on if p == 0 else None,
-                            equilibrate=equilibrate)
+                            equilibrate=equilibrate, grid=grid)
         ok = o if ok is None else ok & o
     # host read 2: the CholQR ok flag before the Householder rescue
     if rescue and not bool(ok):
-        Q = torch.linalg.qr(Q, mode="reduced")[0]
+        Q = tsqr(Q, grid=grid)
     return Q.to(V.dtype), ok
 
 
@@ -277,12 +300,14 @@ def solve_fused(H, V0, *, nev, nex, tol, deg0, max_deg, deg_extra=2,
                 cond_shift_threshold=1e8, inject_dos=True,
                 bf16_filter=False, bf16_threshold=1e-2, probes=None,
                 eigh_polish=2, refine_filter=False, phase_tiers=3,
-                qr_hi_prec=True, H_low=None, ring=False) -> dict:
+                qr_hi_prec=True, H_low=None, chunk=None, grid=None) -> dict:
     """Device-resident Hermitian solve.
 
     Args:
-      H: (N, N) Hermitian tensor (f32, f64, c64, c128).
-      V0: (N, nev+nex) starting block (random, or a warm start).
+      H: (N, N) Hermitian tensor (f32, f64, c64, c128); on ``grid`` this
+        rank's block.
+      V0: (N, nev+nex) starting block (random, or a warm start); on
+        ``grid`` this rank's rows, as are ``probes``.
       refine_filter: the DP ladder — from iteration 1 the filter runs the
         deviation-form recurrence on the f32/c64 shadow seeded by the RR
         residual vectors; iteration 0 multiplies on the shadow with the
@@ -295,15 +320,16 @@ def solve_fused(H, V0, *, nev, nex, tol, deg0, max_deg, deg_extra=2,
       qr_hi_prec: SP problems factor their QR in f64/c128.
       H_low: the shadow (``DenseOperator.H_low``) for either rung; None
         casts H.
-      ring: filter products on ``ring_hemm`` where the operator's dtype
-        is one the kernel takes.
+      chunk: the filter products' routing (:class:`FilterProducts`);
+        None: every product ``dist.hemm``.
+      grid: the process grid, or None for one device.
 
     Returns a dict: V (N, k) converged-first sorted, ritzv (k,), resid
     (k,), locked, iterations, lowerb, upperb, filtered_vecs,
     block_history, resid_history, early_history (tensors on H's device)
     and hemm_steps (int, the filter's products).
     """
-    N = H.shape[0]
+    N = _rows(H, grid)
     k = nev + nex
     pdt = H.dtype
     rt = real_dtype(pdt)
@@ -317,13 +343,14 @@ def solve_fused(H, V0, *, nev, nex, tol, deg0, max_deg, deg_extra=2,
     low_dt = low_precision_dtype(pdt)
     if (use_bf16_rung or use_refine) and H_low is None:
         H_low = H.to(low_dt)
-    prod = FilterProducts(ring)
+    prod = FilterProducts(chunk, grid)
     upcast = None
     if qr_hi_prec and is_sp:
         upcast = torch.complex128 if pdt.is_complex else torch.float64
 
     def gram(V, shift_on):
-        return gram_qr(V, shift_on, passes=cholqr_passes, upcast=upcast)[0]
+        return gram_qr(V, shift_on, passes=cholqr_passes, upcast=upcast,
+                       grid=grid)[0]
 
     # ---- init: orthonormalise V0 ------------------------------------------
     V = gram(V0.to(pdt), None)
@@ -333,7 +360,8 @@ def solve_fused(H, V0, *, nev, nex, tol, deg0, max_deg, deg_extra=2,
     m = max(2, mm - mm % 2)
     nv = probes.shape[1] if probes is not None else min(num_lanczos, k)
     P = V[:, :nv] if probes is None else probes.to(pdt)
-    alphas, betas, basis = lz.lanczos_scan(H, P, m=m, want_basis=True)
+    alphas, betas, basis = lz.lanczos_scan(H, P, m=m, want_basis=True,
+                                           grid=grid)
     theta, tvecs = eigh_tridiag_batched(alphas, betas[:-1])
     tau = tvecs[:, 0, :].abs() ** 2
     lam, lowerb0, upperb = _dos_bounds(theta, tau, betas[-1], k, N)
@@ -451,17 +479,19 @@ def solve_fused(H, V0, *, nev, nex, tol, deg0, max_deg, deg_extra=2,
         # upper tiers, the CholQR chain, then BCGS2 + CholQR1 --
         if off:
             Lk = V[:, :off]
-            Vf = Vf - Lk @ (Lk.mH @ Vf)
+            Vf = Vf - Lk @ inner(Lk, Vf, grid)
         Q = gram(Vf, shift_on)
         if off:
-            Q = Q - Lk @ (Lk.mH @ Q)
-            Q = gram_qr(Q, None, passes=1, upcast=upcast, rescue=False)[0]
+            Q = Q - Lk @ inner(Lk, Q, grid)
+            Q = gram_qr(Q, None, passes=1, upcast=upcast, rescue=False,
+                        grid=grid)[0]
         Vw2 = torch.where(active_w[None, :], Q, Vw)
 
         # -- RR + residuals at the window width (host read 3: eigh) --
         lw = locked_h - off
         Vw3, w_eig, r_new, *Rw = rrops.rayleigh_ritz_residuals(
-            H, Vw2, lw, polish=eigh_polish, want_vectors=use_refine)
+            H, Vw2, lw, polish=eigh_polish, want_vectors=use_refine,
+            grid=grid)
         V[:, off:] = Vw3
         ritzv[off:] = torch.where(active_w, w_eig, ritzv[off:])
         resid[off:] = torch.where(active_w, r_new, resid[off:])

@@ -17,9 +17,16 @@ vectorised.
 As in the port's host driver, the K2×K2 pencil (Cholesky, solves,
 ``eigh``, back-solve) runs in f64/c128 for every problem (``ops/pseudo``;
 the JAX fused version factors in the problem precision), SP problems
-factor their S-QR in f64/c128 with ``qr_hi_prec``, and with ``ring`` both
-products of every H² step whose operator is f32, c64 or bf16 run on the
-``ring_hemm`` kernel.  ``small_dense="host"`` is not ported.
+factor their S-QR in f64/c128 with ``qr_hi_prec``, and where ``chunk``
+routes an f32, c64 or bf16 operator to the kernel both products of every
+H² step run on ``ring_hemm``.  ``small_dense="host"`` is not ported.
+
+On a process grid everything :mod:`.fused` says holds, and S acts on
+global rows: the S-QR's flip takes the block's first global row, the
+mirrors come from a rotation of the candidate columns' rows by N/2 across
+ranks (``Grid2D.rotate_rows``), the S-Lanczos and the pencil sum over the
+grid's rows (``ops/pseudo``), and the H²-residual's product is
+``dist.hemm``.
 """
 
 from __future__ import annotations
@@ -32,21 +39,25 @@ import torch
 from .fused import (FilterProducts, cheb_rho, control, eigh_tridiag_batched,
                     gather0, gram_qr, deviation_filter, two_window_filter)
 from .ops import pseudo as ps
+from .ops.qr import _rows
+from .parallel.dist import hemm, rotate_rows
 from .types import is_double_base, low_precision_dtype, real_dtype
 
 __all__ = ["solve_pseudo_fused"]
 
 
-def _k_conj(V, locked, count, cols2):
+def _k_conj(V, locked: int, count, cols2, width: int, grid=None):
     """Mirror columns [locked, locked + count) into [K2 − locked − count,
-    K2 − locked) as K x = conj([x_lower; x_upper]), materialised; ``locked``
-    and ``count`` may be ints or 0-d device tensors."""
+    K2 − locked) as K x = conj([x_lower; x_upper]), materialised;
+    ``count`` ≤ ``width`` may be an int or a 0-d device tensor.  The rows
+    of the ``width`` columns from ``locked`` rotate by N/2 (across ranks
+    on ``grid``)."""
     K2 = V.shape[1]
-    n2 = V.shape[0] // 2
     wmask = (cols2 >= K2 - locked - count) & (cols2 < K2 - locked)
-    src = V.index_select(1, torch.where(
-        wmask, cols2 - (K2 - 2 * locked - count), cols2))
-    Ks = torch.conj_physical(torch.cat([src[n2:], src[:n2]]))
+    src_col = torch.where(wmask, cols2 - (K2 - 2 * locked - count), cols2)
+    R = rotate_rows(V[:, locked:locked + width], _rows(V, grid) // 2, grid)
+    Ks = torch.conj_physical(R.index_select(1, torch.clamp(
+        src_col - locked, 0, width - 1)))
     return torch.where(wmask[None, :], Ks, V)
 
 
@@ -126,13 +137,14 @@ def solve_pseudo_fused(H, V0, *, nev, nex, tol, deg0, max_deg, deg_extra=2,
                        inject_dos=True, probes=None, eigh_polish=0,
                        bf16_filter=False, bf16_threshold=1e-2,
                        refine_filter=False, qr_hi_prec=True, H_low=None,
-                       ring=False) -> dict:
+                       chunk=None, grid=None) -> dict:
     """Device-resident BSE solve.
 
     Args:
-      H: (N, N) pseudo-Hermitian (BSE-structured) tensor, N even.
+      H: (N, N) pseudo-Hermitian (BSE-structured) tensor, N even; on
+        ``grid`` this rank's block.
       V0: (N, 2·(nev+nex)) starting block (lower rows damped by the
-        caller, or a warm start).
+        caller, or a warm start); on ``grid`` this rank's rows.
       bf16_filter: real f32 problems — far from convergence both products
         of each H² step run on the bf16 shadow (f32 carry and sums).
       refine_filter: the BSE DP ladder — from iteration 1 the H² filter
@@ -140,17 +152,18 @@ def solve_pseudo_fused(H, V0, *, nev, nex, tol, deg0, max_deg, deg_extra=2,
         H²-residuals (H + θ)·r of the pencil RR's residual vectors;
         iteration 0 multiplies on the shadow with the carry in the
         problem dtype.
-      H_low, ring, qr_hi_prec, probes: as for ``fused.solve_fused``.
+      H_low, chunk, qr_hi_prec, probes, grid: as for
+        ``fused.solve_fused``.
 
     Returns a dict: V (N, 2k), ritzv (2k,), resid (2k,), locked,
     iterations, lowerb, upperb, filtered_vecs, block_history,
     resid_history, early_history and hemm_steps (both products of every
     H² step counted).
     """
-    N = H.shape[0]
+    N = _rows(H, grid)
+    row0 = ps.row_span(V0, grid)[0]
     k = nev + nex
     K2 = 2 * k
-    n2 = N // 2
     pdt = H.dtype
     rt = real_dtype(pdt)
     is_sp = not is_double_base(pdt)
@@ -164,14 +177,14 @@ def solve_pseudo_fused(H, V0, *, nev, nex, tol, deg0, max_deg, deg_extra=2,
     low_dt = low_precision_dtype(pdt)
     if (use_bf16_rung or use_refine) and H_low is None:
         H_low = H.to(low_dt)
-    prod = FilterProducts(ring)
+    prod = FilterProducts(chunk, grid)
     upcast = None
     if qr_hi_prec and is_sp:
         upcast = torch.complex128 if pdt.is_complex else torch.float64
 
     def gram(V, shift_on):
         return gram_qr(V, shift_on, passes=cholqr_passes, upcast=upcast,
-                       equilibrate=False)[0]
+                       equilibrate=False, grid=grid)[0]
 
     # ---- init + S-Lanczos + H² bounds ---------------------------------------
     V = gram(V0.to(pdt), None)
@@ -179,7 +192,8 @@ def solve_pseudo_fused(H, V0, *, nev, nex, tol, deg0, max_deg, deg_extra=2,
     m = max(2, mm - mm % 2)
     nv = probes.shape[1] if probes is not None else min(num_lanczos, k)
     P = V[:, :nv] if probes is None else probes.to(pdt)
-    alphas, betas, basis = ps.lanczos_scan_pseudo(H, P, m=m, want_basis=True)
+    alphas, betas, basis = ps.lanczos_scan_pseudo(H, P, m=m, want_basis=True,
+                                                  grid=grid)
     theta, tvecs = eigh_tridiag_batched(alphas, betas[:-1])
     tau = tvecs[:, 0, :].abs() ** 2
     abs_t = theta.abs()
@@ -267,7 +281,7 @@ def solve_pseudo_fused(H, V0, *, nev, nex, tol, deg0, max_deg, deg_extra=2,
             # ONE problem-precision product turns the pencil RR's
             # H-residuals into H²-residuals r2 = (H + θ)·r
             Rh = Rv[:, :k]
-            R2 = H @ Rh + ritzv[:k][None, :].to(pdt) * Rh
+            R2 = hemm(H, Rh, grid) + ritzv[:k][None, :].to(pdt) * Rh
             cl = c.to(real_dtype(low_dt))
             Yf = deviation_filter(
                 lambda W: prod(H_low, prod(H_low, W)) - cl * W, Vh,
@@ -281,7 +295,7 @@ def solve_pseudo_fused(H, V0, *, nev, nex, tol, deg0, max_deg, deg_extra=2,
         else:
             Yf = run_filter(lambda X: prod(H, prod(H, X)) - c * X)
         V[:, :k] = Yf
-        V = _k_conj(V, locked_h, u, cols2)        # regenerate the mirrors
+        V = _k_conj(V, locked_h, u, cols2, u, grid)  # regenerate mirrors
 
         # -- cond → QR shift flag (squared space) --
         t_1 = (lambda_1 - c) / e
@@ -299,15 +313,14 @@ def solve_pseudo_fused(H, V0, *, nev, nex, tol, deg0, max_deg, deg_extra=2,
                              torch.arange(locked_h, K2 - locked_h,
                                           device=dev)])
         Vp = V.index_select(1, perm_to)
-        Vf = Vp.clone()
-        Vf[n2:, :L2] = -Vf[n2:, :L2]
-        Q = gram(Vf, shift_on)
+        Q = gram(ps.flip_locked_cols(Vp, L2, row0, N), shift_on)
         Q[:, :L2] = Vp[:, :L2]
         V = Q.index_select(1, torch.argsort(perm_to))
 
         # -- pencil RR + residuals (host read 3: the pencil's eigh) --
         V, th, rs, *Rnew, _ok = ps.pencil_rayleigh_ritz(
-            H, V, locked_h, polish=eigh_polish, want_vectors=use_refine)
+            H, V, locked_h, polish=eigh_polish, want_vectors=use_refine,
+            grid=grid)
         active2 = (cols2 >= locked_h) & (cols2 < k)
         if use_refine:
             Rv = torch.where(active2[None, :], Rnew[0], Rv)
@@ -339,7 +352,7 @@ def solve_pseudo_fused(H, V0, *, nev, nex, tol, deg0, max_deg, deg_extra=2,
         degrees = torch.cat([deg_k[perm_k], degrees[k:]])
         nc = conv.sum()
         # mirror the newly locked pairs into the right-end locked region
-        V = _k_conj(V, locked_h, nc, cols2)
+        V = _k_conj(V, locked_h, nc, cols2, u, grid)
         locked = locked_h + nc
         it = it + 1
 

@@ -7,7 +7,8 @@ u = H·v with Hᴴ·v for one random v, tol = 10·N·ε·‖u‖ (for the pseudo
 probe, S·H in place of H); mirror one triangle onto the other.  On a
 process grid :func:`check_hermitian` probes the distributed H with one
 vector drawn whole on every rank: H·v gathered over the grid's rows, Hᴴ·v
-over its columns, so every rank reaches the same verdict.
+over its columns, so every rank reaches the same verdict; the pseudo
+probe flips by global row.
 """
 
 from __future__ import annotations
@@ -38,11 +39,13 @@ def _probe(H: torch.Tensor, generator, flip) -> bool:
 
 def check_hermitian(H: torch.Tensor,
                     generator: Optional[torch.Generator] = None,
-                    grid=None) -> bool:
-    """Randomized Hermitian check: ‖Hv − Hᴴv‖ ≤ 10·N·ε·‖Hv‖.  On
-    ``grid``, H is this rank's block of ``P('r', 'c')``."""
+                    grid=None, pseudo: bool = False) -> bool:
+    """Randomized Hermitian check: ‖Hv − Hᴴv‖ ≤ 10·N·ε·‖Hv‖ (with
+    ``pseudo``, of S·H: ‖S·(H·v) − Hᴴ·(S·v)‖).  On ``grid``, H is this
+    rank's block of ``P('r', 'c')``."""
+    from .pseudo import apply_s
     if grid is None:
-        return _probe(H, generator, lambda x: x)
+        return _probe(H, generator, apply_s if pseudo else lambda x: x)
     if generator is None:
         generator = torch.Generator(device=H.device).manual_seed(0)
     N = H.shape[0] * grid.size("r")
@@ -51,6 +54,8 @@ def check_hermitian(H: torch.Tensor,
     i0, nr = grid.block(N, "r")
     j0, nc = grid.block(N, "c")
     u = grid.all_reduce(H @ v[j0:j0 + nc], "c")        # rows i of H·v
+    if pseudo:
+        u, v = apply_s(u, i0, N), apply_s(v)
     ut = grid.all_reduce(H.mH @ v[i0:i0 + nr], "r")    # rows j of Hᴴ·v
     u, ut = grid.all_gather(u, "r"), grid.all_gather(ut, "c")
     diff = float(torch.linalg.vector_norm(u - ut))
@@ -59,13 +64,13 @@ def check_hermitian(H: torch.Tensor,
 
 
 def check_pseudo_hermitian(H: torch.Tensor,
-                           generator: Optional[torch.Generator] = None
-                           ) -> bool:
+                           generator: Optional[torch.Generator] = None,
+                           grid=None) -> bool:
     """Randomized S-pseudo-hermiticity check: S·H must be Hermitian, i.e.
     ‖S·(H·v) − Hᴴ·(S·v)‖ ≤ 10·N·ε·‖S·H·v‖ — the JAX package's
-    ``check_hermitian(apply_s(H))`` without its N×N copy of S·H."""
-    from .pseudo import apply_s
-    return _probe(H, generator, apply_s)
+    ``check_hermitian(apply_s(H))`` without its N×N copy of S·H.  On
+    ``grid`` as :func:`check_hermitian`, S by global row."""
+    return check_hermitian(H, generator, grid, pseudo=True)
 
 
 def force_hermitian(H: torch.Tensor, *, upper: bool = True) -> torch.Tensor:

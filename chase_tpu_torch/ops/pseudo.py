@@ -1,7 +1,8 @@
 """Pseudo-Hermitian (BSE) ops: the S metric, the H² filter, K-conjugation,
 the S-Lanczos and the pencil Rayleigh–Ritz.
 
-Port of ``chase_tpu/ops/pseudo.py`` on one torch device:
+Port of ``chase_tpu/ops/pseudo.py`` on torch (one device, or a rank of a
+process grid: below):
 
 * ``flipLowerHalfMatrixSign`` (applying S = diag(I_{N/2}, −I_{N/2})) is a
   sign flip of the lower rows (:func:`apply_s`, :func:`flip_locked_cols`);
@@ -20,6 +21,16 @@ Port of ``chase_tpu/ops/pseudo.py`` on one torch device:
   f64/c128 for every problem (the N×K2 products stay in the problem
   dtype), for the reason the Hermitian RR's projected eigensolve does.
 
+On a process grid (``grid=``; multivectors this rank's rows of ``P('r',
+None)``, H its block of ``P('r', 'c')``) S acts on the global rows: the
+S-ops take the block's first global row and the padded N (defaults: the
+whole block, so one device computes what it always did), K-conjugation
+rotates the selected columns' rows by N/2 across ranks
+(``Grid2D.rotate_rows``), the products are ``parallel/dist.hemm`` and the
+S-weighted dots, the pencil's QᴴS· products and the residual norms are
+summed over the grid's rows (``dist.inner``, ``col_dots``,
+``col_norms``), bitwise equal on every rank; the pencil is replicated.
+
 The split-sync host pencil (``host_pencil_factor``) and the wide-slice
 variants (``_prr_project_wide``, ``h2_residual_wide``) are TPU
 workarounds and are not ported.
@@ -30,45 +41,70 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel.dist import col_dots, col_norms, hemm, inner, rotate_rows
 from ..types import real_dtype
 from . import filter as filt
+from .qr import _rows
 from .rr import eigh_polished
 
 __all__ = [
-    "apply_s", "flip_locked_cols", "k_conjugate_cols", "chebyshev_filter_h2",
+    "apply_s", "flip_locked_cols", "k_conjugate_cols", "row_span",
+    "chebyshev_filter_h2",
     "chebyshev_filter_refine_h2",
     "h2_residual", "lanczos_scan_pseudo", "rayleigh_ritz_residuals_pseudo",
     "pencil_rayleigh_ritz", "rayleigh_ritz_pseudo_geev", "residuals_pseudo",
 ]
 
 
-def apply_s(X: torch.Tensor) -> torch.Tensor:
-    """S·X, S = diag(I_{N/2}, −I_{N/2}): a new tensor, lower rows negated."""
-    n2 = X.shape[0] // 2
+def _lower_start(X: torch.Tensor, row0: int, N) -> int:
+    """The first of X's rows in S's lower half: X holds the global rows
+    [row0, row0 + X.shape[0]) of an N-row block (N None: X is the whole
+    block)."""
+    N = X.shape[0] if N is None else N
+    return min(max(N // 2 - row0, 0), X.shape[0])
+
+
+def row_span(X: torch.Tensor, grid=None) -> tuple:
+    """(first global row, N) of ``X``, this rank's rows of an N-row
+    multivector cut over the grid's 'r' axis; (0, None) off a grid."""
+    if grid is None:
+        return 0, None
+    return grid.index("r") * X.shape[0], X.shape[0] * grid.size("r")
+
+
+def apply_s(X: torch.Tensor, row0: int = 0, N=None) -> torch.Tensor:
+    """S·X, S = diag(I_{N/2}, −I_{N/2}): a new tensor, lower rows negated.
+    X holds the global rows [row0, row0 + X.shape[0]) of an N-row block
+    (default: the whole block)."""
+    n2 = _lower_start(X, row0, N)
     return torch.cat([X[:n2], -X[n2:]])
 
 
-def flip_locked_cols(V: torch.Tensor, nflip: int) -> torch.Tensor:
+def flip_locked_cols(V: torch.Tensor, nflip: int, row0: int = 0,
+                     N=None) -> torch.Tensor:
     """A copy of V with the lower half of its first ``nflip`` columns
     negated: CholQR of the result S-orthogonalizes the rest of the block
-    against the locked eigenvectors (chase_cpu.hpp:597-626)."""
-    n2 = V.shape[0] // 2
+    against the locked eigenvectors (chase_cpu.hpp:597-626).  ``row0`` and
+    ``N`` as for :func:`apply_s`."""
+    n2 = _lower_start(V, row0, N)
     out = V.clone()
     out[n2:, :nflip] = -out[n2:, :nflip]
     return out
 
 
-def k_conjugate_cols(V: torch.Tensor, src_idx, write_mask) -> torch.Tensor:
+def k_conjugate_cols(V: torch.Tensor, src_idx, write_mask,
+                     grid=None) -> torch.Tensor:
     """out[:, j] = K(V[:, src_idx[j]]) where ``write_mask[j]``, else
     V[:, j]; K x = conj([x_lower; x_upper]) maps the eigenvector of λ to
-    the one of −λ (BSE symmetry).  A new tensor with no conj bit."""
+    the one of −λ (BSE symmetry).  A new tensor with no conj bit.  On
+    ``grid`` (V this rank's rows) the swap of the halves is a rotation of
+    the source columns' rows by N/2 (``Grid2D.rotate_rows``)."""
     dst = np.flatnonzero(np.asarray(write_mask))
     out = V.clone()
     if dst.size == 0:
         return out
-    n2 = V.shape[0] // 2
     src = V[:, torch.as_tensor(np.asarray(src_idx)[dst], device=V.device)]
-    Ks = torch.cat([src[n2:], src[:n2]])
+    Ks = rotate_rows(src, _rows(V, grid) // 2, grid)
     out[:, torch.as_tensor(dst, device=V.device)] = torch.conj_physical(Ks)
     return out
 
@@ -125,34 +161,39 @@ def chebyshev_filter_refine_h2(H, V, R2, degrees, alpha1_e, alphas, betas,
                                         shift=_h2_shift)
 
 
-def h2_residual(H: torch.Tensor, R: torch.Tensor, theta) -> torch.Tensor:
+def h2_residual(H: torch.Tensor, R: torch.Tensor, theta,
+                grid=None) -> torch.Tensor:
     """H²-residuals from the pencil RR's H-residuals: r2_j = (H + θ_j)·r_j.
     Runs on the problem's own H in its dtype (the refinement's floor is
-    this product's accuracy), never on the shadow."""
+    this product's accuracy), never on the shadow; on ``grid`` the
+    product is ``dist.hemm``."""
     th = torch.as_tensor(theta, device=R.device).to(real_dtype(R.dtype))
-    return H @ R + th[None, :].to(R.dtype) * R
+    return hemm(H, R, grid) + th[None, :].to(R.dtype) * R
 
 
 def lanczos_scan_pseudo(H: torch.Tensor, V0: torch.Tensor, *, m: int,
-                        want_basis: bool = True):
+                        want_basis: bool = True, grid=None):
     """Batched Lanczos of the pseudo-Hermitian H in the M = S·H inner
     product (HPD for BSE), cpu/lanczos.hpp:330-510 in scaled form:
-    β²_k = Re(v₁ᴴ S H v₁), α_k = Re(wᴴ S w) with w = H v₁.
+    β²_k = Re(v₁ᴴ S H v₁), α_k = Re(wᴴ S w) with w = H v₁.  On ``grid``
+    H·v is ``dist.hemm`` and the S-weighted dots are summed over the
+    grid's rows, so α and β are the same bits on every rank.
 
     Returns (alphas (m, nv), betas (m, nv), basis (m, N) of the last probe
-    or None); the Ritz values of (alphas, betas[:-1]) approximate H's
-    signed spectrum."""
+    — this rank's rows on a grid — or None); the Ritz values of (alphas,
+    betas[:-1]) approximate H's signed spectrum."""
     rt = real_dtype(H.dtype)
     one = torch.ones((), dtype=rt, device=H.device)
+    row0, N = row_span(V0, grid)
 
     def s_dot(a, b):
-        return torch.sum(a.conj() * apply_s(b), dim=0).real.to(rt)
+        return col_dots(a, apply_s(b, row0, N), grid).real.to(rt)
 
     def scale(x, s):
         return x / s[None, :].to(x.dtype)
 
     v1 = V0.to(H.dtype)
-    w = H @ v1
+    w = hemm(H, v1, grid)
     b = torch.sqrt(torch.abs(s_dot(v1, w)))
     safe = torch.where(b > 0, b, one)
     v1, w = scale(v1, safe), scale(w, safe)
@@ -163,7 +204,7 @@ def lanczos_scan_pseudo(H: torch.Tensor, V0: torch.Tensor, *, m: int,
         alpha = s_dot(w, w)
         w2 = w - alpha[None, :].to(w.dtype) * v1 \
             - e_prev[None, :].to(w.dtype) * v0
-        Hw = H @ w2
+        Hw = hemm(H, w2, grid)
         e_k = torch.sqrt(torch.abs(s_dot(w2, Hw)))
         safe = torch.where(e_k > 0, e_k, one)
         alphas.append(alpha)
@@ -177,24 +218,27 @@ def lanczos_scan_pseudo(H: torch.Tensor, V0: torch.Tensor, *, m: int,
 
 # -- pencil Rayleigh–Ritz ----------------------------------------------------
 
-def _prr_project(H: torch.Tensor, V: torch.Tensor, locked: int):
+def _prr_project(H: torch.Tensor, V: torch.Tensor, locked: int,
+                 grid=None):
     """Masked block Q (active columns [locked, K2 − locked)), W = H·Q and
     the pencil A = QᴴSHQ (+1 on padded slots), B = QᴴSQ (−1 there)."""
     K2 = V.shape[1]
     rt = real_dtype(V.dtype)
+    row0, N = row_span(V, grid)
     cols = torch.arange(K2, device=V.device)
     active = (cols >= locked) & (cols < K2 - locked)
     Q = torch.where(active[None, :], V, torch.zeros((), dtype=V.dtype,
                                                     device=V.device))
-    W = H @ Q                                  # H·Q (reused for residuals)
+    W = hemm(H, Q, grid)                       # H·Q (reused for residuals)
     pad = torch.where(active, torch.zeros((), dtype=rt, device=V.device),
                       torch.ones((), dtype=rt, device=V.device))
-    A = Q.mH @ apply_s(W) + torch.diag(pad).to(V.dtype)
-    B = Q.mH @ apply_s(Q) - torch.diag(pad).to(V.dtype)
+    A = inner(Q, apply_s(W, row0, N), grid) + torch.diag(pad).to(V.dtype)
+    B = inner(Q, apply_s(Q, row0, N), grid) - torch.diag(pad).to(V.dtype)
     return Q, W, A, B
 
 
-def _prr_finish(Q, W, V, theta, X, locked: int, want_vectors: bool = False):
+def _prr_finish(Q, W, V, theta, X, locked: int, want_vectors: bool = False,
+                grid=None):
     """Rotate, residuals, roll the u = K2/2 − locked wanted pairs from
     [0, u) to [locked, locked + u), merge into V; with ``want_vectors``
     also the H-residual vectors, rolled alike (the H² ladder's seed)."""
@@ -203,7 +247,7 @@ def _prr_finish(Q, W, V, theta, X, locked: int, want_vectors: bool = False):
     Vrot = Q @ X
     Wrot = W @ X                               # = H·Vrot
     R = Wrot - Vrot * theta[None, :].to(V.dtype)
-    resid = torch.linalg.vector_norm(R, dim=0).to(real_dtype(V.dtype))
+    resid = col_norms(R, grid).to(real_dtype(V.dtype))
     Vrot = torch.roll(Vrot, locked, dims=1)
     theta = torch.roll(theta, locked)
     resid = torch.roll(resid, locked)
@@ -217,7 +261,7 @@ def _prr_finish(Q, W, V, theta, X, locked: int, want_vectors: bool = False):
 
 def rayleigh_ritz_residuals_pseudo(H: torch.Tensor, V: torch.Tensor,
                                    locked: int, *, polish: int = 0,
-                                   want_vectors: bool = False):
+                                   want_vectors: bool = False, grid=None):
     """Pseudo-Hermitian Rayleigh–Ritz (v2, Hermitianized pencil) fused
     with residuals, at the block's full width.
 
@@ -230,19 +274,22 @@ def rayleigh_ritz_residuals_pseudo(H: torch.Tensor, V: torch.Tensor,
     locked + u) replaced by the positive Ritz vectors (ascending θ); theta
     and resid (K2,) in that layout; R the H-residual vectors (only with
     ``want_vectors``); ok False when the Cholesky broke down (L is then
-    the identity, as in the JAX package).
+    the identity, as in the JAX package).  On ``grid`` V is this rank's
+    rows and the pencil is the same replicated K2×K2 problem on every
+    rank.
     """
     *out, ok = pencil_rayleigh_ritz(H, V, locked, polish=polish,
-                                    want_vectors=want_vectors)
+                                    want_vectors=want_vectors, grid=grid)
     return (*out, bool(ok))
 
 
 def pencil_rayleigh_ritz(H: torch.Tensor, V: torch.Tensor, locked: int, *,
-                         polish: int = 0, want_vectors: bool = False):
+                         polish: int = 0, want_vectors: bool = False,
+                         grid=None):
     """:func:`rayleigh_ritz_residuals_pseudo` with ``ok`` left on the
     device as a 0-d bool tensor (the fused solver reads no flag here)."""
     rt = real_dtype(V.dtype)
-    Q, W, A, B = _prr_project(H, V, locked)
+    Q, W, A, B = _prr_project(H, V, locked, grid)
     wide = torch.complex128 if A.is_complex() else torch.float64
     A, B = A.to(wide), B.to(wide)
     L, info = torch.linalg.cholesky_ex(A)
@@ -259,7 +306,7 @@ def pencil_rayleigh_ritz(H: torch.Tensor, V: torch.Tensor, locked: int, *,
     nrm = torch.linalg.vector_norm(X, dim=0)
     X = X / torch.where(nrm > 0, nrm, torch.ones_like(nrm))[None, :].to(wide)
     out = _prr_finish(Q, W, V, theta.to(rt), X.to(V.dtype), locked,
-                      want_vectors)
+                      want_vectors, grid)
     return (*out, ok)
 
 
@@ -286,8 +333,10 @@ def rayleigh_ritz_pseudo_geev(H, Q):
     return w.real[order], Qn @ Z[:, order]
 
 
-def residuals_pseudo(H: torch.Tensor, V: torch.Tensor, theta) -> torch.Tensor:
-    """‖H v_j − θ_j v_j‖₂ per column."""
+def residuals_pseudo(H: torch.Tensor, V: torch.Tensor, theta,
+                     grid=None) -> torch.Tensor:
+    """‖H v_j − θ_j v_j‖₂ per column (on ``grid``: V this rank's rows, the
+    norms the same on every rank)."""
     th = torch.as_tensor(theta, device=V.device).to(V.dtype)
-    R = H @ V - V * th[None, :]
-    return torch.linalg.vector_norm(R, dim=0).to(real_dtype(V.dtype))
+    R = hemm(H, V, grid) - V * th[None, :]
+    return col_norms(R, grid).to(real_dtype(V.dtype))

@@ -10,7 +10,7 @@ analogue) — the H100 multiplies f64 natively.
 
 The pseudo-Hermitian (BSE) solver's S-aware QR (:func:`orthonormalize_pseudo`)
 runs the same chain on a rearranged block with the locked columns'
-lower halves negated.
+lower halves negated (S's lower half by global row on a grid).
 
 On a process grid (``grid=``; V this rank's rows of ``P('r', None)``) the
 Gram and the projections against the locked columns are summed over the
@@ -303,20 +303,22 @@ def orthonormalize(V: torch.Tensor, locked: int, cond: float,
 
 
 def orthonormalize_pseudo(V: torch.Tensor, locked: int, cond: float,
-                          rcfg) -> torch.Tensor:
+                          rcfg, grid=None) -> torch.Tensor:
     """S-aware QR of the pseudo-Hermitian block (the pseudo branch of
     chase_cpu.hpp:597-626 and 754-775): rearrange [L | active | R] →
     [L | R | active], negate the lower half of the 2·locked locked
     columns (so CholQR S-orthogonalizes the active block against them),
     orthonormalize, restore the locked columns, undo the rearrangement.
-    Returns a new (N, K2) block."""
-    from .pseudo import flip_locked_cols
+    Returns a new (N, K2) block (this rank's rows on ``grid``, the lower
+    half S's global one)."""
+    from .pseudo import flip_locked_cols, row_span
     if locked == 0:
-        return orthonormalize(V, 0, cond, rcfg)
+        return orthonormalize(V, 0, cond, rcfg, grid)
     K2 = V.shape[1]
     perm_to = np.concatenate([np.arange(locked), np.arange(K2 - locked, K2),
                               np.arange(locked, K2 - locked)])
     Vp = permute_cols(V, perm_to)
-    Q = orthonormalize(flip_locked_cols(Vp, 2 * locked), 0, cond, rcfg)
+    Q = orthonormalize(flip_locked_cols(Vp, 2 * locked, *row_span(V, grid)),
+                       0, cond, rcfg, grid)
     Q = restore_locked(Q, Vp, 2 * locked)
     return permute_cols(Q, np.argsort(perm_to))

@@ -12,7 +12,10 @@ local blocks (``parallel/mesh.py``: H in ``P('r', 'c')``, multivectors in
   ``aᴴb`` and ‖x‖: the local partial, summed over 'r' bitwise equal on
   every rank (``Grid2D.sum_rows``), so the host decisions that read them
   agree everywhere;
-* :func:`grid_shift` — the windowed filter's ``(H − c·I)·X`` on the grid.
+* :func:`rotate_rows` — the rows of a multivector rotated across the
+  'r' axis (``Grid2D.rotate_rows``), the BSE's K-conjugation;
+* :func:`grid_shift` — the windowed filter's ``(H − c·I)·X`` on the grid,
+  and :func:`grid_h2_shift` the BSE filter's ``(H² − c·I)·X``.
 
 With ``grid=None`` every function is the plain single-device expression,
 and on a grid whose 'r' axis has one member the reductions are too, so a
@@ -26,8 +29,8 @@ import torch
 
 from ..ops.filter import narrow_matmul
 
-__all__ = ["hemm", "inner", "col_dots", "col_norms", "grid_shift",
-           "local_product"]
+__all__ = ["hemm", "inner", "col_dots", "col_norms", "rotate_rows",
+           "grid_shift", "grid_h2_shift", "local_product"]
 
 
 def local_product(H: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
@@ -72,9 +75,27 @@ def col_norms(X: torch.Tensor, grid=None) -> torch.Tensor:
     return torch.sqrt(grid.sum_rows(sq))
 
 
+def rotate_rows(t: torch.Tensor, shift: int, grid=None) -> torch.Tensor:
+    """This rank's rows of the multivector rotated by ``shift`` global
+    rows, ``out[j] = x[(j + shift) mod N]`` (a new tensor): t is this
+    rank's rows of x — pass only the columns that must move."""
+    if grid is None:
+        return torch.cat([t[shift:], t[:shift]])
+    return grid.rotate_rows(t, shift)
+
+
 def grid_shift(grid):
     """The windowed filter's ``shift(H, X, c) = (H − c·I)·X`` with the
     product on ``grid`` (``ops/filter._hemm_shift`` for one device)."""
     def shift(H, X, c):
         return hemm(H, X, grid) - float(c) * X
+    return shift
+
+
+def grid_h2_shift(grid):
+    """The windowed H² filter's ``shift(H, X, c) = (H² − c·I)·X`` as two
+    products on ``grid`` (``ops/pseudo._h2_shift`` for one device; a bf16
+    shadow rounds each product's input to bf16 as there)."""
+    def shift(H, X, c):
+        return hemm(H, hemm(H, X, grid), grid) - float(c) * X
     return shift

@@ -16,8 +16,10 @@ calls the collectives itself, as the reference does:
 the collectives the solver uses on those layouts: a sum over a grid axis
 (:meth:`Grid2D.all_reduce`), the sum of a per-row-block partial that must
 come out bitwise equal on every rank (:meth:`Grid2D.sum_rows`), the rows
-of a multivector gathered over 'r' (:meth:`Grid2D.all_gather`), and the
-ring's chunk exchange (:meth:`Grid2D.exchange`).  Complex tensors travel
+of a multivector gathered over 'r' (:meth:`Grid2D.all_gather`), the
+ring's chunk exchange (:meth:`Grid2D.exchange`), and the rotation of a
+multivector's rows that K-conjugation across ranks needs
+(:meth:`Grid2D.rotate_rows`).  Complex tensors travel
 as their real views.  A collective over an axis of size 1 is the
 identity and issues nothing.  ``Grid2D.stats`` counts the collectives
 issued and their payload bytes.
@@ -202,6 +204,57 @@ class Grid2D:
 
             self._exchanges[axis] = swap
         return self._exchanges[axis]
+
+    def rotate_rows(self, t: torch.Tensor, shift: int,
+                    axis: str = "r") -> torch.Tensor:
+        """This rank's rows of the multivector rotated by ``shift`` rows,
+        ``out[j] = x[(j + shift) mod N]`` (N = p·b), from ``t``, this
+        rank's b rows of x — pass only the columns that must move.  Point
+        to point: each destination run of b rows comes from at most two
+        owners (one when b divides ``shift``: with shift = N/2 on an even
+        p, rank (i + p/2) mod p sends its whole block), so a rank sends
+        to and receives from at most two partners.  Counted under
+        "rotate"; with one member only local copies.  Returns a new
+        tensor."""
+        p, me = self.size(axis), self.index(axis)
+        b = t.shape[0]
+        N = p * b
+        shift %= N
+        t = t.contiguous()
+        out = torch.empty_like(t)
+
+        def pieces(k):
+            """(owner, first row of x, count, offset) of member k's
+            destination rows."""
+            runs, start, off = [], (k * b + shift) % N, 0
+            while off < b:
+                owner = start // b
+                m = min(b - off, (owner + 1) * b - start)
+                runs.append((owner, start, m, off))
+                start, off = (start + m) % N, off + m
+            return runs
+
+        ops = []
+        g = self.group(axis)
+        for k in range(p):
+            for owner, x0, m, off in pieces(k):
+                if owner != me:
+                    continue
+                piece = t[x0 - me * b:x0 - me * b + m]
+                if k == me:
+                    out[off:off + m].copy_(piece)
+                    continue
+                self.stats.add("rotate", piece)
+                ops.append(dist.P2POp(dist.isend, _wire(piece),
+                                      self.global_rank(axis, k), g))
+        for owner, x0, m, off in pieces(me):
+            if owner != me:
+                ops.append(dist.P2POp(dist.irecv, _wire(out[off:off + m]),
+                                      self.global_rank(axis, owner), g))
+        if ops:
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+        return out
 
     # -- layouts ----------------------------------------------------------
 

@@ -16,12 +16,16 @@ multiple of r·c it is padded to one, as in the JAX package, with decoupled
 diagonal entries at the Gershgorin upper bound ``max_i(Σ_j |H_ij| + Re
 H_ii − |H_ii|)`` (in H's dtype): the phantom eigenvalues lie above the
 whole spectrum and never enter the wanted set; ``N_orig`` is the user's
-size and :meth:`unpad_block` cuts the phantom rows off again.  H may be a
-numpy array or tensor that every rank holds whole, or a DTensor sharded
-``(Shard(0), Shard(1))`` on the grid's mesh (re-cut to the padded layout
-point to point, never gathered).  A pseudo-Hermitian operator on a grid
-larger than 1×1 waits for the S-preserving pad (ROADMAP queue 1 item 5,
-part 2) and raises NotImplementedError.
+size and :meth:`unpad_block` cuts the phantom rows off again.  A
+pseudo-Hermitian operator takes the S-preserving pad instead: each half
+pads on its own to ``h_pad = ceil(N/2 / (r·c))·(r·c)``, H's quadrants
+land at ``[0, N/2)`` and ``[h_pad, h_pad + N/2)``, and the phantom
+diagonal is ``+g`` in the upper pad and ``−g`` in the lower, g = ``max_i
+Σ_j |H_ij|`` (:func:`magnitude_pad`): the metric S = diag(I, −I) keeps its
+half split, and the phantom pairs ±g sit at the top of the H² interval
+(``half`` holds (N/2, h_pad)).  H may be a numpy array or tensor that every
+rank holds whole, or a DTensor sharded ``(Shard(0), Shard(1))`` on the
+grid's mesh (re-cut to the padded layout point to point, never gathered).
 
 A CUDA H — or block — of a dtype the ring kernel reads (f32, c64, and
 bf16 for the f32 problem's shadow) is kept where the kernel's TMA loads
@@ -49,10 +53,7 @@ from ..ops.ring_hemm import KERNEL_DTYPES, tma_ld, tma_row_stride
 from ..types import as_torch_dtype, low_precision_dtype, real_dtype
 
 __all__ = ["DenseOperator", "resolve_device", "padded_empty",
-           "gershgorin_pad", "block_of"]
-
-PART2 = ("ROADMAP queue 1 item 5, part 2 (BSE and the fused solvers on "
-         "grids)")
+           "gershgorin_pad", "magnitude_pad", "block_of"]
 
 
 def resolve_device(device) -> torch.device:
@@ -141,37 +142,82 @@ def gershgorin_pad(H) -> torch.Tensor:
                      - torch.abs(d)).to(Ht.dtype)
 
 
+def magnitude_pad(H) -> torch.Tensor:
+    """The S-preserving pad's g, the JAX package's Gershgorin magnitude
+    bound ``max_i Σ_j |H_ij|`` in H's dtype (a 0-d tensor), for a whole H:
+    the phantom pairs ±g square to the top of the H² interval."""
+    Ht = H if isinstance(H, torch.Tensor) else torch.as_tensor(np.asarray(H))
+    return torch.max(torch.sum(torch.abs(Ht), dim=1)).to(Ht.dtype)
+
+
+def _row_map(n: int, half) -> list:
+    """[(padded start, H's start, count)]: where H's n rows (and columns)
+    lie in the padded operator — in one piece, or with ``half = (n/2,
+    h_pad)`` the S-preserving pad's two halves."""
+    if half is None:
+        return [(0, 0, n)]
+    n_half, h_pad = half
+    return [(0, 0, n_half), (h_pad, n_half, n_half)]
+
+
+def _phantoms(n: int, N: int, half, pad) -> list:
+    """[(first, stop, value)]: the phantom diagonal of H padded to N."""
+    if half is None:
+        return [(n, N, pad)]
+    n_half, h_pad = half
+    return [(n_half, h_pad, pad), (h_pad + n_half, N, -pad)]
+
+
+def source_rows(n: int, half, start: int, count: int) -> list:
+    """[(H's start, H's stop, offset)]: the rows of H that the padded rows
+    [start, start + count) hold, each run at its offset in that range."""
+    out = []
+    for d0, s0, m in _row_map(n, half):
+        a, b = max(start, d0), min(start + count, d0 + m)
+        if b > a:
+            out.append((s0 + a - d0, s0 + b - d0, a - start))
+    return out
+
+
 def block_of(H, rows: tuple, cols: tuple, N: int, *, dtype, device,
-             pad=None) -> torch.Tensor:
+             pad=None, half=None) -> torch.Tensor:
     """The block [r0, r0 + nr) × [c0, c0 + nc) of H padded to N × N
     (``rows = (r0, nr)``, ``cols = (c0, nc)``), in the operator layout of
     :func:`padded_empty` on ``device``: H's entries where they exist, the
-    diagonal ``pad`` value on the phantom diagonal (rows ≥ H's size),
-    zeros elsewhere.  H is a whole numpy array or tensor; only the block's
-    part of it is copied."""
+    diagonal ``pad`` value on the phantom diagonal (rows ≥ H's size; with
+    ``half``, the S-preserving pad: +pad in the upper pad, −pad in the
+    lower), zeros elsewhere.  H is a whole numpy array or tensor; only the
+    block's part of it is copied."""
     (r0, nr), (c0, nc) = rows, cols
     n = int(H.shape[0])
-    part = H[r0:max(r0, min(r0 + nr, n)), c0:max(c0, min(c0 + nc, n))]
-    if not isinstance(part, torch.Tensor):
-        part = _numpy_to(np.asarray(part), device, dtype)
-    return _padded_block(part, rows, cols, n, N, dtype=dtype, device=device,
-                         pad=pad)
+    pieces = []
+    for a0, a1, ro in source_rows(n, half, r0, nr):
+        for b0, b1, co in source_rows(n, half, c0, nc):
+            part = H[a0:a1, b0:b1]
+            if not isinstance(part, torch.Tensor):
+                part = _numpy_to(np.asarray(part), device, dtype)
+            pieces.append((part, ro, co))
+    return _padded_block(pieces, rows, cols, _phantoms(n, N, half, pad),
+                         dtype=dtype, device=device)
 
 
-def _padded_block(part: torch.Tensor, rows: tuple, cols: tuple, n: int,
-                  N: int, *, dtype, device, pad=None) -> torch.Tensor:
-    """:func:`block_of` from ``part``, the entries of an n × n H that lie
-    in the block (its first rows and columns)."""
+def _padded_block(pieces, rows: tuple, cols: tuple, phantoms, *, dtype,
+                  device) -> torch.Tensor:
+    """:func:`block_of` from ``pieces`` — (part, row offset, column
+    offset) of H's entries in the block — and the phantom diagonal."""
     (r0, nr), (c0, nc) = rows, cols
     out = padded_empty(nr, dtype, device, nc)
-    if tuple(part.shape) != (nr, nc):
+    if sum(p.shape[0] * p.shape[1] for p, _, _ in pieces) != nr * nc:
         out.zero_()
-    if part.numel():
-        out[:part.shape[0], :part.shape[1]].copy_(part)
-    lo, hi = max(n, r0, c0), min(r0 + nr, c0 + nc, N)
-    if hi > lo:
-        k = torch.arange(lo, hi, device=device)
-        out[k - r0, k - c0] = torch.as_tensor(pad, device=device).to(dtype)
+    for part, ro, co in pieces:
+        if part.numel():
+            out[ro:ro + part.shape[0], co:co + part.shape[1]].copy_(part)
+    for k0, k1, value in phantoms:
+        lo, hi = max(k0, r0, c0), min(k1, r0 + nr, c0 + nc)
+        if hi > lo:
+            k = torch.arange(lo, hi, device=device)
+            out[k - r0, k - c0] = torch.as_tensor(value,
+                                                  device=device).to(dtype)
     return out
 
 
@@ -182,57 +228,60 @@ def _pieces(n: int, p: int, size: int) -> list:
 
 
 def _recut(t: torch.Tensor, grid, axis: str, dim: int, src: list,
-           dst: list) -> torch.Tensor:
+           dst: list, size: int) -> torch.Tensor:
     """Re-cut dimension ``dim`` of a tensor cut over ``axis``: this rank
-    holds piece ``src[me]`` and gets ``dst[me]``, the overlaps passed
-    point to point within the axis group (no member holds more than its
-    two pieces)."""
+    holds H's rows ``src[me] = (s0, s1)`` and gets a ``size``-long piece
+    whose runs ``dst[me] = [(H's start, H's stop, offset)]`` come from
+    H's rows (zeros elsewhere), the overlaps passed point to point within
+    the axis group (no member holds more than its two pieces)."""
     import torch.distributed as dist
     from .mesh import _wire
     me = grid.index(axis)
-    (s0, s1), (d0, d1) = src[me], dst[me]
+    s0, s1 = src[me]
     shape = list(t.shape)
-    shape[dim] = d1 - d0
-    out = torch.empty(shape, dtype=t.dtype, device=t.device)
+    shape[dim] = size
+    out = torch.zeros(shape, dtype=t.dtype, device=t.device)
     ops, recvs = [], []
     for k in range(grid.size(axis)):
-        a, b = max(s0, dst[k][0]), min(s1, dst[k][1])      # mine, k's rows
-        if k == me:
-            if b > a:
-                out.narrow(dim, a - d0, b - a).copy_(t.narrow(dim, a - s0,
-                                                              b - a))
-            continue
-        peer = grid.global_rank(axis, k)
-        if b > a:
-            piece = t.narrow(dim, a - s0, b - a).contiguous()
-            grid.stats.add("sendrecv", piece)
-            ops.append(dist.P2POp(dist.isend, _wire(piece), peer,
-                                  grid.group(axis)))
-        a, b = max(src[k][0], d0), min(src[k][1], d1)      # k's, my rows
-        if b > a:
+        peer = None if k == me else grid.global_rank(axis, k)
+        for a0, a1, _ in dst[k]:                   # mine, k's rows
+            a, b = max(s0, a0), min(s1, a1)
+            if b > a and peer is not None:
+                piece = t.narrow(dim, a - s0, b - a).contiguous()
+                grid.stats.add("sendrecv", piece)
+                ops.append(dist.P2POp(dist.isend, _wire(piece), peer,
+                                      grid.group(axis)))
+        for a0, a1, off in dst[me]:                # k's, my rows
+            a, b = max(src[k][0], a0), min(src[k][1], a1)
+            if b <= a:
+                continue
+            if peer is None:
+                out.narrow(dim, off + a - a0, b - a).copy_(
+                    t.narrow(dim, a - s0, b - a))
+                continue
             shape[dim] = b - a
             buf = torch.empty(shape, dtype=t.dtype, device=t.device)
-            recvs.append((buf, a))
+            recvs.append((buf, off + a - a0))
             ops.append(dist.P2POp(dist.irecv, _wire(buf), peer,
                                   grid.group(axis)))
     if ops:
         for work in dist.batch_isend_irecv(ops):
             work.wait()
-    for buf, a in recvs:
-        out.narrow(dim, a - d0, buf.shape[dim]).copy_(buf)
+    for buf, at in recvs:
+        out.narrow(dim, at, buf.shape[dim]).copy_(buf)
     return out
 
 
-def _sharded_gershgorin_pad(L: torch.Tensor, grid, rows: tuple,
-                            cols: tuple) -> torch.Tensor:
-    """:func:`gershgorin_pad` of the H whose piece [rows) × [cols) this
-    rank holds as ``L`` (the grid's (Shard(0), Shard(1)) cut): row sums
-    summed over 'c', their maximum over 'r' — the same bits on every
-    rank."""
+def _sharded_pad(L: torch.Tensor, grid, rows: tuple, cols: tuple,
+                 gershgorin: bool = True) -> torch.Tensor:
+    """:func:`gershgorin_pad` (or, with ``gershgorin=False``,
+    :func:`magnitude_pad`) of the H whose piece [rows) × [cols) this rank
+    holds as ``L`` (the grid's (Shard(0), Shard(1)) cut): row sums summed
+    over 'c', their maximum over 'r' — the same bits on every rank."""
     import torch.distributed as dist
     a = torch.sum(torch.abs(L), dim=1)
     g0, g1 = max(rows[0], cols[0]), min(rows[1], cols[1])
-    if g1 > g0:
+    if gershgorin and g1 > g0:
         k = torch.arange(g0, g1, device=L.device)
         d = L[k - rows[0], k - cols[0]]
         a[k - rows[0]] += d.real - torch.abs(d)
@@ -264,15 +313,12 @@ class DenseOperator:
             raise ValueError(f"a pseudo-Hermitian operator needs even N "
                              f"(the metric S splits it in halves), got N = "
                              f"{H.shape[0]}")
-        if pseudo_hermitian and grid is not None and grid.nprocs > 1:
-            raise NotImplementedError(
-                f"a pseudo-Hermitian operator on the grid {grid.shape} needs "
-                f"the S-preserving pad, {PART2}")
         self.pseudo_hermitian = bool(pseudo_hermitian)
         dtype = as_torch_dtype(H.dtype)
         real_dtype(dtype)         # TypeError for a dtype the solver lacks
         self._H_low = None
         self.N_orig = int(H.shape[0])
+        self.half = None          # (N/2, h_pad) of the S-preserving pad
         if grid is None:
             self._N = self.N_orig
             self.H = self._place(H, dtype)
@@ -298,11 +344,18 @@ class DenseOperator:
         return to_device(H, self.device)
 
     def _place_grid(self, H, dtype) -> None:
-        """This rank's block of H padded to a multiple of r·c."""
+        """This rank's block of H padded to a multiple of r·c (each half
+        to one, for a pseudo-Hermitian H)."""
         r, c = self.grid.size("r"), self.grid.size("c")
         tile = r * c
         N = self.N_orig
-        self._N = -(-N // tile) * tile
+        if self.pseudo_hermitian:
+            h_pad = -(-(N // 2) // tile) * tile
+            self._N = 2 * h_pad
+            if h_pad != N // 2:
+                self.half = (N // 2, h_pad)
+        else:
+            self._N = -(-N // tile) * tile
         rows = self.grid.block(self._N, "r")
         cols = self.grid.block(self._N, "c")
         if _is_dtensor(H):
@@ -315,17 +368,22 @@ class DenseOperator:
             return
         if isinstance(H, torch.Tensor) and (H.is_conj() or H.is_neg()):
             H = H.resolve_conj().resolve_neg()
-        pad = gershgorin_pad(H) if self._N != N else None
+        pad = None
+        if self._N != N:
+            pad = magnitude_pad(H) if self.pseudo_hermitian \
+                else gershgorin_pad(H)
         self.H = block_of(H, rows, cols, self._N, dtype=dtype,
-                          device=self.device, pad=pad)
+                          device=self.device, pad=pad, half=self.half)
 
     def _sharded_block(self, H, dtype, rows: tuple,
                        cols: tuple) -> torch.Tensor:
         """This rank's block of a DTensor H, never gathered: a ``(Shard(0),
         Shard(1))`` H on the grid's mesh is re-cut from DTensor's even
         split of N_orig to the padded layout point to point
-        (:func:`_recut`) and padded with the Gershgorin diagonal from its
-        pieces' row sums.  ValueError for any other layout."""
+        (:func:`_recut`; H's rows and columns to where the padded layout,
+        half-split for a pseudo-Hermitian H, puts them) and padded with
+        the diagonal from its pieces' row sums.  ValueError for any other
+        layout."""
         from torch.distributed.tensor import Shard
         placements = tuple(H.placements)
         mesh, want = H.device_mesh.mesh.tolist(), self.grid.mesh.mesh.tolist()
@@ -338,13 +396,18 @@ class DenseOperator:
         i, j = self.grid.coords
         src_r, src_c = _pieces(N, r, -(-N // r)), _pieces(N, c, -(-N // c))
         L = H.to_local().resolve_conj().resolve_neg()
-        pad = None
-        if Np != N:
-            pad = _sharded_gershgorin_pad(L, self.grid, src_r[i], src_c[j])
-            L = _recut(L, self.grid, "r", 0, src_r, _pieces(N, r, Np // r))
-            L = _recut(L, self.grid, "c", 1, src_c, _pieces(N, c, Np // c))
-        return _padded_block(L, rows, cols, N, Np, dtype=dtype,
-                             device=self.device, pad=pad)
+        if Np == N:
+            return _padded_block([(L, 0, 0)], rows, cols, [], dtype=dtype,
+                                 device=self.device)
+        pad = _sharded_pad(L, self.grid, src_r[i], src_c[j],
+                           gershgorin=not self.pseudo_hermitian)
+        for axis, dim, p, src in (("r", 0, r, src_r), ("c", 1, c, src_c)):
+            b = Np // p
+            dst = [source_rows(N, self.half, k * b, b) for k in range(p)]
+            L = _recut(L, self.grid, axis, dim, src, dst, b)
+        return _padded_block([(L, 0, 0)], rows, cols,
+                             _phantoms(N, Np, self.half, pad), dtype=dtype,
+                             device=self.device)
 
     @property
     def N(self) -> int:
@@ -402,9 +465,10 @@ class DenseOperator:
     def place_block(self, V) -> torch.Tensor:
         """A private copy of this rank's rows of a multivector, on the
         operator's device in the operator's dtype.  V is whole (N_orig or
-        N rows; the phantom rows of a padded operator are zero) or, on a
-        grid, a DTensor ``(Shard(0), Replicate())`` as ``eigsh`` returns
-        it (its local rows taken where the layouts agree)."""
+        N rows; the phantom rows of a padded operator are zero, and H's
+        rows go where the pad puts them) or, on a grid, a DTensor
+        ``(Shard(0), Replicate())`` as ``eigsh`` returns it (its local
+        rows taken where the layouts agree)."""
         if self.grid is None:
             if V.shape[0] != self.N:
                 raise ValueError(f"block has {V.shape[0]} rows, operator "
@@ -414,24 +478,45 @@ class DenseOperator:
             raise ValueError(f"block has {V.shape[0]} rows, operator N = "
                              f"{self.N_orig} (padded {self.N})")
         r0, n = self.rows
+        runs = None
         if _is_dtensor(V):
-            local = _local_rows_of(V, self.grid, n)
-            V, r0 = (V.full_tensor(), r0) if local is None else (local, 0)
-        part = V[r0:r0 + n]
-        if not isinstance(part, torch.Tensor):
-            part = torch.as_tensor(np.asarray(part))
+            # under the half-split pad H's rows never lie as DTensor's
+            local = None if self.half else _local_rows_of(V, self.grid, n)
+            if local is None:
+                V = V.full_tensor()
+            else:
+                V, runs = local, [(0, n, 0)]
+        if runs is None:
+            runs = (source_rows(self.N_orig, self.half, r0, n)
+                    if V.shape[0] == self.N_orig else [(r0, r0 + n, 0)])
         out = torch.zeros((n, V.shape[1]), dtype=self.dtype,
                           device=self.device)
-        out[:part.shape[0]] = part.resolve_conj().resolve_neg()
+        for a, b, off in runs:
+            part = V[a:min(b, V.shape[0])]
+            if not isinstance(part, torch.Tensor):
+                part = torch.as_tensor(np.asarray(part))
+            out[off:off + part.shape[0]] = part.resolve_conj().resolve_neg()
         return out
 
     def unpad_block(self, V: torch.Tensor) -> torch.Tensor:
         """This rank's rows of a result multivector without the phantom
-        rows of a padded operator (V itself when nothing was padded)."""
+        rows of a padded operator (V itself when nothing was padded; a
+        new tensor when the S-preserving pad splits them)."""
         if self.N == self.N_orig:
             return V
-        r0 = self.rows[0]
-        return V[:max(0, min(V.shape[0], self.N_orig - r0))]
+        runs = source_rows(self.N_orig, self.half, *self.rows)
+        if len(runs) <= 1:
+            a, b, o = runs[0] if runs else (0, 0, 0)
+            return V[o:o + b - a]
+        return torch.cat([V[o:o + b - a] for a, b, o in runs])
+
+    def unpad_whole(self, V: torch.Tensor) -> torch.Tensor:
+        """The whole (N, k) multivector without its phantom rows: H's
+        N_orig rows in H's order."""
+        if self.N == self.N_orig:
+            return V
+        return torch.cat([V[d:d + m] for d, _, m in _row_map(self.N_orig,
+                                                             self.half)])
 
 
 def _local_rows_of(V, grid, n: int) -> Optional[torch.Tensor]:

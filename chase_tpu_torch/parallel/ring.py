@@ -2,9 +2,8 @@
 
 Port of ``chase_tpu/parallel/ring.py``'s 1-D rings: ``ring_hemm``,
 ``chebyshev_filter_ring``, ``chebyshev_filter_ring_pallas`` and
-``chebyshev_filter_refine_ring``, and of the pseudo-Hermitian (BSE)
-``chebyshev_filter_h2_ring`` and ``chebyshev_filter_refine_h2_ring`` on
-one device.
+``chebyshev_filter_refine_ring``, and the pseudo-Hermitian (BSE)
+``chebyshev_filter_h2_ring`` and ``chebyshev_filter_refine_h2_ring``.
 
 The ring (K-D).  On a (p, 1) grid rank i holds the stripe H_i (N/p × N)
 and its chunk V_i (b = N/p rows) of the multivector.  :func:`ring_steps`
@@ -31,10 +30,12 @@ the window: the carry follows ``types.filter_carry_dtype`` as in the JAX
 package's ``chebyshev_filter_ring``, so a c64 shadow with a c128 window
 runs the kernel's c64 route, an f32 shadow with an f64 window its f32
 route, and a bf16 shadow with an f32 window its bf16 route.  The H²
-filters (two products per step, ``ring_hemm(H, ring_hemm(H, v))``; the
-kernel reads no symmetry, so a BSE H, whose halves differ, is fine) run
-on one device; their p > 1 rings wait for BSE on grids (ROADMAP queue 1
-item 5, part 2).
+filters take two ring products per step, ``ring(H, ring(H, v))``: on a
+(p, 1) grid the first product's rows are exactly this rank's chunk of the
+second's input, so the rings chain as they stand, 2·p kernel launches per
+H² step and rank (the kernel reads no symmetry, so a BSE H, whose halves
+differ, is fine; the JAX package's H² ring multiplies with XLA).  The
+filter applies no S, so the S-preserving pad needs nothing here.
 """
 
 from __future__ import annotations
@@ -228,17 +229,19 @@ def chebyshev_filter_ring(grid, H: torch.Tensor, X: torch.Tensor, degrees,
 
 
 def chebyshev_filter_h2_ring(H: torch.Tensor, X: torch.Tensor, degrees,
-                             lam1, lower, upper, deg_max: int
+                             lam1, lower, upper, deg_max: int, *,
+                             grid=None, kernel: bool = True
                              ) -> torch.Tensor:
     """The pseudo-Hermitian filter on H² (``ops/pseudo.
-    chebyshev_filter_h2``) with both products of every step on the ring
-    kernel on one device: ``2·(1 + max(deg_max − 1, 0))`` launches.
-    Arguments as for :func:`chebyshev_filter_ring_pallas`, with
-    H²-spectrum ``lam1``, ``lower`` and ``upper`` (the interval in either
-    order).  On the bf16 route each product rounds its input to bf16, as
-    the plain H² shift does."""
+    chebyshev_filter_h2``) with both products of every step a ring
+    product: ``2·p·(1 + max(deg_max − 1, 0))`` ring_hemm launches per rank
+    on a (p, 1) grid with ``kernel`` (p = 1 on one device).  Arguments as
+    for :func:`chebyshev_filter_ring_pallas`, with H²-spectrum ``lam1``,
+    ``lower`` and ``upper`` (the interval in either order); ``kernel``
+    False takes :func:`matmul_step` as the ring's step.  On the bf16 route
+    each product rounds its input to bf16, as the plain H² shift does."""
     return _filter_ring(H, X, degrees, lam1, *_interval(lower, upper),
-                        deg_max, 2, _product(H, None, True))
+                        deg_max, 2, _product(H, grid, kernel))
 
 
 def _refine_ring(H, V, R, degrees, alpha1_e, alphas, betas, inj, p_final, cc,
@@ -290,12 +293,14 @@ def chebyshev_filter_refine_ring(H: torch.Tensor, V: torch.Tensor,
 def chebyshev_filter_refine_h2_ring(H: torch.Tensor, V: torch.Tensor,
                                     R2: torch.Tensor, degrees, alpha1_e,
                                     alphas, betas, inj, p_final, cc,
-                                    deg_max: int) -> torch.Tensor:
+                                    deg_max: int, *, grid=None,
+                                    kernel: bool = True) -> torch.Tensor:
     """The deviation-form filter on H² (``ops/pseudo.
-    chebyshev_filter_refine_h2``) with both products of every step on the
-    ring kernel on one device: ``2·max(deg_max − 1, 0)`` launches.  R2
-    holds the H²-residuals (``ops/pseudo.h2_residual``), the tables come
-    from ``refine_tables`` on the H²-space quantities; otherwise as
+    chebyshev_filter_refine_h2``) with both products of every step a ring
+    product: ``2·p·max(deg_max − 1, 0)`` ring_hemm launches per rank on a
+    (p, 1) grid with ``kernel``.  R2 holds the H²-residuals
+    (``ops/pseudo.h2_residual``), the tables come from ``refine_tables``
+    on the H²-space quantities; otherwise as
     :func:`chebyshev_filter_refine_ring`."""
     return _refine_ring(H, V, R2, degrees, alpha1_e, alphas, betas, inj,
-                        p_final, cc, deg_max, 2, _product(H, None, True))
+                        p_final, cc, deg_max, 2, _product(H, grid, kernel))

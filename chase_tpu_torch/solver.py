@@ -75,8 +75,8 @@ from .ops import filter as filt
 from .ops import lanczos as lz
 from .ops import qr as qrops
 from .ops import rr as rrops
-from .ops.blocks import (permute_cols, set_head_cols, slice_cols,
-                         update_cols)
+from .ops.blocks import (permute_cols, scale_lower_rows, set_head_cols,
+                         slice_cols, update_cols)
 
 __all__ = ["solve", "SolveResult", "calc_degrees_host", "locking_host",
            "uses_ring_kernel"]
@@ -179,6 +179,19 @@ def _ring_route(rcfg, op: DenseOperator, log) -> Optional[str]:
                  f"{grid.shape} (it needs r > 1) — using the windowed "
                  f"filter", "linalg")
     return None
+
+
+def _chunk_product(route: Optional[str], ring_backend: str,
+                   dtype: torch.dtype) -> tuple:
+    """(ring, kernel) for a filter operator of ``dtype`` on ``route``
+    (:func:`_ring_route`): the ring_hemm kernel for the dtypes it takes on
+    the p = 1 route, and with ``ring_backend="pallas"`` on the (p, 1)
+    ring; the chunk ring on the (p, 1) route, and on the p = 1 route
+    where the kernel runs.  The host solvers and the fused ones (through
+    ``api._fused_setup``) route every filter product by it."""
+    kernel = dtype in KERNEL_DTYPES and (
+        route == "p1" or ring_backend == "pallas")
+    return route == "1d" or (route == "p1" and kernel), kernel
 
 
 def _col_block(cfg_block, nevex: int) -> int:
@@ -484,13 +497,17 @@ class SolveResult:
     early_locked: Optional[list] = None
 
 
-def _draw(op: DenseOperator, k: int, generator) -> torch.Tensor:
-    """An (N, k) standard normal block from ``generator``, drawn whole
-    and cut to this rank's rows on a grid (every rank's generator is
-    seeded alike, so the ranks hold the rows of one block — the block a
+def _draw(op: DenseOperator, k: int, generator,
+          damped: bool = False) -> torch.Tensor:
+    """An (N, k) standard normal block from ``generator`` (its lower rows
+    × 0.001 with ``damped``: the BSE initVecs' damping), drawn whole and
+    cut to this rank's rows on a grid (every rank's generator is seeded
+    alike, so the ranks hold the rows of one block — the block a
     ``grid=None`` solve draws)."""
     V = torch.randn((op.N, k), generator=generator, device=op.device,
                     dtype=op.dtype)
+    if damped:
+        V = scale_lower_rows(V, 0.001)
     return V if op.grid is None else op.local_rows(V).clone()
 
 
@@ -732,11 +749,8 @@ def solve(op: DenseOperator, nev: int, nex: int,
                 H_f = op.H_low
             else:
                 H_f = H
-            # the chunk product: the kernel for its dtypes on the p = 1
-            # route and with "pallas" on the (p, 1) ring
-            kernel = H_f.dtype in KERNEL_DTYPES and (
-                route == "p1" or rcfg.ring_backend == "pallas")
-            ring = route == "1d" or (route == "p1" and kernel)
+            ring, kernel = _chunk_product(route, rcfg.ring_backend,
+                                          H_f.dtype)
             form = hermitian_form(op.grid, kernel)
             # the SP ladder's low phase: TF32 products off the kernel
             tf32 = use_low and is_sp and not (ring and kernel)

@@ -1,14 +1,14 @@
 """Pseudo-Hermitian (BSE) subspace iteration.
 
 Port of ``chase_tpu/solver_pseudo.py::solve_pseudo`` (the reference's
-``Algorithm<T>::solve_pseudo``, algorithm/algorithm.inc:1834-2220) on one
-torch device: a subspace of 2·(nev+nex) columns laid out [locked_L |
-positive candidates u | K-mirrors u | locked_R], the Chebyshev filter on
-H², the S-orthogonalizing QR, the Hermitianized-pencil Rayleigh–Ritz
-keeping the positive half, index-order locking (v3) with mirror
-regeneration by K-conjugation.  The host bookkeeping (degrees, clusters,
-locking, the DoS quantile, the iteration-0 degree cap) is the JAX
-package's, copied with its quirks.
+``Algorithm<T>::solve_pseudo``, algorithm/algorithm.inc:1834-2220) on a
+torch device or a process grid (below): a subspace of 2·(nev+nex)
+columns laid out [locked_L | positive candidates u | K-mirrors u |
+locked_R], the Chebyshev filter on H², the S-orthogonalizing QR, the
+Hermitianized-pencil Rayleigh–Ritz keeping the positive half,
+index-order locking (v3) with mirror regeneration by K-conjugation.  The
+host bookkeeping (degrees, clusters, locking, the DoS quantile, the
+iteration-0 degree cap) is the JAX package's, copied with its quirks.
 
 The precision ladder is the JAX package's: ``mixed_precision`` filters an
 f64/c128 problem on its f32/c64 shadow, ``bf16_filter`` a real f32 one on
@@ -17,21 +17,36 @@ its bf16 shadow (complex BSE never takes bf16); from iteration 1
 H²-residuals (H + θ)·r computed on the problem's own H, keeps every
 filter product on the shadow.
 
-Routing, as in the Hermitian solver: with ``ring_backend="pallas"`` every
-filter whose operator is a dtype the kernel takes (f32, c64, bf16) runs
-as the p = 1 ring, both products of each H² step on the ring_hemm kernel
-(``parallel/ring.py``); otherwise the segmented windowed filter on
-``torch.matmul``.  The JAX package has no ring on one device; both apply
-the same polynomial, so the converged spectra agree.
+Routing, as in the Hermitian solver (``solver._ring_route``): with
+``ring_backend="pallas"`` every filter whose operator is a dtype the
+kernel takes (f32, c64, bf16) runs as the p = 1 ring, both products of
+each H² step on the ring_hemm kernel (``parallel/ring.py``); otherwise
+the segmented windowed filter on ``torch.matmul``.  The JAX package has no
+ring on one device; both apply the same polynomial, so the converged
+spectra agree.
+
+On a process grid (``DenseOperator(H, grid=grid, pseudo_hermitian=True)``,
+the S-preserving pad) the loop runs on every rank with its blocks, as
+``solver.solve`` does: a 1×1 grid as one device; a (p, 1) grid the p-step
+chunk ring in every filter (:func:`h2_form`: both products of each H²
+step p ring_hemm launches with "pallas" and a kernel operator, else
+``matmul_step``); an r×c grid with r, c > 1 the windowed H² filter with
+the grid's product (the JAX package's 2-D H² ring is ROADMAP queue 1 item
+5, part 3).  S acts on global rows, K-conjugation rotates rows across
+ranks (``ops/pseudo``), the S-Lanczos dots, the pencil and the residuals
+are summed over the grid's rows bitwise equal on every rank, and the
+start block and probes are drawn whole, damped and cut to each rank's
+rows, so every host decision agrees.
 
 Not ported: the wide-f64 and transient-shadow modes (``engage_wide``,
 ``H_filter``, ``drop_shadow``), the host pencil factorization, the 2-D H²
-rings (multi-GPU slice) and the real-pair embedding of complex BSE
-(complex runs natively).
+rings (part 3) and the real-pair embedding of complex BSE (complex runs
+natively).
 """
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import Optional
 
@@ -43,15 +58,15 @@ from .logger import get_logger
 from .perf import PerfData
 from .types import is_double_base
 from .parallel.operator import DenseOperator
+from .parallel import dist as pdist
 from .parallel import ring as pring
-from .ops.ring_hemm import KERNEL_DTYPES
 from .ops import lanczos as lz
 from .ops import pseudo as ps
-from .ops.blocks import permute_cols, scale_lower_rows, set_head_cols
+from .ops.blocks import permute_cols, set_head_cols
 from .ops.qr import orthonormalize, orthonormalize_pseudo
-from .solver import (FilterForm, SolveResult, _col_block,
-                     _filter_refine_windowed, _filter_ring, _filter_windowed,
-                     _host, _rho, _ring_allowed)
+from .solver import (FilterForm, SolveResult, _chunk_product, _col_block,
+                     _draw, _filter_refine_windowed, _filter_ring,
+                     _filter_windowed, _host, _rho, _ring_route)
 
 __all__ = ["solve_pseudo", "detect_eigenvalue_clusters",
            "calc_degrees_pseudo_h2_host", "locking_pseudo_v3_host"]
@@ -212,6 +227,22 @@ H2 = FilterForm(ps._h2_shift, pring.chebyshev_filter_h2_ring,
                 pring.chebyshev_filter_refine_h2_ring, 2)
 
 
+def h2_form(grid, kernel: bool = True) -> FilterForm:
+    """The H² filter's form on ``grid`` (``solver.hermitian_form``'s
+    counterpart): the windowed H² shift with the grid's product
+    (``parallel/dist.grid_h2_shift``) and the chunk rings with the
+    ring_hemm kernel (``kernel``) or ``torch.matmul`` as their step.
+    :data:`H2` for one device."""
+    if grid is None:
+        return H2
+    return FilterForm(
+        pdist.grid_h2_shift(grid),
+        functools.partial(pring.chebyshev_filter_h2_ring, grid=grid,
+                          kernel=kernel),
+        functools.partial(pring.chebyshev_filter_refine_h2_ring, grid=grid,
+                          kernel=kernel), 2)
+
+
 # --------------------------------------------------------------------------
 # DoS quantile in H-space (solver_pseudo.py:442-476 of the JAX package)
 # --------------------------------------------------------------------------
@@ -252,7 +283,7 @@ def _dos_quantile(theta, tau, numvec, m, N, nev, nex):
     return lam_nevnex
 
 
-def _mirror(V, K2, locked, n):
+def _mirror(V, K2, locked, n, grid=None):
     """Write K(V[:, locked + j]) into column K2 − locked − n + j for
     j < n: the mirrors of the n pairs after the locked ones."""
     src_idx = np.arange(K2)
@@ -260,7 +291,7 @@ def _mirror(V, K2, locked, n):
     dst = np.arange(K2 - locked - n, K2 - locked)
     src_idx[dst] = np.arange(locked, locked + n)
     wmask[dst] = True
-    return ps.k_conjugate_cols(V, src_idx, wmask)
+    return ps.k_conjugate_cols(V, src_idx, wmask, grid)
 
 
 # --------------------------------------------------------------------------
@@ -277,7 +308,8 @@ def solve_pseudo(op: DenseOperator, nev: int, nex: int,
 
     Args as for ``solver.solve``; ``V0`` is an (N, 2·(nev+nex)) block
     (with ``config.approx`` it is used without the initial QR);
-    ``ritzv0`` is accepted and unused, as in the JAX package.
+    ``ritzv0`` is accepted and unused, as in the JAX package.  On the
+    operator's grid every rank calls with the same arguments.
     """
     del ritzv0
     cfg = config or ChaseConfig()
@@ -297,6 +329,7 @@ def solve_pseudo(op: DenseOperator, nev: int, nex: int,
     is_sp = not is_double_base(op.dtype)
     is_complex = op.dtype.is_complex
     device = op.device
+    grid = op.grid
     # the deviation-form H² filter (the ladder's refinement) from
     # iteration 1: DP problems with mixed_precision keep the recurrence on
     # the f32/c64 shadow, real f32 problems with the bf16 rung on bf16
@@ -321,7 +354,7 @@ def solve_pseudo(op: DenseOperator, nev: int, nex: int,
 
     if rcfg.sym_check:
         from .ops.checks import check_pseudo_hermitian
-        if not check_pseudo_hermitian(op.H):
+        if not check_pseudo_hermitian(op.H, grid=grid):
             log.warn("input matrix failed the randomized pseudo-hermiticity "
                      "probe (checkPseudoHermicityEasy analogue)")
 
@@ -330,17 +363,13 @@ def solve_pseudo(op: DenseOperator, nev: int, nex: int,
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(rcfg.seed)
 
-    def lower_damped_randn(k):
-        return scale_lower_rows(torch.randn((N, k), generator=generator,
-                                            device=device, dtype=op.dtype),
-                                0.001)
-
     if V0 is not None and V0.shape[1] != K2:
         raise ValueError(f"v0 has {V0.shape[1]} columns; the pseudo solver "
                          f"takes 2·(nev+nex) = {K2}")
-    V = op.place_block(V0) if V0 is not None else lower_damped_randn(K2)
+    V = (op.place_block(V0) if V0 is not None
+         else _draw(op, K2, generator, damped=True))
     if not approx:
-        V = orthonormalize(V, 0, 1.0, rcfg)
+        V = orthonormalize(V, 0, 1.0, rcfg, grid)
     t0 = toc("InitVecs", t0)
 
     deg0 = min(rcfg.deg + rcfg.deg % 2, rcfg.max_deg)
@@ -357,9 +386,10 @@ def solve_pseudo(op: DenseOperator, nev: int, nex: int,
     # a caller's basis is probed with FRESH random vectors: a Krylov space
     # seeded with (near-)converged eigenvectors breaks down at once and
     # the DoS quantile collapses (solver.py's approx branch, same reason)
-    probes = lower_damped_randn(numvec) if V0 is not None else V[:, :numvec]
+    probes = (_draw(op, numvec, generator, damped=True) if V0 is not None
+              else V[:, :numvec])
     alphas, betas, basis = ps.lanczos_scan_pseudo(op.H, probes, m=m,
-                                                  want_basis=True)
+                                                  want_basis=True, grid=grid)
     a_np, b_np = _host(alphas), _host(betas)
     t0 = toc("Lanczos", t0)
     theta, tau, ritzV_last = lz.lanczos_tridiag_host(a_np, b_np)
@@ -429,7 +459,7 @@ def solve_pseudo(op: DenseOperator, nev: int, nex: int,
     unconverged = nevex
     iteration = 0
     early_all: list = []
-    ring_ok = _ring_allowed(rcfg, op, log)
+    route = _ring_route(rcfg, op, log)
     polish = rcfg.polish_passes()
 
     resid_file = None
@@ -484,7 +514,9 @@ def solve_pseudo(op: DenseOperator, nev: int, nex: int,
                 # back to the problem's H
                 use_low = use_bf16 = False
             H_f = op.H_low if (use_refine or use_bf16 or use_low) else op.H
-            ring = ring_ok and H_f.dtype in KERNEL_DTYPES
+            ring, kernel = _chunk_product(route, rcfg.ring_backend,
+                                          H_f.dtype)
+            form = h2_form(grid, kernel)
             if use_refine:
                 # H²-space tables: expansion points θ², interval [lower,
                 # b_sup], amplification point μ₁ = lambda_1; ONE
@@ -492,14 +524,14 @@ def solve_pseudo(op: DenseOperator, nev: int, nex: int,
                 # H-residuals into H²-residuals: r2 = (H + θ)·r
                 V, f_executed, f_hemms = _filter_refine_windowed(
                     H_f, V, R_prev, ritzv[act], degrees[act], locked, nevex,
-                    B, lambda_1, lower, b_sup, rcfg.max_deg, ring, form=H2,
-                    seed=lambda Rw, th: (ps.h2_residual(op.H, Rw, th),
+                    B, lambda_1, lower, b_sup, rcfg.max_deg, ring, form=form,
+                    seed=lambda Rw, th: (ps.h2_residual(op.H, Rw, th, grid),
                                          th ** 2))
             else:
                 V, f_executed, f_hemms = (
                     _filter_ring if ring else _filter_windowed)(
                     H_f, V, degrees[act], locked, nevex, B, lambda_1,
-                    *ps._interval(lower, b_sup), form=H2)
+                    *ps._interval(lower, b_sup), form=form)
             H_f = None
             if perf is not None:
                 # H² = 2 matvecs per recurrence step
@@ -512,7 +544,7 @@ def solve_pseudo(op: DenseOperator, nev: int, nex: int,
             t0 = toc("Filter", t0)
 
             # -- K-conjugation: mirror [locked, locked+u) → right of active --
-            V = _mirror(V, K2, locked, u)
+            V = _mirror(V, K2, locked, u, grid)
             t0 = toc("ApplyKconjugate", t0)
 
             # -- cond estimate (squared space, algorithm.inc:2034-2060) --
@@ -532,12 +564,13 @@ def solve_pseudo(op: DenseOperator, nev: int, nex: int,
                 cond = np.finfo(np.float64).max
 
             # -- QR (S-orthogonalizing against locked) --
-            V = orthonormalize_pseudo(V, locked, cond, rcfg)
+            V = orthonormalize_pseudo(V, locked, cond, rcfg, grid)
             t0 = toc("Qr", t0)
 
             # -- pseudo RR + residuals (fused) --
             V, th_dev, rs_dev, *Rv, ok = ps.rayleigh_ritz_residuals_pseudo(
-                op.H, V, locked, polish=polish, want_vectors=refine_capable)
+                op.H, V, locked, polish=polish, want_vectors=refine_capable,
+                grid=grid)
             if refine_capable:
                 R_prev = Rv[0]
             if not ok:
@@ -566,9 +599,9 @@ def solve_pseudo(op: DenseOperator, nev: int, nex: int,
                               f"outlier ± pair column(s)")
                     cols = torch.as_tensor(locked + np.asarray(reinit),
                                            device=device)
-                    V[:, cols] = torch.randn(
+                    V[:, cols] = op.local_rows(torch.randn(
                         (N, len(reinit)), generator=generator, device=device,
-                        dtype=op.dtype)
+                        dtype=op.dtype))
 
             if resid_file is not None:
                 for _ in range(locked):
@@ -595,7 +628,7 @@ def solve_pseudo(op: DenseOperator, nev: int, nex: int,
                         R_prev = permute_cols(R_prev, full_perm)
                 # mirror the newly locked pairs into the right-end locked
                 # region
-                V = _mirror(V, K2, locked, new_converged)
+                V = _mirror(V, K2, locked, new_converged, grid)
             locked += new_converged
             unconverged -= new_converged
             iteration += 1

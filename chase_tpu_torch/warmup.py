@@ -14,10 +14,9 @@ nothing but this package's CUDA kernels, so here warming up means:
   allocator holds the solve's blocks and cuSOLVER's handles exist.
 
 On a process grid (``grid=``) every rank builds and loads the library on
-its own card; the fused jobs wait for fused solvers on grids (ROADMAP
-queue 1 item 5, part 2) and raise NotImplementedError on a grid larger
-than 1×1.  There is no thread-pool precompile, so ``max_workers`` is
-accepted and unused.  Usage::
+its own card, and with ``fused=True`` runs the fused solves on the grid
+with the others.  There is no thread-pool precompile, so ``max_workers``
+is accepted and unused.  Usage::
 
     op = chase_tpu_torch.DenseOperator(H, "cuda")
     chase_tpu_torch.warmup(op, nev, nex, config=cfg, fused=True)
@@ -33,7 +32,7 @@ import torch
 
 from .config import ChaseConfig
 from .logger import get_logger
-from .parallel.operator import PART2, DenseOperator
+from .parallel.operator import DenseOperator
 from .solver import _col_block, _window_pad, uses_ring_kernel
 
 __all__ = ["warmup"]
@@ -78,9 +77,6 @@ def warmup(H, nev: int, nex: Optional[int] = None, *, config=None,
         nex = max(1, int(0.4 * nev))
     op = H if isinstance(H, DenseOperator) else DenseOperator(
         H, device, grid=grid)
-    if fused and op.grid is not None and op.grid.nprocs > 1:
-        raise NotImplementedError(f"warmup(fused=True) on the grid "
-                                  f"{op.grid.shape} waits for {PART2}")
     rcfg = cfg.resolve(op.dtype, op.device)
     nevex = nev + nex
     log = get_logger()

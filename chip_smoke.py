@@ -31,8 +31,9 @@ no result line) on any fault:
            laid out as
            DenseOperator(grid=…) lays it out, the production step loop
            (parallel.ring.ring_steps: p ring_hemm calls with col0 = src·N/p
-           and accumulate) with an in-memory exchange standing in for
-           NCCL, on the f32 and bf16 routes here (k = 3000; 1500 too for
+           and accumulate) with the simulated ranks' exchange (one
+           thread each, chunks handed through a shared board between
+           barriers) standing in for NCCL, on the f32 and bf16 routes here (k = 3000; 1500 too for
            bf16) and on the c64 route after cprofile; H·V against a wide
            product per rank and the plain version's loop at the kernel
            gate, launches = p² per ring run; one stripe call (N/p, N/p, k)
@@ -40,17 +41,7 @@ no result line) on any fault:
            bound; the pre-pass of a received chunk beside what sending
            the chunk in the pre-pass's layout would add (f32, c64: hi and
            lo) or save (bf16: half the bytes) at 450 GB/s of NVLink
-  grid1    a child process with torchrun's variables at WORLD_SIZE=1:
-           multihost.init_grid() on NCCL, the grid's collectives once
-           (all_reduce f32 and c64, all_gather_into_tensor, broadcast),
-           then the f32 slice on the (1, 1) grid with ring_backend=
-           "pallas", cold and warm: [slice]'s gates and iteration count,
-           ring_hemm launches = the filter's HEMM steps, the collectives
-           issued per iteration, the warm TTS beside [profile]'s
-  gridnccl with two cards or more, p = min(cards, 4) ranks solve the f32
-           slice on a (p, 1) NCCL grid with the same gates (each rank's
-           ring_hemm launches = p × its HEMM steps); with one card it
-           prints "not run: 1 device" and counts nothing as passed
+           (the BSE H² rings: after pfilter, below)
   io       the slice's H written with io.save_matrix to a ChASE file in a
            temporary directory (removed at the end of capi), read back by
            io.load_matrix through the native reader (bitwise against H on
@@ -119,7 +110,16 @@ no result line) on any fault:
            operator of each BSE solve below: the f32 route (f32 shadow,
            f64 window), the bf16 route (bf16 shadow, f32 window) and,
            before zpseudo, the c64 route (c64 shadow, c128 window);
-           launches = 2·10, degree-0 columns bit-exact
+           launches = 2·10, degree-0 columns bit-exact; then [gridring]'s
+           H² rings: chebyshev_filter_h2_ring(grid=…) at p = 2 and 4
+           simulated ranks (one thread each, the ring's exchange through a
+           shared board between barriers) on each rank's stripe of that
+           operator and its rows of that window, both products of every
+           step a p-step ring_steps ring on the kernel; the stacked result
+           against the plain H² filter at pfilter's gate, degree-0
+           columns bit-exact, launches = 2·p² per H² step; an f32 and a
+           c64 stripe call (N/p, N/p, 1500) timed beside its plain
+           version, the library call and its bound
   bpseudo  eigsh_pseudo on the f32 copy of that BSE matrix, tol 1e-4, on
            the bf16 rung (bf16_filter=True, ring_backend="pallas"): every
            filter product on the kernel's bf16 route (ring_hemm launches
@@ -150,6 +150,35 @@ no result line) on any fault:
            (torch.cuda.set_sync_debug_mode, at most 3) and, on the kernel
            ring, ring_hemm and pre-pass launches against the solver's HEMM
            steps (equal); the phase's gates hold for both solvers
+  grid1    a child process with torchrun's variables at WORLD_SIZE=1:
+           multihost.init_grid() on NCCL, the grid's collectives once
+           (all_reduce f32 and c64, all_gather_into_tensor, broadcast,
+           the ring's chunk exchange), then with grid= on the (1, 1)
+           grid, each at its one-device phase's gates: the f32 slice
+           (eigsh, cold and warm), eigsh_fused at fslice's shape, the f64
+           BSE ladder of pseudo (eigsh_pseudo, cold and warm) and
+           eigsh_pseudo_fused at fpseudo's shape (first, warm, one
+           iteration: at most 3 host syncs per iteration); each with its
+           phase's iteration count, its warm TTS within ±5% of the
+           phase's, ring_hemm launches = the HEMM steps, no collective
+           issued (Grid2D.stats)
+  gridnccl with two cards or more, p = min(cards, 4) ranks run grid1's
+           solves on a (p, 1) NCCL grid with their gates (each rank's
+           ring_hemm launches = p × its HEMM steps); with one card it
+           prints "not run: 1 device" and counts nothing as passed
+  gridhost two child processes (torchrun's variables, a gloo group) that
+           share card 0 on a (2, 1) grid of HostStagedGrid, a Grid2D
+           defined here whose collectives copy CUDA tensors to pinned
+           host memory, run gloo and copy back (not NCCL, which refuses
+           two ranks on one card): Clement N=8192, nev=512, nex=256, f32
+           tol 0.1 (eigsh, eigsh_fused) and the structured BSE N=8192,
+           nev=256, nex=128, f64 ladder tol 1e-10 (eigsh_pseudo,
+           eigsh_pseudo_fused), on "pallas": each at its phase's accuracy
+           gate, iterations within ±1 of the same solve on one device,
+           ritzv, resid, iterations and locked bitwise equal on both
+           ranks, ring_hemm launches = 2 × HEMM steps per rank with every
+           launch on a stripe (N/2 rows, col0 0 or N/2); its times are of
+           two ranks sharing one card, not performance numbers
 
 Each phase prints lines with its numbers and seconds.  A full run then
 prints the kernels' JSON summary and, last, {"ok": true, "device": {...}}.
@@ -1355,14 +1384,16 @@ PFILTER_ROUTES = {"f32": (torch.float32, torch.float64, 1e-5),
                   "c64": (torch.complex64, torch.complex128, 1e-5)}
 
 
-def phase_pfilter(dev, H, lam, route: str) -> None:
+def phase_pfilter(dev, H, lam, route: str) -> dict:
     """The p=1 H² ring filter (two ring_hemm launches per step) against
     the plain H² filter (torch.matmul) at the BSE solves' first window,
     w = nev + nex, on the operator each BSE solve filters with: the f32
     shadow of the f64 H with an f64 window (pseudo's ladder), its bf16
     shadow with an f32 window (bpseudo's rung) or the c64 shadow of the
     complex H with a c128 window (zpseudo's ladder).  The kernel reads no
-    symmetry, and the BSE H's halves differ."""
+    symmetry, and the BSE H's halves differ.  Returns the operator, the
+    window, the filter's arguments and the plain filter's result, for
+    [gridring]'s H² rings."""
     from chase_tpu_torch.config import set_matmul_precision
     from chase_tpu_torch.ops.pseudo import chebyshev_filter_h2
     from chase_tpu_torch.ops.ring_hemm import bf16_pack, ring_hemm, tf32_split
@@ -1391,7 +1422,7 @@ def phase_pfilter(dev, H, lam, route: str) -> None:
     wide = torch.complex128 if X.is_complex() else torch.float64
     err = rel_err(Yk, Yp.to(wide))
     exact0 = bool(torch.equal(Yk[:, :100], X[:, :100]))
-    del Yk, Yp
+    del Yk
     plain_ms, kern_ms = time_fns([lambda: chebyshev_filter_h2(H_f, X, *args),
                                   lambda: chebyshev_filter_h2_ring(
                                       H_f, X, *args)], 1)
@@ -1405,13 +1436,12 @@ def phase_pfilter(dev, H, lam, route: str) -> None:
                    f"{2 * deg_max}); ring {kern_ms:.1f} ms, plain "
                    f"{plain_ms:.1f} ms ({gf:.0f} useful GFLOP); "
                    f"{time.perf_counter() - t_phase:.2f} s")
-    del H_f
-    torch.cuda.empty_cache()
     if not (err <= gate and exact0
             and launches == (2 * deg_max, 2 * deg_max, 0)):
         raise AssertionError(f"the {route} H² ring filter disagrees with "
                              f"the plain H² filter or did not launch "
                              f"2·deg_max times")
+    return dict(H_f=H_f, X=X, args=args, Yp=Yp, gate=gate)
 
 
 def _bse_solve(dev, H, lam, phase: str, mixed: bool, backend: str,
@@ -1558,6 +1588,49 @@ def timed(fn) -> tuple:
     return time.perf_counter() - t0, out
 
 
+def fused_runs(fused, p: int = 1) -> dict:
+    """``fused(max_iter)`` (max_iter None: the config's) three times: the
+    first call, with the kernel launch counts set to 0 just before it and
+    read after it; the warm call, its host syncs counted; and a run
+    stopped after one iteration (``max_iter=1``), whose syncs are taken
+    off the warm call's, over the iterations left: the syncs of an
+    iteration."""
+    _zero_ring_counts()
+    first, res = timed(lambda: fused(None))
+    launches = _ring_counts()
+    (warm, res2), sites = count_syncs(lambda: timed(lambda: fused(None)))
+    (_, res1), sites1 = count_syncs(lambda: timed(lambda: fused(1)))
+    syncs, syncs1 = sum(sites.values()), sum(sites1.values())
+    return dict(first=first, warm=warm, res=res, res2=res2, res1=res1,
+                launches=launches, steps=res.perf.filter_hemm_steps,
+                syncs=syncs, syncs1=syncs1, sites=sites, p=p,
+                per_iter=(syncs - syncs1) / max(res2.iterations - 1, 1))
+
+
+def check_fused_runs(phase: str, runs: dict, kernel: bool = True) -> None:
+    """The gates of :func:`fused_runs`: the sync count works, at most 3
+    host syncs per iteration, and with ``kernel`` every HEMM step p
+    launches of the kernel and its one pre-pass (none without)."""
+    res1, res2, syncs = runs["res1"], runs["res2"], runs["syncs"]
+    launches, steps, p = runs["launches"], runs["steps"], runs["p"]
+    if res1.iterations != 1 or syncs < res2.iterations + 1:
+        raise AssertionError(f"{phase}: the sync count does not work "
+                             f"({syncs} syncs in {res2.iterations} "
+                             f"iterations)")
+    if runs["per_iter"] > 3:
+        raise AssertionError(f"{phase}: {runs['per_iter']:.2f} host syncs "
+                             f"per fused iteration (at most 3)")
+    if kernel:
+        hemm, split, pack = launches
+        pre = pack if split == 0 else split
+        if not (0 < hemm == pre == p * steps and min(split, pack) == 0):
+            raise AssertionError(f"{phase}: launches {launches} against "
+                                 f"{p} × {steps} HEMM steps")
+    elif launches != (0, 0, 0):
+        raise AssertionError(f"{phase}: kernel launches {launches} on a "
+                             f"path with no kernel operator")
+
+
 def fused_beside_host(phase: str, what: str, fused, host, gate,
                       host_warm=None, kernel: bool = True,
                       trace: bool = False) -> dict:
@@ -1573,16 +1646,13 @@ def fused_beside_host(phase: str, what: str, fused, host, gate,
     off, over the iterations left: the syncs of an iteration.  With
     ``trace`` one more warm call of each is traced (busy share, kernel
     launches per iteration)."""
-    from chase_tpu_torch.ops.ring_hemm import bf16_pack, ring_hemm, tf32_split
-    ring_hemm.launches = tf32_split.launches = bf16_pack.launches = 0
-    first, res = timed(lambda: fused(None))
-    launches = (ring_hemm.launches, tf32_split.launches, bf16_pack.launches)
-    steps = res.perf.filter_hemm_steps
+    runs = fused_runs(fused)
+    first, warm, res, res2 = (runs[k] for k in ("first", "warm", "res",
+                                                 "res2"))
+    launches, steps, per_iter = runs["launches"], runs["steps"], \
+        runs["per_iter"]
+    syncs, syncs1, sites = runs["syncs"], runs["syncs1"], runs["sites"]
     gate(res, "fused")
-    (warm, res2), sites = count_syncs(lambda: timed(lambda: fused(None)))
-    (_, res1), sites1 = count_syncs(lambda: timed(lambda: fused(1)))
-    syncs, syncs1 = sum(sites.values()), sum(sites1.values())
-    per_iter = (syncs - syncs1) / max(res2.iterations - 1, 1)
     gate(res2, "fused (warm)")
     if host_warm is None:
         h_first, hres = timed(host)
@@ -1603,28 +1673,20 @@ def fused_beside_host(phase: str, what: str, fused, host, gate,
                f"tf32_split / bf16_pack launches {launches}, the solver's "
                f"HEMM steps {steps}; filtered vecs "
                f"{res.perf.filtered_vecs}; max resid {res.resid.max():.3e}")
-    if res1.iterations != 1 or syncs < res2.iterations + 1:
-        raise AssertionError(f"{phase}: the sync count does not work "
-                             f"({syncs} syncs in {res2.iterations} "
-                             f"iterations)")
-    if per_iter > 3:
-        raise AssertionError(f"{phase}: {per_iter:.2f} host syncs per fused "
-                             f"iteration (at most 3)")
-    if kernel:
-        hemm, split, pack = launches
-        pre = pack if split == 0 else split
-        if not (0 < hemm == pre == steps and min(split, pack) == 0):
-            raise AssertionError(f"{phase}: launches {launches} against "
-                                 f"{steps} HEMM steps")
-    elif launches != (0, 0, 0):
-        raise AssertionError(f"{phase}: kernel launches {launches} on a "
-                             f"path with no kernel operator")
+    check_fused_runs(phase, runs, kernel)
     if trace:
         trace_solve(phase, "warm fused solve", lambda: timed(
             lambda: fused(None)))
         trace_solve(phase, "warm host-driver solve", lambda: timed(host))
     return dict(first=first, warm=warm, iterations=res2.iterations,
                 per_iter=per_iter, launches=launches, steps=steps)
+
+
+def whole(V, device) -> torch.Tensor:
+    """A result's V as one tensor on ``device``: a grid solve's DTensor
+    gathered (``full_tensor``, on every rank), a tensor as it is."""
+    from torch.distributed.tensor import DTensor
+    return V.full_tensor().to(device) if isinstance(V, DTensor) else V
 
 
 def clement_gate(phase: str, H, nev: int, ev_tol: float, res_tol: float):
@@ -1634,7 +1696,7 @@ def clement_gate(phase: str, H, nev: int, ev_tol: float, res_tol: float):
     exact = clement_eigenvalues(H.shape[0])[:nev]
 
     def gate(res, who):
-        V = res.V[:, :nev]
+        V = whole(res.V, H.device)[:, :nev]
         lam = torch.as_tensor(res.ritzv, device=H.device).to(H.dtype)
         true_res = float(torch.linalg.vector_norm(H @ V - V * lam,
                                                   dim=0).max())
@@ -1679,8 +1741,8 @@ def bse_gate(phase: str, H, lam, nev: int, tol: float):
 
     def gate(res, who):
         ev_err = float(np.abs(res.ritzv - lam[:nev].cpu().numpy()).max())
-        true_res = float(residuals_pseudo(H, res.V[:, :nev],
-                                          res.ritzv).max())
+        true_res = float(residuals_pseudo(
+            H, whole(res.V, H.device)[:, :nev], res.ritzv).max())
         if not (res.converged and ev_err <= 10 * tol
                 and true_res <= 10 * tol):
             raise AssertionError(f"{phase} ({who}): converged="
@@ -1746,43 +1808,31 @@ NVLINK_GBS = 450.0          # GB/s each way between two H100 SXM cards
 
 
 class _SimRequests:
-    """A finished exchange: the in-memory rotation copies at once."""
+    """A finished exchange: the simulated ranks' copy is queued at once."""
 
     @staticmethod
     def wait() -> None:
         pass
 
 
-def sim_exchange(chunks, me: int):
-    """The ring's exchange over len(chunks) simulated ranks in one process:
-    the call before step s hands rank ``me`` the chunk of rank (me + s +
-    1) mod p, as the NCCL exchange does on p cards."""
-    p, step = len(chunks), [0]
-
-    def swap(send, recv):
-        step[0] += 1
-        recv.copy_(chunks[(me + step[0]) % p])
-        return _SimRequests
-    return swap
-
-
-def _ring_all(stripes, chunks, **step) -> torch.Tensor:
-    """Every simulated rank's ring product (the production step loop with
-    the in-memory exchange; its kernel step unless ``step=`` is given),
-    stacked: H·V."""
+def _ring_all(stripes, chunks, step=None) -> torch.Tensor:
+    """Every simulated rank's ring product (:func:`sim_ranks`: the
+    production step loop with the simulated ranks' exchange; its kernel
+    step unless ``step`` is given), stacked: H·V."""
     from chase_tpu_torch.parallel.ring import ring_steps
     p = len(chunks)
-    return torch.cat([ring_steps(stripes[i], chunks[i], me=i, p=p,
-                                 exchange=sim_exchange(chunks, i), **step)
-                      for i in range(p)])
+    return torch.cat(sim_ranks(p, lambda g: ring_steps(
+        stripes[g.me], chunks[g.me], me=g.me, p=p, exchange=g.exchange(),
+        step=step)))
 
 
 def phase_gridring(dev, H, route: str) -> dict:
     """The (p, 1) ring's stripes of an N × N H on one card: for p = 2 and
     4 simulated ranks, each rank's stripe laid out as
     DenseOperator(grid=…) lays it out (``operator.block_of``), the
-    production step loop (``parallel.ring.ring_steps``) with an in-memory
-    exchange, on the kernel's ``route`` (f32, bf16 — the f32 H's shadow
+    production step loop (``parallel.ring.ring_steps``) with the
+    simulated ranks' exchange (:func:`sim_ranks`), on the kernel's
+    ``route`` (f32, bf16 — the f32 H's shadow
     — or c64); H·V held against a wide product per rank at the kernel
     gate (the plain version's and the library call's rings beside it);
     one stripe call (m, b, k) = (N/p, N/p, k) timed beside its plain
@@ -1814,9 +1864,10 @@ def phase_gridring(dev, H, route: str) -> dict:
             Vr = (V.to(torch.bfloat16) if route == "bf16" else V).to(wide)
             _zero_ring_counts()
             torch.cuda.synchronize()
-            W = _ring_all(stripes, chunks)
+            with one_rank_at_a_time() as step:
+                W = _ring_all(stripes, chunks)
             torch.cuda.synchronize()
-            launches = _ring_counts()
+            launches = (step.launches,) + _ring_counts()[1:]
             # the plain version's ring, and the library call's (matmul_step:
             # torch.matmul, or torch.mm(out_dtype=f32) of a bf16 H)
             Wp = _ring_all(stripes, chunks, step=ring_hemm_reference)
@@ -1898,6 +1949,166 @@ def phase_gridring(dev, H, route: str) -> dict:
     return out
 
 
+class _SimRank:
+    """Rank ``me`` of p simulated ranks, each a thread of this process:
+    what the ring reads of a (p, 1) grid (``shape``, ``size``, ``index``,
+    ``exchange``).  Its exchange hands chunks through a shared board
+    between two barriers, as NCCL hands them from card to card: the
+    call of rank ``me`` receives rank (me + 1) mod p's send.  Every
+    thread queues its work on the card's one default stream, so a copy
+    queued after the first barrier reads a send whose producers were
+    queued before it."""
+
+    def __init__(self, me: int, p: int, board: list, barrier):
+        self.me, self.p, self.board, self.barrier = me, p, board, barrier
+
+    @property
+    def shape(self) -> dict:
+        return {"r": self.p, "c": 1}
+
+    def size(self, axis: str) -> int:
+        return self.shape[axis]
+
+    def index(self, axis: str) -> int:
+        return self.me if axis == "r" else 0
+
+    def exchange(self, axis: str = "r"):
+        def swap(send, recv):
+            self.board[self.me] = send
+            self.barrier.wait()
+            recv.copy_(self.board[(self.me + 1) % self.p])
+            self.barrier.wait()
+            return _SimRequests
+        return swap
+
+
+@contextlib.contextmanager
+def one_rank_at_a_time():
+    """``ops.ring_hemm.ring_hemm`` — looked up there by every ring step
+    at call time — replaced by a wrapper that runs one simulated rank's
+    call at a time: the wrapper's launch counts (``ring_hemm.launches``
+    on the module's name, which is then this wrapper, and the
+    pre-passes') are read-modify-writes.  Yields the wrapper, whose
+    ``launches`` counts the kernel's launches meanwhile."""
+    from chase_tpu_torch.ops import ring_hemm as rh
+    real, lock = rh.ring_hemm, threading.Lock()
+
+    def step(*a, **k):
+        with lock:
+            return real(*a, **k)
+    step.launches = 0
+    rh.ring_hemm = step
+    try:
+        yield step
+    finally:
+        rh.ring_hemm = real
+
+
+def sim_ranks(p: int, fn) -> list:
+    """``fn(rank)`` for p simulated ranks (:class:`_SimRank`), one thread
+    each, their results in rank order; a rank that raises breaks the
+    others' barrier, and the first error is raised here."""
+    board, barrier = [None] * p, threading.Barrier(p, timeout=300)
+    out, errors = [None] * p, []
+
+    def run(i):
+        try:
+            out[i] = fn(_SimRank(i, p, board, barrier))
+        except BaseException as e:              # noqa: BLE001
+            errors.append(e)
+            barrier.abort()
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(p)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    if errors:
+        raise errors[0]
+    return out
+
+
+def phase_gridring_h2(dev, ctx: dict, route: str) -> dict:
+    """The H² ring filter on a (p, 1) grid, p = 2 and 4 simulated ranks:
+    each rank's stripe of [pfilter]'s operator laid out as
+    DenseOperator(grid=…) lays it out, and its rows of [pfilter]'s window
+    (w = nev + nex = 1500, degree 10), through the production filter
+    (``parallel.ring.chebyshev_filter_h2_ring(grid=…)``: both products of
+    every H² step a p-step ``ring_steps`` ring on the kernel) with the
+    simulated ranks' exchange; the stacked result held against the plain
+    H² filter on the whole H ([pfilter]'s result) at [pfilter]'s gate,
+    degree-0 columns bit-exact, launches = 2·p² per H² step over the
+    ranks.  One stripe call (m, b, k) = (N/p, N/p, w) of the f32 and c64
+    routes timed beside its plain version, the library call and its
+    bound, its error against an f64 (c128) product."""
+    from chase_tpu_torch.ops.ring_hemm import ring_hemm, ring_hemm_reference
+    from chase_tpu_torch.parallel.operator import block_of
+    from chase_tpu_torch.parallel.ring import chebyshev_filter_h2_ring
+    t_phase = time.perf_counter()
+    H_f, X, args, Yp, gate = (ctx[k] for k in ("H_f", "X", "args", "Yp",
+                                                  "gate"))
+    N, w = X.shape
+    deg, deg_max = args[0], args[-1]
+    wide = torch.complex128 if X.is_complex() else torch.float64
+    out = {}
+    for p in GRID_P:
+        b = N // p
+        stripes = [block_of(H_f, (i * b, b), (0, N), N, dtype=H_f.dtype,
+                            device=dev) for i in range(p)]
+        _zero_ring_counts()
+        torch.cuda.synchronize()
+        with one_rank_at_a_time() as step:
+            Y = torch.cat(sim_ranks(p, lambda g: chebyshev_filter_h2_ring(
+                stripes[g.me], X[g.me * b:(g.me + 1) * b], *args, grid=g)))
+        launches = (step.launches,) + _ring_counts()[1:]
+        err = rel_err(Y, Yp.to(wide))
+        exact0 = bool(torch.equal(Y[:, deg == 0], X[:, deg == 0]))
+        del Y
+        steps = 1 + max(deg_max - 1, 0)
+        want = 2 * p * p * steps
+        line = (f"{route} H² ring filter p={p} (stripes ({b}, {N}), window "
+                f"{w}, deg_max {deg_max}) over {p} simulated ranks: rel err "
+                f"against the plain H² filter {err:.3e} (gate {gate:.0e}); "
+                f"degree-0 columns bit-exact: {exact0}; ring_hemm launches "
+                f"{launches[0]} (2·p²·{steps} = {want}), pre-pass "
+                f"{launches[1] + launches[2]}")
+        if route != "bf16":
+            Hs, Vc = stripes[0], X[b:2 * b].to(H_f.dtype).contiguous()
+            Hb = Hs[:, b:2 * b]
+            Wc = torch.empty((b, w), dtype=H_f.dtype, device=dev)
+            plain_ms, kern_ms, lib_ms = time_fns(
+                [lambda: ring_hemm_reference(Hs, Vc, col0=b, out=Wc),
+                 lambda: ring_hemm(Hs, Vc, col0=b, out=Wc),
+                 lambda: torch.matmul(Hb, Vc)], 3)
+            ref = Hb.to(wide) @ Vc.to(wide)
+            abs_err = float((ring_hemm(Hs, Vc, col0=b).to(wide) - ref)
+                            .abs().max())
+            del ref
+            bound_ms, bound_by = hemm_bound(b, b, w, H_f.dtype)
+            out[(p, w)] = dict(abs_err=abs_err, ms=kern_ms,
+                               plain_ms=plain_ms, library_ms=lib_ms,
+                               bound_ms=bound_ms, bound_by=bound_by,
+                               launches=launches[0])
+            line += (f"; stripe call ({b}, {b}, {w}) {kern_ms:.3f} ms, plain "
+                     f"{plain_ms:.3f} ms, library {lib_ms:.3f} ms, bound "
+                     f"{bound_ms:.3f} ms ({bound_by}), max abs err "
+                     f"{abs_err:.3e} against a {wide} product")
+            del Hs, Vc, Hb, Wc
+        log("gridring", line)
+        del stripes
+        torch.cuda.empty_cache()
+        if not (err <= gate and exact0 and launches[0] == want
+                and launches[1] + launches[2] == want):
+            raise AssertionError(f"gridring H² {route} p={p}: error "
+                                 f"{err:.3e} (gate {gate:.0e}), degree-0 "
+                                 f"exact {exact0}, launches {launches} "
+                                 f"(want {want})")
+    log("gridring", f"{route} H² rings ok in "
+                    f"{time.perf_counter() - t_phase:.2f} s")
+    return out
+
+
 def free_port() -> int:
     """A free TCP port on this machine's loopback (the rendezvous of
     the children's process group)."""
@@ -1952,15 +2163,62 @@ def _check_wiring(grid) -> str:
             f"'r') on the grid's groups: ok")
 
 
+def _grid_solve(grid, solve, gate, runs: int = 2) -> dict:
+    """``solve()`` on ``grid`` ``runs`` times (cold, then warm), each
+    timed with the grid's collectives and the kernel launch counts set to
+    0 just before it; the last run's numbers, its cold TTS beside, gated
+    by ``gate(res, who)`` and launches = p × the filter's HEMM steps on
+    every kernel route."""
+    import torch.distributed as dist
+    out = []
+    for _ in range(runs):
+        grid.stats.reset()
+        _zero_ring_counts()
+        torch.cuda.synchronize(grid.device)
+        dist.barrier()
+        tts, res = timed(solve)
+        out.append((tts, res, _ring_counts(), grid.stats.summary()))
+    tts, res, launches, stats = out[-1]
+    gate(res, f"grid {grid.shape}")
+    steps = res.perf.filter_hemm_steps
+    p = grid.size("r")
+    if not (launches[0] == launches[1] + launches[2] == p * steps
+            and min(launches[1], launches[2]) == 0):
+        raise AssertionError(f"grid {grid.shape}: launches {launches} "
+                             f"against {p} × {steps} HEMM steps")
+    return dict(tts_cold=out[0][0], tts=tts, iterations=res.iterations,
+                launches=list(launches), hemm_steps=steps,
+                executed=res.perf.filtered_vecs_executed,
+                collectives={k: list(v) for k, v in stats.items()})
+
+
+def _grid_fused(grid, fused, gate) -> dict:
+    """:func:`fused_runs` of ``fused`` on ``grid`` with its gates
+    (:func:`check_fused_runs`, launches = p × HEMM steps) and ``gate``
+    on both solves; the collectives of the warm call."""
+    grid.stats.reset()
+    runs = fused_runs(fused, grid.size("r"))
+    check_fused_runs(f"grid {grid.shape} fused", runs)
+    gate(runs["res"], "fused")
+    gate(runs["res2"], "fused (warm)")
+    return dict(tts_cold=runs["first"], tts=runs["warm"],
+                iterations=runs["res2"].iterations,
+                per_iter=runs["per_iter"], launches=list(runs["launches"]),
+                hemm_steps=runs["steps"],
+                collectives={k: list(v) for k, v in
+                             grid.stats.summary().items()})
+
+
 def grid_child() -> int:
     """One rank of [grid1] / [gridnccl], started with torchrun's
     variables: multihost.init_grid() on NCCL, the (GRID_R, 1) grid, the
-    f32 slice on the kernel ring with its gates, twice (cold, warm); rank
+    NCCL wiring, then on the kernel ring with each phase's gates: the f32
+    slice (cold, warm), the f64 BSE ladder of [pseudo] (eigsh_pseudo,
+    cold, warm), eigsh_fused at [fslice]'s shape and eigsh_pseudo_fused
+    at [fpseudo]'s (first, warm with its host syncs, one iteration); rank
     0 prints one line ``GRID_RESULT {json}``."""
     import torch.distributed as dist
     import chase_tpu_torch as ct
-    from chase_tpu_torch.models import clement_eigenvalues
-    from chase_tpu_torch.ops.residuals import residuals
     from chase_tpu_torch.parallel import multihost
     r = int(os.environ["GRID_R"])
     t0 = time.perf_counter()
@@ -1968,55 +2226,179 @@ def grid_child() -> int:
     t_init = time.perf_counter() - t0
     wiring = _check_wiring(grid)
     dev = grid.device
+    out = dict(shape=[r, 1], init_s=t_init, wiring=wiring)
     N, nev, nex, tol = SLICE["N"], SLICE["nev"], SLICE["nex"], SLICE["tol"]
     H = clement_on_device(N, dev)
     cfg = ct.ChaseConfig(ring_backend="pallas", mixed_precision=False)
     op = ct.DenseOperator(H, grid=grid)
-    runs = []
-    for _ in range(2):
-        grid.stats.reset()
-        _zero_ring_counts()
-        torch.cuda.synchronize(dev)
-        dist.barrier()
-        t0 = time.perf_counter()
-        res = ct.eigsh(op, nev, nex, tol=tol, config=cfg, collect_perf=True)
-        torch.cuda.synchronize(dev)
-        tts = time.perf_counter() - t0
-        runs.append((tts, res, _ring_counts(), grid.stats.summary()))
-    tts, res, launches, stats = runs[-1]
-    V = res.V.full_tensor()[:, :nev]
-    ev_err = float(np.abs(res.ritzv - clement_eigenvalues(N)[:nev]).max())
-    true_res = float(residuals(H, V, res.ritzv).max())
-    steps = res.perf.filter_hemm_steps
-    ok = (res.converged and ev_err <= 0.5 and true_res <= 10 * tol
-          and launches[0] == launches[1] == r * steps and launches[2] == 0)
+    gate = clement_gate("grid", H, nev, 0.5, 10 * tol)
+    out["slice"] = _grid_solve(grid, lambda: ct.eigsh(
+        op, nev, nex, tol=tol, config=cfg, collect_perf=True), gate)
+
+    def fslice(max_iter):
+        c = cfg if max_iter is None else ct.ChaseConfig(
+            ring_backend="pallas", mixed_precision=False, max_iter=max_iter)
+        return ct.eigsh_fused(H, nev, nex, tol=tol, config=c, grid=grid,
+                              collect_perf=True)
+
+    out["fslice"] = _grid_fused(grid, fslice, gate)
+    del op, H
+    torch.cuda.empty_cache()
+    H, lam = structured_bse_on_device(BSE["N"], dev)
+    nev, nex, tol = BSE["nev"], BSE["nex"], BSE["tol"]
+    bgate = bse_gate("grid", H, lam, nev, tol)
+    ladder = ct.ChaseConfig(mixed_precision=True, ring_backend="pallas")
+    out["pseudo"] = _grid_solve(grid, lambda: ct.eigsh_pseudo(
+        H, nev, nex, tol=tol, config=ladder, grid=grid, collect_perf=True),
+        bgate)
+
+    def fpseudo(max_iter):
+        c = ladder if max_iter is None else ct.ChaseConfig(
+            mixed_precision=True, ring_backend="pallas", max_iter=max_iter)
+        return ct.eigsh_pseudo_fused(H, nev, nex, tol=tol, config=c,
+                                     grid=grid, collect_perf=True)
+
+    out["fpseudo"] = _grid_fused(grid, fpseudo, bgate)
     if grid.coords == (0, 0):
-        print("GRID_RESULT " + json.dumps(dict(
-            shape=[r, 1], init_s=t_init, wiring=wiring, tts_cold=runs[0][0],
-            tts=tts, iterations=res.iterations, converged=res.converged,
-            ev_err=ev_err, true_res=true_res, launches=list(launches),
-            hemm_steps=steps, executed=res.perf.filtered_vecs_executed,
-            collectives={k: list(v) for k, v in
-                                           stats.items()},
-            ok=bool(ok))), flush=True)
+        print("GRID_RESULT " + json.dumps(out), flush=True)
     dist.destroy_process_group()
-    return 0 if ok else 1
+    return 0
 
 
-def _run_grid(phase: str, r: int) -> dict:
-    """The r ranks of a (r, 1) grid as child processes on cards 0…r−1
-    (torchrun's variables, a loopback rendezvous), each killed after the
-    phase's time limit; rank 0's result."""
+def host_child() -> int:
+    """One rank of [gridhost]: a gloo process group from torchrun's
+    variables, a (2, 1) grid of :class:`HostStagedGrid` whose ranks share
+    card 0, and the shared-card solves of GRIDHOST with their gates; each
+    rank prints one line ``HOST_RESULT {json}`` (its results' bits as
+    hex, the rows and col0 of every ring_hemm launch)."""
+    import torch.distributed as dist
+    import chase_tpu_torch as ct
+    from chase_tpu_torch.ops import ring_hemm as rh
+    from chase_tpu_torch.parallel import multihost
+    cpu_grid = multihost.init_grid((2, 1), device="cpu", timeout=300)
+    grid = host_staged_grid(cpu_grid.mesh, torch.device("cuda", 0))
+    real, stripes = rh.ring_hemm, set()
+
+    def recording(H, V, *, col0=0, out=None, accumulate=False):
+        stripes.add((H.shape[0], col0))
+        return real(H, V, col0=col0, out=out, accumulate=accumulate)
+
+    # every ring step looks ring_hemm up on its module at call time, and
+    # the wrapper counts its launches on that name: this function
+    rh.ring_hemm = recording
+    dev = grid.device
+    results = {}
+    for name, (kind, N, nev, nex, tol, cfg) in GRIDHOST.items():
+        if kind == "clement":
+            H = clement_on_device(N, dev)
+            gate = clement_gate("gridhost", H, nev, 0.5, 10 * tol)
+            solve = ct.eigsh_fused if "fused" in name else ct.eigsh
+        else:
+            H, lam = structured_bse_on_device(N, dev)
+            gate = bse_gate("gridhost", H, lam, nev, tol)
+            solve = (ct.eigsh_pseudo_fused if "fused" in name
+                     else ct.eigsh_pseudo)
+        stripes.clear()
+        grid.stats.reset()
+        recording.launches = rh.tf32_split.launches = 0
+        dist.barrier()
+        tts, res = timed(lambda: solve(H, nev, nex, tol=tol, grid=grid,
+                                       collect_perf=True,
+                                       config=ct.ChaseConfig(**cfg)))
+        gate(res, f"rank {dist.get_rank()}")
+        results[name] = dict(
+            tts=tts, iterations=res.iterations, locked=res.locked,
+            ritzv=np.asarray(res.ritzv, np.float64).tobytes().hex(),
+            resid=np.asarray(res.resid, np.float64).tobytes().hex(),
+            launches=[recording.launches, rh.tf32_split.launches],
+            hemm_steps=res.perf.filter_hemm_steps, N=N,
+            stripes=sorted(stripes),
+            collectives={k: list(v) for k, v in
+                         grid.stats.summary().items()})
+        del H, res
+        torch.cuda.empty_cache()
+    print("HOST_RESULT " + json.dumps(results), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def host_staged_grid(mesh, device):
+    """A :class:`chase_tpu_torch.parallel.mesh.Grid2D` on ``mesh`` (a CPU
+    mesh of a gloo group) whose tensors live on ``device``, a card that
+    its ranks may share: its collectives copy CUDA tensors to pinned host
+    memory, run gloo there and copy the result back."""
+    import torch.distributed as dist
+    from chase_tpu_torch.parallel.mesh import Grid2D
+
+    def pinned(t):
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        return h.copy_(t)
+
+    class _Staged:
+        def __init__(self, work, recv, host):
+            self.work, self.recv, self.host = work, recv, host
+
+        def wait(self):
+            self.work.wait()
+            self.recv.copy_(self.host)
+
+    class HostStagedGrid(Grid2D):
+        """Grid2D with its collectives staged through pinned host memory
+        (gloo): p ranks of one card, which NCCL refuses."""
+
+        def all_reduce(self, t, axis, op=dist.ReduceOp.SUM):
+            if t.device.type == "cpu" or self.size(axis) == 1:
+                return super().all_reduce(t, axis, op)
+            h = pinned(t)
+            super().all_reduce(h, axis, op)
+            return t.copy_(h)
+
+        def sum_rows(self, t):
+            if t.device.type == "cpu":
+                return super().sum_rows(t)
+            h = pinned(t)
+            super().sum_rows(h)
+            return t.copy_(h)
+
+        def all_gather(self, t, axis="r"):
+            if t.device.type == "cpu" or self.size(axis) == 1:
+                return super().all_gather(t, axis)
+            return super().all_gather(pinned(t), axis).to(t.device)
+
+        def rotate_rows(self, t, shift, axis="r"):
+            if t.device.type == "cpu" or self.size(axis) == 1:
+                return super().rotate_rows(t, shift, axis)
+            return super().rotate_rows(pinned(t), shift, axis).to(t.device)
+
+        def exchange(self, axis="r"):
+            swap = super().exchange(axis)
+
+            def staged(send, recv):
+                host = torch.empty(recv.shape, dtype=recv.dtype,
+                                   pin_memory=True)
+                return _Staged(swap(pinned(send), host), recv, host)
+            return staged
+
+    return HostStagedGrid(mesh, device)
+
+
+def _run_ranks(phase: str, entry: str, r: int, prefix: str,
+               timeout: float = 300, **env) -> list:
+    """The r ranks of a (r, 1) grid as child processes running
+    ``chip_smoke.<entry>()`` (torchrun's variables for cards 0…r−1, a
+    loopback rendezvous), each killed after ``timeout`` seconds; each
+    rank's ``prefix`` line parsed (rank order), its other last lines
+    logged."""
     port = free_port()
     cmd = [sys.executable, "-c",
-           "import sys, chip_smoke; sys.exit(chip_smoke.grid_child())"]
+           f"import sys, chip_smoke; sys.exit(chip_smoke.{entry}())"]
     with tempfile.TemporaryDirectory(prefix="chase_grid_") as tmp:
         logs = [open(os.path.join(tmp, f"rank{k}.log"), "w+")
                 for k in range(r)]
         procs = [subprocess.Popen(cmd, cwd=ROOT, env=child_env(
-            **torchrun_env(k, r, port, GRID_R=str(r))), stdout=logs[k],
+            **torchrun_env(k, r, port, **env)), stdout=logs[k],
             stderr=subprocess.STDOUT, text=True) for k in range(r)]
-        deadline = time.monotonic() + 300
+        deadline = time.monotonic() + timeout
         try:
             for p in procs:
                 p.wait(timeout=max(1.0, deadline - time.monotonic()))
@@ -2034,14 +2416,14 @@ def _run_grid(phase: str, r: int) -> dict:
             f.close()
     for k, text in enumerate(outs):
         for line in text.splitlines()[-8:]:
-            if not line.startswith("GRID_RESULT"):
+            if not line.startswith(prefix):
                 log(phase, f"  rank {k}: {line}")
     codes = [p.returncode for p in procs]
-    found = [ln for ln in outs[0].splitlines()
-             if ln.startswith("GRID_RESULT ")]
-    if any(codes) or not found:
+    found = [[ln for ln in text.splitlines() if ln.startswith(prefix + " ")]
+             for text in outs]
+    if any(codes) or not all(found):
         raise AssertionError(f"{phase}: ranks exited {codes}")
-    return json.loads(found[-1][len("GRID_RESULT "):])
+    return [json.loads(f[-1][len(prefix) + 1:]) for f in found]
 
 
 def _per_iteration(out: dict) -> dict:
@@ -2052,66 +2434,150 @@ def _per_iteration(out: dict) -> dict:
             for k, (c, b) in out["collectives"].items()}
 
 
-def phase_grid1(slice_iterations: int, warm_tts: float) -> None:
-    """The f32 slice on an NCCL (1, 1) grid in a child process with
-    torchrun's variables at WORLD_SIZE=1: [slice]'s gates and its
-    iteration count; ring_hemm launches = the filter's HEMM steps."""
+def _grid_line(what: str, out: dict, ref=None) -> str:
+    """One solve of a grid child, beside the one-device phase's warm
+    (TTS, iterations) ``ref``."""
+    line = (f"{what}: {out['iterations']} iterations, TTS cold "
+            f"{out['tts_cold']:.3f} s, warm "
+            f"{out['tts']:.3f} s")
+    if ref is not None:
+        line += (f" (one device: {ref[1]} iterations, warm {ref[0]:.3f} s, "
+                 f"{out['tts'] / ref[0] - 1:+.1%})")
+    if "per_iter" in out:
+        line += f"; {out['per_iter']:.2f} host syncs per iteration"
+    return (line + f"; ring_hemm / tf32_split / bf16_pack launches "
+            f"{out['launches']}, HEMM steps {out['hemm_steps']}; "
+            f"collectives per iteration (calls, bytes) "
+            f"{_per_iteration(out) or 'none'}")
+
+
+def phase_grid1(refs: dict) -> None:
+    """[grid_child] on an NCCL (1, 1) grid in a child process with
+    torchrun's variables at WORLD_SIZE=1: each solve at its one-device
+    phase's gates, its iteration count and its warm TTS within ±5% of
+    the phase's (``refs``: name → (warm TTS, iterations)), no collective
+    issued."""
     t0 = time.perf_counter()
-    out = _run_grid("grid1", 1)
-    per_it = _per_iteration(out)
-    log("grid1", f"{out['wiring']}; init_grid {out['init_s']:.2f} s; f32 "
-                 f"slice on the (1, 1) grid: converged={out['converged']} "
-                 f"iterations={out['iterations']} ([slice]: "
-                 f"{slice_iterations}); TTS cold {out['tts_cold']:.3f} s, "
-                 f"warm {out['tts']:.3f} s ([profile] warm on one device "
-                 f"{warm_tts:.3f} s); max eigenvalue err "
-                 f"{out['ev_err']:.3e}, max true residual "
-                 f"{out['true_res']:.3e}; ring_hemm / tf32_split / bf16_pack "
-                 f"launches {out['launches']}, filter HEMM steps "
-                 f"{out['hemm_steps']}; collectives issued per iteration "
-                 f"(calls, bytes) "
-                 f"{per_it or 'none (every axis has one member)'}; "
-                 f"{time.perf_counter() - t0:.2f} s")
+    out = _run_ranks("grid1", "grid_child", 1, "GRID_RESULT", 420,
+                     GRID_R="1")[0]
+    log("grid1", f"{out['wiring']}; init_grid {out['init_s']:.2f} s")
+    bad = []
+    for name, what in (("slice", "f32 slice (eigsh)"),
+                       ("fslice", "eigsh_fused at [fslice]'s shape"),
+                       ("pseudo", "f64 BSE ladder (eigsh_pseudo)"),
+                       ("fpseudo", "eigsh_pseudo_fused at [fpseudo]'s "
+                                   "shape")):
+        o, ref = out[name], refs[name]
+        log("grid1", _grid_line(f"{what} on the (1, 1) grid", o, ref))
+        if (o["iterations"] != ref[1] or abs(o["tts"] / ref[0] - 1) > 0.05
+                or o["collectives"]):
+            bad.append(name)
     # the chunk ring's model (probes/grid_collectives.py checks it on
     # the CPU): each rank sends (p − 1)/p · N · 4 bytes per executed
     # filter column-step
-    its = max(out["iterations"], 1)
-    sent = [(p, (p - 1) / p * SLICE["N"] * 4 * out["executed"] / its)
+    sl = out["slice"]
+    its = max(sl["iterations"], 1)
+    sent = [(p, (p - 1) / p * SLICE["N"] * 4 * sl["executed"] / its)
             for p in GRID_P]
     model = ", ".join(f"p={p}: {nb / 1e9:.2f} GB per iteration and rank, "
                       f"{nb / (NVLINK_GBS * 1e6):.0f} ms at "
                       f"{NVLINK_GBS:.0f} GB/s" for p, nb in sent)
-    log("grid1", f"this solve's chunk ring on a (p, 1) grid, from its "
-                 f"{out['executed']} executed filter column-steps (a model, "
-                 f"not measured): {model}")
-    if not (out["ok"] and out["iterations"] == slice_iterations):
-        raise AssertionError(f"grid1: gates failed or iterations "
-                             f"{out['iterations']} != [slice]'s "
-                             f"{slice_iterations}")
+    log("grid1", f"the slice's chunk ring on a (p, 1) grid, from its "
+                 f"{sl['executed']} executed filter column-steps (a model, "
+                 f"not measured): {model}; "
+                 f"{time.perf_counter() - t0:.2f} s")
+    if bad:
+        raise AssertionError(f"grid1: {bad} differ from their one-device "
+                             f"phase in iterations or warm TTS (±5%) or "
+                             f"issued collectives")
 
 
 def phase_gridnccl() -> None:
-    """The f32 slice on a (p, 1) NCCL grid, p = min(cards, 4) — only on
-    a machine with two cards or more."""
+    """[grid_child] on a (p, 1) NCCL grid, p = min(cards, 4) — only on a
+    machine with two cards or more."""
     count = torch.cuda.device_count()
     if count < 2:
         log("gridnccl", f"not run: {count} device")
         return
     p = min(count, 4)
     t0 = time.perf_counter()
-    out = _run_grid("gridnccl", p)
-    per_it = _per_iteration(out)
-    log("gridnccl", f"f32 slice on the ({p}, 1) NCCL grid: converged="
-                    f"{out['converged']} iterations={out['iterations']}; TTS "
-                    f"cold {out['tts_cold']:.3f} s, warm {out['tts']:.3f} s; "
-                    f"max eigenvalue err {out['ev_err']:.3e}, max true "
-                    f"residual {out['true_res']:.3e}; rank 0's ring_hemm / "
-                    f"tf32_split launches {out['launches']} = {p} × "
-                    f"{out['hemm_steps']} HEMM steps; collectives per "
-                    f"iteration on rank 0 (calls, bytes) {per_it}; "
-                    f"{time.perf_counter() - t0:.2f} s")
-    if not out["ok"]:
-        raise AssertionError("gridnccl: gates failed")
+    out = _run_ranks("gridnccl", "grid_child", p, "GRID_RESULT", 600,
+                     GRID_R=str(p))[0]
+    for name in ("slice", "fslice", "pseudo", "fpseudo"):
+        log("gridnccl", _grid_line(f"{name} on the ({p}, 1) NCCL grid "
+                                   f"(rank 0)", out[name]))
+    log("gridnccl", f"{time.perf_counter() - t0:.2f} s")
+
+
+# [gridhost]'s solves: name → (matrix, N, nev, nex, tol, config)
+GRIDHOST = {
+    "clement": ("clement", 8192, 512, 256, 0.1,
+                dict(ring_backend="pallas", mixed_precision=False)),
+    "clement_fused": ("clement", 8192, 512, 256, 0.1,
+                      dict(ring_backend="pallas", mixed_precision=False)),
+    "bse": ("bse", 8192, 256, 128, 1e-10,
+            dict(ring_backend="pallas", mixed_precision=True)),
+    "bse_fused": ("bse", 8192, 256, 128, 1e-10,
+                  dict(ring_backend="pallas", mixed_precision=True)),
+}
+
+
+def phase_gridhost(dev) -> None:
+    """p = 2 ranks sharing card 0 on a (2, 1) grid of HostStagedGrid
+    (gloo through pinned host memory; not NCCL): each GRIDHOST solve at
+    its gates, its iterations within ±1 of the same solve on one device
+    (run here first), ritzv, resid, iterations and locked bitwise equal
+    on both ranks, ring_hemm launches = 2 × HEMM steps per rank, every
+    launch on a stripe (N/2 rows, col0 ∈ {0, N/2}).  The times are of
+    two ranks on one card with host-staged collectives: not performance
+    numbers."""
+    import chase_tpu_torch as ct
+    t0 = time.perf_counter()
+    ref = {}
+    for name, (kind, N, nev, nex, tol, cfg) in GRIDHOST.items():
+        H = (clement_on_device(N, dev) if kind == "clement"
+             else structured_bse_on_device(N, dev)[0])
+        solve = {("clement", False): ct.eigsh,
+                 ("clement", True): ct.eigsh_fused,
+                 ("bse", False): ct.eigsh_pseudo,
+                 ("bse", True): ct.eigsh_pseudo_fused}[
+            (kind, "fused" in name)]
+        tts, res = timed(lambda: solve(H, nev, nex, tol=tol, device=dev,
+                                       config=ct.ChaseConfig(**cfg)))
+        ref[name] = (tts, res.iterations)
+        del H, res
+        torch.cuda.empty_cache()
+    ranks = _run_ranks("gridhost", "host_child", 2, "HOST_RESULT", 300)
+    bad = []
+    for name, (kind, N, nev, nex, tol, cfg) in GRIDHOST.items():
+        o = [r[name] for r in ranks]
+        same = all(o[1][k] == o[0][k] for k in ("ritzv", "resid",
+                                                 "iterations", "locked"))
+        stripes = {tuple(x) for r in o for x in r["stripes"]}
+        on_stripes = stripes <= {(N // 2, 0), (N // 2, N // 2)}
+        launches = [r["launches"] for r in o]
+        ok = (same and on_stripes
+              and abs(o[0]["iterations"] - ref[name][1]) <= 1
+              and all(ln[0] == ln[1] == 2 * r["hemm_steps"] > 0
+                      for ln, r in zip(launches, o)))
+        log("gridhost", f"{name} ({kind} N={N} nev={nev} nex={nex} tol="
+                        f"{tol}, {cfg}) on a (2, 1) grid, two ranks sharing "
+                        f"the card, host-staged gloo collectives (times not "
+                        f"performance numbers): iterations "
+                        f"{[r['iterations'] for r in o]} (one device "
+                        f"{ref[name][1]}), TTS "
+                        f"{[round(r['tts'], 3) for r in o]} "
+                        f"s (one device {ref[name][0]:.3f} s); results "
+                        f"bitwise equal on both ranks: {same}; ring_hemm / "
+                        f"tf32_split launches {launches}, HEMM steps "
+                        f"{[r['hemm_steps'] for r in o]}; launch (rows, "
+                        f"col0) {sorted(stripes)}; rank 0's collectives "
+                        f"per iteration {_per_iteration(o[0])}")
+        if not ok:
+            bad.append(name)
+    log("gridhost", f"{time.perf_counter() - t0:.2f} s")
+    if bad:
+        raise AssertionError(f"gridhost: {bad} failed their gates")
 
 
 def _kernel_entry(name: str, launches: int, case: dict) -> dict:
@@ -2149,16 +2615,14 @@ def main() -> int:
                                                                 "bf16")}
     del Hr
     torch.cuda.empty_cache()
-    phase_grid1(launches["iterations"], warm["pallas"])
-    phase_gridnccl()
     with tempfile.TemporaryDirectory(prefix="chase_smoke_") as tmp:
         path = os.path.join(tmp, f"clement{SLICE['N']}_f32.bin")
         phase_io(dev, H, path)
         phase_cli(dev, path, warm["pallas"])
         phase_capi(dev, path, warm["pallas"])
-    phase_fused_clement(dev, H, "fslice", SLICE["nev"], SLICE["nex"],
-                        SLICE["tol"], (warm["pallas"],
-                                       warm["pallas_iterations"]))
+    fslice = phase_fused_clement(dev, H, "fslice", SLICE["nev"],
+                                 SLICE["nex"], SLICE["tol"],
+                                 (warm["pallas"], warm["pallas_iterations"]))
     bkern = phase_bf16_kernel(dev)
     blaunches = phase_bslice(dev, H, warm["pallas"])
     del H
@@ -2195,13 +2659,17 @@ def main() -> int:
     torch.cuda.synchronize()
     log("setup", f"structured BSE N={BSE['N']} (f64, and its f32 copy) "
                  f"built on the card in {time.perf_counter() - t0:.2f} s")
-    phase_pfilter(dev, H32, lam, "f32")
-    phase_pfilter(dev, H32, lam, "bf16")
+    h2ring = {}
+    for route in ("f32", "bf16"):
+        ctx = phase_pfilter(dev, H32, lam, route)
+        h2ring[route] = phase_gridring_h2(dev, ctx, route)
+        del ctx
+        torch.cuda.empty_cache()
     phase_bpseudo(dev, H32, H, lam)
     del H32
     torch.cuda.empty_cache()
     ladder = phase_pseudo(dev, H, lam)
-    phase_fpseudo(dev, H, lam, ladder)
+    fpseudo = phase_fpseudo(dev, H, lam, ladder)
     t0 = time.perf_counter()
     Hc = complex_bse_on_device(H)
     del H
@@ -2209,11 +2677,21 @@ def main() -> int:
     torch.cuda.synchronize()
     log("setup", f"H_c = D·H·D⁻¹ (c128) built on the card in "
                  f"{time.perf_counter() - t0:.2f} s")
-    phase_pfilter(dev, Hc, lam, "c64")
+    ctx = phase_pfilter(dev, Hc, lam, "c64")
+    h2ring["c64"] = phase_gridring_h2(dev, ctx, "c64")
+    del ctx
+    torch.cuda.empty_cache()
     phase_zpseudo(dev, Hc, lam)
     del Hc
     torch.cuda.empty_cache()
     phase_zfused(dev)
+
+    phase_grid1({"slice": (warm["pallas"], launches["iterations"]),
+                 "fslice": (fslice["warm"], fslice["iterations"]),
+                 "pseudo": (ladder["tts"], ladder["iterations"]),
+                 "fpseudo": (fpseudo["warm"], fpseudo["iterations"])})
+    phase_gridnccl()
+    phase_gridhost(dev)
 
     big, cbig = kern[KERNEL_SHAPES[-1]], ckern[C64_SHAPES[-1]]
     print(json.dumps({"kernels": [
@@ -2228,6 +2706,10 @@ def main() -> int:
         + [_kernel_entry(f"ring_hemm[{route} stripe p={p} k={k}]",
                          case["launches"], case)
            for route, cases in gring.items()
+           for (p, k), case in cases.items()]
+        + [_kernel_entry(f"ring_hemm[{route} H² stripe p={p} k={k}]",
+                         case["launches"], case)
+           for route, cases in h2ring.items()
            for (p, k), case in cases.items()]}), flush=True)
     log("done", f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"ok": True, "device": {

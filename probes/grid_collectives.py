@@ -5,13 +5,16 @@
 Starts p gloo ranks on this machine (p = 2 and 4, each a (p, 1) grid,
 then a (2, 2) grid) that solve an f32 Clement problem with
 ``ring_backend="pallas"`` (on the CPU every ring step is the kernel's
-plain version), and prints rank 0's collectives per iteration by kind —
-calls and payload bytes, as ``Grid2D.stats`` counts them — beside the
-chunk ring's model: each rank sends p − 1 chunks of (N/p) × w elements
-per product of a w-wide window, (p − 1)/p · N · itemsize · E bytes per
-solve for E executed filter column-steps (``PerfData.
-filtered_vecs_executed``).  Counts, not times: the seconds they take on
-cards are not measured here.
+plain version), then an f32 structured BSE problem of the same N with
+nev/2 and nex/2 (``eigsh_pseudo``: a block of 2·(nev + nex)/2 columns, the
+H² filter's two ring products per step, K-conjugation's row rotation),
+and prints rank 0's collectives per iteration by kind — calls and
+payload bytes, as ``Grid2D.stats`` counts them — beside the chunk ring's
+model: each rank sends p − 1 chunks of (N/p) × w elements per product of
+a w-wide window, (p − 1)/p · N · itemsize · E bytes per solve for E
+executed filter column-steps (``PerfData.filtered_vecs_executed``, which
+counts both products of an H² step).  Counts, not times: the seconds
+they take on cards are not measured here.
 """
 
 import argparse
@@ -36,22 +39,32 @@ def rank_main(r: int, c: int, rank: int, rdv: str, N: int, nev: int,
     from chase_tpu_torch.parallel import multihost
     grid = multihost.init_grid((r, c), f"file://{rdv}", device="cpu",
                                timeout=120)
-    H = clement(N).astype(np.float32)
-    res = ct.eigsh(H, nev, nex, tol=1e-2 * N / 1024, grid=grid,
-                   collect_perf=True,
-                   config=ct.ChaseConfig(ring_backend="pallas"))
-    if rank == 0:
-        print(json.dumps(dict(
-            shape=[r, c], iterations=res.iterations,
-            converged=res.converged, hemm_steps=res.perf.filter_hemm_steps,
-            executed=res.perf.filtered_vecs_executed,
-            stats={k: list(v) for k, v in grid.stats.summary().items()})),
-            flush=True)
+    from chase_tpu_torch.models import structured_pseudo_hermitian
+    cfg = ct.ChaseConfig(ring_backend="pallas")
+    Hb, _ = structured_pseudo_hermitian(N, np.float32, seed=3)
+    for what, solve in (
+            ("clement", lambda: ct.eigsh(
+                clement(N).astype(np.float32), nev, nex,
+                tol=1e-2 * N / 1024, grid=grid, collect_perf=True,
+                config=cfg)),
+            ("bse", lambda: ct.eigsh_pseudo(
+                Hb, nev // 2, nex // 2, tol=1e-4, grid=grid,
+                collect_perf=True, config=cfg))):
+        grid.stats.reset()
+        res = solve()
+        if rank == 0:
+            print(json.dumps(dict(
+                what=what, shape=[r, c], iterations=res.iterations,
+                converged=res.converged,
+                hemm_steps=res.perf.filter_hemm_steps,
+                executed=res.perf.filtered_vecs_executed,
+                stats={k: list(v) for k, v in
+                       grid.stats.summary().items()})), flush=True)
     import torch.distributed as dist
     dist.destroy_process_group()
 
 
-def run(r: int, c: int, N: int, nev: int, nex: int) -> dict:
+def run(r: int, c: int, N: int, nev: int, nex: int) -> list:
     with tempfile.TemporaryDirectory() as tmp:
         rdv = os.path.join(tmp, "rendezvous")
         env = dict(os.environ, OMP_NUM_THREADS="1")
@@ -64,7 +77,8 @@ def run(r: int, c: int, N: int, nev: int, nex: int) -> dict:
     if any(p.returncode for p in procs):
         raise SystemExit(f"grid ({r}, {c}): ranks exited "
                          f"{[p.returncode for p in procs]}")
-    return json.loads(outs[0].strip().splitlines()[-1])
+    return [json.loads(ln) for ln in outs[0].strip().splitlines()
+            if ln.startswith("{")]
 
 
 def main() -> None:
@@ -81,20 +95,23 @@ def main() -> None:
         rank_main(r, c, a.rank, a.rdv, a.N, a.nev, a.nex)
         return
     for r, c in ((2, 1), (4, 1), (2, 2)):
-        out = run(r, c, a.N, a.nev, a.nex)
-        it = out["iterations"]
-        print(f"grid ({r}, {c}), Clement N={a.N} nev={a.nev} nex={a.nex} "
-              f"f32, pallas: converged={out['converged']} iterations={it}, "
-              f"filter HEMM steps {out['hemm_steps']}, executed column-"
-              f"steps {out['executed']}")
-        for kind, (calls, nbytes) in sorted(out["stats"].items()):
-            print(f"  {kind:10s} {calls / it:8.1f} calls, "
-                  f"{nbytes / it / 1e6:10.3f} MB per iteration (rank 0)")
-        if c == 1:
-            model = (r - 1) / r * a.N * 4 * out["executed"]
-            got = out["stats"].get("sendrecv", [0, 0])[1]
-            print(f"  chunk ring model (p-1)/p·N·4·E = {model / 1e6:.3f} MB, "
-                  f"counted {got / 1e6:.3f} MB")
+        for out in run(r, c, a.N, a.nev, a.nex):
+            it = out["iterations"]
+            nev, nex = ((a.nev, a.nex) if out["what"] == "clement"
+                        else (a.nev // 2, a.nex // 2))
+            print(f"grid ({r}, {c}), {out['what']} N={a.N} nev={nev} "
+                  f"nex={nex} f32, pallas: converged={out['converged']} "
+                  f"iterations={it}, filter HEMM steps "
+                  f"{out['hemm_steps']}, executed column-steps "
+                  f"{out['executed']}")
+            for kind, (calls, nbytes) in sorted(out["stats"].items()):
+                print(f"  {kind:10s} {calls / it:8.1f} calls, "
+                      f"{nbytes / it / 1e6:10.3f} MB per iteration (rank 0)")
+            if c == 1:
+                model = (r - 1) / r * a.N * 4 * out["executed"]
+                got = out["stats"].get("sendrecv", [0, 0])[1]
+                print(f"  chunk ring model (p-1)/p·N·4·E = "
+                      f"{model / 1e6:.3f} MB, counted {got / 1e6:.3f} MB")
 
 
 if __name__ == "__main__":

@@ -17,6 +17,7 @@ package on the CPU.
   port's own ``eigsh``.
 """
 
+import functools
 import os
 import tempfile
 
@@ -34,6 +35,8 @@ import chase_tpu_torch as ct
 from chase_tpu_torch import convert, fused as tfused
 from chase_tpu_torch.models import (clement, clement_eigenvalues,
                                     hermitian_sequence, random_hermitian)
+from chase_tpu_torch.ops import ring_hemm as trh
+from chase_tpu_torch.solver import _chunk_product
 from chase_tpu_torch.step import iteration_step
 
 torch.set_num_threads(1)
@@ -143,19 +146,20 @@ def test_solve_fused_matches_jax(dtype):
 
 
 def test_solve_fused_f32_ring_matches_jax(monkeypatch):
-    """ring=True: every filter product through ring_hemm (its plain
-    version on the CPU), one call per HEMM step."""
+    """The p = 1 route with "pallas": every filter product through
+    ring_hemm (its plain version on the CPU), one call per HEMM step."""
     H = clement(N).astype(np.float32)
     V0 = _v0(N, NEV + NEX, np.float32)
     kw = dict(nev=NEV, nex=NEX, tol=1e-3, deg0=10, max_deg=18,
               eigh_polish=0)
     calls = []
-    real = tfused.ring_hemm
-    monkeypatch.setattr(tfused, "ring_hemm",
+    real = trh.ring_hemm
+    monkeypatch.setattr(trh, "ring_hemm",
                         lambda *a, **k: calls.append(1) or real(*a, **k))
     a = jfused.solve_fused(jnp.asarray(H), jnp.asarray(V0), **kw)
     b = tfused.solve_fused(torch.from_numpy(H), torch.from_numpy(V0),
-                           ring=True, **kw)
+                           chunk=functools.partial(_chunk_product, "p1",
+                                                   "pallas"), **kw)
     assert abs(int(b["iterations"]) - int(a["iterations"])) <= 1
     assert int(b["locked"]) >= NEV
     np.testing.assert_allclose(b["ritzv"].numpy()[:NEV],
@@ -320,7 +324,6 @@ def test_eigsh_fused_host_small_dense_is_a_noop():
 
 def test_warmup_returns_the_jax_keys_and_loads_nothing_on_the_cpu(
         monkeypatch):
-    from chase_tpu_torch.ops import ring_hemm as trh
     loaded = []
     monkeypatch.setattr(trh, "load_kernels", lambda: loaded.append(1))
     H = clement(96).astype(np.float32)

@@ -24,9 +24,9 @@ import jax.numpy as jnp
 from chase_tpu import fused_pseudo as jfp
 
 import chase_tpu_torch as ct
-from chase_tpu_torch import fused as tfused
 from chase_tpu_torch import fused_pseudo as tfp
 from chase_tpu_torch.models import random_pseudo_hermitian
+from chase_tpu_torch.ops import ring_hemm as trh
 
 torch.set_num_threads(1)
 
@@ -105,8 +105,8 @@ def test_eigsh_pseudo_fused_perf_counters_and_ring_calls(monkeypatch):
     """Two products per H² step: the perf counters count them, and on the
     ring path each is one ring_hemm call."""
     calls = []
-    real = tfused.ring_hemm
-    monkeypatch.setattr(tfused, "ring_hemm",
+    real = trh.ring_hemm
+    monkeypatch.setattr(trh, "ring_hemm",
                         lambda *a, **k: calls.append(1) or real(*a, **k))
     H = random_pseudo_hermitian(128, dtype=np.float32, seed=2)
     res = ct.eigsh_pseudo_fused(H, 6, 6, tol=1e-4, device="cpu",

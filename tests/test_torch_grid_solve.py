@@ -14,10 +14,10 @@ limit each).  Tolerances:
   matmul ring), the padded N = 130, and the f64 ladder
   (``mixed_precision=True``, tol 1e-10) whose every filter HEMM takes the
   kernel's step on the f32 shadow;
-* the entry points of part 2 refuse a (2, 1) grid; a DTensor H solves as
-  the whole H does, and a warm start from the DTensor result converges at
-  once; a padded DTensor H (N = 130 on (4, 1)) is built into blocks
-  without a gather (``test_torch_grid.check_dtensor_padded``);
+* a DTensor H solves as the whole H does, and a warm start from the
+  DTensor result converges at once; a padded DTensor H (N = 130 on (4,
+  1)) is built into blocks without a gather
+  (``test_torch_grid.check_dtensor_padded``);
 * ``estimate_spectral_bounds`` on both grids against the JAX package's
   (``test_torch_grid.check_bounds``).
 """
@@ -99,13 +99,6 @@ def test_eigsh_matches_jax(groups, name, case):
     steps, hemms = int(rec[f"{case}/steps"]), int(rec[f"{case}/hemm_steps"])
     assert hemms > 0
     assert steps == (p * hemms if kernel else 0)
-
-
-def test_part2_entry_points_refuse_a_grid(groups):
-    for rec in groups["g21s"].results():
-        for what in ("fused", "pseudo", "pseudo_fused", "pseudo_operator",
-                     "warmup_fused"):
-            assert bool(rec[f"refuse/{what}"]), what
 
 
 def test_dtensor_operator_and_warm_start(groups):

@@ -8,7 +8,8 @@ environment it sets), builds the (R, C) grid, runs the battery of cases
 named BATTERY and writes what each case computed to OUT_DIR/rank<k>.npz
 (gathered multivectors whole, so that every rank's copy can be held to
 the others').  ``tests/test_torch_grid.py``,
-``tests/test_torch_grid_ring.py`` and ``tests/test_torch_grid_solve.py``
+``tests/test_torch_grid_ring.py``, ``tests/test_torch_grid_solve.py``,
+``tests/test_torch_grid_pseudo.py`` and ``tests/test_torch_grid_fused.py``
 start the ranks and compare the results with the JAX package in their
 own process.  This script imports torch,
 numpy and the port only.  A case that raises ends the rank with exit code
@@ -29,6 +30,10 @@ N_FILT, W_FILT, DEG_FILT = 96, 20, 6  # the ring filters
 EIG = dict(N=128, nev=12, nex=8)     # the solves
 TOL = {"float32": 1e-3, "complex64": 1e-4, "float64": 1e-9,
        "complex128": 1e-9}
+BSE = dict(N=128, nev=12, nex=8)     # the BSE solves
+BSE_TOL = {"float32": 1e-4, "complex64": 1e-4, "float64": 1e-9,
+           "complex128": 1e-9}
+N_SOPS, K_SOPS = 132, 10             # the S-ops: rows cut by 2, 3 and 4
 
 
 # -- inputs (numpy, seeded; the tests rebuild them for the JAX side) -------
@@ -93,6 +98,33 @@ def eig_problem(name: str):
          else random_hermitian(N, dtype, seed=3))
     tol = 1e-10 if "ladder" in parts else TOL[dtype.name]
     return H, EIG["nev"], EIG["nex"], tol
+
+
+def bse_problem(name: str):
+    """(H, nev, nex, tol) of a BSE solve case: ``random_<dtype>`` with
+    "_N130" for another size (default 128) and "_ladder" for the ladder's
+    tolerance 1e-10."""
+    from chase_tpu_torch.models import random_pseudo_hermitian
+    parts = name.split("_")
+    dtype = np.dtype(parts[1])
+    N = next((int(q[1:]) for q in parts[2:] if q.startswith("N")), BSE["N"])
+    tol = 1e-10 if "ladder" in parts else BSE_TOL[dtype.name]
+    return (random_pseudo_hermitian(N, dtype, seed=5), BSE["nev"],
+            BSE["nex"], tol)
+
+
+def sops_inputs(dtype):
+    """The S-ops' block (N_SOPS × K_SOPS) and K-conjugation's columns:
+    mirrors of columns 1..4 written into columns 9..6."""
+    rng = np.random.default_rng(51)
+    X = rng.standard_normal((N_SOPS, K_SOPS))
+    if np.issubdtype(dtype, np.complexfloating):
+        X = X + 1j * rng.standard_normal((N_SOPS, K_SOPS))
+    src = np.arange(K_SOPS)
+    wmask = np.zeros(K_SOPS, bool)
+    src[[9, 8, 7, 6]] = [1, 2, 3, 4]
+    wmask[[9, 8, 7, 6]] = True
+    return X.astype(dtype), src, wmask
 
 
 # -- helpers ---------------------------------------------------------------
@@ -297,30 +329,6 @@ def case_warmup(grid, rec):
     rec["warmup/failed"] = out["failed"]
 
 
-def case_refusals(grid, rec):
-    """Part 2's entry points refuse a grid larger than 1×1."""
-    import chase_tpu_torch as ct
-    from chase_tpu_torch.models import clement, random_pseudo_hermitian
-    H = clement(64)
-    Hp = random_pseudo_hermitian(64, np.float64, seed=5)
-    rec["refuse/fused"] = expect_raise(
-        NotImplementedError, lambda: ct.eigsh_fused(H, 4, 4, grid=grid),
-        "part 2")
-    rec["refuse/pseudo"] = expect_raise(
-        NotImplementedError, lambda: ct.eigsh_pseudo(Hp, 4, 4, grid=grid),
-        "part 2")
-    rec["refuse/pseudo_fused"] = expect_raise(
-        NotImplementedError,
-        lambda: ct.eigsh_pseudo_fused(Hp, 4, 4, grid=grid), "part 2")
-    rec["refuse/pseudo_operator"] = expect_raise(
-        NotImplementedError,
-        lambda: ct.DenseOperator(Hp, grid=grid, pseudo_hermitian=True),
-        "part 2")
-    rec["refuse/warmup_fused"] = expect_raise(
-        NotImplementedError,
-        lambda: ct.warmup(H, 4, 4, grid=grid, fused=True), "part 2")
-
-
 def case_ring_filter_2d(grid, rec):
     """ring_filter=True on an r×c grid raises, naming part 3."""
     import chase_tpu_torch as ct
@@ -396,6 +404,186 @@ def case_fused_11(grid, rec):
     rec["fused11/ritzv0"] = r0.ritzv
 
 
+def pseudo_case(grid, rec, name: str, warm: bool = False, **cfg):
+    """eigsh_pseudo on the grid and with grid=None (same seed) on the same
+    H, recorded as :func:`solve_case` records eigsh; with ``warm`` a warm
+    start from the grid result's DTensor V too."""
+    import chase_tpu_torch as ct
+    H, nev, nex, tol = bse_problem(name)
+    count = step_counter()
+    res = ct.eigsh_pseudo(H, nev, nex, tol=tol, grid=grid, collect_perf=True,
+                          config=ct.ChaseConfig(**cfg))
+    rec[f"{name}/steps"] = count.take()
+    rec[f"{name}/hemm_steps"] = res.perf.filter_hemm_steps
+    r0 = ct.eigsh_pseudo(H, nev, nex, tol=tol, device="cpu",
+                         config=ct.ChaseConfig(**cfg))
+    count.take()
+    for key in ("ritzv", "resid", "iterations", "locked", "converged",
+                "ritzv_full"):
+        rec[f"{name}/{key}"] = getattr(res, key)
+    rec[f"{name}/V"] = res.V.full_tensor()[:, :nev].numpy()
+    rec[f"{name}/local_rows"] = res.V.to_local().shape[0]
+    rec[f"{name}/ritzv0"] = r0.ritzv
+    rec[f"{name}/iterations0"] = r0.iterations
+    if warm:
+        w = ct.eigsh_pseudo(H, nev, nex, tol=tol, grid=grid, v0=res.V,
+                            approx=True, config=ct.ChaseConfig(**cfg))
+        rec[f"{name}/warm_iterations"] = w.iterations
+        rec[f"{name}/warm_ritzv"] = w.ritzv
+
+
+def case_pseudo(cases):
+    def run(grid, rec):
+        for name, cfg in cases:
+            pseudo_case(grid, rec, name, **cfg)
+    return run
+
+
+def case_sops(grid, rec):
+    """apply_s, flip_locked_cols and k_conjugate_cols on this rank's rows
+    of an N_SOPS-row block (f64 and c128)."""
+    from chase_tpu_torch.ops import pseudo as ps
+    r0, n = grid.block(N_SOPS, "r")
+    for dt in (np.float64, np.complex128):
+        X, src, wmask = sops_inputs(dt)
+        Xl = torch.from_numpy(X[r0:r0 + n]).clone()
+        name = np.dtype(dt).name
+        rec[f"sops/{name}/apply_s"] = ps.apply_s(Xl, r0, N_SOPS).numpy()
+        rec[f"sops/{name}/flip"] = ps.flip_locked_cols(Xl, 4, r0,
+                                                       N_SOPS).numpy()
+        grid.stats.reset()
+        rec[f"sops/{name}/kconj"] = ps.k_conjugate_cols(Xl, src, wmask,
+                                                        grid).numpy()
+        rec[f"sops/{name}/rotate"] = list(grid.stats.summary().get(
+            "rotate", (0, 0)))
+    rec["sops/rows"] = [r0, n]
+
+
+def case_bse_pad(grid, rec):
+    """The S-preserving pad: each rank's block of a pseudo-Hermitian
+    operator of N = 130 (the halves pad to a multiple of r·c), its
+    (N/2, h_pad) and the unpadded rows of a block placed on it."""
+    import chase_tpu_torch as ct
+    from chase_tpu_torch.models import random_pseudo_hermitian
+    for dt in (np.float64, np.complex128):
+        H = random_pseudo_hermitian(130, dt, seed=8)
+        op = ct.DenseOperator(H, grid=grid, pseudo_hermitian=True)
+        name = np.dtype(dt).name
+        rec[f"bsepad/{name}"] = op.H.numpy()
+        rec[f"bsepad/{name}/H"] = H        # this process's bits of it
+        rec["bsepad/half"] = list(op.half)
+        V = np.arange(130 * 3, dtype=np.float64).reshape(130, 3)
+        rec[f"bsepad/{name}/placed"] = full(grid, op.place_block(V))
+        rec[f"bsepad/{name}/unpad"] = op.unpad_block(
+            op.place_block(V)).numpy()
+    rec["bsepad/coords"] = list(grid.coords)
+
+
+def case_bse_dtensor(grid, rec):
+    """A pseudo-Hermitian DTensor H (Shard(0), Shard(1)) of N = 130 whose
+    halves the grid pads: each rank's block built from its own shard with
+    ``full_tensor`` barred, beside the block of the whole H, and a solve
+    from it beside the whole H's."""
+    import chase_tpu_torch as ct
+    from chase_tpu_torch.models import random_pseudo_hermitian
+    from torch.distributed.tensor import DTensor, Shard, distribute_tensor
+
+    def no_gather(self, *a, **k):
+        raise AssertionError("DTensor H gathered whole")
+    H, nev, nex, tol = bse_problem("random_float64_N130")
+    Hd = distribute_tensor(torch.from_numpy(H), grid.mesh,
+                           (Shard(0), Shard(1)))
+    gather, DTensor.full_tensor = DTensor.full_tensor, no_gather
+    try:
+        for dt in (np.float32, np.complex128):
+            Hx = random_pseudo_hermitian(130, dt, seed=8)
+            Hxd = distribute_tensor(torch.from_numpy(Hx), grid.mesh,
+                                    (Shard(0), Shard(1)))
+            name = np.dtype(dt).name
+            rec[f"bsedt/{name}"] = ct.DenseOperator(
+                Hxd, grid=grid, pseudo_hermitian=True).H.numpy()
+            rec[f"bsedt/{name}/whole"] = ct.DenseOperator(
+                Hx, grid=grid, pseudo_hermitian=True).H.numpy()
+        op = ct.DenseOperator(Hd, grid=grid, pseudo_hermitian=True)
+    finally:
+        DTensor.full_tensor = gather
+    rec["bsedt/ritzv"] = ct.eigsh_pseudo(op, nev, nex, tol=tol).ritzv
+    rec["bsedt/ritzv/whole"] = ct.eigsh_pseudo(H, nev, nex, tol=tol,
+                                               grid=grid).ritzv
+    rec["bsedt/coords"] = list(grid.coords)
+
+
+def fused_cases(grid, rec, name: str, **cfg):
+    """eigsh_fused (Clement) and eigsh_pseudo_fused (a random BSE) of
+    ``name``'s dtype on the grid and with grid=None, recorded as
+    :func:`solve_case` records eigsh, and the ring's steps."""
+    import chase_tpu_torch as ct
+    from chase_tpu_torch.models import clement, random_pseudo_hermitian
+    dtype = np.dtype(name)
+    tol = BSE_TOL[dtype.name]
+    count = step_counter()
+    for what, solve, H in (
+            ("fused", ct.eigsh_fused, clement(BSE["N"]).astype(dtype)),
+            ("pfused", ct.eigsh_pseudo_fused,
+             random_pseudo_hermitian(BSE["N"], dtype, seed=5))):
+        key = f"{what}/{name}"
+        res = solve(H, BSE["nev"], BSE["nex"], tol=tol, grid=grid,
+                    collect_perf=True, config=ct.ChaseConfig(**cfg))
+        rec[f"{key}/steps"] = count.take()
+        rec[f"{key}/hemm_steps"] = res.perf.filter_hemm_steps
+        r0 = solve(H, BSE["nev"], BSE["nex"], tol=tol, device="cpu",
+                   config=ct.ChaseConfig(**cfg))
+        count.take()
+        for k in ("ritzv", "resid", "iterations", "locked", "converged"):
+            rec[f"{key}/{k}"] = getattr(res, k)
+        rec[f"{key}/V"] = res.V.full_tensor()[:, :BSE["nev"]].numpy()
+        rec[f"{key}/iterations0"] = r0.iterations
+
+
+def case_fused(cases):
+    def run(grid, rec):
+        for name, cfg in cases:
+            fused_cases(grid, rec, name, **cfg)
+    return run
+
+
+def case_fused_warmup(grid, rec):
+    """warmup(fused=True) on the grid, Hermitian and BSE."""
+    import chase_tpu_torch as ct
+    from chase_tpu_torch.models import clement, random_pseudo_hermitian
+    out = ct.warmup(clement(64), 6, 4, grid=grid, fused=True)
+    op = ct.DenseOperator(random_pseudo_hermitian(64, np.float64, seed=5),
+                          grid=grid, pseudo_hermitian=True)
+    outp = ct.warmup(op, 6, 4, grid=grid, fused=True)
+    rec["fwarmup"] = [out["programs"], out["failed"], outp["programs"],
+                      outp["failed"]]
+
+
+def case_pseudo_ring_filter_2d(grid, rec):
+    """ring_filter=True on an r×c grid raises for eigsh_pseudo too,
+    naming part 3."""
+    import chase_tpu_torch as ct
+    H, *_ = bse_problem("random_float64")
+    rec["refuse/pseudo_ring_filter_2d"] = expect_raise(
+        NotImplementedError, lambda: ct.eigsh_pseudo(
+            H, 4, 4, grid=grid, config=ct.ChaseConfig(ring_filter=True)),
+        "part 3")
+
+
+PSEUDO = {
+    "b21": (("random_float32", {"ring_backend": "pallas"}),
+            ("random_complex64", {"ring_backend": "pallas"}),
+            ("random_float64_ladder", {"ring_backend": "pallas",
+                                       "mixed_precision": True})),
+    "b31": (("random_float64_N130", {"warm": True}),),
+    "b41": (("random_complex128", {"ring_backend": "pallas"}),),
+    "b22": (("random_float64", {}),),
+}
+FUSED = {
+    "f21": (("float64", {}), ("float32", {"ring_backend": "pallas"})),
+    "f22": (("float64", {}),),
+}
+
 SOLVES = {
     "g11": (("clement_float64", {}), ("random_complex64", {})),
     "g12": (("clement_float64", {}), ("random_complex64", {})),
@@ -420,9 +608,17 @@ BATTERIES = {
     "g8": (case_mesh,),
     "g21": (case_mesh, case_ring, case_filters),
     "g41": (case_ring, case_filters, case_tsqr),
-    "g21s": (case_solves(SOLVES["g21"]), case_refusals, case_dtensor,
-             case_warmup, case_bounds),
+    "g21s": (case_solves(SOLVES["g21"]), case_dtensor, case_warmup,
+             case_bounds),
     "g41s": (case_solves(SOLVES["g41"]), case_bounds, case_dtensor_padded),
+    "b21": (case_pseudo(PSEUDO["b21"]), case_sops, case_bse_pad),
+    "b31": (case_pseudo(PSEUDO["b31"]), case_sops, case_bse_pad,
+            case_bse_dtensor),
+    "b41": (case_pseudo(PSEUDO["b41"]), case_sops, case_bse_pad),
+    "b22": (case_pseudo(PSEUDO["b22"]), case_pseudo_ring_filter_2d,
+            case_bse_dtensor),
+    "f21": (case_fused(FUSED["f21"]), case_fused_warmup),
+    "f22": (case_fused(FUSED["f22"]), case_fused_warmup),
 }
 
 

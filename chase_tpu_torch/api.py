@@ -293,7 +293,9 @@ def _fused_setup(op: DenseOperator, cfg: ChaseConfig, generator):
     """The resolved config, the solve's generator and the solver keywords
     every fused solve shares (the ladder's shadow, the grid, and the
     filter products' routing: ``solver._chunk_product`` on the route of
-    ``solver._ring_route``)."""
+    ``solver._ring_route``, with ``fused``: on an r×c grid the fused
+    solvers take ``dist.hemm``, as the JAX package's, which have no
+    ring)."""
     rcfg = cfg.resolve(op.dtype, op.device)
     if rcfg.small_dense_backend not in ("auto", "device"):
         get_logger().info(f"small_dense_backend="
@@ -304,6 +306,9 @@ def _fused_setup(op: DenseOperator, cfg: ChaseConfig, generator):
     if generator is None:
         generator = torch.Generator(device=op.device).manual_seed(rcfg.seed)
     route = _ring_route(rcfg, op, get_logger())
+    if route == "2d":
+        get_logger().info("the fused solvers have no 2-D ring: their filter "
+                          "products take dist.hemm on this grid", "linalg")
     refine = bool(rcfg.refine_filter and rcfg.mixed_precision
                   and rcfg.is_double)
     bf16 = bool(rcfg.bf16_filter and not rcfg.is_double
@@ -317,7 +322,7 @@ def _fused_setup(op: DenseOperator, cfg: ChaseConfig, generator):
               refine_filter=refine, qr_hi_prec=rcfg.qr_hi_prec,
               H_low=op.H_low if (refine or bf16) else None,
               chunk=functools.partial(_chunk_product, route,
-                                      rcfg.ring_backend),
+                                      rcfg.ring_backend, fused=True),
               grid=op.grid)
     return rcfg, generator, kw
 

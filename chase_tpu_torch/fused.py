@@ -149,7 +149,8 @@ class FilterProducts:
     solve's route and backend): with both set the product runs on the
     ``ring_hemm`` kernel through ``parallel/ring.ring_steps`` — one call
     on one device, the p-step chunk ring with the grid's exchange on a
-    (p, 1) grid.  Otherwise, and with ``chunk`` None, ``dist.hemm``: the
+    (p, 1) grid.  Otherwise — ``chunk`` None, or an r×c grid, where
+    ``_chunk_product(fused=True)`` says no ring — ``dist.hemm``: the
     local product (``narrow_matmul`` for the bf16 shadow) with the grid's
     collectives.  ``steps`` counts every call: the solver's HEMM-step
     counter, which equals the kernel's launches per rank divided by p

@@ -17,9 +17,11 @@ the collectives the solver uses on those layouts: a sum over a grid axis
 (:meth:`Grid2D.all_reduce`), the sum of a per-row-block partial that must
 come out bitwise equal on every rank (:meth:`Grid2D.sum_rows`), the rows
 of a multivector gathered over 'r' (:meth:`Grid2D.all_gather`), the
-ring's chunk exchange (:meth:`Grid2D.exchange`), and the rotation of a
+ring's chunk exchange (:meth:`Grid2D.exchange`), the rotation of a
 multivector's rows that K-conjugation across ranks needs
-(:meth:`Grid2D.rotate_rows`).  Complex tensors travel
+(:meth:`Grid2D.rotate_rows`), and the 2-D ring's reduce-scatter
+(:meth:`Grid2D.reduce_scatter`) and parity flip (:meth:`Grid2D.flip`).
+Complex tensors travel
 as their real views.  A collective over an axis of size 1 is the
 identity and issues nothing.  ``Grid2D.stats`` counts the collectives
 issued and their payload bytes.
@@ -254,6 +256,64 @@ class Grid2D:
         if ops:
             for work in dist.batch_isend_irecv(ops):
                 work.wait()
+        return out
+
+    def reduce_scatter(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        """The sum of every member's ``t`` over ``axis``, cut along dim 0
+        in group order: member k gets rows ``[k·m, (k+1)·m)`` of the sum,
+        m = ``t.shape[0]`` / the axis size (the JAX package's ``psum_scatter
+        (tiled=True)``).  ``t`` itself for a group of one; else a new
+        tensor."""
+        p = self.size(axis)
+        if p == 1:
+            return t
+        t = t.contiguous()
+        out = torch.empty((t.shape[0] // p,) + tuple(t.shape[1:]),
+                          dtype=t.dtype, device=t.device)
+        self.stats.add("reduce_scatter", t)
+        with warnings.catch_warnings():
+            # renamed reduce_scatter_single in newer torch (as all_gather)
+            warnings.simplefilter("ignore", FutureWarning)
+            dist.reduce_scatter_tensor(_wire(out), _wire(t),
+                                       group=self.group(axis))
+        return out
+
+    # -- the 2-D ring's chunk orders ---------------------------------------
+
+    def parity_chunk(self, parity: str) -> int:
+        """The chunk of N/(r·c) rows this rank holds in the 2-D ring's
+        ``parity``: ``j·r + i`` in "A" (the JAX package's ``P(('c',
+        'r'))``), ``i·c + j`` in "B" (``P(('r', 'c'))``) — the rows
+        ``[j·N/(r·c), (j+1)·N/(r·c))`` of its own ``P('r', None)`` rows."""
+        (i, j), r, c = self.coords, self.size("r"), self.size("c")
+        return j * r + i if parity == "A" else i * c + j
+
+    def _holder(self, chunk: int, parity: str) -> tuple:
+        """(i, j) of the rank holding ``chunk`` in ``parity``."""
+        r, c = self.size("r"), self.size("c")
+        return (chunk % r, chunk // r) if parity == "A" \
+            else (chunk // c, chunk % c)
+
+    def flip(self, t: torch.Tensor, to: str) -> torch.Tensor:
+        """The 2-D ring's parity flip: ``t`` is this rank's chunk in the
+        other parity; returns its chunk in parity ``to`` ("A" or "B") —
+        the JAX package's ``flip_a2b`` / ``flip_b2a`` ppermute.  Point to
+        point over the whole grid (one send, one receive); a rank whose
+        chunk stays with it (gloo cannot send to itself) returns ``t``
+        itself.  Counted under "flip"."""
+        frm = "B" if to == "A" else "A"
+        dest = self._holder(self.parity_chunk(frm), to)
+        if dest == self.coords:
+            return t
+        src = self._holder(self.parity_chunk(to), frm)
+        t = t.contiguous()
+        out = torch.empty_like(t)
+        self.stats.add("flip", t)
+        grid = self.mesh.mesh
+        for work in dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, _wire(t), int(grid[dest])),
+                dist.P2POp(dist.irecv, _wire(out), int(grid[src]))]):
+            work.wait()
         return out
 
     # -- layouts ----------------------------------------------------------

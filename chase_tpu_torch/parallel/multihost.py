@@ -15,7 +15,7 @@ every rank::
     from chase_tpu_torch.parallel import multihost
     grid = multihost.init_grid((4, 1))      # the p-step ring; init_grid()
                                             # alone gives the near-square
-                                            # (2, 2): the windowed filter
+                                            # (2, 2): the 2-D ring
     res = ct.eigsh(H, nev, nex, grid=grid)  # H whole on every rank, or a
                                             # DTensor (Shard(0), Shard(1))
 

@@ -36,6 +36,40 @@ second's input, so the rings chain as they stand, 2·p kernel launches per
 H² step and rank (the kernel reads no symmetry, so a BSE H, whose halves
 differ, is fine; the JAX package's H² ring multiplies with XLA).  The
 filter applies no S, so the S-preserving pad needs nothing here.
+
+The 2-D rings (the JAX package's ``_ring2d_pair`` and its four filters,
+``chebyshev_filter_ring2d``, ``chebyshev_filter_refine_ring2d``,
+``chebyshev_filter_h2_ring2d`` and ``chebyshev_filter_refine_h2_ring2d``).
+On an r×c grid rank (i, j) holds the block h = H[row block i, column
+block j] (N/r × N/c) and the multivectors' rows of block i.  The
+recurrence runs on chunks of nch = N/(r·c) rows in two orders, the
+parities (``Grid2D.parity_chunk``): chunk ``j·r + i`` in A, ``i·c + j``
+in B.  Two passes (:class:`Ring2D`):
+
+* ``ring_A`` (A → B), H·w: the chunk ring along 'r' (:func:`ring_steps`,
+  r steps of ``h[:, sub]·cur``), then ``Grid2D.reduce_scatter`` over 'c';
+* ``ring_B`` (B → A), Hᴴ·w: the chunk ring along 'c' (c steps of
+  ``h[sub, :]ᴴ·cur``), then the reduce-scatter over 'r'.  On the kernel
+  each step is ``ring_hemm`` on the mirror hᴴ (``operator.mirror_tile``,
+  built once per operator and cached by ``DenseOperator.mirror``):
+  ``h[sub, :]ᴴ = hᴴ[:, sub]``.  With ``torch.matmul`` it reads ``h.mH``
+  as it lies.
+
+Parity B's chunk is a slice of the rank's own rows, so a block enters in
+B with no communication and leaves B by one ``all_gather`` over 'c'.
+The Hermitian filters' steps alternate parity: each pass lands in the
+other parity, and the shift ``c·Y``, the previous iterate and the frozen
+columns follow it by a parity flip (``Grid2D.flip``, point to point).
+The entry parity is chosen so that the last step lands in B: A for an
+odd number of steps (one flip on entry).  The JAX package enters in A
+and pays a trailing all-frozen step and a flip home instead.  The H²
+filters need no flip: from B one H² step is ``ring_A(S·ring_B(S·v))`` —
+ring_B computes Hᴴ·w, and Hᴴ = S·H·S for a BSE H, so ``S·ring_B(S·v)`` =
+H·v, with S by global row — and every step starts and ends in B.
+``ring_hemm`` launches per rank and filter on the kernel, d = deg_max:
+the Hermitian filter ⌈n/2⌉·r + ⌊n/2⌋·c with n = max(d, 1), the refine
+filter the same with n = max(d − 1, 0), the H² filter n·(r + c) with
+n = max(d, 1), the refine H² filter max(d − 1, 0)·(r + c).
 """
 
 from __future__ import annotations
@@ -51,11 +85,15 @@ from ..ops.pseudo import _interval
 from ..types import filter_carry_dtype, low_precision_dtype, \
     numpy_scalar_type
 from .dist import local_product
+from .operator import mirror_tile
 
 __all__ = ["ring_hemm", "ring_steps", "matmul_step",
            "chebyshev_filter_ring", "chebyshev_filter_ring_pallas",
            "chebyshev_filter_refine_ring", "chebyshev_filter_h2_ring",
-           "chebyshev_filter_refine_h2_ring"]
+           "chebyshev_filter_refine_h2_ring", "Ring2D",
+           "chebyshev_filter_ring2d", "chebyshev_filter_refine_ring2d",
+           "chebyshev_filter_h2_ring2d",
+           "chebyshev_filter_refine_h2_ring2d"]
 
 
 def matmul_step(H: torch.Tensor, V: torch.Tensor, *, col0: int = 0,
@@ -157,7 +195,10 @@ def _ring_shift(hemm, v, c, products: int):
 
 
 def _filter_ring(H, X, degrees, lam1, lower, upper, deg_max, products,
-                 hemm):
+                 hemm, ring2d=None):
+    """The recurrence with ``hemm`` as each product, on X's rows — or,
+    with ``ring2d`` (a :class:`Ring2D`), on X's parity-B chunk, gathered
+    back to X's rows at the end."""
     carry = _carry(H, X)
     # scalars in the carry's real precision, like the JAX version's traced
     # scalars
@@ -167,7 +208,7 @@ def _filter_ring(H, X, degrees, lam1, lower, upper, deg_max, products,
     e = (upper - lower) / rt(2)
     sigma1 = e / (lam1 - c)
     degs = torch.as_tensor(np.asarray(degrees), device=X.device)[None, :]
-    Xc = X.to(carry)
+    Xc = (X if ring2d is None else ring2d.enter(X)).to(carry)
 
     def hemm_shift(v):
         return _ring_shift(hemm, v, float(c), products)
@@ -181,6 +222,8 @@ def _filter_ring(H, X, degrees, lam1, lower, upper, deg_max, products,
             - float(sigma * sigma_new) * Xp
         Xp, Y = Y, torch.where(degs >= t, Z, Y)
         sigma = sigma_new
+    if ring2d is not None:
+        Y = ring2d.leave(Y)
     # degree-0 columns bit-exact: a reduced carry must not round-trip the
     # problem-dtype columns it leaves alone
     return torch.where(degs >= 1, Y.to(X.dtype), X)
@@ -245,19 +288,24 @@ def chebyshev_filter_h2_ring(H: torch.Tensor, X: torch.Tensor, degrees,
 
 
 def _refine_ring(H, V, R, degrees, alpha1_e, alphas, betas, inj, p_final, cc,
-                 deg_max, products, hemm):
+                 deg_max, products, hemm, ring2d=None):
+    """The deviation recurrence with ``hemm`` as each product, on R's
+    rows — or, with ``ring2d``, on R's parity-B chunk (as
+    :func:`_filter_ring`)."""
     carry = _carry(H, V)
     rt = numpy_scalar_type(carry)
     ccf = float(rt(cc))
     degs = torch.as_tensor(np.asarray(degrees), device=V.device)[None, :]
     injt = inj_table(inj, carry, V.device)
-    rc = R.to(carry)
+    rc = (R if ring2d is None else ring2d.enter(R)).to(carry)
     W = float(rt(alpha1_e)) * rc                    # w_1 = (σ1/e)·r
     Wp = torch.zeros_like(W)
     for t in range(2, int(deg_max) + 1):
         Z = float(rt(alphas[t])) * _ring_shift(hemm, W, ccf, products) \
             + float(rt(betas[t])) * Wp + injt[t][None, :] * rc
         Wp, W = W, torch.where(degs >= t, Z, W)
+    if ring2d is not None:
+        W = ring2d.leave(W)
     return refine_combine(V, W, p_final, degrees)
 
 
@@ -304,3 +352,261 @@ def chebyshev_filter_refine_h2_ring(H: torch.Tensor, V: torch.Tensor,
     :func:`chebyshev_filter_refine_ring`."""
     return _refine_ring(H, V, R2, degrees, alpha1_e, alphas, betas, inj,
                         p_final, cc, deg_max, 2, _product(H, grid, kernel))
+
+
+# -- the 2-D ping-pong rings -------------------------------------------------
+
+def _other(parity: str) -> str:
+    return "B" if parity == "A" else "A"
+
+
+class Ring2D:
+    """The two parity passes of the 2-D ping-pong schedule on ``grid``
+    (the JAX package's ``_ring2d_pair``) for this rank's block H (N/r ×
+    N/c), with the chunk moves around them.
+
+    Args:
+      grid: the r×c grid (``Grid2D``, or anything with its ``size``,
+        ``index``, ``exchange``, ``reduce_scatter``, ``flip`` and
+        ``all_gather``).
+      H: this rank's block (the operator's or its ladder shadow's).
+      kernel: every step on the ``ring_hemm`` kernel (ring_B's on the
+        mirror), else :func:`matmul_step` (ring_B's on ``H.mH``).
+      HT: with ``kernel``, the mirror Hᴴ (N/c × N/r) in the kernel's
+        layout — ``DenseOperator.mirror(H)``, cached by the operator —
+        or None to build one for this call (``operator.mirror_tile``).
+        ValueError if it is not of H's mirror's shape and dtype, or on
+        CUDA not in a layout TMA reads; it never drops to
+        ``torch.matmul``.
+    """
+
+    def __init__(self, grid, H: torch.Tensor, kernel: bool,
+                 HT: Optional[torch.Tensor] = None):
+        self.grid = grid
+        self.r, self.c = grid.size("r"), grid.size("c")
+        self.i, self.j = grid.index("r"), grid.index("c")
+        self.nch = H.shape[0] // self.c
+        if tuple(H.shape) != (self.c * self.nch, self.r * self.nch):
+            raise ValueError(f"the 2-D ring on a ({self.r}, {self.c}) grid "
+                             f"needs a block of (c·nch, r·nch) rows and "
+                             f"columns, N = r·c·nch; got {tuple(H.shape)} "
+                             f"(DenseOperator pads N to a multiple of r·c)")
+        self.H = H
+        self.N = self.r * self.c * self.nch
+        if kernel:
+            HT = mirror_tile(H) if HT is None else HT
+            _check_mirror(H, HT)
+            self.HB, self.step = HT, None
+        else:
+            self.HB, self.step = H.mH, matmul_step
+        self._ex = {a: (grid.exchange(a) if grid.size(a) > 1 else None)
+                    for a in ("r", "c")}
+
+    def ring_A(self, w: torch.Tensor) -> torch.Tensor:
+        """H·w: ``w`` this rank's parity-A chunk, the result its parity-B
+        chunk (r steps, then the reduce-scatter over 'c')."""
+        acc = ring_steps(self.H, w, me=self.i, p=self.r,
+                         exchange=self._ex["r"], step=self.step)
+        return self.grid.reduce_scatter(acc, "c")
+
+    def ring_B(self, w: torch.Tensor) -> torch.Tensor:
+        """Hᴴ·w: ``w`` this rank's parity-B chunk, the result its
+        parity-A chunk (c steps, then the reduce-scatter over 'r')."""
+        acc = ring_steps(self.HB, w, me=self.j, p=self.c,
+                         exchange=self._ex["c"], step=self.step)
+        return self.grid.reduce_scatter(acc, "r")
+
+    def apply(self, w: torch.Tensor, parity: str) -> torch.Tensor:
+        """The pass that reads a chunk of ``parity``: H·w (Hᴴ·w from B)
+        in the other parity."""
+        return self.ring_A(w) if parity == "A" else self.ring_B(w)
+
+    def enter(self, X: torch.Tensor) -> torch.Tensor:
+        """This rank's parity-B chunk of the multivector whose rows of
+        block i are ``X``: a view, no communication."""
+        return X[self.j * self.nch:(self.j + 1) * self.nch]
+
+    def leave(self, Y: torch.Tensor) -> torch.Tensor:
+        """The rows of block i from the parity-B chunks: one all_gather
+        over 'c'."""
+        return self.grid.all_gather(Y.contiguous(), "c")
+
+    def s_flip(self, v: torch.Tensor, parity: str) -> torch.Tensor:
+        """S·v for this rank's ``parity`` chunk ``v``: the rows of global
+        index ≥ N/2 negated (N the padded size; the S-preserving pad keeps
+        S's split there)."""
+        r, c, i, j = self.r, self.c, self.i, self.j
+        g0 = (j * r + i if parity == "A" else i * c + j) * self.nch
+        half = self.N // 2
+        if g0 + self.nch <= half:
+            return v
+        if g0 >= half:
+            return -v
+        rows = torch.arange(g0, g0 + self.nch, device=v.device)
+        return torch.where((rows >= half)[:, None], -v, v)
+
+    def h2(self, v: torch.Tensor) -> torch.Tensor:
+        """H²·v from and to parity B: ``ring_A(S·ring_B(S·v))`` — ring_B
+        is Hᴴ·w, and S·Hᴴ·S = H for a BSE H."""
+        return self.ring_A(self.s_flip(self.ring_B(self.s_flip(v, "B")),
+                                       "A"))
+
+
+def _check_mirror(H: torch.Tensor, HT: torch.Tensor) -> None:
+    """ValueError unless ``HT`` can be H's mirror on the kernel: H's
+    dtype and device, the transposed shape, no lazy conjugate, and on
+    CUDA a layout TMA reads."""
+    if (HT.dtype != H.dtype or tuple(HT.shape) != tuple(H.shape[::-1])
+            or HT.is_conj() or HT.is_neg() or HT.device != H.device):
+        raise ValueError(f"the mirror must be Hᴴ as a physical {H.dtype} "
+                         f"tensor of shape {tuple(H.shape[::-1])} on "
+                         f"{H.device}; got {HT.dtype} {tuple(HT.shape)} on "
+                         f"{HT.device} (is_conj {HT.is_conj()})")
+    if HT.device.type == "cuda" and (
+            HT.stride(1) != 1 or rh.tma_row_stride(HT) is None):
+        raise ValueError(f"the mirror's layout cannot be read through TMA "
+                         f"(strides {HT.stride()}, base "
+                         f"{HT.data_ptr():#x}); build it with "
+                         f"operator.mirror_tile or DenseOperator.mirror")
+
+
+def chebyshev_filter_ring2d(grid, H: torch.Tensor, X: torch.Tensor, degrees,
+                            lam1, lower, upper, deg_max: int, *,
+                            precision="highest", kernel: bool = False,
+                            HT: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """The Chebyshev filter as the 2-D ping-pong ring on an r×c grid (the
+    JAX package's ``chebyshev_filter_ring2d``).  Each step is one pass
+    (:class:`Ring2D`) into the other parity; the shift term, the previous
+    iterate and the frozen columns follow by a parity flip, and the entry
+    parity makes the last step land in B (the module note).  With
+    ``kernel`` the passes' steps are ⌈n/2⌉·r + ⌊n/2⌋·c ``ring_hemm``
+    launches per rank, n = max(deg_max, 1).
+
+    Args:
+      grid: an r×c grid (r, c > 1 on the solver's "2d" route).
+      H: this rank's block (N/r × N/c) of the operator or of its shadow
+        (as for :func:`chebyshev_filter_ring_pallas`).
+      X: this rank's rows (N/r × w) of the window, ``P('r', None)``.
+      degrees, lam1, lower, upper, deg_max: as for
+        :func:`chebyshev_filter_ring_pallas`.
+      precision: accepted for the JAX signature.
+      kernel, HT: as for :class:`Ring2D`.
+
+    Returns: the filtered rows in X's dtype (new tensor), the same bits on
+    every rank of a grid row; degree-0 columns bit-exact copies of X's.
+    """
+    del precision
+    carry = _carry(H, X)
+    rt = numpy_scalar_type(carry)
+    lam1, lower, upper = rt(lam1), rt(lower), rt(upper)
+    c = (upper + lower) / rt(2)
+    e = (upper - lower) / rt(2)
+    sigma1 = e / (lam1 - c)
+    cf = float(c)
+    degs = torch.as_tensor(np.asarray(degrees), device=X.device)[None, :]
+    ring = Ring2D(grid, H, kernel, HT)
+    n = max(int(deg_max), 1)
+    par = "B" if n % 2 == 0 else "A"          # the last step lands in B
+    x = ring.enter(X).to(carry)
+    if par == "A":
+        x = grid.flip(x.contiguous(), "A")
+
+    def substep(Y, par):
+        """(H·Y, Y flipped, their parity)."""
+        out = _other(par)
+        return ring.apply(Y, par), grid.flip(Y.contiguous(), out), out
+
+    w, flipped, out = substep(x, par)
+    Y = float(sigma1 / e) * (w - cf * flipped)
+    Y = torch.where(degs >= 1, Y, flipped)
+    Xp, par, sigma = x, out, sigma1
+    for t in range(2, n + 1):
+        sigma_new = rt(1) / (rt(2) / sigma1 - sigma)
+        w, flipped, out = substep(Y, par)
+        Z = float(rt(2) * sigma_new / e) * (w - cf * flipped) \
+            - float(sigma * sigma_new) * Xp
+        Xp, Y = Y, torch.where(degs >= t, Z, flipped)
+        par, sigma = out, sigma_new
+    Y = ring.leave(Y)
+    # degree-0 columns bit-exact (a reduced carry must not round-trip them)
+    return torch.where(degs >= 1, Y.to(X.dtype), X)
+
+
+def chebyshev_filter_refine_ring2d(grid, H: torch.Tensor, V: torch.Tensor,
+                                   R: torch.Tensor, degrees, alpha1_e,
+                                   alphas, betas, inj, p_final, cc,
+                                   deg_max: int, *, precision="highest",
+                                   kernel: bool = False,
+                                   HT: Optional[torch.Tensor] = None
+                                   ) -> torch.Tensor:
+    """The deviation-form refinement filter as the 2-D ping-pong ring
+    (the JAX package's ``chebyshev_filter_refine_ring2d``): the w
+    recurrence alternates parity as :func:`chebyshev_filter_ring2d`'s, R
+    is held in both parities (one flip), and w₁ = (σ1/e)·r is placed in
+    the parity that makes the last step land in B.  Steps 2…deg_max take
+    one pass each: with ``kernel`` ⌈m/2⌉·r + ⌊m/2⌋·c ``ring_hemm``
+    launches per rank, m = max(deg_max − 1, 0).  V and R are this rank's
+    rows (N/r × w), the rest as for :func:`chebyshev_filter_refine_ring`
+    and :class:`Ring2D`; returns the filtered rows in V's dtype, degree-0
+    columns V's."""
+    del precision
+    carry = _carry(H, V)
+    rt = numpy_scalar_type(carry)
+    ccf = float(rt(cc))
+    degs = torch.as_tensor(np.asarray(degrees), device=V.device)[None, :]
+    injt = inj_table(inj, carry, V.device)
+    ring = Ring2D(grid, H, kernel, HT)
+    m = max(int(deg_max) - 1, 0)
+    rc = {"B": ring.enter(R).to(carry)}
+    if m:
+        rc["A"] = grid.flip(rc["B"].contiguous(), "A")
+    par = "B" if m % 2 == 0 else "A"          # the last step lands in B
+    W = float(rt(alpha1_e)) * rc[par]
+    Wp = torch.zeros_like(W)
+    for t in range(2, m + 2):
+        out = _other(par)
+        flipped = grid.flip(W.contiguous(), out)
+        Z = float(rt(alphas[t])) * (ring.apply(W, par) - ccf * flipped) \
+            + float(rt(betas[t])) * Wp + injt[t][None, :] * rc[out]
+        Wp, W = W, torch.where(degs >= t, Z, flipped)
+        par = out
+    return refine_combine(V, ring.leave(W), p_final, degrees)
+
+
+def chebyshev_filter_h2_ring2d(grid, H: torch.Tensor, X: torch.Tensor,
+                               degrees, lam1, lower, upper, deg_max: int, *,
+                               precision="highest", kernel: bool = False,
+                               HT: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
+    """The pseudo-Hermitian filter on H² as the 2-D ring (the JAX
+    package's ``chebyshev_filter_h2_ring2d``): every step one H²
+    application (``Ring2D.h2``) from and to parity B, no parity flip;
+    with ``kernel`` n·(r + c) ``ring_hemm`` launches per rank, n = 1 +
+    max(deg_max − 1, 0).  Arguments as for
+    :func:`chebyshev_filter_ring2d`, with the H²-spectrum ``lam1``,
+    ``lower`` and ``upper`` (in either order) of
+    :func:`chebyshev_filter_h2_ring`."""
+    del precision
+    ring = Ring2D(grid, H, kernel, HT)
+    return _filter_ring(H, X, degrees, lam1, *_interval(lower, upper),
+                        deg_max, 1, ring.h2, ring)
+
+
+def chebyshev_filter_refine_h2_ring2d(grid, H: torch.Tensor, V: torch.Tensor,
+                                      R2: torch.Tensor, degrees, alpha1_e,
+                                      alphas, betas, inj, p_final, cc,
+                                      deg_max: int, *, precision="highest",
+                                      kernel: bool = False,
+                                      HT: Optional[torch.Tensor] = None
+                                      ) -> torch.Tensor:
+    """The deviation-form filter on H² as the 2-D ring (the JAX package's
+    ``chebyshev_filter_refine_h2_ring2d``): the w recurrence in parity B,
+    each step one ``Ring2D.h2``; with ``kernel`` max(deg_max − 1, 0)·(r +
+    c) ``ring_hemm`` launches per rank.  Arguments as for
+    :func:`chebyshev_filter_refine_h2_ring` with this rank's rows of V and
+    R2, and ``kernel`` and ``HT`` as for :class:`Ring2D`."""
+    del precision
+    ring = Ring2D(grid, H, kernel, HT)
+    return _refine_ring(H, V, R2, degrees, alpha1_e, alphas, betas, inj,
+                        p_final, cc, deg_max, 1, ring.h2, ring)

@@ -41,15 +41,17 @@ another waits in.  The start block and the Lanczos probes are drawn
 whole on every rank from identically seeded generators and cut to each
 rank's rows, so a grid solve starts from ``grid=None``'s numbers.  The
 filter's route (``_ring_route``): a 1×1 grid as one device; a (p, 1) grid
-the p-step chunk ring (``parallel/ring.py``), each step on the ring_hemm
+the p-step chunk ring (``parallel/ring.py``); an r×c grid with r, c > 1
+the 2-D ping-pong ring (``parallel/ring.chebyshev_filter_ring2d`` and
+its refine twin), as in the JAX package — each ring step on the ring_hemm
 kernel with ``ring_backend="pallas"`` and an operator of a dtype it
-takes, else on ``torch.matmul`` (the JAX package's XLA ring); an r×c grid
-with r, c > 1 the windowed filter with the grid's product (the JAX
-package takes its 2-D ring there: ROADMAP queue 1 item 5, part 3), and
-``ring_filter=True`` there raises NotImplementedError.
+takes (the 2-D ring's second pass on the operator's mirror,
+``DenseOperator.mirror``), else on ``torch.matmul`` (the JAX package's
+XLA ring).  ``ring_filter=False`` takes the windowed filter with the
+grid's product on any grid.
 
 Not ported here: the wide-f64 and transient-shadow modes (TPU
-workarounds) and the 2-D rings.
+workarounds).
 """
 
 from __future__ import annotations
@@ -80,9 +82,6 @@ from .ops.blocks import (permute_cols, scale_lower_rows, set_head_cols,
 
 __all__ = ["solve", "SolveResult", "calc_degrees_host", "locking_host",
            "uses_ring_kernel"]
-
-PART3 = ("ROADMAP queue 1 item 5, part 3 (the 2-D ping-pong rings); the "
-         "port runs the windowed filter on such grids")
 
 
 def _shadow_filters(rcfg, dtype) -> bool:
@@ -142,56 +141,55 @@ def _ring_route(rcfg, op: DenseOperator, log) -> Optional[str]:
     """The filter's ring schedule for this solve — the JAX package's
     ``_ring_mode`` with the port's p = 1 rule: "p1" (one device or a 1×1
     grid, :func:`_ring_allowed`), "1d" (a (p, 1) grid, p > 1: the chunk
-    ring, on by default as in the JAX package) or None (the windowed
-    filter).  An r×c grid with r, c > 1 takes the windowed filter, logged
-    at info; ``ring_filter=True`` there raises NotImplementedError, since
-    its ring (the JAX package's 2-D ping-pong) is not ported yet."""
+    ring), "2d" (an r×c grid, r, c > 1: the ping-pong ring; the port
+    pads N to a multiple of r·c, so it always fits), both on by default as
+    in the JAX package, or None (the windowed filter: ``ring_filter=
+    False``, or a (1, c) grid)."""
     grid = op.grid
     if grid is None or grid.nprocs == 1:
         return "p1" if _ring_allowed(rcfg, op, log) else None
     r, c = grid.size("r"), grid.size("c")
-    if c == 1:
-        if rcfg.ring_filter is False:
-            return None
-        step = ("the ring_hemm kernel where the filter's operator is f32, "
-                "c64 or bf16" if rcfg.ring_backend == "pallas"
-                else "torch.matmul")
-        log.info(f"ring filter auto-enabled (1d schedule, grid {grid.shape}"
-                 f"): a {r}-step chunk ring, each step on {step}; opt out "
-                 f"with ring_filter=False", "linalg")
-        if rcfg.ring_backend == "pallas" \
-                and not uses_ring_kernel(rcfg, op.dtype):
-            log.warn(f"ring_backend='pallas' needs an f32 or c64 problem or "
-                     f"the precision ladder's f32, c64 or bf16 shadow "
-                     f"(dtype={op.dtype}) — the ring's steps run on "
-                     f"torch.matmul", "linalg")
-        return "1d"
-    if r > 1:
+    if r == 1:
         if rcfg.ring_filter is True:
-            raise NotImplementedError(
-                f"ring_filter=True on the grid {grid.shape}: {PART3}")
-        log.info(f"grid {grid.shape}: windowed filter with the grid's "
-                 f"product (the JAX package would take its 2-D ring, "
-                 f"{PART3})", "linalg")
+            log.warn(f"ring_filter requested but no ring schedule fits the "
+                     f"grid {grid.shape} (it needs r > 1) — using the "
+                     f"windowed filter", "linalg")
         return None
-    if rcfg.ring_filter is True:
-        log.warn(f"ring_filter requested but no ring schedule fits the grid "
-                 f"{grid.shape} (it needs r > 1) — using the windowed "
-                 f"filter", "linalg")
-    return None
+    if rcfg.ring_filter is False:
+        return None
+    mode = "1d" if c == 1 else "2d"
+    step = ("the ring_hemm kernel where the filter's operator is f32, c64 "
+            "or bf16" if rcfg.ring_backend == "pallas" else "torch.matmul")
+    what = (f"a {r}-step chunk ring" if mode == "1d" else
+            f"the ping-pong ring, {r}-step passes along 'r' and {c}-step "
+            f"passes along 'c'")
+    log.info(f"ring filter auto-enabled ({mode} schedule, grid {grid.shape}"
+             f"): {what}, each step on {step}; opt out with "
+             f"ring_filter=False", "linalg")
+    if rcfg.ring_backend == "pallas" and not uses_ring_kernel(rcfg,
+                                                              op.dtype):
+        log.warn(f"ring_backend='pallas' needs an f32 or c64 problem or the "
+                 f"precision ladder's f32, c64 or bf16 shadow "
+                 f"(dtype={op.dtype}) — the ring's steps run on "
+                 f"torch.matmul", "linalg")
+    return mode
 
 
 def _chunk_product(route: Optional[str], ring_backend: str,
-                   dtype: torch.dtype) -> tuple:
+                   dtype: torch.dtype, fused: bool = False) -> tuple:
     """(ring, kernel) for a filter operator of ``dtype`` on ``route``
     (:func:`_ring_route`): the ring_hemm kernel for the dtypes it takes on
-    the p = 1 route, and with ``ring_backend="pallas"`` on the (p, 1)
-    ring; the chunk ring on the (p, 1) route, and on the p = 1 route
-    where the kernel runs.  The host solvers and the fused ones (through
-    ``api._fused_setup``) route every filter product by it."""
+    the p = 1 route, and with ``ring_backend="pallas"`` on the (p, 1) and
+    2-D rings; the ring on the "1d" and "2d" routes, and on the p = 1
+    route where the kernel runs.  The host solvers and, with ``fused``,
+    the fused ones (through ``api._fused_setup``) route every filter
+    product by it; the fused solvers have no 2-D ring (nor have the JAX
+    package's), so on "2d" they take ``dist.hemm``: (False, False)."""
+    if fused and route == "2d":
+        return False, False
     kernel = dtype in KERNEL_DTYPES and (
         route == "p1" or ring_backend == "pallas")
-    return route == "1d" or (route == "p1" and kernel), kernel
+    return route in ("1d", "2d") or (route == "p1" and kernel), kernel
 
 
 def _col_block(cfg_block, nevex: int) -> int:
@@ -243,10 +241,10 @@ def _shrink_window(right: int, retire_to: int, B: int, start: int, w: int):
 
 class FilterForm(NamedTuple):
     """The operator the filter drivers apply: ``shift(H, X, c)`` is its
-    shifted product (ops/filter), ``ring`` and ``refine_ring`` its p = 1
-    ring filters (parallel/ring), ``products`` the HEMMs per recurrence
-    step.  The drivers return executed column-steps and HEMM calls
-    already multiplied by ``products``."""
+    shifted product (ops/filter), ``ring`` and ``refine_ring`` its ring
+    filters (parallel/ring: p = 1, (p, 1) or 2-D), ``products`` the HEMMs
+    per recurrence step.  The drivers return executed column-steps and
+    HEMM calls already multiplied by ``products``."""
     shift: Callable
     ring: Callable
     refine_ring: Callable
@@ -257,13 +255,27 @@ HERMITIAN = FilterForm(filt._hemm_shift, pring.chebyshev_filter_ring_pallas,
                        pring.chebyshev_filter_refine_ring, 1)
 
 
-def hermitian_form(grid, kernel: bool = True) -> FilterForm:
+def is_2d(grid) -> bool:
+    """Whether ``grid`` is r×c with r, c > 1 (the 2-D ring's grids)."""
+    return grid is not None and grid.size("r") > 1 and grid.size("c") > 1
+
+
+def hermitian_form(grid, kernel: bool = True, HT=None) -> FilterForm:
     """The Hermitian filter's form on ``grid``: the windowed shift with
-    the grid's product (``parallel/dist.grid_shift``) and the chunk ring
-    with the ring_hemm kernel (``kernel``) or ``torch.matmul`` as its
-    step.  :data:`HERMITIAN` for one device."""
+    the grid's product (``parallel/dist.grid_shift``) and the ring
+    filters — the chunk ring on a (p, 1) grid, the 2-D ring on an r×c one
+    (``HT``: the operator's mirror for the kernel, ``DenseOperator.
+    mirror``) — with the ring_hemm kernel (``kernel``) or
+    ``torch.matmul`` as their step.  :data:`HERMITIAN` for one device."""
     if grid is None:
         return HERMITIAN
+    if is_2d(grid):
+        return FilterForm(
+            pdist.grid_shift(grid),
+            functools.partial(pring.chebyshev_filter_ring2d, grid,
+                              kernel=kernel, HT=HT),
+            functools.partial(pring.chebyshev_filter_refine_ring2d, grid,
+                              kernel=kernel, HT=HT), 1)
     if kernel:
         ring = functools.partial(pring.chebyshev_filter_ring_pallas,
                                  grid=grid)
@@ -272,6 +284,14 @@ def hermitian_form(grid, kernel: bool = True) -> FilterForm:
     return FilterForm(pdist.grid_shift(grid), ring,
                       functools.partial(pring.chebyshev_filter_refine_ring,
                                         grid=grid, kernel=kernel), 1)
+
+
+def filter_mirror(op: DenseOperator, route, ring: bool, kernel: bool,
+                  H_f: torch.Tensor):
+    """The mirror the 2-D ring's kernel steps read for the filter
+    operator ``H_f`` (``DenseOperator.mirror``, cached beside it), or
+    None off that route."""
+    return op.mirror(H_f) if route == "2d" and ring and kernel else None
 
 
 def _filter_windowed(H, V, degrees_act, locked, nevex, B, lam, lo, up, *,
@@ -751,7 +771,8 @@ def solve(op: DenseOperator, nev: int, nex: int,
                 H_f = H
             ring, kernel = _chunk_product(route, rcfg.ring_backend,
                                           H_f.dtype)
-            form = hermitian_form(op.grid, kernel)
+            form = hermitian_form(op.grid, kernel, filter_mirror(
+                op, route, ring, kernel, H_f))
             # the SP ladder's low phase: TF32 products off the kernel
             tf32 = use_low and is_sp and not (ring and kernel)
             if tf32:

@@ -30,18 +30,19 @@ the S-preserving pad) the loop runs on every rank with its blocks, as
 ``solver.solve`` does: a 1×1 grid as one device; a (p, 1) grid the p-step
 chunk ring in every filter (:func:`h2_form`: both products of each H²
 step p ring_hemm launches with "pallas" and a kernel operator, else
-``matmul_step``); an r×c grid with r, c > 1 the windowed H² filter with
-the grid's product (the JAX package's 2-D H² ring is ROADMAP queue 1 item
-5, part 3).  S acts on global rows, K-conjugation rotates rows across
+``matmul_step``); an r×c grid with r, c > 1 the 2-D H² rings
+(``parallel/ring.chebyshev_filter_h2_ring2d`` and its refine twin: each
+H² step a pass along 'c' on the operator's mirror and one along 'r' on
+its block, r + c launches per rank with the kernel), as in the JAX
+package.  S acts on global rows, K-conjugation rotates rows across
 ranks (``ops/pseudo``), the S-Lanczos dots, the pencil and the residuals
 are summed over the grid's rows bitwise equal on every rank, and the
 start block and probes are drawn whole, damped and cut to each rank's
 rows, so every host decision agrees.
 
 Not ported: the wide-f64 and transient-shadow modes (``engage_wide``,
-``H_filter``, ``drop_shadow``), the host pencil factorization, the 2-D H²
-rings (part 3) and the real-pair embedding of complex BSE (complex runs
-natively).
+``H_filter``, ``drop_shadow``), the host pencil factorization and the
+real-pair embedding of complex BSE (complex runs natively).
 """
 
 from __future__ import annotations
@@ -66,7 +67,8 @@ from .ops.blocks import permute_cols, set_head_cols
 from .ops.qr import orthonormalize, orthonormalize_pseudo
 from .solver import (FilterForm, SolveResult, _chunk_product, _col_block,
                      _draw, _filter_refine_windowed, _filter_ring,
-                     _filter_windowed, _host, _rho, _ring_route)
+                     _filter_windowed, _host, _rho, _ring_route,
+                     filter_mirror, is_2d)
 
 __all__ = ["solve_pseudo", "detect_eigenvalue_clusters",
            "calc_degrees_pseudo_h2_host", "locking_pseudo_v3_host"]
@@ -227,14 +229,22 @@ H2 = FilterForm(ps._h2_shift, pring.chebyshev_filter_h2_ring,
                 pring.chebyshev_filter_refine_h2_ring, 2)
 
 
-def h2_form(grid, kernel: bool = True) -> FilterForm:
+def h2_form(grid, kernel: bool = True, HT=None) -> FilterForm:
     """The H² filter's form on ``grid`` (``solver.hermitian_form``'s
     counterpart): the windowed H² shift with the grid's product
-    (``parallel/dist.grid_h2_shift``) and the chunk rings with the
-    ring_hemm kernel (``kernel``) or ``torch.matmul`` as their step.
-    :data:`H2` for one device."""
+    (``parallel/dist.grid_h2_shift``) and the H² rings — the chunk rings
+    on a (p, 1) grid, the 2-D rings on an r×c one (``HT``: the operator's
+    mirror for the kernel) — with the ring_hemm kernel (``kernel``) or
+    ``torch.matmul`` as their step.  :data:`H2` for one device."""
     if grid is None:
         return H2
+    if is_2d(grid):
+        return FilterForm(
+            pdist.grid_h2_shift(grid),
+            functools.partial(pring.chebyshev_filter_h2_ring2d, grid,
+                              kernel=kernel, HT=HT),
+            functools.partial(pring.chebyshev_filter_refine_h2_ring2d, grid,
+                              kernel=kernel, HT=HT), 2)
     return FilterForm(
         pdist.grid_h2_shift(grid),
         functools.partial(pring.chebyshev_filter_h2_ring, grid=grid,
@@ -516,7 +526,8 @@ def solve_pseudo(op: DenseOperator, nev: int, nex: int,
             H_f = op.H_low if (use_refine or use_bf16 or use_low) else op.H
             ring, kernel = _chunk_product(route, rcfg.ring_backend,
                                           H_f.dtype)
-            form = h2_form(grid, kernel)
+            form = h2_form(grid, kernel, filter_mirror(op, route, ring,
+                                                       kernel, H_f))
             if use_refine:
                 # H²-space tables: expansion points θ², interval [lower,
                 # b_sup], amplification point μ₁ = lambda_1; ONE

@@ -8,7 +8,10 @@ nothing but this package's CUDA kernels, so here warming up means:
 * building (nvcc, on a fresh checkout) and loading the kernels' library
   when the solve will filter on the ring kernel — a CUDA operator with
   ``ring_backend="pallas"`` and a problem, or a ladder shadow, of a dtype
-  the kernel takes;
+  the kernel takes, on one device or on any ring route of a grid: the
+  (p, 1) ring, and the 2-D ring of an r×c grid (whose mirror of the
+  filter's operator is built at the first filter and cached by the
+  operator, ``DenseOperator.mirror``);
 * with ``fused=True``, running the cold and the warm-start fused solve
   once on the operator with a tolerance met at once, so that the caching
   allocator holds the solve's blocks and cuSOLVER's handles exist.

@@ -41,7 +41,21 @@ no result line) on any fault:
            bound; the pre-pass of a received chunk beside what sending
            the chunk in the pre-pass's layout would add (f32, c64: hi and
            lo) or save (bf16: half the bytes) at 450 GB/s of NVLink
-           (the BSE H² rings: after pfilter, below)
+           (the BSE H² rings: after pfilter, below).  Then the 2-D
+           ping-pong ring at a simulated (2, 2) grid (four threads whose
+           collectives — the chunk exchange along 'r' and 'c', the
+           reduce-scatter, the parity flip, the all_gather — go through
+           a shared board between barriers): each rank's (N/2 × N/2)
+           block and its mirror (operator.mirror_tile: build time and
+           bytes), ring_A's passes (H·V, 2 kernel steps on the block)
+           and ring_B's (Hᴴ·V, 2 on the mirror) against wide products
+           and the plain version's passes at the kernel gate, 2 launches
+           per rank and pass, one stripe call of each (N/2, N/4, k) timed
+           beside its plain version, the library call (torch.matmul of
+           the block, of its conjugate transpose for ring_B: cuBLAS
+           ConjTrans) and its bound; the Hermitian 2-D ring filter on
+           (H + Hᴴ)/2 against the plain filter at filter's width,
+           degrees and gate (1e-2 on the bf16 shadow), 80 launches
   io       the slice's H written with io.save_matrix to a ChASE file in a
            temporary directory (removed at the end of capi), read back by
            io.load_matrix through the native reader (bitwise against H on
@@ -119,7 +133,12 @@ no result line) on any fault:
            against the plain H² filter at pfilter's gate, degree-0
            columns bit-exact, launches = 2·p² per H² step; an f32 and a
            c64 stripe call (N/p, N/p, 1500) timed beside its plain
-           version, the library call and its bound
+           version, the library call and its bound; then the 2-D H² ring
+           filter (chebyshev_filter_h2_ring2d: each H² step a ring_B pass
+           on the mirror and a ring_A pass on the block, r + c = 4
+           launches per rank) at the simulated (2, 2) grid against the
+           same plain H² filter and gate, and its ring_A and ring_B
+           stripe calls (N/2, N/4, 1500) on the f32 and c64 routes
   bpseudo  eigsh_pseudo on the f32 copy of that BSE matrix, tol 1e-4, on
            the bf16 rung (bf16_filter=True, ring_backend="pallas"): every
            filter product on the kernel's bf16 route (ring_hemm launches
@@ -164,7 +183,8 @@ no result line) on any fault:
            issued (Grid2D.stats)
   gridnccl with two cards or more, p = min(cards, 4) ranks run grid1's
            solves on a (p, 1) NCCL grid with their gates (each rank's
-           ring_hemm launches = p × its HEMM steps); with one card it
+           ring_hemm launches = p × its HEMM steps), and with four or
+           more gridhost's (2, 2) solves on an NCCL grid; with one card it
            prints "not run: 1 device" and counts nothing as passed
   gridhost two child processes (torchrun's variables, a gloo group) that
            share card 0 on a (2, 1) grid of HostStagedGrid, a Grid2D
@@ -177,8 +197,15 @@ no result line) on any fault:
            gate, iterations within ±1 of the same solve on one device,
            ritzv, resid, iterations and locked bitwise equal on both
            ranks, ring_hemm launches = 2 × HEMM steps per rank with every
-           launch on a stripe (N/2 rows, col0 0 or N/2); its times are of
-           two ranks sharing one card, not performance numbers
+           launch on a stripe (N/2 rows, col0 0 or N/2); then four such
+           children on a (2, 2) grid (HostStagedGrid also stages the
+           reduce-scatter and the parity flip) solve the Clement
+           and BSE-ladder problems with eigsh and eigsh_pseudo on the 2-D
+           ring: the same gates, results bitwise equal on all four
+           ranks, launches = 2 × HEMM steps per rank, every launch on a
+           stripe (N/2 rows, col0 0 or N/4) of the block or its mirror;
+           its times are of ranks sharing one card, not performance
+           numbers
 
 Each phase prints lines with its numbers and seconds.  A full run then
 prints the kernels' JSON summary and, last, {"ok": true, "device": {...}}.
@@ -2004,16 +2031,21 @@ def one_rank_at_a_time():
         rh.ring_hemm = real
 
 
-def sim_ranks(p: int, fn) -> list:
-    """``fn(rank)`` for p simulated ranks (:class:`_SimRank`), one thread
-    each, their results in rank order; a rank that raises breaks the
-    others' barrier, and the first error is raised here."""
+def sim_ranks(p: int, fn, shape=None) -> list:
+    """``fn(rank)`` for p simulated ranks (:class:`_SimRank`, or on an
+    r×c ``shape`` :class:`_SimRank2D`), one thread each, their results in
+    rank order; a rank that raises breaks the others' barrier, and the
+    first error is raised here."""
     board, barrier = [None] * p, threading.Barrier(p, timeout=300)
     out, errors = [None] * p, []
 
+    def rank(i):
+        return (_SimRank(i, p, board, barrier) if shape is None
+                else _SimRank2D(i, shape, board, barrier))
+
     def run(i):
         try:
-            out[i] = fn(_SimRank(i, p, board, barrier))
+            out[i] = fn(rank(i))
         except BaseException as e:              # noqa: BLE001
             errors.append(e)
             barrier.abort()
@@ -2105,6 +2137,402 @@ def phase_gridring_h2(dev, ctx: dict, route: str) -> dict:
                                  f"exact {exact0}, launches {launches} "
                                  f"(want {want})")
     log("gridring", f"{route} H² rings ok in "
+                    f"{time.perf_counter() - t_phase:.2f} s")
+    return out
+
+
+# the 2-D ping-pong ring's simulated grids
+GRID_2D = ((2, 2), (2, 4))
+# the 2-D ring's stripe calls, by pass
+STRIPE_2D = {"A": "ring_A block stripe", "B": "ring_B mirror stripe"}
+
+
+class _SimRank2D:
+    """Rank (i, j) of an r×c grid of simulated ranks, each a thread of
+    this process (rank ``me = i·c + j``): what the 2-D rings read of a
+    ``Grid2D`` (``size``, ``index``, ``coords``, ``exchange``,
+    ``reduce_scatter``, ``all_gather``, ``flip``).  Every collective
+    posts this rank's tensor on a shared board and reads its peers'
+    between two barriers of all ranks — the 2-D rings are SPMD, every
+    rank issuing the same collectives in the same order — and queues its
+    copies and sums on the card's one default stream after the producers'
+    work, as :class:`_SimRank` does."""
+
+    def __init__(self, me: int, shape: tuple, board: list, barrier):
+        self.me, (self.r, self.c) = me, shape
+        self.board, self.barrier = board, barrier
+        self.coords = divmod(me, self.c)
+
+    @property
+    def shape(self) -> dict:
+        return {"r": self.r, "c": self.c}
+
+    def size(self, axis: str) -> int:
+        return self.shape[axis]
+
+    def index(self, axis: str) -> int:
+        return self.coords[0 if axis == "r" else 1]
+
+    def _members(self, axis: str) -> list:
+        i, j = self.coords
+        return ([q * self.c + j for q in range(self.r)] if axis == "r"
+                else [i * self.c + q for q in range(self.c)])
+
+    def _swap(self, t, read):
+        self.board[self.me] = t
+        self.barrier.wait()
+        out = read()
+        self.barrier.wait()
+        return out
+
+    def exchange(self, axis: str = "r"):
+        nxt = self._members(axis)[(self.index(axis) + 1) % self.size(axis)]
+
+        def swap(send, recv):
+            self._swap(send, lambda: recv.copy_(self.board[nxt]))
+            return _SimRequests
+        return swap
+
+    def reduce_scatter(self, t, axis: str):
+        m = t.shape[0] // self.size(axis)
+        k = self.index(axis)
+
+        def read():
+            parts = [self.board[q][k * m:(k + 1) * m]
+                     for q in self._members(axis)]
+            out = parts[0].clone()
+            for x in parts[1:]:
+                out += x
+            return out
+        return self._swap(t, read)
+
+    def all_gather(self, t, axis: str = "r"):
+        return self._swap(t, lambda: torch.cat(
+            [self.board[q] for q in self._members(axis)]))
+
+    def flip(self, t, to: str):
+        """Grid2D.flip's chunk orders, as the grid computes them."""
+        from chase_tpu_torch.parallel.mesh import Grid2D
+        frm = "B" if to == "A" else "A"
+        i, j = Grid2D._holder(self, Grid2D.parity_chunk(self, to), frm)
+        src = i * self.c + j
+        return self._swap(t, lambda: t if src == self.me
+                          else self.board[src].clone())
+
+
+def _sim_tiles(A, shape: tuple, dtype, dev) -> list:
+    """Every simulated rank's block of A (rank order i·c + j), laid out
+    as DenseOperator(grid=…) lays it out (``operator.block_of``)."""
+    from chase_tpu_torch.parallel.operator import block_of
+    r, c = shape
+    N = A.shape[0]
+    return [block_of(A, (i * (N // r), N // r), (j * (N // c), N // c), N,
+                     dtype=dtype, device=dev)
+            for i in range(r) for j in range(c)]
+
+
+def _mirrors(tiles) -> tuple:
+    """(each tile's mirror, ``operator.mirror_tile``; seconds to build
+    them all; bytes of one)."""
+    from chase_tpu_torch.parallel.operator import mirror_tile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = [mirror_tile(t) for t in tiles]
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0,
+            out[0].untyped_storage().nbytes())
+
+
+def _stripe_calls(route: str, tile, mirror, Vc, nch: int, h_dtype) -> dict:
+    """One ring_A stripe call on the tile and one ring_B stripe call on
+    its mirror, at col0 = nch, each timed beside its plain version, the
+    library call (torch.matmul of the block, of its conjugate transpose
+    for ring_B — cuBLAS with ConjTrans; torch.mm with f32 out for bf16)
+    and its bound."""
+    from chase_tpu_torch.ops.ring_hemm import ring_hemm, ring_hemm_reference
+    out = {}
+    k = Vc.shape[1]
+    for label, Hs, blk in (("A", tile, tile[:, nch:2 * nch]),
+                           ("B", mirror, tile[nch:2 * nch, :].mH)):
+        W = torch.empty((Hs.shape[0], k), dtype=Vc.dtype, device=Vc.device)
+
+        def library(blk=blk):
+            if route == "bf16":
+                return torch.mm(blk, Vc.to(torch.bfloat16),
+                                out_dtype=torch.float32)
+            return torch.matmul(blk, Vc)
+
+        plain_ms, kern_ms, lib_ms = time_fns(
+            [lambda: ring_hemm_reference(Hs, Vc, col0=nch, out=W),
+             lambda: ring_hemm(Hs, Vc, col0=nch, out=W), library], 3)
+        m = Hs.shape[0]
+        bound_ms, bound_by = (bf16_hemm_bound(m, nch, k) if route == "bf16"
+                              else hemm_bound(m, nch, k, h_dtype))
+        out[label] = dict(ms=kern_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          shape=(m, nch, k))
+        del W
+    return out
+
+
+def _row_blocks(res: list, c: int) -> torch.Tensor:
+    """The whole multivector from the simulated ranks' rows of their
+    block row (each grid row's first rank), after checking that the
+    ranks of a grid row hold the same bits."""
+    for q, y in enumerate(res):
+        if not torch.equal(y, res[q - q % c]):
+            raise AssertionError("2-D ring: ranks of a grid row disagree")
+    return torch.cat(res[::c])
+
+
+def phase_gridring2d(dev, H, route: str) -> dict:
+    """The 2-D ping-pong ring of an N × N H on one card at simulated
+    (r, c) grids (GRID_2D, one thread per rank, :class:`_SimRank2D`):
+    each rank's block laid out as DenseOperator(grid=…) lays it out and
+    its mirror (``operator.mirror_tile``: build time and bytes), then
+    ``parallel.ring.Ring2D``'s passes on the kernel's ``route`` — ring_A
+    (H·V: r kernel steps on the block, the reduce-scatter over 'c') and
+    ring_B (Hᴴ·V: c kernel steps on the mirror, over 'r') — each rank's
+    parity chunk against a wide product at the kernel gate beside the
+    plain version's passes, launches r and c per rank; one stripe call of
+    each pass (N/r, N/(r·c), k) timed beside its plain version, the
+    library call and its bound.  Then the Hermitian 2-D ring filter
+    (``chebyshev_filter_ring2d``) on the Hermitian part of H against the
+    plain filter at [filter]'s width, degrees and gate (1e-2 on the bf16
+    shadow), degree-0 columns bit-exact, ⌈n/2⌉·r + ⌊n/2⌋·c launches per
+    rank.  The launch counts are set to 0 just before each ring run and
+    read after it."""
+    from chase_tpu_torch.config import set_matmul_precision
+    from chase_tpu_torch.ops.ring_hemm import ring_hemm_reference
+    from chase_tpu_torch.parallel.ring import Ring2D
+    t_phase = time.perf_counter()
+    set_matmul_precision("highest")
+    N = H.shape[0]
+    h_dtype = torch.bfloat16 if route == "bf16" else H.dtype
+    v_dtype = torch.float32 if route == "bf16" else H.dtype
+    wide = torch.complex128 if v_dtype.is_complex else torch.float64
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    out = {}
+    for shape in GRID_2D:
+        r, c = shape
+        n, nch = r * c, N // (r * c)
+        tiles = _sim_tiles(H, shape, h_dtype, dev)
+        mirrors, mirror_s, mirror_b = _mirrors(tiles)
+        log("gridring", f"{route} 2-D {shape}: {n} mirrors of the "
+                        f"({N // r}, {N // c}) blocks built in "
+                        f"{mirror_s:.3f} s, {mirror_b / 1e9:.3f} GB each")
+        for k in GRIDRING[route]:
+            V = torch.randn((N, k), generator=g, device=dev, dtype=v_dtype)
+            Vr = (V.to(torch.bfloat16) if route == "bf16" else V).to(wide)
+
+            def chunk(q, parity):
+                i, j = divmod(q, c)
+                m = j * r + i if parity == "A" else i * c + j
+                return V[m * nch:(m + 1) * nch], m
+
+            errs, launches = {}, {}
+            for label, parity in (("A", "A"), ("B", "B")):
+                res = {}
+                for name, step in (("kernel", None),
+                                   ("plain", ring_hemm_reference)):
+                    def rank(g2, step=step):
+                        ring = Ring2D(g2, tiles[g2.me], True,
+                                      mirrors[g2.me])
+                        ring.step = step
+                        w = chunk(g2.me, parity)[0]
+                        return (ring.ring_A(w) if parity == "A"
+                                else ring.ring_B(w))
+                    _zero_ring_counts()
+                    torch.cuda.synchronize()
+                    with one_rank_at_a_time() as counted:
+                        res[name] = sim_ranks(n, rank, shape)
+                    if name == "kernel":
+                        launches[label] = ((counted.launches,)
+                                           + _ring_counts()[1:])
+                err = errp = abs_err = 0.0
+                for q in range(n):
+                    # the chunk of the product this rank's pass lands:
+                    # ring_A's in B, ring_B's (Hᴴ·V) in A
+                    m = chunk(q, "B" if parity == "A" else "A")[1]
+                    rows = slice(m * nch, (m + 1) * nch)
+                    blk = H[rows] if parity == "A" else H[:, rows].mH
+                    ref = blk.to(h_dtype).to(wide) @ Vr
+                    err = max(err, rel_err(res["kernel"][q], ref))
+                    errp = max(errp, rel_err(res["plain"][q], ref))
+                    abs_err = max(abs_err, float(
+                        (res["kernel"][q].to(wide) - ref).abs().max()))
+                    del ref
+                errs[label] = (err, errp, abs_err)
+                del res
+            calls = _stripe_calls(route, tiles[0], mirrors[0],
+                                  V[nch:2 * nch].contiguous(), nch, h_dtype)
+            for label in ("A", "B"):
+                err, errp, abs_err = errs[label]
+                steps = r if label == "A" else c
+                cl = calls[label]
+                log("gridring", f"{route} 2-D {shape} ring_{label} "
+                                f"({'block' if label == 'A' else 'mirror'}"
+                                f") k={k}: rel err kernel {err:.3e} "
+                                f"plain {errp:.3e}, max abs err "
+                                f"{abs_err:.3e}; launches "
+                                f"{launches[label]} ({steps} per rank); "
+                                f"stripe call {cl['shape']} "
+                                f"{cl['ms']:.3f} ms, plain "
+                                f"{cl['plain_ms']:.3f} ms, library "
+                                f"{cl['library_ms']:.3f} ms, bound "
+                                f"{cl['bound_ms']:.3f} ms "
+                                f"({cl['bound_by']})")
+                gate = 4 * errp
+                want = steps * n
+                if not (err <= 1e-5 and err <= gate
+                        and launches[label][0] == want
+                        and sum(launches[label][1:]) == want):
+                    raise AssertionError(
+                        f"gridring 2-D {route} {shape} ring_{label} k={k}: "
+                        f"error {err:.3e} (gate 1e-5 and {gate:.3e}) or "
+                        f"launches {launches[label]} != {want}")
+                out[(label, shape, k)] = dict(
+                    abs_err=abs_err, launches=launches[label][0], **cl)
+            del V, Vr
+        del tiles, mirrors
+        torch.cuda.empty_cache()
+        _hermitian_filter2d(dev, H, route, shape, h_dtype, v_dtype, wide)
+    log("gridring", f"{route} 2-D phase ok in "
+                    f"{time.perf_counter() - t_phase:.2f} s")
+    return out
+
+
+def _hermitian_filter2d(dev, H, route, shape, h_dtype, v_dtype, wide):
+    """[gridring] 2-D's filter check on the Hermitian part (H + Hᴴ)/2."""
+    from chase_tpu_torch.ops.filter import chebyshev_filter
+    from chase_tpu_torch.parallel.ring import chebyshev_filter_ring2d
+    r, c = shape
+    n = r * c
+    N = H.shape[0]
+    Hs = H.clone()
+    Hs += H.mH
+    Hs *= 0.5
+    tiles = _sim_tiles(Hs, shape, h_dtype, dev)
+    mirrors = _mirrors(tiles)[0]
+    Hs = Hs.to(h_dtype)
+    w, deg_max = 750, 10
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+    X = torch.randn((N, w), generator=g, device=dev, dtype=v_dtype)
+    X /= torch.linalg.vector_norm(X, dim=0)
+    deg = np.full(w, deg_max, np.int32)
+    deg[:50] = 0
+    deg[50:300] = 6
+    rad = 2.0 * np.sqrt(N / 2.0) * 1.05   # the semicircle's radius, widened
+    args = (deg, -rad, -rad + 0.1 * rad, rad, deg_max)
+    b = N // r
+    _zero_ring_counts()
+    torch.cuda.synchronize()
+    with one_rank_at_a_time() as counted:
+        res = sim_ranks(n, lambda g2: chebyshev_filter_ring2d(
+            g2, tiles[g2.me], X[g2.coords[0] * b:(g2.coords[0] + 1) * b],
+            *args, kernel=True, HT=mirrors[g2.me]), shape)
+    launches = (counted.launches,) + _ring_counts()[1:]
+    Y = _row_blocks(res, c)
+    del res, tiles, mirrors
+    Yp = chebyshev_filter(Hs, X, *args)
+    err = rel_err(Y, Yp.to(wide))
+    exact0 = bool(torch.equal(Y[:, :50], X[:, :50]))
+    del Y, Yp, Hs
+    torch.cuda.empty_cache()
+    gate = 1e-2 if route == "bf16" else 1e-5
+    want = n * ((deg_max + 1) // 2 * r + deg_max // 2 * c)
+    log("gridring", f"{route} 2-D {shape} Hermitian ring filter (window "
+                    f"{w}, deg_max {deg_max}) on the Hermitian part of H "
+                    f"over {n} simulated ranks: rel err against the plain "
+                    f"filter {err:.3e} (gate {gate:.0e}); degree-0 columns "
+                    f"bit-exact: {exact0}; ring_hemm launches "
+                    f"{launches[0]} ({want}), pre-pass "
+                    f"{launches[1] + launches[2]}")
+    if not (err <= gate and exact0 and launches[0] == want
+            and launches[1] + launches[2] == want):
+        raise AssertionError(f"gridring 2-D {route} {shape} filter: error "
+                             f"{err:.3e} (gate {gate:.0e}), degree-0 exact "
+                             f"{exact0}, launches {launches} (want {want})")
+
+
+def phase_gridring2d_h2(dev, ctx: dict, route: str) -> dict:
+    """The 2-D H² ring filter (``chebyshev_filter_h2_ring2d``: every H²
+    step a ring_B pass on the mirror and a ring_A pass on the block) at
+    the simulated GRID_2D grids, on [pfilter]'s operator and window: each
+    rank's block laid out as DenseOperator(grid=…, pseudo_hermitian=True)
+    lays it out (N/2 a multiple of r·c: no pad), its mirror, and its rows
+    of the window; the stacked result against the plain H² filter at
+    [pfilter]'s gate, degree-0 columns bit-exact, launches (r + c) per H²
+    step and rank.  On the f32 and c64 routes one stripe call of each
+    pass (N/r, N/(r·c), w) timed beside its plain version, the library
+    call and its bound."""
+    from chase_tpu_torch.ops.ring_hemm import ring_hemm
+    from chase_tpu_torch.parallel.ring import chebyshev_filter_h2_ring2d
+    t_phase = time.perf_counter()
+    H_f, X, args, Yp, gate = (ctx[k] for k in ("H_f", "X", "args", "Yp",
+                                                  "gate"))
+    N, w = X.shape
+    deg, deg_max = args[0], args[-1]
+    wide = torch.complex128 if X.is_complex() else torch.float64
+    out = {}
+    for shape in GRID_2D:
+        r, c = shape
+        n, nch, b = r * c, N // (r * c), N // r
+        tiles = _sim_tiles(H_f, shape, H_f.dtype, dev)
+        mirrors, mirror_s, mirror_b = _mirrors(tiles)
+        _zero_ring_counts()
+        torch.cuda.synchronize()
+        with one_rank_at_a_time() as counted:
+            res = sim_ranks(n, lambda g2: chebyshev_filter_h2_ring2d(
+                g2, tiles[g2.me],
+                X[g2.coords[0] * b:(g2.coords[0] + 1) * b], *args,
+                kernel=True, HT=mirrors[g2.me]), shape)
+        launches = (counted.launches,) + _ring_counts()[1:]
+        Y = _row_blocks(res, c)
+        del res
+        err = rel_err(Y, Yp.to(wide))
+        exact0 = bool(torch.equal(Y[:, deg == 0], X[:, deg == 0]))
+        del Y
+        steps = 1 + max(deg_max - 1, 0)
+        want = n * (r + c) * steps
+        line = (f"{route} 2-D {shape} H² ring filter (blocks "
+                f"({b}, {N // c}) and their mirrors, built in "
+                f"{mirror_s:.3f} s, {mirror_b / 1e9:.3f} GB each; window "
+                f"{w}, deg_max {deg_max}) over {n} simulated ranks: rel "
+                f"err against the plain H² filter {err:.3e} (gate "
+                f"{gate:.0e}); degree-0 columns bit-exact: {exact0}; "
+                f"ring_hemm launches {launches[0]} (n·(r+c)·{steps} = "
+                f"{want}), pre-pass {launches[1] + launches[2]}")
+        if route != "bf16":
+            Vc = X[nch:2 * nch].to(H_f.dtype).contiguous()
+            calls = _stripe_calls(route, tiles[0], mirrors[0], Vc, nch,
+                                  H_f.dtype)
+            for label in ("A", "B"):
+                cl = calls[label]
+                blk = (tiles[0][:, nch:2 * nch] if label == "A"
+                       else tiles[0][nch:2 * nch, :].mH)
+                ref = blk.to(wide) @ Vc.to(wide)
+                abs_err = float((ring_hemm(
+                    tiles[0] if label == "A" else mirrors[0], Vc,
+                    col0=nch).to(wide) - ref).abs().max())
+                del ref
+                out[(label, shape, w)] = dict(abs_err=abs_err,
+                                              launches=launches[0], **cl)
+                line += (f"; ring_{label} stripe call {cl['shape']} "
+                         f"{cl['ms']:.3f} ms, plain {cl['plain_ms']:.3f} "
+                         f"ms, library {cl['library_ms']:.3f} ms, bound "
+                         f"{cl['bound_ms']:.3f} ms ({cl['bound_by']}), "
+                         f"max abs err {abs_err:.3e}")
+        log("gridring", line)
+        del tiles, mirrors
+        torch.cuda.empty_cache()
+        if not (err <= gate and exact0 and launches[0] == want
+                and launches[1] + launches[2] == want):
+            raise AssertionError(f"gridring 2-D H² {route} {shape}: error "
+                                 f"{err:.3e} (gate {gate:.0e}), degree-0 "
+                                 f"exact {exact0}, launches {launches} "
+                                 f"(want {want})")
+    log("gridring", f"{route} 2-D H² rings ok in "
                     f"{time.perf_counter() - t_phase:.2f} s")
     return out
 
@@ -2266,21 +2694,30 @@ def grid_child() -> int:
 
 
 def host_child() -> int:
-    """One rank of [gridhost]: a gloo process group from torchrun's
-    variables, a (2, 1) grid of :class:`HostStagedGrid` whose ranks share
-    card 0, and the shared-card solves of GRIDHOST with their gates; each
-    rank prints one line ``HOST_RESULT {json}`` (its results' bits as
-    hex, the rows and col0 of every ring_hemm launch)."""
+    """One rank of [gridhost] (and [gridnccl]'s 2-D run): torchrun's
+    variables, the grid of GRIDHOST_SHAPE ("2,1" by default) and the
+    solves of GRIDHOST (GRIDHOST_2D on a 2-D grid) with their gates.
+    With GRID_BACKEND="host" (the default) a gloo group and a grid of
+    :class:`HostStagedGrid` whose ranks share card 0; with "nccl" an
+    NCCL grid, one card per rank.  Each rank prints one line
+    ``HOST_RESULT {json}`` (its results' bits as hex, the rows and col0
+    of every ring_hemm launch and the operators they read)."""
     import torch.distributed as dist
     import chase_tpu_torch as ct
     from chase_tpu_torch.ops import ring_hemm as rh
     from chase_tpu_torch.parallel import multihost
-    cpu_grid = multihost.init_grid((2, 1), device="cpu", timeout=300)
-    grid = host_staged_grid(cpu_grid.mesh, torch.device("cuda", 0))
-    real, stripes = rh.ring_hemm, set()
+    shape = tuple(int(x) for x in os.environ.get("GRIDHOST_SHAPE",
+                                                 "2,1").split(","))
+    if os.environ.get("GRID_BACKEND", "host") == "nccl":
+        grid = multihost.init_grid(shape, timeout=300)
+    else:
+        cpu_grid = multihost.init_grid(shape, device="cpu", timeout=300)
+        grid = host_staged_grid(cpu_grid.mesh, torch.device("cuda", 0))
+    real, stripes, operators = rh.ring_hemm, set(), set()
 
     def recording(H, V, *, col0=0, out=None, accumulate=False):
         stripes.add((H.shape[0], col0))
+        operators.add(H.data_ptr())
         return real(H, V, col0=col0, out=out, accumulate=accumulate)
 
     # every ring step looks ring_hemm up on its module at call time, and
@@ -2288,7 +2725,8 @@ def host_child() -> int:
     rh.ring_hemm = recording
     dev = grid.device
     results = {}
-    for name, (kind, N, nev, nex, tol, cfg) in GRIDHOST.items():
+    solves = GRIDHOST if shape[1] == 1 else GRIDHOST_2D
+    for name, (kind, N, nev, nex, tol, cfg) in solves.items():
         if kind == "clement":
             H = clement_on_device(N, dev)
             gate = clement_gate("gridhost", H, nev, 0.5, 10 * tol)
@@ -2299,6 +2737,7 @@ def host_child() -> int:
             solve = (ct.eigsh_pseudo_fused if "fused" in name
                      else ct.eigsh_pseudo)
         stripes.clear()
+        operators.clear()
         grid.stats.reset()
         recording.launches = rh.tf32_split.launches = 0
         dist.barrier()
@@ -2312,7 +2751,7 @@ def host_child() -> int:
             resid=np.asarray(res.resid, np.float64).tobytes().hex(),
             launches=[recording.launches, rh.tf32_split.launches],
             hemm_steps=res.perf.filter_hemm_steps, N=N,
-            stripes=sorted(stripes),
+            stripes=sorted(stripes), operators=len(operators),
             collectives={k: list(v) for k, v in
                          grid.stats.summary().items()})
         del H, res
@@ -2378,6 +2817,19 @@ def host_staged_grid(mesh, device):
                                    pin_memory=True)
                 return _Staged(swap(pinned(send), host), recv, host)
             return staged
+
+        def reduce_scatter(self, t, axis):
+            if t.device.type == "cpu" or self.size(axis) == 1:
+                return super().reduce_scatter(t, axis)
+            return super().reduce_scatter(pinned(t.contiguous()),
+                                          axis).to(t.device)
+
+        def flip(self, t, to):
+            if t.device.type == "cpu":
+                return super().flip(t, to)
+            h = pinned(t.contiguous())
+            out = super().flip(h, to)
+            return t if out is h else out.to(t.device)
 
     return HostStagedGrid(mesh, device)
 
@@ -2492,9 +2944,11 @@ def phase_grid1(refs: dict) -> None:
                              f"issued collectives")
 
 
-def phase_gridnccl() -> None:
+def phase_gridnccl(dev) -> None:
     """[grid_child] on a (p, 1) NCCL grid, p = min(cards, 4) — only on a
-    machine with two cards or more."""
+    machine with two cards or more; with four or more, GRIDHOST_2D's
+    solves on a (2, 2) NCCL grid too (:func:`host_child` on NCCL,
+    [gridhost]'s checks)."""
     count = torch.cuda.device_count()
     if count < 2:
         log("gridnccl", f"not run: {count} device")
@@ -2506,6 +2960,13 @@ def phase_gridnccl() -> None:
     for name in ("slice", "fslice", "pseudo", "fpseudo"):
         log("gridnccl", _grid_line(f"{name} on the ({p}, 1) NCCL grid "
                                    f"(rank 0)", out[name]))
+    if count >= 4:
+        ranks = _run_ranks("gridnccl", "host_child", 4, "HOST_RESULT", 600,
+                           GRIDHOST_SHAPE="2,2", GRID_BACKEND="nccl")
+        bad = _check_grid_solves("gridnccl", (2, 2), ranks, GRIDHOST_2D,
+                                 _one_device_refs(dev, GRIDHOST_2D), False)
+        if bad:
+            raise AssertionError(f"gridnccl: {bad} failed their gates")
     log("gridnccl", f"{time.perf_counter() - t0:.2f} s")
 
 
@@ -2520,21 +2981,16 @@ GRIDHOST = {
     "bse_fused": ("bse", 8192, 256, 128, 1e-10,
                   dict(ring_backend="pallas", mixed_precision=True)),
 }
+# its 2-D grid's: the host drivers, which take the 2-D ring (the fused
+# solvers take dist.hemm on such a grid)
+GRIDHOST_2D = {name: GRIDHOST[name] for name in ("clement", "bse")}
 
 
-def phase_gridhost(dev) -> None:
-    """p = 2 ranks sharing card 0 on a (2, 1) grid of HostStagedGrid
-    (gloo through pinned host memory; not NCCL): each GRIDHOST solve at
-    its gates, its iterations within ±1 of the same solve on one device
-    (run here first), ritzv, resid, iterations and locked bitwise equal
-    on both ranks, ring_hemm launches = 2 × HEMM steps per rank, every
-    launch on a stripe (N/2 rows, col0 ∈ {0, N/2}).  The times are of
-    two ranks on one card with host-staged collectives: not performance
-    numbers."""
+def _one_device_refs(dev, solves: dict) -> dict:
+    """name → (TTS, iterations) of each solve on one device."""
     import chase_tpu_torch as ct
-    t0 = time.perf_counter()
     ref = {}
-    for name, (kind, N, nev, nex, tol, cfg) in GRIDHOST.items():
+    for name, (kind, N, nev, nex, tol, cfg) in solves.items():
         H = (clement_on_device(N, dev) if kind == "clement"
              else structured_bse_on_device(N, dev)[0])
         solve = {("clement", False): ct.eigsh,
@@ -2547,34 +3003,75 @@ def phase_gridhost(dev) -> None:
         ref[name] = (tts, res.iterations)
         del H, res
         torch.cuda.empty_cache()
-    ranks = _run_ranks("gridhost", "host_child", 2, "HOST_RESULT", 300)
+    return ref
+
+
+def _check_grid_solves(phase: str, shape: tuple, ranks: list, solves: dict,
+                       ref: dict, shared: bool) -> list:
+    """Each solve of the ranks' HOST_RESULT lines: iterations within ±1
+    of one device's, ritzv, resid, iterations and locked bitwise equal on
+    every rank, ring_hemm (and tf32_split) launches = r × HEMM steps per
+    rank on an (r, 1) grid and r = c = 2 launches per HEMM step on (2, 2),
+    every launch on a block's (or on the 2-D ring, its mirror's) stripe:
+    N/r rows, col0 a multiple of N/(r·c) below N/c, of at most two
+    operators (the filter's and its mirror).  Returns the failed names."""
+    r, c = shape
     bad = []
-    for name, (kind, N, nev, nex, tol, cfg) in GRIDHOST.items():
-        o = [r[name] for r in ranks]
-        same = all(o[1][k] == o[0][k] for k in ("ritzv", "resid",
-                                                 "iterations", "locked"))
-        stripes = {tuple(x) for r in o for x in r["stripes"]}
-        on_stripes = stripes <= {(N // 2, 0), (N // 2, N // 2)}
-        launches = [r["launches"] for r in o]
+    what = (f"{r * c} ranks sharing the card, host-staged gloo "
+            f"collectives (times not performance numbers)" if shared
+            else "NCCL, one card per rank")
+    for name, (kind, N, nev, nex, tol, cfg) in solves.items():
+        o = [rk[name] for rk in ranks]
+        same = all(x[k] == o[0][k] for x in o
+                   for k in ("ritzv", "resid", "iterations", "locked"))
+        stripes = {tuple(x) for rk in o for x in rk["stripes"]}
+        nch = N // (r * c)
+        allowed = {(N // r, q * nch) for q in range(max(r, c))}
+        on_stripes = stripes <= allowed and all(
+            rk["operators"] <= (2 if c > 1 else 1) for rk in o)
+        per_step = r if c == 1 else 2
+        launches = [rk["launches"] for rk in o]
         ok = (same and on_stripes
               and abs(o[0]["iterations"] - ref[name][1]) <= 1
-              and all(ln[0] == ln[1] == 2 * r["hemm_steps"] > 0
-                      for ln, r in zip(launches, o)))
-        log("gridhost", f"{name} ({kind} N={N} nev={nev} nex={nex} tol="
-                        f"{tol}, {cfg}) on a (2, 1) grid, two ranks sharing "
-                        f"the card, host-staged gloo collectives (times not "
-                        f"performance numbers): iterations "
-                        f"{[r['iterations'] for r in o]} (one device "
-                        f"{ref[name][1]}), TTS "
-                        f"{[round(r['tts'], 3) for r in o]} "
-                        f"s (one device {ref[name][0]:.3f} s); results "
-                        f"bitwise equal on both ranks: {same}; ring_hemm / "
-                        f"tf32_split launches {launches}, HEMM steps "
-                        f"{[r['hemm_steps'] for r in o]}; launch (rows, "
-                        f"col0) {sorted(stripes)}; rank 0's collectives "
-                        f"per iteration {_per_iteration(o[0])}")
+              and all(ln[0] == ln[1] == per_step * rk["hemm_steps"] > 0
+                      for ln, rk in zip(launches, o)))
+        log(phase, f"{name} ({kind} N={N} nev={nev} nex={nex} tol={tol}, "
+                   f"{cfg}) on a {shape} grid, {what}: iterations "
+                   f"{[rk['iterations'] for rk in o]} (one device "
+                   f"{ref[name][1]}), TTS "
+                   f"{[round(rk['tts'], 3) for rk in o]} s (one device "
+                   f"{ref[name][0]:.3f} s); results bitwise equal on all "
+                   f"{len(o)} ranks: {same}; ring_hemm / tf32_split "
+                   f"launches {launches}, HEMM steps "
+                   f"{[rk['hemm_steps'] for rk in o]}; launch (rows, col0) "
+                   f"{sorted(stripes)} on {[rk['operators'] for rk in o]} "
+                   f"operators; rank 0's collectives per iteration "
+                   f"{_per_iteration(o[0])}")
         if not ok:
-            bad.append(name)
+            bad.append(f"{shape} {name}")
+    return bad
+
+
+def phase_gridhost(dev) -> None:
+    """p ranks sharing card 0 on a grid of HostStagedGrid (gloo through
+    pinned host memory; not NCCL): a (2, 1) grid running GRIDHOST's
+    solves (the chunk ring, and the fused solvers), then a (2, 2) grid of
+    four ranks running GRIDHOST_2D's (the 2-D ring: ring_A on each rank's
+    block, ring_B on its mirror), each at its gates, checked by
+    :func:`_check_grid_solves` against the same solves on one device,
+    run here first.  The times are of ranks sharing one card with
+    host-staged collectives: not performance numbers."""
+    t0 = time.perf_counter()
+    ref = _one_device_refs(dev, GRIDHOST)
+    bad = []
+    for shape, solves in (((2, 1), GRIDHOST), ((2, 2), GRIDHOST_2D)):
+        t1 = time.perf_counter()
+        n = shape[0] * shape[1]
+        ranks = _run_ranks("gridhost", "host_child", n, "HOST_RESULT", 300,
+                           GRIDHOST_SHAPE=f"{shape[0]},{shape[1]}")
+        bad += _check_grid_solves("gridhost", shape, ranks, solves, ref,
+                                  True)
+        log("gridhost", f"{shape}: {time.perf_counter() - t1:.2f} s")
     log("gridhost", f"{time.perf_counter() - t0:.2f} s")
     if bad:
         raise AssertionError(f"gridhost: {bad} failed their gates")
@@ -2613,6 +3110,8 @@ def main() -> int:
     Hr = dense_on_device(SLICE["N"], dev, torch.float32)
     gring = {route: phase_gridring(dev, Hr, route) for route in ("f32",
                                                                 "bf16")}
+    gring2d = {route: phase_gridring2d(dev, Hr, route)
+               for route in ("f32", "bf16")}
     del Hr
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chase_smoke_") as tmp:
@@ -2644,6 +3143,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     H = dense_on_device(SLICE["N"], dev, torch.complex64)
     gring["c64"] = phase_gridring(dev, H, "c64")
+    gring2d["c64"] = phase_gridring2d(dev, H, "c64")
     del H
     torch.cuda.empty_cache()
 
@@ -2659,10 +3159,11 @@ def main() -> int:
     torch.cuda.synchronize()
     log("setup", f"structured BSE N={BSE['N']} (f64, and its f32 copy) "
                  f"built on the card in {time.perf_counter() - t0:.2f} s")
-    h2ring = {}
+    h2ring, h2ring2d = {}, {}
     for route in ("f32", "bf16"):
         ctx = phase_pfilter(dev, H32, lam, route)
         h2ring[route] = phase_gridring_h2(dev, ctx, route)
+        h2ring2d[route] = phase_gridring2d_h2(dev, ctx, route)
         del ctx
         torch.cuda.empty_cache()
     phase_bpseudo(dev, H32, H, lam)
@@ -2679,6 +3180,7 @@ def main() -> int:
                  f"{time.perf_counter() - t0:.2f} s")
     ctx = phase_pfilter(dev, Hc, lam, "c64")
     h2ring["c64"] = phase_gridring_h2(dev, ctx, "c64")
+    h2ring2d["c64"] = phase_gridring2d_h2(dev, ctx, "c64")
     del ctx
     torch.cuda.empty_cache()
     phase_zpseudo(dev, Hc, lam)
@@ -2690,7 +3192,7 @@ def main() -> int:
                  "fslice": (fslice["warm"], fslice["iterations"]),
                  "pseudo": (ladder["tts"], ladder["iterations"]),
                  "fpseudo": (fpseudo["warm"], fpseudo["iterations"])})
-    phase_gridnccl()
+    phase_gridnccl(dev)
     phase_gridhost(dev)
 
     big, cbig = kern[KERNEL_SHAPES[-1]], ckern[C64_SHAPES[-1]]
@@ -2710,7 +3212,12 @@ def main() -> int:
         + [_kernel_entry(f"ring_hemm[{route} H² stripe p={p} k={k}]",
                          case["launches"], case)
            for route, cases in h2ring.items()
-           for (p, k), case in cases.items()]}), flush=True)
+           for (p, k), case in cases.items()]
+        + [_kernel_entry(f"ring_hemm[{route}{h2} 2-D {STRIPE_2D[label]} "
+                         f"{shape} k={k}]", case["launches"], case)
+           for h2, rings in (("", gring2d), (" H²", h2ring2d))
+           for route, cases in rings.items()
+           for (label, shape, k), case in cases.items()]}), flush=True)
     log("done", f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"],

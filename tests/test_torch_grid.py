@@ -30,8 +30,12 @@ instead of the run.  Tolerances:
 * a padded DTensor H (N = 130 on (2, 2)) built into blocks without a
   gather, equal to the whole H's but for the phantom diagonal (N·ε);
   another layout refused;
-* refusals: ``ring_filter=True`` on a 2-D grid (part 3 of the multi-GPU
-  slice) and ``make_grid(device="cuda")`` without a card;
+* ``ring_filter`` on the 2-D grid: True takes the 2-D ring as None does
+  (Clement N = 64 in f32 with ``ring_backend="pallas"``: the same Ritz
+  values bitwise, every filter HEMM step r = c = 2 kernel steps per
+  rank), False the windowed filter (no kernel step), all three within
+  1e-2 of the exact spectrum;
+* refusal: ``make_grid(device="cuda")`` without a card;
 * the padded operator (N = 130 on 4 ranks) entry for entry the JAX
   package's, its phantom diagonal within N·ε (row sums added in another
   order).
@@ -242,9 +246,27 @@ def test_padded_dtensor_operator_is_not_gathered(groups):
     check_dtensor_padded(groups["g22"].results())
 
 
+def check_ring_filter_2d(ranks, key, exact):
+    """ring_filter True and None on the 2-D grid: the 2-D ring, 2 kernel
+    steps per filter HEMM step on every rank, the same bits; False: the
+    windowed filter, no kernel step; all converged near ``exact``."""
+    for rec in ranks:
+        for rf in ("True", "None", "False"):
+            assert bool(rec[f"{key}/{rf}/converged"])
+            assert np.abs(rec[f"{key}/{rf}/ritzv"] - exact).max() <= 1e-2
+            hemms = int(rec[f"{key}/{rf}/hemm_steps"])
+            assert hemms > 0
+            assert int(rec[f"{key}/{rf}/steps"]) == (
+                0 if rf == "False" else 2 * hemms)
+        np.testing.assert_array_equal(rec[f"{key}/True/ritzv"],
+                                      rec[f"{key}/None/ritzv"])
+    assert _all_equal(ranks, f"{key}/True/ritzv")
+
+
 def test_ring_filter_true_on_a_2d_grid_raises(groups):
-    for rec in groups["g22"].results():
-        assert bool(rec["refuse/ring_filter_2d"])
+    from chase_tpu_torch.models import clement_eigenvalues
+    check_ring_filter_2d(groups["g22"].results(), "ring2d",
+                         clement_eigenvalues(64)[:4])
 
 
 def test_one_device_solvers_take_a_1x1_grid(groups):

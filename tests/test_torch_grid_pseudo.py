@@ -16,8 +16,8 @@ in ``tests/test_torch_grid.py``.  Tolerances:
   ladder (tol 1e-10) on (2, 1), every H² product p ring steps on the
   kernel's step; f64 on (3, 1) at N = 130, whose halves pad to 66 and
   whose rank 1 straddles the S-half, with a warm start from its DTensor
-  V; c128 on (4, 1) (the matmul ring); f64 on (2, 2) (the windowed H²
-  filter with the grid's product);
+  V; c128 on (4, 1) (the matmul ring); f64 on (2, 2) (the 2-D H² ring
+  on ``torch.matmul`` steps);
 * ``apply_s``, ``flip_locked_cols`` and ``k_conjugate_cols`` on every
   rank's rows bitwise equal to the whole-block result cut to those rows,
   K-conjugation's row rotation counted (one partner per rank for an even
@@ -30,8 +30,11 @@ in ``tests/test_torch_grid.py``.  Tolerances:
   (``full_tensor`` barred), equal to the whole H's but for the phantom
   diagonal (N·ε), and a solve from it within ``conftest.TOLS`` of the
   whole H's;
-* ``ring_filter=True`` on (2, 2) raises NotImplementedError naming part
-  3 of the multi-GPU slice.
+* ``ring_filter`` on (2, 2) for ``eigsh_pseudo`` (a random BSE H, N =
+  128, f32 with ``ring_backend="pallas"``): True takes the 2-D H² ring as
+  None does (the same Ritz values bitwise, each H² step r + c = 4 kernel
+  steps per rank, 2 per HEMM step), False the windowed H² filter (no
+  kernel step), all within 1e-2 of the spectrum.
 """
 
 import numpy as np
@@ -222,5 +225,8 @@ def test_pseudo_dtensor_operator_is_not_gathered(groups, name):
 
 
 def test_ring_filter_true_on_a_2d_grid_raises_for_bse(groups):
-    for rec in groups["b22"].results():
-        assert bool(rec["refuse/pseudo_ring_filter_2d"])
+    from test_torch_grid import check_ring_filter_2d
+    H, *_ = gw.bse_problem("random_float32")
+    lam = np.sort(np.linalg.eigvals(H.astype(np.complex128)).real)
+    check_ring_filter_2d(groups["b22"].results(), "pring2d",
+                         lam[lam > 0][:4])

@@ -1,0 +1,252 @@
+"""The port's 2-D ping-pong rings on r×c process grids against the JAX
+package: ``parallel.ring.Ring2D``'s two passes, the four 2-D ring filters
+(``chebyshev_filter_ring2d``, ``chebyshev_filter_refine_ring2d``,
+``chebyshev_filter_h2_ring2d``, ``chebyshev_filter_refine_h2_ring2d``) and
+the operator's mirror, on (2, 2) and (2, 3) gloo grids.
+
+The groups are started once for this module, as in
+``tests/test_torch_grid.py`` (``tests/torch_grid_worker.py``, a hard time
+limit each).  On the CPU every kernel step is ``ring_hemm``'s plain
+version (the tensors lie on the CPU); the steps are counted where the
+rings call it.  Tolerances:
+
+* ``ring_A`` (H·w, parity A → B) and ``ring_B`` (Hᴴ·w, B → A) of a
+  general H against the dense products' chunks: 1e-12 of the largest
+  entry in f64 and c128, 1e-5 in f32, c64 and on the f32 and bf16
+  shadows (f32 sums; the bf16 case against the product of the
+  bf16-rounded operands); r kernel steps per ring_A pass and c per
+  ring_B pass where the operator is one the kernel takes, else none;
+* each 2-D filter, deg_max 6 and 7 (the entry parities differ), mixed
+  degrees with degree-0 columns, against ``chase_tpu.parallel.ring``'s
+  function of the same name on a mesh of the same shape and against the
+  port's p = 1 filter on the whole operator: per column within 1e-12 of
+  its largest entry in f64 and c128, 1e-5 in f32, c64 and for the f64
+  window on the f32 shadow, 1e-2 for the f32 window on the bf16 shadow
+  (each product rounds its input to bf16, at other places than XLA);
+  degree-0 columns bit-exact; kernel launches per rank as the module
+  note of ``parallel/ring.py`` states;
+* the mirror: the rank's block (and its shadow) conjugate-transposed
+  exactly, in the kernel's row stride, cached and dropped by
+  ``free_low``; a mirror of the wrong shape or a lazy conjugate raises
+  ValueError.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import chase_tpu
+from chase_tpu.parallel import ring as jring
+
+import torch_grid_worker as gw
+
+torch.set_num_threads(1)
+
+SHAPES = {"r22": (2, 2), "r23": (2, 3)}
+CASES = {c[0]: c for c in gw.FILTER_CASES_2D}
+KERNEL = {"f64": False, "c128": False, "f32": True, "c64": True,
+          "f64_on_f32": True, "f32_on_bf16": True}
+
+
+@pytest.fixture(scope="module")
+def groups(tmp_path_factory):
+    started = {name: gw.Group(name, r, c, tmp_path_factory.mktemp(name))
+               for name, (r, c) in SHAPES.items()}
+    yield started
+    for g in started.values():
+        g.kill()
+
+
+def _jax_grid(shape):
+    n = shape[0] * shape[1]
+    return chase_tpu.make_grid(jax.devices()[:n], shape=shape)
+
+
+def _col_rel(Y, ref):
+    """max over columns of ‖Y_j − ref_j‖∞ / ‖ref_j‖∞."""
+    num = np.abs(Y - ref).max(axis=0)
+    den = np.maximum(np.abs(ref).max(axis=0), np.finfo(np.float64).tiny)
+    return float((num / den).max())
+
+
+def _tol(case):
+    if case in ("f64", "c128"):
+        return 1e-12
+    return 1e-2 if case == "f32_on_bf16" else 1e-5
+
+
+@pytest.mark.parametrize("name", list(SHAPES))
+@pytest.mark.parametrize("case", list(CASES))
+def test_passes_match_dense(groups, name, case):
+    r, c = SHAPES[name]
+    nch = gw.N_FILT // (r * c)
+    for rec in groups[name].results():
+        H, X = rec[f"pass/{case}/H"], rec[f"pass/{case}/X"]
+        if case == "f32_on_bf16":        # the kernel's bf16 route rounds V
+            X = torch.from_numpy(X).to(torch.bfloat16).double().numpy()
+        X = X.astype(np.complex128)
+        a, b = (int(x) for x in rec["pass/chunks"])
+        for key, ref, chunk in (("passA", H @ X, b),
+                                ("passB", H.conj().T @ X, a)):
+            want = ref[chunk * nch:(chunk + 1) * nch]
+            got = rec[f"{key}/{case}"]
+            tol = 1e-12 if case in ("f64", "c128") else 1e-5
+            assert np.abs(got - want).max() <= tol * np.abs(ref).max(), key
+        steps = (int(rec[f"passA/{case}/steps"]),
+                 int(rec[f"passB/{case}/steps"]))
+        assert steps == ((r, c) if KERNEL[case] else (0, 0))
+
+
+def _jax_filter(kind, jgrid, case, dm):
+    """The JAX package's 2-D filter of ``kind`` on the worker's inputs."""
+    _, dt, shadow, seed = CASES[case]
+    deg = gw.filter_degrees(deg_max=dm)
+    if kind in ("f2d", "r2d"):
+        H, X, lam1, lo, up = gw.problem(gw.N_FILT, gw.W_FILT, dt, seed)
+    else:
+        H, X, lam1, lo, up = gw.bse_filter_problem(gw.N_FILT, gw.W_FILT, dt,
+                                                   seed)
+    Hj = jnp.asarray(H) if shadow is None else jnp.asarray(
+        H, getattr(jnp, shadow))
+    Hj = jax.device_put(Hj, jgrid.sharding("r", "c"))
+    degj = jnp.asarray(deg)
+    if kind == "f2d":
+        Y = jring.chebyshev_filter_ring2d(jgrid, Hj, jnp.asarray(X), degj,
+                                          lam1, lo, up, dm)
+        first = X
+    elif kind == "h2d":
+        Y = jring.chebyshev_filter_h2_ring2d(jgrid, Hj, jnp.asarray(X), degj,
+                                             lam1, lo, up, dm)
+        first = X
+    else:
+        V, R, tabs, cc = (gw.refine_inputs(H, X, deg, dm) if kind == "r2d"
+                          else gw.refine_h2_inputs(H, X, deg, lam1, lo, up,
+                                                   dm))
+        fn = (jring.chebyshev_filter_refine_ring2d if kind == "r2d"
+              else jring.chebyshev_filter_refine_h2_ring2d)
+        Y = fn(jgrid, Hj, jnp.asarray(V), jnp.asarray(R), degj, *tabs, cc,
+               dm)
+        first = V
+    return np.asarray(Y), first, deg
+
+
+def _launches(kind, r, c, dm):
+    """ring_hemm launches per rank of one 2-D filter (ring.py's note)."""
+    n = max(dm - 1, 0) if kind in ("r2d", "rh2d") else max(dm, 1)
+    if kind in ("f2d", "r2d"):
+        return -(-n // 2) * r + (n // 2) * c
+    return n * (r + c)
+
+
+@pytest.mark.parametrize("name", list(SHAPES))
+@pytest.mark.parametrize("kind", ["f2d", "r2d", "h2d", "rh2d"])
+@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("dm", gw.DEGS_2D)
+def test_filter2d_matches_jax_and_p1(groups, name, kind, case, dm):
+    r, c = SHAPES[name]
+    Yj, first, deg = _jax_filter(kind, _jax_grid(SHAPES[name]), case, dm)
+    tol = _tol(case)
+    zero = deg == 0
+    key = f"{kind}/{case}/{dm}"
+    for rec in groups[name].results():
+        Y, Y1 = rec[key], rec[f"{key}/p1"]
+        assert Y.dtype == first.dtype
+        assert _col_rel(Y[:, ~zero], Yj[:, ~zero]) <= tol
+        assert _col_rel(Y[:, ~zero], Y1[:, ~zero]) <= tol
+        np.testing.assert_array_equal(Y[:, zero], first[:, zero])
+        want = _launches(kind, r, c, dm) if KERNEL[case] else 0
+        assert int(rec[f"{key}/steps"]) == want
+
+
+def test_grid_mirror_layout_and_free_low(groups):
+    from chase_tpu_torch.ops.ring_hemm import tma_ld
+    for rec in groups["r22"].results():
+        B = rec["mirror/block"]
+        np.testing.assert_array_equal(rec["mirror/H"], B.conj().T)
+        np.testing.assert_array_equal(rec["mirror/low"],
+                                      B.astype(np.complex64).conj().T)
+        # c128 is stored contiguous; the c64 shadow's rows padded to an
+        # even count of elements (whole 16 bytes) for TMA
+        rows = B.shape[0]
+        assert [int(x) for x in rec["mirror/strides"]] == [
+            rows, tma_ld(2 * rows) // 2]
+        assert all(bool(x) for x in rec["mirror/cached"])
+        assert all(bool(x) for x in rec["mirror/freed"])
+
+
+@pytest.mark.parametrize("dtype,unit", [(torch.float32, 4),
+                                        (torch.complex64, 2),
+                                        (torch.bfloat16, 8)])
+def test_mirror_tile_layout(dtype, unit):
+    """One device: the mirror of an odd-width block is its conjugate
+    transpose, physical (no lazy conjugate bit), its row stride a whole
+    number of 16 bytes; cached by the operator and dropped by free_low."""
+    from chase_tpu_torch import DenseOperator
+    from chase_tpu_torch.parallel.operator import mirror_tile
+    rng = np.random.default_rng(3)
+    A = rng.standard_normal((13, 13)) + 1j * rng.standard_normal((13, 13))
+    A = A + A.conj().T
+    H = torch.from_numpy(A if dtype.is_complex else A.real)
+    H = H.to(dtype)[:, :9]
+    M = mirror_tile(H)
+    assert M.shape == (9, 13) and not M.is_conj()
+    assert M.stride(1) == 1 and M.stride(0) % unit == 0
+    assert M.stride(0) >= 13
+    assert torch.equal(M, H.mH.resolve_conj())
+    op = DenseOperator(A.real if not dtype.is_complex else A, device="cpu")
+    base = op.H_low if op.dtype != dtype else op.H
+    assert op.mirror(base) is op.mirror(base)
+    with pytest.raises(ValueError, match="block or its shadow"):
+        op.mirror(base.clone())
+    op.free_low()
+    assert op._mirrors == {}
+
+
+class _FakeGrid:
+    """What Ring2D reads of a (2, 2) grid, for its argument checks."""
+
+    def size(self, axis):
+        return 2
+
+    def index(self, axis):
+        return 0
+
+    def exchange(self, axis):
+        return None
+
+
+def test_ring2d_refuses_a_bad_mirror():
+    from chase_tpu_torch.parallel.ring import Ring2D
+    H = torch.randn(8, 8, dtype=torch.complex64)
+    with pytest.raises(ValueError, match="mirror must be"):
+        Ring2D(_FakeGrid(), H, True, HT=H[:, :4].clone())
+    with pytest.raises(ValueError, match="mirror must be"):
+        Ring2D(_FakeGrid(), H, True, HT=H.mH)         # lazy conjugate
+    with pytest.raises(ValueError, match="block of"):
+        Ring2D(_FakeGrid(), H[:, :6], True)
+    ring = Ring2D(_FakeGrid(), H, True)
+    assert torch.equal(ring.HB, H.mH.resolve_conj())
+    ring = Ring2D(_FakeGrid(), H, False)
+    assert ring.step is not None and ring.HB.is_conj()
+
+
+def test_fused_route_keeps_dist_hemm_on_2d():
+    """The one routing rule: the host solvers ring on "2d", the fused
+    solvers (``fused=True``, as ``api._fused_setup`` binds it) take
+    ``dist.hemm`` there — no ring, no kernel — and ring as before on
+    the other routes."""
+    from chase_tpu_torch.solver import _chunk_product
+    f32, f64 = torch.float32, torch.float64
+    assert _chunk_product("2d", "pallas", f32) == (True, True)
+    assert _chunk_product("2d", "xla", f32) == (True, False)
+    assert _chunk_product("2d", "pallas", f64) == (True, False)
+    assert _chunk_product("2d", "pallas", f32, fused=True) == (False, False)
+    assert _chunk_product("1d", "pallas", f32, fused=True) == (True, True)
+    assert _chunk_product("p1", "xla", f32, fused=True) == (True, True)
+    assert functools.partial(_chunk_product, "2d", "pallas",
+                             fused=True)(torch.bfloat16) == (False, False)

@@ -9,7 +9,8 @@ named BATTERY and writes what each case computed to OUT_DIR/rank<k>.npz
 (gathered multivectors whole, so that every rank's copy can be held to
 the others').  ``tests/test_torch_grid.py``,
 ``tests/test_torch_grid_ring.py``, ``tests/test_torch_grid_solve.py``,
-``tests/test_torch_grid_pseudo.py`` and ``tests/test_torch_grid_fused.py``
+``tests/test_torch_grid_pseudo.py``, ``tests/test_torch_grid_fused.py``,
+``tests/test_torch_grid_ring2d.py`` and ``tests/test_torch_grid_solve2d.py``
 start the ranks and compare the results with the JAX package in their
 own process.  This script imports torch,
 numpy and the port only.  A case that raises ends the rank with exit code
@@ -34,6 +35,7 @@ BSE = dict(N=128, nev=12, nex=8)     # the BSE solves
 BSE_TOL = {"float32": 1e-4, "complex64": 1e-4, "float64": 1e-9,
            "complex128": 1e-9}
 N_SOPS, K_SOPS = 132, 10             # the S-ops: rows cut by 2, 3 and 4
+DEGS_2D = (6, 7)                     # the 2-D rings' deg_max: even, odd
 
 
 # -- inputs (numpy, seeded; the tests rebuild them for the JAX side) -------
@@ -68,9 +70,43 @@ FILTER_CASES = (("f32", np.float32, None, 11),
                 ("c64", np.complex64, None, 12),
                 ("f64_on_f32", np.float64, "float32", 13),
                 ("f32_on_bf16", np.float32, "bfloat16", 14))
+# the 2-D rings add the dtypes the kernel does not take (torch.matmul)
+FILTER_CASES_2D = (("f64", np.float64, None, 15),
+                   ("c128", np.complex128, None, 16)) + FILTER_CASES
 
 
-def refine_inputs(H, X, deg):
+def bse_filter_problem(N, k, dtype, seed):
+    """A random BSE H (N × N), a block X (N × k) and the H² filter's
+    (μ₁, lower, upper) from H's spectrum: the smallest and (k+1)-th
+    smallest λ², and 1.01·the largest."""
+    from chase_tpu_torch.models import random_pseudo_hermitian
+    H = random_pseudo_hermitian(N, dtype, seed=seed)
+    rng = np.random.default_rng(seed + 100)
+    X = rng.standard_normal((N, k))
+    if np.issubdtype(dtype, np.complexfloating):
+        X = X + 1j * rng.standard_normal((N, k))
+    mu = np.sort(np.abs(np.linalg.eigvals(H.astype(np.complex128)).real)
+                 ) ** 2
+    return H, X.astype(dtype), float(mu[0]), float(mu[k]), \
+        float(mu[-1] * 1.01)
+
+
+def refine_h2_inputs(H, X, deg, lam1, lo, up, deg_max):
+    """The H² refine filter's V (X orthonormalized), its H² residual
+    vectors R2 = H²·V − V·diag(θ²) and tables from θ² = diag(Vᴴ·H²·V)."""
+    from chase_tpu_torch.ops.filter import refine_tables
+    Hw = H.astype(np.complex128)
+    Q, _ = np.linalg.qr(X.astype(np.complex128))
+    H2Q = Hw @ (Hw @ Q)
+    th2 = np.real(np.einsum("ij,ij->j", Q.conj(), H2Q))
+    R2 = H2Q - Q * th2
+    if not np.issubdtype(H.dtype, np.complexfloating):
+        Q, R2 = Q.real, R2.real
+    tabs = refine_tables(th2, deg, lam1, lo, up, deg_max)
+    return Q.astype(H.dtype), R2.astype(H.dtype), tabs, (up + lo) / 2.0
+
+
+def refine_inputs(H, X, deg, deg_max=DEG_FILT):
     """A Ritz window V (X orthonormalized), its Ritz values and residual
     vectors R = H·V − V·diag(θ), and the refine filter's tables."""
     from chase_tpu_torch.ops.filter import refine_tables
@@ -82,7 +118,7 @@ def refine_inputs(H, X, deg):
         Q, R = Q.real, R.real
     w = np.linalg.eigvalsh(Hw)
     lam1, lo, up = float(w[0]), float(w[X.shape[1]]), float(w[-1])
-    tabs = refine_tables(theta, deg, lam1, lo, up, DEG_FILT)
+    tabs = refine_tables(theta, deg, lam1, lo, up, deg_max)
     return Q.astype(H.dtype), R.astype(H.dtype), tabs, (up + lo) / 2.0
 
 
@@ -267,12 +303,14 @@ def case_tsqr(grid, rec):
         rec[f"tsqr/{name}"] = full(grid, Q)
 
 
-def solve_case(grid, rec, name: str, **cfg):
+def solve_case(grid, rec, name: str, key=None, **cfg):
     """eigsh on the grid and with grid=None (same seed) on the same H:
     spectra, residuals, iterations, locked count, the gathered V, and the
-    ring's steps beside the filter's HEMM steps."""
+    ring's steps beside the filter's HEMM steps (recorded under ``key``,
+    default ``name``)."""
     import chase_tpu_torch as ct
     H, nev, nex, tol = eig_problem(name)
+    name = key or name
     count = step_counter()
     res = ct.eigsh(H, nev, nex, tol=tol, grid=grid, collect_perf=True,
                    config=ct.ChaseConfig(**cfg))
@@ -329,14 +367,30 @@ def case_warmup(grid, rec):
     rec["warmup/failed"] = out["failed"]
 
 
+def _ring_filter_runs(rec, key, solve, H, **cfg):
+    """``solve`` with ring_filter True, None and False on the grid (f32
+    on "pallas"): Ritz values, convergence, the kernel's steps and the
+    filter's HEMM steps of each."""
+    import chase_tpu_torch as ct
+    count = step_counter()
+    for rf in (True, None, False):
+        res = solve(H, 4, 4, tol=TOL["float32"], collect_perf=True,
+                    config=ct.ChaseConfig(ring_filter=rf,
+                                          ring_backend="pallas", **cfg))
+        rec[f"{key}/{rf}/steps"] = count.take()
+        rec[f"{key}/{rf}/hemm_steps"] = res.perf.filter_hemm_steps
+        rec[f"{key}/{rf}/ritzv"] = res.ritzv
+        rec[f"{key}/{rf}/converged"] = res.converged
+
+
 def case_ring_filter_2d(grid, rec):
-    """ring_filter=True on an r×c grid raises, naming part 3."""
+    """ring_filter=True on an r×c grid takes the 2-D ring, as None does;
+    False the windowed filter (no kernel step)."""
+    import functools
     import chase_tpu_torch as ct
     from chase_tpu_torch.models import clement
-    rec["refuse/ring_filter_2d"] = expect_raise(
-        NotImplementedError, lambda: ct.eigsh(
-            clement(64), 4, 4, grid=grid,
-            config=ct.ChaseConfig(ring_filter=True)), "part 3")
+    _ring_filter_runs(rec, "ring2d", functools.partial(ct.eigsh, grid=grid),
+                      clement(64).astype(np.float32))
 
 
 def case_dtensor(grid, rec):
@@ -404,12 +458,14 @@ def case_fused_11(grid, rec):
     rec["fused11/ritzv0"] = r0.ritzv
 
 
-def pseudo_case(grid, rec, name: str, warm: bool = False, **cfg):
+def pseudo_case(grid, rec, name: str, warm: bool = False, key=None,
+                **cfg):
     """eigsh_pseudo on the grid and with grid=None (same seed) on the same
     H, recorded as :func:`solve_case` records eigsh; with ``warm`` a warm
     start from the grid result's DTensor V too."""
     import chase_tpu_torch as ct
     H, nev, nex, tol = bse_problem(name)
+    name = key or name
     count = step_counter()
     res = ct.eigsh_pseudo(H, nev, nex, tol=tol, grid=grid, collect_perf=True,
                           config=ct.ChaseConfig(**cfg))
@@ -560,15 +616,183 @@ def case_fused_warmup(grid, rec):
 
 
 def case_pseudo_ring_filter_2d(grid, rec):
-    """ring_filter=True on an r×c grid raises for eigsh_pseudo too,
-    naming part 3."""
+    """ring_filter=True on an r×c grid takes the 2-D H² ring for
+    eigsh_pseudo too, as None does; False the windowed H² filter."""
+    import functools
     import chase_tpu_torch as ct
-    H, *_ = bse_problem("random_float64")
-    rec["refuse/pseudo_ring_filter_2d"] = expect_raise(
-        NotImplementedError, lambda: ct.eigsh_pseudo(
-            H, 4, 4, grid=grid, config=ct.ChaseConfig(ring_filter=True)),
-        "part 3")
+    H, *_ = bse_problem("random_float32")
+    _ring_filter_runs(rec, "pring2d",
+                      functools.partial(ct.eigsh_pseudo, grid=grid), H)
 
+
+# -- the 2-D rings ---------------------------------------------------------
+
+def _low(op, shadow):
+    return op.H if shadow is None else op.H_low
+
+
+def _whole_op(H, shadow):
+    Hw = torch.from_numpy(H)
+    return Hw if shadow is None else Hw.to(getattr(torch, shadow))
+
+
+def case_passes2d(grid, rec):
+    """ring_A and ring_B of a general (non-Hermitian) H on this rank's
+    parity chunks, on the kernel's step where the operator takes it
+    (ring_B on the mirror) and on torch.matmul otherwise; the steps of
+    each pass."""
+    from chase_tpu_torch import DenseOperator
+    from chase_tpu_torch.ops.ring_hemm import KERNEL_DTYPES
+    from chase_tpu_torch.parallel.ring import Ring2D
+    count = step_counter()
+    rng = np.random.default_rng(61)
+    N, k = N_FILT, K_RING
+    nch = N // grid.nprocs
+    for name, dt, shadow, _ in FILTER_CASES_2D:
+        A = rng.standard_normal((N, N))
+        X = rng.standard_normal((N, k))
+        if np.issubdtype(dt, np.complexfloating):
+            A = A + 1j * rng.standard_normal((N, N))
+            X = X + 1j * rng.standard_normal((N, k))
+        op = DenseOperator(A.astype(dt), grid=grid)
+        Hf = _low(op, shadow)
+        # the chunks in the carry: f32 beside an f32 or bf16 shadow
+        X = X.astype(dt if shadow is None else np.float32)
+        ring = Ring2D(grid, Hf, Hf.dtype in KERNEL_DTYPES)
+        xa = X[grid.parity_chunk("A") * nch:][:nch]
+        xb = X[grid.parity_chunk("B") * nch:][:nch]
+        count.take()
+        rec[f"passA/{name}"] = ring.ring_A(torch.from_numpy(xa)).numpy()
+        rec[f"passA/{name}/steps"] = count.take()
+        rec[f"passB/{name}"] = ring.ring_B(torch.from_numpy(xb)).numpy()
+        rec[f"passB/{name}/steps"] = count.take()
+        rec[f"pass/{name}/H"] = _whole_op(A.astype(dt), shadow).to(
+            torch.complex128).numpy()
+        rec[f"pass/{name}/X"] = X
+    rec["pass/chunks"] = [grid.parity_chunk("A"), grid.parity_chunk("B")]
+
+
+def _filter2d_runs(grid, rec, key, fn, ref, op_args, rows, tail, kernel):
+    """``fn`` on the grid (the whole result gathered) and ``ref`` (the
+    port's p = 1 filter) on the whole inputs, with the kernel's steps."""
+    count = step_counter()
+    Y = fn(grid, *op_args, *tail, kernel=kernel)
+    rec[f"{key}/steps"] = count.take()
+    rec[key] = full(grid, Y)
+    rec[f"{key}/p1"] = ref(*rows, *tail).numpy()
+    count.take()
+
+
+def case_filters2d(grid, rec):
+    """The four 2-D ring filters on each case of FILTER_CASES_2D with an
+    even and an odd deg_max, against the port's p = 1 filters on the
+    whole operator; the kernel's steps where the operator takes it."""
+    import functools
+    from chase_tpu_torch import DenseOperator
+    from chase_tpu_torch.ops.ring_hemm import KERNEL_DTYPES
+    from chase_tpu_torch.parallel import ring as pring
+    for name, dt, shadow, seed in FILTER_CASES_2D:
+        kernel = (shadow is not None
+                  or np.dtype(dt) in (np.float32, np.complex64))
+        for dm in DEGS_2D:
+            deg = filter_degrees(deg_max=dm)
+            # Hermitian and refine
+            H, X, lam1, lo, up = problem(N_FILT, W_FILT, dt, seed)
+            op = DenseOperator(H, grid=grid)
+            Hg, Hw = _low(op, shadow), _whole_op(H, shadow)
+            assert (Hg.dtype in KERNEL_DTYPES) == kernel
+            p1 = (pring.chebyshev_filter_ring_pallas if kernel
+                  else functools.partial(pring.chebyshev_filter_ring, None))
+            _filter2d_runs(grid, rec, f"f2d/{name}/{dm}",
+                           pring.chebyshev_filter_ring2d, p1,
+                           (Hg, op.place_block(X)),
+                           (Hw, torch.from_numpy(X)),
+                           (deg, lam1, lo, up, dm), kernel)
+            V, R, tabs, cc = refine_inputs(H, X, deg, dm)
+            _filter2d_runs(grid, rec, f"r2d/{name}/{dm}",
+                           pring.chebyshev_filter_refine_ring2d,
+                           functools.partial(
+                               pring.chebyshev_filter_refine_ring,
+                               kernel=kernel),
+                           (Hg, op.place_block(V), op.place_block(R)),
+                           (Hw, torch.from_numpy(V), torch.from_numpy(R)),
+                           (deg, *tabs, cc, dm), kernel)
+            # H² and refine H² on a BSE operator
+            H, X, lam1, lo, up = bse_filter_problem(N_FILT, W_FILT, dt,
+                                                    seed)
+            op = DenseOperator(H, grid=grid, pseudo_hermitian=True)
+            Hg, Hw = _low(op, shadow), _whole_op(H, shadow)
+            _filter2d_runs(grid, rec, f"h2d/{name}/{dm}",
+                           pring.chebyshev_filter_h2_ring2d,
+                           functools.partial(pring.chebyshev_filter_h2_ring,
+                                             kernel=kernel),
+                           (Hg, op.place_block(X)),
+                           (Hw, torch.from_numpy(X)),
+                           (deg, lam1, lo, up, dm), kernel)
+            V, R2, tabs, cc = refine_h2_inputs(H, X, deg, lam1, lo, up, dm)
+            _filter2d_runs(grid, rec, f"rh2d/{name}/{dm}",
+                           pring.chebyshev_filter_refine_h2_ring2d,
+                           functools.partial(
+                               pring.chebyshev_filter_refine_h2_ring,
+                               kernel=kernel),
+                           (Hg, op.place_block(V), op.place_block(R2)),
+                           (Hw, torch.from_numpy(V), torch.from_numpy(R2)),
+                           (deg, *tabs, cc, dm), kernel)
+
+
+def case_grid_mirror(grid, rec):
+    """The operator's mirrors on the grid: this rank's block and shadow
+    conjugate-transposed in the kernel's layout, cached, dropped by
+    free_low; a solve on the 2-D kernel ring reads the cached one."""
+    from chase_tpu_torch import DenseOperator
+    H, *_ = problem(N_FILT, W_FILT, np.complex64, 12)
+    op = DenseOperator(H.astype(np.complex128), grid=grid)
+    M, L = op.mirror(op.H), op.mirror(op.H_low)
+    rec["mirror/block"] = op.H.numpy()
+    rec["mirror/H"] = M.numpy()
+    rec["mirror/low"] = L.numpy()
+    rec["mirror/strides"] = [M.stride(0), L.stride(0)]
+    rec["mirror/cached"] = [op.mirror(op.H) is M, op.mirror(op.H_low) is L]
+    op.free_low()
+    rec["mirror/freed"] = [op.mirror(op.H) is not M, op._H_low is None]
+
+
+def case_ring_filter_values(case_fn, cases):
+    """Each case with ring_filter None and True (keys ``<case>/<value>``)."""
+    def run(grid, rec):
+        for name, cfg in cases:
+            for rf in (None, True):
+                case_fn(grid, rec, name, key=f"{name}/{rf}",
+                        ring_filter=rf, **cfg)
+    return run
+
+
+def case_fused2d(grid, rec):
+    """eigsh_fused in f32 with ring_backend="pallas" on an r×c grid: no
+    kernel step (the fused solvers take dist.hemm there), its
+    collectives counted."""
+    import chase_tpu_torch as ct
+    from chase_tpu_torch.models import clement
+    count = step_counter()
+    grid.stats.reset()
+    res = ct.eigsh_fused(clement(BSE["N"]).astype(np.float32), BSE["nev"],
+                         BSE["nex"], tol=BSE_TOL["float32"], grid=grid,
+                         collect_perf=True,
+                         config=ct.ChaseConfig(ring_backend="pallas"))
+    rec["fused2d/steps"] = count.take()
+    rec["fused2d/hemm_steps"] = res.perf.filter_hemm_steps
+    rec["fused2d/converged"] = res.converged
+    rec["fused2d/ritzv"] = res.ritzv
+    rec["fused2d/kinds"] = sorted(grid.stats.calls)
+    rec["fused2d/all_gather"] = grid.stats.calls["all_gather"]
+
+
+SOLVES_2D = (("clement_float64", {}), ("random_complex128", {}),
+             ("clement_float64_ladder", {"ring_backend": "pallas",
+                                         "mixed_precision": True}))
+PSEUDO_2D = (("random_float64", {}), ("random_complex128", {}),
+             ("random_float64_ladder", {"ring_backend": "pallas",
+                                        "mixed_precision": True}))
 
 PSEUDO = {
     "b21": (("random_float32", {"ring_backend": "pallas"}),
@@ -619,6 +843,11 @@ BATTERIES = {
             case_bse_dtensor),
     "f21": (case_fused(FUSED["f21"]), case_fused_warmup),
     "f22": (case_fused(FUSED["f22"]), case_fused_warmup),
+    "r22": (case_passes2d, case_filters2d, case_grid_mirror),
+    "r23": (case_passes2d, case_filters2d),
+    "s22": (case_ring_filter_values(solve_case, SOLVES_2D), case_sequence,
+            case_fused2d),
+    "p22": (case_ring_filter_values(pseudo_case, PSEUDO_2D),),
 }
 
 

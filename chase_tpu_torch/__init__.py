@@ -16,9 +16,12 @@ writes ChASE binary files and checkpoints, ``interface`` is the flat
 init/solve/get session, ``cli`` the command line (``python -m
 chase_tpu_torch``), and ``_native`` builds the threaded file reader and
 the C ABI library ``libchase_tpu_torch.so``.  ``make_grid`` / ``Grid2D``
-and ``parallel.multihost`` run the Hermitian solver on a
-``torch.distributed`` process grid (NCCL on cards, gloo on the CPU).  This
-package never imports JAX or ``chase_tpu``.
+and ``parallel.multihost`` run every solver on a ``torch.distributed``
+process grid (NCCL on cards, gloo on the CPU), one process per device;
+``parallel.layouts`` holds the block-cyclic layouts, and ``io``,
+``interface``, ``cli`` and the C ABI have their distributed forms there.
+``perf`` holds the phase timers, the FLOP model and the card's peaks.
+This package never imports JAX or ``chase_tpu``.
 """
 
 from .api import (eigsh, eigsh_fused, eigsh_pseudo,  # noqa: F401

@@ -33,8 +33,8 @@ import numpy as np
 
 from .._build import BUILD_DIR
 
-__all__ = ["get_lib", "available", "read_block", "write_block",
-           "build_capi"]
+__all__ = ["get_lib", "available", "read_block", "read_gather",
+           "write_block", "build_capi"]
 
 NATIVE_DIR = Path(__file__).resolve().parent
 IO_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
@@ -95,6 +95,11 @@ def get_lib():
             ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
             ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
             ctypes.c_int]
+        lib.chase_read_gather.restype = ctypes.c_int
+        lib.chase_read_gather.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+            ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+            ctypes.c_int]
         lib.chase_write_block.restype = ctypes.c_int
         lib.chase_write_block.argtypes = [
             ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
@@ -146,6 +151,49 @@ def read_block(path: str, rows_total: int, dtype, row_start: int,
         col_start, col_count, out.ctypes.data_as(ctypes.c_void_p), nthreads)
     if rc != 0:
         raise OSError(rc, f"chase_read_block failed ({rc}) on {path}")
+    return out.T
+
+
+def read_gather(path: str, rows_total: int, dtype, rows, cols,
+                nthreads: int = 0) -> np.ndarray:
+    """Read the rows ``rows`` of the columns ``cols`` (global index
+    arrays) of a column-major matrix file → (len(rows), len(cols)) numpy
+    array, a Fortran-ordered view, in one native call: each column's row
+    span [min(rows), max(rows)] is read once and the listed rows kept
+    (``chase_read_gather``).  Under ``CHASE_DISABLE_NATIVE`` a numpy
+    memmap gather (the plain version).  ValueError for an index outside
+    the file's rows; OSError if the file is missing or short."""
+    dtype = np.dtype(dtype)
+    rows = np.ascontiguousarray(rows, dtype=np.int64)
+    cols = np.ascontiguousarray(cols, dtype=np.int64)
+    if rows.ndim != 1 or cols.ndim != 1:
+        raise ValueError("read_gather takes 1-D row and column index arrays")
+    if rows.size and (rows.min() < 0 or rows.max() >= rows_total) \
+            or cols.size and cols.min() < 0:
+        raise ValueError(f"row or column index outside a {rows_total}-row "
+                         f"matrix")
+    out = np.empty((cols.size, rows.size), dtype=dtype)   # column-major
+    if rows.size == 0 or cols.size == 0:
+        return out.T
+    lib = get_lib()
+    if lib is None:
+        need = (int(cols.max()) + 1) * rows_total * dtype.itemsize
+        if os.path.getsize(path) < need:
+            raise OSError(f"{path}: {os.path.getsize(path)} bytes, the "
+                          f"gather needs {need}")
+        full = np.memmap(path, dtype=dtype, mode="r",
+                         shape=(int(cols.max()) + 1, rows_total))
+        out[:] = full[np.ix_(cols, rows)]
+        return out.T
+    if nthreads <= 0:
+        nthreads = min(8, os.cpu_count() or 1)
+    rc = lib.chase_read_gather(
+        os.fsencode(path), rows_total, dtype.itemsize,
+        rows.ctypes.data_as(ctypes.c_void_p), rows.size,
+        cols.ctypes.data_as(ctypes.c_void_p), cols.size,
+        out.ctypes.data_as(ctypes.c_void_p), nthreads)
+    if rc != 0:
+        raise OSError(rc, f"chase_read_gather failed ({rc}) on {path}")
     return out.T
 
 

@@ -17,8 +17,14 @@
 // column-major (ChASE Matrix::saveToBinaryFile).  chase_read_block copies
 // the sub-block [row_start, row_start+row_count) x [col_start,
 // col_start+col_count) into `out`, also column-major (leading dimension
-// row_count).
+// row_count).  chase_read_gather copies the rows and columns named by two
+// index lists (a block-cyclic owner's, MPI_Type_create_darray's view in
+// the reference, distMatrix.hpp:3210-3260): one pread of each listed
+// column's row span [min row, max row], the listed rows kept in runs —
+// one call and one read per column, where a read per contiguous run
+// would be a read of mb elements each.
 
+#include <algorithm>
 #include <atomic>
 #include <cerrno>
 #include <cstdint>
@@ -59,6 +65,50 @@ inline int read_col(const Plan& p, int64_t j) {
     return 0;
 }
 
+// pread exactly `want` bytes at `off`; 0, errno, or -2 at a premature EOF.
+inline int pread_all(int fd, char* dst, int64_t want, int64_t off) {
+    int64_t done = 0;
+    while (done < want) {
+        ssize_t r = pread(fd, dst + done, want - done, off + done);
+        if (r < 0) {
+            if (errno == EINTR) continue;
+            return errno ? errno : -1;
+        }
+        if (r == 0) return -2;
+        done += r;
+    }
+    return 0;
+}
+
+// Run `work(j)` for j in [0, count) on up to `nthreads` threads, each
+// with its own scratch buffer of `scratch` bytes; the first error wins.
+template <class Work>
+int parallel_columns(int64_t count, int nthreads, int64_t scratch,
+                     Work work) {
+    if (nthreads < 1) nthreads = 1;
+    if (nthreads > count) nthreads = static_cast<int>(count);
+    std::atomic<int64_t> next{0};
+    std::atomic<int> err{0};
+    auto worker = [&]() {
+        std::vector<char> buf(scratch);
+        for (;;) {
+            int64_t j = next.fetch_add(1);
+            if (j >= count || err.load()) break;
+            int e = work(j, buf.data());
+            if (e) err.store(e);
+        }
+    };
+    if (nthreads <= 1) {
+        worker();
+    } else {
+        std::vector<std::thread> ts;
+        ts.reserve(nthreads);
+        for (int t = 0; t < nthreads; ++t) ts.emplace_back(worker);
+        for (auto& t : ts) t.join();
+    }
+    return err.load();
+}
+
 }  // namespace
 
 extern "C" {
@@ -95,6 +145,46 @@ int chase_read_block(const char* path, int64_t rows_total, int64_t itemsize,
     }
     close(fd);
     return err.load();
+}
+
+// Gather rows[0..row_count) x cols[0..col_count) (global indices) of the
+// file into `out`, column-major with leading dimension row_count.  Each
+// column's span [min(rows), max(rows)] is read with one pread into a
+// per-thread buffer and the rows copied out in their contiguous runs.
+// Returns 0, a positive errno or a negative internal code.
+int chase_read_gather(const char* path, int64_t rows_total,
+                      int64_t itemsize, const int64_t* rows,
+                      int64_t row_count, const int64_t* cols,
+                      int64_t col_count, void* out, int nthreads) {
+    if (row_count == 0 || col_count == 0) return 0;
+    const int64_t rmin = *std::min_element(rows, rows + row_count);
+    const int64_t rmax = *std::max_element(rows, rows + row_count);
+    if (rmin < 0 || rmax >= rows_total) return -3;
+    // runs of consecutive rows: (first row - rmin, count, output offset)
+    std::vector<int64_t> runs;
+    for (int64_t i = 0; i < row_count;) {
+        int64_t e = i + 1;
+        while (e < row_count && rows[e] == rows[e - 1] + 1) ++e;
+        runs.insert(runs.end(), {rows[i] - rmin, e - i, i});
+        i = e;
+    }
+    int fd = open(path, O_RDONLY);
+    if (fd < 0) return errno;
+    char* dst = static_cast<char*>(out);
+    const int64_t span = (rmax - rmin + 1) * itemsize;
+    int err = parallel_columns(
+        col_count, nthreads, span, [&](int64_t j, char* buf) {
+            const int64_t off = (cols[j] * rows_total + rmin) * itemsize;
+            int e = pread_all(fd, buf, span, off);
+            if (e) return e;
+            char* col = dst + j * row_count * itemsize;
+            for (size_t q = 0; q < runs.size(); q += 3)
+                std::memcpy(col + runs[q + 2] * itemsize,
+                            buf + runs[q] * itemsize, runs[q + 1] * itemsize);
+            return 0;
+        });
+    close(fd);
+    return err;
 }
 
 // Write a column-major sub-block into (a possibly pre-sized) file.

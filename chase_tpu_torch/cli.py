@@ -5,12 +5,21 @@ Port of ``chase_tpu/cli.py``, the equivalent of the reference's
 solve problems from ChASE binary files or generated matrices, optionally
 as warm-started sequences, printing the perf table.  ``--device`` (default
 ``cuda``) names the torch device; without a card ``cuda`` raises, as every
-entry point of the port does.  ``--grid``/``--mb`` wait for the multi-GPU
-slice's part 4 (ROADMAP queue 1 item 5).
+entry point of the port does.
+
+``--grid`` solves on the near-square grid over every rank of a
+``torch.distributed`` group made from torchrun's variables
+(``multihost.init_grid``: NCCL on cards, gloo with ``--device cpu``); every
+rank runs the same command and rank 0 alone prints.  ``--mb`` (with
+``--grid`` only) shards the operator in block-cyclic ownership order
+(``parallel/layouts.py``), reading ``--path_in`` files through
+``io.load_matrix_blockcyclic``.
 
     python -m chase_tpu_torch --n 1200 --nev 100 --nex 40 --isMatGen clement
     python -m chase_tpu_torch --n 4000 --nev 256 --path_in H.bin \
         --dtype complex128 --sequence 3 --mode A
+    torchrun --nproc-per-node=4 -m chase_tpu_torch --n 8192 --nev 512 \
+        --grid --mb 64 --path_in H.bin --dtype float32
 """
 
 from __future__ import annotations
@@ -55,6 +64,14 @@ def build_parser():
                    help="pseudo-Hermitian (BSE) solve")
     p.add_argument("--fused", action="store_true",
                    help="device-resident solver (eigsh_fused)")
+    p.add_argument("--grid", action="store_true",
+                   help="2D-shard the operator over every rank of a "
+                        "torch.distributed group (torchrun's variables)")
+    p.add_argument("--mb", type=int, default=None,
+                   help="ScaLAPACK-style block-cyclic block size (with "
+                        "--grid): shard the operator in block-cyclic "
+                        "ownership order, reading files through the darray "
+                        "analogue")
     p.add_argument("--device", default="cuda",
                    help="torch device to solve on (default cuda; cpu)")
     p.add_argument("--seed", type=int, default=1337)
@@ -72,33 +89,57 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     dtype = np.dtype(args.dtype)
+    if args.mb and not args.grid:
+        raise SystemExit("--mb (block-cyclic) requires --grid")
     cfg = ct.ChaseConfig(
         deg=args.deg, max_deg=args.maxDeg, max_iter=args.maxIter,
         optimization=(args.opt == "S"), cholqr=(args.qr == "C"),
         lanczos_iter=args.lanczosIter, num_lanczos=args.numLanczos,
         approx=(args.mode == "A"), seed=args.seed)
 
+    grid = layout = None
+    owns_group = False
+    if args.grid:
+        import torch.distributed as dist
+        from chase_tpu_torch.parallel import multihost
+        owns_group = not dist.is_initialized()
+        grid = multihost.init_grid(device=device)
+        device = None                    # the grid's
+    if args.mb:
+        from chase_tpu_torch.parallel.layouts import (
+            BlockCyclicLayout, PseudoBlockCyclicLayout)
+        # pseudo-Hermitian uses the S-metric-preserving per-half variant
+        # (PseudoHermitianBlockCyclicMatrix analogue, distMatrix.hpp:3936)
+        cls = PseudoBlockCyclicLayout if args.pseudo else BlockCyclicLayout
+        layout = cls(args.n, args.mb, grid.size("r"), grid.size("c"))
+    rank0 = grid is None or grid.coords == (0, 0)
+
     def get_matrix(i):
         if args.path_in:
             path = args.path_in.format(i) if "{" in args.path_in \
                 else args.path_in
+            if layout is not None:
+                return cio.load_matrix_blockcyclic(path, args.n, dtype, grid,
+                                                   args.mb, layout=layout)[0]
             return cio.load_matrix(path, args.n, dtype)
         gen = args.isMatGen or ("bse" if args.pseudo else "clement")
         if gen == "clement":
-            return clement(args.n, dtype=dtype)
-        if gen == "bse":
-            return random_pseudo_hermitian(args.n, dtype=dtype,
-                                           seed=args.seed + i)
-        if args.sequence > 1:
-            return hermitian_sequence(args.n, args.sequence, dtype=dtype,
-                                      seed=args.seed)[i]
-        return random_hermitian(args.n, dtype=dtype, seed=args.seed + i)
+            H = clement(args.n, dtype=dtype)
+        elif gen == "bse":
+            H = random_pseudo_hermitian(args.n, dtype=dtype,
+                                        seed=args.seed + i)
+        elif args.sequence > 1:
+            H = hermitian_sequence(args.n, args.sequence, dtype=dtype,
+                                   seed=args.seed)[i]
+        else:
+            H = random_hermitian(args.n, dtype=dtype, seed=args.seed + i)
+        return layout.apply(H) if layout is not None else H
 
     v0 = ritzv0 = None
     for i in range(args.sequence):
         H = get_matrix(i)
         approx = (args.mode == "A" or i > 0) and v0 is not None
-        common = dict(tol=args.tol, config=cfg, device=device,
+        common = dict(tol=args.tol, config=cfg, device=device, grid=grid,
                       v0=v0 if approx else None, collect_perf=True)
         if args.pseudo:
             res = ct.eigsh_pseudo(H, args.nev, args.nex,
@@ -111,6 +152,8 @@ def main(argv=None):
                            ritzv0=ritzv0 if approx else None,
                            approx=approx, **common)
         v0, ritzv0 = res.V, res.ritzv_full
+        if not rank0:
+            continue
         status = "converged" if res.converged else "NOT converged"
         print(f"[problem {i}] {status} in {res.iterations} iterations; "
               f"locked={res.locked}")
@@ -118,9 +161,12 @@ def main(argv=None):
               f"{' ...' if args.nev > 8 else ''}")
         print(f"  max residual: {res.resid.max():.3e}")
         if res.perf is not None:
-            rcfg = cfg.resolve(dtype, device)
+            rcfg = cfg.resolve(dtype, device or grid.device)
             print(res.perf.report(args.n, rcfg.lanczos_iter,
                                   args.numLanczos, dtype))
+    if owns_group:
+        import torch.distributed as dist
+        dist.destroy_process_group()
     return 0
 
 

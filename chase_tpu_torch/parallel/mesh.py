@@ -26,6 +26,12 @@ as their real views.  A collective over an axis of size 1 is the
 identity and issues nothing.  ``Grid2D.stats`` counts the collectives
 issued and their payload bytes.
 
+Data that crosses the package's boundary sharded (a DTensor H, ``res.V``,
+the sharded readers of ``io``) is a DTensor on ``grid.mesh``;
+:func:`matrix_sharding`, :func:`colvec_sharding`, :func:`rowvec_sharding`
+and :func:`replicated_sharding` name its layouts, the JAX package's
+``P('r', 'c')``, ``P('r', None)``, ``P('c', None)`` and ``P()``.
+
 The process group comes first (``multihost.init_grid`` makes one from a
 launcher's environment): NCCL for ``device="cuda"``, gloo for
 ``device="cpu"``.  Nothing falls back from one to the other.
@@ -37,12 +43,14 @@ import math
 import os
 import warnings
 from collections import defaultdict
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
-__all__ = ["Grid2D", "make_grid", "CollectiveStats"]
+__all__ = ["Grid2D", "make_grid", "CollectiveStats", "Sharding",
+           "matrix_sharding", "colvec_sharding", "rowvec_sharding",
+           "replicated_sharding"]
 
 AXES = ("r", "c")
 
@@ -383,3 +391,45 @@ def make_grid(devices: Optional[Sequence[int]] = None,
     else:
         dev = torch.device("cpu")
     return Grid2D(mesh, dev)
+
+
+class Sharding(NamedTuple):
+    """A DTensor layout: the mesh and one placement per mesh dimension,
+    in the argument order of ``DTensor.from_local(t, *s)`` and
+    ``distribute_tensor(t, *s)``."""
+    mesh: object
+    placements: tuple
+
+
+def _sharding(grid: Optional[Grid2D], placements) -> Optional[Sharding]:
+    return None if grid is None else Sharding(grid.mesh, tuple(placements))
+
+
+def matrix_sharding(grid: Optional[Grid2D]) -> Optional[Sharding]:
+    """The N×N operator, ``P('r', 'c')``: rows over 'r', columns over
+    'c' — ``(Shard(0), Shard(1))``; None without a grid."""
+    from torch.distributed.tensor import Shard
+    return _sharding(grid, (Shard(0), Shard(1)))
+
+
+def colvec_sharding(grid: Optional[Grid2D]) -> Optional[Sharding]:
+    """A multivector in the column communicator, ``P('r', None)``: rows
+    over 'r', the same on every rank of a grid row — ``(Shard(0),
+    Replicate())``; None without a grid."""
+    from torch.distributed.tensor import Replicate, Shard
+    return _sharding(grid, (Shard(0), Replicate()))
+
+
+def rowvec_sharding(grid: Optional[Grid2D]) -> Optional[Sharding]:
+    """A multivector in the row communicator, ``P('c', None)``: rows over
+    'c', replicated over 'r' — ``(Replicate(), Shard(0))``; None without
+    a grid."""
+    from torch.distributed.tensor import Replicate, Shard
+    return _sharding(grid, (Replicate(), Shard(0)))
+
+
+def replicated_sharding(grid: Optional[Grid2D]) -> Optional[Sharding]:
+    """Replicated on every rank, ``P()`` — ``(Replicate(), Replicate())``;
+    None without a grid."""
+    from torch.distributed.tensor import Replicate
+    return _sharding(grid, (Replicate(), Replicate()))

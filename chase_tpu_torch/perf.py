@@ -1,21 +1,31 @@
 """Phase timers + analytic FLOP model.
 
 Port of ``chase_tpu/perf.py`` (the reference's ChasePerfData: timed
-phases and the closed-form FLOP counters of performance.hpp:135-293).
-Phase times are host wall-clock around work that ends in a device
-synchronize (see solver.solve).  The JAX package's TPU peak table is not
-ported, so no fraction-of-peak is reported: on CUDA it stays unset until
-a measured H100 peak is wired in.
+phases and the closed-form FLOP counters of performance.hpp:135-293, and
+the PerformanceDecoratorChase wrapper).  Phase times are host wall-clock
+around work that ends in a device synchronize (see solver.solve and
+:class:`PhaseTimer`).  The fraction-of-peak line of :meth:`PerfData.report`
+holds the filter's rate against the card's published matmul peak for the
+precision the filter ran in (:func:`device_matmul_peak`): the JAX
+package's TPU table is replaced by the NVIDIA cards' data-sheet figures,
+and off CUDA, or on a card the table does not name, there is no peak.
+:class:`profiler_trace` wraps ``torch.profiler`` — the NVTX-range analogue
+(Impl/chase_gpu/nvtx.hpp SCOPED_NVTX_RANGE).
 """
 
 from __future__ import annotations
 
+import os
+import time
 from dataclasses import dataclass, field
 from typing import Dict, List
 
-from .types import is_complex_dtype
+import torch
 
-__all__ = ["PerfData"]
+from .types import is_complex_dtype, real_dtype
+
+__all__ = ["PerfData", "PhaseTimer", "profiler_trace", "device_bf16_peak",
+           "device_matmul_peak", "filter_rung", "MATMUL_PEAKS"]
 
 PHASES = ("All", "InitVecs", "Lanczos", "Filter", "ApplyKconjugate",
           "Qr", "Rr", "Resids_Locking")
@@ -139,6 +149,12 @@ class PerfData:
             lines.append(f" | GFLOPS(all) = {gflops_all / t['All']:.4e}")
         if t["Filter"] > 0:
             lines.append(f" | GFLOPS(filter) = {gflops_filter / t['Filter']:.4e}")
+            mfu = self.filter_mfu(N, dtype)
+            if mfu is not None:
+                frac, rung, peak_g = mfu
+                lines.append(
+                    f" | Filter fraction-of-peak = {100 * frac:.1f}% of the "
+                    f"{rung} peak ({peak_g / 1e3:.0f} TFLOP/s)")
             weff = self.filter_window_efficiency()
             if weff is not None:
                 lines.append(
@@ -149,3 +165,152 @@ class PerfData:
         lines.append(f" | Low-precision FLOP share = {100 * low:.1f}% "
                      f"(filter FLOPs on the reduced-precision operator)")
         return "\n".join(lines)
+
+    def filter_mfu(self, N: int, dtype):
+        """(fraction, rung_name, peak_gflops) of the filter phase against
+        the card's matmul peak for the rung MOST of the filter ran in
+        (:func:`filter_rung`) — the reference prints GFLOPS
+        (performance.hpp:352-451); the fraction of the card's roofline
+        makes a rate regression show in every perf table.  None when no
+        peak applies: no CUDA card, a card the table does not name, or
+        nothing filtered."""
+        t = self.timings.get("Filter", 0.0)
+        if t <= 0 or self.filtered_vecs == 0:
+            return None
+        low_frac = self.filtered_vecs_low / self.filtered_vecs
+        rung = filter_rung(dtype, low=low_frac >= 0.5)
+        peak = device_matmul_peak(rung)
+        if peak is None:
+            return None
+        eff = self.get_filter_flops(N, dtype) / t      # GFLOP/s
+        return eff / (peak / 1e9), rung, peak / 1e9
+
+
+# -- the card's peaks (the roofline the fraction-of-peak is measured against)
+#
+# Dense matmul rates (no sparsity) from NVIDIA's H100 data sheet, at the
+# card's full power limit (700 W for SXM5, 350 W for PCIe): a card set
+# below it runs slower under load.  The rungs are what the port runs:
+# "bf16" (tensor cores; the bf16 rung's ring kernel, cuBLAS bf16),
+# "3xtf32" (the ring kernel's f32 and c64 routes: three TF32 products per
+# f32 product, so a third of the TF32 rate), "tf32" (tensor cores),
+# "f32" (IEEE f32 on the CUDA cores: cuBLAS SGEMM/CGEMM with TF32 off,
+# torch's default) and "f64" (the FP64 tensor cores: cuBLAS DGEMM/ZGEMM).
+# Each card is matched by a substring of torch.cuda.get_device_name().
+
+MATMUL_PEAKS = (
+    # (name substring, card and source, {rung: FLOP/s})
+    ("H100 80GB HBM3", "H100 SXM5, 700 W, NVIDIA H100 data sheet, dense",
+     {"bf16": 989e12, "tf32": 495e12, "f32": 67e12, "f64": 67e12}),
+    ("H100 PCIe", "H100 PCIe, 350 W, NVIDIA H100 data sheet, dense",
+     {"bf16": 756e12, "tf32": 378e12, "f32": 51e12, "f64": 51e12}),
+)
+
+
+def _card_peaks():
+    """The peak table entry of the current CUDA card, or None (no card,
+    or a card the table does not name)."""
+    if not torch.cuda.is_available():
+        return None
+    name = torch.cuda.get_device_name()
+    for key, _, peaks in MATMUL_PEAKS:
+        if key in name:
+            return peaks
+    return None
+
+
+def device_bf16_peak():
+    """The current CUDA card's dense bf16 tensor-core peak (FLOP/s), or
+    None off CUDA / for a card the table does not name."""
+    peaks = _card_peaks()
+    return None if peaks is None else peaks["bf16"]
+
+
+def device_matmul_peak(rung):
+    """Peak FLOP/s of the current CUDA card for a named precision rung
+    ('bf16' | '3xtf32' | 'tf32' | 'f32' | 'f64'), or None when no peak
+    applies (no rung, no card, a card the table does not name)."""
+    peaks = _card_peaks()
+    if rung is None or peaks is None:
+        return None
+    if rung == "3xtf32":
+        return peaks["tf32"] / 3.0
+    return peaks.get(rung)
+
+
+def filter_rung(dtype, low: bool):
+    """Which rung the filter's HEMM ran in on the port's main route (the
+    ring kernel, ``ring_backend="pallas"``): f32 and c64 problems run
+    '3xtf32' at full precision and 'bf16' on the low rung; f64 and c128
+    problems run '3xtf32' on the low rung (the f32/c64 shadow of the
+    ladder) and 'f64' at full precision (cuBLAS on the FP64 tensor
+    cores)."""
+    if real_dtype(dtype) == torch.float32:
+        return "bf16" if low else "3xtf32"
+    return "3xtf32" if low else "f64"
+
+
+class profiler_trace:
+    """Context manager around a ``torch.profiler`` trace (CPU, and the
+    card when there is one) — the NVTX-range analogue
+    (Impl/chase_gpu/nvtx.hpp SCOPED_NVTX_RANGE).  On exit the trace is
+    written to ``log_dir/trace.json`` (Chrome trace format: chrome://
+    tracing or Perfetto); ``.profile`` is the profiler, for its
+    ``key_averages()``::
+
+        with chase_tpu_torch.perf.profiler_trace("/tmp/chase_trace"):
+            chase_tpu_torch.eigsh(H, nev, nex)
+    """
+
+    def __init__(self, log_dir: str):
+        self.log_dir = log_dir
+        self.profile = None
+
+    def __enter__(self):
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            acts.append(ProfilerActivity.CUDA)
+        self.profile = profile(activities=acts)
+        self.profile.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.profile.__exit__(*exc)
+        os.makedirs(self.log_dir, exist_ok=True)
+        self.profile.export_chrome_trace(os.path.join(self.log_dir,
+                                                      "trace.json"))
+        return False
+
+
+class PhaseTimer:
+    """Context manager: times a phase; :meth:`done` synchronizes the
+    devices of the tensors the phase produced before it reads the
+    clock."""
+
+    def __init__(self, perf: "PerfData | None", phase: str, *sync):
+        self.perf = perf
+        self.phase = phase
+        self.sync = sync
+        self.t0 = 0.0
+
+    def __enter__(self):
+        if self.perf is not None:
+            self.t0 = time.perf_counter()
+        return self
+
+    def done(self, *tensors):
+        """Wait for the devices of ``tensors`` (a CUDA tensor's card is
+        synchronized; CPU work is done when it returns), then record the
+        elapsed time and restart the clock."""
+        if self.perf is None:
+            return
+        for dev in {t.device for t in tensors
+                    if isinstance(t, torch.Tensor)}:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        self.perf.add_time(self.phase, time.perf_counter() - self.t0)
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        return False

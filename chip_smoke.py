@@ -11,7 +11,8 @@ no result line) on any fault:
            (torch.matmul) at the filter's shapes, both held against an f64
            product at (N, k) = (1000, 37), (30000, 750/1500/2250/3000),
            timed, with TFLOP/s and the share of the 165 TFLOP/s 3xTF32
-           ceiling; its TF32 split pre-pass against its plain
+           ceiling (the card's peaks: chase_tpu_torch.perf's data-sheet
+           table); its TF32 split pre-pass against its plain
            version (bit-exact); a strided window, a two-chunk ring step and
            an N=1001 operator whose row stride DenseOperator pads to 1004
   filter   the p=1 ring Chebyshev filter (every HEMM on the kernel)
@@ -57,7 +58,8 @@ no result line) on any fault:
            (H + Hᴴ)/2 against the plain filter at filter's width,
            degrees and gate (1e-2 on the bf16 shadow), 80 launches
   io       the slice's H written with io.save_matrix to a ChASE file in a
-           temporary directory (removed at the end of capi), read back by
+           temporary directory (kept until gridhost, which reads it
+           again), read back by
            io.load_matrix through the native reader (bitwise against H on
            the card; write and read GB/s and the placement timed apart:
            DenseOperator copies the Fortran-ordered view as it lies and
@@ -180,12 +182,22 @@ no result line) on any fault:
            iteration: at most 3 host syncs per iteration); each with its
            phase's iteration count, its warm TTS within ±5% of the
            phase's, ring_hemm launches = the HEMM steps, no collective
-           issued (Grid2D.stats)
+           issued (Grid2D.stats); then the distributed I/O on io's file:
+           io.load_matrix_sharded of it (the native read timed alone
+           first; bitwise against H), eigsh of that DTensor at the
+           slice's gates (launches = HEMM steps), its V through
+           save_state(sharded=True) and load_state(grid=) (bitwise), a
+           warm start from that checkpoint (no more iterations than the
+           cold solve), and interface.init_blockcyclic(mb = nb = 64) +
+           solve + get_eigenpairs at the slice's gates
   gridnccl with two cards or more, p = min(cards, 4) ranks run grid1's
-           solves on a (p, 1) NCCL grid with their gates (each rank's
-           ring_hemm launches = p × its HEMM steps), and with four or
-           more gridhost's (2, 2) solves on an NCCL grid; with one card it
-           prints "not run: 1 device" and counts nothing as passed
+           solves and I/O on a (p, 1) NCCL grid with their gates (each
+           rank's ring_hemm launches = p × its HEMM steps) and the
+           unchanged examples/c_dist_2proc_demo.c on two ranks, and with
+           four or more gridhost's (2, 2) solves and I/O on an NCCL grid
+           and examples/c_dist_interface_demo.c on four ranks; with one
+           card it prints "not run: 1 device" and counts nothing as
+           passed
   gridhost two child processes (torchrun's variables, a gloo group) that
            share card 0 on a (2, 1) grid of HostStagedGrid, a Grid2D
            defined here whose collectives copy CUDA tensors to pinned
@@ -204,8 +216,19 @@ no result line) on any fault:
            ring: the same gates, results bitwise equal on all four
            ranks, launches = 2 × HEMM steps per rank, every launch on a
            stripe (N/2 rows, col0 0 or N/4) of the block or its mirror;
-           its times are of ranks sharing one card, not performance
-           numbers
+           then each of the four reads its (15000, 15000) block of io's
+           N=30000 file with io.load_matrix_sharded and
+           io.load_matrix_blockcyclic(mb=64) (one native gather of its
+           columns' row spans; each native read timed alone first, bytes
+           and seconds per rank), each bitwise against the matching
+           (permuted) block of H built on the card, and solves fmid's
+           Clement (N=8192) through interface.init_blockcyclic(64, 64)
+           and interface.init_dist_local (its (4096, 4096) block) on the
+           2-D ring at the Clement gates in the user's row order, ritzv
+           bitwise equal on all four ranks, every launch on a 2-D stripe,
+           the per-rank result through a sharded checkpoint (bitwise) and
+           a warm start from it; its times are of ranks sharing one card,
+           not performance numbers
 
 Each phase prints lines with its numbers and seconds.  A full run then
 prints the kernels' JSON summary and, last, {"ok": true, "device": {...}}.
@@ -261,9 +284,21 @@ CLI_MODULE = ("--isMatGen", "clement", "--n", "1000", "--nev", "100",
               "--dtype", "float32")
 ROOT = Path(__file__).resolve().parent
 SEED = 20261016
-PEAK_3XTF32 = 495.0 / 3     # TFLOP/s: the H100's dense TF32 rate, 3 passes
-PEAK_BF16 = 989.0           # TFLOP/s: the H100's dense bf16 rate
 HBM_TBS = 3.35              # TB/s: the H100 SXM's device-memory rate
+
+
+def peak_tflops(rung: str) -> float:
+    """The card's dense peak for ``rung`` ("3xtf32": the kernels'
+    f32-accuracy route, a third of the TF32 rate; "bf16") in TFLOP/s, from
+    chase_tpu_torch.perf's data-sheet table; a card the table does not
+    name stops the script (its bounds would be unknown)."""
+    from chase_tpu_torch.perf import device_matmul_peak
+    peak = device_matmul_peak(rung)
+    if peak is None:
+        raise AssertionError(f"no {rung} peak for "
+                             f"{torch.cuda.get_device_name(0)} in "
+                             f"chase_tpu_torch.perf.MATMUL_PEAKS")
+    return peak / 1e12
 
 
 def log(phase: str, msg: str) -> None:
@@ -322,12 +357,12 @@ def sampled(fn):
             statistics.median(x[1] for x in out), len(out))
 
 
-def bound(flop: float, nbytes: float, peak: float = PEAK_3XTF32) -> tuple:
+def bound(flop: float, nbytes: float, rung: str = "3xtf32") -> tuple:
     """(ms, "operations" | "bytes"): the least time the card could take —
-    the larger of the operations over ``peak`` TFLOP/s (the 3xTF32 ceiling
-    of the kernels' f32-accuracy route, or the bf16 rate) and the bytes
-    over HBM's rate."""
-    t_ops = flop / (peak * 1e9)
+    the larger of the operations over the ``rung``'s peak (the 3xTF32
+    ceiling of the kernels' f32-accuracy route, or the bf16 rate) and the
+    bytes over HBM's rate."""
+    t_ops = flop / (peak_tflops(rung) * 1e9)
     t_mem = nbytes / (HBM_TBS * 1e9)
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
 
@@ -342,7 +377,7 @@ def hemm_bound(m: int, b: int, k: int, dtype) -> tuple:
 def bf16_hemm_bound(m: int, b: int, k: int) -> tuple:
     """The bf16 route's bound: H (m × b) bf16, V (b × k) f32 read once, W
     (m × k) f32 written once; 2·m·b·k FLOPs at the bf16 rate."""
-    return bound(2.0 * m * b * k, 2 * m * b + 4 * (b * k + m * k), PEAK_BF16)
+    return bound(2.0 * m * b * k, 2 * m * b + 4 * (b * k + m * k), "bf16")
 
 
 def pack_bound(b: int, k: int) -> tuple:
@@ -450,7 +485,8 @@ def _hemm_case(phase, H, V, ref, reps: int) -> dict:
     log(phase, f"(N, k)=({N}, {k}) {H.dtype}: rel err kernel {err:.3e} "
                f"plain {errp:.3e}; max abs err {abs_err:.3e}; kernel "
                f"{kern_ms:.3f} ms ({rate:.1f} TFLOP/s, "
-               f"{rate / PEAK_3XTF32:.1%} of the {PEAK_3XTF32:.0f} TFLOP/s "
+               f"{rate / peak_tflops('3xtf32'):.1%} of the "
+               f"{peak_tflops('3xtf32'):.0f} TFLOP/s "
                f"3xTF32 ceiling), plain {plain_ms:.3f} ms "
                f"({gflop / plain_ms:.1f} TFLOP/s), library (torch.matmul) "
                f"{lib_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}); "
@@ -664,8 +700,9 @@ def _bf16_case(phase, H, V, reps: int, col0: int = 0) -> dict:
     log(phase, f"(m, b, k)=({m}, {b}, {k}) col0={col0} bf16 H: rel err "
                f"kernel {err:.3e} plain {errp:.3e} library {errl:.3e}; max "
                f"abs err {abs_err:.3e}; kernel {kern_ms:.3f} ms "
-               f"({rate:.1f} TFLOP/s, {rate / PEAK_BF16:.1%} of the "
-               f"{PEAK_BF16:.0f} TFLOP/s bf16 peak), plain {plain_ms:.3f} "
+               f"({rate:.1f} TFLOP/s, {rate / peak_tflops('bf16'):.1%} of "
+               f"the {peak_tflops('bf16'):.0f} TFLOP/s bf16 peak), plain "
+               f"{plain_ms:.3f} "
                f"ms, library (torch.mm bf16, f32 out) {lib_ms:.3f} ms, "
                f"bound {bound_ms:.3f} ms ({bound_by}); kernel alone: SM "
                f"{mhz:.0f} MHz, {watt:.1f} W (median of {ns} nvidia-smi "
@@ -2637,14 +2674,95 @@ def _grid_fused(grid, fused, gate) -> dict:
                              grid.stats.summary().items()})
 
 
+def _grid_io(grid, H, path: str, gate, cfg) -> dict:
+    """[grid1]'s (and [gridnccl]'s) sharded I/O at the slice's size on a
+    (p, 1) grid: H from the ChASE file [io] wrote through
+    io.load_matrix_sharded (this rank's block bitwise against H's), eigsh
+    of that DTensor on the kernel ring (the slice's gates, ring_hemm
+    launches = p × HEMM steps), its V through save_state(sharded=True) and
+    load_state(grid=) (bitwise) and a warm start from that checkpoint (no
+    more iterations than the cold solve), then
+    interface.init_blockcyclic(mb = nb = 64) on the grid's shape, solve
+    and get_eigenpairs (the slice's gates on the returned V, in the user's
+    row order)."""
+    from types import SimpleNamespace
+    import torch.distributed as dist
+    import chase_tpu_torch as ct
+    from chase_tpu_torch import _native, interface, io as cio
+    from chase_tpu_torch.io import _even_block
+    N, nev, nex, tol = SLICE["N"], SLICE["nev"], SLICE["nex"], SLICE["tol"]
+    p = grid.size("r")
+    r0, rn = _even_block(N, p, grid.index("r"))
+    dist.barrier()
+    t0 = time.perf_counter()
+    _native.read_block(path, N, np.float32, r0, rn, 0, N)
+    t_native = time.perf_counter() - t0
+    t_read, Hd = timed(lambda: cio.load_matrix_sharded(path, N, np.float32,
+                                                       grid))
+    same = bool(torch.equal(Hd.to_local(), H[r0:r0 + rn]))
+    _zero_ring_counts()
+    cold, res = timed(lambda: ct.eigsh(Hd, nev, nex, tol=tol, config=cfg,
+                                       grid=grid, collect_perf=True))
+    launches = _ring_counts()
+    del Hd
+    gate(res, "eigsh of the sharded file")
+    steps = res.perf.filter_hemm_steps
+    state = path + ".grid_state"
+    t_save, _ = timed(lambda: cio.save_state(state, res.V, res.ritzv_full,
+                                             {"N": N}, sharded=True))
+    t_load, (V, ritzv, meta) = timed(lambda: cio.load_state(state,
+                                                            grid=grid))
+    same_state = (bool(torch.equal(V.to_local(), res.V.to_local()))
+                  and V.placements == res.V.placements
+                  and np.array_equal(ritzv, res.ritzv_full)
+                  and meta == {"N": N})
+    warm, res2 = timed(lambda: ct.eigsh(H, nev, nex, tol=tol, config=cfg,
+                                        grid=grid, v0=V, ritzv0=ritzv,
+                                        approx=True))
+    gate(res2, "warm start from the sharded checkpoint")
+    warm_its = res2.iterations
+    dist.barrier()
+    if grid.coords == (0, 0):
+        os.remove(state + ".npz")
+        os.remove(state + ".V.bin")
+    del V, res2
+
+    def blockcyclic():
+        interface.init_blockcyclic(N, nev, nex, 64, 64, H,
+                                   grid_shape=(p, 1), device=grid.device)
+        interface.set_tol(tol)
+        rc = interface.solve()
+        return rc, interface._require().result.iterations, \
+            interface.get_eigenpairs()
+
+    _zero_ring_counts()
+    with ring_backend_env("pallas"):
+        t_bc, (rc, bc_its, (ev, Vh)) = timed(blockcyclic)
+    bc_launches = _ring_counts()
+    interface.finalize()
+    gate(SimpleNamespace(V=torch.from_numpy(Vh).to(grid.device), ritzv=ev,
+                         converged=rc == 0), "interface.init_blockcyclic")
+    ok = (same and same_state and warm_its <= res.iterations
+          and launches[0] == launches[1] == p * steps > 0
+          and launches[2] == 0 and bc_launches[0] > 0)
+    return dict(ok=ok, native_s=t_native, read_s=t_read,
+                read_gb=rn * N * 4 / 1e9,
+                bitwise=same, tts=cold, iterations=res.iterations,
+                launches=list(launches), hemm_steps=steps, save_s=t_save,
+                load_s=t_load, state_bitwise=same_state, warm_tts=warm,
+                warm_iterations=warm_its, bc_tts=t_bc,
+                bc_iterations=bc_its, bc_launches=list(bc_launches))
+
+
 def grid_child() -> int:
     """One rank of [grid1] / [gridnccl], started with torchrun's
     variables: multihost.init_grid() on NCCL, the (GRID_R, 1) grid, the
     NCCL wiring, then on the kernel ring with each phase's gates: the f32
-    slice (cold, warm), the f64 BSE ladder of [pseudo] (eigsh_pseudo,
-    cold, warm), eigsh_fused at [fslice]'s shape and eigsh_pseudo_fused
-    at [fpseudo]'s (first, warm with its host syncs, one iteration); rank
-    0 prints one line ``GRID_RESULT {json}``."""
+    slice (cold, warm), the slice's sharded I/O (:func:`_grid_io`, from
+    the file CHASE_SMOKE_FILE names), the f64 BSE ladder of [pseudo]
+    (eigsh_pseudo, cold, warm), eigsh_fused at [fslice]'s shape and
+    eigsh_pseudo_fused at [fpseudo]'s (first, warm with its host syncs,
+    one iteration); rank 0 prints one line ``GRID_RESULT {json}``."""
     import torch.distributed as dist
     import chase_tpu_torch as ct
     from chase_tpu_torch.parallel import multihost
@@ -2670,7 +2788,9 @@ def grid_child() -> int:
                               collect_perf=True)
 
     out["fslice"] = _grid_fused(grid, fslice, gate)
-    del op, H
+    del op
+    out["io"] = _grid_io(grid, H, os.environ["CHASE_SMOKE_FILE"], gate, cfg)
+    del H
     torch.cuda.empty_cache()
     H, lam = structured_bse_on_device(BSE["N"], dev)
     nev, nex, tol = BSE["nev"], BSE["nex"], BSE["tol"]
@@ -2756,9 +2876,119 @@ def host_child() -> int:
                          grid.stats.summary().items()})
         del H, res
         torch.cuda.empty_cache()
+    if shape[1] > 1:
+        results["io"] = _gridhost_io(grid, os.environ["CHASE_SMOKE_FILE"],
+                                     recording, stripes)
     print("HOST_RESULT " + json.dumps(results), flush=True)
     dist.destroy_process_group()
     return 0
+
+
+def _gridhost_io(grid, path: str, recording, stripes: set) -> dict:
+    """[gridhost]'s (2, 2) checks of the distributed I/O and bindings on
+    one rank: its block of the slice's ChASE file (N = 30000) read with
+    io.load_matrix_sharded and io.load_matrix_blockcyclic(mb = 64), each
+    bitwise against the matching (permuted) block of H built on the card,
+    with the native read alone timed first (bytes, seconds); then at
+    GRIDHOST's Clement shape (N = 8192, nev 512, nex 256, f32, tol 0.1) on
+    the kernel ring, interface.init_blockcyclic(64, 64) with the whole H
+    and interface.init_dist_local with this rank's block, each with solve
+    and get_eigenpairs at the Clement gates in the user's row order (the
+    per-rank rows gathered over 'r'); the per-rank result through
+    save_state(sharded=True) and load_state(grid=) (bitwise) and a warm
+    start from it.  The interface is handed this grid by replacing
+    interface._grid_for."""
+    from types import SimpleNamespace
+    import torch.distributed as dist
+    import chase_tpu_torch as ct
+    from chase_tpu_torch import _native, interface, io as cio
+    from chase_tpu_torch.io import _even_block
+    from chase_tpu_torch.ops import ring_hemm as rh
+    from chase_tpu_torch.parallel.layouts import BlockCyclicLayout
+    N, dev = SLICE["N"], grid.device
+    (r, c), (i, j) = (grid.size("r"), grid.size("c")), grid.coords
+    (r0, rn), (c0, cn) = _even_block(N, r, i), _even_block(N, c, j)
+    H = clement_on_device(N, dev)
+    out = {}
+    dist.barrier()
+    t0 = time.perf_counter()
+    _native.read_block(path, N, np.float32, r0, rn, c0, cn)
+    out["native_s"] = time.perf_counter() - t0
+    out["native_gb"] = rn * cn * 4 / 1e9
+    dist.barrier()
+    out["sharded_s"], Hd = timed(lambda: cio.load_matrix_sharded(
+        path, N, np.float32, grid))
+    out["sharded_bitwise"] = bool(torch.equal(Hd.to_local().to(dev),
+                                              H[r0:r0 + rn, c0:c0 + cn]))
+    del Hd
+    perm = BlockCyclicLayout(N, 64, r, c).row_perm
+    rows, cols = perm[r0:r0 + rn], perm[c0:c0 + cn]
+    dist.barrier()
+    t0 = time.perf_counter()
+    _native.read_gather(path, N, np.float32, rows, cols)
+    out["gather_s"] = time.perf_counter() - t0
+    out["gather_gb"] = (int(rows.max() - rows.min()) + 1) * cn * 4 / 1e9
+    dist.barrier()
+    out["bc_read_s"], (Hb, _) = timed(lambda: cio.load_matrix_blockcyclic(
+        path, N, np.float32, grid, 64))
+    P = H.index_select(0, torch.as_tensor(rows, device=dev)).index_select(
+        1, torch.as_tensor(cols, device=dev))
+    out["bc_bitwise"] = bool(torch.equal(Hb.to_local().to(dev), P))
+    del Hb, P, H
+    torch.cuda.empty_cache()
+
+    kind, N, nev, nex, tol, cfg = GRIDHOST["clement"]
+    H = clement_on_device(N, dev)
+    gate = clement_gate("gridhost", H, nev, 0.5, 10 * tol)
+    interface._grid_for = lambda *a, **k: grid
+    m, n = N // r, N // c
+
+    def session(name, init, per_rank=False):
+        stripes.clear()
+        recording.launches = rh.tf32_split.launches = 0
+        dist.barrier()
+
+        def run():
+            init()
+            interface.set_tol(tol)
+            return interface.solve(), interface.get_eigenpairs()
+        tts, (rc, (ev, V)) = timed(run)
+        V = torch.from_numpy(V).to(dev)
+        if per_rank:
+            V = grid.all_gather(V.contiguous(), "r")
+        gate(SimpleNamespace(V=V, ritzv=ev, converged=rc == 0),
+             f"{name}, rank {dist.get_rank()}")
+        out[name] = dict(
+            tts=tts, iterations=interface._require().result.iterations,
+            ritzv=np.asarray(ev, np.float64).tobytes().hex(),
+            launches=[recording.launches, rh.tf32_split.launches],
+            stripes=sorted(stripes))
+
+    with ring_backend_env("pallas"):
+        session("blockcyclic", lambda: interface.init_blockcyclic(
+            N, nev, nex, 64, 64, H, grid_shape=(r, c)))
+        session("dist_local", lambda: interface.init_dist_local(
+            N, nev, nex, m, n, H[i * m:(i + 1) * m, j * n:(j + 1) * n],
+            grid_shape=(r, c)), per_rank=True)
+    s = interface._require()
+    state = path + ".host_state"
+    out["save_s"], _ = timed(lambda: cio.save_state(
+        state, s.result.V, s.result.ritzv_full, sharded=True))
+    out["load_s"], (V, ritzv, _) = timed(lambda: cio.load_state(state,
+                                                                grid=grid))
+    out["state_bitwise"] = (bool(torch.equal(V.to_local(),
+                                             s.result.V.to_local()))
+                            and np.array_equal(ritzv, s.result.ritzv_full))
+    warm = ct.eigsh(s.op, nev, nex, tol=tol, v0=V, ritzv0=ritzv,
+                    approx=True, config=ct.ChaseConfig(**cfg))
+    gate(warm, "warm start from the sharded checkpoint")
+    out["warm_iterations"] = warm.iterations
+    interface.finalize()
+    dist.barrier()
+    if dist.get_rank() == 0:
+        os.remove(state + ".npz")
+        os.remove(state + ".V.bin")
+    return out
 
 
 def host_staged_grid(mesh, device):
@@ -2903,16 +3133,41 @@ def _grid_line(what: str, out: dict, ref=None) -> str:
             f"{_per_iteration(out) or 'none'}")
 
 
-def phase_grid1(refs: dict) -> None:
+def _grid_io_line(out: dict) -> str:
+    """:func:`_grid_io`'s numbers, one line."""
+    gb = out["read_gb"]
+    return (f"sharded I/O: this rank's {gb:.2f} GB block, the native read "
+            f"alone {out['native_s']:.3f} s ({gb / out['native_s']:.2f} "
+            f"GB/s), "
+            f"then load_matrix_sharded {out['read_s']:.3f} s "
+            f"({gb / out['read_s']:.2f} GB/s, read + placement on the "
+            f"card), bitwise {out['bitwise']}; eigsh of the DTensor: "
+            f"TTS {out['tts']:.3f} s, {out['iterations']} iterations, "
+            f"ring_hemm / tf32_split / bf16_pack launches "
+            f"{out['launches']}, HEMM steps {out['hemm_steps']}; "
+            f"save_state(sharded=True) {out['save_s']:.3f} s, "
+            f"load_state(grid=) {out['load_s']:.3f} s, bitwise "
+            f"{out['state_bitwise']}; warm start from it: TTS "
+            f"{out['warm_tts']:.3f} s, {out['warm_iterations']} iterations; "
+            f"interface.init_blockcyclic(mb=nb=64) + solve + "
+            f"get_eigenpairs {out['bc_tts']:.3f} s, {out['bc_iterations']} "
+            f"iterations, ring_hemm launches {out['bc_launches'][0]}")
+
+
+def phase_grid1(refs: dict, path: str) -> None:
     """[grid_child] on an NCCL (1, 1) grid in a child process with
     torchrun's variables at WORLD_SIZE=1: each solve at its one-device
     phase's gates, its iteration count and its warm TTS within ±5% of
     the phase's (``refs``: name → (warm TTS, iterations)), no collective
-    issued."""
+    issued; the slice's sharded I/O from the ChASE file at ``path``
+    (:func:`_grid_io`)."""
     t0 = time.perf_counter()
-    out = _run_ranks("grid1", "grid_child", 1, "GRID_RESULT", 420,
-                     GRID_R="1")[0]
+    out = _run_ranks("grid1", "grid_child", 1, "GRID_RESULT", 540,
+                     GRID_R="1", CHASE_SMOKE_FILE=path)[0]
     log("grid1", f"{out['wiring']}; init_grid {out['init_s']:.2f} s")
+    log("grid1", _grid_io_line(out["io"]))
+    if not out["io"]["ok"]:
+        raise AssertionError("grid1: the sharded I/O checks failed")
     bad = []
     for name, what in (("slice", "f32 slice (eigsh)"),
                        ("fslice", "eigsh_fused at [fslice]'s shape"),
@@ -2944,11 +3199,50 @@ def phase_grid1(refs: dict) -> None:
                              f"issued collectives")
 
 
-def phase_gridnccl(dev) -> None:
+def _c_dist_demo(name: str, world: int, passed: str) -> float:
+    """The unchanged examples/<name>.c compiled against the C ABI library
+    and run as ``world`` ranks of an NCCL group (torchrun's variables and
+    JAX_PROCESS_ID, one card each); every rank must print ``passed``.
+    Returns the seconds of the run."""
+    from chase_tpu_torch import _native
+    lib = _native.build_capi()
+    d = os.path.dirname(lib)
+    exe = os.path.join(d, name)
+    subprocess.run(["cc", "-O2", str(ROOT / "examples" / f"{name}.c"), "-L",
+                    d, "-lchase_tpu_torch", "-lm", f"-Wl,-rpath,{d}", "-o",
+                    exe], check=True)
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([exe], cwd=ROOT, env=child_env(
+        **torchrun_env(k, world, port, JAX_PROCESS_ID=str(k))),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for k in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    dt = time.perf_counter() - t0
+    for k, text in enumerate(outs):
+        for line in text.splitlines()[-4:]:
+            log("gridnccl", f"  {name} rank {k}: {line}")
+    if any(p.returncode for p in procs) or not all(passed in o
+                                                   for o in outs):
+        raise AssertionError(f"gridnccl: {name} failed on {world} ranks")
+    return dt
+
+
+def phase_gridnccl(dev, path: str) -> None:
     """[grid_child] on a (p, 1) NCCL grid, p = min(cards, 4) — only on a
-    machine with two cards or more; with four or more, GRIDHOST_2D's
-    solves on a (2, 2) NCCL grid too (:func:`host_child` on NCCL,
-    [gridhost]'s checks)."""
+    machine with two cards or more — with the sharded I/O of the file at
+    ``path``; the unchanged examples/c_dist_2proc_demo.c on two ranks;
+    with four cards or more, GRIDHOST_2D's solves on a (2, 2) NCCL grid
+    too (:func:`host_child` on NCCL, [gridhost]'s checks) and
+    examples/c_dist_interface_demo.c on four ranks."""
     count = torch.cuda.device_count()
     if count < 2:
         log("gridnccl", f"not run: {count} device")
@@ -2956,17 +3250,30 @@ def phase_gridnccl(dev) -> None:
     p = min(count, 4)
     t0 = time.perf_counter()
     out = _run_ranks("gridnccl", "grid_child", p, "GRID_RESULT", 600,
-                     GRID_R=str(p))[0]
+                     GRID_R=str(p), CHASE_SMOKE_FILE=path)[0]
     for name in ("slice", "fslice", "pseudo", "fpseudo"):
         log("gridnccl", _grid_line(f"{name} on the ({p}, 1) NCCL grid "
                                    f"(rank 0)", out[name]))
+    log("gridnccl", _grid_io_line(out["io"]))
+    if not out["io"]["ok"]:
+        raise AssertionError("gridnccl: the sharded I/O checks failed")
+    dt = _c_dist_demo("c_dist_2proc_demo", 2, "C-dist-2proc demo: PASS")
+    log("gridnccl", f"c_dist_2proc_demo on 2 NCCL ranks: PASS in "
+                    f"{dt:.2f} s")
     if count >= 4:
         ranks = _run_ranks("gridnccl", "host_child", 4, "HOST_RESULT", 600,
-                           GRIDHOST_SHAPE="2,2", GRID_BACKEND="nccl")
+                           GRIDHOST_SHAPE="2,2", GRID_BACKEND="nccl",
+                           CHASE_SMOKE_FILE=path)
+        ref = _one_device_refs(dev, GRIDHOST_2D)
         bad = _check_grid_solves("gridnccl", (2, 2), ranks, GRIDHOST_2D,
-                                 _one_device_refs(dev, GRIDHOST_2D), False)
+                                 ref, False)
+        bad += _check_host_io("gridnccl", ranks, ref)
         if bad:
             raise AssertionError(f"gridnccl: {bad} failed their gates")
+        dt = _c_dist_demo("c_dist_interface_demo", 4,
+                          "C-dist-interface demo: PASS")
+        log("gridnccl", f"c_dist_interface_demo on 4 NCCL ranks: PASS in "
+                        f"{dt:.2f} s")
     log("gridnccl", f"{time.perf_counter() - t0:.2f} s")
 
 
@@ -3052,25 +3359,84 @@ def _check_grid_solves(phase: str, shape: tuple, ranks: list, solves: dict,
     return bad
 
 
-def phase_gridhost(dev) -> None:
+def _check_host_io(phase: str, ranks: list, ref: dict) -> list:
+    """:func:`_gridhost_io`'s results of the (2, 2) ranks: every block
+    and checkpoint bitwise, the warm start in no more iterations than the
+    per-rank solve, each interface solve's ritzv bitwise equal on all
+    ranks, its ring_hemm (and tf32_split) launches equal and above 0 on
+    every rank, every launch on a 2-D ring stripe (N/2 rows, col0 0 or
+    N/4); the per-rank read numbers logged.  Returns the failed names."""
+    bad = []
+    io = [rk["io"] for rk in ranks]
+    for k, o in enumerate(io):
+        rate, grate = (o["native_gb"] / o["native_s"],
+                       o["gather_gb"] / o["gather_s"])
+        log(phase, f"rank {k}: native read of its block {o['native_gb']:.2f} "
+                   f"GB in {o['native_s']:.3f} s ({rate:.2f} GB/s), "
+                   f"load_matrix_sharded {o['sharded_s']:.3f} s (read + "
+                   f"placement), bitwise {o['sharded_bitwise']}; "
+                   f"block-cyclic (mb=64): one native gather reading each "
+                   f"of its columns' row span, {o['gather_gb']:.2f} GB in "
+                   f"{o['gather_s']:.3f} s ({grate:.2f} GB/s), "
+                   f"load_matrix_blockcyclic {o['bc_read_s']:.3f} s, bitwise "
+                   f"{o['bc_bitwise']}")
+        if not (o["sharded_bitwise"] and o["bc_bitwise"]
+                and o["state_bitwise"]
+                and o["warm_iterations"] <= o["dist_local"]["iterations"]):
+            bad.append(f"io rank {k}")
+    kind, N, nev, nex, tol, cfg = GRIDHOST["clement"]
+    allowed = {(N // 2, 0), (N // 2, N // 4)}
+    for name in ("blockcyclic", "dist_local"):
+        o = [x[name] for x in io]
+        same = all(x["ritzv"] == o[0]["ritzv"] for x in o)
+        launches = [x["launches"] for x in o]
+        on_ring = all({tuple(st) for st in x["stripes"]} <= allowed
+                      for x in o)
+        log(phase, f"interface {name} (Clement N={N} nev={nev} nex={nex} "
+                   f"tol={tol}, the 2-D ring): iterations "
+                   f"{[x['iterations'] for x in o]} (one device "
+                   f"{ref['clement'][1]}), TTS "
+                   f"{[round(x['tts'], 3) for x in o]} s; ritzv bitwise "
+                   f"equal on all ranks: {same}; ring_hemm / tf32_split "
+                   f"launches {launches}, every launch on a 2-D stripe "
+                   f"{sorted(allowed)}: {on_ring}")
+        if not (same and on_ring and all(ln == launches[0] for ln in launches)
+                and launches[0][0] == launches[0][1] > 0):
+            bad.append(f"interface {name}")
+    log(phase, f"per-rank result through save_state(sharded=True) "
+               f"{[round(x['save_s'], 3) for x in io]} s and "
+               f"load_state(grid=) {[round(x['load_s'], 3) for x in io]} s, "
+               f"bitwise {[x['state_bitwise'] for x in io]}; warm start "
+               f"{[x['warm_iterations'] for x in io]} iterations (cold "
+               f"{[x['dist_local']['iterations'] for x in io]})")
+    return bad
+
+
+def phase_gridhost(dev, path: str) -> None:
     """p ranks sharing card 0 on a grid of HostStagedGrid (gloo through
     pinned host memory; not NCCL): a (2, 1) grid running GRIDHOST's
     solves (the chunk ring, and the fused solvers), then a (2, 2) grid of
     four ranks running GRIDHOST_2D's (the 2-D ring: ring_A on each rank's
     block, ring_B on its mirror), each at its gates, checked by
     :func:`_check_grid_solves` against the same solves on one device,
-    run here first.  The times are of ranks sharing one card with
-    host-staged collectives: not performance numbers."""
+    run here first; the (2, 2) ranks then read their blocks of the ChASE
+    file at ``path`` and solve through the distributed interface
+    (:func:`_gridhost_io`, :func:`_check_host_io`).  The times are of
+    ranks sharing one card with host-staged collectives: not performance
+    numbers."""
     t0 = time.perf_counter()
     ref = _one_device_refs(dev, GRIDHOST)
     bad = []
     for shape, solves in (((2, 1), GRIDHOST), ((2, 2), GRIDHOST_2D)):
         t1 = time.perf_counter()
         n = shape[0] * shape[1]
-        ranks = _run_ranks("gridhost", "host_child", n, "HOST_RESULT", 300,
-                           GRIDHOST_SHAPE=f"{shape[0]},{shape[1]}")
+        ranks = _run_ranks("gridhost", "host_child", n, "HOST_RESULT", 420,
+                           GRIDHOST_SHAPE=f"{shape[0]},{shape[1]}",
+                           CHASE_SMOKE_FILE=path)
         bad += _check_grid_solves("gridhost", shape, ranks, solves, ref,
                                   True)
+        if shape[1] > 1:
+            bad += _check_host_io("gridhost", ranks, ref)
         log("gridhost", f"{shape}: {time.perf_counter() - t1:.2f} s")
     log("gridhost", f"{time.perf_counter() - t0:.2f} s")
     if bad:
@@ -3112,13 +3478,24 @@ def main() -> int:
                                                                 "bf16")}
     gring2d = {route: phase_gridring2d(dev, Hr, route)
                for route in ("f32", "bf16")}
-    del Hr
+    del Hr, H
     torch.cuda.empty_cache()
+    # the slice's ChASE file, written by [io] and kept until [gridhost]
     with tempfile.TemporaryDirectory(prefix="chase_smoke_") as tmp:
-        path = os.path.join(tmp, f"clement{SLICE['N']}_f32.bin")
-        phase_io(dev, H, path)
-        phase_cli(dev, path, warm["pallas"])
-        phase_capi(dev, path, warm["pallas"])
+        return _phases_from_io(dev, info, kern, launches, warm, gring,
+                               gring2d, tmp, t_all)
+
+
+def _phases_from_io(dev, info, kern, launches, warm, gring, gring2d, tmp,
+                    t_all) -> int:
+    """main() from [io] on, the slice's ChASE file in ``tmp``; the slice's
+    H is built again (main drops its copy, so that no frame holds it
+    through the later phases)."""
+    H = clement_on_device(SLICE["N"], dev)
+    path = os.path.join(tmp, f"clement{SLICE['N']}_f32.bin")
+    phase_io(dev, H, path)
+    phase_cli(dev, path, warm["pallas"])
+    phase_capi(dev, path, warm["pallas"])
     fslice = phase_fused_clement(dev, H, "fslice", SLICE["nev"],
                                  SLICE["nex"], SLICE["tol"],
                                  (warm["pallas"], warm["pallas_iterations"]))
@@ -3191,9 +3568,9 @@ def main() -> int:
     phase_grid1({"slice": (warm["pallas"], launches["iterations"]),
                  "fslice": (fslice["warm"], fslice["iterations"]),
                  "pseudo": (ladder["tts"], ladder["iterations"]),
-                 "fpseudo": (fpseudo["warm"], fpseudo["iterations"])})
-    phase_gridnccl(dev)
-    phase_gridhost(dev)
+                 "fpseudo": (fpseudo["warm"], fpseudo["iterations"])}, path)
+    phase_gridnccl(dev, path)
+    phase_gridhost(dev, path)
 
     big, cbig = kern[KERNEL_SHAPES[-1]], ckern[C64_SHAPES[-1]]
     print(json.dumps({"kernels": [

@@ -8,15 +8,18 @@ dense N=30000 H — the (p, 1) stripes at p = 2 and 4 and the 2-D ring at
 its simulated grids, f32 and bf16 on a real H and c64 on a complex one —
 [pfilter] and the 1-D and 2-D H² rings on the structured BSE H on each
 route, and [gridhost]'s (2, 1) and (2, 2) solves by ranks sharing the
-card, each with chip_smoke's gates.  Prints the kernels' JSON line of
+card (the (2, 2) ranks also reading their blocks of the N=30000 Clement
+ChASE file written here first, and solving through the distributed
+interface), each with chip_smoke's gates.  Prints the kernels' JSON line of
 these phases (the stripe calls, in chip_smoke's names) and exits
-non-zero if a phase fails.  Needs the card; it takes about four minutes
+non-zero if a phase fails.  Needs the card; it takes about five minutes
 on one H100.
 """
 
 import json
 import os
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
@@ -55,7 +58,12 @@ def main() -> int:
         torch.cuda.empty_cache()
     del H
     torch.cuda.empty_cache()
-    cs.phase_gridhost(dev)
+    from chase_tpu_torch import io as cio
+    with tempfile.TemporaryDirectory(prefix="grid_phases_") as tmp:
+        path = os.path.join(tmp, f"clement{N}_f32.bin")
+        cio.save_matrix(cs.clement_on_device(N, dev), path)
+        torch.cuda.empty_cache()
+        cs.phase_gridhost(dev, path)
     entries = (
         [cs._kernel_entry(f"ring_hemm[{route} stripe p={p} k={k}]",
                           case["launches"], case)

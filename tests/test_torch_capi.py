@@ -5,8 +5,11 @@ declaration of ``interface/chase_tpu_fortran.f90`` resolved) and driven
 from C as real processes — the unchanged ``examples/c_interface_demo.c``,
 ``examples/c_file_demo.c`` (against either library) and small programs
 for the p* grids, readHam/wrtHam and the build introspection — on the CPU
-(``CHASE_TPU_PLATFORM=cpu``).  The ``gpu``-marked cases run the demos on
-the card."""
+(``CHASE_TPU_PLATFORM=cpu``).  The p* grids, and the unchanged
+``examples/c_dist_interface_demo.c`` and ``examples/c_dist_2proc_demo.c``,
+run as one process per rank of a gloo group (torchrun's variables, and
+``JAX_PROCESS_ID``, which the 2-process demo reads for its rank).  The
+``gpu``-marked cases run the demos on the card."""
 
 import ctypes
 import os
@@ -168,9 +171,16 @@ static double* clement(int N, double scale) {
 """
 
 PINIT = HEADER + r"""
+/* pinit m n d0 d1 cyclic: a p* init of Clement N=64 as rank RANK of a
+ * d0 x d1 grid ('R' major) — its local (m, n) block (the whole matrix
+ * when (m, n) = (N, N)) — then solve, get this rank's rows, check. */
 int main(int argc, char** argv) {
     int N = 64, nev = 4, nex = 4, m = atoi(argv[1]), n = atoi(argv[2]);
     int d0 = atoi(argv[3]), d1 = atoi(argv[4]), cyclic = atoi(argv[5]);
+    const char* rank_env = getenv("RANK");
+    int rank = rank_env ? atoi(rank_env) : 0;
+    size_t i0 = m < N ? (size_t)(rank / d1) * m : 0;
+    size_t j0 = n < N ? (size_t)(rank % d1) * n : 0;
     int init = 0, deg = 20, mb = 8, zero = 0;
     double tol = 1e-10;
     char major = 'R', mode = 'R', opt = 'S', qr = 'C';
@@ -182,15 +192,30 @@ int main(int argc, char** argv) {
                                   &d0, &d1, &major, &zero, &zero, NULL,
                                   &init);
     else
-        pdchase_init_(&N, &nev, &nex, &m, &n, H, &N, V, ritzv, &d0, &d1,
-                      &major, NULL, &init);
+        pdchase_init_(&N, &nev, &nex, &m, &n, H + i0 + j0 * N, &N, V, ritzv,
+                      &d0, &d1, &major, NULL, &init);
     printf("initialized\n");
     pdchase_(&deg, &tol, &mode, &opt, &qr);
-    pdchase_get_eigenpairs_(V, &N, ritzv);
+    pdchase_get_eigenpairs_(V, &m, ritzv);
     int ok = 1;
     for (int i = 0; i < nev; ++i)
         if (fabs(ritzv[i] - (-(N - 1) + 2.0 * i)) > 1e-8) ok = 0;
-    printf(ok ? "pinit: PASS\n" : "pinit: FAIL\n");
+    /* this rank's rows of the first eigenvector against the same rows
+     * of H·v with the whole v: (H v)[i0 + i] = sum_k H[i0+i, k] v[k] */
+    double* v = (double*)calloc(N, sizeof(double));
+    double rmax = 0.0;
+    if (m == N) {
+        for (int i = 0; i < N; ++i) v[i] = V[i];
+        for (int i = 0; i < N; ++i) {
+            double hv = 0.0;
+            for (int k = 0; k < N; ++k) hv += H[i + (size_t)k * N] * v[k];
+            if (fabs(hv - ritzv[0] * v[i]) > rmax)
+                rmax = fabs(hv - ritzv[0] * v[i]);
+        }
+        if (rmax > 1e-7) ok = 0;
+    }
+    printf(ok ? "pinit: PASS (resid %.2e)\n" : "pinit: FAIL (resid %.2e)\n",
+           rmax);
     return ok ? 0 : 1;
 }
 """
@@ -203,19 +228,92 @@ def pinit_exe(port_lib, tmp_path_factory):
     return _link(str(d / "pinit.c"), port_lib, d / "pinit")
 
 
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _run_ranks(exe, world: int, *args, **extra) -> list:
+    """``exe args`` as the ``world`` ranks of a gloo group (torchrun's
+    variables, JAX_PROCESS_ID = the rank) on the CPU, started at once;
+    each rank's (exit code, stdout, stderr).  Every rank is killed after
+    300 s."""
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [exe, *map(str, args)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        env=_env("cpu", RANK=str(k), LOCAL_RANK=str(k),
+                 WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
+                 MASTER_PORT=str(port), JAX_PROCESS_ID=str(k), **extra))
+        for k in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [(p.returncode, o, e) for p, (o, e) in zip(procs, outs)]
+
+
 @pytest.mark.parametrize("m,n,d0,d1,cyclic", [
     (32, 64, 2, 1, 0), (64, 32, 1, 2, 0), (64, 64, 2, 1, 0),
     (32, 64, 1, 1, 0), (64, 64, 2, 2, 1)],
     ids=["2x1", "1x2", "2x1_whole", "1x1_local", "blockcyclic_2x2"])
 def test_pinit_grid_is_refused_naming_item_5(pinit_exe, m, n, d0, d1,
                                              cyclic):
-    """A p* init on any grid but 1×1, or with a local block smaller than
-    the matrix, ends the process with the refusal: nothing solves."""
-    r = _run(pinit_exe, m, n, d0, d1, cyclic)
-    assert r.returncode == 1
-    assert "initialized" not in r.stdout
-    assert "queue 1 item 5" in r.stderr and "NotImplementedError" in r.stderr
+    """A p* init on a d0×d1 grid run as d0·d1 ranks of a gloo group
+    solves: per rank with each rank's (m, n) block (2x1, 1x2), the whole
+    matrix on every rank (2x1_whole), block-cyclic (2x2); every rank gets
+    Clement's eigenvalues (and, holding all rows, true residuals).  The
+    JAX package's refusal remains for 1x1_local: a (32, 64) block is not
+    (N/d0, N/d1), and the process ends with the ValueError."""
+    ranks = _run_ranks(pinit_exe, d0 * d1, m, n, d0, d1, cyclic)
+    if (m, n, d0, d1) == (32, 64, 1, 1):
+        rc, out, err = ranks[0]
+        assert rc == 1 and "initialized" not in out
+        assert "ValueError: local block (32, 64) != (N/dim0, N/dim1) = " \
+               "(64, 64)" in err
+        assert "capi_init_dist failed; exiting" in err
+        return
+    for rc, out, err in ranks:
+        assert rc == 0, out + err
+        assert "pinit: PASS" in out
+
+
+@pytest.mark.parametrize("m,n,d0,d1", [(32, 64, 2, 1), (64, 64, 2, 1)],
+                         ids=["per_rank", "whole"])
+def test_pinit_needs_the_grids_world_size(pinit_exe, m, n, d0, d1):
+    """A 2x1 p* init in a single process (a group of one): ValueError
+    naming both sizes, nothing solves."""
+    r = _run(pinit_exe, m, n, d0, d1, 0)
+    assert r.returncode == 1 and "initialized" not in r.stdout
+    assert "ValueError" in r.stderr
+    assert re.search(r"needs? 2.*(process group|the process group) has 1",
+                     r.stderr), r.stderr
     assert "capi_init_dist failed; exiting" in r.stderr
+
+
+@pytest.mark.parametrize("demo,world,passed", [
+    ("c_dist_interface_demo", 4, "C-dist-interface demo: PASS"),
+    ("c_dist_2proc_demo", 2, "C-dist-2proc demo: PASS")],
+    ids=["interface_2x2", "2proc"])
+def test_c_dist_demos_run_as_ranks(port_lib, tmp_path, demo, world, passed):
+    """The unchanged distributed C demos, one process per rank: the
+    block-cyclic Hermitian and the whole-matrix pseudo solve on 2x2 (the
+    residual in the caller's row order checked in C), and the per-rank
+    2x1 solve, each rank with its own rows."""
+    exe = _link(os.path.join(REPO, "examples", f"{demo}.c"), port_lib,
+                tmp_path / demo)
+    for rank, (rc, out, err) in enumerate(_run_ranks(exe, world)):
+        assert rc == 0, out + err
+        assert passed in out
+        if world == 2:
+            assert f"rank {rank} " in out
 
 
 @pytest.mark.parametrize("cyclic", [0, 1], ids=["blockblock", "blockcyclic"])

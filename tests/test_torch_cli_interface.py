@@ -1,7 +1,10 @@
 """The flat interface (``chase_tpu_torch.interface``) and the CLI
 (``chase_tpu_torch.cli``, ``python -m chase_tpu_torch``) held against
 ``chase_tpu.interface`` and ``chase_tpu.cli`` on the same problems, on
-the CPU (``device="cpu"``, ``--device cpu``)."""
+the CPU (``device="cpu"``, ``--device cpu``).  The distributed init on
+the (2, 1), (1, 2) and (2, 2) grids runs in gloo groups of
+``tests/torch_grid_worker.py`` ranks started once for the module (the
+other distributed modes: ``tests/test_torch_grid_interface.py``)."""
 
 import dataclasses
 import re
@@ -18,10 +21,26 @@ import chase_tpu_torch.interface as tface
 from chase_tpu_torch import cli as tcli
 from chase_tpu_torch.models import clement, clement_eigenvalues, \
     random_hermitian, random_pseudo_hermitian
+from chase_tpu_torch.parallel import multihost
+
+import torch_grid_worker as gw
 
 torch.set_num_threads(1)
 
 N, NEV, NEX = 128, 8, 8
+GRIDS = [(2, 1), (1, 2), (2, 2)]
+
+
+@pytest.fixture(scope="module")
+def grid_groups(tmp_path_factory):
+    """One group per grid of GRIDS running init(distributed=True) on
+    Clement N=128 (the worker's ``case_iface_whole``)."""
+    started = {shape: gw.Group(f"w{shape[0]}{shape[1]}", *shape,
+                               tmp_path_factory.mktemp("w"), timeout=300)
+               for shape in GRIDS}
+    yield started
+    for g in started.values():
+        g.kill()
 
 
 @pytest.fixture(autouse=True)
@@ -154,18 +173,55 @@ def test_set_matrix_replaces_h_and_keeps_the_warm_start():
         tface.set_matrix(clement(N + 1))
 
 
-@pytest.mark.parametrize("grid", [(2, 1), (1, 2), (2, 2)])
-def test_interface_refuses_grids_until_multi_gpu(grid):
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        tface.init(N, NEV, NEX, clement(N), distributed=True,
-                   grid_shape=grid, device="cpu")
-    assert tface.init(N, NEV, NEX, clement(N), distributed=True,
-                      grid_shape=(1, 1), device="cpu") == 0
+@pytest.mark.parametrize("grid", GRIDS)
+def test_interface_refuses_grids_until_multi_gpu(grid_groups, grid):
+    """init(distributed=True) on a d0×d1 grid solves when run as d0·d1
+    gloo ranks: the JAX interface's eigenvalues on a mesh of that shape
+    (and Clement's), bitwise equal on every rank, whole eigenvectors with
+    true residuals ≤ 1e-8, each rank holding N/d0 rows of H, a warm solve
+    in ≤ 2 iterations.  In one process the grid is refused (ValueError
+    naming both sizes), and a 1×1 grid is the one-device solve."""
+    ranks = grid_groups[grid].results()
+    jface.init(N, NEV, NEX, clement(N), distributed=True, grid_shape=grid)
+    jface.set_tol(1e-10)
+    jface.set_deg(20)
+    assert jface.solve() == 0
+    jev = jface.get_eigenpairs()[0]
+    H = clement(N)
+    for rec in ranks:
+        assert int(rec["whole/rc"]) == 0
+        np.testing.assert_array_equal(rec["whole/ritzv"],
+                                      ranks[0]["whole/ritzv"])
+        np.testing.assert_array_equal(rec["whole/V"], ranks[0]["whole/V"])
+        assert int(rec["whole/local_rows"]) == N // grid[0]
+        assert int(rec["whole/warm"]) <= 2
+    ev, V = ranks[0]["whole/ritzv"], ranks[0]["whole/V"]
+    np.testing.assert_allclose(ev, jev, rtol=0, atol=1e-9)
+    np.testing.assert_allclose(ev, clement_eigenvalues(N)[:NEV], rtol=0,
+                               atol=1e-9)
+    assert np.linalg.norm(H @ V - V * ev, axis=0).max() < 1e-8
+    import torch.distributed as dist
+    was = dist.is_initialized()
+    try:
+        with pytest.raises(ValueError, match=f"need {grid[0] * grid[1]} "
+                                             f"ranks.*has 1"):
+            tface.init(N, NEV, NEX, H, distributed=True, grid_shape=grid,
+                       device="cpu")
+    finally:
+        if dist.is_initialized() and not was:
+            dist.destroy_process_group()
+    assert tface.init(N, NEV, NEX, H, distributed=True, grid_shape=(1, 1),
+                      device="cpu") == 0
+    assert tface._require().grid is None
 
 
 def test_interface_introspection():
+    """has_distribution() is the JAX package's "more than one device can
+    be used": more than one card visible, or a group of more than one
+    rank (True in the grid groups, tests/test_torch_grid_interface.py)."""
     assert tface.has_gpu() == torch.cuda.is_available()
-    assert tface.has_distribution() is False
+    assert tface.has_distribution() is (torch.cuda.device_count() > 1
+                                        or multihost.is_multihost())
     assert tface.has_pseudo() is True
 
 
@@ -239,5 +295,12 @@ def test_cli_matches_jax(tmp_path, capsys, case):
 
 
 def test_cli_rejects_the_grid_options():
-    with pytest.raises(SystemExit):
-        tcli.build_parser().parse_args(["--n", "8", "--nev", "2", "--grid"])
+    """--mb without --grid exits as the JAX CLI does; --grid and --mb
+    parse (they run on a grid: tests/test_torch_grid_io.py)."""
+    argv = ["--n", "16", "--nev", "2", "--isMatGen", "clement", "--mb", "4"]
+    with pytest.raises(SystemExit, match="requires --grid"):
+        jcli.main(argv)
+    with pytest.raises(SystemExit, match="requires --grid"):
+        tcli.main(argv + ["--device", "cpu"])
+    args = tcli.build_parser().parse_args(argv + ["--grid"])
+    assert args.grid and args.mb == 4

@@ -10,9 +10,11 @@ named BATTERY and writes what each case computed to OUT_DIR/rank<k>.npz
 the others').  ``tests/test_torch_grid.py``,
 ``tests/test_torch_grid_ring.py``, ``tests/test_torch_grid_solve.py``,
 ``tests/test_torch_grid_pseudo.py``, ``tests/test_torch_grid_fused.py``,
-``tests/test_torch_grid_ring2d.py`` and ``tests/test_torch_grid_solve2d.py``
-start the ranks and compare the results with the JAX package in their
-own process.  This script imports torch,
+``tests/test_torch_grid_ring2d.py``, ``tests/test_torch_grid_solve2d.py``,
+``tests/test_torch_grid_io.py``, ``tests/test_torch_grid_interface.py``
+and ``tests/test_torch_cli_interface.py`` start the ranks and compare the
+results with the JAX package in their own process (the I/O batteries read
+the files that process wrote into OUT_DIR, and write theirs there).  This script imports torch,
 numpy and the port only.  A case that raises ends the rank with exit code
 1, so its peers' collectives fail instead of waiting.
 """
@@ -36,6 +38,14 @@ BSE_TOL = {"float32": 1e-4, "complex64": 1e-4, "float64": 1e-9,
            "complex128": 1e-9}
 N_SOPS, K_SOPS = 132, 10             # the S-ops: rows cut by 2, 3 and 4
 DEGS_2D = (6, 7)                     # the 2-D rings' deg_max: even, odd
+# the sharded I/O: N ragged on a (3, 1) grid, even on (2, 1), (1, 2),
+# (2, 2); M the rectangular file's columns, k the checkpoint's, mb the
+# block-cyclic block
+IO = dict(N=130, M=40, k=10, mb=8)
+IO_DTYPES = (np.float64, np.complex64)
+IFACE = dict(N=64, nev=6, nex=6, tol=1e-10, mb=8)   # the interface solves
+IFACE_BSE = dict(N=64, nev=4, nex=4, tol=1e-9)
+DIR = None                           # OUT_DIR of this rank (main sets it)
 
 
 # -- inputs (numpy, seeded; the tests rebuild them for the JAX side) -------
@@ -161,6 +171,43 @@ def sops_inputs(dtype):
     src[[9, 8, 7, 6]] = [1, 2, 3, 4]
     wmask[[9, 8, 7, 6]] = True
     return X.astype(dtype), src, wmask
+
+
+def io_matrix(dtype):
+    """The I/O cases' N×N Hermitian H (numpy, seeded)."""
+    rng = np.random.default_rng(61)
+    N = IO["N"]
+    A = rng.standard_normal((N, N))
+    if np.issubdtype(dtype, np.complexfloating):
+        A = A + 1j * rng.standard_normal((N, N))
+    return ((A + A.conj().T) / 2).astype(dtype)
+
+
+def cli_matrix():
+    """The CLI's --path_in file: a random Hermitian f64 H, N=128 (the
+    JAX CLI splits it over its 8 devices)."""
+    from chase_tpu_torch.models import random_hermitian
+    return random_hermitian(128, np.float64, seed=64)
+
+
+def io_rect():
+    """The rectangular file's (N, M) f32 matrix."""
+    return np.random.default_rng(62).standard_normal(
+        (IO["N"], IO["M"])).astype(np.float32)
+
+
+def io_state():
+    """A checkpoint's (V (N × k) f64, ritzv (k,), meta)."""
+    rng = np.random.default_rng(63)
+    return (rng.standard_normal((IO["N"], IO["k"])),
+            np.sort(rng.standard_normal(IO["k"])), {"tag": 7})
+
+
+def iface_bse():
+    """The interface cases' BSE H (c128, seeded)."""
+    from chase_tpu_torch.models import random_pseudo_hermitian
+    return np.asarray(random_pseudo_hermitian(IFACE_BSE["N"], np.complex128,
+                                              seed=3))
 
 
 # -- helpers ---------------------------------------------------------------
@@ -787,6 +834,242 @@ def case_fused2d(grid, rec):
     rec["fused2d/all_gather"] = grid.stats.calls["all_gather"]
 
 
+def case_io(grid, rec):
+    """The sharded and block-cyclic readers on the files the test wrote
+    with the JAX package (jax_<dtype>.bin, jax_rect.bin); the sharded
+    writer into port_*.bin from the readers' DTensors and from the whole
+    V in each sharding; a sharded writer over an oversized file; the
+    refused layouts; layouts on a DTensor."""
+    from torch.distributed.tensor import (DTensor, Partial, Shard,
+                                          distribute_tensor)
+    from chase_tpu_torch import io as tio
+    from chase_tpu_torch.parallel import (colvec_sharding, matrix_sharding,
+                                          replicated_sharding,
+                                          rowvec_sharding)
+    from chase_tpu_torch.parallel.layouts import BlockCyclicLayout
+    N, M, mb = IO["N"], IO["M"], IO["mb"]
+    rec["io/coords"] = list(grid.coords)
+    loaded = {}
+    for dt in IO_DTYPES:
+        name = np.dtype(dt).name
+        path = os.path.join(DIR, f"jax_{name}.bin")
+        Hd = loaded[name] = tio.load_matrix_sharded(path, N, dt, grid)
+        rec[f"io/{name}"] = Hd.to_local().numpy()
+        rec[f"io/{name}/layout"] = (Hd.placements == matrix_sharding(
+            grid).placements and Hd.device_mesh is grid.mesh
+            and tuple(Hd.shape) == (N, N))
+        tio.save_matrix_sharded(Hd, os.path.join(DIR, f"port_{name}.bin"))
+        Hb, lay = tio.load_matrix_blockcyclic(path, N, dt, grid, mb)
+        rec[f"bc/{name}"] = Hb.to_local().numpy()
+        rec[f"bc/{name}/perm"] = lay.row_perm
+    R = tio.load_matrix_sharded(os.path.join(DIR, "jax_rect.bin"), N,
+                                np.float32, grid, M=M)
+    rec["io/rect"] = R.to_local().numpy()
+    tio.save_matrix_sharded(R, os.path.join(DIR, "port_rect.bin"))
+    V = torch.from_numpy(io_state()[0])
+    for name, sh in (("colvec", colvec_sharding(grid)),
+                     ("rowvec", rowvec_sharding(grid)),
+                     ("replicated", replicated_sharding(grid))):
+        tio.save_matrix_sharded(distribute_tensor(V, *sh),
+                                os.path.join(DIR, f"port_{name}.bin"))
+    tio.save_matrix_sharded(loaded["float64"],
+                            os.path.join(DIR, "oversized.bin"))
+    tio.save_matrix_sharded(V.numpy(), os.path.join(DIR, "port_plain.bin"))
+    bad = os.path.join(DIR, "refused.bin")
+    rec["io/refused"] = [
+        expect_raise(ValueError, lambda: tio.save_matrix_sharded(
+            DTensor.from_local(V, grid.mesh, pl, run_check=False), bad),
+            "placements") for pl in ((Shard(0), Shard(0)),
+                                     (Partial(), Shard(1)))]
+    rec["io/refused_wrote"] = os.path.exists(bad)
+    rec["io/short_raises"] = expect_raise(
+        ValueError, lambda: tio.load_matrix_sharded(
+            os.path.join(DIR, "jax_rect.bin"), N, np.float32, grid),
+        "bytes < expected")
+    lay = BlockCyclicLayout(N, mb, grid.size("r"), grid.size("c"))
+    Vd = distribute_tensor(V, *colvec_sharding(grid))
+    rec["layout/dtensor"] = lay.apply_rows(Vd).numpy()
+    rec["layout/dtensor_restore"] = lay.restore_rows(Vd).numpy()
+
+
+def case_state(grid, rec):
+    """Sharded checkpoints: the port's (read back by the test with the
+    JAX package) and the JAX package's (jax_state, read here with and
+    without the grid); a solve's V through a sharded checkpoint and a
+    warm start from it."""
+    import chase_tpu_torch as ct
+    from torch.distributed.tensor import distribute_tensor
+    from chase_tpu_torch import io as tio
+    from chase_tpu_torch.models import clement
+    from chase_tpu_torch.parallel import colvec_sharding
+    V, ritzv, meta = io_state()
+    Vd = distribute_tensor(torch.from_numpy(V), *colvec_sharding(grid))
+    tio.save_state(os.path.join(DIR, "port_state"), Vd, ritzv, meta,
+                   sharded=True)
+    V2, r2, m2 = tio.load_state(os.path.join(DIR, "port_state.npz"),
+                                grid=grid)
+    rec["state/port"] = V2.to_local().numpy()
+    rec["state/port/same"] = (bool(torch.equal(V2.to_local(),
+                                               Vd.to_local()))
+                              and np.array_equal(r2, ritzv) and m2 == meta
+                              and V2.placements == Vd.placements)
+    V3, r3, m3 = tio.load_state(os.path.join(DIR, "jax_state"), grid=grid)
+    rec["state/jax"] = V3.to_local().numpy()
+    rec["state/jax/ritzv"] = r3
+    rec["state/jax/meta"] = m3 == meta
+    rec["state/jax/layout"] = V3.placements == Vd.placements
+    rec["state/jax/whole"] = tio.load_state(os.path.join(DIR,
+                                                         "jax_state"))[0]
+    H = clement(IO["N"])
+    res = ct.eigsh(H, 8, 8, tol=1e-9, grid=grid)
+    tio.save_state(os.path.join(DIR, "solve_state"), res.V,
+                   res.ritzv_full, sharded=True)
+    V4, r4, _ = tio.load_state(os.path.join(DIR, "solve_state"), grid=grid)
+    rec["state/solve/bitwise"] = (bool(torch.equal(V4.to_local(),
+                                                   res.V.to_local()))
+                                  and np.array_equal(r4, res.ritzv_full))
+    warm = ct.eigsh(H, 8, 8, tol=1e-9, grid=grid, v0=V4, ritzv0=r4,
+                    approx=True)
+    rec["state/solve/iterations"] = [res.iterations, warm.iterations]
+    rec["state/solve/ritzv"] = warm.ritzv
+
+
+CLI_GRID = {
+    "grid": lambda d: ["--n", "128", "--nev", "8", "--nex", "8",
+                       "--isMatGen", "clement", "--tol", "1e-9", "--grid"],
+    "mb": lambda d: ["--n", "128", "--nev", "6", "--nex", "6",
+                     "--tol", "1e-9", "--grid", "--mb", str(IO["mb"]),
+                     "--path_in", os.path.join(d, "jax_cli.bin"),
+                     "--dtype", "float64"],
+}
+
+
+def case_cli(grid, rec):
+    """``cli.main`` with --grid and with --grid --mb on every rank (its
+    group already made): exit codes and what each rank printed."""
+    import contextlib
+    import io
+    from chase_tpu_torch import cli
+    for name, argv in CLI_GRID.items():
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rec[f"cli/{name}/rc"] = cli.main(argv(DIR) + ["--device", "cpu"])
+        rec[f"cli/{name}/out"] = buf.getvalue()
+
+
+def _iface_solve(iface, rec, key, warm=True):
+    """solve on the bound session, get_eigenpairs, a mode-'A' solve."""
+    rec[f"{key}/rc"] = iface.solve()
+    evals, evecs = iface.get_eigenpairs()
+    rec[f"{key}/ritzv"] = evals
+    rec[f"{key}/V"] = evecs
+    rec[f"{key}/iterations"] = iface._require().result.iterations
+    if warm:
+        iface.solve(mode="A")
+        rec[f"{key}/warm"] = iface._require().result.iterations
+
+
+def case_iface(grid, rec):
+    """The interface's distributed modes on the group's grid shape:
+    whole (row- and column-major), pseudo, block-cyclic Hermitian and
+    pseudo, per rank Hermitian and pseudo (and a per-rank mode-'A' solve
+    from the init buffers); the refusals; has_distribution."""
+    import chase_tpu_torch.interface as tf
+    from chase_tpu_torch.models import clement
+    import torch.distributed as dist
+    shape = (grid.size("r"), grid.size("c"))
+    d0, d1 = shape
+    N, nev, nex, tol, mb = (IFACE[k] for k in ("N", "nev", "nex", "tol",
+                                                "mb"))
+    H = clement(N)
+    Nb, bnev, bnex, btol = (IFACE_BSE[k] for k in ("N", "nev", "nex",
+                                                   "tol"))
+    B = iface_bse()
+    rec["iface/rank"] = dist.get_rank()
+    rec["iface/has_distribution"] = tf.has_distribution()
+    for major in ("R", "C"):
+        tf.init(N, nev, nex, H, distributed=True, grid_shape=shape,
+                grid_major=major, device="cpu")
+        tf.set_tol(tol)
+        rec[f"iface/whole{major}/coords"] = list(tf._require().grid.coords)
+        _iface_solve(tf, rec, f"iface/whole{major}")
+    tf.init_pseudo(Nb, bnev, bnex, B, distributed=True, grid_shape=shape,
+                   device="cpu")
+    tf.set_tol(btol)
+    _iface_solve(tf, rec, "iface/pseudo")
+    tf.init_blockcyclic(N, nev, nex, mb, mb, H, grid_shape=shape,
+                        device="cpu")
+    tf.set_tol(tol)
+    rec["iface/bc/identity"] = bool(np.array_equal(
+        tf._require().layout.row_perm, np.arange(N)))
+    _iface_solve(tf, rec, "iface/bc")
+    tf.init_blockcyclic(Nb, bnev, bnex, mb, mb, B, pseudo=True,
+                        grid_shape=shape, device="cpu")
+    tf.set_tol(btol)
+    _iface_solve(tf, rec, "iface/bc_pseudo", warm=False)
+    if N % (d0 * d1) == 0:
+        i, j = grid.coords
+        m, n = N // d0, N // d1
+        tf.init_dist_local(N, nev, nex, m, n,
+                           H[i * m:(i + 1) * m, j * n:(j + 1) * n],
+                           grid_shape=shape, device="cpu")
+        tf.set_tol(tol)
+        _iface_solve(tf, rec, "iface/local", warm=False)
+        res = tf._require().result
+        Vl, r = res.V.to_local().numpy(), res.ritzv_full
+        tf.init_dist_local(N, nev, nex, m, n,
+                           H[i * m:(i + 1) * m, j * n:(j + 1) * n], Vl, r,
+                           grid_shape=shape, device="cpu")
+        tf.set_tol(tol)
+        tf.solve(mode="A")
+        rec["iface/local/warm_from_buffers"] = \
+            tf._require().result.iterations
+        m, n = Nb // d0, Nb // d1
+        tf.init_dist_local(Nb, bnev, bnex, m, n,
+                           B[i * m:(i + 1) * m, j * n:(j + 1) * n],
+                           grid_shape=shape, pseudo=True, device="cpu")
+        tf.set_tol(btol)
+        _iface_solve(tf, rec, "iface/local_pseudo", warm=False)
+    else:
+        rec["iface/local/raises"] = expect_raise(
+            ValueError, lambda: tf.init_dist_local(
+                N, nev, nex, N // d0, N // d1, H[:N // d0, :N // d1],
+                grid_shape=shape, device="cpu"), "dim0·dim1 | N")
+    local = (N // d0, N // d1)
+    rec["iface/refusals"] = [
+        expect_raise(ValueError, lambda: tf.init(
+            N, nev, nex, H, distributed=True, grid_shape=(d0 * d1 + 1, 1),
+            device="cpu"), f"need {d0 * d1 + 1} ranks",
+            f"has {d0 * d1}"),
+        expect_raise(ValueError, lambda: tf.init_dist_local(
+            N, nev, nex, local[0] + 1, local[1], H, grid_shape=shape,
+            device="cpu"), "local block", "!= (N/dim0, N/dim1)") or
+        N % (d0 * d1) != 0,
+        expect_raise(ValueError, lambda: tf.init_dist_local(
+            N, nev, nex, *local, H[:local[0], :local[1]],
+            np.zeros((local[0], 3)), grid_shape=shape, device="cpu"),
+            "V local block shape") or N % (d0 * d1) != 0,
+        expect_raise(ValueError, lambda: tf.init_blockcyclic(
+            N, nev, nex, mb, mb, H, grid_shape=shape, irsrc=1,
+            device="cpu"), "irsrc/icsrc")]
+    tf.finalize()
+
+
+def case_iface_whole(grid, rec):
+    """init(distributed=True) on the group's grid shape (Clement N=128):
+    eigenvalues, the whole V and the ranks' coordinates."""
+    import chase_tpu_torch.interface as tf
+    from chase_tpu_torch.models import clement
+    shape = (grid.size("r"), grid.size("c"))
+    tf.init(128, 8, 8, clement(128), distributed=True, grid_shape=shape,
+            device="cpu")
+    tf.set_tol(1e-10)
+    tf.set_deg(20)
+    _iface_solve(tf, rec, "whole")
+    rec["whole/local_rows"] = tf._require().op.H.shape[0]
+    tf.finalize()
+
+
 SOLVES_2D = (("clement_float64", {}), ("random_complex128", {}),
              ("clement_float64_ladder", {"ring_backend": "pallas",
                                          "mixed_precision": True}))
@@ -848,11 +1131,24 @@ BATTERIES = {
     "s22": (case_ring_filter_values(solve_case, SOLVES_2D), case_sequence,
             case_fused2d),
     "p22": (case_ring_filter_values(pseudo_case, PSEUDO_2D),),
+    "io22": (case_io, case_state, case_cli),
+    "io21": (case_io, case_state, case_cli),
+    "io12": (case_io, case_state, case_cli),
+    "io31": (case_io, case_state, case_cli),
+    "if22": (case_iface,),
+    "if21": (case_iface,),
+    "if12": (case_iface,),
+    "if31": (case_iface,),
+    "w21": (case_iface_whole,),
+    "w12": (case_iface_whole,),
+    "w22": (case_iface_whole,),
 }
 
 
 def main():
+    global DIR
     battery, r, c, rank, rdv, out = sys.argv[1:7]
+    DIR = out
     r, c, rank = int(r), int(c), int(rank)
     os.environ["RANK"], os.environ["WORLD_SIZE"] = str(rank), str(r * c)
     from chase_tpu_torch.parallel import multihost

@@ -20,6 +20,10 @@
 //     CU_TENSOR_MAP_SWIZZLE_128B writes — 16-byte chunk c of row r sits
 //     at chunk c ^ (r % 8) — so a tile base must be 1024-byte aligned.
 //     32-bit operands have no transposed form, so B is K-major for both.
+//   * a 16-bit A may also be MN-major ("transposed", the wgmma's
+//     imm-trans-a = 1): rows of 128 bytes are K rows holding 64 M
+//     elements, with the same swizzle; a 64 × 16 step reads two groups of
+//     8 K rows, 1024 bytes apart (desc_mnmajor_sw128).
 //   * in a cluster, a CTA's shared-memory address names the same offset in
 //     every CTA of the cluster: a multicast TMA load writes its box, and
 //     signals its mbarrier, at that offset in each CTA of its mask, and
@@ -175,6 +179,17 @@ __device__ __forceinline__ uint64_t desc_kmajor_sw128(const void* tile) {
          (1ull << 62);
 }
 
+// shared-memory descriptor of an MN-major, 128-byte-swizzled 16-bit
+// tile (K rows of 64 MN elements): the stride between 8-row K groups
+// (bits 32-45) is 1024 B, and so is the leading offset (bits 16-29), the
+// stride between 64-element MN blocks, which a 64-row A never crosses.
+// A 16-deep k-step advances the start by 16 rows, 2048 B.
+__device__ __forceinline__ uint64_t desc_mnmajor_sw128(const void* tile) {
+  const uint64_t addr = smem_u32(tile);
+  return ((addr & 0x3FFFF) >> 4) | ((1024ull >> 4) << 16) |
+         ((1024ull >> 4) << 32) | (1ull << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 }
@@ -233,9 +248,11 @@ __device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64],
 }
 
 // d (+)= A · B for a 64 x N x 16 step, bf16 · bf16 with both operands by
-// descriptor (K-major, 128-byte swizzle, not transposed), f32 accumulator
-// of N/2 registers; `accumulate` = 0 overwrites d.  bf16 · bf16 products
-// are exact in f32.
+// descriptor (128-byte swizzle; B K-major, A K-major for TA = 0 and
+// MN-major — the transposed form — for TA = 1), f32 accumulator of N/2
+// registers; `accumulate` = 0 overwrites d.  bf16 · bf16 products are
+// exact in f32.
+template <int TA = 0>
 __device__ __forceinline__ void wgmma_ss_m64n128k16_bf16(float (&d)[64],
                                                         uint64_t desc_a,
                                                         uint64_t desc_b,
@@ -249,12 +266,13 @@ __device__ __forceinline__ void wgmma_ss_m64n128k16_bf16(float (&d)[64],
       "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
       "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
       "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      "}, %64, %65, p, 1, 1, %67, 0;\n}\n"
       : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24),
         HOPPER_D8(32), HOPPER_D8(40), HOPPER_D8(48), HOPPER_D8(56)
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TA));
 }
 
+template <int TA = 0>
 __device__ __forceinline__ void wgmma_ss_m64n192k16_bf16(float (&d)[96],
                                                         uint64_t desc_a,
                                                         uint64_t desc_b,
@@ -271,13 +289,14 @@ __device__ __forceinline__ void wgmma_ss_m64n192k16_bf16(float (&d)[96],
       "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
       "%93, %94, %95"
-      "}, %96, %97, p, 1, 1, 0, 0;\n}\n"
+      "}, %96, %97, p, 1, 1, %99, 0;\n}\n"
       : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24),
         HOPPER_D8(32), HOPPER_D8(40), HOPPER_D8(48), HOPPER_D8(56),
         HOPPER_D8(64), HOPPER_D8(72), HOPPER_D8(80), HOPPER_D8(88)
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TA));
 }
 
+template <int TA = 0>
 __device__ __forceinline__ void wgmma_ss_m64n256k16_bf16(float (&d)[128],
                                                         uint64_t desc_a,
                                                         uint64_t desc_b,
@@ -297,12 +316,12 @@ __device__ __forceinline__ void wgmma_ss_m64n256k16_bf16(float (&d)[128],
       "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
       "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
       "%127"
-      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      "}, %128, %129, p, 1, 1, %131, 0;\n}\n"
       : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24),
         HOPPER_D8(32), HOPPER_D8(40), HOPPER_D8(48), HOPPER_D8(56),
         HOPPER_D8(64), HOPPER_D8(72), HOPPER_D8(80), HOPPER_D8(88),
         HOPPER_D8(96), HOPPER_D8(104), HOPPER_D8(112), HOPPER_D8(120)
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TA));
 }
 
 #undef HOPPER_D8

@@ -18,6 +18,16 @@
 // into the same kernel.  On one card (p = 1) a filter step is one call
 // with accumulate = 0, K = N.
 //
+// The trans route (ring_hemm_f32_t, ring_hemm_c64_t, ring_hemm_bf16_t)
+// computes W (=|+=) H[row0:row0+b, :]ᴴ · V: one ring_B step of the 2-D
+// ring, which the JAX package runs as XLA's matmul on h_blk.conj().T
+// (chase_tpu/parallel/ring.py::_ring2d_pair).  It reads the rank's block
+// in place, with no transposed copy: the A tile is loaded MN-major (the
+// note at tile_row; the bf16 kernel's note), the c64 conjugate is the
+// complex pre-pass's −i·V rows, and row0 is TMA's outer coordinate, so
+// the route has no `off` shift.  Same bound, tiles, stages, promotion
+// and epilogue as the route it is the transpose of.
+//
 // What bounds it on an H100: one call at the solver's shapes (K = N =
 // 30000, width k <= 3000) is 2·N²·k = 5.4 TFLOP against 3.6 GB of H, so it
 // is bound by arithmetic.  IEEE f32 outside the tensor cores peaks at 67
@@ -184,6 +194,37 @@ __host__ __device__ constexpr int smem_bytes() {
   return E::STAGES * stage_bytes<E>() + 1024 + 2 * E::STAGES * 8;
 }
 
+// ---- the trans route's A tile ----------------------------------------------
+// TU = 0: the tile is H[m0:m0+128, K tile] as it lies (K-major: one TMA box
+// of 128 rows × 128 bytes).  TU = 1 (f32) or 2 (c64, floats per element):
+// A = H[row0:row0+b, :]ᴴ, so the tile's K runs along H's rows and its M
+// along H's columns — MN-major.  The 128-byte swizzle caps a box's inner
+// extent at 128 bytes (32 f32 or 16 c64 columns), so the tile is 4·TU
+// boxes of BK/TU H rows × 128 bytes, box x holding H columns m0 +
+// (32/TU)·x onwards; each box is 128-byte swizzled (16-byte chunk c of
+// box row kk at c ^ (kk % 8)).
+//
+// A warp's fragment load reads 8 M positions (lane/4) × 4 K positions
+// (lane%4).  Read in order, the 8 M positions share 2 chunks of a box
+// row and rows kk, kk ^ 1 swizzle onto the same chunks: a 2-way bank
+// conflict.  So the tile's M order is permuted (free: M is W's row, and
+// the epilogue writes row m0 + tile_row(L)): accumulator row L = [u3 u2 u1
+// u0 s x1 x0] (bits) reads H column tile_row(L) = [u3 u2 s u1 u0 x1 x0]
+// for f32 — lane/4 = [s x1 x0] then covers chunks 4s + (u1 u0) of one box,
+// and with the swizzle's XOR by kk % 8 = 4h + lane%4 the 32 lanes hit 32
+// banks — and [u3 u2 u1 s x1 u0 x0] for c64, whose 1 × 2 float blocks
+// (re, im) fill the 32 banks the same way (bank = 16 (s ^ ks) + 8 (x1 ^
+// h) + 4 (u0 ^ (q >> 1)) + 2 x0 + (q & 1)).
+template <int TU>
+__device__ __forceinline__ int tile_row(int L) {
+  if constexpr (TU == 1)
+    return (L & 0x63) | ((L & 0x04) << 2) | ((L & 0x18) >> 1);
+  else if constexpr (TU == 2)
+    return (L & 0x71) | ((L & 0x06) << 1) | ((L & 0x08) >> 2);
+  else
+    return L;
+}
+
 // ---- f32 pre-pass: split and transpose the V chunk --------------------------
 // Vt[0][n][off + j] = hi(B[j][n]), Vt[1][n][off + j] = lo(B[j][n]) for
 // j < b, n < k; zero elsewhere in (w_pad × b_pad).  32×32 tiles through shared memory so
@@ -195,13 +236,15 @@ __host__ __device__ constexpr int smem_bytes() {
 // matrix that makes the f32 product Hf·B, with Hf the float view of a c64
 // H, equal H·V viewed as floats: row 2i of B is V[i] viewed as floats
 // (re, im, ...), row 2i+1 is i·V[i] viewed as floats (-im, re, ...).
-// TF32 rounding is symmetric in sign, so the negated entries split
-// exactly as their plain version's.
+// With conj = 1 row 2i+1 is −i·V[i] (im, -re, ...) instead, so that the
+// trans route's A (the float view of h, read transposed in 1 × 2 blocks)
+// gives Re h·V + Im h·(−i·V) = conj(h)·V.  TF32 rounding is symmetric in
+// sign, so the negated entries split exactly as their plain version's.
 template <bool CPLX>
 __global__ void __launch_bounds__(256)
 split_transpose_kernel(const float* __restrict__ V, long long ldv,
                        float* __restrict__ Vt, int b, int k, int off,
-                       int b_pad, int w_pad) {
+                       int b_pad, int w_pad, int conj) {
   __shared__ float tile[32][33];
   const int kk0 = blockIdx.x * 32, n0 = blockIdx.y * 32;
   const int tx = threadIdx.x, ty = threadIdx.y;
@@ -211,9 +254,9 @@ split_transpose_kernel(const float* __restrict__ V, long long ldv,
     float x = 0.0f;
     if (j >= 0 && j < b && n < k) {
       if (CPLX) {
-        const bool odd = j & 1;                  // an i·V row
+        const bool odd = j & 1;                  // an ±i·V row
         x = V[(long long)(j >> 1) * ldv + (odd ? n ^ 1 : n)];
-        if (odd && !(n & 1)) x = -x;
+        if (odd && (n & 1) == conj) x = -x;
       } else {
         x = V[(long long)j * ldv + n];
       }
@@ -264,7 +307,7 @@ bf16_pack_kernel(const float* __restrict__ V, long long ldv,
 }
 
 // ---- main kernel ------------------------------------------------------------
-template <class E>
+template <class E, int TU>
 __global__ void __launch_bounds__(NTHREADS, 1)
 ring_hemm_kernel(const __grid_constant__ CUtensorMap tmH,
                  const __grid_constant__ CUtensorMap tmV,
@@ -313,7 +356,14 @@ ring_hemm_kernel(const __grid_constant__ CUtensorMap tmH,
         mbar_wait(&empty[s], ((t / E::STAGES) & 1) ^ 1);
         unsigned char* st = smem + s * STAGE_BYTES;
         mbar_arrive_expect_tx(&full[s], STAGE_BYTES);
-        tma_load_2d(st, &tmH, &full[s], kbase + t * E::BK, m0);
+        if constexpr (TU == 0) {
+          tma_load_2d(st, &tmH, &full[s], kbase + t * E::BK, m0);
+        } else {                 // 4·TU boxes of BK/TU rows of H (col0 = row0)
+#pragma unroll
+          for (int x = 0; x < 4 * TU; ++x)
+            tma_load_2d(st + x * (TILE_BYTES / (4 * TU)), &tmH, &full[s],
+                        TU * m0 + 32 * x, col0 + t * (E::BK / TU));
+        }
 #pragma unroll
         for (int i = 0; i < E::B_TILES; ++i)
           tma_load_2d(st + (1 + i) * TILE_BYTES, &tmV, &full[s], t * E::BK,
@@ -332,6 +382,25 @@ ring_hemm_kernel(const __grid_constant__ CUtensorMap tmH,
     // ^ (row % 8), and row % 8 = l/4.
     const int arow = wg * 64 + (warp % 4) * 16 + lane / 4;
     const int q = lane % 4, r8 = lane / 4;
+    // the trans route (TU > 0): for A row arow + 8 h, H column P =
+    // tile_row(arow + 8 h) lies in box P / (32/TU) at element P % (32/TU)
+    // of each box row; its float there for K position kc = 8 ks + 4 (v >>
+    // 1) + q is fi = TU·(P % (32/TU)) + q % TU, in box row kk = kc / TU =
+    // c + qr with c = (8 ks + 4 (v >> 1)) / TU and qr = q / TU, whose bits
+    // do not meet (qr < 4/TU), so kk % 8 = (c % 8) ^ qr.  The word is then
+    // tbase[h] + 32 c + (((fi >> 2) ^ qr ^ (c % 8)) << 2): a per-thread base
+    // and XOR key, and per register two compile-time constants.
+    int tbase[2] = {0, 0}, tkey[2] = {0, 0};
+    if constexpr (TU > 0) {
+      const int qr = q / TU;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int P = tile_row<TU>(arow + 8 * h);
+        const int fi = TU * (P % (32 / TU)) + q % TU;
+        tbase[h] = P / (32 / TU) * (E::BK / TU) * 32 + 32 * qr + (fi & 3);
+        tkey[h] = ((fi >> 2) ^ qr) << 2;
+      }
+    }
     using Frag = typename E::Frag;
     // tile t's A fragments: wait for its stage, read (and split, for f32)
     auto load_a = [&](int t, Frag& f) {
@@ -344,9 +413,16 @@ ring_hemm_kernel(const __grid_constant__ CUtensorMap tmH,
       for (int ks = 0; ks < 4; ++ks)
 #pragma unroll
         for (int v = 0; v < 4; ++v) {
-          const int r = arow + 8 * (v & 1);
-          const int chunk = (2 * ks + (v >> 1)) ^ r8;
-          E::set(f, ks, v, Ht[r * 32 + chunk * 4 + q], q, kmin);
+          if constexpr (TU == 0) {
+            const int r = arow + 8 * (v & 1);
+            const int chunk = (2 * ks + (v >> 1)) ^ r8;
+            E::set(f, ks, v, Ht[r * 32 + chunk * 4 + q], q, kmin);
+          } else {
+            const int c = (8 * ks + 4 * (v >> 1)) / TU;   // unrolled: a constant
+            const int h = v & 1;
+            E::set(f, ks, v, Ht[tbase[h] + 32 * c + (tkey[h] ^ ((c & 7) << 2))],
+                   q, 0);
+          }
         }
     };
     // issue tile t's wgmma into a fresh accumulator
@@ -381,9 +457,10 @@ ring_hemm_kernel(const __grid_constant__ CUtensorMap tmH,
       }
     }
     // epilogue: d[4j + 2h + e] is row arow + 8h, column 8j + 2(l%4) + e
+    // (on the trans route the tile's row tile_row(arow + 8h))
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int r = m0 + arow + 8 * h;
+      const int r = m0 + tile_row<TU>(arow + 8 * h);
       if (r >= m) continue;
       float* wrow = W + (long long)r * ldw;
 #pragma unroll
@@ -516,20 +593,36 @@ static_assert(NACC + NRUN <= 192,
 static_assert(CM * CN <= 8 && BM % CN == 0 && BN % (8 * CM) == 0, "cluster");
 static_assert(STAGES >= 2, "shared memory");
 
-template <int N>
+// TA = 1: A MN-major (the trans route)
+template <int N, int TA>
 __device__ __forceinline__ void mma(float (&acc)[N / 2], uint64_t da,
                                     uint64_t db, int accumulate) {
   if constexpr (N == 128)
-    wgmma_ss_m64n128k16_bf16(acc, da, db, accumulate);
+    wgmma_ss_m64n128k16_bf16<TA>(acc, da, db, accumulate);
   else if constexpr (N == 192)
-    wgmma_ss_m64n192k16_bf16(acc, da, db, accumulate);
+    wgmma_ss_m64n192k16_bf16<TA>(acc, da, db, accumulate);
   else
-    wgmma_ss_m64n256k16_bf16(acc, da, db, accumulate);
+    wgmma_ss_m64n256k16_bf16<TA>(acc, da, db, accumulate);
 }
+
+// the A descriptor of a warpgroup's 64 rows at `a` and the per-k-step
+// advance (in 16-byte units): K-major (32 bytes along the row) or, on
+// the trans route, MN-major (16 K rows of 128 bytes)
+template <int TA>
+__device__ __forceinline__ uint64_t a_desc(const void* a) {
+  return TA ? desc_mnmajor_sw128(a) : desc_kmajor_sw128(a);
+}
+__host__ __device__ constexpr int a_step(int ta) { return ta ? 2048 / 16 : 2; }
 }  // namespace bf16r
 
 // W (=|+=) H[:, col0:col0+b] · Vb for a bf16 H and the bf16 pre-pass's Vb
-// (K-major); one BM × BN W tile per CTA, CM × CN CTAs per cluster.
+// (K-major); one BM × BN W tile per CTA, CM × CN CTAs per cluster.  TA = 1
+// is the trans route, W (=|+=) H[col0:col0+b, :]ᴴ · Vb (col0 names H's
+// first row): the H tile is two TMA boxes of 64 H rows (K) × 64 columns
+// (128 bytes of M, 128-byte swizzle), one per consumer warpgroup, read
+// MN-major by the wgmma (its transpose bit; 16-bit A allows it) — the
+// same bytes, stages, cluster and promotion as TA = 0, and no `off`.
+template <int TA>
 __global__ void __launch_bounds__(NTHREADS, 1)
 ring_hemm_bf16_kernel(const __grid_constant__ CUtensorMap tmH,
                       const __grid_constant__ CUtensorMap tmV,
@@ -596,7 +689,16 @@ ring_hemm_bf16_kernel(const __grid_constant__ CUtensorMap tmH,
         unsigned char* st = smem + s * STAGE_BYTES;
         mbar_arrive_expect_tx(&full[s], STAGE_BYTES);
         const int kc = kbase + t * BK;
-        if constexpr (CN == 1) {
+        if constexpr (TA) {              // box x: H columns m0 + 64 x ..
+          for (int x = CN == 1 ? 0 : cn; x < 2; x += CN) {
+            if constexpr (CN == 1)
+              tma_load_2d(st + x * (H_BYTES / 2), &tmH, &full[s], m0 + 64 * x,
+                          kc);
+            else
+              tma_load_2d_multicast(st + x * (H_BYTES / 2), &tmH, &full[s],
+                                    m0 + 64 * x, kc, row_mask);
+          }
+        } else if constexpr (CN == 1) {
           tma_load_2d(st, &tmH, &full[s], kc, m0);
         } else {                         // slice cn of the H tile's rows
           tma_load_2d_multicast(st + cn * (H_BYTES / CN), &tmH, &full[s], kc,
@@ -672,11 +774,11 @@ ring_hemm_bf16_kernel(const __grid_constant__ CUtensorMap tmH,
         // use under a pending wgmma makes ptxas insert a wait there)
         if (fresh || t == 0) fence_regs(acc);
         wgmma_fence();
-        const uint64_t da = desc_kmajor_sw128(st + a_off);
+        const uint64_t da = bf16r::a_desc<TA>(st + a_off);
         const uint64_t db = desc_kmajor_sw128(st + H_BYTES);
 #pragma unroll
         for (int ks = 0; ks < 4; ++ks)
-          bf16r::mma<WN>(acc, da + 2 * ks, db + 2 * ks,
+          bf16r::mma<WN, TA>(acc, da + bf16r::a_step(TA) * ks, db + 2 * ks,
                          ks == 0 && (fresh || (PROMOTE == 0 && t == 0)) ? 0
                                                                         : 1);
         wgmma_commit();
@@ -707,12 +809,13 @@ ring_hemm_bf16_kernel(const __grid_constant__ CUtensorMap tmH,
             }
             if (t == g) fence_regs(acc);
             wgmma_fence();
-            const uint64_t da = desc_kmajor_sw128(st + a_off);
+            const uint64_t da = bf16r::a_desc<TA>(st + a_off);
             const uint64_t db =
                 desc_kmajor_sw128(st + H_BYTES + p * WN * 128);
 #pragma unroll
             for (int ks = 0; ks < 4; ++ks)
-              bf16r::mma<WN>(acc, da + 2 * ks, db + 2 * ks,
+              bf16r::mma<WN, TA>(acc, da + bf16r::a_step(TA) * ks,
+                                 db + 2 * ks,
                              ks == 0 && t == g ? 0 : 1);
             wgmma_commit();
           }
@@ -775,14 +878,14 @@ EncodeTiledFn encode_tiled() {
 }
 
 // a 2-D map of a row-major (rows × cols) array of E's element with row
-// stride `ld` elements, read in (BK × 128) boxes (128 bytes × 128 rows)
-// with the 128-byte swizzle
+// stride `ld` elements, read in boxes of BK elements (128 bytes) ×
+// box_rows rows with the 128-byte swizzle
 template <class E>
 CUresult make_map(CUtensorMap* map, const void* base, long long cols,
-                  long long rows, long long ld) {
+                  long long rows, long long ld, int box_rows = 128) {
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)ld * (128 / E::BK)};
-  const cuuint32_t box[2] = {E::BK, 128};
+  const cuuint32_t box[2] = {E::BK, (cuuint32_t)box_rows};
   const cuuint32_t estr[2] = {1, 1};
   return encode_tiled()(map, E::TMA_TYPE, 2, const_cast<void*>(base), dims,
                         strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -813,33 +916,48 @@ constexpr int ERR_NO_ENCODER = 1000;   // cuTensorMapEncodeTiled not found
 constexpr int ERR_ENCODE = 2000;       // + the CUresult of a failed encode
 
 // W[0:m, 0:k] (=|+=) H[0:m, col0:col0+b] · B, B given as the pre-pass
-// output (E::B_TILES planes of w_pad × b_pad) with off = col0 % E::ALIGN
-template <class E>
+// output (E::B_TILES planes of w_pad × b_pad) with off = col0 % E::ALIGN;
+// on the trans route (TU floats per H element) W[0:m, 0:k] (=|+=)
+// H[col0:col0+b/TU, 0:m]ᴴ · B with off = 0 (b, m, k, ldh and ldw in
+// floats, m in elements)
+template <class E, int TU>
 int launch(const void* H, long long ldh, int col0, const void* Vt, int b_pad,
            int w_pad, float* W, long long ldw, int m, int k, int b,
            int accumulate, cudaStream_t stream) {
   if (m <= 0 || k <= 0) return 0;
   if (!encode_tiled()) return ERR_NO_ENCODER;
   CUtensorMap tmH, tmV;
-  // exactly H[:m, :col0+b], so TMA zero-fills past the block's last column
-  CUresult r = make_map<E>(&tmH, H, col0 + b > 0 ? col0 + b : 1, m, ldh);
+  CUresult r;
+  if constexpr (TU == 0) {
+    // exactly H[:m, :col0+b], so TMA zero-fills past the block's last
+    // column
+    r = make_map<E>(&tmH, H, col0 + b > 0 ? col0 + b : 1, m, ldh);
+  } else {
+    // exactly H[:col0+b/TU, :m]: TMA zero-fills rows past the slab and
+    // columns past m; row0 is TMA's outer coordinate, so no alignment
+    const long long rows = col0 + b / TU;
+    r = make_map<E>(&tmH, H, (long long)TU * m, rows > 0 ? rows : 1, ldh,
+                    E::BK / TU);
+  }
   if (r != CUDA_SUCCESS) return ERR_ENCODE + static_cast<int>(r);
   r = make_map<E>(&tmV, Vt, b_pad, (long long)E::B_TILES * w_pad, b_pad);
   if (r != CUDA_SUCCESS) return ERR_ENCODE + static_cast<int>(r);
   // per call: the attribute belongs to the current device's context
   const cudaError_t e = cudaFuncSetAttribute(
-      ring_hemm_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ring_hemm_kernel<E, TU>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem_bytes<E>());
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(w_pad / BN, (m + BM - 1) / BM);
-  ring_hemm_kernel<E><<<grid, NTHREADS, smem_bytes<E>(), stream>>>(
-      tmH, tmV, W, ldw, m, k, b, col0, col0 % E::ALIGN, w_pad, accumulate);
+  ring_hemm_kernel<E, TU><<<grid, NTHREADS, smem_bytes<E>(), stream>>>(
+      tmH, tmV, W, ldw, m, k, b, col0, TU == 0 ? col0 % E::ALIGN : 0, w_pad,
+      accumulate);
   return static_cast<int>(cudaGetLastError());
 }
 
-// W[0:m, 0:k] (=|+=) H[0:m, col0:col0+b] · Vb on the bf16 kernel: grid
-// rows and columns rounded up to whole clusters (the extra CTAs read
-// TMA's zero fill and store nothing)
+// W[0:m, 0:k] (=|+=) H[0:m, col0:col0+b] · Vb on the bf16 kernel (TA = 1:
+// H[col0:col0+b, 0:m]ᴴ · Vb): grid rows and columns rounded up to whole
+// clusters (the extra CTAs read TMA's zero fill and store nothing)
+template <int TA>
 int launch_bf16(const uint16_t* H, long long ldh, int col0, const uint16_t* Vb,
                 int b_pad, int w_pad, float* W, long long ldw, int m, int k,
                 int b, int accumulate, cudaStream_t stream) {
@@ -848,22 +966,28 @@ int launch_bf16(const uint16_t* H, long long ldh, int col0, const uint16_t* Vb,
   if (m <= 0 || k <= 0) return 0;
   if (!encode_tiled()) return ERR_NO_ENCODER;
   CUtensorMap tmH, tmV;
-  // exactly H[:m, :col0+b], so TMA zero-fills past the block's last
-  // column; each CTA loads its slice of the tiles its cluster shares
-  CUresult r = make_map_bf16(&tmH, H, col0 + b > 0 ? col0 + b : 1, m, ldh,
-                             BM / CN);
+  CUresult r;
+  if constexpr (TA) {
+    // exactly H[:col0+b, :m] in boxes of 64 rows × 64 columns
+    r = make_map_bf16(&tmH, H, m, col0 + b > 0 ? col0 + b : 1, ldh,
+                      bf16r::BK);
+  } else {
+    // exactly H[:m, :col0+b], so TMA zero-fills past the block's last
+    // column; each CTA loads its slice of the tiles its cluster shares
+    r = make_map_bf16(&tmH, H, col0 + b > 0 ? col0 + b : 1, m, ldh, BM / CN);
+  }
   if (r != CUDA_SUCCESS) return ERR_ENCODE + static_cast<int>(r);
   r = make_map_bf16(&tmV, Vb, b_pad, w_pad, b_pad, BN / CM);
   if (r != CUDA_SUCCESS) return ERR_ENCODE + static_cast<int>(r);
   cudaError_t e = cudaFuncSetAttribute(
-      ring_hemm_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ring_hemm_bf16_kernel<TA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       SMEM_BYTES);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int gx = (k + BN - 1) / BN, gy = (m + BM - 1) / BM;
   const dim3 grid((gx + CN - 1) / CN * CN, (gy + CM - 1) / CM * CM);
-  const int off = col0 % bf16r::ALIGN;
+  const int off = TA ? 0 : col0 % bf16r::ALIGN;
   if constexpr (CM * CN == 1) {
-    ring_hemm_bf16_kernel<<<grid, NTHREADS, SMEM_BYTES, stream>>>(
+    ring_hemm_bf16_kernel<TA><<<grid, NTHREADS, SMEM_BYTES, stream>>>(
         tmH, tmV, W, ldw, m, k, b, col0, off, accumulate);
   } else {
     cudaLaunchConfig_t cfg = {};
@@ -881,9 +1005,8 @@ int launch_bf16(const uint16_t* H, long long ldh, int col0, const uint16_t* Vb,
     int off_arg = off;
     void* args[] = {&tmH, &tmV, &W, &ldw, &m, &k, &b, &col0, &off_arg,
                     &accumulate};
-    e = cudaLaunchKernelExC(&cfg,
-                            reinterpret_cast<const void*>(ring_hemm_bf16_kernel),
-                            args);
+    e = cudaLaunchKernelExC(
+        &cfg, reinterpret_cast<const void*>(ring_hemm_bf16_kernel<TA>), args);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   return static_cast<int>(cudaGetLastError());
@@ -900,7 +1023,7 @@ extern "C" int ring_hemm_split_f32(const float* V, long long ldv, float* Vt,
   if (b_pad <= 0 || w_pad <= 0) return 0;
   const dim3 grid(b_pad / 32, w_pad / 32);
   split_transpose_kernel<false><<<grid, dim3(32, 8), 0, stream>>>(
-      V, ldv, Vt, b, k, off, b_pad, w_pad);
+      V, ldv, Vt, b, k, off, b_pad, w_pad, 0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -917,7 +1040,20 @@ extern "C" int ring_hemm_split_c64(const float* V, long long ldv, float* Vt,
   if (b_pad <= 0 || w_pad <= 0) return 0;
   const dim3 grid(b_pad / 32, w_pad / 32);
   split_transpose_kernel<true><<<grid, dim3(32, 8), 0, stream>>>(
-      V, 2 * ldv, Vt, 2 * b, 2 * k, off, b_pad, w_pad);
+      V, 2 * ldv, Vt, 2 * b, 2 * k, off, b_pad, w_pad, 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same with B's odd rows −i·V[j] (the conjugate of the trans route,
+// ring_hemm_c64_t); arguments as ring_hemm_split_c64's.
+extern "C" int ring_hemm_split_c64_conj(const float* V, long long ldv,
+                                        float* Vt, int b, int k, int off,
+                                        int b_pad, int w_pad,
+                                        cudaStream_t stream) {
+  if (b_pad <= 0 || w_pad <= 0) return 0;
+  const dim3 grid(b_pad / 32, w_pad / 32);
+  split_transpose_kernel<true><<<grid, dim3(32, 8), 0, stream>>>(
+      V, 2 * ldv, Vt, 2 * b, 2 * k, off, b_pad, w_pad, 1);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -947,8 +1083,33 @@ extern "C" int ring_hemm_f32(const float* H, long long ldh, int col0,
                              const float* Vt, int b_pad, int w_pad, float* W,
                              long long ldw, int m, int k, int b,
                              int accumulate, cudaStream_t stream) {
-  return launch<Tf32x3>(H, ldh, col0, Vt, b_pad, w_pad, W, ldw, m, k, b,
-                        accumulate, stream);
+  return launch<Tf32x3, 0>(H, ldh, col0, Vt, b_pad, w_pad, W, ldw, m, k, b,
+                           accumulate, stream);
+}
+
+// The trans route: W[0:m, 0:k] (=|+=) H[row0:row0+b, 0:m]ᴴ · V, one ring_B
+// step of the 2-D ring (K = b runs along H's rows), with V given as the
+// pre-pass output Vt with off = 0.  H: row stride ldh floats, 16-byte
+// aligned, ldh % 4 == 0; row0 any row (TMA's outer coordinate).
+// Otherwise as ring_hemm_f32.
+extern "C" int ring_hemm_f32_t(const float* H, long long ldh, int row0,
+                               const float* Vt, int b_pad, int w_pad, float* W,
+                               long long ldw, int m, int k, int b,
+                               int accumulate, cudaStream_t stream) {
+  return launch<Tf32x3, 1>(H, ldh, row0, Vt, b_pad, w_pad, W, ldw, m, k, b,
+                           accumulate, stream);
+}
+
+// The trans route of the c64 float view: W (m × k/2 c64 as m × k floats)
+// (=|+=) H[row0:row0+b/2, 0:m]ᴴ · V for a c64 H (row stride ldh floats)
+// and V given as ring_hemm_split_c64_conj's output (off = 0; b and k in
+// floats, m in complex rows).  The conjugate is the pre-pass's −i·V rows.
+extern "C" int ring_hemm_c64_t(const float* H, long long ldh, int row0,
+                               const float* Vt, int b_pad, int w_pad, float* W,
+                               long long ldw, int m, int k, int b,
+                               int accumulate, cudaStream_t stream) {
+  return launch<Tf32x3, 2>(H, ldh, row0, Vt, b_pad, w_pad, W, ldw, m, k, b,
+                           accumulate, stream);
 }
 
 // The bf16 route: W (f32) (=|+=) H[0:m, col0:col0+b] (bf16) · V with V
@@ -960,6 +1121,17 @@ extern "C" int ring_hemm_bf16(const uint16_t* H, long long ldh, int col0,
                               const uint16_t* Vb, int b_pad, int w_pad,
                               float* W, long long ldw, int m, int k, int b,
                               int accumulate, cudaStream_t stream) {
-  return launch_bf16(H, ldh, col0, Vb, b_pad, w_pad, W, ldw, m, k, b,
-                     accumulate, stream);
+  return launch_bf16<0>(H, ldh, col0, Vb, b_pad, w_pad, W, ldw, m, k, b,
+                        accumulate, stream);
+}
+
+// The bf16 route's trans form: W (f32) (=|+=) H[row0:row0+b, 0:m]ᴴ (bf16)
+// · V with V given as the bf16 pre-pass output Vb with off = 0; row0 any
+// row.  Otherwise as ring_hemm_bf16.
+extern "C" int ring_hemm_bf16_t(const uint16_t* H, long long ldh, int row0,
+                                const uint16_t* Vb, int b_pad, int w_pad,
+                                float* W, long long ldw, int m, int k, int b,
+                                int accumulate, cudaStream_t stream) {
+  return launch_bf16<1>(H, ldh, row0, Vb, b_pad, w_pad, W, ldw, m, k, b,
+                        accumulate, stream);
 }

@@ -6,6 +6,14 @@ TPU kernel's step-0 store, ``accumulate=True`` its later-step add, so the
 multi-GPU ring can feed the V chunks it receives into the same kernel.  On
 one card (p = 1) a filter step is a single call with ``col0=0``.
 
+``trans=True`` is the conjugate-transposed A route, ``W (=|+=)
+H[col0:col0+b, :]ᴴ · V`` (``col0`` then names the first row of H's
+slab): one ring_B step of the 2-D ring, the JAX package's
+``_mm(h_blk.conj().T, cur)`` (``chase_tpu/parallel/ring.py``), read from
+the rank's block in place.  Every route below has it: the kernel loads
+its H tile MN-major, and for c64 the complex pre-pass writes −i·V in
+place of i·V, so that the float view's product is conj(h)·V.
+
 On a CUDA tensor one call is two launches of ``csrc/ring_hemm.cu`` (built
 on first use, see ``_build``): a pre-pass that lays V's chunk out as the
 main kernel's B operand, then the main kernel (TMA + wgmma, f32 sums).
@@ -78,11 +86,14 @@ def _v_dtype(h_dtype) -> torch.dtype:
 
 def ring_hemm_reference(H: torch.Tensor, V: torch.Tensor, *, col0: int = 0,
                         out: Optional[torch.Tensor] = None,
-                        accumulate: bool = False) -> torch.Tensor:
-    """Plain version: ``out (=|+=) H[:, col0:col0 + V.shape[0]] @ V``; for
-    a bf16 H, ``H.float() @ V.to(bfloat16).float()`` (the bf16 products
-    are exact in f32, the sums f32)."""
-    Hb = H[:, col0:col0 + V.shape[0]]
+                        accumulate: bool = False,
+                        trans: bool = False) -> torch.Tensor:
+    """Plain version: ``out (=|+=) H[:, col0:col0 + V.shape[0]] @ V``, or
+    with ``trans`` ``H[col0:col0 + V.shape[0], :].mH @ V``; for a bf16 H,
+    ``H.float() @ V.to(bfloat16).float()`` (the bf16 products are exact in
+    f32, the sums f32)."""
+    b = V.shape[0]
+    Hb = H[col0:col0 + b, :].mH if trans else H[:, col0:col0 + b]
     if H.dtype == torch.bfloat16:
         prod = Hb.float() @ V.to(torch.bfloat16).float()
     else:
@@ -115,14 +126,19 @@ def _floats(t: torch.Tensor) -> int:
     return t.element_size() // 4
 
 
-def real_rows(V: torch.Tensor) -> torch.Tensor:
+def real_rows(V: torch.Tensor, conj: bool = False) -> torch.Tensor:
     """The real (2b × 2k) B of a c64 V (b × k): row 2j is V[j] viewed as
     floats (re, im, …), row 2j+1 is i·V[j] viewed as floats (−im, re, …)
     — ``torch.stack([V, 1j * V], 1).reshape(2b, k)`` viewed as real, with
-    i·V written out so that it is exact."""
+    i·V written out so that it is exact.  With ``conj`` row 2j+1 is −i·V[j]
+    (im, −re, …): the trans route's B, for which the float view of h
+    read transposed gives conj(h)·V."""
     b, k = V.shape
     Vr = torch.view_as_real(V)                       # (b, k, 2)
-    iV = torch.stack([-Vr[..., 1], Vr[..., 0]], -1)
+    if conj:
+        iV = torch.stack([Vr[..., 1], -Vr[..., 0]], -1)
+    else:
+        iV = torch.stack([-Vr[..., 1], Vr[..., 0]], -1)
     return torch.stack([Vr, iV], 1).reshape(2 * b, 2 * k)
 
 
@@ -134,13 +150,15 @@ def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
-def tf32_split_reference(V: torch.Tensor, off: int = 0) -> torch.Tensor:
+def tf32_split_reference(V: torch.Tensor, off: int = 0,
+                         conj: bool = False) -> torch.Tensor:
     """Plain version of the pre-pass: ``Vt[0, :k, off:off+b] = hi(Bᵀ)``,
     ``Vt[1, :k, off:off+b] = lo(Bᵀ)``, zeros elsewhere in (2, w_pad,
     b_pad), with ``hi = tf32(x)`` and ``lo = tf32(x − hi)``; B (b × k) is
-    V itself for f32 and the real rows of :func:`real_rows` for c64."""
+    V itself for f32 and the real rows of :func:`real_rows` (with
+    ``conj``) for c64."""
     if V.is_complex():
-        V = real_rows(V)
+        V = real_rows(V, conj)
     b, k = V.shape
     b_pad, w_pad = split_shape(b, k, off)
     Vt = torch.zeros((2, w_pad, b_pad), dtype=torch.float32, device=V.device)
@@ -163,10 +181,11 @@ def _check_resolved(name: str, t: torch.Tensor, what: str):
                          f".resolve_neg()")
 
 
-def _check(H, V, col0, out, accumulate):
+def _check(H, V, col0, out, accumulate, trans=False):
     """Raise on anything the kernel does not take: f32 or c64 operands of
     one dtype, or a bf16 H with f32 V and out; 2-D, on one device, unit
-    column stride, no lazy conjugate or negative bit."""
+    column stride, no lazy conjugate or negative bit; the block inside H
+    (H's rows with ``trans``) and out of the product's shape."""
     if H.dtype not in KERNEL_DTYPES:
         raise TypeError(f"ring_hemm takes a float32, complex64 or bfloat16 "
                         f"H; H is {H.dtype}")
@@ -190,10 +209,11 @@ def _check(H, V, col0, out, accumulate):
         if t.device != H.device:
             raise ValueError(f"ring_hemm operands must share a device; "
                              f"{name} is on {t.device}, H on {H.device}")
-    m, b, k = H.shape[0], V.shape[0], V.shape[1]
-    if col0 < 0 or col0 + b > H.shape[1]:
-        raise ValueError(f"column block [{col0}, {col0 + b}) outside H's "
-                         f"{H.shape[1]} columns")
+    m, b, k = H.shape[int(trans)], V.shape[0], V.shape[1]
+    what = "row" if trans else "column"
+    if col0 < 0 or col0 + b > H.shape[1 - int(trans)]:
+        raise ValueError(f"{what} block [{col0}, {col0 + b}) outside H's "
+                         f"{H.shape[1 - int(trans)]} {what}s")
     if out is None:
         if accumulate:
             raise ValueError("accumulate=True needs out")
@@ -229,18 +249,20 @@ def tma_row_stride(H: torch.Tensor) -> Optional[int]:
 
 
 def float_view_args(H: torch.Tensor, V: torch.Tensor, col0: int,
-                    ldw: int) -> tuple:
+                    ldw: int, trans: bool = False) -> tuple:
     """What the main kernel is given for ``out (=|+=) H[:, col0:col0+b]
     · V`` (out with row stride ``ldw``), all in the kernel's units —
     floats, or bf16 elements for a bf16 H: (ldh, col0, off, b, k, ldw).
     For c64 these are the float views' (columns, widths and row strides
     doubled: the module note's real-view identity); ``off`` = the column
     mod 16 bytes (4 floats, 8 bf16) is the pre-pass's shift, and ldh is
-    None where TMA cannot read H."""
+    None where TMA cannot read H.  With ``trans`` col0 is H's first row,
+    passed as it is (TMA's outer coordinate), and off is 0."""
     w, ub = _tma_units(H.dtype)
-    c0 = w * col0
-    return (tma_row_stride(H), c0, c0 % (16 // ub), w * V.shape[0],
-            w * V.shape[1], w * ldw)
+    c0 = col0 if trans else w * col0
+    off = 0 if trans else c0 % (16 // ub)
+    return (tma_row_stride(H), c0, off, w * V.shape[0], w * V.shape[1],
+            w * ldw)
 
 
 def _check_split_input(V: torch.Tensor):
@@ -257,29 +279,35 @@ def _check_split_input(V: torch.Tensor):
 def _lib():
     from .. import _build
     lib = _build.load_library("ring_hemm")
-    splits = {}
-    for dtype, fn in ((torch.float32, lib.ring_hemm_split_f32),
-                      (torch.complex64, lib.ring_hemm_split_c64)):
+    splits = {}      # (dtype, conj) → the pre-pass
+    for key, fn in (((torch.float32, False), lib.ring_hemm_split_f32),
+                    ((torch.float32, True), lib.ring_hemm_split_f32),
+                    ((torch.complex64, False), lib.ring_hemm_split_c64),
+                    ((torch.complex64, True), lib.ring_hemm_split_c64_conj)):
         fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        splits[dtype] = fn
+        splits[key] = fn
     pack = lib.ring_hemm_pack_bf16
     pack.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
                      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                      ctypes.c_int, ctypes.c_void_p]
     pack.restype = ctypes.c_int
-    mains = {}
-    for dtype, fn in ((torch.float32, lib.ring_hemm_f32),
-                      (torch.bfloat16, lib.ring_hemm_bf16)):
+    mains = {}       # (H's dtype, trans) → the main kernel
+    for key, fn in (((torch.float32, False), lib.ring_hemm_f32),
+                    ((torch.complex64, False), lib.ring_hemm_f32),
+                    ((torch.bfloat16, False), lib.ring_hemm_bf16),
+                    ((torch.float32, True), lib.ring_hemm_f32_t),
+                    ((torch.complex64, True), lib.ring_hemm_c64_t),
+                    ((torch.bfloat16, True), lib.ring_hemm_bf16_t)):
         fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                        ctypes.c_void_p, ctypes.c_longlong,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        mains[dtype] = fn
+        mains[key] = fn
     return types.SimpleNamespace(split=splits, pack=pack, main=mains)
 
 
@@ -305,19 +333,21 @@ def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def tf32_split(V: torch.Tensor, off: int = 0) -> torch.Tensor:
+def tf32_split(V: torch.Tensor, off: int = 0,
+               conj: bool = False) -> torch.Tensor:
     """The pre-pass: V (b, k) → Vt (2, w_pad, b_pad) with Vt[0] the TF32
     ``hi`` part of Bᵀ, Vt[1] the ``lo`` part, starting at column ``off``
     (0–3; ring_hemm passes H's float column of col0, mod 4, so that H's
     TMA boxes start on 16 bytes), zero-padded (K-major, the layout wgmma
     takes for 32-bit B operands).  B is V for f32 and its (2b × 2k) real
-    rows for c64 (module note).  CPU tensors run
-    :func:`tf32_split_reference`; CUDA tensors launch the kernel."""
+    rows for c64 (module note; ``conj``: the trans route's −i·V rows).
+    CPU tensors run :func:`tf32_split_reference`; CUDA tensors launch the
+    kernel."""
     _check_split_input(V)
     if not 0 <= off < 4:
         raise ValueError(f"tf32_split offset must be 0..3, got {off}")
     if V.device.type == "cpu":
-        return tf32_split_reference(V, off)
+        return tf32_split_reference(V, off, conj)
     if V.device.type != "cuda":
         raise RuntimeError(f"tf32_split runs on cuda or cpu tensors, not "
                            f"{V.device}")
@@ -326,9 +356,9 @@ def tf32_split(V: torch.Tensor, off: int = 0) -> torch.Tensor:
     b_pad, w_pad = split_shape(w * b, w * k, off)
     Vt = torch.empty((2, w_pad, b_pad), dtype=torch.float32, device=V.device)
     with torch.cuda.device(V.device):
-        err = _lib().split[V.dtype](V.data_ptr(), V.stride(0), Vt.data_ptr(),
-                                    b, k, off, b_pad, w_pad,
-                                    _stream(V.device))
+        err = _lib().split[V.dtype, bool(conj)](
+            V.data_ptr(), V.stride(0), Vt.data_ptr(), b, k, off, b_pad,
+            w_pad, _stream(V.device))
     _raise_on(err, f"tf32_split kernel (b={b}, k={k})")
     tf32_split.launches += 1
     return Vt
@@ -379,8 +409,9 @@ def bf16_pack(V: torch.Tensor, off: int = 0) -> torch.Tensor:
 
 def ring_hemm(H: torch.Tensor, V: torch.Tensor, *, col0: int = 0,
               out: Optional[torch.Tensor] = None,
-              accumulate: bool = False) -> torch.Tensor:
-    """``out (=|+=) H[:, col0:col0+b] · V`` with b = V.shape[0].
+              accumulate: bool = False, trans: bool = False) -> torch.Tensor:
+    """``out (=|+=) H[:, col0:col0+b] · V`` with b = V.shape[0], or with
+    ``trans`` ``out (=|+=) H[col0:col0+b, :]ᴴ · V``.
 
     Args:
       H: (m, n_cols) f32, c64 or bf16 stripe, unit column stride; on the
@@ -388,27 +419,30 @@ def ring_hemm(H: torch.Tensor, V: torch.Tensor, *, col0: int = 0,
         floats (an even number of c64 elements) or of 8 bf16 elements.
       V: (b, k) chunk of H's dtype (f32 for a bf16 H); may be a column
         window of a wider block.
-      col0: first H column of the block that multiplies V.
-      out: (m, k) destination of V's dtype (a window is fine); allocated
-        with ``torch.empty`` when None.
+      col0: first H column of the block that multiplies V (first H row of
+        the slab with ``trans``).
+      out: (m, k) destination of V's dtype — (n_cols, k) with ``trans``
+        (a window is fine); allocated with ``torch.empty`` when None.
       accumulate: add into ``out`` instead of overwriting it.
+      trans: multiply by the slab's conjugate transpose, read in place.
 
     CPU tensors run :func:`ring_hemm_reference`; CUDA tensors launch the
     pre-pass and the kernel on the current stream, or raise.  The
     pre-pass's output (2·w_pad·b_pad floats — of the (2b × 2k) B for c64 —
     or w_pad·b_pad bf16) is scratch of this call.
     """
-    _check(H, V, col0, out, accumulate)
+    _check(H, V, col0, out, accumulate, trans)
     if H.device.type == "cpu":
         return ring_hemm_reference(H, V, col0=col0, out=out,
-                                   accumulate=accumulate)
+                                   accumulate=accumulate, trans=trans)
     if H.device.type != "cuda":
         raise RuntimeError(f"ring_hemm runs on cuda or cpu tensors, not "
                            f"{H.device}")
-    m = H.shape[0]
+    m = H.shape[int(bool(trans))]
     if out is None:
         out = torch.empty((m, V.shape[1]), dtype=V.dtype, device=H.device)
-    ldh, c0, off, b_k, k_k, ldw = float_view_args(H, V, col0, out.stride(0))
+    ldh, c0, off, b_k, k_k, ldw = float_view_args(H, V, col0, out.stride(0),
+                                                  trans)
     if ldh is None:
         raise ValueError(
             f"ring_hemm reads H through TMA, which needs a 16-byte-aligned "
@@ -418,14 +452,15 @@ def ring_hemm(H: torch.Tensor, V: torch.Tensor, *, col0: int = 0,
             f"base address {H.data_ptr():#x} — allocate it with a padded "
             f"row stride (DenseOperator does)")
     bf16 = H.dtype == torch.bfloat16
-    Vt = bf16_pack(V, off) if bf16 else tf32_split(V, off)
+    Vt = bf16_pack(V, off) if bf16 else tf32_split(V, off, conj=trans)
     with torch.cuda.device(H.device):
-        err = _lib().main[torch.bfloat16 if bf16 else torch.float32](
+        err = _lib().main[H.dtype, bool(trans)](
             H.data_ptr(), ldh, c0, Vt.data_ptr(), Vt.shape[-1],
             Vt.shape[-2], out.data_ptr(), ldw, m, k_k, b_k,
             int(bool(accumulate)), _stream(H.device))
     _raise_on(err, f"ring_hemm kernel (m={m}, k={V.shape[1]}, "
-                   f"b={V.shape[0]}, col0={col0}, {H.dtype})")
+                   f"b={V.shape[0]}, col0={col0}, trans={bool(trans)}, "
+                   f"{H.dtype})")
     ring_hemm.launches += 1
     return out
 

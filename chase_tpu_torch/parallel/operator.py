@@ -4,8 +4,7 @@ Port of ``chase_tpu/parallel/operator.py``: the Hermitian or
 pseudo-Hermitian (BSE, ``pseudo_hermitian=True``: even N, its S-halves
 unpadded) operator H (f32, f64, c64 or c128) pinned on an explicit torch
 device, with its dtype checked, and its reduced-precision shadow ``H_low``
-for the precision ladder.  ``free_low`` drops the cached shadow and the
-mirrors (below).  The
+for the precision ladder.  ``free_low`` drops the cached shadow.  The
 transient and bf16-rebuilt shadows of the JAX package's wide-f64 mode
 (``H_filter``, ``drop_shadow``, ``engage_wide``) are TPU workarounds and
 are not ported.
@@ -40,10 +39,8 @@ bit (``H.conj()``) is copied, never kept as is: it shares the data of the
 unconjugated matrix, which is what the kernel would read.
 
 The 2-D ring's second pass multiplies by this rank's block conjugate
-transposed, which the kernel does not read: ``mirror(H_f)`` (H_f the
-block or its shadow) builds Hᴴ of it once in the same layout
-(:func:`mirror_tile`, a physical copy) and caches it beside the block;
-``free_low`` drops it.
+transposed; the kernel reads it so in place (``ring_hemm(...,
+trans=True)``), so the operator holds no second copy of the block.
 
 Placement never falls back: asking for a CUDA device on a machine without
 one raises RuntimeError instead of solving on the CPU.
@@ -60,7 +57,7 @@ from ..ops.ring_hemm import KERNEL_DTYPES, tma_ld, tma_row_stride
 from ..types import as_torch_dtype, low_precision_dtype, real_dtype
 
 __all__ = ["DenseOperator", "resolve_device", "padded_empty",
-           "gershgorin_pad", "magnitude_pad", "block_of", "mirror_tile"]
+           "gershgorin_pad", "magnitude_pad", "block_of"]
 
 
 def resolve_device(device) -> torch.device:
@@ -127,15 +124,6 @@ def padded_empty(N: int, dtype, device, cols: Optional[int] = None
         w = 2 if dtype.is_complex else 1        # TMA units per element
         ld = tma_ld(w * cols, dtype.itemsize // w) // w
     return torch.empty((N, ld), dtype=dtype, device=device)[:, :cols]
-
-
-def mirror_tile(H: torch.Tensor) -> torch.Tensor:
-    """Hᴴ of a block H (m × n) as a new (n × m) tensor in the
-    :func:`padded_empty` layout, so the ring kernel reads it through TMA:
-    a physical conjugate transpose, never torch's lazy conjugate view
-    (whose data is H's, unconjugated, which the kernel would read)."""
-    out = padded_empty(H.shape[1], H.dtype, H.device, H.shape[0])
-    return out.copy_(H.mH)
 
 
 def _has_operator_layout(H: torch.Tensor) -> bool:
@@ -333,7 +321,6 @@ class DenseOperator:
         dtype = as_torch_dtype(H.dtype)
         real_dtype(dtype)         # TypeError for a dtype the solver lacks
         self._H_low = None
-        self._mirrors = {}
         self.N_orig = int(H.shape[0])
         self.half = None          # (N/2, h_pad) of the S-preserving pad
         if grid is None:
@@ -449,30 +436,9 @@ class DenseOperator:
 
     def free_low(self) -> None:
         """Drop the cached shadow ``H_low`` — N² elements of device memory
-        between solves (7.2 GB for the c128 north star's c64 shadow) — and
-        the cached mirrors (:meth:`mirror`); the next ``H_low`` or
-        ``mirror`` rebuilds them."""
+        between solves (7.2 GB for the c128 north star's c64 shadow); the
+        next ``H_low`` rebuilds it."""
         self._H_low = None
-        self._mirrors.clear()
-
-    def mirror(self, H: torch.Tensor) -> torch.Tensor:
-        """The conjugate transpose of ``H`` — this operator's block
-        ``self.H`` or its shadow ``self.H_low`` — in the operator layout
-        (:func:`mirror_tile`), built on first use and cached beside it:
-        the 2-D ring's second pass runs on it (the ring kernel reads
-        ``H[:, col0:col0+b]``, and that pass needs ``H[col0:col0+b, :]ᴴ``
-        = ``Hᴴ[:, col0:col0+b]``).  One more block of device memory;
-        ``free_low`` drops it.  ValueError for any other tensor."""
-        if H is self.H:
-            key = "H"
-        elif self._H_low is not None and H is self._H_low:
-            key = "low"
-        else:
-            raise ValueError("mirror() takes this operator's block or its "
-                             "shadow H_low")
-        if key not in self._mirrors:
-            self._mirrors[key] = mirror_tile(H)
-        return self._mirrors[key]
 
     @property
     def H_low(self) -> torch.Tensor:

@@ -49,11 +49,11 @@ in B.  Two passes (:class:`Ring2D`):
 * ``ring_A`` (A → B), H·w: the chunk ring along 'r' (:func:`ring_steps`,
   r steps of ``h[:, sub]·cur``), then ``Grid2D.reduce_scatter`` over 'c';
 * ``ring_B`` (B → A), Hᴴ·w: the chunk ring along 'c' (c steps of
-  ``h[sub, :]ᴴ·cur``), then the reduce-scatter over 'r'.  On the kernel
-  each step is ``ring_hemm`` on the mirror hᴴ (``operator.mirror_tile``,
-  built once per operator and cached by ``DenseOperator.mirror``):
-  ``h[sub, :]ᴴ = hᴴ[:, sub]``.  With ``torch.matmul`` it reads ``h.mH``
-  as it lies.
+  ``h[sub, :]ᴴ·cur``), then the reduce-scatter over 'r'.  Each step reads
+  the block itself: on the kernel ``ring_hemm(h, cur, col0=sub0,
+  trans=True)``, its conjugate-transposed A route, and with
+  ``torch.matmul`` ``h[sub, :].mH`` as it lies — no copy of the block
+  either way.
 
 Parity B's chunk is a slice of the rank's own rows, so a block enters in
 B with no communication and leaves B by one ``all_gather`` over 'c'.
@@ -85,7 +85,6 @@ from ..ops.pseudo import _interval
 from ..types import filter_carry_dtype, low_precision_dtype, \
     numpy_scalar_type
 from .dist import local_product
-from .operator import mirror_tile
 
 __all__ = ["ring_hemm", "ring_steps", "matmul_step",
            "chebyshev_filter_ring", "chebyshev_filter_ring_pallas",
@@ -98,11 +97,15 @@ __all__ = ["ring_hemm", "ring_steps", "matmul_step",
 
 def matmul_step(H: torch.Tensor, V: torch.Tensor, *, col0: int = 0,
                 out: Optional[torch.Tensor] = None,
-                accumulate: bool = False) -> torch.Tensor:
+                accumulate: bool = False,
+                trans: bool = False) -> torch.Tensor:
     """One ring step as ``torch.matmul``: ``out (=|+=) H[:, col0:col0+b]
-    @ V`` (``dist.local_product``) — the JAX package's XLA ring step, with
+    @ V``, or with ``trans`` ``H[col0:col0+b, :].mH @ V``
+    (``dist.local_product``) — the JAX package's XLA ring step, with
     ``ring_hemm``'s signature."""
-    prod = local_product(H[:, col0:col0 + V.shape[0]], V)
+    b = V.shape[0]
+    prod = local_product(H[col0:col0 + b, :].mH if trans
+                         else H[:, col0:col0 + b], V)
     if out is None:
         return prod
     return out.add_(prod) if accumulate else out.copy_(prod)
@@ -111,22 +114,26 @@ def matmul_step(H: torch.Tensor, V: torch.Tensor, *, col0: int = 0,
 def ring_steps(H: torch.Tensor, V: torch.Tensor, *, me: int, p: int,
                exchange: Optional[Callable],
                step: Optional[Callable] = None,
-               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+               out: Optional[torch.Tensor] = None,
+               trans: bool = False) -> torch.Tensor:
     """``out = H·V_all`` for rank ``me`` of a p-rank ring: H is its stripe
     (m × p·b), V its chunk (b × k) of the multivector; p calls of
     ``step`` (the kernel, ``ops.ring_hemm.ring_hemm``, when None; or
     :func:`matmul_step`) with ``col0 = src·b`` and ``accumulate = s > 0``,
     the chunks passed on by ``exchange(send, recv)`` (a handle with
-    ``wait()``).  Returns ``out`` (allocated when None)."""
+    ``wait()``).  With ``trans`` (passed to ``step``) it is ``Hᴴ·V_all``
+    for H of p·b rows, each step on H's rows ``src·b`` onwards.  Returns
+    ``out`` (allocated when None)."""
     if step is None:
         step = rh.ring_hemm
     b = V.shape[0]
-    if H.shape[1] != p * b:
+    dim, what = (0, "rows") if trans else (1, "columns")
+    if H.shape[dim] != p * b:
         raise ValueError(f"ring of {p} chunks of {b} rows needs an H of "
-                         f"{p * b} columns, got {H.shape[1]} (pad N to a "
+                         f"{p * b} {what}, got {H.shape[dim]} (pad N to a "
                          f"multiple of p: DenseOperator does)")
     if p == 1:
-        return step(H, V, col0=0, out=out)
+        return step(H, V, col0=0, out=out, trans=trans)
     # two private buffers: this rank's chunk (never the caller's V, which
     # a later receive would overwrite) and the one the next chunk lands in
     bufs = (V.clone(memory_format=torch.contiguous_format),
@@ -135,7 +142,7 @@ def ring_steps(H: torch.Tensor, V: torch.Tensor, *, me: int, p: int,
         cur, nxt = bufs[s % 2], bufs[(s + 1) % 2]
         work = exchange(cur, nxt) if s + 1 < p else None
         out = step(H, cur, col0=((me + s) % p) * b, out=out,
-                   accumulate=s > 0)
+                   accumulate=s > 0, trans=trans)
         if work is not None:
             work.wait()
     return out
@@ -370,18 +377,12 @@ class Ring2D:
         ``index``, ``exchange``, ``reduce_scatter``, ``flip`` and
         ``all_gather``).
       H: this rank's block (the operator's or its ladder shadow's).
-      kernel: every step on the ``ring_hemm`` kernel (ring_B's on the
-        mirror), else :func:`matmul_step` (ring_B's on ``H.mH``).
-      HT: with ``kernel``, the mirror Hᴴ (N/c × N/r) in the kernel's
-        layout — ``DenseOperator.mirror(H)``, cached by the operator —
-        or None to build one for this call (``operator.mirror_tile``).
-        ValueError if it is not of H's mirror's shape and dtype, or on
-        CUDA not in a layout TMA reads; it never drops to
-        ``torch.matmul``.
+      kernel: every step on the ``ring_hemm`` kernel (ring_B's on its
+        trans route, reading H in place), else :func:`matmul_step`
+        (ring_B's on ``H[sub, :].mH``).  Both passes read H itself.
     """
 
-    def __init__(self, grid, H: torch.Tensor, kernel: bool,
-                 HT: Optional[torch.Tensor] = None):
+    def __init__(self, grid, H: torch.Tensor, kernel: bool):
         self.grid = grid
         self.r, self.c = grid.size("r"), grid.size("c")
         self.i, self.j = grid.index("r"), grid.index("c")
@@ -393,12 +394,7 @@ class Ring2D:
                              f"(DenseOperator pads N to a multiple of r·c)")
         self.H = H
         self.N = self.r * self.c * self.nch
-        if kernel:
-            HT = mirror_tile(H) if HT is None else HT
-            _check_mirror(H, HT)
-            self.HB, self.step = HT, None
-        else:
-            self.HB, self.step = H.mH, matmul_step
+        self.step = None if kernel else matmul_step
         self._ex = {a: (grid.exchange(a) if grid.size(a) > 1 else None)
                     for a in ("r", "c")}
 
@@ -412,8 +408,8 @@ class Ring2D:
     def ring_B(self, w: torch.Tensor) -> torch.Tensor:
         """Hᴴ·w: ``w`` this rank's parity-B chunk, the result its
         parity-A chunk (c steps, then the reduce-scatter over 'r')."""
-        acc = ring_steps(self.HB, w, me=self.j, p=self.c,
-                         exchange=self._ex["c"], step=self.step)
+        acc = ring_steps(self.H, w, me=self.j, p=self.c,
+                         exchange=self._ex["c"], step=self.step, trans=True)
         return self.grid.reduce_scatter(acc, "r")
 
     def apply(self, w: torch.Tensor, parity: str) -> torch.Tensor:
@@ -452,28 +448,9 @@ class Ring2D:
                                        "A"))
 
 
-def _check_mirror(H: torch.Tensor, HT: torch.Tensor) -> None:
-    """ValueError unless ``HT`` can be H's mirror on the kernel: H's
-    dtype and device, the transposed shape, no lazy conjugate, and on
-    CUDA a layout TMA reads."""
-    if (HT.dtype != H.dtype or tuple(HT.shape) != tuple(H.shape[::-1])
-            or HT.is_conj() or HT.is_neg() or HT.device != H.device):
-        raise ValueError(f"the mirror must be Hᴴ as a physical {H.dtype} "
-                         f"tensor of shape {tuple(H.shape[::-1])} on "
-                         f"{H.device}; got {HT.dtype} {tuple(HT.shape)} on "
-                         f"{HT.device} (is_conj {HT.is_conj()})")
-    if HT.device.type == "cuda" and (
-            HT.stride(1) != 1 or rh.tma_row_stride(HT) is None):
-        raise ValueError(f"the mirror's layout cannot be read through TMA "
-                         f"(strides {HT.stride()}, base "
-                         f"{HT.data_ptr():#x}); build it with "
-                         f"operator.mirror_tile or DenseOperator.mirror")
-
-
 def chebyshev_filter_ring2d(grid, H: torch.Tensor, X: torch.Tensor, degrees,
                             lam1, lower, upper, deg_max: int, *,
-                            precision="highest", kernel: bool = False,
-                            HT: Optional[torch.Tensor] = None
+                            precision="highest", kernel: bool = False
                             ) -> torch.Tensor:
     """The Chebyshev filter as the 2-D ping-pong ring on an r×c grid (the
     JAX package's ``chebyshev_filter_ring2d``).  Each step is one pass
@@ -491,7 +468,7 @@ def chebyshev_filter_ring2d(grid, H: torch.Tensor, X: torch.Tensor, degrees,
       degrees, lam1, lower, upper, deg_max: as for
         :func:`chebyshev_filter_ring_pallas`.
       precision: accepted for the JAX signature.
-      kernel, HT: as for :class:`Ring2D`.
+      kernel: as for :class:`Ring2D`.
 
     Returns: the filtered rows in X's dtype (new tensor), the same bits on
     every rank of a grid row; degree-0 columns bit-exact copies of X's.
@@ -505,7 +482,7 @@ def chebyshev_filter_ring2d(grid, H: torch.Tensor, X: torch.Tensor, degrees,
     sigma1 = e / (lam1 - c)
     cf = float(c)
     degs = torch.as_tensor(np.asarray(degrees), device=X.device)[None, :]
-    ring = Ring2D(grid, H, kernel, HT)
+    ring = Ring2D(grid, H, kernel)
     n = max(int(deg_max), 1)
     par = "B" if n % 2 == 0 else "A"          # the last step lands in B
     x = ring.enter(X).to(carry)
@@ -537,9 +514,7 @@ def chebyshev_filter_refine_ring2d(grid, H: torch.Tensor, V: torch.Tensor,
                                    R: torch.Tensor, degrees, alpha1_e,
                                    alphas, betas, inj, p_final, cc,
                                    deg_max: int, *, precision="highest",
-                                   kernel: bool = False,
-                                   HT: Optional[torch.Tensor] = None
-                                   ) -> torch.Tensor:
+                                   kernel: bool = False) -> torch.Tensor:
     """The deviation-form refinement filter as the 2-D ping-pong ring
     (the JAX package's ``chebyshev_filter_refine_ring2d``): the w
     recurrence alternates parity as :func:`chebyshev_filter_ring2d`'s, R
@@ -556,7 +531,7 @@ def chebyshev_filter_refine_ring2d(grid, H: torch.Tensor, V: torch.Tensor,
     ccf = float(rt(cc))
     degs = torch.as_tensor(np.asarray(degrees), device=V.device)[None, :]
     injt = inj_table(inj, carry, V.device)
-    ring = Ring2D(grid, H, kernel, HT)
+    ring = Ring2D(grid, H, kernel)
     m = max(int(deg_max) - 1, 0)
     rc = {"B": ring.enter(R).to(carry)}
     if m:
@@ -576,8 +551,7 @@ def chebyshev_filter_refine_ring2d(grid, H: torch.Tensor, V: torch.Tensor,
 
 def chebyshev_filter_h2_ring2d(grid, H: torch.Tensor, X: torch.Tensor,
                                degrees, lam1, lower, upper, deg_max: int, *,
-                               precision="highest", kernel: bool = False,
-                               HT: Optional[torch.Tensor] = None
+                               precision="highest", kernel: bool = False
                                ) -> torch.Tensor:
     """The pseudo-Hermitian filter on H² as the 2-D ring (the JAX
     package's ``chebyshev_filter_h2_ring2d``): every step one H²
@@ -588,7 +562,7 @@ def chebyshev_filter_h2_ring2d(grid, H: torch.Tensor, X: torch.Tensor,
     ``lower`` and ``upper`` (in either order) of
     :func:`chebyshev_filter_h2_ring`."""
     del precision
-    ring = Ring2D(grid, H, kernel, HT)
+    ring = Ring2D(grid, H, kernel)
     return _filter_ring(H, X, degrees, lam1, *_interval(lower, upper),
                         deg_max, 1, ring.h2, ring)
 
@@ -597,16 +571,14 @@ def chebyshev_filter_refine_h2_ring2d(grid, H: torch.Tensor, V: torch.Tensor,
                                       R2: torch.Tensor, degrees, alpha1_e,
                                       alphas, betas, inj, p_final, cc,
                                       deg_max: int, *, precision="highest",
-                                      kernel: bool = False,
-                                      HT: Optional[torch.Tensor] = None
-                                      ) -> torch.Tensor:
+                                      kernel: bool = False) -> torch.Tensor:
     """The deviation-form filter on H² as the 2-D ring (the JAX package's
     ``chebyshev_filter_refine_h2_ring2d``): the w recurrence in parity B,
     each step one ``Ring2D.h2``; with ``kernel`` max(deg_max − 1, 0)·(r +
     c) ``ring_hemm`` launches per rank.  Arguments as for
     :func:`chebyshev_filter_refine_h2_ring` with this rank's rows of V and
-    R2, and ``kernel`` and ``HT`` as for :class:`Ring2D`."""
+    R2, and ``kernel`` as for :class:`Ring2D`."""
     del precision
-    ring = Ring2D(grid, H, kernel, HT)
+    ring = Ring2D(grid, H, kernel)
     return _refine_ring(H, V, R2, degrees, alpha1_e, alphas, betas, inj,
                         p_final, cc, deg_max, 1, ring.h2, ring)

@@ -45,9 +45,9 @@ the p-step chunk ring (``parallel/ring.py``); an r×c grid with r, c > 1
 the 2-D ping-pong ring (``parallel/ring.chebyshev_filter_ring2d`` and
 its refine twin), as in the JAX package — each ring step on the ring_hemm
 kernel with ``ring_backend="pallas"`` and an operator of a dtype it
-takes (the 2-D ring's second pass on the operator's mirror,
-``DenseOperator.mirror``), else on ``torch.matmul`` (the JAX package's
-XLA ring).  ``ring_filter=False`` takes the windowed filter with the
+takes (the 2-D ring's second pass on the kernel's conjugate-transposed
+A route, reading the rank's block in place), else on ``torch.matmul``
+(the JAX package's XLA ring).  ``ring_filter=False`` takes the windowed filter with the
 grid's product on any grid.
 
 Not ported here: the wide-f64 and transient-shadow modes (TPU
@@ -260,22 +260,21 @@ def is_2d(grid) -> bool:
     return grid is not None and grid.size("r") > 1 and grid.size("c") > 1
 
 
-def hermitian_form(grid, kernel: bool = True, HT=None) -> FilterForm:
+def hermitian_form(grid, kernel: bool = True) -> FilterForm:
     """The Hermitian filter's form on ``grid``: the windowed shift with
     the grid's product (``parallel/dist.grid_shift``) and the ring
     filters — the chunk ring on a (p, 1) grid, the 2-D ring on an r×c one
-    (``HT``: the operator's mirror for the kernel, ``DenseOperator.
-    mirror``) — with the ring_hemm kernel (``kernel``) or
-    ``torch.matmul`` as their step.  :data:`HERMITIAN` for one device."""
+    — with the ring_hemm kernel (``kernel``) or ``torch.matmul`` as their
+    step.  :data:`HERMITIAN` for one device."""
     if grid is None:
         return HERMITIAN
     if is_2d(grid):
         return FilterForm(
             pdist.grid_shift(grid),
             functools.partial(pring.chebyshev_filter_ring2d, grid,
-                              kernel=kernel, HT=HT),
+                              kernel=kernel),
             functools.partial(pring.chebyshev_filter_refine_ring2d, grid,
-                              kernel=kernel, HT=HT), 1)
+                              kernel=kernel), 1)
     if kernel:
         ring = functools.partial(pring.chebyshev_filter_ring_pallas,
                                  grid=grid)
@@ -284,14 +283,6 @@ def hermitian_form(grid, kernel: bool = True, HT=None) -> FilterForm:
     return FilterForm(pdist.grid_shift(grid), ring,
                       functools.partial(pring.chebyshev_filter_refine_ring,
                                         grid=grid, kernel=kernel), 1)
-
-
-def filter_mirror(op: DenseOperator, route, ring: bool, kernel: bool,
-                  H_f: torch.Tensor):
-    """The mirror the 2-D ring's kernel steps read for the filter
-    operator ``H_f`` (``DenseOperator.mirror``, cached beside it), or
-    None off that route."""
-    return op.mirror(H_f) if route == "2d" and ring and kernel else None
 
 
 def _filter_windowed(H, V, degrees_act, locked, nevex, B, lam, lo, up, *,
@@ -771,8 +762,7 @@ def solve(op: DenseOperator, nev: int, nex: int,
                 H_f = H
             ring, kernel = _chunk_product(route, rcfg.ring_backend,
                                           H_f.dtype)
-            form = hermitian_form(op.grid, kernel, filter_mirror(
-                op, route, ring, kernel, H_f))
+            form = hermitian_form(op.grid, kernel)
             # the SP ladder's low phase: TF32 products off the kernel
             tf32 = use_low and is_sp and not (ring and kernel)
             if tf32:

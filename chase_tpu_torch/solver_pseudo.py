@@ -32,8 +32,9 @@ chunk ring in every filter (:func:`h2_form`: both products of each H²
 step p ring_hemm launches with "pallas" and a kernel operator, else
 ``matmul_step``); an r×c grid with r, c > 1 the 2-D H² rings
 (``parallel/ring.chebyshev_filter_h2_ring2d`` and its refine twin: each
-H² step a pass along 'c' on the operator's mirror and one along 'r' on
-its block, r + c launches per rank with the kernel), as in the JAX
+H² step a pass along 'c' on the block conjugate-transposed, read in
+place, and one along 'r' on the block, r + c launches per rank with the
+kernel), as in the JAX
 package.  S acts on global rows, K-conjugation rotates rows across
 ranks (``ops/pseudo``), the S-Lanczos dots, the pencil and the residuals
 are summed over the grid's rows bitwise equal on every rank, and the
@@ -67,8 +68,7 @@ from .ops.blocks import permute_cols, set_head_cols
 from .ops.qr import orthonormalize, orthonormalize_pseudo
 from .solver import (FilterForm, SolveResult, _chunk_product, _col_block,
                      _draw, _filter_refine_windowed, _filter_ring,
-                     _filter_windowed, _host, _rho, _ring_route,
-                     filter_mirror, is_2d)
+                     _filter_windowed, _host, _rho, _ring_route, is_2d)
 
 __all__ = ["solve_pseudo", "detect_eigenvalue_clusters",
            "calc_degrees_pseudo_h2_host", "locking_pseudo_v3_host"]
@@ -229,22 +229,22 @@ H2 = FilterForm(ps._h2_shift, pring.chebyshev_filter_h2_ring,
                 pring.chebyshev_filter_refine_h2_ring, 2)
 
 
-def h2_form(grid, kernel: bool = True, HT=None) -> FilterForm:
+def h2_form(grid, kernel: bool = True) -> FilterForm:
     """The H² filter's form on ``grid`` (``solver.hermitian_form``'s
     counterpart): the windowed H² shift with the grid's product
     (``parallel/dist.grid_h2_shift``) and the H² rings — the chunk rings
-    on a (p, 1) grid, the 2-D rings on an r×c one (``HT``: the operator's
-    mirror for the kernel) — with the ring_hemm kernel (``kernel``) or
-    ``torch.matmul`` as their step.  :data:`H2` for one device."""
+    on a (p, 1) grid, the 2-D rings on an r×c one — with the ring_hemm
+    kernel (``kernel``) or ``torch.matmul`` as their step.  :data:`H2`
+    for one device."""
     if grid is None:
         return H2
     if is_2d(grid):
         return FilterForm(
             pdist.grid_h2_shift(grid),
             functools.partial(pring.chebyshev_filter_h2_ring2d, grid,
-                              kernel=kernel, HT=HT),
+                              kernel=kernel),
             functools.partial(pring.chebyshev_filter_refine_h2_ring2d, grid,
-                              kernel=kernel, HT=HT), 2)
+                              kernel=kernel), 2)
     return FilterForm(
         pdist.grid_h2_shift(grid),
         functools.partial(pring.chebyshev_filter_h2_ring, grid=grid,
@@ -526,8 +526,7 @@ def solve_pseudo(op: DenseOperator, nev: int, nex: int,
             H_f = op.H_low if (use_refine or use_bf16 or use_low) else op.H
             ring, kernel = _chunk_product(route, rcfg.ring_backend,
                                           H_f.dtype)
-            form = h2_form(grid, kernel, filter_mirror(op, route, ring,
-                                                       kernel, H_f))
+            form = h2_form(grid, kernel)
             if use_refine:
                 # H²-space tables: expansion points θ², interval [lower,
                 # b_sup], amplification point μ₁ = lambda_1; ONE

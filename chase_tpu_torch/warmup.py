@@ -9,9 +9,8 @@ nothing but this package's CUDA kernels, so here warming up means:
   when the solve will filter on the ring kernel — a CUDA operator with
   ``ring_backend="pallas"`` and a problem, or a ladder shadow, of a dtype
   the kernel takes, on one device or on any ring route of a grid: the
-  (p, 1) ring, and the 2-D ring of an r×c grid (whose mirror of the
-  filter's operator is built at the first filter and cached by the
-  operator, ``DenseOperator.mirror``);
+  (p, 1) ring, and the 2-D ring of an r×c grid (whose second pass reads
+  the filter operator's block in place, on the kernel's trans route);
 * with ``fused=True``, running the cold and the warm-start fused solve
   once on the operator with a tolerance met at once, so that the caching
   allocator holds the solve's blocks and cuSOLVER's handles exist.

@@ -47,14 +47,17 @@ no result line) on any fault:
            collectives — the chunk exchange along 'r' and 'c', the
            reduce-scatter, the parity flip, the all_gather — go through
            a shared board between barriers): each rank's (N/2 × N/2)
-           block and its mirror (operator.mirror_tile: build time and
-           bytes), ring_A's passes (H·V, 2 kernel steps on the block)
-           and ring_B's (Hᴴ·V, 2 on the mirror) against wide products
-           and the plain version's passes at the kernel gate, 2 launches
-           per rank and pass, one stripe call of each (N/2, N/4, k) timed
-           beside its plain version, the library call (torch.matmul of
-           the block, of its conjugate transpose for ring_B: cuBLAS
-           ConjTrans) and its bound; the Hermitian 2-D ring filter on
+           block (torch.cuda.memory_allocated before and after a Ring2D
+           is built on it: equal, no copy), ring_A's passes (H·V, 2
+           kernel steps on the block) and ring_B's (Hᴴ·V, 2 on the
+           block's trans route, ring_hemm(trans=True)) against wide
+           products and the plain version's passes at the kernel gate, 2
+           launches per rank and pass, one stripe call of each (N/2, N/4,
+           k) timed beside its plain version, the library call
+           (torch.matmul of the block, of its conjugate-transposed view
+           for ring_B: cuBLAS ConjTrans) and its bound, ring_B's also
+           beside the untransposed route at its shape (then the same at
+           (2, 4)); the Hermitian 2-D ring filter on
            (H + Hᴴ)/2 against the plain filter at filter's width,
            degrees and gate (1e-2 on the bf16 shadow), 80 launches
   io       the slice's H written with io.save_matrix to a ChASE file in a
@@ -104,7 +107,11 @@ no result line) on any fault:
            (30000, 750), (30000, 1500), (30000, 3000), with the SM clock
            and power draw (nvidia-smi) while the kernel runs, a strided
            window and a two-chunk ring step at col0 = 15001; the pre-pass
-           bit-exact
+           bit-exact.  kernel, ckernel and bkernel each end with one call
+           of the trans route (H[row0:row0+b, :]ᴴ·V, the 2-D ring's
+           ring_B step) at a (2, 2) stripe's shape with a ragged row0 and
+           b, added into a strided window, against its plain version (the
+           library's for bf16) and a wide product
   bslice   the f32 slice with the bf16 rung (bf16_filter=True, pallas):
            every filter HEMM on the bf16 route, the slice's gates
   dp       the north star in double precision: the phase-rotated Clement
@@ -137,7 +144,7 @@ no result line) on any fault:
            c64 stripe call (N/p, N/p, 1500) timed beside its plain
            version, the library call and its bound; then the 2-D H² ring
            filter (chebyshev_filter_h2_ring2d: each H² step a ring_B pass
-           on the mirror and a ring_A pass on the block, r + c = 4
+           on the block's trans route and a ring_A pass on the block, r + c = 4
            launches per rank) at the simulated (2, 2) grid against the
            same plain H² filter and gate, and its ring_A and ring_B
            stripe calls (N/2, N/4, 1500) on the f32 and c64 routes
@@ -215,7 +222,10 @@ no result line) on any fault:
            and BSE-ladder problems with eigsh and eigsh_pseudo on the 2-D
            ring: the same gates, results bitwise equal on all four
            ranks, launches = 2 × HEMM steps per rank, every launch on a
-           stripe (N/2 rows, col0 0 or N/4) of the block or its mirror;
+           stripe (N/2 rows, col0 0 or N/4) of the one filter operator
+           block (ring_B's on the trans route), and each rank's peak
+           device memory (torch.cuda.max_memory_allocated) around each
+           of the two solves;
            then each of the four reads its (15000, 15000) block of io's
            N=30000 file with io.load_matrix_sharded and
            io.load_matrix_blockcyclic(mb=64) (one native gather of its
@@ -529,6 +539,52 @@ def _split_case(phase, V, reps: int) -> dict:
                 library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
 
 
+def _trans_case(phase, H, row0: int, b: int, k: int, g) -> None:
+    """One call of ring_hemm's trans route at a 2-D stripe's shape with a
+    ragged row0 and b: ``W[:, 5:5+k] += H[row0:row0+b, :]ᴴ · V`` into a
+    strided column window of a wider W (the columns around it checked
+    untouched), against an f64 (c128) product at 1e-5 of the largest
+    entry and 4× the plain version's error (bf16: the library's bf16
+    GEMM's, of the transposed view)."""
+    from chase_tpu_torch.ops.ring_hemm import ring_hemm, ring_hemm_reference
+    bf16 = H.dtype == torch.bfloat16
+    vdt = torch.float32 if bf16 else H.dtype
+    wide = torch.complex128 if vdt.is_complex else torch.float64
+    m = H.shape[1]
+    V = torch.randn((b, k), generator=g, device=H.device, dtype=vdt)
+    Wfull = torch.randn((m, k + 10), generator=g, device=H.device, dtype=vdt)
+    before = Wfull.clone()
+    Hb = H[row0:row0 + b]
+    Vr = V.to(torch.bfloat16) if bf16 else V
+    ref = before[:, 5:5 + k].to(wide) + Hb.to(wide).mH @ Vr.to(wide)
+    launches = ring_hemm.launches
+    ring_hemm(H, V, col0=row0, out=Wfull[:, 5:5 + k], accumulate=True,
+              trans=True)
+    torch.cuda.synchronize()
+    launched = ring_hemm.launches - launches
+    err = rel_err(Wfull[:, 5:5 + k], ref)
+    outside = bool(torch.equal(Wfull[:, :5], before[:, :5])
+                   and torch.equal(Wfull[:, 5 + k:], before[:, 5 + k:]))
+    if bf16:
+        yard = before[:, 5:5 + k].to(wide) + torch.mm(
+            Hb.mT, Vr, out_dtype=torch.float32).to(wide)
+        yname = "library"
+    else:
+        Wp = before[:, 5:5 + k].clone()
+        ring_hemm_reference(H, V, col0=row0, out=Wp, accumulate=True,
+                            trans=True)
+        yard, yname = Wp.to(wide), "plain"
+    erry = rel_err(yard, ref)
+    del V, Wfull, before, ref, yard
+    log(phase, f"trans route H[{row0}:{row0 + b}, :{m}]ᴴ·V (k={k}, "
+               f"{H.dtype}) += into W[:, 5:{5 + k}] (row stride {k + 10}): "
+               f"rel err kernel {err:.3e} {yname} {erry:.3e}; launches "
+               f"{launched}; columns outside the window untouched: "
+               f"{outside}")
+    if not (err <= 1e-5 and err <= 4 * erry and outside and launched == 1):
+        raise AssertionError(f"{phase}: ring_hemm trans route failed")
+
+
 def phase_kernel(dev) -> dict:
     from chase_tpu_torch.ops.ring_hemm import ring_hemm, ring_hemm_reference
     t_phase = time.perf_counter()
@@ -579,7 +635,11 @@ def phase_kernel(dev) -> dict:
                   f"1000-row stripe: rel err {errc:.3e}")
     if not errc <= 1e-5:
         raise AssertionError("two-chunk ring_hemm failed")
-    del H, H64, Hs
+    del H64, Hs, W, V
+    # the trans route at a (2, 2) ring_B stripe's shape (a 15000 × 15000
+    # block, ~7500-row slab), ragged
+    _trans_case("kernel", H[:15000, :15000], 7501, 7497, 750, g)
+    del H
     torch.cuda.empty_cache()
 
     # N = 1001: TMA needs a row stride that is a multiple of 4 floats, so
@@ -662,7 +722,9 @@ def phase_complex_kernel(dev) -> dict:
                    f"a 1000-row stripe: rel err {errc:.3e}")
     if not errc <= 1e-5:
         raise AssertionError("two-chunk c64 ring_hemm failed")
-    del H, H128, Hs
+    del H128, Hs, W, V
+    _trans_case("ckernel", H[:15000, :15000], 7501, 7497, 750, g)
+    del H
     torch.cuda.empty_cache()
     log("ckernel", f"phase ok in {time.perf_counter() - t_phase:.2f} s")
     return summary
@@ -780,7 +842,9 @@ def phase_bf16_kernel(dev) -> dict:
                    f"{errc:.3e}")
     if not (errw <= 1e-5 and outside and errc <= 1e-5):
         raise AssertionError("bf16 strided-window or two-chunk step failed")
-    del H, Hs, Vfull, Wfull, Wbefore, ref
+    del Hs, Vfull, Wfull, Wbefore, ref, W, V
+    _trans_case("bkernel", H[:15000, :15000], 7501, 7497, 1500, g)
+    del H
     torch.cuda.empty_cache()
     log("bkernel", f"phase ok in {time.perf_counter() - t_phase:.2f} s")
     return summary
@@ -2181,7 +2245,7 @@ def phase_gridring_h2(dev, ctx: dict, route: str) -> dict:
 # the 2-D ping-pong ring's simulated grids
 GRID_2D = ((2, 2), (2, 4))
 # the 2-D ring's stripe calls, by pass
-STRIPE_2D = {"A": "ring_A block stripe", "B": "ring_B mirror stripe"}
+STRIPE_2D = {"A": "ring_A block stripe", "B": "ring_B trans stripe"}
 
 
 class _SimRank2D:
@@ -2268,30 +2332,37 @@ def _sim_tiles(A, shape: tuple, dtype, dev) -> list:
             for i in range(r) for j in range(c)]
 
 
-def _mirrors(tiles) -> tuple:
-    """(each tile's mirror, ``operator.mirror_tile``; seconds to build
-    them all; bytes of one)."""
-    from chase_tpu_torch.parallel.operator import mirror_tile
+def _ring2d_bytes(tiles, shape: tuple) -> tuple:
+    """(bytes allocated on the card before, and after, a Ring2D is built
+    on every simulated rank's block): the rings read the blocks
+    themselves, so nothing is allocated."""
+    from chase_tpu_torch.parallel.ring import Ring2D
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = [mirror_tile(t) for t in tiles]
+    before = torch.cuda.memory_allocated()
+    rings = [Ring2D(_SimRank2D(q, shape, [None] * len(tiles), None), t, True)
+             for q, t in enumerate(tiles)]
     torch.cuda.synchronize()
-    return (out, time.perf_counter() - t0,
-            out[0].untyped_storage().nbytes())
+    after = torch.cuda.memory_allocated()
+    del rings
+    return before, after
 
 
-def _stripe_calls(route: str, tile, mirror, Vc, nch: int, h_dtype) -> dict:
-    """One ring_A stripe call on the tile and one ring_B stripe call on
-    its mirror, at col0 = nch, each timed beside its plain version, the
-    library call (torch.matmul of the block, of its conjugate transpose
-    for ring_B — cuBLAS with ConjTrans; torch.mm with f32 out for bf16)
-    and its bound."""
+def _stripe_calls(route: str, tile, Vc, nch: int, h_dtype) -> dict:
+    """One ring_A stripe call (``tile[:, nch:2·nch]·V``) and one ring_B
+    stripe call (``tile[nch:2·nch, :]ᴴ·V`` on the trans route) on the
+    rank's block, each timed beside its plain version and the library
+    call (torch.matmul of the block, of its conjugate-transposed view for
+    ring_B — cuBLAS with ConjTrans, no copy; torch.mm with f32 out for
+    bf16) and its bound; ring_B also beside the kernel's untransposed
+    route at its (m, b, k) (``ring_hemm`` on the block's first N/c rows,
+    ``same_ms``), so that the transposed read's cost shows in one call."""
     from chase_tpu_torch.ops.ring_hemm import ring_hemm, ring_hemm_reference
     out = {}
     k = Vc.shape[1]
-    for label, Hs, blk in (("A", tile, tile[:, nch:2 * nch]),
-                           ("B", mirror, tile[nch:2 * nch, :].mH)):
-        W = torch.empty((Hs.shape[0], k), dtype=Vc.dtype, device=Vc.device)
+    for label, trans, blk in (("A", False, tile[:, nch:2 * nch]),
+                              ("B", True, tile[nch:2 * nch, :].mH)):
+        m = blk.shape[0]
+        W = torch.empty((m, k), dtype=Vc.dtype, device=Vc.device)
 
         def library(blk=blk):
             if route == "bf16":
@@ -2299,17 +2370,33 @@ def _stripe_calls(route: str, tile, mirror, Vc, nch: int, h_dtype) -> dict:
                                 out_dtype=torch.float32)
             return torch.matmul(blk, Vc)
 
-        plain_ms, kern_ms, lib_ms = time_fns(
-            [lambda: ring_hemm_reference(Hs, Vc, col0=nch, out=W),
-             lambda: ring_hemm(Hs, Vc, col0=nch, out=W), library], 3)
-        m = Hs.shape[0]
+        fns = [lambda trans=trans: ring_hemm_reference(
+                   tile, Vc, col0=nch, out=W, trans=trans),
+               lambda trans=trans: ring_hemm(tile, Vc, col0=nch, out=W,
+                                             trans=trans), library]
+        if trans:
+            fns.append(lambda: ring_hemm(tile[:m], Vc, col0=nch, out=W))
+        times = time_fns(fns, 3)
         bound_ms, bound_by = (bf16_hemm_bound(m, nch, k) if route == "bf16"
                               else hemm_bound(m, nch, k, h_dtype))
-        out[label] = dict(ms=kern_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                          bound_ms=bound_ms, bound_by=bound_by,
-                          shape=(m, nch, k))
+        out[label] = dict(ms=times[1], plain_ms=times[0],
+                          library_ms=times[2], bound_ms=bound_ms,
+                          bound_by=bound_by, shape=(m, nch, k))
+        if trans:
+            out[label]["same_ms"] = times[3]
         del W
     return out
+
+
+def _stripe_line(cl: dict) -> str:
+    """A stripe call's times, for the log."""
+    line = (f"stripe call {cl['shape']} {cl['ms']:.3f} ms, plain "
+            f"{cl['plain_ms']:.3f} ms, library {cl['library_ms']:.3f} ms, "
+            f"bound {cl['bound_ms']:.3f} ms ({cl['bound_by']})")
+    if "same_ms" in cl:
+        line += (f", the untransposed route at its shape "
+                 f"{cl['same_ms']:.3f} ms")
+    return line
 
 
 def _row_blocks(res: list, c: int) -> torch.Tensor:
@@ -2325,15 +2412,16 @@ def _row_blocks(res: list, c: int) -> torch.Tensor:
 def phase_gridring2d(dev, H, route: str) -> dict:
     """The 2-D ping-pong ring of an N × N H on one card at simulated
     (r, c) grids (GRID_2D, one thread per rank, :class:`_SimRank2D`):
-    each rank's block laid out as DenseOperator(grid=…) lays it out and
-    its mirror (``operator.mirror_tile``: build time and bytes), then
-    ``parallel.ring.Ring2D``'s passes on the kernel's ``route`` — ring_A
-    (H·V: r kernel steps on the block, the reduce-scatter over 'c') and
-    ring_B (Hᴴ·V: c kernel steps on the mirror, over 'r') — each rank's
-    parity chunk against a wide product at the kernel gate beside the
-    plain version's passes, launches r and c per rank; one stripe call of
-    each pass (N/r, N/(r·c), k) timed beside its plain version, the
-    library call and its bound.  Then the Hermitian 2-D ring filter
+    each rank's block laid out as DenseOperator(grid=…) lays it out (the
+    bytes allocated before and after a Ring2D is built on each: no copy),
+    then ``parallel.ring.Ring2D``'s passes on the kernel's ``route`` —
+    ring_A (H·V: r kernel steps on the block, the reduce-scatter over 'c')
+    and ring_B (Hᴴ·V: c kernel steps on the block's trans route, over
+    'r') — each rank's parity chunk against a wide product at the kernel
+    gate beside the plain version's passes, launches r and c per rank;
+    one stripe call of each pass (N/r or N/c, N/(r·c), k) timed beside
+    its plain version, the library call and its bound (ring_B also beside
+    the untransposed route at its shape).  Then the Hermitian 2-D ring filter
     (``chebyshev_filter_ring2d``) on the Hermitian part of H against the
     plain filter at [filter]'s width, degrees and gate (1e-2 on the bf16
     shadow), degree-0 columns bit-exact, ⌈n/2⌉·r + ⌊n/2⌋·c launches per
@@ -2354,10 +2442,14 @@ def phase_gridring2d(dev, H, route: str) -> dict:
         r, c = shape
         n, nch = r * c, N // (r * c)
         tiles = _sim_tiles(H, shape, h_dtype, dev)
-        mirrors, mirror_s, mirror_b = _mirrors(tiles)
-        log("gridring", f"{route} 2-D {shape}: {n} mirrors of the "
-                        f"({N // r}, {N // c}) blocks built in "
-                        f"{mirror_s:.3f} s, {mirror_b / 1e9:.3f} GB each")
+        before, after = _ring2d_bytes(tiles, shape)
+        log("gridring", f"{route} 2-D {shape}: {n} blocks ({N // r}, "
+                        f"{N // c}), {tiles[0].untyped_storage().nbytes() / 1e9:.3f} GB "
+                        f"each; torch.cuda.memory_allocated {before} B "
+                        f"before the {n} Ring2D are built, {after} B after")
+        if after != before:
+            raise AssertionError(f"gridring 2-D {route} {shape}: building "
+                                 f"the rings allocated {after - before} B")
         for k in GRIDRING[route]:
             V = torch.randn((N, k), generator=g, device=dev, dtype=v_dtype)
             Vr = (V.to(torch.bfloat16) if route == "bf16" else V).to(wide)
@@ -2373,8 +2465,7 @@ def phase_gridring2d(dev, H, route: str) -> dict:
                 for name, step in (("kernel", None),
                                    ("plain", ring_hemm_reference)):
                     def rank(g2, step=step):
-                        ring = Ring2D(g2, tiles[g2.me], True,
-                                      mirrors[g2.me])
+                        ring = Ring2D(g2, tiles[g2.me], True)
                         ring.step = step
                         w = chunk(g2.me, parity)[0]
                         return (ring.ring_A(w) if parity == "A"
@@ -2401,24 +2492,19 @@ def phase_gridring2d(dev, H, route: str) -> dict:
                     del ref
                 errs[label] = (err, errp, abs_err)
                 del res
-            calls = _stripe_calls(route, tiles[0], mirrors[0],
+            calls = _stripe_calls(route, tiles[0],
                                   V[nch:2 * nch].contiguous(), nch, h_dtype)
             for label in ("A", "B"):
                 err, errp, abs_err = errs[label]
                 steps = r if label == "A" else c
                 cl = calls[label]
                 log("gridring", f"{route} 2-D {shape} ring_{label} "
-                                f"({'block' if label == 'A' else 'mirror'}"
+                                f"({'block' if label == 'A' else 'trans'}"
                                 f") k={k}: rel err kernel {err:.3e} "
                                 f"plain {errp:.3e}, max abs err "
                                 f"{abs_err:.3e}; launches "
                                 f"{launches[label]} ({steps} per rank); "
-                                f"stripe call {cl['shape']} "
-                                f"{cl['ms']:.3f} ms, plain "
-                                f"{cl['plain_ms']:.3f} ms, library "
-                                f"{cl['library_ms']:.3f} ms, bound "
-                                f"{cl['bound_ms']:.3f} ms "
-                                f"({cl['bound_by']})")
+                                f"{_stripe_line(cl)}")
                 gate = 4 * errp
                 want = steps * n
                 if not (err <= 1e-5 and err <= gate
@@ -2431,7 +2517,7 @@ def phase_gridring2d(dev, H, route: str) -> dict:
                 out[(label, shape, k)] = dict(
                     abs_err=abs_err, launches=launches[label][0], **cl)
             del V, Vr
-        del tiles, mirrors
+        del tiles
         torch.cuda.empty_cache()
         _hermitian_filter2d(dev, H, route, shape, h_dtype, v_dtype, wide)
     log("gridring", f"{route} 2-D phase ok in "
@@ -2450,7 +2536,6 @@ def _hermitian_filter2d(dev, H, route, shape, h_dtype, v_dtype, wide):
     Hs += H.mH
     Hs *= 0.5
     tiles = _sim_tiles(Hs, shape, h_dtype, dev)
-    mirrors = _mirrors(tiles)[0]
     Hs = Hs.to(h_dtype)
     w, deg_max = 750, 10
     g = torch.Generator(device=dev).manual_seed(SEED + 12)
@@ -2467,10 +2552,10 @@ def _hermitian_filter2d(dev, H, route, shape, h_dtype, v_dtype, wide):
     with one_rank_at_a_time() as counted:
         res = sim_ranks(n, lambda g2: chebyshev_filter_ring2d(
             g2, tiles[g2.me], X[g2.coords[0] * b:(g2.coords[0] + 1) * b],
-            *args, kernel=True, HT=mirrors[g2.me]), shape)
+            *args, kernel=True), shape)
     launches = (counted.launches,) + _ring_counts()[1:]
     Y = _row_blocks(res, c)
-    del res, tiles, mirrors
+    del res, tiles
     Yp = chebyshev_filter(Hs, X, *args)
     err = rel_err(Y, Yp.to(wide))
     exact0 = bool(torch.equal(Y[:, :50], X[:, :50]))
@@ -2494,11 +2579,11 @@ def _hermitian_filter2d(dev, H, route, shape, h_dtype, v_dtype, wide):
 
 def phase_gridring2d_h2(dev, ctx: dict, route: str) -> dict:
     """The 2-D H² ring filter (``chebyshev_filter_h2_ring2d``: every H²
-    step a ring_B pass on the mirror and a ring_A pass on the block) at
-    the simulated GRID_2D grids, on [pfilter]'s operator and window: each
-    rank's block laid out as DenseOperator(grid=…, pseudo_hermitian=True)
-    lays it out (N/2 a multiple of r·c: no pad), its mirror, and its rows
-    of the window; the stacked result against the plain H² filter at
+    step a ring_B pass on the block's trans route and a ring_A pass on
+    the block) at the simulated GRID_2D grids, on [pfilter]'s operator and
+    window: each rank's block laid out as DenseOperator(grid=…,
+    pseudo_hermitian=True) lays it out (N/2 a multiple of r·c: no pad)
+    and its rows of the window; the stacked result against the plain H² filter at
     [pfilter]'s gate, degree-0 columns bit-exact, launches (r + c) per H²
     step and rank.  On the f32 and c64 routes one stripe call of each
     pass (N/r, N/(r·c), w) timed beside its plain version, the library
@@ -2516,14 +2601,14 @@ def phase_gridring2d_h2(dev, ctx: dict, route: str) -> dict:
         r, c = shape
         n, nch, b = r * c, N // (r * c), N // r
         tiles = _sim_tiles(H_f, shape, H_f.dtype, dev)
-        mirrors, mirror_s, mirror_b = _mirrors(tiles)
+        before, after = _ring2d_bytes(tiles, shape)
         _zero_ring_counts()
         torch.cuda.synchronize()
         with one_rank_at_a_time() as counted:
             res = sim_ranks(n, lambda g2: chebyshev_filter_h2_ring2d(
                 g2, tiles[g2.me],
                 X[g2.coords[0] * b:(g2.coords[0] + 1) * b], *args,
-                kernel=True, HT=mirrors[g2.me]), shape)
+                kernel=True), shape)
         launches = (counted.launches,) + _ring_counts()[1:]
         Y = _row_blocks(res, c)
         del res
@@ -2533,8 +2618,8 @@ def phase_gridring2d_h2(dev, ctx: dict, route: str) -> dict:
         steps = 1 + max(deg_max - 1, 0)
         want = n * (r + c) * steps
         line = (f"{route} 2-D {shape} H² ring filter (blocks "
-                f"({b}, {N // c}) and their mirrors, built in "
-                f"{mirror_s:.3f} s, {mirror_b / 1e9:.3f} GB each; window "
+                f"({b}, {N // c}), memory_allocated {before} B before the "
+                f"Ring2D are built, {after} B after; window "
                 f"{w}, deg_max {deg_max}) over {n} simulated ranks: rel "
                 f"err against the plain H² filter {err:.3e} (gate "
                 f"{gate:.0e}); degree-0 columns bit-exact: {exact0}; "
@@ -2542,29 +2627,26 @@ def phase_gridring2d_h2(dev, ctx: dict, route: str) -> dict:
                 f"{want}), pre-pass {launches[1] + launches[2]}")
         if route != "bf16":
             Vc = X[nch:2 * nch].to(H_f.dtype).contiguous()
-            calls = _stripe_calls(route, tiles[0], mirrors[0], Vc, nch,
-                                  H_f.dtype)
+            calls = _stripe_calls(route, tiles[0], Vc, nch, H_f.dtype)
             for label in ("A", "B"):
                 cl = calls[label]
-                blk = (tiles[0][:, nch:2 * nch] if label == "A"
-                       else tiles[0][nch:2 * nch, :].mH)
+                trans = label == "B"
+                blk = (tiles[0][nch:2 * nch, :].mH if trans
+                       else tiles[0][:, nch:2 * nch])
                 ref = blk.to(wide) @ Vc.to(wide)
-                abs_err = float((ring_hemm(
-                    tiles[0] if label == "A" else mirrors[0], Vc,
-                    col0=nch).to(wide) - ref).abs().max())
+                abs_err = float((ring_hemm(tiles[0], Vc, col0=nch,
+                                           trans=trans).to(wide) - ref)
+                                .abs().max())
                 del ref
                 out[(label, shape, w)] = dict(abs_err=abs_err,
                                               launches=launches[0], **cl)
-                line += (f"; ring_{label} stripe call {cl['shape']} "
-                         f"{cl['ms']:.3f} ms, plain {cl['plain_ms']:.3f} "
-                         f"ms, library {cl['library_ms']:.3f} ms, bound "
-                         f"{cl['bound_ms']:.3f} ms ({cl['bound_by']}), "
-                         f"max abs err {abs_err:.3e}")
+                line += (f"; ring_{label} {_stripe_line(cl)}, max abs err "
+                         f"{abs_err:.3e}")
         log("gridring", line)
-        del tiles, mirrors
+        del tiles
         torch.cuda.empty_cache()
         if not (err <= gate and exact0 and launches[0] == want
-                and launches[1] + launches[2] == want):
+                and launches[1] + launches[2] == want and after == before):
             raise AssertionError(f"gridring 2-D H² {route} {shape}: error "
                                  f"{err:.3e} (gate {gate:.0e}), degree-0 "
                                  f"exact {exact0}, launches {launches} "
@@ -2835,10 +2917,11 @@ def host_child() -> int:
         grid = host_staged_grid(cpu_grid.mesh, torch.device("cuda", 0))
     real, stripes, operators = rh.ring_hemm, set(), set()
 
-    def recording(H, V, *, col0=0, out=None, accumulate=False):
+    def recording(H, V, *, col0=0, **kw):
         stripes.add((H.shape[0], col0))
         operators.add(H.data_ptr())
-        return real(H, V, col0=col0, out=out, accumulate=accumulate)
+        recording.trans += bool(kw.get("trans"))
+        return real(H, V, col0=col0, **kw)
 
     # every ring step looks ring_hemm up on its module at call time, and
     # the wrapper counts its launches on that name: this function
@@ -2859,24 +2942,27 @@ def host_child() -> int:
         stripes.clear()
         operators.clear()
         grid.stats.reset()
-        recording.launches = rh.tf32_split.launches = 0
+        recording.launches = recording.trans = rh.tf32_split.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
         dist.barrier()
         tts, res = timed(lambda: solve(H, nev, nex, tol=tol, grid=grid,
                                        collect_perf=True,
                                        config=ct.ChaseConfig(**cfg)))
+        peak = torch.cuda.max_memory_allocated(dev) / 2**20
         gate(res, f"rank {dist.get_rank()}")
         results[name] = dict(
             tts=tts, iterations=res.iterations, locked=res.locked,
             ritzv=np.asarray(res.ritzv, np.float64).tobytes().hex(),
             resid=np.asarray(res.resid, np.float64).tobytes().hex(),
             launches=[recording.launches, rh.tf32_split.launches],
-            hemm_steps=res.perf.filter_hemm_steps, N=N,
+            hemm_steps=res.perf.filter_hemm_steps, N=N, peak_mib=peak,
+            trans=recording.trans,
             stripes=sorted(stripes), operators=len(operators),
             collectives={k: list(v) for k, v in
                          grid.stats.summary().items()})
         del H, res
         torch.cuda.empty_cache()
-    if shape[1] > 1:
+    if shape[1] > 1 and "CHASE_SMOKE_FILE" in os.environ:
         results["io"] = _gridhost_io(grid, os.environ["CHASE_SMOKE_FILE"],
                                      recording, stripes)
     print("HOST_RESULT " + json.dumps(results), flush=True)
@@ -3319,9 +3405,11 @@ def _check_grid_solves(phase: str, shape: tuple, ranks: list, solves: dict,
     of one device's, ritzv, resid, iterations and locked bitwise equal on
     every rank, ring_hemm (and tf32_split) launches = r × HEMM steps per
     rank on an (r, 1) grid and r = c = 2 launches per HEMM step on (2, 2),
-    every launch on a block's (or on the 2-D ring, its mirror's) stripe:
-    N/r rows, col0 a multiple of N/(r·c) below N/c, of at most two
-    operators (the filter's and its mirror).  Returns the failed names."""
+    every launch on a block's stripe: N/r rows, col0 a multiple of
+    N/(r·c) below N/c, of one operator (the filter's; on the 2-D ring
+    ring_B's launches read it on the trans route, none off it); each
+    rank's peak device memory around the solve logged.  Returns the
+    failed names."""
     r, c = shape
     bad = []
     what = (f"{r * c} ranks sharing the card, host-staged gloo "
@@ -3335,7 +3423,8 @@ def _check_grid_solves(phase: str, shape: tuple, ranks: list, solves: dict,
         nch = N // (r * c)
         allowed = {(N // r, q * nch) for q in range(max(r, c))}
         on_stripes = stripes <= allowed and all(
-            rk["operators"] <= (2 if c > 1 else 1) for rk in o)
+            rk["operators"] == 1 and (rk["trans"] > 0) == (c > 1)
+            for rk in o)
         per_step = r if c == 1 else 2
         launches = [rk["launches"] for rk in o]
         ok = (same and on_stripes
@@ -3349,11 +3438,13 @@ def _check_grid_solves(phase: str, shape: tuple, ranks: list, solves: dict,
                    f"{[round(rk['tts'], 3) for rk in o]} s (one device "
                    f"{ref[name][0]:.3f} s); results bitwise equal on all "
                    f"{len(o)} ranks: {same}; ring_hemm / tf32_split "
-                   f"launches {launches}, HEMM steps "
+                   f"launches {launches} (on the trans route "
+                   f"{[rk['trans'] for rk in o]}), HEMM steps "
                    f"{[rk['hemm_steps'] for rk in o]}; launch (rows, col0) "
                    f"{sorted(stripes)} on {[rk['operators'] for rk in o]} "
-                   f"operators; rank 0's collectives per iteration "
-                   f"{_per_iteration(o[0])}")
+                   f"operators; peak device memory per rank "
+                   f"{[round(rk['peak_mib'], 1) for rk in o]} MiB; rank 0's "
+                   f"collectives per iteration {_per_iteration(o[0])}")
         if not ok:
             bad.append(f"{shape} {name}")
     return bad
@@ -3417,7 +3508,7 @@ def phase_gridhost(dev, path: str) -> None:
     pinned host memory; not NCCL): a (2, 1) grid running GRIDHOST's
     solves (the chunk ring, and the fused solvers), then a (2, 2) grid of
     four ranks running GRIDHOST_2D's (the 2-D ring: ring_A on each rank's
-    block, ring_B on its mirror), each at its gates, checked by
+    block, ring_B on its trans route), each at its gates, checked by
     :func:`_check_grid_solves` against the same solves on one device,
     run here first; the (2, 2) ranks then read their blocks of the ChASE
     file at ``path`` and solve through the distributed interface

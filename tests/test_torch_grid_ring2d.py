@@ -1,8 +1,9 @@
 """The port's 2-D ping-pong rings on r×c process grids against the JAX
 package: ``parallel.ring.Ring2D``'s two passes, the four 2-D ring filters
 (``chebyshev_filter_ring2d``, ``chebyshev_filter_refine_ring2d``,
-``chebyshev_filter_h2_ring2d``, ``chebyshev_filter_refine_h2_ring2d``) and
-the operator's mirror, on (2, 2) and (2, 3) gloo grids.
+``chebyshev_filter_h2_ring2d``, ``chebyshev_filter_refine_h2_ring2d``),
+and that both passes read the rank's block itself, on (2, 2) and (2, 3)
+gloo grids.
 
 The groups are started once for this module, as in
 ``tests/test_torch_grid.py`` (``tests/torch_grid_worker.py``, a hard time
@@ -25,10 +26,9 @@ rings call it.  Tolerances:
   (each product rounds its input to bf16, at other places than XLA);
   degree-0 columns bit-exact; kernel launches per rank as the module
   note of ``parallel/ring.py`` states;
-* the mirror: the rank's block (and its shadow) conjugate-transposed
-  exactly, in the kernel's row stride, cached and dropped by
-  ``free_low``; a mirror of the wrong shape or a lazy conjugate raises
-  ValueError.
+* no copy: every kernel step of both passes reads the rank's filter
+  operator (ring_B's on the ``trans=True`` route), and neither the
+  operator nor the ring holds another tensor.
 """
 
 import functools
@@ -163,48 +163,18 @@ def test_filter2d_matches_jax_and_p1(groups, name, kind, case, dm):
         assert int(rec[f"{key}/steps"]) == want
 
 
-def test_grid_mirror_layout_and_free_low(groups):
-    from chase_tpu_torch.ops.ring_hemm import tma_ld
+def test_grid_ring2d_reads_the_block_itself(groups):
+    """Every kernel step of both passes reads the rank's filter operator
+    (the c64 shadow of a c128 block): ring_A's r steps as they lie,
+    ring_B's c steps on the trans route; the operator holds its block and
+    shadow and nothing else, and the ring no tensor of its own."""
+    r, c = SHAPES["r22"]
     for rec in groups["r22"].results():
-        B = rec["mirror/block"]
-        np.testing.assert_array_equal(rec["mirror/H"], B.conj().T)
-        np.testing.assert_array_equal(rec["mirror/low"],
-                                      B.astype(np.complex64).conj().T)
-        # c128 is stored contiguous; the c64 shadow's rows padded to an
-        # even count of elements (whole 16 bytes) for TMA
-        rows = B.shape[0]
-        assert [int(x) for x in rec["mirror/strides"]] == [
-            rows, tma_ld(2 * rows) // 2]
-        assert all(bool(x) for x in rec["mirror/cached"])
-        assert all(bool(x) for x in rec["mirror/freed"])
-
-
-@pytest.mark.parametrize("dtype,unit", [(torch.float32, 4),
-                                        (torch.complex64, 2),
-                                        (torch.bfloat16, 8)])
-def test_mirror_tile_layout(dtype, unit):
-    """One device: the mirror of an odd-width block is its conjugate
-    transpose, physical (no lazy conjugate bit), its row stride a whole
-    number of 16 bytes; cached by the operator and dropped by free_low."""
-    from chase_tpu_torch import DenseOperator
-    from chase_tpu_torch.parallel.operator import mirror_tile
-    rng = np.random.default_rng(3)
-    A = rng.standard_normal((13, 13)) + 1j * rng.standard_normal((13, 13))
-    A = A + A.conj().T
-    H = torch.from_numpy(A if dtype.is_complex else A.real)
-    H = H.to(dtype)[:, :9]
-    M = mirror_tile(H)
-    assert M.shape == (9, 13) and not M.is_conj()
-    assert M.stride(1) == 1 and M.stride(0) % unit == 0
-    assert M.stride(0) >= 13
-    assert torch.equal(M, H.mH.resolve_conj())
-    op = DenseOperator(A.real if not dtype.is_complex else A, device="cpu")
-    base = op.H_low if op.dtype != dtype else op.H
-    assert op.mirror(base) is op.mirror(base)
-    with pytest.raises(ValueError, match="block or its shadow"):
-        op.mirror(base.clone())
-    op.free_low()
-    assert op._mirrors == {}
+        reads = [tuple(bool(x) for x in st) for st in rec["nocopy/reads"]]
+        assert reads == [(True, False)] * r + [(True, True)] * c
+        assert list(rec["nocopy/op_tensors"]) == ["H", "_H_low"]
+        assert list(rec["nocopy/ring_tensors"]) == ["H"]
+        assert bool(rec["nocopy/ring_H_is_shadow"])
 
 
 class _FakeGrid:
@@ -220,19 +190,20 @@ class _FakeGrid:
         return None
 
 
-def test_ring2d_refuses_a_bad_mirror():
+@pytest.mark.parametrize("kernel", [True, False], ids=["kernel", "matmul"])
+def test_ring2d_holds_no_copy_of_the_block(kernel):
+    """Ring2D keeps the block it is given, refuses a block of the wrong
+    shape, and its ring_B steps read that block transposed in place (the
+    trans route, or ``H[sub, :].mH`` on torch.matmul)."""
     from chase_tpu_torch.parallel.ring import Ring2D
     H = torch.randn(8, 8, dtype=torch.complex64)
-    with pytest.raises(ValueError, match="mirror must be"):
-        Ring2D(_FakeGrid(), H, True, HT=H[:, :4].clone())
-    with pytest.raises(ValueError, match="mirror must be"):
-        Ring2D(_FakeGrid(), H, True, HT=H.mH)         # lazy conjugate
     with pytest.raises(ValueError, match="block of"):
-        Ring2D(_FakeGrid(), H[:, :6], True)
-    ring = Ring2D(_FakeGrid(), H, True)
-    assert torch.equal(ring.HB, H.mH.resolve_conj())
-    ring = Ring2D(_FakeGrid(), H, False)
-    assert ring.step is not None and ring.HB.is_conj()
+        Ring2D(_FakeGrid(), H[:, :6], kernel)
+    ring = Ring2D(_FakeGrid(), H, kernel)
+    assert ring.H is H
+    assert [k for k, v in vars(ring).items()
+            if isinstance(v, torch.Tensor)] == ["H"]
+    assert (ring.step is None) == kernel
 
 
 def test_fused_route_keeps_dist_hemm_on_2d():

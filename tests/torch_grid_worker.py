@@ -686,7 +686,7 @@ def _whole_op(H, shadow):
 def case_passes2d(grid, rec):
     """ring_A and ring_B of a general (non-Hermitian) H on this rank's
     parity chunks, on the kernel's step where the operator takes it
-    (ring_B on the mirror) and on torch.matmul otherwise; the steps of
+    (ring_B on its trans route) and on torch.matmul otherwise; the steps of
     each pass."""
     from chase_tpu_torch import DenseOperator
     from chase_tpu_torch.ops.ring_hemm import KERNEL_DTYPES
@@ -787,21 +787,38 @@ def case_filters2d(grid, rec):
                            (deg, *tabs, cc, dm), kernel)
 
 
-def case_grid_mirror(grid, rec):
-    """The operator's mirrors on the grid: this rank's block and shadow
-    conjugate-transposed in the kernel's layout, cached, dropped by
-    free_low; a solve on the 2-D kernel ring reads the cached one."""
+def case_grid_no_copy(grid, rec):
+    """Ring2D on the kernel's steps over this rank's c64 shadow of a c128
+    block: which operator each ring_hemm call of ring_A and ring_B reads
+    (the shadow itself, ring_B's with trans=True), and the tensors the
+    operator and the ring hold afterwards."""
+    import torch
     from chase_tpu_torch import DenseOperator
-    H, *_ = problem(N_FILT, W_FILT, np.complex64, 12)
+    from chase_tpu_torch.ops import ring_hemm as rh
+    from chase_tpu_torch.parallel.ring import Ring2D
+    H, X, *_ = problem(N_FILT, W_FILT, np.complex64, 12)
     op = DenseOperator(H.astype(np.complex128), grid=grid)
-    M, L = op.mirror(op.H), op.mirror(op.H_low)
-    rec["mirror/block"] = op.H.numpy()
-    rec["mirror/H"] = M.numpy()
-    rec["mirror/low"] = L.numpy()
-    rec["mirror/strides"] = [M.stride(0), L.stride(0)]
-    rec["mirror/cached"] = [op.mirror(op.H) is M, op.mirror(op.H_low) is L]
-    op.free_low()
-    rec["mirror/freed"] = [op.mirror(op.H) is not M, op._H_low is None]
+    low = op.H_low
+    ring = Ring2D(grid, low, True)
+    nch = N_FILT // grid.nprocs
+    reads, real = [], rh.ring_hemm
+
+    def spy(Hs, V, **kw):
+        reads.append([Hs is low, bool(kw.get("trans"))])
+        return real(Hs, V, **kw)
+    rh.ring_hemm = spy
+    try:
+        X = torch.from_numpy(X.astype(np.complex64))
+        ring.ring_A(X[grid.parity_chunk("A") * nch:][:nch])
+        ring.ring_B(X[grid.parity_chunk("B") * nch:][:nch])
+    finally:
+        rh.ring_hemm = real
+    rec["nocopy/reads"] = reads
+    rec["nocopy/op_tensors"] = sorted(
+        k for k, v in vars(op).items() if isinstance(v, torch.Tensor))
+    rec["nocopy/ring_tensors"] = sorted(
+        k for k, v in vars(ring).items() if isinstance(v, torch.Tensor))
+    rec["nocopy/ring_H_is_shadow"] = ring.H is low
 
 
 def case_ring_filter_values(case_fn, cases):
@@ -1126,7 +1143,7 @@ BATTERIES = {
             case_bse_dtensor),
     "f21": (case_fused(FUSED["f21"]), case_fused_warmup),
     "f22": (case_fused(FUSED["f22"]), case_fused_warmup),
-    "r22": (case_passes2d, case_filters2d, case_grid_mirror),
+    "r22": (case_passes2d, case_filters2d, case_grid_no_copy),
     "r23": (case_passes2d, case_filters2d),
     "s22": (case_ring_filter_values(solve_case, SOLVES_2D), case_sequence,
             case_fused2d),

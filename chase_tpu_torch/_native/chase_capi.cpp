@@ -170,13 +170,14 @@ def capi_write_ham(path):
 
 def capi_print_config():
     import torch
-    from chase_tpu_torch.ops.ring_hemm import ring_hemm
+    from chase_tpu_torch.ops.ring_hemm import LAUNCHES
     card = (torch.cuda.get_device_name(0) if _DEVICE == 'cuda'
             and torch.cuda.is_available() else 'no card')
+    launches = LAUNCHES['ring_hemm']
     print(f'chase_tpu_torch {chase_tpu_torch.__version__}: PyTorch '
           f'{torch.__version__}, device {_DEVICE} ({card}); C ABI via '
           f'embedded Python; ring_hemm launches in this process: '
-          f'{ring_hemm.launches}', flush=True)
+          f'{launches}', flush=True)
     return 0
 )PY";
 

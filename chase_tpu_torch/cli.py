@@ -164,6 +164,8 @@ def main(argv=None):
             rcfg = cfg.resolve(dtype, device or grid.device)
             print(res.perf.report(args.n, rcfg.lanczos_iter,
                                   args.numLanczos, dtype))
+    if grid is not None:
+        grid.close()
     if owns_group:
         import torch.distributed as dist
         dist.destroy_process_group()

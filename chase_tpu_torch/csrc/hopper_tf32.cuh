@@ -1,5 +1,6 @@
 // hopper_tf32.cuh — building blocks of the port's tensor-core kernels on
-// Hopper (sm_90a): the 3xTF32 split, mbarriers (also across a thread-block
+// Hopper (sm_90a): the 3xTF32 split, the bf16 rounding, the tile of the
+// main kernels' B operand, mbarriers (also across a thread-block
 // cluster), TMA tile loads (also multicast to a cluster), the register-A
 // wgmma m64n128k8 (tf32) and the shared-memory wgmma m64nNk16 (bf16, N =
 // 128, 192, 256), with f32 accumulation, as inline PTX.
@@ -55,6 +56,73 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
                                            uint32_t& lo) {
   hi = tf32_rna(x);
   lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// f32 → bf16 bits, round to nearest even; NaN → 0x7FC0.  Bit for bit what
+// torch's .to(torch.bfloat16) does (c10::BFloat16's round_to_nearest_even).
+__device__ __forceinline__ uint16_t bf16_rne(float x) {
+  const uint32_t u = __float_as_uint(x);
+  if ((u & 0x7FFFFFFFu) > 0x7F800000u) return 0x7FC0u;
+  return static_cast<uint16_t>((u + 0x7FFFu + ((u >> 16) & 1u)) >> 16);
+}
+
+// ---- the main kernels' B operand ---------------------------------------------
+// One 32 × 32 tile of B, the layout the main kernels read V in (K-major,
+// row stride b_pad, zero-padded): rows j0 … j0+31 of a row-major float
+// matrix X (row stride ldx floats; rows outside [0, rows) and columns from
+// `cols` on read as 0), columns n0 … n0+31, transposed into B's rows n0 …
+// n0+31 at K columns K0 … K0+31 (those below kend):
+//   MODE 0 (f32): split into TF32 hi and lo, the lo plane `plane` floats
+//     after the hi one;
+//   MODE 1 (c64): the same of the real expansion of a c64 X seen as floats
+//     (rows and cols count expansion rows and floats): row 2j is X[j], row
+//     2j+1 is i·X[j] (re, im → −im, re), or −i·X[j] with conj = 1;
+//   MODE 2 (bf16): B bf16, X rounded to nearest even.
+// The pre-passes of ring_hemm.cu and the peer gather of ring_peers.cu both
+// write B with it.  X = nullptr writes NaN in place of X's entries: a
+// gather whose chunk never came poisons its product.  256 threads (32 × 8);
+// `tile` may be reused on return.
+template <int MODE>
+__device__ __forceinline__ void b_operand_tile(
+    float (&tile)[32][33], const float* __restrict__ X, long long ldx,
+    int j0, int rows, int n0, int cols, int conj, void* __restrict__ B,
+    int K0, int kend, int b_pad, long long plane) {
+  const int tx = threadIdx.x, ty = threadIdx.y;
+#pragma unroll
+  for (int i = ty; i < 32; i += 8) {
+    const int j = j0 + i, n = n0 + tx;
+    float x = 0.0f;
+    if (j >= 0 && j < rows && n < cols) {
+      if (X == nullptr) {
+        x = __int_as_float(0x7FC00000);
+      } else if (MODE == 1) {
+        const bool odd = j & 1;                  // an ±i·X row
+        x = __ldcg(X + (long long)(j >> 1) * ldx + (odd ? n ^ 1 : n));
+        if (odd && (n & 1) == conj) x = -x;
+      } else {
+        x = __ldcg(X + (long long)j * ldx + n);
+      }
+    }
+    tile[i][tx] = x;
+  }
+  __syncthreads();
+  const int K = K0 + tx;
+  if (K < kend) {
+#pragma unroll
+    for (int i = ty; i < 32; i += 8) {
+      const float x = tile[tx][i];
+      const long long o = (long long)(n0 + i) * b_pad + K;
+      if (MODE == 2) {
+        static_cast<uint16_t*>(B)[o] = bf16_rne(x);
+      } else {
+        uint32_t hi, lo;
+        split_tf32(x, hi, lo);
+        static_cast<float*>(B)[o] = __uint_as_float(hi);
+        static_cast<float*>(B)[plane + o] = __uint_as_float(lo);
+      }
+    }
+  }
+  __syncthreads();
 }
 
 // ---- mbarriers --------------------------------------------------------------

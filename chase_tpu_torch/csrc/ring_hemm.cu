@@ -227,8 +227,9 @@ __device__ __forceinline__ int tile_row(int L) {
 
 // ---- f32 pre-pass: split and transpose the V chunk --------------------------
 // Vt[0][n][off + j] = hi(B[j][n]), Vt[1][n][off + j] = lo(B[j][n]) for
-// j < b, n < k; zero elsewhere in (w_pad × b_pad).  32×32 tiles through shared memory so
-// both the read (along n) and the write (along kk) are coalesced.
+// j < b, n < k; zero elsewhere in (w_pad × b_pad).  32×32 tiles through
+// shared memory (b_operand_tile, hopper_tf32.cuh) so both the read (along
+// n) and the write (along kk) are coalesced.
 //
 // CPLX = false: B = V, f32 (b × k, row stride ldv).
 // CPLX = true: V is the float view of a c64 chunk (b/2 complex rows, row
@@ -246,64 +247,24 @@ split_transpose_kernel(const float* __restrict__ V, long long ldv,
                        float* __restrict__ Vt, int b, int k, int off,
                        int b_pad, int w_pad, int conj) {
   __shared__ float tile[32][33];
-  const int kk0 = blockIdx.x * 32, n0 = blockIdx.y * 32;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-#pragma unroll
-  for (int i = ty; i < 32; i += 8) {
-    const int j = kk0 + i - off, n = n0 + tx;
-    float x = 0.0f;
-    if (j >= 0 && j < b && n < k) {
-      if (CPLX) {
-        const bool odd = j & 1;                  // an ±i·V row
-        x = V[(long long)(j >> 1) * ldv + (odd ? n ^ 1 : n)];
-        if (odd && (n & 1) == conj) x = -x;
-      } else {
-        x = V[(long long)j * ldv + n];
-      }
-    }
-    tile[i][tx] = x;
-  }
-  __syncthreads();
-  const long long plane = (long long)w_pad * b_pad;
-#pragma unroll
-  for (int i = ty; i < 32; i += 8) {
-    uint32_t hi, lo;
-    split_tf32(tile[tx][i], hi, lo);
-    const long long o = (long long)(n0 + i) * b_pad + kk0 + tx;
-    Vt[o] = __uint_as_float(hi);
-    Vt[plane + o] = __uint_as_float(lo);
-  }
-}
-
-// f32 → bf16 bits, round to nearest even; NaN → 0x7FC0.  Bit for bit what
-// torch's .to(torch.bfloat16) does (c10::BFloat16's round_to_nearest_even).
-__device__ __forceinline__ uint16_t bf16_rne(float x) {
-  const uint32_t u = __float_as_uint(x);
-  if ((u & 0x7FFFFFFFu) > 0x7F800000u) return 0x7FC0u;
-  return static_cast<uint16_t>((u + 0x7FFFu + ((u >> 16) & 1u)) >> 16);
+  const int kk0 = blockIdx.x * 32;
+  b_operand_tile<CPLX ? 1 : 0>(tile, V, ldv, kk0 - off, b, blockIdx.y * 32,
+                               k, conj, Vt, kk0, b_pad, b_pad,
+                               (long long)w_pad * b_pad);
 }
 
 // ---- bf16 pre-pass: round and transpose the V chunk --------------------------
 // Vb[n][off + j] = bf16(V[j][n]) for j < b, n < k; zero elsewhere in
 // (w_pad × b_pad).  The same 32×32 shared-memory transpose as the f32
-// pre-pass.
+// pre-pass (b_operand_tile).
 __global__ void __launch_bounds__(256)
 bf16_pack_kernel(const float* __restrict__ V, long long ldv,
                  uint16_t* __restrict__ Vb, int b, int k, int off,
                  int b_pad) {
   __shared__ float tile[32][33];
-  const int kk0 = blockIdx.x * 32, n0 = blockIdx.y * 32;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-#pragma unroll
-  for (int i = ty; i < 32; i += 8) {
-    const int j = kk0 + i - off, n = n0 + tx;
-    tile[i][tx] = (j >= 0 && j < b && n < k) ? V[(long long)j * ldv + n]
-                                             : 0.0f;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = ty; i < 32; i += 8)
-    Vb[(long long)(n0 + i) * b_pad + kk0 + tx] = bf16_rne(tile[tx][i]);
+  const int kk0 = blockIdx.x * 32;
+  b_operand_tile<2>(tile, V, ldv, kk0 - off, b, blockIdx.y * 32, k, 0, Vb,
+                    kk0, b_pad, b_pad, 0);
 }
 
 // ---- main kernel ------------------------------------------------------------

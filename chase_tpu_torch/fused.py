@@ -56,7 +56,7 @@ from .ops import lanczos as lz
 from .ops import rr as rrops
 from .ops.qr import _rows, tsqr
 from .parallel.dist import hemm, inner
-from .parallel.ring import _ring_axis, ring_steps
+from .parallel.ring import _product
 from .types import eps, is_double_base, low_precision_dtype, real_dtype
 
 __all__ = ["solve_fused", "FilterProducts", "gram_qr", "cheb_rho",
@@ -147,14 +147,17 @@ class FilterProducts:
     """The fused filters' products H·X.  ``chunk(dtype) -> (ring,
     kernel)`` routes each operator (``solver._chunk_product`` bound to the
     solve's route and backend): with both set the product runs on the
-    ``ring_hemm`` kernel through ``parallel/ring.ring_steps`` — one call
-    on one device, the p-step chunk ring with the grid's exchange on a
-    (p, 1) grid.  Otherwise — ``chunk`` None, or an r×c grid, where
-    ``_chunk_product(fused=True)`` says no ring — ``dist.hemm``: the
-    local product (``narrow_matmul`` for the bf16 shadow) with the grid's
-    collectives.  ``steps`` counts every call: the solver's HEMM-step
-    counter, which equals the kernel's launches per rank divided by p
-    when every filter operator takes the kernel."""
+    ``ring_hemm`` kernel through the ring filters' product
+    (``parallel/ring._product``) — one call on one device, one
+    ``ring_hemm_peers`` call on a (p, 1) CUDA grid, the p-step chunk ring
+    with the grid's exchange on a (p, 1) CPU grid.  Otherwise — ``chunk``
+    None, or an r×c grid, where ``_chunk_product(fused=True)`` says no
+    ring — ``dist.hemm``: the local product (``narrow_matmul`` for the
+    bf16 shadow) with the grid's collectives.  ``steps`` counts every
+    call: the solver's HEMM-step counter, which equals the kernel's main
+    launches per rank on the card when every filter operator takes the
+    kernel (``ring_hemm`` on one device, ``ring_hemm_peers`` on a (p, 1)
+    grid), and p times as many ``ring_hemm`` steps on a CPU grid."""
 
     def __init__(self, chunk=None, grid=None):
         self.chunk = chunk
@@ -166,9 +169,8 @@ class FilterProducts:
         if self.chunk is not None and all(self.chunk(H.dtype)):
             # the kernel reads row-major windows; torch.linalg may hand
             # back column-major blocks
-            me, p, exchange = _ring_axis(self.grid)
-            return ring_steps(H, X if X.stride(1) == 1 else X.contiguous(),
-                              me=me, p=p, exchange=exchange)
+            return _product(H, self.grid, True)(
+                X if X.stride(1) == 1 else X.contiguous())
         return hemm(H, X, self.grid)
 
 
@@ -442,6 +444,8 @@ def solve_fused(H, V0, *, nev, nex, tol, deg0, max_deg, deg_extra=2,
         # host read 1: the loop condition and the filter's bounds
         cont_h, it_h, locked_h, dmax_h, low_h, *dmid_h = control(
             cont, it, locked, dmax, low_phase, *dmids)
+        if grid is not None:
+            grid.check_peers()
         if not cont_h:
             break
         lowerb, resid_last, degrees = lowerb_n, resid_last_n, degrees_n

@@ -257,6 +257,8 @@ def solve_pseudo_fused(H, V0, *, nev, nex, tol, deg0, max_deg, deg_extra=2,
         # host read 1: the loop condition and the filter's bounds
         cont_h, it_h, locked_h, dmax_h, dmid_h, low_h = control(
             cont, it, locked, dmax, dmid, low_phase)
+        if grid is not None:
+            grid.check_peers()
         if not cont_h:
             break
         lower = lower_n

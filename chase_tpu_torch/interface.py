@@ -435,8 +435,11 @@ def get_eigenpairs():
 
 
 def finalize(flag: int = 0):
-    """*chase_finalize_: destroy the singleton."""
+    """*chase_finalize_: destroy the singleton (on a grid collectively:
+    its peer memory is freed, ``Grid2D.close``)."""
     global _session
+    if _session is not None and _session.grid is not None:
+        _session.grid.close()
     _session = None
     return 0
 

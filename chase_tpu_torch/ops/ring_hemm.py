@@ -41,8 +41,8 @@ Three routes, by H's dtype:
 * :func:`ring_hemm` — the wrapper.  It validates its arguments, then
   launches the kernels for CUDA tensors and raises if a launch fails.
   Only a tensor on the CPU takes the plain version; a CUDA tensor never
-  does.  ``ring_hemm.launches`` counts main-kernel launches (every route)
-  and nothing else.  H is read through TMA: on the card it must be 16-byte
+  does.  ``LAUNCHES["ring_hemm"]`` counts main-kernel launches (every
+  route) and nothing else.  H is read through TMA: on the card it must be 16-byte
   aligned with a row stride of a whole number of 16 bytes — a multiple of
   4 floats (an even number of complex elements for c64) or of 8 bf16
   elements (``DenseOperator`` allocates it so), or the wrapper raises
@@ -50,18 +50,35 @@ Three routes, by H's dtype:
   (``V.conj()``) raises ValueError on every device: the kernel reads
   ``data_ptr()``, which holds the unconjugated data.
 * :func:`tf32_split` — the f32 route's pre-pass, f32 or c64
-  (``tf32_split.launches`` counts both); :func:`bf16_pack` — the bf16
-  route's (``bf16_pack.launches``).
+  (``LAUNCHES["tf32_split"]`` counts both); :func:`bf16_pack` — the bf16
+  route's (``LAUNCHES["bf16_pack"]``).
 * :func:`ring_hemm_reference`, :func:`tf32_split_reference`,
   :func:`bf16_pack_reference` — the plain PyTorch versions: one
   ``torch.matmul`` with the same accumulate semantics, the TF32 split by
   bit arithmetic, and the rounding by ``.to(torch.bfloat16)``.
+
+The TPU kernel's ring (p > 1), in device code: :func:`ring_hemm_peers`
+is one rank's whole (p, 1) ring product ``W = H·V_all``, the JAX
+package's ``pallas_ring_hemm`` — its chunk transfer, the RDMA and
+barrier of ``_ring_kernel``, moved out of NCCL into ``csrc/
+ring_peers.cu``.  On a CUDA tensor: :func:`peer_publish` copies the
+rank's chunk into its exported slot (``parallel/peers.PeerChunks``) and
+raises the slot's ready flag; :func:`peer_gather` pulls every chunk from
+its owner's memory, in ring order, waiting for its flag, and writes it
+where it lands as the main kernel's B of the whole V (the split and pack
+above, bit for bit); then the main kernel multiplies the whole stripe: one
+main launch per product and rank (``LAUNCHES["ring_hemm_peers"]``) where
+the chunk ring makes p.  The plain versions: :func:`ring_hemm_peers_reference`
+(the ring-ordered sum over the chunks) and :func:`peer_gather_reference`
+(each chunk's plain pre-pass at its K rows).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
+import threading
 import types
 from typing import Optional
 
@@ -70,13 +87,29 @@ import torch
 __all__ = ["ring_hemm", "ring_hemm_reference", "tf32_split",
            "tf32_split_reference", "bf16_pack", "bf16_pack_reference",
            "split_shape", "pack_shape", "tma_ld", "tma_row_stride",
-           "float_view_args", "real_rows", "load_kernels", "KERNEL_DTYPES"]
+           "float_view_args", "real_rows", "load_kernels", "KERNEL_DTYPES",
+           "ring_hemm_peers", "ring_hemm_peers_reference", "peer_publish",
+           "peer_gather", "peer_gather_reference", "gather_layout",
+           "LAUNCHES"]
 
 BK, BN = 32, 128          # csrc/ring_hemm.cu's f32 K tile and W column tile
 BK_BF16 = 64              # the bf16 route's K tile (64 bf16 = 128 bytes)
 BN_BF16 = 192             # its W column tile (RING_HEMM_BF16_BN)
 # H dtypes the kernel takes; V and out have H's dtype, f32 for a bf16 H
 KERNEL_DTYPES = (torch.float32, torch.complex64, torch.bfloat16)
+
+# Launches of this module's kernels, by wrapper name ("ring_hemm",
+# "tf32_split", "bf16_pack", "ring_hemm_peers", "peer_gather",
+# "peer_publish"; a name not yet launched reads 0): each wrapper adds one
+# where it launches its kernel and nowhere else, under a lock, since ranks
+# simulated as threads of one process launch at once.
+LAUNCHES = collections.Counter()
+_LAUNCH_LOCK = threading.Lock()
+
+
+def _launched(name: str) -> None:
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] += 1
 
 
 def _v_dtype(h_dtype) -> torch.dtype:
@@ -311,6 +344,34 @@ def _lib():
     return types.SimpleNamespace(split=splits, pack=pack, main=mains)
 
 
+@functools.lru_cache(maxsize=None)
+def _peer_lib():
+    """``csrc/ring_peers.cu``'s entries: the peer memory and the publish
+    and gather launches of :func:`ring_hemm_peers`."""
+    from .. import _build
+    lib = _build.load_library("ring_peers")
+    P, I, LL, ULL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                     ctypes.c_ulonglong)
+    sig = {"alloc": [I, LL, P], "free": [I, P], "export": [I, P, P],
+           "open": [I, P, P], "close": [I, P], "host_alloc": [LL, P, P],
+           "host_free": [P],
+           "publish": [P, LL, P, I, I, P, I, ULL, ULL, P, I, ULL, P],
+           "gather_f32": [P, I, I, I, ULL, P, I, I, I, I, P, ULL, P],
+           "gather_c64": [P, I, I, I, ULL, P, I, I, I, I, P, ULL, P],
+           "gather_bf16": [P, I, I, I, ULL, P, I, I, I, I, P, ULL, P]}
+    fns = {}
+    for name, args in sig.items():
+        fn = getattr(lib, f"ring_peers_{name}")
+        fn.argtypes, fn.restype = args, ctypes.c_int
+        fns[name] = fn
+    fns["error"] = lib.ring_peers_error
+    fns["error"].argtypes, fns["error"].restype = [I], ctypes.c_char_p
+    fns["gather"] = {torch.float32: fns["gather_f32"],
+                     torch.complex64: fns["gather_c64"],
+                     torch.bfloat16: fns["gather_bf16"]}
+    return types.SimpleNamespace(**fns)
+
+
 def load_kernels() -> None:
     """Build the kernels' library if this checkout has not (nvcc, seconds)
     and load it now rather than inside the first call."""
@@ -360,7 +421,7 @@ def tf32_split(V: torch.Tensor, off: int = 0,
             V.data_ptr(), V.stride(0), Vt.data_ptr(), b, k, off, b_pad,
             w_pad, _stream(V.device))
     _raise_on(err, f"tf32_split kernel (b={b}, k={k})")
-    tf32_split.launches += 1
+    _launched("tf32_split")
     return Vt
 
 
@@ -403,7 +464,7 @@ def bf16_pack(V: torch.Tensor, off: int = 0) -> torch.Tensor:
         err = _lib().pack(V.data_ptr(), V.stride(0), Vb.data_ptr(), b, k, off,
                           b_pad, w_pad, _stream(V.device))
     _raise_on(err, f"bf16_pack kernel (b={b}, k={k})")
-    bf16_pack.launches += 1
+    _launched("bf16_pack")
     return Vb
 
 
@@ -461,10 +522,190 @@ def ring_hemm(H: torch.Tensor, V: torch.Tensor, *, col0: int = 0,
     _raise_on(err, f"ring_hemm kernel (m={m}, k={V.shape[1]}, "
                    f"b={V.shape[0]}, col0={col0}, trans={bool(trans)}, "
                    f"{H.dtype})")
-    ring_hemm.launches += 1
+    _launched("ring_hemm")
     return out
 
 
-ring_hemm.launches = 0
-tf32_split.launches = 0
-bf16_pack.launches = 0
+# -- the (p, 1) ring product on peer memory ---------------------------------
+
+MAXP = 32                   # ranks of a peer ring (csrc/ring_peers.cu)
+
+
+class _PeersArg(ctypes.Structure):
+    """csrc/ring_peers.cu's ``Peers``: each rank's chunk (pointer, row
+    stride in floats) and flags block."""
+    _fields_ = [("data", ctypes.c_void_p * MAXP),
+                ("ld", ctypes.c_longlong * MAXP),
+                ("flags", ctypes.c_void_p * MAXP)]
+
+
+def gather_layout(h_dtype, p: int, b: int, k: int) -> tuple:
+    """(b_pad, w_pad, bK) of the gathered B for p chunks of (b × k) and an
+    H of ``h_dtype``: the main kernel's B of the whole (p·b × k) V — the
+    f32 pre-pass's (2, w_pad, b_pad) (of the real (2p·b × 2k) rows for
+    c64) or the bf16 pack's (w_pad, b_pad) — in which chunk ``src`` fills
+    K rows ``[src·bK, (src+1)·bK)``, bK = b (2b for c64)."""
+    if h_dtype == torch.bfloat16:
+        return pack_shape(p * b, k) + (b,)
+    w = 2 if h_dtype.is_complex else 1
+    return split_shape(w * p * b, w * k) + (w * b,)
+
+
+def peer_gather_reference(chunks, h_dtype) -> torch.Tensor:
+    """Plain version of the gather: each chunk's plain pre-pass
+    (:func:`tf32_split_reference`, :func:`bf16_pack_reference`) placed at
+    its K rows of the whole's B (:func:`gather_layout`), zeros
+    elsewhere — bit for bit the pre-pass of the stacked chunks."""
+    p, (b, k) = len(chunks), chunks[0].shape
+    b_pad, w_pad, bK = gather_layout(h_dtype, p, b, k)
+    bf16 = h_dtype == torch.bfloat16
+    dev = chunks[0].device
+    B = (torch.zeros((w_pad, b_pad), dtype=torch.bfloat16, device=dev)
+         if bf16 else torch.zeros((2, w_pad, b_pad), dtype=torch.float32,
+                                  device=dev))
+    for src, c in enumerate(chunks):
+        part = bf16_pack_reference(c) if bf16 else tf32_split_reference(c)
+        B[..., src * bK:(src + 1) * bK] = part[..., :bK]
+    return B
+
+
+def ring_hemm_peers_reference(H: torch.Tensor, chunks, me: int, *,
+                              out: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+    """Plain version of :func:`ring_hemm_peers`: ``W = Σ_s H[:, src·b:
+    (src+1)·b] · chunks[src]``, src = (me + s) mod p, in ring order — the
+    JAX package's ``pallas_ring_hemm`` on rank ``me`` (each term as
+    :func:`ring_hemm_reference`: a bf16 H's chunk rounded to bf16)."""
+    p, b = len(chunks), chunks[0].shape[0]
+    for s in range(p):
+        src = (me + s) % p
+        out = ring_hemm_reference(H, chunks[src], col0=src * b, out=out,
+                                  accumulate=s > 0)
+    return out
+
+
+def _peers_arg(V: torch.Tensor, peers) -> _PeersArg:
+    """The gather's view of product ``peers.product``: this rank's V as
+    it lies, every peer's slot (row stride k), every rank's flags."""
+    if peers.p > MAXP:
+        raise ValueError(f"the peer ring takes at most {MAXP} ranks, not "
+                         f"{peers.p}")
+    fl = _floats(V)
+    arg = _PeersArg()
+    for q in range(peers.p):
+        mine = q == peers.me
+        arg.data[q] = V.data_ptr() if mine else peers.slot_ptr(
+            q, peers.product)
+        arg.ld[q] = fl * (V.stride(0) if mine else V.shape[1])
+        arg.flags[q] = peers.flags[q]
+    return arg
+
+
+def peer_publish(V: torch.Tensor, peers) -> None:
+    """Publish this rank's chunk for product ``peers.product``: copy V (b ×
+    k, f32 or c64) into its slot and raise the slot's ready flag, after
+    the slot's earlier readers have counted (a launch of
+    ``csrc/ring_peers.cu``; collective when the slots must grow).  Raises
+    an earlier product's failed wait."""
+    peers.check()
+    b, k = V.shape
+    peers.reserve(b * k * V.element_size())
+    from ..parallel.peers import reads_before, ready_epoch, slot_of
+    e, fl = peers.product, _floats(V)
+    with torch.cuda.device(V.device):
+        err = _peer_lib().publish(
+            V.data_ptr(), fl * V.stride(0), peers.slot_ptr(peers.me, e), b,
+            fl * k, peers.flags[peers.me], slot_of(e), ready_epoch(e),
+            reads_before(e, peers.p), peers.err_dev, peers.me,
+            peers.timeout_ns(), _stream(V.device))
+    _raise_on(err, f"peer_publish kernel (b={b}, k={k}, product {e})")
+    _launched("peer_publish")
+
+
+def peer_gather(V: torch.Tensor, peers, h_dtype) -> torch.Tensor:
+    """Product ``peers.product``'s B: every rank's chunk — this rank's V,
+    the peers' slots once their ready flags reach the product's epoch —
+    split (f32, c64) or packed (a bf16 ``h_dtype``) into the main
+    kernel's B of the whole (:func:`gather_layout`), one launch; the
+    peers' slots released as they are read.  Advances the product."""
+    b, k = V.shape
+    p = peers.p
+    b_pad, w_pad, _ = gather_layout(h_dtype, p, b, k)
+    bf16 = h_dtype == torch.bfloat16
+    B = torch.empty((w_pad, b_pad) if bf16 else (2, w_pad, b_pad),
+                    dtype=torch.bfloat16 if bf16 else torch.float32,
+                    device=V.device)
+    from ..parallel.peers import ready_epoch, slot_of
+    e = peers.product
+    arg = _peers_arg(V, peers)
+    with torch.cuda.device(V.device):
+        err = _peer_lib().gather[h_dtype](
+            ctypes.byref(arg), p, peers.me, slot_of(e), ready_epoch(e),
+            B.data_ptr(), b, k, b_pad, w_pad, peers.err_dev,
+            peers.timeout_ns(), _stream(V.device))
+    _raise_on(err, f"peer_gather kernel (p={p}, b={b}, k={k}, product {e})")
+    _launched("peer_gather")
+    peers.advance((p - 1) * b * k * V.element_size())
+    return B
+
+
+def _peer_product(H: torch.Tensor, V: torch.Tensor, peers, ldh: int,
+                  out: Optional[torch.Tensor]) -> torch.Tensor:
+    """The gather and the main kernel over the whole stripe (col0 = 0, K =
+    p·b): one main launch."""
+    B = peer_gather(V, peers, H.dtype)
+    m, k = H.shape[0], V.shape[1]
+    if out is None:
+        out = torch.empty((m, k), dtype=V.dtype, device=H.device)
+    w, _ = _tma_units(H.dtype)
+    with torch.cuda.device(H.device):
+        err = _lib().main[H.dtype, False](
+            H.data_ptr(), ldh, 0, B.data_ptr(), B.shape[-1], B.shape[-2],
+            out.data_ptr(), w * out.stride(0), m, w * k, w * H.shape[1], 0,
+            _stream(H.device))
+    _raise_on(err, f"ring_hemm_peers kernel (m={m}, k={k}, N={H.shape[1]}, "
+                   f"{H.dtype})")
+    _launched("ring_hemm_peers")
+    return out
+
+
+def ring_hemm_peers(H: torch.Tensor, V: torch.Tensor, peers, *,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The (p, 1) ring product ``W = H · V_all`` on rank ``peers.me``: H
+    its stripe (m × p·b), V its chunk (b × k), ``peers`` the ring's
+    :class:`~chase_tpu_torch.parallel.peers.PeerChunks` — the JAX
+    package's ``pallas_ring_hemm`` on one rank.
+
+    CPU tensors run :func:`ring_hemm_peers_reference` on the chunks of an
+    object all-gather.  CUDA tensors: publish V (a launch), meet the
+    simulated ranks if any (``peers.meet``), then gather every chunk from
+    its owner's memory into the main kernel's B (a launch, in ring order)
+    and multiply the whole stripe (one main launch, counted by
+    ``LAUNCHES["ring_hemm_peers"]``); or raise — a failed wait of an earlier
+    product, a mapping that cannot be made (naming ``ring_backend="xla"``,
+    the route without the kernel).  H, V and out as for :func:`ring_hemm`
+    (``col0`` = 0, ``accumulate`` False); W is allocated when ``out`` is
+    None.
+    """
+    _check(H, V, 0, out, False)
+    if H.shape[1] != peers.p * V.shape[0]:
+        raise ValueError(f"ring_hemm_peers: a stripe of {H.shape[1]} "
+                         f"columns for {peers.p} chunks of {V.shape[0]} rows")
+    if H.device.type == "cpu":
+        return ring_hemm_peers_reference(H, peers.chunks(V), peers.me,
+                                         out=out)
+    if H.device.type != "cuda":
+        raise RuntimeError(f"ring_hemm_peers runs on cuda or cpu tensors, "
+                           f"not {H.device}")
+    ldh = tma_row_stride(H)
+    if ldh is None:
+        raise ValueError(f"ring_hemm_peers reads H through TMA: H "
+                         f"({H.dtype}) has row stride {H.stride(0)} and base "
+                         f"{H.data_ptr():#x} (allocate it padded: "
+                         f"DenseOperator does)")
+    # collective when the slots must grow: before the launches, which a
+    # simulation of the ranks may serialise
+    peers.reserve(V.shape[0] * V.shape[1] * V.element_size())
+    peer_publish(V, peers)
+    peers.meet()
+    return _peer_product(H, V, peers, ldh, out)

@@ -17,12 +17,12 @@ the collectives the solver uses on those layouts: a sum over a grid axis
 (:meth:`Grid2D.all_reduce`), the sum of a per-row-block partial that must
 come out bitwise equal on every rank (:meth:`Grid2D.sum_rows`), the rows
 of a multivector gathered over 'r' (:meth:`Grid2D.all_gather`), the
-ring's chunk exchange (:meth:`Grid2D.exchange`), the rotation of a
-multivector's rows that K-conjugation across ranks needs
+ring's chunk exchange (:meth:`Grid2D.exchange`) and its peer memory on
+CUDA (:meth:`Grid2D.peers`, pulled bytes counted under "peer"), the
+rotation of a multivector's rows that K-conjugation across ranks needs
 (:meth:`Grid2D.rotate_rows`), and the 2-D ring's reduce-scatter
 (:meth:`Grid2D.reduce_scatter`) and parity flip (:meth:`Grid2D.flip`).
-Complex tensors travel
-as their real views.  A collective over an axis of size 1 is the
+Complex tensors travel as their real views.  A collective over an axis of size 1 is the
 identity and issues nothing.  ``Grid2D.stats`` counts the collectives
 issued and their payload bytes.
 
@@ -77,8 +77,11 @@ class CollectiveStats:
         self.bytes = defaultdict(int)
 
     def add(self, kind: str, t: torch.Tensor) -> None:
+        self.count(kind, t.numel() * t.element_size())
+
+    def count(self, kind: str, nbytes: int) -> None:
         self.calls[kind] += 1
-        self.bytes[kind] += t.numel() * t.element_size()
+        self.bytes[kind] += int(nbytes)
 
     def reset(self) -> None:
         self.calls.clear()
@@ -115,6 +118,7 @@ class Grid2D:
         self.device = torch.device(device)
         self.stats = CollectiveStats()
         self._exchanges = {}
+        self._peers = {}
 
     def __repr__(self) -> str:
         return (f"Grid2D(shape={self.shape}, coords={self.coords}, "
@@ -214,6 +218,43 @@ class Grid2D:
 
             self._exchanges[axis] = swap
         return self._exchanges[axis]
+
+    def peers(self, axis: str = "r"):
+        """The peer memory of the ring along ``axis``
+        (``parallel/peers.PeerChunks``, made at the first call and kept
+        until :meth:`close`): the (p, 1) ring product's route with the
+        kernel on CUDA (``ops/ring_hemm.ring_hemm_peers``).  Its handles
+        go round the axis's group in an object all-gather; its pulled
+        bytes are counted under "peer"."""
+        if axis not in self._peers:
+            from .peers import PeerChunks
+            g = self.group(axis)
+
+            def allgather(obj):
+                out = [None] * self.size(axis)
+                dist.all_gather_object(out, obj, group=g)
+                return out
+
+            self._peers[axis] = PeerChunks(self.index(axis), self.size(axis),
+                                           self.device, allgather,
+                                           stats=self.stats)
+        return self._peers[axis]
+
+    def check_peers(self) -> None:
+        """Raise the first failed wait of the peer route's finished
+        launches (``PeerChunks.check``; a failed product comes out NaN).
+        The solvers call it after each iteration's host read, which has
+        synchronised."""
+        for peers in self._peers.values():
+            peers.check()
+
+    def close(self) -> None:
+        """Collective: free the grid's peer memory once every rank's queued
+        work is done (``PeerChunks.close``).  Every rank calls it when the
+        grid's work is done (``interface.finalize`` and the CLI do)."""
+        for peers in self._peers.values():
+            peers.close()
+        self._peers.clear()
 
     def rotate_rows(self, t: torch.Tensor, shift: int,
                     axis: str = "r") -> torch.Tensor:

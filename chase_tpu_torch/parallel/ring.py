@@ -17,11 +17,20 @@ nothing is received into the chunk a product is reading.  The exchange is
 an argument: ``Grid2D.exchange`` (NCCL ``batch_isend_irecv`` on the card,
 gloo on the CPU) in a solve, an in-memory rotation in ``chip_smoke.py``.
 The chunk product is the ``ring_hemm`` kernel (the TPU kernel's ``col0``
-/ ``accumulate`` step; its chunk RDMA becomes the exchange outside the
-kernel) or, for dtypes the kernel does not take and for
+/ ``accumulate`` step) or, for dtypes the kernel does not take and for
 ``ring_backend="xla"``, :func:`matmul_step` (the JAX package's XLA ring).
 On one device (p = 1) a product is one call with ``col0=0`` and nothing
 is exchanged.
+
+The peer route (:func:`uses_peers`): on CUDA with the kernel, a (p, 1)
+product is one ``ops.ring_hemm.ring_hemm_peers`` call instead — the TPU
+kernel's chunk RDMA and barrier in device code (``csrc/ring_peers.cu``):
+the rank publishes its chunk into its exported slot, pulls every chunk
+from its owner's memory (``Grid2D.peers``: CUDA IPC between processes)
+into the main kernel's B and multiplies the whole stripe in one main
+launch, with no NCCL call.  A product whose peers cannot be mapped
+raises, naming ``ring_backend="xla"``.  The CPU (gloo) and "xla" keep
+:func:`ring_steps`; so do the 2-D rings (:class:`Ring2D`).
 
 The filters run the recurrence with that product as each step's H·Y: the
 shift ``c·Y``, the three-term update, the injection and the degree mask
@@ -33,9 +42,10 @@ route, and a bf16 shadow with an f32 window its bf16 route.  The H²
 filters take two ring products per step, ``ring(H, ring(H, v))``: on a
 (p, 1) grid the first product's rows are exactly this rank's chunk of the
 second's input, so the rings chain as they stand, 2·p kernel launches per
-H² step and rank (the kernel reads no symmetry, so a BSE H, whose halves
-differ, is fine; the JAX package's H² ring multiplies with XLA).  The
-filter applies no S, so the S-preserving pad needs nothing here.
+H² step and rank on the chunk ring, 2 on the peer route (the kernel
+reads no symmetry, so a BSE H, whose halves differ, is fine; the JAX
+package's H² ring multiplies with XLA).  The filter applies no S, so the
+S-preserving pad needs nothing here.
 
 The 2-D rings (the JAX package's ``_ring2d_pair`` and its four filters,
 ``chebyshev_filter_ring2d``, ``chebyshev_filter_refine_ring2d``,
@@ -86,7 +96,7 @@ from ..types import filter_carry_dtype, low_precision_dtype, \
     numpy_scalar_type
 from .dist import local_product
 
-__all__ = ["ring_hemm", "ring_steps", "matmul_step",
+__all__ = ["ring_hemm", "ring_steps", "matmul_step", "uses_peers",
            "chebyshev_filter_ring", "chebyshev_filter_ring_pallas",
            "chebyshev_filter_refine_ring", "chebyshev_filter_h2_ring",
            "chebyshev_filter_refine_h2_ring", "Ring2D",
@@ -161,11 +171,27 @@ def _ring_axis(grid, axis: str = "r") -> tuple:
     return grid.index(axis), p, (grid.exchange(axis) if p > 1 else None)
 
 
+def uses_peers(device_type: str, kernel: bool, dtype, p: int) -> bool:
+    """Whether a (p, 1) ring product takes the peer route
+    (``ops.ring_hemm.ring_hemm_peers``: the chunks pulled from their
+    owners in device code, one main launch): on CUDA, with the kernel as
+    the ring's step (``ring_backend="pallas"``), an H dtype the kernel
+    takes, and p > 1.  Otherwise :func:`ring_steps` (the CPU's gloo
+    exchange, ``"xla"``'s NCCL one)."""
+    return (device_type == "cuda" and kernel and dtype in rh.KERNEL_DTYPES
+            and p > 1)
+
+
 def _product(H: torch.Tensor, grid, kernel: bool,
              axis: str = "r") -> Callable:
     """v ↦ H·v for this rank's rows: the ring over ``grid`` (one call on
-    one device) with the kernel or :func:`matmul_step` as its step."""
+    one device) with the kernel or :func:`matmul_step` as its step — on
+    the peer route (:func:`uses_peers`) one ``ring_hemm_peers`` call."""
     me, p, exchange = _ring_axis(grid, axis)
+    if uses_peers(H.device.type, kernel, H.dtype, p):
+        peers = grid.peers(axis)
+        # looked up at call time, as ring_steps looks up its step
+        return lambda v: rh.ring_hemm_peers(H, v, peers)
     step = None if kernel else matmul_step
     return lambda v: ring_steps(H, v, me=me, p=p, exchange=exchange,
                                 step=step)
@@ -240,8 +266,10 @@ def chebyshev_filter_ring_pallas(H: torch.Tensor, X: torch.Tensor, degrees,
                                  lam1, lower, upper, deg_max: int, *,
                                  grid=None) -> torch.Tensor:
     """Degree-masked scaled Chebyshev filter of the window ``X`` with
-    every H·Y product on the ring kernel: ``p·(1 + max(deg_max − 1, 0))``
-    launches per rank on a (p, 1) grid (p = 1 on one device).
+    every H·Y product on the ring kernel: ``1 + max(deg_max − 1, 0)``
+    main launches per rank (on a (p, 1) CUDA grid each a
+    ``ring_hemm_peers`` product; p times as many ``ring_hemm`` steps on
+    the CPU's chunk ring).
 
     Args:
       H: X's dtype (f32 or c64) or X's shadow (f32 for f64, c64 for c128,
@@ -284,11 +312,13 @@ def chebyshev_filter_h2_ring(H: torch.Tensor, X: torch.Tensor, degrees,
                              ) -> torch.Tensor:
     """The pseudo-Hermitian filter on H² (``ops/pseudo.
     chebyshev_filter_h2``) with both products of every step a ring
-    product: ``2·p·(1 + max(deg_max − 1, 0))`` ring_hemm launches per rank
-    on a (p, 1) grid with ``kernel`` (p = 1 on one device).  Arguments as
-    for :func:`chebyshev_filter_ring_pallas`, with H²-spectrum ``lam1``,
-    ``lower`` and ``upper`` (the interval in either order); ``kernel``
-    False takes :func:`matmul_step` as the ring's step.  On the bf16 route
+    product: ``2·(1 + max(deg_max − 1, 0))`` products per rank with
+    ``kernel`` — one main launch each on one device and on a (p, 1) CUDA
+    grid (``ring_hemm_peers``), p ``ring_hemm`` steps on the CPU's chunk
+    ring.  Arguments as for :func:`chebyshev_filter_ring_pallas`, with
+    H²-spectrum ``lam1``, ``lower`` and ``upper`` (the interval in either
+    order); ``kernel`` False takes :func:`matmul_step` as the ring's
+    step.  On the bf16 route
     each product rounds its input to bf16, as the plain H² shift does."""
     return _filter_ring(H, X, degrees, lam1, *_interval(lower, upper),
                         deg_max, 2, _product(H, grid, kernel))
@@ -324,9 +354,10 @@ def chebyshev_filter_refine_ring(H: torch.Tensor, V: torch.Tensor,
     """Deviation-form refinement filter (``ops/filter.
     chebyshev_filter_refine``) with every H·w a ring product: w₁ =
     (σ1/e)·r needs no product, so ``deg_max`` steps take ``max(deg_max −
-    1, 0)`` products, p launches each on a (p, 1) grid.  The w recurrence
-    runs in the carry dtype, seeded by the residual vectors R; the
-    combine y = p_final·v + w runs in V's.
+    1, 0)`` products, one main launch each with the kernel (p
+    ``ring_hemm`` steps on the CPU's chunk ring).  The w recurrence runs
+    in the carry dtype, seeded by the residual vectors R; the combine y =
+    p_final·v + w runs in V's.
 
     Args:
       H: shadow of the problem (f32, c64 or bf16) or its own dtype —
@@ -352,10 +383,10 @@ def chebyshev_filter_refine_h2_ring(H: torch.Tensor, V: torch.Tensor,
                                     kernel: bool = True) -> torch.Tensor:
     """The deviation-form filter on H² (``ops/pseudo.
     chebyshev_filter_refine_h2``) with both products of every step a ring
-    product: ``2·p·max(deg_max − 1, 0)`` ring_hemm launches per rank on a
-    (p, 1) grid with ``kernel``.  R2 holds the H²-residuals
-    (``ops/pseudo.h2_residual``), the tables come from ``refine_tables``
-    on the H²-space quantities; otherwise as
+    product: ``2·max(deg_max − 1, 0)`` products per rank, one main launch
+    each with ``kernel`` (p ``ring_hemm`` steps on the CPU's chunk ring).
+    R2 holds the H²-residuals (``ops/pseudo.h2_residual``), the tables
+    come from ``refine_tables`` on the H²-space quantities; otherwise as
     :func:`chebyshev_filter_refine_ring`."""
     return _refine_ring(H, V, R2, degrees, alpha1_e, alphas, betas, inj,
                         p_final, cc, deg_max, 2, _product(H, grid, kernel))

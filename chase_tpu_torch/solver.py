@@ -41,7 +41,8 @@ another waits in.  The start block and the Lanczos probes are drawn
 whole on every rank from identically seeded generators and cut to each
 rank's rows, so a grid solve starts from ``grid=None``'s numbers.  The
 filter's route (``_ring_route``): a 1×1 grid as one device; a (p, 1) grid
-the p-step chunk ring (``parallel/ring.py``); an r×c grid with r, c > 1
+the p-step chunk ring (``parallel/ring.py``; with the kernel on the card
+its peer route, one ``ring_hemm_peers`` launch per product); an r×c grid with r, c > 1
 the 2-D ping-pong ring (``parallel/ring.chebyshev_filter_ring2d`` and
 its refine twin), as in the JAX package — each ring step on the ring_hemm
 kernel with ``ring_backend="pallas"`` and an operator of a dtype it
@@ -835,6 +836,8 @@ def solve(op: DenseOperator, nev: int, nex: int,
                     R_prev = Rv[0]
                 ritzv[act] = _host(ritz_dev)[act]
                 resid[act] = _host(resid_dev)[act]
+            if op.grid is not None:
+                op.grid.check_peers()
             t0 = toc("Rr", t0)
 
             if resid_file is not None:

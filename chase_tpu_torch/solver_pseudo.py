@@ -29,7 +29,8 @@ On a process grid (``DenseOperator(H, grid=grid, pseudo_hermitian=True)``,
 the S-preserving pad) the loop runs on every rank with its blocks, as
 ``solver.solve`` does: a 1×1 grid as one device; a (p, 1) grid the p-step
 chunk ring in every filter (:func:`h2_form`: both products of each H²
-step p ring_hemm launches with "pallas" and a kernel operator, else
+step on the kernel with "pallas" and a kernel operator — on the card one
+``ring_hemm_peers`` launch each, p ring_hemm steps on the CPU —, else
 ``matmul_step``); an r×c grid with r, c > 1 the 2-D H² rings
 (``parallel/ring.chebyshev_filter_h2_ring2d`` and its refine twin: each
 H² step a pass along 'c' on the block conjugate-transposed, read in
@@ -589,6 +590,8 @@ def solve_pseudo(op: DenseOperator, nev: int, nex: int,
                          "linalg")
             ritzv[act] = _host(th_dev)[act]
             resid[act] = _host(rs_dev)[act]
+            if grid is not None:
+                grid.check_peers()
             t0 = toc("Rr", t0)
 
             # -- phantom ± pair purge (the reference keeps it disabled) --

@@ -455,21 +455,29 @@ def phase_device() -> dict:
     return {"name": name, "smi": smi}
 
 
+KERNEL_SOURCES = ("ring_hemm", "ring_peers")     # csrc/<name>.cu
+
+
 def phase_build() -> float:
+    """Every kernel library built from csrc/, one nvcc per source, all
+    started together; ptxas's registers and spills logged."""
+    from concurrent.futures import ThreadPoolExecutor
     from chase_tpu_torch import _build
     t0 = time.perf_counter()
-    _build.load_library("ring_hemm")
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        list(pool.map(_build.load_library, KERNEL_SOURCES))
     dt = time.perf_counter() - t0
     release = subprocess.run([_build.nvcc_path(), "--version"],
                              capture_output=True, text=True).stdout
     release = [ln for ln in release.splitlines() if "release" in ln]
-    log("build", f"ring_hemm built and loaded in {dt:.2f} s "
-                 f"(nvcc {_build.nvcc_path()}: "
+    log("build", f"{', '.join(KERNEL_SOURCES)} built and loaded in "
+                 f"{dt:.2f} s (nvcc {_build.nvcc_path()}: "
                  f"{release[0].strip() if release else 'version unknown'}; "
                  f"{_build.BUILD_DIR})")
-    for line in _build.build_log("ring_hemm").splitlines():
-        if "registers" in line or "spill" in line or "Function" in line:
-            log("build", line.strip())
+    for name in KERNEL_SOURCES:
+        for line in _build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line or "Function" in line:
+                log("build", line.strip())
     return dt
 
 
@@ -557,11 +565,11 @@ def _trans_case(phase, H, row0: int, b: int, k: int, g) -> None:
     Hb = H[row0:row0 + b]
     Vr = V.to(torch.bfloat16) if bf16 else V
     ref = before[:, 5:5 + k].to(wide) + Hb.to(wide).mH @ Vr.to(wide)
-    launches = ring_hemm.launches
+    launches = _count("ring_hemm")
     ring_hemm(H, V, col0=row0, out=Wfull[:, 5:5 + k], accumulate=True,
               trans=True)
     torch.cuda.synchronize()
-    launched = ring_hemm.launches - launches
+    launched = _count("ring_hemm") - launches
     err = rel_err(Wfull[:, 5:5 + k], ref)
     outside = bool(torch.equal(Wfull[:, :5], before[:, :5])
                    and torch.equal(Wfull[:, 5 + k:], before[:, 5 + k:]))
@@ -689,12 +697,12 @@ def phase_complex_kernel(dev) -> dict:
     V = torch.randn((1001, 37), generator=g, device=dev, dtype=c64)
     summary[(1001, 37)] = _hemm_case(
         "ckernel", op.H, V, op.H.to(c128) @ V.to(c128), 20)
-    before = ring_hemm.launches
+    before = _count("ring_hemm")
     try:
         ring_hemm(torch.as_tensor(H1, device=dev), V)
         refused = False
     except ValueError:
-        refused = ring_hemm.launches == before
+        refused = _count("ring_hemm") == before
     log("ckernel", f"N=1001 DenseOperator: row stride {op.H.stride(0)}; "
                    f"contiguous (stride 1001) c64 H refused with ValueError "
                    f"and no launch: {refused}")
@@ -889,21 +897,20 @@ def phase_slice(dev, H, phase: str = "slice", bf16: bool = False) -> dict:
     counts are set to 0 just before the solve and read just after it."""
     import chase_tpu_torch as ct
     from chase_tpu_torch.models import clement_eigenvalues
-    from chase_tpu_torch.ops.ring_hemm import bf16_pack, ring_hemm, tf32_split
     N, nev, nex, tol = SLICE["N"], SLICE["nev"], SLICE["nex"], SLICE["tol"]
     cfg = ct.ChaseConfig(ring_backend="pallas", bf16_filter=bf16,
                          mixed_precision=False)
     torch.cuda.reset_peak_memory_stats(dev)
-    ring_hemm.launches = tf32_split.launches = bf16_pack.launches = 0
+    _zero_ring_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = ct.eigsh(H, nev, nex, tol=tol, config=cfg, device=dev,
                    collect_perf=True)
     torch.cuda.synchronize()
     tts = time.perf_counter() - t0
-    launches = ring_hemm.launches
+    launches = _count("ring_hemm")
     # the pre-pass of the route the slice runs, and the other one's
-    split_launches, other = tf32_split.launches, bf16_pack.launches
+    split_launches, other = _count("tf32_split"), _count("bf16_pack")
     if bf16:
         split_launches, other = other, split_launches
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
@@ -1008,14 +1015,34 @@ def phase_profile(dev, H, phase: str = "profile") -> None:
     return warm
 
 
+def _count(name: str) -> int:
+    """The launches of ``ops.ring_hemm``'s kernel ``name`` since the
+    counts were last set to 0 (``ops.ring_hemm.LAUNCHES``)."""
+    from chase_tpu_torch.ops.ring_hemm import LAUNCHES
+    return LAUNCHES[name]
+
+
 def _ring_counts() -> tuple:
-    from chase_tpu_torch.ops.ring_hemm import bf16_pack, ring_hemm, tf32_split
-    return ring_hemm.launches, tf32_split.launches, bf16_pack.launches
+    return _count("ring_hemm"), _count("tf32_split"), _count("bf16_pack")
+
+
+def _peer_counts() -> tuple:
+    """The peer route's launches: (ring_hemm_peers — its main kernel —,
+    peer_gather, peer_publish)."""
+    return (_count("ring_hemm_peers"), _count("peer_gather"),
+            _count("peer_publish"))
 
 
 def _zero_ring_counts() -> None:
-    from chase_tpu_torch.ops.ring_hemm import bf16_pack, ring_hemm, tf32_split
-    ring_hemm.launches = tf32_split.launches = bf16_pack.launches = 0
+    from chase_tpu_torch.ops.ring_hemm import LAUNCHES
+    LAUNCHES.clear()
+
+
+def _main_counts() -> tuple:
+    """(main launches, pre-pass launches) of either route: ring_hemm +
+    ring_hemm_peers, tf32_split + bf16_pack + peer_gather."""
+    (hemm, split, pack), (peers, gather, _) = _ring_counts(), _peer_counts()
+    return hemm + peers, split + pack + gather
 
 
 def phase_io(dev, H, path: str) -> None:
@@ -1249,7 +1276,6 @@ def _north_star_solve(dev, H, phase: str, mixed: bool,
     import chase_tpu_torch as ct
     from chase_tpu_torch.models import clement_eigenvalues
     from chase_tpu_torch.ops.residuals import residuals
-    from chase_tpu_torch.ops.ring_hemm import bf16_pack, ring_hemm, tf32_split
     N, nev, nex = SLICE["N"], SLICE["nev"], SLICE["nex"]
     tol = 1e-10 * (N - 1)
     cfg = ct.ChaseConfig(mixed_precision=mixed, ring_backend=backend)
@@ -1262,9 +1288,9 @@ def _north_star_solve(dev, H, phase: str, mixed: bool,
         return time.perf_counter() - t0, res
 
     torch.cuda.reset_peak_memory_stats(dev)
-    ring_hemm.launches = tf32_split.launches = bf16_pack.launches = 0
+    _zero_ring_counts()
     tts, res = solve()
-    launches = (ring_hemm.launches, tf32_split.launches, bf16_pack.launches)
+    launches = _ring_counts()
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     perf, t = res.perf, res.perf.timings
     ev_err = float(np.abs(res.ritzv - clement_eigenvalues(N)[:nev]).max())
@@ -1524,7 +1550,6 @@ def phase_pfilter(dev, H, lam, route: str) -> dict:
     [gridring]'s H² rings."""
     from chase_tpu_torch.config import set_matmul_precision
     from chase_tpu_torch.ops.pseudo import chebyshev_filter_h2
-    from chase_tpu_torch.ops.ring_hemm import bf16_pack, ring_hemm, tf32_split
     from chase_tpu_torch.parallel.ring import chebyshev_filter_h2_ring
     t_phase = time.perf_counter()
     set_matmul_precision("highest")
@@ -1540,12 +1565,12 @@ def phase_pfilter(dev, H, lam, route: str) -> dict:
     deg[100:600] = 6             # retired early
     mu = (lam.double() ** 2).cpu().numpy()
     args = (deg, mu[0], mu[nevex], mu[-1] * 1.01, deg_max)
-    ring_hemm.launches = tf32_split.launches = bf16_pack.launches = 0
+    _zero_ring_counts()
     Yk = chebyshev_filter_h2_ring(H_f, X, *args)
     torch.cuda.synchronize()
-    pre, other = ((bf16_pack, tf32_split) if route == "bf16"
-                  else (tf32_split, bf16_pack))
-    launches = (ring_hemm.launches, pre.launches, other.launches)
+    pre, other = (("bf16_pack", "tf32_split") if route == "bf16"
+                  else ("tf32_split", "bf16_pack"))
+    launches = (_count("ring_hemm"), _count(pre), _count(other))
     Yp = chebyshev_filter_h2(H_f, X, *args)
     wide = torch.complex128 if X.is_complex() else torch.float64
     err = rel_err(Yk, Yp.to(wide))
@@ -1559,8 +1584,8 @@ def phase_pfilter(dev, H, lam, route: str) -> dict:
                    f"({op_dtype} operator, {x_dtype} window) on the "
                    f"structured BSE H: rel err ring vs plain {err:.3e} "
                    f"(gate {gate:.0e}); degree-0 columns bit-exact: "
-                   f"{exact0}; ring_hemm / {pre.__name__} / "
-                   f"{other.__name__} launches {launches} (2·deg_max = "
+                   f"{exact0}; ring_hemm / {pre} / "
+                   f"{other} launches {launches} (2·deg_max = "
                    f"{2 * deg_max}); ring {kern_ms:.1f} ms, plain "
                    f"{plain_ms:.1f} ms ({gf:.0f} useful GFLOP); "
                    f"{time.perf_counter() - t_phase:.2f} s")
@@ -1584,7 +1609,6 @@ def _bse_solve(dev, H, lam, phase: str, mixed: bool, backend: str,
     to 0 just before the solve and read just after."""
     import chase_tpu_torch as ct
     from chase_tpu_torch.ops.pseudo import residuals_pseudo
-    from chase_tpu_torch.ops.ring_hemm import bf16_pack, ring_hemm, tf32_split
     N, nev, nex = H.shape[0], BSE["nev"], BSE["nex"]
     tol = BSE["sp_tol"] if H.dtype == torch.float32 else BSE["tol"]
     H_ref = H if H_ref is None else H_ref
@@ -1600,9 +1624,9 @@ def _bse_solve(dev, H, lam, phase: str, mixed: bool, backend: str,
         return time.perf_counter() - t0, res
 
     torch.cuda.reset_peak_memory_stats(dev)
-    ring_hemm.launches = tf32_split.launches = bf16_pack.launches = 0
+    _zero_ring_counts()
     (tts, res), msgs = logged(solve)
-    launches = (ring_hemm.launches, tf32_split.launches, bf16_pack.launches)
+    launches = _ring_counts()
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     perf, t = res.perf, res.perf.timings
     log(phase, f"{what}: {iteration0_report(msgs)}")
@@ -1725,7 +1749,7 @@ def fused_runs(fused, p: int = 1) -> dict:
     iteration."""
     _zero_ring_counts()
     first, res = timed(lambda: fused(None))
-    launches = _ring_counts()
+    launches = _ring_counts() + _peer_counts()
     (warm, res2), sites = count_syncs(lambda: timed(lambda: fused(None)))
     (_, res1), sites1 = count_syncs(lambda: timed(lambda: fused(1)))
     syncs, syncs1 = sum(sites.values()), sum(sites1.values())
@@ -1735,10 +1759,28 @@ def fused_runs(fused, p: int = 1) -> dict:
                 per_iter=(syncs - syncs1) / max(res2.iterations - 1, 1))
 
 
+def _launches_ok(counts: tuple, steps: int, p: int) -> bool:
+    """``counts`` (``_ring_counts() + _peer_counts()``) of a solve of
+    ``steps`` HEMM steps on a rank of a (p, 1) grid whose every filter
+    operator takes the kernel: one main launch and one pre-pass per step —
+    ring_hemm and tf32_split or bf16_pack on one device, ring_hemm_peers,
+    peer_gather and peer_publish on p > 1 with no ring_hemm step."""
+    hemm, split, pack, peers, gather, publish = counts
+    if p == 1:
+        return (0 < hemm == split + pack == steps and min(split, pack) == 0
+                and peers == gather == publish == 0)
+    return 0 < peers == gather == publish == steps and hemm + split + pack == 0
+
+
+LAUNCH_NAMES = ("ring_hemm / tf32_split / bf16_pack / ring_hemm_peers / "
+                "peer_gather / peer_publish launches")
+
+
 def check_fused_runs(phase: str, runs: dict, kernel: bool = True) -> None:
     """The gates of :func:`fused_runs`: the sync count works, at most 3
-    host syncs per iteration, and with ``kernel`` every HEMM step p
-    launches of the kernel and its one pre-pass (none without)."""
+    host syncs per iteration, and with ``kernel`` every HEMM step one main
+    launch of the kernel and its one pre-pass per rank
+    (:func:`_launches_ok`; none without)."""
     res1, res2, syncs = runs["res1"], runs["res2"], runs["syncs"]
     launches, steps, p = runs["launches"], runs["steps"], runs["p"]
     if res1.iterations != 1 or syncs < res2.iterations + 1:
@@ -1749,12 +1791,10 @@ def check_fused_runs(phase: str, runs: dict, kernel: bool = True) -> None:
         raise AssertionError(f"{phase}: {runs['per_iter']:.2f} host syncs "
                              f"per fused iteration (at most 3)")
     if kernel:
-        hemm, split, pack = launches
-        pre = pack if split == 0 else split
-        if not (0 < hemm == pre == p * steps and min(split, pack) == 0):
-            raise AssertionError(f"{phase}: launches {launches} against "
-                                 f"{p} × {steps} HEMM steps")
-    elif launches != (0, 0, 0):
+        if not _launches_ok(launches, steps, p):
+            raise AssertionError(f"{phase}: {LAUNCH_NAMES} {launches} "
+                                 f"against {steps} HEMM steps (p = {p})")
+    elif any(launches):
         raise AssertionError(f"{phase}: kernel launches {launches} on a "
                              f"path with no kernel operator")
 
@@ -1797,9 +1837,8 @@ def fused_beside_host(phase: str, what: str, fused, host, gate,
                f"{host_line}: warm fused / host {warm / host_warm[0]:.3f}; "
                f"host syncs {syncs} in the warm call, {syncs1} in one "
                f"of 1 iteration: {per_iter:.2f} per iteration (by line: "
-               f"{dict(sites.most_common(8))}); ring_hemm / "
-               f"tf32_split / bf16_pack launches {launches}, the solver's "
-               f"HEMM steps {steps}; filtered vecs "
+               f"{dict(sites.most_common(8))}); {LAUNCH_NAMES} "
+               f"{launches}, the solver's HEMM steps {steps}; filtered vecs "
                f"{res.perf.filtered_vecs}; max resid {res.resid.max():.3e}")
     check_fused_runs(phase, runs, kernel)
     if trace:
@@ -1933,6 +1972,7 @@ GRID_P = (2, 4)
 # the kernel's routes on the (p, 1) stripes: (route, widths k)
 GRIDRING = {"f32": (3000,), "bf16": (3000, 1500), "c64": (3000,)}
 NVLINK_GBS = 450.0          # GB/s each way between two H100 SXM cards
+MISSING_TIMEOUT_S = 2.0     # the wait bound of the missing-publish case
 
 
 class _SimRequests:
@@ -1944,9 +1984,9 @@ class _SimRequests:
 
 
 def _ring_all(stripes, chunks, step=None) -> torch.Tensor:
-    """Every simulated rank's ring product (:func:`sim_ranks`: the
-    production step loop with the simulated ranks' exchange; its kernel
-    step unless ``step`` is given), stacked: H·V."""
+    """Every simulated rank's chunk-ring product (:func:`sim_ranks`: the
+    p-step loop ``ring_steps`` with the simulated ranks' exchange; its
+    kernel step unless ``step`` is given), stacked: H·V."""
     from chase_tpu_torch.parallel.ring import ring_steps
     p = len(chunks)
     return torch.cat(sim_ranks(p, lambda g: ring_steps(
@@ -1954,25 +1994,230 @@ def _ring_all(stripes, chunks, step=None) -> torch.Tensor:
         step=step)))
 
 
+def _peer_ring_all(stripes, chunks, peers) -> torch.Tensor:
+    """Every simulated rank's (p, 1) ring product on the production route
+    (``parallel.ring.ring_hemm`` with the simulated ranks as its grid: on
+    the card ``ops.ring_hemm.ring_hemm_peers`` over ``peers``), stacked."""
+    from chase_tpu_torch.parallel.ring import ring_hemm
+    return torch.cat(sim_ranks(len(chunks), lambda g: ring_hemm(
+        g, stripes[g.me], chunks[g.me]), peers=peers))
+
+
+def sim_peers(p: int, dev, **kw) -> list:
+    """p ``PeerChunks`` of simulated ranks on one card: their all-gather a
+    board between two barriers of their own, their meet a barrier (every
+    rank's publish queued before any rank's gather on the one stream), a
+    peer's memory its pointer (one process)."""
+    from chase_tpu_torch.parallel.peers import PeerChunks
+    board, barrier = [None] * p, threading.Barrier(p, timeout=300)
+
+    def allgather(me):
+        def run(obj):
+            board[me] = obj
+            barrier.wait()
+            got = list(board)
+            barrier.wait()
+            return got
+        return run
+
+    return [PeerChunks(i, p, dev, allgather(i), meet=barrier.wait, **kw)
+            for i in range(p)]
+
+
+def close_sim_peers(peers: list) -> None:
+    """``PeerChunks.close`` on every simulated rank (collective: each its
+    thread)."""
+    sim_ranks(len(peers), lambda g: peers[g.me].close())
+
+
+def _peer_times(stripes, chunks, peers, reps: int) -> dict:
+    """Rank 0's publish, gather and whole product (publish, then gather
+    and main kernel) in ms, each the mean over ``reps`` products of the
+    simulated ranks driven from this thread after one warm-up: every rank
+    publishes and gathers, rank 0 in the product runs also multiplies;
+    CUDA events around rank 0's launches.  Also rank 0's last gathered B
+    and |its slot − its chunk| after the gather runs (bitwise checks)."""
+    from chase_tpu_torch.ops import ring_hemm as rh
+    p, h_dtype = len(peers), stripes[0].dtype
+    (b, k), v_dtype = chunks[0].shape, chunks[0].dtype
+    ldh = rh.tma_row_stride(stripes[0])
+    spans = {"publish": [], "gather": [], "product": []}
+    B = slot_err = None
+    for what in ("gather", "product"):
+        for rep in range(reps + 1):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            rh.peer_publish(chunks[0], peers[0])
+            ev[1].record()
+            for q in range(1, p):
+                rh.peer_publish(chunks[q], peers[q])
+            ev[2].record()
+            if what == "gather":
+                B = rh.peer_gather(chunks[0], peers[0], h_dtype)
+            else:
+                rh._peer_product(stripes[0], chunks[0], peers[0], ldh, None)
+            ev[3].record()
+            for q in range(1, p):
+                rh.peer_gather(chunks[q], peers[q], h_dtype)
+            if rep:                               # 0 is the warm-up
+                spans["publish"].append((ev[0], ev[1]))
+                spans[what].append((ev[0], ev[1], ev[2], ev[3]))
+        if what == "gather":
+            torch.cuda.synchronize()
+            slot = peers[0].slot(peers[0].product - 1, (b, k), v_dtype)
+            slot_err = float((slot - chunks[0]).abs().max())
+            del slot
+    torch.cuda.synchronize()
+    ms = {"publish": statistics.mean(a.elapsed_time(b_)
+                                     for a, b_ in spans["publish"]),
+          "gather": statistics.mean(c.elapsed_time(d)
+                                    for _, _, c, d in spans["gather"]),
+          "product": statistics.mean(a.elapsed_time(b_) + c.elapsed_time(d)
+                                     for a, b_, c, d in spans["product"])}
+    return dict(ms=ms, B=B, slot_err=slot_err)
+
+
+def _peer_cases(stripes, chunks, peers, V, Vr, reps: int) -> dict:
+    """The peer route's three kernels for rank 0 at this (p, k): the
+    product beside its plain version (``ring_hemm_peers_reference``), the
+    library call (torch.matmul of the stripe by the whole V; for a bf16
+    stripe torch.mm(out_dtype=f32) of V rounded) and its bound, max abs
+    error against the wide product ``Vr``; the gather bitwise against its
+    plain version, the publish's slot bitwise against the chunk, each
+    beside its plain version and its bytes bound, the publish also beside
+    the library call (``copy_`` of the chunk into a slot of its own; no
+    one torch call splits or packs and transposes as the gather does)."""
+    from chase_tpu_torch.ops.ring_hemm import (gather_layout,
+                                               peer_gather_reference,
+                                               ring_hemm_peers_reference)
+    p, (b, k) = len(chunks), chunks[0].shape
+    Hs, h_dtype = stripes[0], stripes[0].dtype
+    t = _peer_times(stripes, chunks, peers, reps)
+    publish_err = t["slot_err"]
+    Bp = peer_gather_reference(chunks, h_dtype)
+    gather_err = float((t.pop("B").float() - Bp.float()).abs().max())
+
+    def library():
+        if h_dtype == torch.bfloat16:
+            return torch.mm(Hs, V.to(torch.bfloat16),
+                            out_dtype=torch.float32)
+        return torch.matmul(Hs, V)
+
+    W0 = ring_hemm_peers_reference(Hs, chunks, 0)
+    slot = torch.empty_like(chunks[0])
+    prod_plain, lib_ms, gather_plain, publish_plain, publish_lib = time_fns(
+        [lambda: ring_hemm_peers_reference(Hs, chunks, 0, out=W0), library,
+         lambda: peer_gather_reference(chunks, h_dtype),
+         lambda: chunks[0].clone(), lambda: slot.copy_(chunks[0])], 3)
+    del W0, slot
+    N = p * b
+    bound_ms, bound_by = (bf16_hemm_bound(b, N, k) if h_dtype ==
+                          torch.bfloat16 else hemm_bound(b, N, k, h_dtype))
+    b_pad, w_pad, _ = gather_layout(h_dtype, p, b, k)
+    chunk_bytes = b * k * chunks[0].element_size()
+    out_bytes = Bp.numel() * Bp.element_size()
+    del Bp
+    g_bound = bound(0.0, p * chunk_bytes + out_bytes)
+    p_bound = bound(0.0, 2 * chunk_bytes)
+    ref = Hs.to(Vr.dtype) @ Vr
+    W = _peer_product_once(stripes, chunks, peers)
+    abs_err = float((W.to(Vr.dtype) - ref).abs().max())
+    del ref, W
+    return {
+        "product": dict(abs_err=abs_err, ms=t["ms"]["product"],
+                        plain_ms=prod_plain, library_ms=lib_ms,
+                        bound_ms=bound_ms, bound_by=bound_by),
+        "gather": dict(abs_err=gather_err, ms=t["ms"]["gather"],
+                       plain_ms=gather_plain, library_ms=None,
+                       bound_ms=g_bound[0], bound_by=g_bound[1]),
+        "publish": dict(abs_err=publish_err, ms=t["ms"]["publish"],
+                        plain_ms=publish_plain, library_ms=publish_lib,
+                        bound_ms=p_bound[0], bound_by=p_bound[1])}
+
+
+def _peer_product_once(stripes, chunks, peers) -> torch.Tensor:
+    """One product of the simulated ranks driven from this thread; rank
+    0's W."""
+    from chase_tpu_torch.ops import ring_hemm as rh
+    for q in range(len(peers)):
+        rh.peer_publish(chunks[q], peers[q])
+    W = rh._peer_product(stripes[0], chunks[0], peers[0],
+                         rh.tma_row_stride(stripes[0]), None)
+    for q in range(1, len(peers)):
+        rh.peer_gather(chunks[q], peers[q], stripes[0].dtype)
+    return W
+
+
+def _peer_line(route: str, label: str, cases: dict) -> str:
+    """The three peer kernels' numbers, one log line."""
+    pr, ga, pu = cases["product"], cases["gather"], cases["publish"]
+    return (f"{route} {label}: ring_hemm_peers (publish + gather + main "
+            f"kernel, rank 0) {pr['ms']:.3f} ms, plain {pr['plain_ms']:.3f}"
+            f" ms, library {pr['library_ms']:.3f} ms, bound "
+            f"{pr['bound_ms']:.3f} ms ({pr['bound_by']}), max abs err "
+            f"{pr['abs_err']:.3e}; peer_gather {ga['ms']:.3f} ms (plain "
+            f"{ga['plain_ms']:.3f} ms, bound {ga['bound_ms']:.3f} ms, "
+            f"|kernel - plain| {ga['abs_err']}); peer_publish "
+            f"{pu['ms']:.3f} ms (plain {pu['plain_ms']:.3f} ms, library "
+            f"{pu['library_ms']:.3f} ms, bound {pu['bound_ms']:.3f} ms, "
+            f"|slot - chunk| {pu['abs_err']}); "
+            f"local memory of one card, not NVLink")
+
+
+def _missing_publish(dev, stripes, chunks) -> str:
+    """Rank 1 of two simulated ranks never publishes: rank 0's product
+    must come out NaN (the missing chunk's part of its B poisoned) and end
+    in a RuntimeError naming rank 1 within its wait bound
+    (MISSING_TIMEOUT_S), not hang; the phase goes on."""
+    from chase_tpu_torch.ops.ring_hemm import ring_hemm_peers
+    peers = sim_peers(2, dev, timeout_s=MISSING_TIMEOUT_S)
+    nbytes = chunks[0].numel() * chunks[0].element_size()
+
+    def rank(g):
+        pc = peers[g.me]
+        if g.me == 1:
+            pc.reserve(nbytes)
+            pc.meet()
+            return None
+        t0, W = time.perf_counter(), None
+        try:
+            W = ring_hemm_peers(stripes[0], chunks[0], pc)
+            pc.check(sync=True)
+        except RuntimeError as e:
+            nan = W is not None and not bool(torch.isfinite(W).any())
+            return time.perf_counter() - t0, str(e), nan
+        return None
+
+    got = sim_ranks(2, rank)[0]
+    close_sim_peers(peers)
+    if got is None or "rank 0 waited" not in got[1] or "rank 1" not in \
+            got[1] or got[0] > MISSING_TIMEOUT_S + 30 or not got[2]:
+        raise AssertionError(f"gridring: a missing publish did not end in "
+                             f"a NaN product and a RuntimeError in time: "
+                             f"{got}")
+    return (f"a simulated rank that never publishes: the other's product "
+            f"came out NaN and raised in {got[0]:.2f} s (bound "
+            f"{MISSING_TIMEOUT_S:g} s): {got[1]}")
+
+
 def phase_gridring(dev, H, route: str) -> dict:
-    """The (p, 1) ring's stripes of an N × N H on one card: for p = 2 and
-    4 simulated ranks, each rank's stripe laid out as
-    DenseOperator(grid=…) lays it out (``operator.block_of``), the
-    production step loop (``parallel.ring.ring_steps``) with the
-    simulated ranks' exchange (:func:`sim_ranks`), on the kernel's
-    ``route`` (f32, bf16 — the f32 H's shadow
-    — or c64); H·V held against a wide product per rank at the kernel
-    gate (the plain version's and the library call's rings beside it);
-    one stripe call (m, b, k) = (N/p, N/p, k) timed beside its plain
-    version, the library call and its bound, and the pre-pass of one
-    received chunk beside the time the chunk in the pre-pass's layout
-    would add to (f32, c64) or save on (bf16) the wire at NVLink's
-    rate.  The launch counts are set to 0 just before each
-    ring run and read after it."""
-    from chase_tpu_torch.ops.ring_hemm import (bf16_pack, float_view_args,
-                                               pack_shape, ring_hemm,
-                                               ring_hemm_reference,
-                                               split_shape, tf32_split)
+    """The (p, 1) ring of an N × N H on one card, for p = 2 and 4
+    simulated ranks: each rank's stripe laid out as DenseOperator(grid=…)
+    lays it out (``operator.block_of``), on the kernel's ``route`` (f32,
+    bf16 — the f32 H's shadow — or c64).  The main path: every rank's
+    product through ``parallel.ring.ring_hemm`` with the simulated ranks
+    as its grid — the peer route, ``ring_hemm_peers`` over
+    :func:`sim_peers` — with the launch counts set to 0 just before it and
+    read after it (one publish, gather and main launch per rank, no
+    ring_hemm step); each rank's H·V held against a wide product at the
+    kernel gate beside the plain chunk ring's and the library's (and the
+    chunk ring on the kernel, today's p launches, beside); rank 0's
+    product, gather and publish timed beside their plain versions, the
+    library call and their bounds (:func:`_peer_cases`), the p-launch
+    chunk ring's time per rank beside (its in-memory exchange).  The times
+    are of one card's local memory.  On the f32 route also the missing
+    publish (:func:`_missing_publish`)."""
+    from chase_tpu_torch.ops.ring_hemm import ring_hemm_reference
     from chase_tpu_torch.parallel.operator import block_of
     from chase_tpu_torch.parallel.ring import matmul_step
     t_phase = time.perf_counter()
@@ -1986,91 +2231,77 @@ def phase_gridring(dev, H, route: str) -> dict:
         b = N // p
         stripes = [block_of(H, (i * b, b), (0, N), N, dtype=h_dtype,
                             device=dev) for i in range(p)]
+        peers = sim_peers(p, dev)
         for k in GRIDRING[route]:
             V = torch.randn((N, k), generator=g, device=dev, dtype=v_dtype)
             chunks = [V[i * b:(i + 1) * b].contiguous() for i in range(p)]
             Vr = (V.to(torch.bfloat16) if route == "bf16" else V).to(wide)
             _zero_ring_counts()
             torch.cuda.synchronize()
-            with one_rank_at_a_time() as step:
-                W = _ring_all(stripes, chunks)
+            W = _peer_ring_all(stripes, chunks, peers)
             torch.cuda.synchronize()
-            launches = (step.launches,) + _ring_counts()[1:]
-            # the plain version's ring, and the library call's (matmul_step:
-            # torch.matmul, or torch.mm(out_dtype=f32) of a bf16 H)
+            launches = _ring_counts() + _peer_counts()
+            # the plain chunk ring, the library's (matmul_step: torch.matmul,
+            # or torch.mm(out_dtype=f32) of a bf16 H) and today's p-launch
+            # chunk ring on the kernel
             Wp = _ring_all(stripes, chunks, step=ring_hemm_reference)
             Wl = _ring_all(stripes, chunks, step=matmul_step)
-            err = errp = errl = abs_err = 0.0
+            before = _count("ring_hemm")
+            Wk = _ring_all(stripes, chunks)
+            chunk_launches = _count("ring_hemm") - before
+            err = errp = errl = errk = abs_err = 0.0
             for i in range(p):
                 ref = stripes[i].to(wide) @ Vr
                 rows = slice(i * b, (i + 1) * b)
                 err = max(err, rel_err(W[rows], ref))
                 errp = max(errp, rel_err(Wp[rows], ref))
                 errl = max(errl, rel_err(Wl[rows], ref))
+                errk = max(errk, rel_err(Wk[rows], ref))
                 abs_err = max(abs_err,
                               float((W[rows].to(wide) - ref).abs().max()))
                 del ref
-            del W, Wp, Wl
-            # one stripe call at the second chunk (col0 = b)
-            Hs, Vc = stripes[0], chunks[1]
-            Hb = Hs[:, b:2 * b]
-            Wc = torch.empty((b, k), dtype=v_dtype, device=dev)
-
-            def library():
-                if route == "bf16":
-                    return torch.mm(Hb, Vc.to(torch.bfloat16),
-                                    out_dtype=torch.float32)
-                return torch.matmul(Hb, Vc)
-
-            plain_ms, kern_ms, lib_ms = time_fns(
-                [lambda: ring_hemm_reference(Hs, Vc, col0=b, out=Wc),
-                 lambda: ring_hemm(Hs, Vc, col0=b, out=Wc), library], 3)
-            prepass = bf16_pack if route == "bf16" else tf32_split
-            off = float_view_args(Hs, Vc, b, k)[2]
-            pre_ms = time_fns([lambda: prepass(Vc, off)], 3)[0]
-            bound_ms, bound_by = (bf16_hemm_bound(b, b, k) if route == "bf16"
-                                  else hemm_bound(b, b, k, h_dtype))
-            # the chunk on the wire raw (each receiver runs the pre-pass)
-            # or in the pre-pass's layout (the owner runs it once): the
-            # f32 split holds hi and lo, the bf16 pack half the bytes
-            raw = Vc.numel() * Vc.element_size()
-            w = 2 if v_dtype.is_complex else 1
-            if route == "bf16":
-                b_pad, w_pad = pack_shape(b, k)
-                split = 2 * w_pad * b_pad
-            else:
-                b_pad, w_pad = split_shape(w * b, w * k)
-                split = 2 * w_pad * b_pad * 4
-            extra_ms = (split - raw) / (NVLINK_GBS * 1e6)
-            log("gridring", f"{route} p={p} (m, b, k)=({b}, {b}, {k}): ring "
-                            f"of {p} simulated ranks rel err kernel "
-                            f"{err:.3e} plain {errp:.3e} library "
-                            f"{errl:.3e}, max abs err "
-                            f"{abs_err:.3e}; launches {launches[0]} "
-                            f"(pre-pass {launches[1] + launches[2]}); "
-                            f"stripe call {kern_ms:.3f} ms, plain "
-                            f"{plain_ms:.3f} ms, library {lib_ms:.3f} ms, "
-                            f"bound {bound_ms:.3f} ms "
-                            f"({bound_by}); pre-pass of a received chunk "
-                            f"{pre_ms:.3f} ms; chunk {raw / 1e6:.1f} MB raw, "
-                            f"{split / 1e6:.1f} MB in the pre-pass's "
-                            f"layout: {extra_ms:+.3f} ms at "
-                            f"{NVLINK_GBS:.0f} GB/s of NVLink")
+            del W, Wp, Wl, Wk
+            chunk_ms = time_ms(lambda: _ring_all(stripes, chunks), 2) / p
+            cases = _peer_cases(stripes, chunks, peers, V, Vr, 3)
+            log("gridring", f"{route} p={p} (m, N, k)=({b}, {N}, {k}): ring "
+                            f"of {p} simulated ranks on the peer route, rel "
+                            f"err {err:.3e} (plain chunk ring {errp:.3e}, "
+                            f"library {errl:.3e}, the chunk ring on the "
+                            f"kernel {errk:.3e}), max abs err "
+                            f"{abs_err:.3e}; {LAUNCH_NAMES} {launches} "
+                            f"(the chunk ring's ring_hemm steps "
+                            f"{chunk_launches}); the chunk ring on the "
+                            f"kernel (p launches, in-memory exchange) "
+                            f"{chunk_ms:.3f} ms per rank")
+            log("gridring", _peer_line(route, f"p={p} k={k}", cases))
             # the kernel gate (PERF.md §2): 4× the plain version's error,
-            # the library's for bf16
+            # the library's for bf16; one main launch per product and rank
             gate = 4 * (errl if route == "bf16" else errp)
-            if not (err <= 1e-5 and err <= gate
-                    and launches[0] == p * p
-                    and launches[1] + launches[2] == p * p):
+            if not (err <= 1e-5 and err <= gate and errk <= 1e-5
+                    and launches == (0, 0, 0, p, p, p)
+                    and chunk_launches == p * p
+                    and cases["gather"]["abs_err"] == 0.0
+                    and cases["publish"]["abs_err"] == 0.0):
                 raise AssertionError(f"gridring {route} p={p} k={k}: error "
-                                     f"{err:.3e} (gate 1e-5 and {gate:.3e})"
-                                     f" or launches {launches} != {p * p}")
-            out[(p, k)] = dict(abs_err=abs_err, ms=kern_ms,
-                               plain_ms=plain_ms, library_ms=lib_ms,
-                               bound_ms=bound_ms, bound_by=bound_by,
-                               launches=launches[0], prepass_ms=pre_ms)
-            del V, Vr, chunks, Wc, Hb, Hs, Vc
-        del stripes
+                                     f"{err:.3e} (gate 1e-5 and {gate:.3e}),"
+                                     f" chunk ring {errk:.3e}, launches "
+                                     f"{launches} (want {p} of each peer "
+                                     f"kernel), chunk ring launches "
+                                     f"{chunk_launches}, gather / publish "
+                                     f"|kernel - plain| "
+                                     f"{cases['gather']['abs_err']} / "
+                                     f"{cases['publish']['abs_err']}")
+            for kind in cases.values():
+                kind["launches"] = None
+            cases["product"]["launches"] = launches[3]
+            cases["gather"]["launches"] = launches[4]
+            cases["publish"]["launches"] = launches[5]
+            out[(p, k)] = cases
+            if route == "f32" and p == 2:
+                log("gridring", _missing_publish(dev, stripes, chunks))
+            del V, Vr, chunks
+        close_sim_peers(peers)
+        del stripes, peers
         torch.cuda.empty_cache()
     log("gridring", f"{route} phase ok in "
                     f"{time.perf_counter() - t_phase:.2f} s")
@@ -2080,15 +2311,17 @@ def phase_gridring(dev, H, route: str) -> dict:
 class _SimRank:
     """Rank ``me`` of p simulated ranks, each a thread of this process:
     what the ring reads of a (p, 1) grid (``shape``, ``size``, ``index``,
-    ``exchange``).  Its exchange hands chunks through a shared board
-    between two barriers, as NCCL hands them from card to card: the
-    call of rank ``me`` receives rank (me + 1) mod p's send.  Every
-    thread queues its work on the card's one default stream, so a copy
-    queued after the first barrier reads a send whose producers were
+    ``exchange``, and on the card ``peers``).  Its exchange hands chunks
+    through a shared board between two barriers, as NCCL hands them from
+    card to card: the call of rank ``me`` receives rank (me + 1) mod p's
+    send.  Its peers are rank ``me``'s of ``peers`` (:func:`sim_peers`).
+    Every thread queues its work on the card's one default stream, so a
+    copy queued after the first barrier reads a send whose producers were
     queued before it."""
 
-    def __init__(self, me: int, p: int, board: list, barrier):
+    def __init__(self, me: int, p: int, board: list, barrier, peers=None):
         self.me, self.p, self.board, self.barrier = me, p, board, barrier
+        self._peers = peers
 
     @property
     def shape(self) -> dict:
@@ -2109,39 +2342,23 @@ class _SimRank:
             return _SimRequests
         return swap
 
-
-@contextlib.contextmanager
-def one_rank_at_a_time():
-    """``ops.ring_hemm.ring_hemm`` — looked up there by every ring step
-    at call time — replaced by a wrapper that runs one simulated rank's
-    call at a time: the wrapper's launch counts (``ring_hemm.launches``
-    on the module's name, which is then this wrapper, and the
-    pre-passes') are read-modify-writes.  Yields the wrapper, whose
-    ``launches`` counts the kernel's launches meanwhile."""
-    from chase_tpu_torch.ops import ring_hemm as rh
-    real, lock = rh.ring_hemm, threading.Lock()
-
-    def step(*a, **k):
-        with lock:
-            return real(*a, **k)
-    step.launches = 0
-    rh.ring_hemm = step
-    try:
-        yield step
-    finally:
-        rh.ring_hemm = real
+    def peers(self, axis: str = "r"):
+        if self._peers is None:
+            raise AssertionError("these simulated ranks were given no peer "
+                                 "memory (sim_ranks(..., peers=))")
+        return self._peers[self.me]
 
 
-def sim_ranks(p: int, fn, shape=None) -> list:
-    """``fn(rank)`` for p simulated ranks (:class:`_SimRank`, or on an
-    r×c ``shape`` :class:`_SimRank2D`), one thread each, their results in
-    rank order; a rank that raises breaks the others' barrier, and the
-    first error is raised here."""
+def sim_ranks(p: int, fn, shape=None, peers=None) -> list:
+    """``fn(rank)`` for p simulated ranks (:class:`_SimRank` with
+    ``peers``, or on an r×c ``shape`` :class:`_SimRank2D`), one thread
+    each, their results in rank order; a rank that raises breaks the
+    others' barrier, and the first error is raised here."""
     board, barrier = [None] * p, threading.Barrier(p, timeout=300)
     out, errors = [None] * p, []
 
     def rank(i):
-        return (_SimRank(i, p, board, barrier) if shape is None
+        return (_SimRank(i, p, board, barrier, peers) if shape is None
                 else _SimRank2D(i, shape, board, barrier))
 
     def run(i):
@@ -2168,14 +2385,14 @@ def phase_gridring_h2(dev, ctx: dict, route: str) -> dict:
     DenseOperator(grid=…) lays it out, and its rows of [pfilter]'s window
     (w = nev + nex = 1500, degree 10), through the production filter
     (``parallel.ring.chebyshev_filter_h2_ring(grid=…)``: both products of
-    every H² step a p-step ``ring_steps`` ring on the kernel) with the
-    simulated ranks' exchange; the stacked result held against the plain
-    H² filter on the whole H ([pfilter]'s result) at [pfilter]'s gate,
-    degree-0 columns bit-exact, launches = 2·p² per H² step over the
-    ranks.  One stripe call (m, b, k) = (N/p, N/p, w) of the f32 and c64
-    routes timed beside its plain version, the library call and its
-    bound, its error against an f64 (c128) product."""
-    from chase_tpu_torch.ops.ring_hemm import ring_hemm, ring_hemm_reference
+    every H² step a ``ring_hemm_peers`` product over :func:`sim_peers`);
+    the stacked result held against the plain H² filter on the whole H
+    ([pfilter]'s result) at [pfilter]'s gate, degree-0 columns bit-exact,
+    one publish, gather and main launch per product and rank (2·p per H²
+    step over the ranks), no ring_hemm step.  Rank 0's product, gather and
+    publish at (m, N, k) = (N/p, N, w) timed beside their plain versions,
+    the library call and their bounds (:func:`_peer_cases`)."""
+    from chase_tpu_torch.ops.ring_hemm import _v_dtype
     from chase_tpu_torch.parallel.operator import block_of
     from chase_tpu_torch.parallel.ring import chebyshev_filter_h2_ring
     t_phase = time.perf_counter()
@@ -2184,59 +2401,53 @@ def phase_gridring_h2(dev, ctx: dict, route: str) -> dict:
     N, w = X.shape
     deg, deg_max = args[0], args[-1]
     wide = torch.complex128 if X.is_complex() else torch.float64
+    v_dtype = _v_dtype(H_f.dtype)
     out = {}
     for p in GRID_P:
         b = N // p
         stripes = [block_of(H_f, (i * b, b), (0, N), N, dtype=H_f.dtype,
                             device=dev) for i in range(p)]
+        peers = sim_peers(p, dev)
         _zero_ring_counts()
         torch.cuda.synchronize()
-        with one_rank_at_a_time() as step:
-            Y = torch.cat(sim_ranks(p, lambda g: chebyshev_filter_h2_ring(
-                stripes[g.me], X[g.me * b:(g.me + 1) * b], *args, grid=g)))
-        launches = (step.launches,) + _ring_counts()[1:]
+        Y = torch.cat(sim_ranks(p, lambda g: chebyshev_filter_h2_ring(
+            stripes[g.me], X[g.me * b:(g.me + 1) * b], *args, grid=g),
+            peers=peers))
+        launches = _ring_counts() + _peer_counts()
         err = rel_err(Y, Yp.to(wide))
         exact0 = bool(torch.equal(Y[:, deg == 0], X[:, deg == 0]))
         del Y
         steps = 1 + max(deg_max - 1, 0)
-        want = 2 * p * p * steps
-        line = (f"{route} H² ring filter p={p} (stripes ({b}, {N}), window "
-                f"{w}, deg_max {deg_max}) over {p} simulated ranks: rel err "
-                f"against the plain H² filter {err:.3e} (gate {gate:.0e}); "
-                f"degree-0 columns bit-exact: {exact0}; ring_hemm launches "
-                f"{launches[0]} (2·p²·{steps} = {want}), pre-pass "
-                f"{launches[1] + launches[2]}")
-        if route != "bf16":
-            Hs, Vc = stripes[0], X[b:2 * b].to(H_f.dtype).contiguous()
-            Hb = Hs[:, b:2 * b]
-            Wc = torch.empty((b, w), dtype=H_f.dtype, device=dev)
-            plain_ms, kern_ms, lib_ms = time_fns(
-                [lambda: ring_hemm_reference(Hs, Vc, col0=b, out=Wc),
-                 lambda: ring_hemm(Hs, Vc, col0=b, out=Wc),
-                 lambda: torch.matmul(Hb, Vc)], 3)
-            ref = Hb.to(wide) @ Vc.to(wide)
-            abs_err = float((ring_hemm(Hs, Vc, col0=b).to(wide) - ref)
-                            .abs().max())
-            del ref
-            bound_ms, bound_by = hemm_bound(b, b, w, H_f.dtype)
-            out[(p, w)] = dict(abs_err=abs_err, ms=kern_ms,
-                               plain_ms=plain_ms, library_ms=lib_ms,
-                               bound_ms=bound_ms, bound_by=bound_by,
-                               launches=launches[0])
-            line += (f"; stripe call ({b}, {b}, {w}) {kern_ms:.3f} ms, plain "
-                     f"{plain_ms:.3f} ms, library {lib_ms:.3f} ms, bound "
-                     f"{bound_ms:.3f} ms ({bound_by}), max abs err "
-                     f"{abs_err:.3e} against a {wide} product")
-            del Hs, Vc, Hb, Wc
-        log("gridring", line)
-        del stripes
+        want = 2 * p * steps
+        V = X.to(v_dtype)
+        chunks = [V[i * b:(i + 1) * b].contiguous() for i in range(p)]
+        Vr = (V.to(torch.bfloat16) if route == "bf16" else V).to(wide)
+        cases = _peer_cases(stripes, chunks, peers, V, Vr, 3)
+        for name, n in zip(("product", "gather", "publish"), launches[3:]):
+            cases[name]["launches"] = n
+        out[(p, w)] = cases
+        log("gridring", f"{route} H² ring filter p={p} (stripes ({b}, {N}), "
+                        f"window {w}, deg_max {deg_max}) over {p} simulated "
+                        f"ranks on the peer route: rel err against the "
+                        f"plain H² filter {err:.3e} (gate {gate:.0e}); "
+                        f"degree-0 columns bit-exact: {exact0}; "
+                        f"{LAUNCH_NAMES} {launches} (2·p·{steps} = {want} "
+                        f"of each peer kernel)")
+        log("gridring", _peer_line(route, f"H² p={p} k={w}", cases))
+        close_sim_peers(peers)
+        del stripes, peers, V, Vr, chunks
         torch.cuda.empty_cache()
-        if not (err <= gate and exact0 and launches[0] == want
-                and launches[1] + launches[2] == want):
+        if not (err <= gate and exact0
+                and launches == (0, 0, 0, want, want, want)
+                and cases["gather"]["abs_err"] == 0.0
+                and cases["publish"]["abs_err"] == 0.0):
             raise AssertionError(f"gridring H² {route} p={p}: error "
                                  f"{err:.3e} (gate {gate:.0e}), degree-0 "
                                  f"exact {exact0}, launches {launches} "
-                                 f"(want {want})")
+                                 f"(want {want} of each peer kernel), "
+                                 f"gather / publish |kernel - plain| "
+                                 f"{cases['gather']['abs_err']} / "
+                                 f"{cases['publish']['abs_err']}")
     log("gridring", f"{route} H² rings ok in "
                     f"{time.perf_counter() - t_phase:.2f} s")
     return out
@@ -2421,7 +2632,8 @@ def phase_gridring2d(dev, H, route: str) -> dict:
     gate beside the plain version's passes, launches r and c per rank;
     one stripe call of each pass (N/r or N/c, N/(r·c), k) timed beside
     its plain version, the library call and its bound (ring_B also beside
-    the untransposed route at its shape).  Then the Hermitian 2-D ring filter
+    the untransposed route at its shape; on c64 also ring_B's pre-pass,
+    :func:`_conj_split_case`).  Then the Hermitian 2-D ring filter
     (``chebyshev_filter_ring2d``) on the Hermitian part of H against the
     plain filter at [filter]'s width, degrees and gate (1e-2 on the bf16
     shadow), degree-0 columns bit-exact, ⌈n/2⌉·r + ⌊n/2⌋·c launches per
@@ -2472,11 +2684,9 @@ def phase_gridring2d(dev, H, route: str) -> dict:
                                 else ring.ring_B(w))
                     _zero_ring_counts()
                     torch.cuda.synchronize()
-                    with one_rank_at_a_time() as counted:
-                        res[name] = sim_ranks(n, rank, shape)
+                    res[name] = sim_ranks(n, rank, shape)
                     if name == "kernel":
-                        launches[label] = ((counted.launches,)
-                                           + _ring_counts()[1:])
+                        launches[label] = _ring_counts()
                 err = errp = abs_err = 0.0
                 for q in range(n):
                     # the chunk of the product this rank's pass lands:
@@ -2516,12 +2726,56 @@ def phase_gridring2d(dev, H, route: str) -> dict:
                         f"launches {launches[label]} != {want}")
                 out[(label, shape, k)] = dict(
                     abs_err=abs_err, launches=launches[label][0], **cl)
+            if route == "c64":
+                out[("split", shape, k)] = _conj_split_case(
+                    V[nch:2 * nch].contiguous(), launches["B"][1],
+                    f"c64 2-D {shape}")
             del V, Vr
         del tiles
         torch.cuda.empty_cache()
         _hermitian_filter2d(dev, H, route, shape, h_dtype, v_dtype, wide)
     log("gridring", f"{route} 2-D phase ok in "
                     f"{time.perf_counter() - t_phase:.2f} s")
+    return out
+
+
+def _conj_split_case(Vc, launches: int, what: str) -> dict:
+    """ring_B's c64 pre-pass (``tf32_split(conj=True)``, the C entry
+    ``ring_hemm_split_c64_conj``) on one chunk: bit-exact against its
+    plain version, timed beside it and its bytes bound."""
+    from chase_tpu_torch.ops.ring_hemm import tf32_split, tf32_split_reference
+    b, k = Vc.shape
+    err = float((tf32_split(Vc, conj=True)
+                 - tf32_split_reference(Vc, conj=True)).abs().max())
+    plain_ms, ms = time_fns([lambda: tf32_split_reference(Vc, conj=True),
+                             lambda: tf32_split(Vc, conj=True)], 3)
+    bound_ms, bound_by = split_bound(b, k, Vc.dtype)
+    log("gridring", f"{what} ring_B's pre-pass tf32_split(conj=True) ({b}, "
+                    f"{k}): |kernel - plain| {err}; {ms:.3f} ms, plain "
+                    f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
+                    f"({bound_by}); launches {launches}")
+    if err != 0.0:
+        raise AssertionError(f"gridring {what}: tf32_split(conj=True) "
+                             f"disagrees with its plain version")
+    return dict(abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=bound_ms, bound_by=bound_by, launches=launches)
+
+
+def ring2d_entries(rings: dict, tag: str) -> list:
+    """The kernels-line entries of [gridring]'s 2-D rings (``rings``:
+    route → (label, shape, k) → case): each pass's stripe call, and c64
+    ring_B's pre-pass."""
+    out = []
+    for route, cases in rings.items():
+        for (label, shape, k), case in cases.items():
+            if label == "split":
+                out.append(_kernel_entry(
+                    f"tf32_split[{route} conj{tag} 2-D ring_B {shape} "
+                    f"k={k}]", case["launches"], case))
+            else:
+                out.append(_kernel_entry(
+                    f"ring_hemm[{route}{tag} 2-D {STRIPE_2D[label]} "
+                    f"{shape} k={k}]", case["launches"], case))
     return out
 
 
@@ -2549,11 +2803,10 @@ def _hermitian_filter2d(dev, H, route, shape, h_dtype, v_dtype, wide):
     b = N // r
     _zero_ring_counts()
     torch.cuda.synchronize()
-    with one_rank_at_a_time() as counted:
-        res = sim_ranks(n, lambda g2: chebyshev_filter_ring2d(
-            g2, tiles[g2.me], X[g2.coords[0] * b:(g2.coords[0] + 1) * b],
-            *args, kernel=True), shape)
-    launches = (counted.launches,) + _ring_counts()[1:]
+    res = sim_ranks(n, lambda g2: chebyshev_filter_ring2d(
+        g2, tiles[g2.me], X[g2.coords[0] * b:(g2.coords[0] + 1) * b],
+        *args, kernel=True), shape)
+    launches = _ring_counts()
     Y = _row_blocks(res, c)
     del res, tiles
     Yp = chebyshev_filter(Hs, X, *args)
@@ -2604,12 +2857,11 @@ def phase_gridring2d_h2(dev, ctx: dict, route: str) -> dict:
         before, after = _ring2d_bytes(tiles, shape)
         _zero_ring_counts()
         torch.cuda.synchronize()
-        with one_rank_at_a_time() as counted:
-            res = sim_ranks(n, lambda g2: chebyshev_filter_h2_ring2d(
-                g2, tiles[g2.me],
-                X[g2.coords[0] * b:(g2.coords[0] + 1) * b], *args,
-                kernel=True), shape)
-        launches = (counted.launches,) + _ring_counts()[1:]
+        res = sim_ranks(n, lambda g2: chebyshev_filter_h2_ring2d(
+            g2, tiles[g2.me],
+            X[g2.coords[0] * b:(g2.coords[0] + 1) * b], *args,
+            kernel=True), shape)
+        launches = _ring_counts()
         Y = _row_blocks(res, c)
         del res
         err = rel_err(Y, Yp.to(wide))
@@ -2714,8 +2966,10 @@ def _grid_solve(grid, solve, gate, runs: int = 2) -> dict:
     """``solve()`` on ``grid`` ``runs`` times (cold, then warm), each
     timed with the grid's collectives and the kernel launch counts set to
     0 just before it; the last run's numbers, its cold TTS beside, gated
-    by ``gate(res, who)`` and launches = p × the filter's HEMM steps on
-    every kernel route."""
+    by ``gate(res, who)`` and one main launch per HEMM step and rank on
+    every kernel route (:func:`_launches_ok`), on p > 1 each product
+    counted once under "peer" and no chunk exchanged by NCCL
+    ("sendrecv")."""
     import torch.distributed as dist
     out = []
     for _ in range(runs):
@@ -2724,15 +2978,18 @@ def _grid_solve(grid, solve, gate, runs: int = 2) -> dict:
         torch.cuda.synchronize(grid.device)
         dist.barrier()
         tts, res = timed(solve)
-        out.append((tts, res, _ring_counts(), grid.stats.summary()))
+        out.append((tts, res, _ring_counts() + _peer_counts(),
+                    grid.stats.summary()))
     tts, res, launches, stats = out[-1]
     gate(res, f"grid {grid.shape}")
     steps = res.perf.filter_hemm_steps
     p = grid.size("r")
-    if not (launches[0] == launches[1] + launches[2] == p * steps
-            and min(launches[1], launches[2]) == 0):
-        raise AssertionError(f"grid {grid.shape}: launches {launches} "
-                             f"against {p} × {steps} HEMM steps")
+    peer_ok = p == 1 or ("sendrecv" not in stats
+                         and stats.get("peer", (0, 0))[0] == steps)
+    if not (_launches_ok(launches, steps, p) and peer_ok):
+        raise AssertionError(f"grid {grid.shape}: {LAUNCH_NAMES} "
+                             f"{launches} against {steps} HEMM steps, "
+                             f"collectives {stats}")
     return dict(tts_cold=out[0][0], tts=tts, iterations=res.iterations,
                 launches=list(launches), hemm_steps=steps,
                 executed=res.perf.filtered_vecs_executed,
@@ -2741,11 +2998,15 @@ def _grid_solve(grid, solve, gate, runs: int = 2) -> dict:
 
 def _grid_fused(grid, fused, gate) -> dict:
     """:func:`fused_runs` of ``fused`` on ``grid`` with its gates
-    (:func:`check_fused_runs`, launches = p × HEMM steps) and ``gate``
-    on both solves; the collectives of the warm call."""
+    (:func:`check_fused_runs`: one main launch per HEMM step and rank; no
+    NCCL chunk exchange) and ``gate`` on both solves; the collectives of
+    the three calls."""
     grid.stats.reset()
     runs = fused_runs(fused, grid.size("r"))
     check_fused_runs(f"grid {grid.shape} fused", runs)
+    if "sendrecv" in grid.stats.summary():
+        raise AssertionError(f"grid {grid.shape} fused: chunks exchanged "
+                             f"by NCCL: {grid.stats.summary()}")
     gate(runs["res"], "fused")
     gate(runs["res2"], "fused (warm)")
     return dict(tts_cold=runs["first"], tts=runs["warm"],
@@ -2760,8 +3021,8 @@ def _grid_io(grid, H, path: str, gate, cfg) -> dict:
     """[grid1]'s (and [gridnccl]'s) sharded I/O at the slice's size on a
     (p, 1) grid: H from the ChASE file [io] wrote through
     io.load_matrix_sharded (this rank's block bitwise against H's), eigsh
-    of that DTensor on the kernel ring (the slice's gates, ring_hemm
-    launches = p × HEMM steps), its V through save_state(sharded=True) and
+    of that DTensor on the kernel ring (the slice's gates, one main
+    launch per HEMM step and rank), its V through save_state(sharded=True) and
     load_state(grid=) (bitwise) and a warm start from that checkpoint (no
     more iterations than the cold solve), then
     interface.init_blockcyclic(mb = nb = 64) on the grid's shape, solve
@@ -2785,7 +3046,7 @@ def _grid_io(grid, H, path: str, gate, cfg) -> dict:
     _zero_ring_counts()
     cold, res = timed(lambda: ct.eigsh(Hd, nev, nex, tol=tol, config=cfg,
                                        grid=grid, collect_perf=True))
-    launches = _ring_counts()
+    launches = _ring_counts() + _peer_counts()
     del Hd
     gate(res, "eigsh of the sharded file")
     steps = res.perf.filter_hemm_steps
@@ -2820,13 +3081,12 @@ def _grid_io(grid, H, path: str, gate, cfg) -> dict:
     _zero_ring_counts()
     with ring_backend_env("pallas"):
         t_bc, (rc, bc_its, (ev, Vh)) = timed(blockcyclic)
-    bc_launches = _ring_counts()
+    bc_launches = _main_counts()
     interface.finalize()
     gate(SimpleNamespace(V=torch.from_numpy(Vh).to(grid.device), ritzv=ev,
                          converged=rc == 0), "interface.init_blockcyclic")
     ok = (same and same_state and warm_its <= res.iterations
-          and launches[0] == launches[1] == p * steps > 0
-          and launches[2] == 0 and bc_launches[0] > 0)
+          and _launches_ok(launches, steps, p) and bc_launches[0] > 0)
     return dict(ok=ok, native_s=t_native, read_s=t_read,
                 read_gb=rn * N * 4 / 1e9,
                 bitwise=same, tts=cold, iterations=res.iterations,
@@ -2891,6 +3151,7 @@ def grid_child() -> int:
     out["fpseudo"] = _grid_fused(grid, fpseudo, bgate)
     if grid.coords == (0, 0):
         print("GRID_RESULT " + json.dumps(out), flush=True)
+    grid.close()
     dist.destroy_process_group()
     return 0
 
@@ -2923,9 +3184,17 @@ def host_child() -> int:
         recording.trans += bool(kw.get("trans"))
         return real(H, V, col0=col0, **kw)
 
-    # every ring step looks ring_hemm up on its module at call time, and
-    # the wrapper counts its launches on that name: this function
-    rh.ring_hemm = recording
+    real_peers = rh.ring_hemm_peers
+
+    def recording_peers(H, V, peers, **kw):
+        stripes.add((H.shape[0], 0))
+        operators.add(H.data_ptr())
+        return real_peers(H, V, peers, **kw)
+
+    # every ring step looks ring_hemm (a (p, 1) product on the card
+    # ring_hemm_peers) up on its module at call time: these functions
+    # record what it reads (the launches are counted where they are made)
+    rh.ring_hemm, rh.ring_hemm_peers = recording, recording_peers
     dev = grid.device
     results = {}
     solves = GRIDHOST if shape[1] == 1 else GRIDHOST_2D
@@ -2942,7 +3211,8 @@ def host_child() -> int:
         stripes.clear()
         operators.clear()
         grid.stats.reset()
-        recording.launches = recording.trans = rh.tf32_split.launches = 0
+        recording.trans = 0
+        _zero_ring_counts()
         torch.cuda.reset_peak_memory_stats(dev)
         dist.barrier()
         tts, res = timed(lambda: solve(H, nev, nex, tol=tol, grid=grid,
@@ -2954,7 +3224,9 @@ def host_child() -> int:
             tts=tts, iterations=res.iterations, locked=res.locked,
             ritzv=np.asarray(res.ritzv, np.float64).tobytes().hex(),
             resid=np.asarray(res.resid, np.float64).tobytes().hex(),
-            launches=[recording.launches, rh.tf32_split.launches],
+            launches=[_count("ring_hemm"), _count("tf32_split"),
+                      _count("ring_hemm_peers"), _count("peer_gather"),
+                      _count("peer_publish")],
             hemm_steps=res.perf.filter_hemm_steps, N=N, peak_mib=peak,
             trans=recording.trans,
             stripes=sorted(stripes), operators=len(operators),
@@ -2964,13 +3236,14 @@ def host_child() -> int:
         torch.cuda.empty_cache()
     if shape[1] > 1 and "CHASE_SMOKE_FILE" in os.environ:
         results["io"] = _gridhost_io(grid, os.environ["CHASE_SMOKE_FILE"],
-                                     recording, stripes)
+                                     stripes)
     print("HOST_RESULT " + json.dumps(results), flush=True)
+    grid.close()
     dist.destroy_process_group()
     return 0
 
 
-def _gridhost_io(grid, path: str, recording, stripes: set) -> dict:
+def _gridhost_io(grid, path: str, stripes: set) -> dict:
     """[gridhost]'s (2, 2) checks of the distributed I/O and bindings on
     one rank: its block of the slice's ChASE file (N = 30000) read with
     io.load_matrix_sharded and io.load_matrix_blockcyclic(mb = 64), each
@@ -2989,7 +3262,6 @@ def _gridhost_io(grid, path: str, recording, stripes: set) -> dict:
     import chase_tpu_torch as ct
     from chase_tpu_torch import _native, interface, io as cio
     from chase_tpu_torch.io import _even_block
-    from chase_tpu_torch.ops import ring_hemm as rh
     from chase_tpu_torch.parallel.layouts import BlockCyclicLayout
     N, dev = SLICE["N"], grid.device
     (r, c), (i, j) = (grid.size("r"), grid.size("c")), grid.coords
@@ -3031,7 +3303,7 @@ def _gridhost_io(grid, path: str, recording, stripes: set) -> dict:
 
     def session(name, init, per_rank=False):
         stripes.clear()
-        recording.launches = rh.tf32_split.launches = 0
+        _zero_ring_counts()
         dist.barrier()
 
         def run():
@@ -3047,7 +3319,7 @@ def _gridhost_io(grid, path: str, recording, stripes: set) -> dict:
         out[name] = dict(
             tts=tts, iterations=interface._require().result.iterations,
             ritzv=np.asarray(ev, np.float64).tobytes().hex(),
-            launches=[recording.launches, rh.tf32_split.launches],
+            launches=[_count("ring_hemm"), _count("tf32_split")],
             stripes=sorted(stripes))
 
     with ring_backend_env("pallas"):
@@ -3213,7 +3485,7 @@ def _grid_line(what: str, out: dict, ref=None) -> str:
                  f"{out['tts'] / ref[0] - 1:+.1%})")
     if "per_iter" in out:
         line += f"; {out['per_iter']:.2f} host syncs per iteration"
-    return (line + f"; ring_hemm / tf32_split / bf16_pack launches "
+    return (line + f"; {LAUNCH_NAMES} "
             f"{out['launches']}, HEMM steps {out['hemm_steps']}; "
             f"collectives per iteration (calls, bytes) "
             f"{_per_iteration(out) or 'none'}")
@@ -3229,15 +3501,14 @@ def _grid_io_line(out: dict) -> str:
             f"({gb / out['read_s']:.2f} GB/s, read + placement on the "
             f"card), bitwise {out['bitwise']}; eigsh of the DTensor: "
             f"TTS {out['tts']:.3f} s, {out['iterations']} iterations, "
-            f"ring_hemm / tf32_split / bf16_pack launches "
-            f"{out['launches']}, HEMM steps {out['hemm_steps']}; "
+            f"{LAUNCH_NAMES} {out['launches']}, HEMM steps {out['hemm_steps']}; "
             f"save_state(sharded=True) {out['save_s']:.3f} s, "
             f"load_state(grid=) {out['load_s']:.3f} s, bitwise "
             f"{out['state_bitwise']}; warm start from it: TTS "
             f"{out['warm_tts']:.3f} s, {out['warm_iterations']} iterations; "
             f"interface.init_blockcyclic(mb=nb=64) + solve + "
             f"get_eigenpairs {out['bc_tts']:.3f} s, {out['bc_iterations']} "
-            f"iterations, ring_hemm launches {out['bc_launches'][0]}")
+            f"iterations, main kernel launches {out['bc_launches'][0]}")
 
 
 def phase_grid1(refs: dict, path: str) -> None:
@@ -3363,8 +3634,12 @@ def phase_gridnccl(dev, path: str) -> None:
     log("gridnccl", f"{time.perf_counter() - t0:.2f} s")
 
 
-# [gridhost]'s solves: name → (matrix, N, nev, nex, tol, config)
+# [gridhost]'s solves: name → (matrix, N, nev, nex, tol, config); "slice"
+# is the f32 slice at full width on (2, 1) (not on the 2-D grid)
 GRIDHOST = {
+    "slice": ("clement", SLICE["N"], SLICE["nev"], SLICE["nex"],
+              SLICE["tol"], dict(ring_backend="pallas",
+                                 mixed_precision=False)),
     "clement": ("clement", 8192, 512, 256, 0.1,
                 dict(ring_backend="pallas", mixed_precision=False)),
     "clement_fused": ("clement", 8192, 512, 256, 0.1,
@@ -3403,13 +3678,15 @@ def _check_grid_solves(phase: str, shape: tuple, ranks: list, solves: dict,
                        ref: dict, shared: bool) -> list:
     """Each solve of the ranks' HOST_RESULT lines: iterations within ±1
     of one device's, ritzv, resid, iterations and locked bitwise equal on
-    every rank, ring_hemm (and tf32_split) launches = r × HEMM steps per
-    rank on an (r, 1) grid and r = c = 2 launches per HEMM step on (2, 2),
-    every launch on a block's stripe: N/r rows, col0 a multiple of
-    N/(r·c) below N/c, of one operator (the filter's; on the 2-D ring
-    ring_B's launches read it on the trans route, none off it); each
-    rank's peak device memory around the solve logged.  Returns the
-    failed names."""
+    every rank; on an (r, 1) grid one ring_hemm_peers, peer_gather and
+    peer_publish launch per HEMM step and rank, no ring_hemm step, each
+    product counted under "peer" and no NCCL chunk exchange ("sendrecv");
+    on (2, 2) ring_hemm (and tf32_split) launches = 2 per HEMM step (r =
+    c = 2), none on the peer route; every launch on a block's stripe: N/r
+    rows, col0 a multiple of N/(r·c) below N/c (0 for a whole stripe), of
+    one operator (the filter's; on the 2-D ring ring_B's launches read it
+    on the trans route, none off it); each rank's peak device memory
+    around the solve logged.  Returns the failed names."""
     r, c = shape
     bad = []
     what = (f"{r * c} ranks sharing the card, host-staged gloo "
@@ -3425,19 +3702,28 @@ def _check_grid_solves(phase: str, shape: tuple, ranks: list, solves: dict,
         on_stripes = stripes <= allowed and all(
             rk["operators"] == 1 and (rk["trans"] > 0) == (c > 1)
             for rk in o)
-        per_step = r if c == 1 else 2
         launches = [rk["launches"] for rk in o]
+
+        def counted(ln, rk):
+            steps = rk["hemm_steps"]
+            if c > 1:
+                return ln[0] == ln[1] == 2 * steps > 0 and not any(ln[2:])
+            coll = rk["collectives"]
+            return (ln[0] == ln[1] == 0 and ln[2] == ln[3] == ln[4] ==
+                    steps > 0 and "sendrecv" not in coll
+                    and coll.get("peer", [0])[0] == steps)
+
         ok = (same and on_stripes
               and abs(o[0]["iterations"] - ref[name][1]) <= 1
-              and all(ln[0] == ln[1] == per_step * rk["hemm_steps"] > 0
-                      for ln, rk in zip(launches, o)))
+              and all(counted(ln, rk) for ln, rk in zip(launches, o)))
         log(phase, f"{name} ({kind} N={N} nev={nev} nex={nex} tol={tol}, "
                    f"{cfg}) on a {shape} grid, {what}: iterations "
                    f"{[rk['iterations'] for rk in o]} (one device "
                    f"{ref[name][1]}), TTS "
                    f"{[round(rk['tts'], 3) for rk in o]} s (one device "
                    f"{ref[name][0]:.3f} s); results bitwise equal on all "
-                   f"{len(o)} ranks: {same}; ring_hemm / tf32_split "
+                   f"{len(o)} ranks: {same}; ring_hemm / tf32_split / "
+                   f"ring_hemm_peers / peer_gather / peer_publish "
                    f"launches {launches} (on the trans route "
                    f"{[rk['trans'] for rk in o]}), HEMM steps "
                    f"{[rk['hemm_steps'] for rk in o]}; launch (rows, col0) "
@@ -3506,7 +3792,9 @@ def _check_host_io(phase: str, ranks: list, ref: dict) -> list:
 def phase_gridhost(dev, path: str) -> None:
     """p ranks sharing card 0 on a grid of HostStagedGrid (gloo through
     pinned host memory; not NCCL): a (2, 1) grid running GRIDHOST's
-    solves (the chunk ring, and the fused solvers), then a (2, 2) grid of
+    solves (the host and fused drivers, and the f32 slice at full width;
+    every (p, 1) ring product on ring_hemm_peers, the ranks' chunks pulled
+    over CUDA IPC, the other collectives host-staged), then a (2, 2) grid of
     four ranks running GRIDHOST_2D's (the 2-D ring: ring_A on each rank's
     block, ring_B on its trans route), each at its gates, checked by
     :func:`_check_grid_solves` against the same solves on one device,
@@ -3534,14 +3822,32 @@ def phase_gridhost(dev, path: str) -> None:
         raise AssertionError(f"gridhost: {bad} failed their gates")
 
 
-def _kernel_entry(name: str, launches: int, case: dict) -> dict:
-    return dict(name=name, route="cuda",
-                source="chase_tpu_torch/csrc/ring_hemm.cu",
+def _kernel_entry(name: str, launches: int, case: dict,
+                  source: str = "chase_tpu_torch/csrc/ring_hemm.cu") -> dict:
+    return dict(name=name, route="cuda", source=source,
                 replaces="chase_tpu/ops/pallas_ring.py:34",
                 launches=launches, max_abs_err=case["abs_err"],
                 ms=case["ms"], plain_ms=case["plain_ms"],
                 bound_ms=case["bound_ms"], bound_by=case["bound_by"],
                 library_ms=case["library_ms"])
+
+
+PEER_KERNELS = (("ring_hemm_peers", "product",
+                 "chase_tpu_torch/csrc/ring_hemm.cu"),
+                ("peer_gather", "gather", "chase_tpu_torch/csrc/ring_peers.cu"),
+                ("peer_publish", "publish",
+                 "chase_tpu_torch/csrc/ring_peers.cu"))
+
+
+def peer_entries(rings: dict, tag: str) -> list:
+    """The kernels-line entries of [gridring]'s (p, 1) peer products
+    (``rings``: route → (p, k) → :func:`_peer_cases`' cases): the
+    product (its main kernel's launches), the gather and the publish."""
+    return [_kernel_entry(f"{name}[{route}{tag} p={p} k={k}]",
+                          cases[kind]["launches"], cases[kind], source)
+            for route, by_shape in rings.items()
+            for (p, k), cases in by_shape.items()
+            for name, kind, source in PEER_KERNELS]
 
 
 def main() -> int:
@@ -3673,19 +3979,10 @@ def _phases_from_io(dev, info, kern, launches, warm, gring, gring2d, tmp,
         _kernel_entry("ring_hemm[bf16]", blaunches["ring_hemm"],
                       bkern[(SLICE["N"], 3000)]),
         _kernel_entry("bf16_pack", blaunches["prepass"], bkern["pack"])]
-        + [_kernel_entry(f"ring_hemm[{route} stripe p={p} k={k}]",
-                         case["launches"], case)
-           for route, cases in gring.items()
-           for (p, k), case in cases.items()]
-        + [_kernel_entry(f"ring_hemm[{route} H² stripe p={p} k={k}]",
-                         case["launches"], case)
-           for route, cases in h2ring.items()
-           for (p, k), case in cases.items()]
-        + [_kernel_entry(f"ring_hemm[{route}{h2} 2-D {STRIPE_2D[label]} "
-                         f"{shape} k={k}]", case["launches"], case)
-           for h2, rings in (("", gring2d), (" H²", h2ring2d))
-           for route, cases in rings.items()
-           for (label, shape, k), case in cases.items()]}), flush=True)
+        + peer_entries(gring, "")
+        + peer_entries(h2ring, " H²")
+        + ring2d_entries(gring2d, "") + ring2d_entries(h2ring2d, " H²")}),
+          flush=True)
     log("done", f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"],

@@ -4,14 +4,16 @@ after a change to the rings or the grid layer.
     python3 probes/grid_phases.py
 
 Runs chip_smoke's device and build phases, then [gridring]'s rings of a
-dense N=30000 H — the (p, 1) stripes at p = 2 and 4 and the 2-D ring at
-its simulated grids, f32 and bf16 on a real H and c64 on a complex one —
+dense N=30000 H — the (p, 1) ring products on the peer route
+(ring_hemm_peers) at p = 2 and 4 and the 2-D ring at its simulated grids,
+f32 and bf16 on a real H and c64 on a complex one —
 [pfilter] and the 1-D and 2-D H² rings on the structured BSE H on each
 route, and [gridhost]'s (2, 1) and (2, 2) solves by ranks sharing the
 card (the (2, 2) ranks also reading their blocks of the N=30000 Clement
 ChASE file written here first, and solving through the distributed
 interface), each with chip_smoke's gates.  Prints the kernels' JSON line of
-these phases (the stripe calls, in chip_smoke's names) and exits
+these phases (the peer products and the 2-D stripe calls, in chip_smoke's
+names) and exits
 non-zero if a phase fails.  Needs the card; it takes about five minutes
 on one H100.
 """
@@ -65,20 +67,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         cs.phase_gridhost(dev, path)
     entries = (
-        [cs._kernel_entry(f"ring_hemm[{route} stripe p={p} k={k}]",
-                          case["launches"], case)
-         for route, cases in rings.items()
-         for (p, k), case in cases.items()]
-        + [cs._kernel_entry(f"ring_hemm[{route} H² stripe p={p} k={k}]",
-                            case["launches"], case)
-           for route, cases in h2.items()
-           for (p, k), case in cases.items()]
-        + [cs._kernel_entry(f"ring_hemm[{route}{tag} 2-D "
-                            f"{cs.STRIPE_2D[label]} {shape} k={k}]",
-                            case["launches"], case)
-           for tag, found in (("", rings2d), (" H²", h2d))
-           for route, cases in found.items()
-           for (label, shape, k), case in cases.items()])
+        cs.peer_entries(rings, "") + cs.peer_entries(h2, " H²")
+        + cs.ring2d_entries(rings2d, "") + cs.ring2d_entries(h2d, " H²"))
     print(json.dumps({"kernels": entries}), flush=True)
     cs.log("done", f"grid phases passed in "
                    f"{time.perf_counter() - t0:.1f} s")

@@ -23,9 +23,10 @@ import numpy as np
 import pytest
 import torch
 
-from chase_tpu_torch.ops.ring_hemm import (bf16_pack, bf16_pack_reference,
-                                           pack_shape, ring_hemm,
-                                           ring_hemm_reference, split_shape,
+from chase_tpu_torch.ops.ring_hemm import (LAUNCHES, bf16_pack,
+                                           bf16_pack_reference, pack_shape,
+                                           ring_hemm, ring_hemm_reference,
+                                           split_shape,
                                            tf32_split, tf32_split_reference,
                                            tma_ld, tma_row_stride)
 from chase_tpu_torch.parallel.operator import padded_empty
@@ -125,9 +126,9 @@ def test_windows_and_accumulate_into_prefilled_out():
 
 def test_cpu_uses_plain_version_without_counting():
     H, V = _inputs(64, 8, seed=4)
-    before = ring_hemm.launches
+    before = LAUNCHES["ring_hemm"]
     Wt = ring_hemm(torch.from_numpy(H), torch.from_numpy(V))
-    assert ring_hemm.launches == before
+    assert LAUNCHES["ring_hemm"] == before
     np.testing.assert_array_equal(
         Wt.numpy(), ring_hemm_reference(torch.from_numpy(H),
                                         torch.from_numpy(V)).numpy())
@@ -212,10 +213,10 @@ def test_ring_hemm_refuses_lazy_conj_and_neg_views(case):
         "out_neg": ((Hf, V.real.contiguous()), dict(out=neg)),
         "bf16_V_neg": ((Hf.to(torch.bfloat16), neg), {}),
     }[case]
-    before = ring_hemm.launches
+    before = LAUNCHES["ring_hemm"]
     with pytest.raises(ValueError, match="lazy conjugate or negative"):
         ring_hemm(*args, **kw)
-    assert ring_hemm.launches == before
+    assert LAUNCHES["ring_hemm"] == before
     # resolving the bit is all it takes
     fixed = [a.resolve_conj().resolve_neg() for a in args]
     if "out" in kw:
@@ -379,10 +380,10 @@ def _wide(t):
 
 
 def _check_against_plain(H, V, col0=0):
-    before = ring_hemm.launches
+    before = LAUNCHES["ring_hemm"]
     W = ring_hemm(H, V, col0=col0)
     torch.cuda.synchronize()
-    assert ring_hemm.launches == before + 1
+    assert LAUNCHES["ring_hemm"] == before + 1
     assert W.dtype == H.dtype
     Hb = H[:, col0:col0 + V.shape[0]]
     ref = _wide(Hb) @ _wide(V)
@@ -431,10 +432,10 @@ def test_cuda_split_prepass(cuda, b, k, off):
     Vt_hi + Vt_lo rebuilds Vᵀ to 2^-22."""
     g = torch.Generator(device=cuda).manual_seed(b)
     V = torch.randn((b, 3 * k), generator=g, device=cuda)[:, k:2 * k]
-    before = tf32_split.launches
+    before = LAUNCHES["tf32_split"]
     Vt = tf32_split(V, off)
     torch.cuda.synchronize()
-    assert tf32_split.launches == before + 1
+    assert LAUNCHES["tf32_split"] == before + 1
     assert torch.equal(Vt, tf32_split_reference(V, off))
     rebuilt = (Vt[0] + Vt[1])[:k, off:off + b]
     assert float((rebuilt - V.T).abs().max() / V.abs().max()) <= 2.0 ** -22
@@ -448,10 +449,10 @@ def test_cuda_h_that_tma_cannot_read_raises(cuda, case):
     else:
         H = torch.randn(64 * 68 + 1, device=cuda)[1:].view(64, 68)
     V = torch.randn((H.shape[1], 8), device=cuda)
-    before = ring_hemm.launches
+    before = LAUNCHES["ring_hemm"]
     with pytest.raises(ValueError, match="TMA"):
         ring_hemm(H, V)
-    assert ring_hemm.launches == before
+    assert LAUNCHES["ring_hemm"] == before
 
 
 @pytest.mark.gpu
@@ -462,11 +463,11 @@ def test_cuda_dense_operator_pads_n1001_and_eigsh_runs_on_the_kernel(cuda):
     from chase_tpu_torch.models import clement, clement_eigenvalues
     op = ct.DenseOperator(clement(1001).astype(np.float32), device=cuda)
     assert op.H.shape == (1001, 1001) and op.H.stride() == (1004, 1)
-    ring_hemm.launches = 0
+    LAUNCHES.clear()
     res = ct.eigsh(op, 40, 20, tol=1e-2, collect_perf=True,
                    config=ct.ChaseConfig(ring_backend="pallas"))
     assert res.converged
-    assert ring_hemm.launches == res.perf.filter_hemm_steps > 0
+    assert LAUNCHES["ring_hemm"] == res.perf.filter_hemm_steps > 0
     # f32 at ‖H‖ = 1000: residual tol 1e-2, eigenvalues to ~1e-4·‖H‖
     assert np.abs(res.ritzv - clement_eigenvalues(1001)[:40]).max() <= 0.1
 
@@ -509,11 +510,11 @@ def test_cuda_eigsh_filter_runs_on_the_kernel(cuda):
     import chase_tpu_torch as ct
     from chase_tpu_torch.models import clement, clement_eigenvalues
     H = clement(512).astype(np.float32)
-    ring_hemm.launches = 0
+    LAUNCHES.clear()
     res = ct.eigsh(H, 40, 20, tol=1e-2, device=cuda, collect_perf=True,
                    config=ct.ChaseConfig(ring_backend="pallas"))
     assert res.converged and res.V.device.type == "cuda"
-    assert ring_hemm.launches == res.perf.filter_hemm_steps > 0
+    assert LAUNCHES["ring_hemm"] == res.perf.filter_hemm_steps > 0
     assert np.abs(res.ritzv - clement_eigenvalues(512)[:40]).max() <= 1e-3
 
 
@@ -542,10 +543,10 @@ def test_cuda_c64_split_prepass(cuda, b, k, off):
     g = torch.Generator(device=cuda).manual_seed(b + 1)
     V = torch.randn((b, 3 * k), generator=g, device=cuda,
                     dtype=torch.complex64)[:, k:2 * k]
-    before = tf32_split.launches
+    before = LAUNCHES["tf32_split"]
     Vt = tf32_split(V, off)
     torch.cuda.synchronize()
-    assert tf32_split.launches == before + 1
+    assert LAUNCHES["tf32_split"] == before + 1
     assert tuple(Vt.shape) == (2, *split_shape(2 * b, 2 * k, off)[::-1])
     assert torch.equal(Vt, tf32_split_reference(V, off))
 
@@ -587,10 +588,10 @@ def test_cuda_c64_dense_operator_n1001_and_odd_stride_refused(cuda):
     V = torch.randn((1001, 37), generator=g, device=cuda,
                     dtype=torch.complex64)
     _check_against_plain(op.H, V)
-    before = ring_hemm.launches
+    before = LAUNCHES["ring_hemm"]
     with pytest.raises(ValueError, match="TMA"):
         ring_hemm(torch.as_tensor(H1, device=cuda), V)
-    assert ring_hemm.launches == before
+    assert LAUNCHES["ring_hemm"] == before
 
 
 @pytest.mark.gpu
@@ -604,15 +605,16 @@ def test_cuda_conj_views_are_refused_or_materialized(cuda):
     H = _padded_randn(200, 200, g, cuda, torch.complex64)
     V = torch.randn((200, 37), generator=g, device=cuda,
                     dtype=torch.complex64)
-    before = (ring_hemm.launches, tf32_split.launches, bf16_pack.launches)
+    before = (LAUNCHES["ring_hemm"], LAUNCHES["tf32_split"],
+              LAUNCHES["bf16_pack"])
     for args in ((H.conj(), V), (H, V.conj()),
                  (H.real.contiguous(), V.conj().imag)):
         with pytest.raises(ValueError, match="lazy conjugate or negative"):
             ring_hemm(*args)
     with pytest.raises(ValueError, match="lazy conjugate or negative"):
         bf16_pack(V.conj().imag)
-    assert (ring_hemm.launches, tf32_split.launches,
-            bf16_pack.launches) == before
+    assert (LAUNCHES["ring_hemm"], LAUNCHES["tf32_split"],
+            LAUNCHES["bf16_pack"]) == before
     op = ct.DenseOperator(H.conj(), device=cuda)
     assert not op.H.is_conj() and op.H.data_ptr() != H.data_ptr()
     _check_against_plain(op.H, V)
@@ -630,11 +632,11 @@ def test_cuda_c64_eigsh_filter_runs_on_the_kernel(cuda):
     from chase_tpu_torch.models import random_hermitian
     H = random_hermitian(512, np.complex64, seed=2)
     exact = np.linalg.eigvalsh(H.astype(np.complex128))[:40]
-    ring_hemm.launches = tf32_split.launches = 0
+    LAUNCHES.clear()
     res = ct.eigsh(H, 40, 20, tol=1e-3, device=cuda, collect_perf=True,
                    config=ct.ChaseConfig(ring_backend="pallas"))
     assert res.converged and res.V.dtype == torch.complex64
-    assert ring_hemm.launches == tf32_split.launches \
+    assert LAUNCHES["ring_hemm"] == LAUNCHES["tf32_split"] \
         == res.perf.filter_hemm_steps > 0
     assert np.abs(res.ritzv - exact).max() <= 1e-4
 
@@ -649,9 +651,9 @@ def test_bf16_plain_version_is_the_product_of_the_rounded_operands():
     H = torch.from_numpy(rng.standard_normal((70, 300)).astype(np.float32))
     V = torch.from_numpy(rng.standard_normal((200, 9)).astype(np.float32))
     Hb = H.to(torch.bfloat16)
-    before = ring_hemm.launches
+    before = LAUNCHES["ring_hemm"]
     W = ring_hemm(Hb, V, col0=13)
-    assert ring_hemm.launches == before and W.dtype == torch.float32
+    assert LAUNCHES["ring_hemm"] == before and W.dtype == torch.float32
     ref = Hb[:, 13:213].double() @ V.to(torch.bfloat16).double()
     assert _rel(W.numpy(), ref.numpy()) <= 1e-6
     out = torch.ones((70, 9))
@@ -683,11 +685,12 @@ def test_bf16_pack_plain_version_layout(off):
 def _check_bf16_against_plain(H, V, col0=0, out=None, accumulate=False):
     """The bf16 route against the exact product of the rounded operands:
     within 1e-5 of the largest entry and 4x the plain version's error."""
-    before, packs = ring_hemm.launches, bf16_pack.launches
+    before, packs = LAUNCHES["ring_hemm"], LAUNCHES["bf16_pack"]
     prior = None if out is None else out.double().clone()
     W = ring_hemm(H, V, col0=col0, out=out, accumulate=accumulate)
     torch.cuda.synchronize()
-    assert ring_hemm.launches == before + 1 and bf16_pack.launches == packs + 1
+    assert LAUNCHES["ring_hemm"] == before + 1
+    assert LAUNCHES["bf16_pack"] == packs + 1
     assert W.dtype == torch.float32
     ref = H[:, col0:col0 + V.shape[0]].double() \
         @ V.to(torch.bfloat16).double()
@@ -808,10 +811,10 @@ def test_cuda_bf16_pack_prepass(cuda, b, k, off):
     (V.to(bfloat16), transposed), V a strided window."""
     g = torch.Generator(device=cuda).manual_seed(b + 2)
     V = torch.randn((b, 3 * k), generator=g, device=cuda)[:, k:2 * k]
-    before = bf16_pack.launches
+    before = LAUNCHES["bf16_pack"]
     Vb = bf16_pack(V, off)
     torch.cuda.synchronize()
-    assert bf16_pack.launches == before + 1
+    assert LAUNCHES["bf16_pack"] == before + 1
     assert torch.equal(Vb, bf16_pack_reference(V, off))
 
 
@@ -821,10 +824,11 @@ def test_cuda_bf16_h_row_stride_not_multiple_of_8_raises(cuda):
     refused before any launch."""
     H = torch.randn((64, 1004), device=cuda).to(torch.bfloat16)
     V = torch.randn((1004, 8), device=cuda)
-    before, packs = ring_hemm.launches, bf16_pack.launches
+    before, packs = LAUNCHES["ring_hemm"], LAUNCHES["bf16_pack"]
     with pytest.raises(ValueError, match="TMA"):
         ring_hemm(H, V)
-    assert ring_hemm.launches == before and bf16_pack.launches == packs
+    assert LAUNCHES["ring_hemm"] == before
+    assert LAUNCHES["bf16_pack"] == packs
 
 
 # ---- the BSE H² ring on the card: two launches per step ----------------------
@@ -855,11 +859,11 @@ def test_cuda_h2_ring_on_a_bse_h_matches_plain(cuda, route):
     deg = np.array([0] * 4 + [1] * 6 + [4] * 30, np.int32)
     ev2 = np.sort(np.abs(np.linalg.eigvals(H.astype(np.complex128))) ** 2)
     lam1, lo, up = ev2[0] * 0.9, ev2[N // 3], ev2[-1] * 1.01
-    pre = bf16_pack if route == "bf16" else tf32_split
-    ring_hemm.launches = pre.launches = 0
+    pre = "bf16_pack" if route == "bf16" else "tf32_split"
+    LAUNCHES.clear()
     Y = chebyshev_filter_h2_ring(Hk, X, deg, lam1, lo, up, 4)
     torch.cuda.synchronize()
-    assert ring_hemm.launches == pre.launches == 2 * 4
+    assert LAUNCHES["ring_hemm"] == LAUNCHES[pre] == 2 * 4
     Yp = chebyshev_filter_h2(Hk, X, deg, lam1, lo, up, 4)
     num = (Y - Yp).abs().amax(dim=0)
     assert float((num / Yp.abs().amax(dim=0))[4:].max()) <= \
@@ -889,7 +893,7 @@ def test_cuda_fused_solvers_put_every_filter_product_on_the_kernel(cuda,
     cfg = ct.ChaseConfig(ring_backend="pallas",
                          bf16_filter=case.endswith("bf16"),
                          mixed_precision=case == "bse-ladder")
-    ring_hemm.launches = tf32_split.launches = bf16_pack.launches = 0
+    LAUNCHES.clear()
     if bse:
         H = random_pseudo_hermitian(
             300, np.float64 if case == "bse-ladder" else np.float32, seed=5)
@@ -909,8 +913,9 @@ def test_cuda_fused_solvers_put_every_filter_product_on_the_kernel(cuda,
     assert res.converged
     # the bf16 rung's far-from-converged iterations take the bf16 route,
     # the others the f32 one
-    assert ring_hemm.launches == tf32_split.launches + bf16_pack.launches \
+    assert LAUNCHES["ring_hemm"] == \
+        LAUNCHES["tf32_split"] + LAUNCHES["bf16_pack"] \
         == res.perf.filter_hemm_steps > 0
-    assert (bf16_pack.launches > 0) == case.endswith("bf16")
+    assert (LAUNCHES["bf16_pack"] > 0) == case.endswith("bf16")
     np.testing.assert_allclose(res.ritzv, exact,
                                atol=1e-7 if case == "bse-ladder" else 1e-1)

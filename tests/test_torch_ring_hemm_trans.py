@@ -25,7 +25,7 @@ import numpy as np
 import pytest
 import torch
 
-from chase_tpu_torch.ops.ring_hemm import (real_rows, ring_hemm,
+from chase_tpu_torch.ops.ring_hemm import (LAUNCHES, real_rows, ring_hemm,
                                            ring_hemm_reference, tf32_split,
                                            tf32_split_reference, tma_ld)
 from chase_tpu_torch.parallel.ring import matmul_step, ring_steps
@@ -81,9 +81,9 @@ def test_trans_plain_version_matches_numpy(name, shape):
     dtype = DTYPES[name]
     H, V = _arrays(dtype, n_rows, n_cols, k, sum(shape))
     Ht, Vt = _tensors(dtype, H, V[row0:row0 + b])
-    before = ring_hemm.launches
+    before = LAUNCHES["ring_hemm"]
     W = ring_hemm(Ht, Vt, col0=row0, trans=True)
-    assert ring_hemm.launches == before          # the plain version
+    assert LAUNCHES["ring_hemm"] == before          # the plain version
     assert W.shape == (n_cols, k)
     assert W.dtype == (torch.float32 if name == "bf16" else dtype)
     assert _rel(W.numpy(), _exact(Ht, Vt, row0, b)) <= RTOL
@@ -305,11 +305,11 @@ def _check_card(H, V, row0, out=None, accumulate=False):
     version (bf16: the library's bf16 GEMM): 1e-5 and 4× the yardstick."""
     b = V.shape[0]
     base = None if out is None else _wide(out.clone())
-    before = ring_hemm.launches
+    before = LAUNCHES["ring_hemm"]
     W = ring_hemm(H, V, col0=row0, out=out, accumulate=accumulate,
                   trans=True)
     torch.cuda.synchronize()
-    assert ring_hemm.launches == before + 1
+    assert LAUNCHES["ring_hemm"] == before + 1
     Hb = H[row0:row0 + b]
     if H.dtype == torch.bfloat16:
         ref = Hb.double().mT @ V.to(torch.bfloat16).double()

@@ -51,6 +51,36 @@
 // shared-memory transposes (b_operand_tile), one 256-thread block per 32
 // K rows × 256 columns.  The overlapped form (copier warps pulling chunk s + 1 while
 // the main kernel multiplies chunk s) is later work (ROADMAP).
+//
+// The publish replaces the send half of _ring_kernel's
+// make_async_remote_copy: the owner's write of its chunk where its peers
+// read it.  It reads b·k floats and writes as many (2·b·k for c64): 360 MB
+// at (b, k) = (15000, 3000) f32, 0.107 ms at 3.35 TB/s, so bytes bound it.
+// The first design (a block per row, 4-byte loads and stores) kept one
+// 4-byte load in flight per thread, too few bytes per SM to cover HBM's
+// latency, and reached 57–62% of that bound; neither its grid nor its
+// read-count polls cost anything measurable (probes/publish_design.py).
+// This one keeps PUBLISH_UNROLL 16-byte loads (ld.global.nc.v4) in flight
+// per thread before their stores, over as many 256-thread blocks as the
+// card holds at once (SMs × resident blocks, fewer for a small chunk).  A
+// contiguous chunk (ldv = cols = the slot's row stride) is one flat range
+// whose blocks walk contiguous tiles of 16 KB, grid-strided; a strided one
+// (a column window of a wider V) goes a row per warp, stored 16 bytes at a
+// time from the slot row's first 16-byte boundary with a scalar head and
+// tail.  Loads are 16 bytes wide where the source has the slot's
+// alignment, float by float where it has not.  The slot's rows stay
+// packed (row stride k floats, 2k for c64: parallel/peers.slot_row_floats),
+// so a contiguous chunk of any width, odd k included, is one aligned range.
+// Hopper's 1-D bulk copy (cp.async.bulk through shared memory) was tried
+// and moved these chunks within 1.5% of the tiled 16-byte copy, which
+// every other layout needs anyway (the probe).  What stays above a plain
+// copy_ (2.7–3.6 µs a launch on an H100) is the protocol's end: the block
+// counter and the sys-scope release of the ready flag after the last
+// store.  The
+// protocol is the first design's: every block's thread 0 waits for the
+// slot's read count before any of the block's bytes move (so a wait that
+// times out leaves the slot unwritten), and the last block to finish
+// raises the ready flag.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -64,6 +94,8 @@ using namespace hopper;
 
 constexpr int MAXP = 32;                 // ranks of a ring (ops/ring_hemm.py)
 constexpr int TY = 8;                    // 32-column tiles per gather block
+constexpr int PUBLISH_THREADS = 256;
+constexpr int PUBLISH_UNROLL = 4;        // 16-byte loads in flight a thread
 constexpr int ERR_ARGS = 3000;           // beside cudaError_t (< 1000)
 constexpr int NOT_PUBLISHED = 1;         // error record codes
 constexpr int SLOT_BUSY = 2;
@@ -155,12 +187,94 @@ __device__ bool wait_at_least(const unsigned long long* flag,
   }
 }
 
-// slot[r][c] = V[r][c] for r < rows, c < cols (floats), after the slot's
-// earlier readers have counted (reads >= need); then ready = epoch.
-__global__ void __launch_bounds__(256)
+__device__ __forceinline__ float4 ld_nc_v4(const float4* p) {
+  float4 v;
+  asm("ld.global.nc.L1::no_allocate.v4.f32 {%0, %1, %2, %3}, [%4];"
+      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "l"(p));
+  return v;
+}
+
+// Four floats from a source that is 4-byte aligned only.
+__device__ __forceinline__ float4 ld_nc_4(const float* p) {
+  return make_float4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
+}
+
+// d4[i] = s[4i … 4i + 3] for lo <= i < hi, by the threads t = 0 … T − 1
+// of a team, U 16-byte loads in flight a thread before their stores —
+// float4 loads where s is 16-byte aligned (ALIGNED), else float loads.
+template <int U, bool ALIGNED>
+__device__ __forceinline__ void copy_body(const float* __restrict__ s,
+                                          float4* __restrict__ d4,
+                                          long long lo, long long hi,
+                                          long long t, long long T) {
+  long long i = lo + t;
+  for (; i + (U - 1) * T < hi; i += U * T) {
+    float4 x[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      x[u] = ALIGNED ? ld_nc_v4(reinterpret_cast<const float4*>(s) + i + u * T)
+                     : ld_nc_4(s + 4 * (i + u * T));
+#pragma unroll
+    for (int u = 0; u < U; ++u) d4[i + u * T] = x[u];
+  }
+  for (; i < hi; i += T)
+    d4[i] = ALIGNED ? ld_nc_v4(reinterpret_cast<const float4*>(s) + i)
+                    : ld_nc_4(s + 4 * i);
+}
+
+// d[i] = s[i] for i < n, d 16-byte aligned, by the whole grid: each block
+// walks contiguous tiles of U·blockDim float4s, grid-strided; block 0
+// copies the last n mod 4 floats.
+template <int U>
+__device__ __forceinline__ void copy_flat(const float* __restrict__ s,
+                                          float* __restrict__ d,
+                                          long long n) {
+  const long long n4 = n >> 2, tile = static_cast<long long>(U) * blockDim.x;
+  float4* d4 = reinterpret_cast<float4*>(d);
+  const bool aligned = (reinterpret_cast<uintptr_t>(s) & 15) == 0;
+  for (long long lo = blockIdx.x * tile; lo < n4; lo += gridDim.x * tile) {
+    const long long hi = lo + tile < n4 ? lo + tile : n4;
+    if (aligned)
+      copy_body<U, true>(s, d4, lo, hi, threadIdx.x, blockDim.x);
+    else
+      copy_body<U, false>(s, d4, lo, hi, threadIdx.x, blockDim.x);
+  }
+  if (blockIdx.x == 0)
+    for (long long j = 4 * n4 + threadIdx.x; j < n; j += blockDim.x)
+      d[j] = s[j];
+}
+
+// d[i] = s[i] for i < n by the 32 lanes of a warp: d's floats before its
+// first 16-byte boundary and after its last one one by one, the body as
+// float4 stores.
+template <int U>
+__device__ __forceinline__ void copy_row(const float* __restrict__ s,
+                                         float* __restrict__ d, long long n,
+                                         int lane) {
+  const long long head = min(
+      n, static_cast<long long>(
+             ((16 - (reinterpret_cast<uintptr_t>(d) & 15)) & 15) >> 2));
+  if (lane < head) d[lane] = s[lane];
+  s += head;
+  d += head;
+  n -= head;
+  const long long n4 = n >> 2;
+  float4* d4 = reinterpret_cast<float4*>(d);
+  if ((reinterpret_cast<uintptr_t>(s) & 15) == 0)
+    copy_body<U, true>(s, d4, 0, n4, lane, 32);
+  else
+    copy_body<U, false>(s, d4, 0, n4, lane, 32);
+  for (long long j = 4 * n4 + lane; j < n; j += 32) d[j] = s[j];
+}
+
+// slot[r][c] = V[r][c] for r < rows, c < cols (floats; slot row stride
+// lds), after the slot's earlier readers have counted (reads >= need);
+// then ready = epoch.
+template <int U>
+__global__ void __launch_bounds__(PUBLISH_THREADS)
 publish_kernel(const float* __restrict__ V, long long ldv,
-               float* __restrict__ slot_data, int rows, int cols,
-               void* flags, int slot, unsigned long long epoch,
+               float* __restrict__ slot_data, long long lds, int rows,
+               int cols, void* flags, int slot, unsigned long long epoch,
                unsigned long long need, long long* err, int rank,
                unsigned long long timeout_ns) {
   __shared__ int go;
@@ -171,10 +285,15 @@ publish_kernel(const float* __restrict__ V, long long ldv,
                        -1, timeout_ns);
   __syncthreads();
   if (!go) return;
-  for (int r = blockIdx.x; r < rows; r += gridDim.x) {
-    const float* s = V + (long long)r * ldv;
-    float* d = slot_data + (long long)r * cols;
-    for (int c = threadIdx.x; c < cols; c += blockDim.x) d[c] = s[c];
+  if (rows == 1 || (ldv == cols && lds == cols)) {
+    copy_flat<U>(V, slot_data, static_cast<long long>(rows) * cols);
+  } else {
+    const int per_block = blockDim.x / 32;
+    const long long warps = static_cast<long long>(gridDim.x) * per_block;
+    for (long long r = static_cast<long long>(blockIdx.x) * per_block +
+                       threadIdx.x / 32;
+         r < rows; r += warps)
+      copy_row<U>(V + r * ldv, slot_data + r * lds, cols, threadIdx.x & 31);
   }
   __syncthreads();
   if (threadIdx.x == 0) {
@@ -328,21 +447,42 @@ extern "C" int ring_peers_host_free(void* host) {
 // cudaGetLastError() (or ERR_ARGS).
 
 // Publish product `epoch` − 1: V (rows × cols floats, row stride ldv)
-// into this rank's slot `slot` (slot_data, row stride cols) once its
-// read count reaches `need`, then ready[slot] = epoch.
+// into this rank's slot `slot` (slot_data, row stride lds) once its read
+// count reaches `need`, then ready[slot] = epoch.  The grid: the blocks
+// the card holds at once (SMs × resident blocks of the kernel), fewer
+// when the chunk gives them no work.
 extern "C" int ring_peers_publish(const float* V, long long ldv,
-                                  float* slot_data, int rows, int cols,
-                                  void* flags, int slot,
+                                  float* slot_data, long long lds, int rows,
+                                  int cols, void* flags, int slot,
                                   unsigned long long epoch,
                                   unsigned long long need, long long* err,
                                   int rank, unsigned long long timeout_ns,
                                   cudaStream_t stream) {
-  if (rows <= 0 || cols <= 0 || slot < 0 || slot > 1 || epoch == 0)
+  if (rows <= 0 || cols <= 0 || slot < 0 || slot > 1 || epoch == 0 ||
+      (rows > 1 && (ldv < cols || lds < cols)) ||
+      (reinterpret_cast<uintptr_t>(slot_data) & 15))
     return ERR_ARGS;
-  const int blocks = rows < 1024 ? rows : 1024;
-  publish_kernel<<<blocks, 256, 0, stream>>>(V, ldv, slot_data, rows, cols,
-                                             flags, slot, epoch, need, err,
-                                             rank, timeout_ns);
+  const auto kernel = publish_kernel<PUBLISH_UNROLL>;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      PUBLISH_THREADS, 0);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // the blocks that have work — a tile of the flat range, or a row a warp
+  // — at most as many as the card holds at once
+  const bool flat = rows == 1 || (ldv == cols && lds == cols);
+  const long long tile = 4LL * PUBLISH_UNROLL * PUBLISH_THREADS;  // floats
+  const long long work =
+      flat ? (static_cast<long long>(rows) * cols + tile - 1) / tile
+           : (rows + PUBLISH_THREADS / 32 - 1) / (PUBLISH_THREADS / 32);
+  const long long card = static_cast<long long>(sms) * per_sm;
+  const int blocks = static_cast<int>(work < card ? work : card);
+  kernel<<<blocks, PUBLISH_THREADS, 0, stream>>>(
+      V, ldv, slot_data, lds, rows, cols, flags, slot, epoch, need, err, rank,
+      timeout_ns);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -355,7 +355,7 @@ def _peer_lib():
     sig = {"alloc": [I, LL, P], "free": [I, P], "export": [I, P, P],
            "open": [I, P, P], "close": [I, P], "host_alloc": [LL, P, P],
            "host_free": [P],
-           "publish": [P, LL, P, I, I, P, I, ULL, ULL, P, I, ULL, P],
+           "publish": [P, LL, P, LL, I, I, P, I, ULL, ULL, P, I, ULL, P],
            "gather_f32": [P, I, I, I, ULL, P, I, I, I, I, P, ULL, P],
            "gather_c64": [P, I, I, I, ULL, P, I, I, I, I, P, ULL, P],
            "gather_bf16": [P, I, I, I, ULL, P, I, I, I, I, P, ULL, P]}
@@ -586,38 +586,55 @@ def ring_hemm_peers_reference(H: torch.Tensor, chunks, me: int, *,
 
 def _peers_arg(V: torch.Tensor, peers) -> _PeersArg:
     """The gather's view of product ``peers.product``: this rank's V as
-    it lies, every peer's slot (row stride k), every rank's flags."""
+    it lies, every peer's slot (row stride ``slot_row_floats``), every
+    rank's flags."""
     if peers.p > MAXP:
         raise ValueError(f"the peer ring takes at most {MAXP} ranks, not "
                          f"{peers.p}")
-    fl = _floats(V)
+    from ..parallel.peers import slot_row_floats
+    lds = slot_row_floats(V.shape[1], V.dtype)
     arg = _PeersArg()
     for q in range(peers.p):
         mine = q == peers.me
         arg.data[q] = V.data_ptr() if mine else peers.slot_ptr(
             q, peers.product)
-        arg.ld[q] = fl * (V.stride(0) if mine else V.shape[1])
+        arg.ld[q] = _floats(V) * V.stride(0) if mine else lds
         arg.flags[q] = peers.flags[q]
     return arg
 
 
+def _check_publish(V: torch.Tensor) -> None:
+    """Raise on a chunk the publish kernel does not take: f32 or c64, 2-D,
+    unit column stride, no lazy conjugate or negative bit."""
+    if V.dtype not in (torch.float32, torch.complex64) or V.ndim != 2:
+        raise TypeError(f"peer_publish takes a 2-D float32 or complex64 "
+                        f"chunk, got {V.dtype} of shape {tuple(V.shape)}")
+    _check_resolved("V", V, "peer_publish")
+    if V.shape[1] > 1 and V.stride(1) != 1:
+        raise ValueError(f"peer_publish needs unit column stride; V has "
+                         f"strides {V.stride()}")
+
+
 def peer_publish(V: torch.Tensor, peers) -> None:
     """Publish this rank's chunk for product ``peers.product``: copy V (b ×
-    k, f32 or c64) into its slot and raise the slot's ready flag, after
-    the slot's earlier readers have counted (a launch of
-    ``csrc/ring_peers.cu``; collective when the slots must grow).  Raises
-    an earlier product's failed wait."""
+    k, f32 or c64, any row stride) into its slot (rows packed:
+    ``slot_row_floats``) and raise the slot's ready flag, after the slot's
+    earlier readers have counted (a launch of ``csrc/ring_peers.cu``;
+    collective when the slots must grow).  Raises an earlier product's
+    failed wait."""
+    _check_publish(V)
     peers.check()
     b, k = V.shape
     peers.reserve(b * k * V.element_size())
-    from ..parallel.peers import reads_before, ready_epoch, slot_of
+    from ..parallel.peers import (reads_before, ready_epoch, slot_of,
+                                  slot_row_floats)
     e, fl = peers.product, _floats(V)
     with torch.cuda.device(V.device):
         err = _peer_lib().publish(
-            V.data_ptr(), fl * V.stride(0), peers.slot_ptr(peers.me, e), b,
-            fl * k, peers.flags[peers.me], slot_of(e), ready_epoch(e),
-            reads_before(e, peers.p), peers.err_dev, peers.me,
-            peers.timeout_ns(), _stream(V.device))
+            V.data_ptr(), fl * V.stride(0), peers.slot_ptr(peers.me, e),
+            slot_row_floats(k, V.dtype), b, fl * k, peers.flags[peers.me],
+            slot_of(e), ready_epoch(e), reads_before(e, peers.p),
+            peers.err_dev, peers.me, peers.timeout_ns(), _stream(V.device))
     _raise_on(err, f"peer_publish kernel (b={b}, k={k}, product {e})")
     _launched("peer_publish")
 

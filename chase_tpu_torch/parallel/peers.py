@@ -52,7 +52,7 @@ import torch
 from ..ops.ring_hemm import _peer_lib
 
 __all__ = ["PeerChunks", "slot_of", "ready_epoch", "reads_before",
-           "DEFAULT_TIMEOUT_S"]
+           "slot_row_floats", "DEFAULT_TIMEOUT_S"]
 
 DEFAULT_TIMEOUT_S = 120.0
 FLAGS_BYTES = 4096          # ready[2], reads[2] and the rank's own words
@@ -80,6 +80,14 @@ def reads_before(e: int, p: int) -> int:
     publish overwrites it: p − 1 readers of each earlier product on the
     slot."""
     return (p - 1) * (e // 2)
+
+
+def slot_row_floats(k: int, dtype) -> int:
+    """The row stride, in floats, of a published chunk of ``k`` columns
+    of ``dtype`` (f32 or c64) in its slot: the rows packed, so that a
+    contiguous chunk is one range in the slot as in its own memory (the
+    publish's flat copy)."""
+    return int(k) * (2 if dtype.is_complex else 1)
 
 
 def _cuda_error(lib, err: int) -> str:
@@ -236,19 +244,19 @@ class PeerChunks:
         return self.slots[q] + slot_of(e) * self.capacity
 
     def slot(self, e: int, shape: tuple, dtype) -> torch.Tensor:
-        """This rank's slot of product ``e`` as a tensor of ``shape`` (a
-        view of the peer memory, for checks)."""
-        n = 1
-        for s in shape:
-            n *= int(s)
-        if n * dtype.itemsize > self.capacity:
+        """This rank's slot of product ``e`` as the published (b, k)
+        chunk of ``dtype`` (a view of the peer memory, for checks)."""
+        b, k = (int(s) for s in shape)
+        row = slot_row_floats(k, dtype) * 4          # bytes
+        if b * row > self.capacity:
             raise ValueError("the view is larger than the slot")
 
         class _View:
             __cuda_array_interface__ = dict(
-                shape=tuple(int(s) for s in shape), version=2,
+                shape=(b, k), version=2,
                 typestr={torch.float32: "<f4", torch.complex64: "<c8"}[dtype],
-                data=(self.slot_ptr(self.me, e), False), strides=None)
+                data=(self.slot_ptr(self.me, e), False),
+                strides=(row, dtype.itemsize))
         return torch.as_tensor(_View(), device=self.device)
 
     # -- errors ---------------------------------------------------------------
@@ -264,14 +272,15 @@ class PeerChunks:
         code, rank, e, peer, seen, want = list(self._err)[:6]
         if code == 1:
             raise RuntimeError(
-                f"ring_hemm_peers: rank {rank} waited {self.timeout_s:g} s "
-                f"at product {e} for rank {peer} to publish its chunk (its "
-                f"ready flag {seen}, wanted {want})")
+                f"ring_hemm_peers (NOT_PUBLISHED): rank {rank} waited "
+                f"{self.timeout_s:g} s at product {e} for rank {peer} to "
+                f"publish its chunk (its ready flag {seen}, wanted {want})")
         if code == 2:
             raise RuntimeError(
-                f"ring_hemm_peers: rank {rank} waited {self.timeout_s:g} s "
-                f"at product {e} for its peers to finish reading slot "
-                f"{slot_of(e)} (read count {seen}, wanted {want})")
+                f"ring_hemm_peers (SLOT_BUSY): rank {rank} waited "
+                f"{self.timeout_s:g} s at product {e} for its peers to "
+                f"finish reading slot {slot_of(e)} (read count {seen}, "
+                f"wanted {want})")
         if code:
             raise RuntimeError(f"ring_hemm_peers: rank {rank} failed with "
                                f"code {code} at product {e}")

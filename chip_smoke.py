@@ -295,6 +295,7 @@ CLI_MODULE = ("--isMatGen", "clement", "--n", "1000", "--nev", "100",
 ROOT = Path(__file__).resolve().parent
 SEED = 20261016
 HBM_TBS = 3.35              # TB/s: the H100 SXM's device-memory rate
+SPIN_CYCLES = 100_000_000   # queued_ms's spinning kernel: ~50 ms at 2 GHz
 
 
 def peak_tflops(rung: str) -> float:
@@ -336,6 +337,65 @@ def time_fns(fns, reps: int) -> list:
     fwd = [time_ms(fn, reps) for fn in fns]
     rev = [time_ms(fn, reps) for fn in reversed(fns)][::-1]
     return [(a + b) / 2 for a, b in zip(fwd, rev)]
+
+
+class EmptyTrace(AssertionError):
+    """Three torch.profiler traces in a row held no device activity."""
+
+
+def device_ms(fn, reps: int, match: str = "") -> tuple:
+    """(mean ms, count) of the device activities — kernels, copies — whose
+    name holds ``match`` in a torch.profiler trace of ``reps`` calls of
+    ``fn`` after one warm-up call: their durations on the card, without
+    the launch gaps that CUDA events around the calls count."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):          # a trace has come back empty: trace again
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.device_time_total for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and match in e.name]
+        if spans:
+            return sum(spans) / len(spans) / 1e3, len(spans)
+    raise EmptyTrace(f"three traces show no device activity named "
+                     f"{match!r}")
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Mean milliseconds on the card of the ops that ``fn(timed)`` runs
+    through ``timed(op)``, over ``reps`` calls of ``fn`` after one warm-up
+    call: CUDA events around each op, all queued behind a kernel that
+    spins while this thread enqueues them (the stream is checked still
+    busy after the last), so that each span holds its op's duration on
+    the card and no launch gap from the host; the events' own few µs on
+    the card are in it, which a kernel duration (:func:`device_ms`) is
+    not."""
+    fn(lambda op: op())
+    torch.cuda.synchronize()
+    spans = []
+
+    def timed(op):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        op()
+        b.record()
+        spans.append((a, b))
+
+    torch.cuda._sleep(SPIN_CYCLES)
+    for _ in range(reps):
+        fn(timed)
+    queued = not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    if not (queued and spans):
+        raise AssertionError(f"the timed ops were not queued before a "
+                             f"kernel of {SPIN_CYCLES} cycles ended")
+    return statistics.mean(a.elapsed_time(b) for a, b in spans)
 
 
 def sampled(fn):
@@ -806,21 +866,36 @@ def phase_bf16_kernel(dev) -> dict:
         V = torch.randn((N, k), generator=g, device=dev)
         summary[(N, k)] = _bf16_case("bkernel", H, V, 3)
 
-    # the pre-pass alone at (30000, 3000): bit-exact against V.to(bf16)
+    # the pre-pass alone at (30000, 3000): bit-exact against V.to(bf16),
+    # and the library call (one strided, rounding copy_ into a zeroed
+    # pack) bit-exact against the kernel
+    k = V.shape[1]
     Vb, Vr = bf16_pack(V), bf16_pack_reference(V)
+    Vl = torch.zeros_like(Vr)
+
+    def library():
+        Vl[:k, :N].copy_(V.mT)
+
+    library()
     torch.cuda.synchronize()
-    exact = bool(torch.equal(Vb, Vr))
+    exact = bool(torch.equal(Vb.view(torch.int16), Vr.view(torch.int16)))
+    exact_lib = bool(torch.equal(Vl.view(torch.int16), Vb.view(torch.int16)))
     del Vb, Vr
-    pk_plain, pk_ms = time_fns([lambda: bf16_pack_reference(V),
-                                lambda: bf16_pack(V)], 3)
-    pk_bound, pk_by = pack_bound(N, 3000)
-    log("bkernel", f"bf16_pack ({N}, 3000): bit-exact against "
-                   f"V.to(bfloat16): {exact}; kernel {pk_ms:.3f} ms, plain "
-                   f"{pk_plain:.3f} ms, bound {pk_bound:.3f} ms ({pk_by})")
-    if not exact:
-        raise AssertionError("bf16_pack disagrees with V.to(bfloat16)")
+    pk_plain, pk_ms, pk_lib = time_fns([lambda: bf16_pack_reference(V),
+                                        lambda: bf16_pack(V), library], 3)
+    del Vl
+    pk_bound, pk_by = pack_bound(N, k)
+    log("bkernel", f"bf16_pack ({N}, {k}): bit-exact against "
+                   f"V.to(bfloat16): {exact}; the library call "
+                   f"Vb[:k, :b].copy_(V.mT) bit-exact against the kernel: "
+                   f"{exact_lib}; kernel {pk_ms:.3f} ms, plain "
+                   f"{pk_plain:.3f} ms, library {pk_lib:.3f} ms, bound "
+                   f"{pk_bound:.3f} ms ({pk_by})")
+    if not (exact and exact_lib):
+        raise AssertionError("bf16_pack disagrees with V.to(bfloat16) or "
+                             "with the library's copy_")
     summary["pack"] = dict(abs_err=0.0, ms=pk_ms, plain_ms=pk_plain,
-                           library_ms=None, bound_ms=pk_bound,
+                           library_ms=pk_lib, bound_ms=pk_bound,
                            bound_by=pk_by)
 
     # a strided column window of V accumulated into a strided window of W
@@ -2030,6 +2105,11 @@ def close_sim_peers(peers: list) -> None:
     sim_ranks(len(peers), lambda g: peers[g.me].close())
 
 
+def _bitwise(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """a and b (f32 or c64, one shape) equal bit for bit."""
+    return bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+
+
 def _peer_times(stripes, chunks, peers, reps: int) -> dict:
     """Rank 0's publish, gather and whole product (publish, then gather
     and main kernel) in ms, each the mean over ``reps`` products of the
@@ -2065,7 +2145,8 @@ def _peer_times(stripes, chunks, peers, reps: int) -> dict:
         if what == "gather":
             torch.cuda.synchronize()
             slot = peers[0].slot(peers[0].product - 1, (b, k), v_dtype)
-            slot_err = float((slot - chunks[0]).abs().max())
+            slot_err = 0.0 if _bitwise(slot, chunks[0]) else float(
+                (slot - chunks[0]).abs().max())
             del slot
     torch.cuda.synchronize()
     ms = {"publish": statistics.mean(a.elapsed_time(b_)
@@ -2077,6 +2158,41 @@ def _peer_times(stripes, chunks, peers, reps: int) -> dict:
     return dict(ms=ms, B=B, slot_err=slot_err)
 
 
+def _publish_ms(chunks, peers, h_dtype, reps: int) -> tuple:
+    """(publish ms, ``copy_`` ms, what they are) on the same chunk, timed
+    the same way: every publish of ``reps`` products of the simulated
+    ranks driven from this thread (every rank publishes, then every rank
+    gathers, which frees the slots), and ``reps`` copies of rank 0's chunk
+    into a slot of its own — kernel durations from torch.profiler traces
+    (:func:`device_ms`), or, should a trace come back empty (three in a
+    row held no device activity in one run on an H100), both as CUDA-event
+    spans queued behind a spinning kernel (:func:`queued_ms`)."""
+    from chase_tpu_torch.ops import ring_hemm as rh
+    p = len(peers)
+
+    def product(timed):
+        for q in range(p):
+            timed(lambda: rh.peer_publish(chunks[q], peers[q]))
+        for q in range(p):
+            rh.peer_gather(chunks[q], peers[q], h_dtype)
+
+    slot = torch.empty_like(chunks[0])
+
+    def copy(timed):
+        timed(lambda: slot.copy_(chunks[0]))
+
+    def run(op):
+        op()
+
+    try:
+        return (device_ms(lambda: product(run), reps, "publish")[0],
+                device_ms(lambda: copy(run), reps)[0], "kernel")
+    except EmptyTrace as e:
+        log("gridring", f"{e}: the publish and copy_ timed as queued event "
+                        f"spans")
+        return queued_ms(product, reps), queued_ms(copy, reps), "queued span"
+
+
 def _peer_cases(stripes, chunks, peers, V, Vr, reps: int) -> dict:
     """The peer route's three kernels for rank 0 at this (p, k): the
     product beside its plain version (``ring_hemm_peers_reference``), the
@@ -2084,9 +2200,11 @@ def _peer_cases(stripes, chunks, peers, V, Vr, reps: int) -> dict:
     stripe torch.mm(out_dtype=f32) of V rounded) and its bound, max abs
     error against the wide product ``Vr``; the gather bitwise against its
     plain version, the publish's slot bitwise against the chunk, each
-    beside its plain version and its bytes bound, the publish also beside
-    the library call (``copy_`` of the chunk into a slot of its own; no
-    one torch call splits or packs and transposes as the gather does)."""
+    beside its plain version and its bytes bound, the publish's kernel
+    time beside the library call's (``copy_`` of the chunk into a slot of
+    its own), both timed the same way (:func:`_publish_ms`; the CUDA
+    event span around the publish's launch beside, as ``event_ms``); no
+    one torch call splits or packs and transposes as the gather does."""
     from chase_tpu_torch.ops.ring_hemm import (gather_layout,
                                                peer_gather_reference,
                                                ring_hemm_peers_reference)
@@ -2104,12 +2222,13 @@ def _peer_cases(stripes, chunks, peers, V, Vr, reps: int) -> dict:
         return torch.matmul(Hs, V)
 
     W0 = ring_hemm_peers_reference(Hs, chunks, 0)
-    slot = torch.empty_like(chunks[0])
-    prod_plain, lib_ms, gather_plain, publish_plain, publish_lib = time_fns(
+    prod_plain, lib_ms, gather_plain, publish_plain = time_fns(
         [lambda: ring_hemm_peers_reference(Hs, chunks, 0, out=W0), library,
          lambda: peer_gather_reference(chunks, h_dtype),
-         lambda: chunks[0].clone(), lambda: slot.copy_(chunks[0])], 3)
-    del W0, slot
+         lambda: chunks[0].clone()], 3)
+    del W0
+    publish_ms, publish_lib, timed_as = _publish_ms(chunks, peers, h_dtype,
+                                                    5)
     N = p * b
     bound_ms, bound_by = (bf16_hemm_bound(b, N, k) if h_dtype ==
                           torch.bfloat16 else hemm_bound(b, N, k, h_dtype))
@@ -2130,9 +2249,11 @@ def _peer_cases(stripes, chunks, peers, V, Vr, reps: int) -> dict:
         "gather": dict(abs_err=gather_err, ms=t["ms"]["gather"],
                        plain_ms=gather_plain, library_ms=None,
                        bound_ms=g_bound[0], bound_by=g_bound[1]),
-        "publish": dict(abs_err=publish_err, ms=t["ms"]["publish"],
-                        plain_ms=publish_plain, library_ms=publish_lib,
-                        bound_ms=p_bound[0], bound_by=p_bound[1])}
+        "publish": dict(abs_err=publish_err, ms=publish_ms,
+                        event_ms=t["ms"]["publish"], timed_as=timed_as,
+                        plain_ms=publish_plain,
+                        library_ms=publish_lib, bound_ms=p_bound[0],
+                        bound_by=p_bound[1])}
 
 
 def _peer_product_once(stripes, chunks, peers) -> torch.Tensor:
@@ -2158,10 +2279,12 @@ def _peer_line(route: str, label: str, cases: dict) -> str:
             f"{pr['abs_err']:.3e}; peer_gather {ga['ms']:.3f} ms (plain "
             f"{ga['plain_ms']:.3f} ms, bound {ga['bound_ms']:.3f} ms, "
             f"|kernel - plain| {ga['abs_err']}); peer_publish "
-            f"{pu['ms']:.3f} ms (plain {pu['plain_ms']:.3f} ms, library "
-            f"{pu['library_ms']:.3f} ms, bound {pu['bound_ms']:.3f} ms, "
-            f"|slot - chunk| {pu['abs_err']}); "
-            f"local memory of one card, not NVLink")
+            f"{pu['timed_as']} {pu['ms']:.4f} ms (event span "
+            f"{pu['event_ms']:.3f} ms, plain {pu['plain_ms']:.3f} ms, "
+            f"library copy_ {pu['timed_as']} {pu['library_ms']:.4f} ms, "
+            f"bound {pu['bound_ms']:.4f} ms, "
+            f"{pu['bound_ms'] / pu['ms']:.1%} of it; |slot - chunk| "
+            f"{pu['abs_err']}); local memory of one card, not NVLink")
 
 
 def _missing_publish(dev, stripes, chunks) -> str:
@@ -2198,6 +2321,95 @@ def _missing_publish(dev, stripes, chunks) -> str:
     return (f"a simulated rank that never publishes: the other's product "
             f"came out NaN and raised in {got[0]:.2f} s (bound "
             f"{MISSING_TIMEOUT_S:g} s): {got[1]}")
+
+
+def _busy_slot(dev, chunks) -> str:
+    """Rank 0 of two simulated ranks publishes product 0 into slot 0, then
+    product 2 into the same slot while rank 1 has never read the first:
+    the publish must give up within its wait bound (MISSING_TIMEOUT_S)
+    with a RuntimeError naming SLOT_BUSY, the slot left holding product
+    0's chunk bit for bit; the phase goes on."""
+    from chase_tpu_torch.ops.ring_hemm import peer_publish
+    peers = sim_peers(2, dev, timeout_s=MISSING_TIMEOUT_S)
+    A = chunks[0]
+    C = torch.neg(A)
+    sim_ranks(2, lambda g: peers[g.me].reserve(A.numel() * A.element_size()))
+    pc, why = peers[0], None
+    peer_publish(A, pc)
+    torch.cuda.synchronize()
+    pc.product = 2
+    t0 = time.perf_counter()
+    try:
+        peer_publish(C, pc)
+        pc.check(sync=True)
+    except RuntimeError as e:
+        why = str(e)
+    dt = time.perf_counter() - t0
+    kept = _bitwise(pc.slot(0, tuple(A.shape), A.dtype), A)
+    close_sim_peers(peers)
+    if why is None or "SLOT_BUSY" not in why or not kept or \
+            dt > MISSING_TIMEOUT_S + 30:
+        raise AssertionError(f"gridring: a publish into a slot its readers "
+                             f"never counted did not end in a SLOT_BUSY "
+                             f"RuntimeError in time with the slot kept: "
+                             f"{why!r} after {dt:.2f} s, slot kept {kept}")
+    return (f"a publish into a slot whose reader never counted raised in "
+            f"{dt:.2f} s (bound {MISSING_TIMEOUT_S:g} s), the slot bitwise "
+            f"its earlier chunk: {why}")
+
+
+def _publish_layouts(dev, b: int) -> list:
+    """The publish on the layouts the main path's chunks do not show at
+    k = 3000, two simulated ranks of b rows each: an odd f32 width (k =
+    2999, contiguous: its flat range), a strided column window
+    (V[:, 1:3000] of a (2b, 3001) f32 buffer: its row path, the source
+    off the slot's 16-byte alignment) and c64 at k = 2999.  One product
+    each, every rank's slot bitwise its chunk and every rank's gathered B
+    bitwise the plain gather; the publish's and ``copy_``'s kernel times
+    (:func:`_publish_ms`).  Log lines; raises on a difference."""
+    from chase_tpu_torch.ops.ring_hemm import peer_gather_reference
+    g = torch.Generator(device=dev).manual_seed(SEED + 15)
+    p, k = 2, 2999
+    cases = (("f32 k=2999", torch.randn((p * b, k), generator=g, device=dev)),
+             ("f32 window [:, 1:3000] of 3001", torch.randn(
+                 (p * b, 3001), generator=g, device=dev)[:, 1:3000]),
+             ("c64 k=2999", torch.randn((p * b, k), generator=g, device=dev,
+                                        dtype=torch.complex64)))
+    peers = sim_peers(p, dev)
+    sim_ranks(p, lambda q: peers[q.me].reserve(b * k * 8))
+    lines = []
+    for label, V in cases:
+        chunks = [V[i * b:(i + 1) * b] for i in range(p)]
+        Bs = sim_ranks(p, lambda q: _layout_product(peers[q.me],
+                                                    chunks[q.me], V.dtype))
+        torch.cuda.synchronize()
+        slots = all(_bitwise(peers[q].slot(peers[q].product - 1,
+                                           tuple(chunks[q].shape), V.dtype),
+                             chunks[q]) for q in range(p))
+        plain = peer_gather_reference(chunks, V.dtype)
+        gathered = all(_bitwise(B, plain) for B in Bs)
+        del Bs, plain
+        ms, lib_ms, timed_as = _publish_ms(chunks, peers, V.dtype, 3)
+        lines.append(f"publish layouts, {label}, chunks {tuple(chunks[0].shape)}"
+                     f" (row stride {chunks[0].stride(0)}): every slot "
+                     f"bitwise its chunk: {slots}; every gathered B bitwise "
+                     f"the plain gather: {gathered}; peer_publish "
+                     f"{timed_as} {ms:.4f} ms, copy_ {timed_as} "
+                     f"{lib_ms:.4f} ms")
+        if not (slots and gathered):
+            close_sim_peers(peers)
+            raise AssertionError(f"gridring: {lines[-1]}")
+        del chunks, V
+    close_sim_peers(peers)
+    return lines
+
+
+def _layout_product(pc, chunk, dtype) -> torch.Tensor:
+    """One rank's publish and gather of one product (its thread)."""
+    from chase_tpu_torch.ops.ring_hemm import peer_gather, peer_publish
+    peer_publish(chunk, pc)
+    pc.meet()
+    return peer_gather(chunk, pc, dtype)
 
 
 def phase_gridring(dev, H, route: str) -> dict:
@@ -2299,6 +2511,9 @@ def phase_gridring(dev, H, route: str) -> dict:
             out[(p, k)] = cases
             if route == "f32" and p == 2:
                 log("gridring", _missing_publish(dev, stripes, chunks))
+                log("gridring", _busy_slot(dev, chunks))
+                for msg in _publish_layouts(dev, b):
+                    log("gridring", msg)
             del V, Vr, chunks
         close_sim_peers(peers)
         del stripes, peers

@@ -20,7 +20,10 @@ chunk transfer in ``csrc/ring_peers.cu``), held without a card:
   (``ring_backend="pallas"``), a kernel dtype and p > 1;
 * the wrapper's CPU path: p threads of one process, each its rank;
 * a failed wait's record turned into a RuntimeError naming it
-  (``PeerChunks.check``).
+  (``PeerChunks.check``);
+* the slot's layout: its row stride (``slot_row_floats``, the rows
+  packed), the strides ``_peers_arg`` hands the gather for an odd k, a
+  strided V and c64, and the chunks the publish refuses.
 
 The ``gpu``-marked tests at the end run the kernels on one card:
 
@@ -37,14 +40,15 @@ import torch
 from hypothesis import given, settings, strategies as st
 
 from chase_tpu_torch.ops.ring_hemm import (KERNEL_DTYPES, LAUNCHES,
-                                           bf16_pack_reference,
+                                           _peers_arg, bf16_pack_reference,
                                            gather_layout, peer_gather_reference,
-                                           ring_hemm_peers,
+                                           peer_publish, ring_hemm_peers,
                                            ring_hemm_peers_reference,
                                            tf32_split_reference)
 from chase_tpu_torch.parallel.mesh import CollectiveStats
 from chase_tpu_torch.parallel.peers import (PeerChunks, ready_epoch,
-                                            reads_before, slot_of)
+                                            reads_before, slot_of,
+                                            slot_row_floats)
 from chase_tpu_torch.parallel.ring import _product, uses_peers
 from chase_tpu_torch.solver import _chunk_product
 
@@ -369,6 +373,54 @@ def test_stats_count_peer_bytes():
     assert s.summary() == {"peer": (1, 1200), "sendrecv": (1, 20)}
 
 
+@pytest.mark.parametrize("k,dtype,want", [
+    (3000, torch.float32, 3000), (2999, torch.float32, 2999),
+    (2999, torch.complex64, 5998)], ids=["f32", "f32_odd", "c64_odd"])
+def test_slot_row_floats(k, dtype, want):
+    """The slot's rows are packed: a contiguous chunk is one range."""
+    assert slot_row_floats(k, dtype) == want
+
+
+def _layout(case: str) -> torch.Tensor:
+    """A (5, 7) chunk: contiguous, or a column window of a wider V."""
+    dtype = torch.complex64 if case.startswith("c64") else torch.float32
+    if case.endswith("window"):
+        return torch.zeros((5, 11), dtype=dtype)[:, 3:10]
+    return torch.zeros((5, 7), dtype=dtype)
+
+
+@pytest.mark.parametrize("case", ["f32_odd", "f32_window", "c64_odd",
+                                  "c64_window"])
+def test_peers_arg_strides(case):
+    """The gather reads this rank's V at its own row stride and every
+    peer's slot at ``slot_row_floats`` (floats: 2 a c64 element)."""
+    V = _layout(case)
+    fl = 2 if V.is_complex() else 1
+    peers = types.SimpleNamespace(
+        p=3, me=1, product=5, flags=[101, 102, 103],
+        slot_ptr=lambda q, e: 1000 * q + slot_of(e))
+    arg = _peers_arg(V, peers)
+    assert arg.data[1] == V.data_ptr() and arg.ld[1] == fl * V.stride(0)
+    assert arg.ld[1] == fl * (11 if case.endswith("window") else 7)
+    for q in (0, 2):
+        assert arg.data[q] == 1000 * q + 1
+        assert arg.ld[q] == slot_row_floats(7, V.dtype) == fl * 7
+    assert list(arg.flags)[:3] == [101, 102, 103]
+
+
+@pytest.mark.parametrize("V,error", [
+    (torch.zeros((4, 6))[:, ::2], ValueError),
+    (torch.zeros((4, 3), dtype=torch.float64), TypeError),
+    (torch.zeros((4, 3), dtype=torch.complex64).conj(), ValueError)],
+    ids=["column_stride", "f64", "lazy_conj"])
+def test_publish_refuses_a_layout_it_does_not_take(V, error):
+    """Raised before any peer memory is touched, on every device."""
+    pc = PeerChunks(0, 2, "cpu", lambda obj: [obj, obj])
+    with pytest.raises(error):
+        peer_publish(V, pc)
+    assert pc.capacity == 0
+
+
 def test_kernel_dtypes_have_a_layout():
     for dtype in KERNEL_DTYPES:
         b_pad, w_pad, bK = gather_layout(dtype, 2, 30, 5)
@@ -466,5 +518,69 @@ def test_cuda_missing_publish_raises(cuda):
         with pytest.raises(RuntimeError, match="rank 0 waited .* rank 1"):
             pc.check(sync=True)
         return not bool(torch.isfinite(W).any())
+
+    assert all(_thread_ranks(2, run, device=cuda, timeout_s=0.5))
+
+
+def _slot_bits(pc, e, V) -> torch.Tensor:
+    return pc.slot(e, tuple(V.shape), V.dtype).view(torch.int32).clone()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["f32_odd", "f32_window", "c64_odd",
+                                  "c64_window"])
+def test_cuda_publish_layouts_bitwise(cuda, case):
+    """p = 2 ranks as threads on one card, each chunk (b, k) = (301, 2999)
+    contiguous (the publish's flat range at an odd width) or a column
+    window V[:, 1:3000] of a (301, 3001) buffer (its row path, the source
+    off the slot's 16-byte alignment), f32 and c64: every slot bitwise
+    the chunk, the gathered B bitwise the plain gather."""
+    from chase_tpu_torch.ops import ring_hemm as rh
+    p, b = 2, 301
+    dtype = torch.complex64 if case.startswith("c64") else torch.float32
+    g = torch.Generator(device=cuda).manual_seed(7)
+    if case.endswith("window"):
+        V = torch.randn((p * b, 3001), generator=g, device=cuda,
+                        dtype=dtype)[:, 1:3000]
+    else:
+        V = torch.randn((p * b, 2999), generator=g, device=cuda, dtype=dtype)
+    chunks = _chunks(V, p)
+
+    def product(pc):
+        pc.reserve(b * 2999 * V.element_size())             # collective
+        rh.peer_publish(chunks[pc.me], pc)
+        pc.meet()
+        B = rh.peer_gather(chunks[pc.me], pc, dtype)
+        torch.cuda.synchronize()
+        pc.check()
+        return B, _slot_bits(pc, pc.product - 1, chunks[pc.me])
+
+    plain = peer_gather_reference(chunks, dtype)
+    for me, (B, slot) in enumerate(_thread_ranks(p, product, device=cuda)):
+        assert torch.equal(slot, chunks[me].view(torch.int32))
+        assert torch.equal(B.view(torch.int32), plain.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_cuda_busy_slot_raises(cuda):
+    """Rank 0 of 2 publishes product 0 into slot 0, then, two products on,
+    product 2 into the same slot while rank 1 has never read the first:
+    the publish gives up after its bound and the check names SLOT_BUSY;
+    the slot still holds product 0's chunk, bit for bit."""
+    from chase_tpu_torch.ops import ring_hemm as rh
+    A = torch.arange(64 * 8, dtype=torch.float32, device=cuda).view(64, 8)
+    C = -A - 1
+
+    def run(pc):
+        pc.reserve(A.numel() * 4)           # collective
+        if pc.me == 1:
+            return True
+        rh.peer_publish(A, pc)
+        pc.product = 2
+        rh.peer_publish(C, pc)
+        with pytest.raises(RuntimeError, match="SLOT_BUSY.*rank 0 waited "
+                                               ".* slot 0"):
+            pc.check(sync=True)
+        return torch.equal(_slot_bits(pc, 0, A), A.view(torch.int32))
 
     assert all(_thread_ranks(2, run, device=cuda, timeout_s=0.5))

@@ -246,12 +246,15 @@ def eigsh_pseudo(H, nev: int, nex: Optional[int] = None, *,
 def _collect_fused_perf(out, iters: int, t_all: float,
                         matrix_type: int = 0) -> PerfData:
     """PerfData from the fused solvers' device counters: the filtered
-    vectors, the block sizes and the filter's HEMM steps; only 'All' is
-    timed (the loop has no synchronised phase boundaries)."""
+    vectors (those filtered on the ladder's or the bf16 rung's shadow
+    apart, for ``low_flop_fraction``), the block sizes and the filter's
+    HEMM steps; only 'All' is timed (the loop has no synchronised phase
+    boundaries)."""
     perf = PerfData()
     perf.matrix_type = matrix_type
     perf.add_time("All", t_all)
     perf.filtered_vecs = int(out["filtered_vecs"])
+    perf.filtered_vecs_low = int(out["filtered_low"])
     for b in out["block_history"][:iters].tolist():
         perf.add_iter_blocksize(b)
     perf.filter_hemm_steps = out["hemm_steps"]

@@ -329,6 +329,7 @@ def solve_fused(H, V0, *, nev, nex, tol, deg0, max_deg, deg_extra=2,
 
     Returns a dict: V (N, k) converged-first sorted, ritzv (k,), resid
     (k,), locked, iterations, lowerb, upperb, filtered_vecs,
+    filtered_low (the part of filtered_vecs filtered on the shadow),
     block_history, resid_history, early_history (tensors on H's device)
     and hemm_steps (int, the filter's products).
     """
@@ -396,6 +397,7 @@ def solve_fused(H, V0, *, nev, nex, tol, deg0, max_deg, deg_extra=2,
     locked = torch.zeros((), dtype=torch.int64, device=dev)
     it = torch.zeros((), dtype=torch.int64, device=dev)
     filtered = torch.zeros((), dtype=torch.int64, device=dev)
+    filtered_low = torch.zeros((), dtype=torch.int64, device=dev)
     blk_hist = torch.zeros(max_iter, dtype=torch.int64, device=dev)
     r_hist = torch.full((max_iter, k), -1.0, dtype=rt, device=dev)
     e_hist = torch.full((max_iter, k), -1.0, dtype=rt, device=dev)
@@ -450,6 +452,8 @@ def solve_fused(H, V0, *, nev, nex, tol, deg0, max_deg, deg_extra=2,
             break
         lowerb, resid_last, degrees = lowerb_n, resid_last_n, degrees_n
         filtered = filtered + degrees.sum()
+        if (use_bf16_rung and low_h) or use_refine:   # filtered on H_low
+            filtered_low = filtered_low + degrees.sum()
         blk_hist[it_h] = k - locked     # a tensor: a Python int is a copy
 
         # -- filter → QR → RR on the static tier window [off, k) --
@@ -526,5 +530,5 @@ def solve_fused(H, V0, *, nev, nex, tol, deg0, max_deg, deg_extra=2,
     return {"V": V.index_select(1, order), "ritzv": ritzv[order],
             "resid": resid[order], "locked": locked, "iterations": it,
             "lowerb": lowerb, "upperb": upperb, "filtered_vecs": filtered,
-            "block_history": blk_hist, "resid_history": r_hist,
+            "filtered_low": filtered_low, "block_history": blk_hist, "resid_history": r_hist,
             "early_history": e_hist, "hemm_steps": prod.steps}

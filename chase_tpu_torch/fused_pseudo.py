@@ -156,8 +156,9 @@ def solve_pseudo_fused(H, V0, *, nev, nex, tol, deg0, max_deg, deg_extra=2,
         ``fused.solve_fused``.
 
     Returns a dict: V (N, 2k), ritzv (2k,), resid (2k,), locked,
-    iterations, lowerb, upperb, filtered_vecs, block_history,
-    resid_history, early_history and hemm_steps (both products of every
+    iterations, lowerb, upperb, filtered_vecs, filtered_low (the part
+    filtered on the shadow), block_history, resid_history, early_history
+    and hemm_steps (both products of every
     H² step counted).
     """
     N = _rows(H, grid)
@@ -225,6 +226,7 @@ def solve_pseudo_fused(H, V0, *, nev, nex, tol, deg0, max_deg, deg_extra=2,
     it = torch.zeros((), dtype=torch.int64, device=dev)
     new_mu = torch.sqrt(mu_nevnex)
     filtered = torch.zeros((), dtype=torch.int64, device=dev)
+    filtered_low = torch.zeros((), dtype=torch.int64, device=dev)
     blk_hist = torch.zeros(max_iter, dtype=torch.int64, device=dev)
     r_hist = torch.full((max_iter, k), -1.0, dtype=rt, device=dev)
     e_hist = torch.full((max_iter, k), -1.0, dtype=rt, device=dev)
@@ -264,6 +266,8 @@ def solve_pseudo_fused(H, V0, *, nev, nex, tol, deg0, max_deg, deg_extra=2,
         lower = lower_n
         u = k - locked_h
         filtered = filtered + 2 * deg_k.sum()   # two products per H² step
+        if (use_bf16_rung and low_h) or use_refine:   # filtered on H_low
+            filtered_low = filtered_low + 2 * deg_k.sum()
         blk_hist[it_h] = k - locked     # a tensor: a Python int is a copy
 
         # -- H² filter on the first half (static half width) --
@@ -369,5 +373,5 @@ def solve_pseudo_fused(H, V0, *, nev, nex, tol, deg0, max_deg, deg_extra=2,
             "resid": torch.cat([resid[:k][order], resid[k:]]),
             "locked": locked, "iterations": it, "lowerb": lower,
             "upperb": b_sup, "filtered_vecs": filtered,
-            "block_history": blk_hist, "resid_history": r_hist,
+            "filtered_low": filtered_low, "block_history": blk_hist, "resid_history": r_hist,
             "early_history": e_hist, "hemm_steps": prod.steps}

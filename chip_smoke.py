@@ -177,7 +177,27 @@ no result line) on any fault:
            iterations of both, the host syncs per fused iteration
            (torch.cuda.set_sync_debug_mode, at most 3) and, on the kernel
            ring, ring_hemm and pre-pass launches against the solver's HEMM
-           steps (equal); the phase's gates hold for both solvers
+           steps (equal); the phase's gates hold for both solvers.  The
+           fused solvers on the kernel's other routes, each the same way
+           with its peak device memory: fbslice (after bslice, beside
+           its TTS): eigsh_fused on the slice's H on the bf16 rung
+           (bf16_filter=True; its pre-passes bf16_pack while the rung's
+           low phase holds and tf32_split after it, together one per HEMM
+           step, bf16_pack at least once); fcmid (after cprofile):
+           eigsh_fused on the phase-rotated Clement in c64 at fmid's
+           shape (the c64 route), traced; fladder (after ladder, beside
+           its kernel-ring solve): eigsh_fused on the c128 north star on
+           the ladder (mixed_precision=True, the c64 shadow's route),
+           dp's gates and ≥ 80% of the FLOPs in c64; fbpseudo (after
+           bpseudo, beside it): eigsh_pseudo_fused on the f32 BSE on the
+           bf16 rung, bpseudo's gates; zfladder (after zfused): the c128
+           BSE at zfused's shape on the ladder, eigsh_pseudo and
+           eigsh_pseudo_fused, the c64 route
+  examples the port's Python examples (examples/torch_hello_world.py,
+           torch_interface_demo.py, torch_bse_benchmark.py) as child
+           processes on the card at their default sizes: each exits 0
+           with its PASS line, whose eigenvalue error against Clement's
+           exact spectrum (or, for the BSE, the true residual) is ≤ 1e-9
   grid1    a child process with torchrun's variables at WORLD_SIZE=1:
            multihost.init_grid() on NCCL, the grid's collectives once
            (all_reduce f32 and c64, all_gather_into_tensor, broadcast,
@@ -249,6 +269,7 @@ any phase.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -979,8 +1000,9 @@ def phase_slice(dev, H, phase: str = "slice", bf16: bool = False) -> dict:
     _zero_ring_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = ct.eigsh(H, nev, nex, tol=tol, config=cfg, device=dev,
-                   collect_perf=True)
+    with launch_widths() as widths:
+        res = ct.eigsh(H, nev, nex, tol=tol, config=cfg, device=dev,
+                       collect_perf=True)
     torch.cuda.synchronize()
     tts = time.perf_counter() - t0
     launches = _count("ring_hemm")
@@ -1011,8 +1033,9 @@ def phase_slice(dev, H, phase: str = "slice", bf16: bool = False) -> dict:
                f"{true_res:.3e}; reported max resid {res.resid.max():.3e}; "
                f"ring_hemm launches {launches}, {pre} launches "
                f"{split_launches}, other pre-pass {other}, filter HEMM steps "
-               f"{perf.filter_hemm_steps}; low-precision FLOP share "
-               f"{low:.3f}; peak device memory {peak:.1f} GiB")
+               f"{perf.filter_hemm_steps} ({widths_line(widths)}); "
+               f"low-precision FLOP share {low:.3f}; peak device memory "
+               f"{peak:.1f} GiB")
     if not res.converged:
         raise AssertionError(f"{phase} did not converge")
     if not ev_err <= 0.5:
@@ -1106,6 +1129,42 @@ def _peer_counts() -> tuple:
     peer_gather, peer_publish)."""
     return (_count("ring_hemm_peers"), _count("peer_gather"),
             _count("peer_publish"))
+
+
+# the widths k of the kernel table's rows (PERF.md §6): a ring_hemm call
+# of width k counts in the first row whose width is k or more
+WIDTH_ROWS = (750, 1500, 2250, 3000)
+ROUTES = {torch.float32: "f32", torch.complex64: "c64",
+          torch.bfloat16: "bf16"}
+
+
+@contextlib.contextmanager
+def launch_widths():
+    """Inside the block every ring_hemm call's route and width row (of
+    :data:`WIDTH_ROWS`) is counted into the yielded Counter: the wrapper
+    is looked up at call time, so a shim records V's width and calls it;
+    the launch counts (``LAUNCHES``) are the wrapper's own, untouched."""
+    import collections
+    from chase_tpu_torch.ops import ring_hemm as rh
+    real, seen = rh.ring_hemm, collections.Counter()
+
+    def shim(H, V, **kw):
+        k = V.shape[1]
+        seen[ROUTES.get(H.dtype, str(H.dtype)),
+             next((w for w in WIDTH_ROWS if k <= w), k)] += 1
+        return real(H, V, **kw)
+
+    rh.ring_hemm = shim
+    try:
+        yield seen
+    finally:
+        rh.ring_hemm = real
+
+
+def widths_line(seen) -> str:
+    """``launch_widths``' counts as "route k≤row: n" in row order."""
+    return ", ".join(f"{route} k≤{w}: {n}"
+                     for (route, w), n in sorted(seen.items())) or "none"
 
 
 def _zero_ring_counts() -> None:
@@ -1364,7 +1423,8 @@ def _north_star_solve(dev, H, phase: str, mixed: bool,
 
     torch.cuda.reset_peak_memory_stats(dev)
     _zero_ring_counts()
-    tts, res = solve()
+    with launch_widths() as widths:
+        tts, res = solve()
     launches = _ring_counts()
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     perf, t = res.perf, res.perf.timings
@@ -1390,7 +1450,8 @@ def _north_star_solve(dev, H, phase: str, mixed: bool,
                f"residual {true_res:.3e}; reported max resid "
                f"{res.resid.max():.3e}; ring_hemm / tf32_split / bf16_pack "
                f"launches {launches}, filter HEMM steps "
-               f"{perf.filter_hemm_steps}; peak device memory {peak:.1f} GiB")
+               f"{perf.filter_hemm_steps} ({widths_line(widths)}); peak "
+               f"device memory {peak:.1f} GiB")
     if not res.converged:
         raise AssertionError(f"{phase}: the DP north star did not converge")
     if not (true_res <= 10 * tol and ev_err <= 10 * tol):
@@ -1700,7 +1761,8 @@ def _bse_solve(dev, H, lam, phase: str, mixed: bool, backend: str,
 
     torch.cuda.reset_peak_memory_stats(dev)
     _zero_ring_counts()
-    (tts, res), msgs = logged(solve)
+    with launch_widths() as widths:
+        (tts, res), msgs = logged(solve)
     launches = _ring_counts()
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     perf, t = res.perf, res.perf.timings
@@ -1725,7 +1787,8 @@ def _bse_solve(dev, H, lam, phase: str, mixed: bool, backend: str,
                f"residual {true_res:.3e}; reported max resid "
                f"{res.resid.max():.3e}; ring_hemm / tf32_split / bf16_pack "
                f"launches {launches}, filter HEMM steps "
-               f"{perf.filter_hemm_steps}; peak device memory {peak:.1f} GiB")
+               f"{perf.filter_hemm_steps} ({widths_line(widths)}); peak "
+               f"device memory {peak:.1f} GiB")
     if not res.converged:
         raise AssertionError(f"{phase}: the BSE solve did not converge")
     if not (true_res <= 10 * tol and ev_err <= 10 * tol):
@@ -1760,12 +1823,13 @@ def phase_pseudo(dev, H, lam) -> dict:
     return ladder
 
 
-def phase_bpseudo(dev, H32, H, lam) -> None:
+def phase_bpseudo(dev, H32, H, lam) -> dict:
     """The f32 BSE (H's f32 copy) on the bf16 rung on the kernel ring:
     every filter product on the bf16 route; true residuals against the
     f64 H."""
-    _bse_solve(dev, H32, lam, "bpseudo", False, "pallas",
-               "bf16 rung (bf16 shadow, kernel ring)", bf16=True, H_ref=H)
+    return _bse_solve(dev, H32, lam, "bpseudo", False, "pallas",
+                      "bf16 rung (bf16 shadow, kernel ring)", bf16=True,
+                      H_ref=H)
 
 
 def phase_zpseudo(dev, Hc, lam) -> None:
@@ -1818,31 +1882,40 @@ def timed(fn) -> tuple:
 def fused_runs(fused, p: int = 1) -> dict:
     """``fused(max_iter)`` (max_iter None: the config's) three times: the
     first call, with the kernel launch counts set to 0 just before it and
-    read after it; the warm call, its host syncs counted; and a run
+    read after it (and its ring_hemm calls by route and width,
+    :func:`launch_widths`); the warm call, its host syncs counted; and a run
     stopped after one iteration (``max_iter=1``), whose syncs are taken
     off the warm call's, over the iterations left: the syncs of an
     iteration."""
     _zero_ring_counts()
-    first, res = timed(lambda: fused(None))
+    with launch_widths() as widths:
+        first, res = timed(lambda: fused(None))
     launches = _ring_counts() + _peer_counts()
     (warm, res2), sites = count_syncs(lambda: timed(lambda: fused(None)))
     (_, res1), sites1 = count_syncs(lambda: timed(lambda: fused(1)))
     syncs, syncs1 = sum(sites.values()), sum(sites1.values())
     return dict(first=first, warm=warm, res=res, res2=res2, res1=res1,
-                launches=launches, steps=res.perf.filter_hemm_steps,
+                launches=launches, widths=widths,
+                steps=res.perf.filter_hemm_steps,
                 syncs=syncs, syncs1=syncs1, sites=sites, p=p,
                 per_iter=(syncs - syncs1) / max(res2.iterations - 1, 1))
 
 
-def _launches_ok(counts: tuple, steps: int, p: int) -> bool:
+def launches_ok(counts: tuple, steps: int, p: int = 1,
+                bf16_rung: bool = False) -> bool:
     """``counts`` (``_ring_counts() + _peer_counts()``) of a solve of
     ``steps`` HEMM steps on a rank of a (p, 1) grid whose every filter
     operator takes the kernel: one main launch and one pre-pass per step —
     ring_hemm and tf32_split or bf16_pack on one device, ring_hemm_peers,
-    peer_gather and peer_publish on p > 1 with no ring_hemm step."""
+    peer_gather and peer_publish on p > 1 with no ring_hemm step.  One
+    device's pre-passes are of one route, but with ``bf16_rung`` (a fused
+    solve on the bf16 rung, which filters on the bf16 shadow while its
+    low phase holds and on the f32 H after it) they may be of both, and
+    bf16_pack ran at least once."""
     hemm, split, pack, peers, gather, publish = counts
     if p == 1:
-        return (0 < hemm == split + pack == steps and min(split, pack) == 0
+        routes_ok = pack > 0 if bf16_rung else min(split, pack) == 0
+        return (0 < hemm == split + pack == steps and routes_ok
                 and peers == gather == publish == 0)
     return 0 < peers == gather == publish == steps and hemm + split + pack == 0
 
@@ -1851,11 +1924,13 @@ LAUNCH_NAMES = ("ring_hemm / tf32_split / bf16_pack / ring_hemm_peers / "
                 "peer_gather / peer_publish launches")
 
 
-def check_fused_runs(phase: str, runs: dict, kernel: bool = True) -> None:
+def check_fused_runs(phase: str, runs: dict, kernel: bool = True,
+                     bf16_rung: bool = False) -> None:
     """The gates of :func:`fused_runs`: the sync count works, at most 3
     host syncs per iteration, and with ``kernel`` every HEMM step one main
     launch of the kernel and its one pre-pass per rank
-    (:func:`_launches_ok`; none without)."""
+    (:func:`launches_ok`, of both routes on the ``bf16_rung``; none
+    without)."""
     res1, res2, syncs = runs["res1"], runs["res2"], runs["syncs"]
     launches, steps, p = runs["launches"], runs["steps"], runs["p"]
     if res1.iterations != 1 or syncs < res2.iterations + 1:
@@ -1866,9 +1941,10 @@ def check_fused_runs(phase: str, runs: dict, kernel: bool = True) -> None:
         raise AssertionError(f"{phase}: {runs['per_iter']:.2f} host syncs "
                              f"per fused iteration (at most 3)")
     if kernel:
-        if not _launches_ok(launches, steps, p):
+        if not launches_ok(launches, steps, p, bf16_rung):
             raise AssertionError(f"{phase}: {LAUNCH_NAMES} {launches} "
-                                 f"against {steps} HEMM steps (p = {p})")
+                                 f"against {steps} HEMM steps (p = {p}"
+                                 f"{', bf16 rung' if bf16_rung else ''})")
     elif any(launches):
         raise AssertionError(f"{phase}: kernel launches {launches} on a "
                              f"path with no kernel operator")
@@ -1876,7 +1952,7 @@ def check_fused_runs(phase: str, runs: dict, kernel: bool = True) -> None:
 
 def fused_beside_host(phase: str, what: str, fused, host, gate,
                       host_warm=None, kernel: bool = True,
-                      trace: bool = False) -> dict:
+                      trace: bool = False, bf16_rung: bool = False) -> dict:
     """A fused solve beside the host driver on the same input and config.
 
     ``fused(max_iter)`` runs the fused entry point (max_iter None: the
@@ -1884,12 +1960,17 @@ def fused_beside_host(phase: str, what: str, fused, host, gate,
     its warm (TTS, iterations) from an earlier phase of this run;
     ``gate(res, who)`` raises on a wrong answer.  The first fused call
     counts the kernel launches (set to 0 just before it) against the
-    solver's HEMM-step counter; the warm call counts the host syncs, and
+    solver's HEMM-step counter (``bf16_rung``: :func:`launches_ok`'s
+    rule for the bf16 rung); the warm call counts the host syncs, and
     those of a run stopped after one iteration (``max_iter=1``) are taken
-    off, over the iterations left: the syncs of an iteration.  With
-    ``trace`` one more warm call of each is traced (busy share, kernel
-    launches per iteration)."""
+    off, over the iterations left: the syncs of an iteration.  The peak
+    device memory of the three fused calls is logged.  With ``trace`` one
+    more warm call of each is traced (busy share, kernel launches per
+    iteration)."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    torch.cuda.reset_peak_memory_stats(dev)
     runs = fused_runs(fused)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
     first, warm, res, res2 = (runs[k] for k in ("first", "warm", "res",
                                                  "res2"))
     launches, steps, per_iter = runs["launches"], runs["steps"], \
@@ -1913,15 +1994,19 @@ def fused_beside_host(phase: str, what: str, fused, host, gate,
                f"host syncs {syncs} in the warm call, {syncs1} in one "
                f"of 1 iteration: {per_iter:.2f} per iteration (by line: "
                f"{dict(sites.most_common(8))}); {LAUNCH_NAMES} "
-               f"{launches}, the solver's HEMM steps {steps}; filtered vecs "
-               f"{res.perf.filtered_vecs}; max resid {res.resid.max():.3e}")
-    check_fused_runs(phase, runs, kernel)
+               f"{launches}, the solver's HEMM steps {steps} "
+               f"({widths_line(runs['widths'])}); filtered vecs "
+               f"{res.perf.filtered_vecs} ({res.perf.filtered_vecs_low} on "
+               f"the shadow); max resid {res.resid.max():.3e}; peak device "
+               f"memory {peak:.2f} GiB")
+    check_fused_runs(phase, runs, kernel, bf16_rung)
     if trace:
         trace_solve(phase, "warm fused solve", lambda: timed(
             lambda: fused(None)))
         trace_solve(phase, "warm host-driver solve", lambda: timed(host))
     return dict(first=first, warm=warm, iterations=res2.iterations,
-                per_iter=per_iter, launches=launches, steps=steps)
+                per_iter=per_iter, launches=launches, steps=steps, res=res,
+                peak=peak)
 
 
 def whole(V, device) -> torch.Tensor:
@@ -1953,38 +2038,100 @@ def clement_gate(phase: str, H, nev: int, ev_tol: float, res_tol: float):
 
 
 def phase_fused_clement(dev, H, phase: str, nev: int, nex, tol,
-                        host_warm=None) -> dict:
-    """eigsh_fused beside eigsh on an f32 Clement H with
-    ring_backend="pallas" (mixed_precision pinned off); tol None is the
-    f32 default 1e-5, whose gates allow the early lock's 100·tol."""
+                        host_warm=None, bf16: bool = False) -> dict:
+    """eigsh_fused beside eigsh on a (phase-rotated, for c64) Clement H
+    with ring_backend="pallas" (mixed_precision pinned off; ``bf16``: an
+    f32 H on the bf16 rung, both pre-passes allowed); tol None is the f32
+    default 1e-5, whose gates allow the early lock's 100·tol."""
     import chase_tpu_torch as ct
-    cfg = ct.ChaseConfig(ring_backend="pallas", mixed_precision=False)
+    cfg = ct.ChaseConfig(ring_backend="pallas", mixed_precision=False,
+                         bf16_filter=bf16)
     t = 1e-5 if tol is None else tol
     gate = (clement_gate(phase, H, nev, 1e-2, 100 * t) if tol is None
             else clement_gate(phase, H, nev, 0.5, 10 * t))
 
     def fused(max_iter):
-        c = cfg if max_iter is None else ct.ChaseConfig(
-            ring_backend="pallas", mixed_precision=False, max_iter=max_iter)
+        c = cfg if max_iter is None else dataclasses.replace(
+            cfg, max_iter=max_iter)
         return ct.eigsh_fused(H, nev, nex, tol=tol, config=c, device=dev,
                               collect_perf=True)
 
     return fused_beside_host(
-        phase, f"Clement N={H.shape[0]} nev={nev} nex={nex} f32 tol={t} "
-               f"pallas", fused,
+        phase, f"Clement N={H.shape[0]} nev={nev} nex={nex} {H.dtype} "
+               f"tol={t} pallas{' bf16_filter=True' if bf16 else ''}", fused,
         lambda: ct.eigsh(H, nev, nex, tol=tol, config=cfg, device=dev),
-        gate, host_warm, trace=host_warm is None)
+        gate, host_warm, trace=host_warm is None, bf16_rung=bf16)
+
+
+def north_star_gate(phase: str, H, nev: int, tol: float):
+    """dp's and ladder's gates of a solve of the c128 north star:
+    converged, true residuals and eigenvalue errors against Clement's
+    spectrum ≤ 10·tol."""
+    from chase_tpu_torch.models import clement_eigenvalues
+    from chase_tpu_torch.ops.residuals import residuals
+    exact = clement_eigenvalues(H.shape[0])[:nev]
+
+    def gate(res, who):
+        true_res = float(residuals(H, res.V[:, :nev], res.ritzv).max())
+        ev_err = float(np.abs(res.ritzv - exact).max())
+        if not (res.converged and true_res <= 10 * tol
+                and ev_err <= 10 * tol):
+            raise AssertionError(f"{phase} ({who}): converged="
+                                 f"{res.converged}, true residual "
+                                 f"{true_res:.3e}, eigenvalue err "
+                                 f"{ev_err:.3e} (gates {10 * tol:.3e})")
+    return gate
+
+
+def low_share_gate(phase: str, out: dict, N: int, dtype, floor) -> float:
+    """The fused solve's low-precision FLOP share (its PerfData counts
+    the vectors filtered on the shadow), logged and, with ``floor``,
+    held to at least it."""
+    low = out["res"].perf.low_flop_fraction(N, 25, 4, dtype)
+    log(phase, f"fused low-precision FLOP share {low:.3f}"
+               + (f" (gate ≥ {floor:.2f})" if floor else ""))
+    if floor and not low >= floor:
+        raise AssertionError(f"{phase}: only {low:.3f} of the fused solve's "
+                             f"FLOPs on the shadow (≥ {floor:.2f})")
+    return low
+
+
+def phase_fladder(dev, H, ladder: dict) -> dict:
+    """eigsh_fused on the c128 north star on the ladder with the kernel
+    ring — the route a c128 eigsh_fused takes by default on the card
+    (MIXED_PRECISION_ON_CUDA["pallas"]): every filter product on the c64
+    shadow's kernel route, beside [ladder]'s kernel-ring solve of this
+    run; dp's gates and ≥ 80% of the FLOPs in c64."""
+    import chase_tpu_torch as ct
+    N, nev, nex = SLICE["N"], SLICE["nev"], SLICE["nex"]
+    tol = 1e-10 * (N - 1)
+    cfg = ct.ChaseConfig(mixed_precision=True, ring_backend="pallas")
+
+    def fused(max_iter):
+        c = cfg if max_iter is None else dataclasses.replace(
+            cfg, max_iter=max_iter)
+        return ct.eigsh_fused(H, nev, nex, tol=tol, config=c, device=dev,
+                              collect_perf=True)
+
+    out = fused_beside_host(
+        "fladder", f"c128 N={N} nev={nev} nex={nex} tol={tol:.4e} "
+                   f"(1e-10·‖H‖) ladder, pallas (c64 shadow)", fused, None,
+        north_star_gate("fladder", H, nev, tol),
+        (ladder["tts"], ladder["iterations"]))
+    low_share_gate("fladder", out, N, H.dtype, 0.80)
+    return out
 
 
 def bse_gate(phase: str, H, lam, nev: int, tol: float):
     """The BSE gates: converged, eigenvalues and true residuals (in H's
-    precision) within 10·tol."""
+    precision, a solve of H's f32 copy too) within 10·tol."""
     from chase_tpu_torch.ops.pseudo import residuals_pseudo
 
     def gate(res, who):
         ev_err = float(np.abs(res.ritzv - lam[:nev].cpu().numpy()).max())
         true_res = float(residuals_pseudo(
-            H, whole(res.V, H.device)[:, :nev], res.ritzv).max())
+            H, whole(res.V, H.device)[:, :nev].to(H.dtype),
+            res.ritzv).max())
         if not (res.converged and ev_err <= 10 * tol
                 and true_res <= 10 * tol):
             raise AssertionError(f"{phase} ({who}): converged="
@@ -2014,33 +2161,99 @@ def phase_fpseudo(dev, H, lam, ladder: dict) -> dict:
         (ladder["tts"], ladder["iterations"]))
 
 
-def phase_zfused(dev) -> dict:
+def phase_fbpseudo(dev, H32, H, lam, bpseudo: dict) -> dict:
+    """eigsh_pseudo_fused on bpseudo's f32 BSE on the bf16 rung with the
+    kernel ring beside bpseudo's solve of this run: bpseudo's accuracy
+    gates (true residuals against the f64 H), both pre-passes allowed,
+    bf16_pack at least once.  The fused rung hands the filter back to
+    the f32 H when its low phase ends (as the JAX package's does; the
+    host driver refines on the bf16 shadow instead), so its
+    low-precision share is logged, not held to bpseudo's 0.75."""
+    import chase_tpu_torch as ct
+    nev, nex, tol = BSE["nev"], BSE["nex"], BSE["sp_tol"]
+    cfg = ct.ChaseConfig(bf16_filter=True, mixed_precision=False,
+                         ring_backend="pallas")
+
+    def fused(max_iter):
+        c = cfg if max_iter is None else dataclasses.replace(
+            cfg, max_iter=max_iter)
+        return ct.eigsh_pseudo_fused(H32, nev, nex, tol=tol, config=c,
+                                     device=dev, collect_perf=True)
+
+    out = fused_beside_host(
+        "fbpseudo", f"BSE f32 N={H32.shape[0]} nev={nev} nex={nex} tol={tol} "
+                    f"bf16 rung, pallas", fused, None,
+        bse_gate("fbpseudo", H, lam, nev, tol),
+        (bpseudo["tts"], bpseudo["iterations"]), bf16_rung=True)
+    low_share_gate("fbpseudo", out, H32.shape[0], H32.dtype, None)
+    return out
+
+
+def phase_zfused(dev) -> tuple:
     """The c128 BSE at the JAX package's fused BSE shape (N=4096, nev=200,
-    nex=56), natively (mixed_precision=False, no kernel operator):
-    eigsh_pseudo and eigsh_pseudo_fused."""
+    nex=56): eigsh_pseudo and eigsh_pseudo_fused natively
+    (mixed_precision=False, no kernel operator: [zfused]), then both on
+    the ladder with the kernel ring (every filter product on the c64
+    shadow's kernel route: [zfladder])."""
     import chase_tpu_torch as ct
     N, nev, nex, tol = ZFUSED["N"], ZFUSED["nev"], ZFUSED["nex"], BSE["tol"]
     H, lam = structured_bse_on_device(N, dev, SEED + 11)
     Hc = complex_bse_on_device(H, SEED + 12)
     del H
-    cfg = ct.ChaseConfig(mixed_precision=False)
+    out = {}
+    for phase, mixed, backend, what in (
+            ("zfused", False, "xla", "native"),
+            ("zfladder", True, "pallas", "ladder, pallas (c64 shadow)")):
+        cfg = ct.ChaseConfig(mixed_precision=mixed, ring_backend=backend)
 
-    def fused(max_iter):
-        c = cfg if max_iter is None else ct.ChaseConfig(
-            mixed_precision=False, max_iter=max_iter)
-        return ct.eigsh_pseudo_fused(Hc, nev, nex, tol=tol, config=c,
-                                     device=dev, collect_perf=True)
+        def fused(max_iter, cfg=cfg):
+            c = cfg if max_iter is None else dataclasses.replace(
+                cfg, max_iter=max_iter)
+            return ct.eigsh_pseudo_fused(Hc, nev, nex, tol=tol, config=c,
+                                         device=dev, collect_perf=True)
 
-    def host():
-        res, msgs = logged(lambda: ct.eigsh_pseudo(
-            Hc, nev, nex, tol=tol, config=cfg, device=dev))
-        log("zfused", f"native c128 eigsh_pseudo: "
-                      f"{iteration0_report(msgs)}")
-        return res
+        def host(cfg=cfg, phase=phase, what=what):
+            res, msgs = logged(lambda: ct.eigsh_pseudo(
+                Hc, nev, nex, tol=tol, config=cfg, device=dev))
+            log(phase, f"c128 eigsh_pseudo ({what}): "
+                       f"{iteration0_report(msgs)}")
+            return res
 
-    return fused_beside_host(
-        "zfused", f"BSE c128 N={N} nev={nev} nex={nex} tol={tol} native",
-        fused, host, bse_gate("zfused", Hc, lam, nev, tol), kernel=False)
+        out[phase] = fused_beside_host(
+            phase, f"BSE c128 N={N} nev={nev} nex={nex} tol={tol} {what}",
+            fused, host, bse_gate(phase, Hc, lam, nev, tol), kernel=mixed)
+        if mixed:
+            low_share_gate(phase, out[phase], N, Hc.dtype, None)
+    return out["zfused"], out["zfladder"]
+
+
+# the Python examples, each a child process on the card at its default
+# size: (file under examples/, the gate's key in its PASS line)
+EXAMPLES = (("torch_hello_world", "max eigenvalue error"),
+            ("torch_interface_demo", "max eigenvalue error"),
+            ("torch_bse_benchmark", "max true residual"))
+
+
+def phase_examples() -> dict:
+    """The port's Python examples as child processes on the card: each
+    must exit 0 with its PASS line, whose error (against Clement's exact
+    spectrum, or the BSE's true residual) is held here too, ≤ 1e-9 (10×
+    the examples' tol 1e-10)."""
+    torch.cuda.empty_cache()          # the children share the card
+    out = {}
+    for name, key in EXAMPLES:
+        stdout, dt = run_child("examples", [sys.executable,
+                                            ROOT / "examples" / f"{name}.py"])
+        m = re.search(rf"^{name}: PASS .*{key} ([-+.\deE]+)", stdout,
+                      re.MULTILINE)
+        if not (m and float(m.group(1)) <= 1e-9):
+            raise AssertionError(f"examples: {name} printed no PASS line "
+                                 f"within 1e-9")
+        out[name] = (dt, float(m.group(1)))
+        log("examples", f"{name}: PASS in {dt:.2f} s (process start, torch "
+                        f"import and CUDA included), {key} "
+                        f"{float(m.group(1)):.3e}")
+    return out
 
 
 GRID_P = (2, 4)
@@ -3182,7 +3395,7 @@ def _grid_solve(grid, solve, gate, runs: int = 2) -> dict:
     timed with the grid's collectives and the kernel launch counts set to
     0 just before it; the last run's numbers, its cold TTS beside, gated
     by ``gate(res, who)`` and one main launch per HEMM step and rank on
-    every kernel route (:func:`_launches_ok`), on p > 1 each product
+    every kernel route (:func:`launches_ok`), on p > 1 each product
     counted once under "peer" and no chunk exchanged by NCCL
     ("sendrecv")."""
     import torch.distributed as dist
@@ -3201,7 +3414,7 @@ def _grid_solve(grid, solve, gate, runs: int = 2) -> dict:
     p = grid.size("r")
     peer_ok = p == 1 or ("sendrecv" not in stats
                          and stats.get("peer", (0, 0))[0] == steps)
-    if not (_launches_ok(launches, steps, p) and peer_ok):
+    if not (launches_ok(launches, steps, p) and peer_ok):
         raise AssertionError(f"grid {grid.shape}: {LAUNCH_NAMES} "
                              f"{launches} against {steps} HEMM steps, "
                              f"collectives {stats}")
@@ -3301,7 +3514,7 @@ def _grid_io(grid, H, path: str, gate, cfg) -> dict:
     gate(SimpleNamespace(V=torch.from_numpy(Vh).to(grid.device), ritzv=ev,
                          converged=rc == 0), "interface.init_blockcyclic")
     ok = (same and same_state and warm_its <= res.iterations
-          and _launches_ok(launches, steps, p) and bc_launches[0] > 0)
+          and launches_ok(launches, steps, p) and bc_launches[0] > 0)
     return dict(ok=ok, native_s=t_native, read_s=t_read,
                 read_gb=rn * N * 4 / 1e9,
                 bitwise=same, tts=cold, iterations=res.iterations,
@@ -4113,6 +4326,9 @@ def _phases_from_io(dev, info, kern, launches, warm, gring, gring2d, tmp,
                                  (warm["pallas"], warm["pallas_iterations"]))
     bkern = phase_bf16_kernel(dev)
     blaunches = phase_bslice(dev, H, warm["pallas"])
+    phase_fused_clement(dev, H, "fbslice", SLICE["nev"], SLICE["nex"],
+                        SLICE["tol"], (blaunches["tts"],
+                                       blaunches["iterations"]), bf16=True)
     del H
     torch.cuda.empty_cache()
     for phase, N, nev, nex, tol in FUSED_CLEMENT:
@@ -4130,6 +4346,10 @@ def _phases_from_io(dev, info, kern, launches, warm, gring, gring2d, tmp,
     phase_profile(dev, H, "cprofile")
     del H
     torch.cuda.empty_cache()
+    _, N, nev, nex, tol = FUSED_CLEMENT[1]            # fmid's shape in c64
+    phase_fused_clement(dev, clement_on_device(N, dev, torch.complex64),
+                        "fcmid", nev, nex, tol)
+    torch.cuda.empty_cache()
     H = dense_on_device(SLICE["N"], dev, torch.complex64)
     gring["c64"] = phase_gridring(dev, H, "c64")
     gring2d["c64"] = phase_gridring2d(dev, H, "c64")
@@ -4137,7 +4357,7 @@ def _phases_from_io(dev, info, kern, launches, warm, gring, gring2d, tmp,
     torch.cuda.empty_cache()
 
     H, dp_tts = phase_north_star(dev)
-    phase_ladder(dev, H, dp_tts)
+    phase_fladder(dev, H, phase_ladder(dev, H, dp_tts))
     del H
     torch.cuda.empty_cache()
     phase_sequence(dev)
@@ -4155,7 +4375,7 @@ def _phases_from_io(dev, info, kern, launches, warm, gring, gring2d, tmp,
         h2ring2d[route] = phase_gridring2d_h2(dev, ctx, route)
         del ctx
         torch.cuda.empty_cache()
-    phase_bpseudo(dev, H32, H, lam)
+    phase_fbpseudo(dev, H32, H, lam, phase_bpseudo(dev, H32, H, lam))
     del H32
     torch.cuda.empty_cache()
     ladder = phase_pseudo(dev, H, lam)
@@ -4176,6 +4396,7 @@ def _phases_from_io(dev, info, kern, launches, warm, gring, gring2d, tmp,
     del Hc
     torch.cuda.empty_cache()
     phase_zfused(dev)
+    phase_examples()
 
     phase_grid1({"slice": (warm["pallas"], launches["iterations"]),
                  "fslice": (fslice["warm"], fslice["iterations"]),

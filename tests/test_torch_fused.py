@@ -39,6 +39,8 @@ from chase_tpu_torch.ops import ring_hemm as trh
 from chase_tpu_torch.solver import _chunk_product
 from chase_tpu_torch.step import iteration_step
 
+from conftest import TOLS
+
 torch.set_num_threads(1)
 
 N, NEV, NEX = 256, 24, 16
@@ -301,6 +303,75 @@ def test_eigsh_fused_phase_tiers_match_full_width():
     np.testing.assert_allclose(ritz[1], clement_eigenvalues(200)[:24],
                                atol=1e-8)
     np.testing.assert_allclose(ritz[1], ritz[3], atol=1e-9)
+
+
+# the card's fused routes, where no case held them to the JAX package:
+# (dtype, mixed_precision, ring_backend, tol)
+FUSED_ROUTES = {"c64-pallas": (np.complex64, False, "pallas", 1e-4),
+                "c128-ladder": (np.complex128, True, "pallas", 1e-10)}
+
+
+@pytest.mark.parametrize("route", list(FUSED_ROUTES))
+def test_eigsh_fused_route_matches_jax_fused(route, monkeypatch):
+    """eigsh_fused on the routes FilterProducts takes on the card — c64
+    on "pallas" (the kernel's c64 route; ring_hemm's plain version here)
+    and the c128 ladder (every product on the c64 shadow's route) —
+    against chase_tpu.eigsh_fused on the same H and v0, mixed_precision
+    and small_dense_backend pinned on both sides: converged spectra within
+    conftest.TOLS, iterations ±1, one c64 ring_hemm call per HEMM step."""
+    dtype, mixed, backend, tol = FUSED_ROUTES[route]
+    H = random_hermitian(N, dtype, seed=9)
+    V0 = _v0(N, NEV + NEX, dtype)
+    calls = []
+    real = trh.ring_hemm
+    monkeypatch.setattr(trh, "ring_hemm", lambda *a, **k: calls.append(
+        (a[0].dtype, a[1].dtype)) or real(*a, **k))
+    kw = dict(mixed_precision=mixed, small_dense_backend="device",
+              ring_backend=backend)
+    a = chase_tpu.eigsh_fused(H, NEV, NEX, tol=tol, v0=V0,
+                              config=chase_tpu.ChaseConfig(**kw))
+    b = ct.eigsh_fused(H, NEV, NEX, tol=tol, v0=V0, device="cpu",
+                       collect_perf=True, config=ct.ChaseConfig(**kw))
+    assert a.converged and b.converged
+    assert abs(b.iterations - a.iterations) <= 1
+    atol = TOLS[np.dtype(dtype)]
+    np.testing.assert_allclose(b.ritzv, a.ritzv, atol=atol)
+    np.testing.assert_allclose(
+        b.ritzv, np.linalg.eigvalsh(H.astype(np.complex128))[:NEV],
+        atol=atol)
+    assert _true_resid(H.astype(np.complex128), b, NEV).max() <= 10 * tol
+    assert len(calls) == b.perf.filter_hemm_steps > 0
+    assert set(calls) == {(torch.complex64, torch.complex64)}
+    # the ladder filters every vector on the shadow, c64 on its own H
+    assert b.perf.filtered_vecs_low == (b.perf.filtered_vecs if mixed
+                                        else 0)
+
+
+@pytest.mark.parametrize("rung", ["native", "ladder", "bf16"])
+def test_eigsh_fused_counts_the_vectors_filtered_on_the_shadow(rung):
+    """The fused PerfData's filtered_vecs_low (the low-precision FLOP
+    share's numerator): none natively, all of them on the DP ladder, and
+    on the bf16 rung those of the iterations before its low phase ended
+    (then the f32 H filters)."""
+    H = clement(192)
+    cfg = dict(native=dict(mixed_precision=False),
+               ladder=dict(mixed_precision=True),
+               bf16=dict(bf16_filter=True))[rung]
+    if rung == "bf16":
+        H = H.astype(np.float32)
+    res = ct.eigsh_fused(H, 12, 12, tol=1e-4 if rung == "bf16" else 1e-10,
+                         device="cpu", collect_perf=True,
+                         config=ct.ChaseConfig(**cfg))
+    perf = res.perf
+    assert res.converged and perf.filtered_vecs > 0
+    low = perf.filtered_vecs_low
+    if rung == "native":
+        assert low == 0 and perf.low_flop_fraction(192, 25, 4,
+                                                   H.dtype) == 0.0
+    elif rung == "ladder":
+        assert low == perf.filtered_vecs
+    else:
+        assert 0 < low < perf.filtered_vecs
 
 
 def test_eigsh_fused_early_lock_reporting():

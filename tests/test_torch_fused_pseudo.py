@@ -21,12 +21,15 @@ import torch
 
 import jax.numpy as jnp
 
+import chase_tpu as jchase
 from chase_tpu import fused_pseudo as jfp
 
 import chase_tpu_torch as ct
 from chase_tpu_torch import fused_pseudo as tfp
 from chase_tpu_torch.models import random_pseudo_hermitian
 from chase_tpu_torch.ops import ring_hemm as trh
+
+from conftest import TOLS
 
 torch.set_num_threads(1)
 
@@ -170,6 +173,51 @@ def test_eigsh_pseudo_fused_bf16_rung(backend):
     assert res.converged
     np.testing.assert_allclose(res.ritzv, _pos(H, 10), atol=1e-2)
     assert _true_resid(Hf, res, 10).max() < 1e-2
+
+
+def test_eigsh_pseudo_fused_c128_ladder_matches_jax(monkeypatch):
+    """The c128 BSE on the ladder (the route eigsh_pseudo_fused takes on
+    the card: both products of every H² step on the c64 shadow's kernel
+    route; ring_hemm's plain version here) against
+    chase_tpu.eigsh_pseudo_fused on the same H and v0, mixed_precision
+    and small_dense_backend pinned on both sides: converged spectra
+    within conftest.TOLS, iterations ±1, one c64 ring_hemm call per HEMM
+    step, every vector filtered on the shadow."""
+    H = random_pseudo_hermitian(160, dtype=np.complex128, seed=5)
+    rng = np.random.default_rng(3)
+    V0 = rng.standard_normal((160, 36)) + 1j * rng.standard_normal((160, 36))
+    V0[80:] *= 0.001
+    calls = []
+    real = trh.ring_hemm
+    monkeypatch.setattr(trh, "ring_hemm", lambda *a, **k: calls.append(
+        (a[0].dtype, a[1].dtype)) or real(*a, **k))
+    kw = dict(mixed_precision=True, small_dense_backend="device",
+              ring_backend="pallas")
+    a = jchase.eigsh_pseudo_fused(H, 10, 8, tol=1e-10, v0=V0,
+                                  config=jchase.ChaseConfig(**kw))
+    b = ct.eigsh_pseudo_fused(H, 10, 8, tol=1e-10, v0=V0, device="cpu",
+                              collect_perf=True, config=ct.ChaseConfig(**kw))
+    assert a.converged and b.converged
+    assert abs(b.iterations - a.iterations) <= 1
+    atol = TOLS[np.dtype(np.complex128)]
+    np.testing.assert_allclose(b.ritzv, a.ritzv, atol=atol)
+    np.testing.assert_allclose(b.ritzv, _pos(H, 10), atol=atol)
+    assert _true_resid(H, b, 10).max() < 5e-9
+    assert len(calls) == b.perf.filter_hemm_steps > 0
+    assert set(calls) == {(torch.complex64, torch.complex64)}
+    assert b.perf.filtered_vecs_low == b.perf.filtered_vecs
+
+
+def test_eigsh_pseudo_fused_bf16_rung_hands_back_to_f32():
+    """The fused bf16 rung filters on the bf16 shadow until its low phase
+    ends and on the f32 H after it: part of the filtered vectors count as
+    low precision, not all."""
+    H = random_pseudo_hermitian(160, dtype=np.float64, seed=31)
+    res = ct.eigsh_pseudo_fused(H.astype(np.float32), 10, 8, tol=1e-4,
+                                device="cpu", collect_perf=True,
+                                config=ct.ChaseConfig(bf16_filter=True))
+    assert res.converged
+    assert 0 < res.perf.filtered_vecs_low < res.perf.filtered_vecs
 
 
 def test_eigsh_pseudo_fused_warm_start_reconverges():

@@ -66,7 +66,7 @@ import torch
 from .config import ChaseConfig, set_matmul_precision
 from .logger import get_logger
 from .parallel.operator import DenseOperator
-from .perf import PerfData
+from .perf import PerfData, item, span, to_device, to_host
 from . import solver_pseudo
 from .solver import (solve, SolveResult, _chunk_product, _draw,
                      _ring_route)
@@ -96,11 +96,13 @@ def _nex_and_config(nev, nex, tol, v0, approx, config):
 
 def _operator(H, device, grid, pseudo_hermitian: bool = False
               ) -> DenseOperator:
-    """H as a DenseOperator (an operator is used as it is)."""
+    """H as a DenseOperator (an operator is used as it is); its placement
+    is the span ``chase.operator``."""
     if isinstance(H, DenseOperator):
         return H
-    return DenseOperator(H, device, grid=grid,
-                         pseudo_hermitian=pseudo_hermitian)
+    with span("chase.operator"):
+        return DenseOperator(H, device, grid=grid,
+                             pseudo_hermitian=pseudo_hermitian)
 
 
 def _unpad(res: SolveResult, op: DenseOperator) -> SolveResult:
@@ -134,11 +136,11 @@ def _take_cols(V, idx):
     from torch.distributed.tensor import DTensor
     if isinstance(V, DTensor):
         loc = V.to_local()
-        sel = loc[:, torch.as_tensor(idx, device=loc.device)]
+        sel = loc[:, to_device(idx, "api.take_cols", device=loc.device)]
         return DTensor.from_local(sel, V.device_mesh, V.placements,
                                   run_check=False, shape=V.shape,
                                   stride=V.stride())
-    return V[:, torch.as_tensor(idx, device=V.device)]
+    return V[:, to_device(idx, "api.take_cols", device=V.device)]
 
 
 def eigsh(H, nev: int, nex: Optional[int] = None, *,
@@ -198,11 +200,12 @@ def eigsh(H, nev: int, nex: Optional[int] = None, *,
             res.ritzv_full = (-res.ritzv_full)[full[:len(res.ritzv_full)]]
         return res
 
-    op = _operator(H, device, grid)
-    perf = PerfData() if collect_perf else None
-    res = solve(op, nev, nex, config=cfg, V0=v0, ritzv0=ritzv0, perf=perf,
-                generator=generator)
-    return _unpad(res, op)
+    with span("chase.solve"):
+        op = _operator(H, device, grid)
+        perf = PerfData() if collect_perf else None
+        res = solve(op, nev, nex, config=cfg, V0=v0, ritzv0=ritzv0,
+                    perf=perf, generator=generator)
+        return _unpad(res, op)
 
 
 def eigsh_pseudo(H, nev: int, nex: Optional[int] = None, *,
@@ -236,11 +239,12 @@ def eigsh_pseudo(H, nev: int, nex: Optional[int] = None, *,
     without ``v0``; RuntimeError for ``device="cuda"`` without a card.
     """
     nex, cfg = _nex_and_config(nev, nex, tol, v0, approx, config)
-    op = _operator(H, device, grid, pseudo_hermitian=True)
-    perf = PerfData() if collect_perf else None
-    return _unpad(solver_pseudo.solve_pseudo(op, nev, nex, config=cfg,
-                                             V0=v0, ritzv0=ritzv0, perf=perf,
-                                             generator=generator), op)
+    with span("chase.solve"):
+        op = _operator(H, device, grid, pseudo_hermitian=True)
+        perf = PerfData() if collect_perf else None
+        return _unpad(solver_pseudo.solve_pseudo(
+            op, nev, nex, config=cfg, V0=v0, ritzv0=ritzv0, perf=perf,
+            generator=generator), op)
 
 
 def _collect_fused_perf(out, iters: int, t_all: float,
@@ -253,9 +257,9 @@ def _collect_fused_perf(out, iters: int, t_all: float,
     perf = PerfData()
     perf.matrix_type = matrix_type
     perf.add_time("All", t_all)
-    perf.filtered_vecs = int(out["filtered_vecs"])
-    perf.filtered_vecs_low = int(out["filtered_low"])
-    for b in out["block_history"][:iters].tolist():
+    perf.filtered_vecs = int(item(out["filtered_vecs"], "api.fused_perf"))
+    perf.filtered_vecs_low = int(item(out["filtered_low"], "api.fused_perf"))
+    for b in to_host(out["block_history"][:iters], "api.fused_perf").tolist():
         perf.add_iter_blocksize(b)
     perf.filter_hemm_steps = out["hemm_steps"]
     return perf
@@ -264,9 +268,10 @@ def _collect_fused_perf(out, iters: int, t_all: float,
 def _write_resid_history(path: str, out, iters: int):
     """The CHASE_SAVE_RESIDUALS CSV from the fused solvers' residual
     history (locked slots as -1.0)."""
+    hist = to_host(out["resid_history"][:iters], "api.resid_history")
     with open(path, "w") as f:
         f.write("iteration,residual\n")
-        for i, row in enumerate(out["resid_history"][:iters].tolist()):
+        for i, row in enumerate(hist.tolist()):
             for r in row:
                 f.write(f"{i},{r}\n")
 
@@ -275,19 +280,21 @@ def _fused_result(out, nev: int, t0: float, rcfg, collect_perf: bool,
                   matrix_type: int) -> SolveResult:
     """SolveResult of a fused solve: the host reads of its results, the
     perf counters, the residual CSV and the early-locked residuals."""
-    ritzv = out["ritzv"].double().cpu().numpy()
-    resid = out["resid"].double().cpu().numpy()
-    locked, iters = int(out["locked"]), int(out["iterations"])
+    ritzv = to_host(out["ritzv"].double(), "api.fused_result")
+    resid = to_host(out["resid"].double(), "api.fused_result")
+    locked = int(item(out["locked"], "api.fused_result"))
+    iters = int(item(out["iterations"], "api.fused_result"))
     t_all = time.perf_counter() - t0
     perf = (_collect_fused_perf(out, iters, t_all, matrix_type)
             if collect_perf else None)
     if rcfg.save_residuals:
         _write_resid_history(rcfg.save_residuals, out, iters)
-    eh = out["early_history"][:iters].double().cpu().numpy()
+    eh = to_host(out["early_history"][:iters].double(), "api.fused_result")
     return SolveResult(
         ritzv=ritzv[:nev], V=out["V"], resid=resid[:nev], iterations=iters,
         locked=locked, converged=bool(locked >= nev),
-        upperb=float(out["upperb"]), lowerb=float(out["lowerb"]),
+        upperb=float(item(out["upperb"], "api.fused_result")),
+        lowerb=float(item(out["lowerb"], "api.fused_result")),
         perf=perf, ritzv_full=ritzv,
         early_locked=[float(x) for x in eh[eh >= 0]])
 
@@ -368,23 +375,24 @@ def eigsh_fused(H, nev: int, nex: Optional[int] = None, *,
         res.V = _take_cols(res.V, full)
         res.ritzv_full = (-res.ritzv_full)[full[:len(res.ritzv_full)]]
         return res
-    op = _operator(H, device, grid)
-    k = nev + nex
-    if k > op.N:
-        raise ValueError(f"nev+nex = {k} exceeds N = {op.N}")
-    rcfg, generator, kw = _fused_setup(op, cfg, generator)
-    from .fused import solve_fused
-    probes = None
-    if v0 is None:
-        V0 = _draw(op, k, generator)
-    else:
-        V0 = op.place_block(v0)
-        probes = _draw(op, min(rcfg.num_lanczos, k), generator)
-    t0 = time.perf_counter()
-    out = solve_fused(op.H, V0, nev=nev, nex=nex, probes=probes,
-                      inject_dos=v0 is None, phase_tiers=rcfg.fused_tiers,
-                      **kw)
-    return _unpad(_fused_result(out, nev, t0, rcfg, collect_perf, 0), op)
+    with span("chase.solve"):
+        op = _operator(H, device, grid)
+        k = nev + nex
+        if k > op.N:
+            raise ValueError(f"nev+nex = {k} exceeds N = {op.N}")
+        rcfg, generator, kw = _fused_setup(op, cfg, generator)
+        from .fused import solve_fused
+        probes = None
+        if v0 is None:
+            V0 = _draw(op, k, generator)
+        else:
+            V0 = op.place_block(v0)
+            probes = _draw(op, min(rcfg.num_lanczos, k), generator)
+        t0 = time.perf_counter()
+        out = solve_fused(op.H, V0, nev=nev, nex=nex, probes=probes,
+                          inject_dos=v0 is None, phase_tiers=rcfg.fused_tiers,
+                          **kw)
+        return _unpad(_fused_result(out, nev, t0, rcfg, collect_perf, 0), op)
 
 
 def eigsh_pseudo_fused(H, nev: int, nex: Optional[int] = None, *,
@@ -406,30 +414,32 @@ def eigsh_pseudo_fused(H, nev: int, nex: Optional[int] = None, *,
     raises.
     """
     nex, cfg = _nex_and_config(nev, nex, tol, None, False, config)
-    op = _operator(H, device, grid, pseudo_hermitian=True)
-    N, k = op.N, nev + nex
-    if N % 2:
-        raise ValueError("pseudo-Hermitian problems need even N")
-    if k > N // 2:
-        raise ValueError(f"nev+nex = {k} exceeds N/2 = {N // 2}")
-    if v0 is not None and v0.shape[1] != 2 * k:
-        raise ValueError(f"v0 has {v0.shape[1]} columns; the pseudo solver "
-                         f"takes 2·(nev+nex) = {2 * k}")
-    rcfg, generator, kw = _fused_setup(op, cfg, generator)
-    from .fused_pseudo import solve_pseudo_fused
+    with span("chase.solve"):
+        op = _operator(H, device, grid, pseudo_hermitian=True)
+        N, k = op.N, nev + nex
+        if N % 2:
+            raise ValueError("pseudo-Hermitian problems need even N")
+        if k > N // 2:
+            raise ValueError(f"nev+nex = {k} exceeds N/2 = {N // 2}")
+        if v0 is not None and v0.shape[1] != 2 * k:
+            raise ValueError(f"v0 has {v0.shape[1]} columns; the pseudo "
+                             f"solver takes 2·(nev+nex) = {2 * k}")
+        rcfg, generator, kw = _fused_setup(op, cfg, generator)
+        from .fused_pseudo import solve_pseudo_fused
 
-    probes = None
-    if v0 is None:
-        V0 = _draw(op, 2 * k, generator, damped=True)
-    else:
-        V0 = op.place_block(v0)
-        probes = _draw(op, min(rcfg.num_lanczos, k), generator,
-                       damped=True)
-    t0 = time.perf_counter()
-    out = solve_pseudo_fused(op.H, V0, nev=nev, nex=nex, probes=probes,
-                             inject_dos=v0 is None,
-                             cluster_aware=rcfg.cluster_aware_degrees, **kw)
-    return _unpad(_fused_result(out, nev, t0, rcfg, collect_perf, 1), op)
+        probes = None
+        if v0 is None:
+            V0 = _draw(op, 2 * k, generator, damped=True)
+        else:
+            V0 = op.place_block(v0)
+            probes = _draw(op, min(rcfg.num_lanczos, k), generator,
+                           damped=True)
+        t0 = time.perf_counter()
+        out = solve_pseudo_fused(op.H, V0, nev=nev, nex=nex, probes=probes,
+                                 inject_dos=v0 is None,
+                                 cluster_aware=rcfg.cluster_aware_degrees,
+                                 **kw)
+        return _unpad(_fused_result(out, nev, t0, rcfg, collect_perf, 1), op)
 
 
 def eigsh_sequence(matrices, nev: int, nex: Optional[int] = None, *,

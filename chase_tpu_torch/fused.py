@@ -57,6 +57,7 @@ from .ops import rr as rrops
 from .ops.qr import _rows, tsqr
 from .parallel.dist import hemm, inner
 from .parallel.ring import _product
+from .perf import QR_FALLBACK, count, host_sync, item, to_host
 from .types import eps, is_double_base, low_precision_dtype, real_dtype
 
 __all__ = ["solve_fused", "FilterProducts", "gram_qr", "cheb_rho",
@@ -73,7 +74,8 @@ def gather0(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
 def control(*values) -> list:
     """Host read: one packed transfer of the loop's scalar tensors (bools
     and ints), returned as Python ints."""
-    return torch.stack([v.to(torch.int64) for v in values]).tolist()
+    return to_host(torch.stack([v.to(torch.int64) for v in values]),
+                   "fused.control").tolist()
 
 
 def eigh_tridiag_batched(alphas, betas_off):
@@ -83,6 +85,7 @@ def eigh_tridiag_batched(alphas, betas_off):
     if alphas.shape[0] > 1:
         T = T + torch.diag_embed(betas_off.T, offset=1) \
             + torch.diag_embed(betas_off.T, offset=-1)
+    host_sync("fused.eigh_tridiag")   # eigh reads cuSOLVER's info
     return torch.linalg.eigh(T)
 
 
@@ -216,8 +219,10 @@ def gram_qr(V, shift_on, *, passes: int = 3, upcast=None,
                             equilibrate=equilibrate, grid=grid)
         ok = o if ok is None else ok & o
     # host read 2: the CholQR ok flag before the Householder rescue
-    if rescue and not bool(ok):
-        Q = tsqr(Q, grid=grid)
+    if rescue:
+        if not bool(item(ok, "fused.gram_qr")):
+            count(QR_FALLBACK + "householder")
+            Q = tsqr(Q, grid=grid)
     return Q.to(V.dtype), ok
 
 

@@ -11,13 +11,17 @@ from __future__ import annotations
 
 import torch
 
+from ..perf import to_device
+
 __all__ = ["permute_cols", "slice_cols", "update_cols", "set_head_cols",
            "scale_lower_rows"]
 
 
 def permute_cols(V: torch.Tensor, perm) -> torch.Tensor:
-    """New block with columns ``V[:, perm]``."""
-    idx = torch.as_tensor(perm, dtype=torch.long, device=V.device)
+    """New block with columns ``V[:, perm]`` (``perm`` copied onto V's
+    device: a host sync)."""
+    idx = to_device(perm, "blocks.permute_cols", dtype=torch.long,
+                    device=V.device)
     return V.index_select(1, idx)
 
 
@@ -36,7 +40,8 @@ def set_head_cols(V: torch.Tensor, Vd: torch.Tensor, mask) -> torch.Tensor:
     """Replace the leading columns j < Vd.shape[1] where ``mask[j]`` with
     Vd's, in place."""
     m = Vd.shape[1]
-    mask = torch.as_tensor(mask, dtype=torch.bool, device=V.device)
+    mask = to_device(mask, "blocks.set_head_cols", dtype=torch.bool,
+                     device=V.device)
     head = V[:, :m]
     head.copy_(torch.where(mask[None, :], Vd.to(V.dtype), head))
     return V

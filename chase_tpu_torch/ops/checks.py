@@ -17,9 +17,17 @@ from typing import Optional
 
 import torch
 
+from ..perf import to_host
 from ..types import eps
 
 __all__ = ["check_hermitian", "check_pseudo_hermitian", "force_hermitian"]
+
+
+def _norms(u, ut):
+    """(‖u − ut‖, ‖u‖) on the host, in one read."""
+    return to_host(torch.stack([torch.linalg.vector_norm(u - ut),
+                                torch.linalg.vector_norm(u)]),
+                   "checks.probe").tolist()
 
 
 def _probe(H: torch.Tensor, generator, flip) -> bool:
@@ -32,8 +40,7 @@ def _probe(H: torch.Tensor, generator, flip) -> bool:
                     dtype=H.dtype)
     u = flip(H @ v)
     ut = H.mH @ flip(v)
-    diff = float(torch.linalg.vector_norm(u - ut))
-    scale = float(torch.linalg.vector_norm(u))
+    diff, scale = _norms(u, ut)
     return diff <= 10.0 * N * eps(H.dtype) * max(scale, 1e-300)
 
 
@@ -58,8 +65,7 @@ def check_hermitian(H: torch.Tensor,
         u, v = apply_s(u, i0, N), apply_s(v)
     ut = grid.all_reduce(H.mH @ v[i0:i0 + nr], "r")    # rows j of Hᴴ·v
     u, ut = grid.all_gather(u, "r"), grid.all_gather(ut, "c")
-    diff = float(torch.linalg.vector_norm(u - ut))
-    scale = float(torch.linalg.vector_norm(u))
+    diff, scale = _norms(u, ut)
     return diff <= 10.0 * N * eps(H.dtype) * max(scale, 1e-300)
 
 

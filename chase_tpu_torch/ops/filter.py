@@ -33,6 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..perf import to_device
 from ..types import filter_carry_dtype, numpy_scalar_type, real_dtype
 
 __all__ = ["chebyshev_filter", "filter_seg_init", "filter_seg_steps",
@@ -63,7 +64,7 @@ def _hemm_shift(H, X, c):
 
 
 def _mask(deg, device):
-    return torch.as_tensor(np.asarray(deg), device=device)[None, :]
+    return to_device(np.asarray(deg), "filter.mask", device=device)[None, :]
 
 
 def _cheb_steps(H, Xp, Yc, deg, sigma, sigma1, c, e, t0: int, t1: int,
@@ -221,7 +222,7 @@ def inj_table(inj, carry, device) -> torch.Tensor:
     degree-masked)."""
     with np.errstate(over="ignore"):
         arr = np.asarray(inj, numpy_scalar_type(carry))
-    return torch.as_tensor(arr, device=device)
+    return to_device(arr, "filter.inj_table", device=device)
 
 
 def refine_steps(H, Wp, Wc, Rc, degrees, alphas, betas, inj, cc, t0, t1, *,
@@ -245,8 +246,8 @@ def refine_combine(V, W, p_final, degrees):
     """y_j = p_final_j·v_j + w_j in the problem precision (deg-0 columns
     untouched) — the refine filter's epilogue, split out so the segmented
     path can write retired buckets back early."""
-    pf = torch.as_tensor(np.asarray(p_final), dtype=real_dtype(V.dtype),
-                         device=V.device)
+    pf = to_device(np.asarray(p_final), "filter.refine_combine",
+                   dtype=real_dtype(V.dtype), device=V.device)
     Y = pf[None, :] * V + W.to(V.dtype)
     return torch.where(_mask(degrees, V.device) >= 1, Y, V)
 

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..parallel.dist import col_dots, col_norms, hemm
+from ..perf import to_device
 from ..types import real_dtype
 
 __all__ = ["lanczos_scan", "lanczos_tridiag_host", "dos_lower_bound",
@@ -161,7 +162,8 @@ def lanczos_dos_vectors(basis: torch.Tensor, ritzV, idx_mask) -> torch.Tensor:
     Columns j with idx_mask[j]==False return zeros (caller keeps its random
     vectors there).  Mirrors LanczosDos (chase_cpu.hpp:358-374).
     """
-    ritzV = torch.as_tensor(ritzV, device=basis.device).to(basis.dtype)
-    mask = torch.as_tensor(idx_mask, device=basis.device)
+    ritzV = to_device(ritzV, "lanczos.dos_vectors",
+                      device=basis.device).to(basis.dtype)
+    mask = to_device(idx_mask, "lanczos.dos_vectors", device=basis.device)
     Vd = basis.T @ ritzV
     return Vd * mask[None, :].to(Vd.dtype)

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from ..parallel.dist import col_dots, col_norms, hemm, inner, rotate_rows
+from ..perf import item, to_device
 from ..types import real_dtype
 from . import filter as filt
 from .qr import _rows
@@ -103,9 +104,11 @@ def k_conjugate_cols(V: torch.Tensor, src_idx, write_mask,
     out = V.clone()
     if dst.size == 0:
         return out
-    src = V[:, torch.as_tensor(np.asarray(src_idx)[dst], device=V.device)]
+    src = V[:, to_device(np.asarray(src_idx)[dst], "pseudo.k_conjugate",
+                         device=V.device)]
     Ks = rotate_rows(src, _rows(V, grid) // 2, grid)
-    out[:, torch.as_tensor(dst, device=V.device)] = torch.conj_physical(Ks)
+    out[:, to_device(dst, "pseudo.k_conjugate", device=V.device)] = \
+        torch.conj_physical(Ks)
     return out
 
 
@@ -167,7 +170,8 @@ def h2_residual(H: torch.Tensor, R: torch.Tensor, theta,
     Runs on the problem's own H in its dtype (the refinement's floor is
     this product's accuracy), never on the shadow; on ``grid`` the
     product is ``dist.hemm``."""
-    th = torch.as_tensor(theta, device=R.device).to(real_dtype(R.dtype))
+    th = to_device(theta, "pseudo.h2_residual",
+                   device=R.device).to(real_dtype(R.dtype))
     return hemm(H, R, grid) + th[None, :].to(R.dtype) * R
 
 
@@ -280,7 +284,7 @@ def rayleigh_ritz_residuals_pseudo(H: torch.Tensor, V: torch.Tensor,
     """
     *out, ok = pencil_rayleigh_ritz(H, V, locked, polish=polish,
                                     want_vectors=want_vectors, grid=grid)
-    return (*out, bool(ok))
+    return (*out, bool(item(ok, "pseudo.rr_ok")))
 
 
 def pencil_rayleigh_ritz(H: torch.Tensor, V: torch.Tensor, locked: int, *,

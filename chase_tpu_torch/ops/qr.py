@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..logger import get_logger
+from ..perf import QR_FALLBACK, count, item, to_host
 from .blocks import permute_cols, slice_cols, update_cols
 from ..parallel.dist import inner
 from ..types import eps, is_double_base
@@ -52,16 +53,20 @@ def _trsm_right(L, V):
     return torch.linalg.solve_triangular(L.mH, V, upper=True, left=False)
 
 
-def _chol_usable(L: torch.Tensor) -> bool:
-    """A shift-regularized, marginally-PD Gram (cond ≳ 1e14) factors
-    without error, but applying its triangular inverse explodes the basis
-    silently.  The diagonal ratio of L (a cond(G) lower bound) flags it,
-    as in the JAX package's host-factorized chain; here it guards every
-    CholQR pass, next to cholesky_ex's info."""
+def _chol_usable(L: torch.Tensor, info: torch.Tensor) -> bool:
+    """cholesky_ex's ``info`` is 0, and L is usable: a shift-regularized,
+    marginally-PD Gram (cond ≳ 1e14) factors without error, but applying
+    its triangular inverse explodes the basis silently.  The diagonal
+    ratio of L (a cond(G) lower bound) flags it, as in the JAX package's
+    host-factorized chain; here it guards every CholQR pass.  One host
+    read for all of it."""
     dL = torch.abs(torch.diagonal(L))
-    if not bool(torch.isfinite(L).all()) or float(dL.min()) <= 0:
-        return False
-    return float(dL.max() / dL.min()) ** 2 < 1e14
+    lo = dL.min()
+    flags = torch.stack([(info == 0).to(dL.dtype),
+                         torch.isfinite(L).all().to(dL.dtype), lo,
+                         dL.max() / lo])
+    info_ok, finite, lo, ratio = to_host(flags, "qr.cholqr").tolist()
+    return bool(info_ok) and bool(finite) and lo > 0 and ratio ** 2 < 1e14
 
 
 def cholqr(V: torch.Tensor, *, passes: int = 2, shifted: bool = False,
@@ -90,7 +95,7 @@ def cholqr(V: torch.Tensor, *, passes: int = 2, shifted: bool = False,
             G = G + shift * torch.eye(G.shape[0], dtype=G.dtype,
                                       device=G.device)
         L, info = torch.linalg.cholesky_ex(G)
-        pass_ok = bool(info == 0) and _chol_usable(L)
+        pass_ok = _chol_usable(L, info)
         ok = ok and pass_ok
         if not pass_ok:
             # the caller discards the result; keep the trsm finite
@@ -201,7 +206,8 @@ def _check_ortho(rcfg, Q, what, grid=None):
     if not rcfg.qr_check_ortho:
         return
     eye = torch.eye(Q.shape[1], dtype=Q.dtype, device=Q.device)
-    err = float(torch.max(torch.abs(_gram(Q, grid) - eye)))
+    err = float(item(torch.max(torch.abs(_gram(Q, grid) - eye)),
+                     "qr.check_ortho"))
     thr = 100 * eps(Q.dtype)
     if err > thr:
         get_logger().warn(f"{what} orthogonality check: ||Q^H Q - I|| = "
@@ -260,6 +266,7 @@ def orthonormalize_window(V: torch.Tensor, start: int, w_pad: int,
     if not ok:
         log.warn(f"{variant} failed (non-PD Gram), falling back to "
                  f"full-block QR", "linalg")
+        count(QR_FALLBACK + "full_block")
         return orthonormalize(V, locked, cond, rcfg, grid)
     log.debug(f"QR: {variant}, cond(V) ≈ {cond:.2e}", "linalg")
     _check_ortho(rcfg, Q, "QR(window)", grid)
@@ -295,6 +302,7 @@ def orthonormalize(V: torch.Tensor, locked: int, cond: float,
     if not ok:
         log.warn(f"{variant} failed (non-PD Gram), falling back to "
                  f"Householder QR", "linalg")
+        count(QR_FALLBACK + "householder")
         Q = _householder(V, grid, upcast)
     else:
         log.debug(f"QR: {variant}, cond(V) ≈ {cond:.2e}", "linalg")

@@ -42,7 +42,9 @@ Three routes, by H's dtype:
   launches the kernels for CUDA tensors and raises if a launch fails.
   Only a tensor on the CPU takes the plain version; a CUDA tensor never
   does.  ``LAUNCHES["ring_hemm"]`` counts main-kernel launches (every
-  route) and nothing else.  H is read through TMA: on the card it must be 16-byte
+  route; ``"ring_hemm:<route> k=<k>"`` by route and width) and nothing
+  else; the call is the span ``chase.ring_hemm``, pre-pass included.  H is
+  read through TMA: on the card it must be 16-byte
   aligned with a row stride of a whole number of 16 bytes — a multiple of
   4 floats (an even number of complex elements for c64) or of 8 bf16
   elements (``DenseOperator`` allocates it so), or the wrapper raises
@@ -75,14 +77,14 @@ the chunk ring makes p.  The plain versions: :func:`ring_hemm_peers_reference`
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
-import threading
 import types
 from typing import Optional
 
 import torch
+
+from ..perf import COUNTS, count, span
 
 __all__ = ["ring_hemm", "ring_hemm_reference", "tf32_split",
            "tf32_split_reference", "bf16_pack", "bf16_pack_reference",
@@ -100,16 +102,23 @@ KERNEL_DTYPES = (torch.float32, torch.complex64, torch.bfloat16)
 
 # Launches of this module's kernels, by wrapper name ("ring_hemm",
 # "tf32_split", "bf16_pack", "ring_hemm_peers", "peer_gather",
-# "peer_publish"; a name not yet launched reads 0): each wrapper adds one
-# where it launches its kernel and nowhere else, under a lock, since ranks
-# simulated as threads of one process launch at once.
-LAUNCHES = collections.Counter()
-_LAUNCH_LOCK = threading.Lock()
+# "peer_publish"; a name not yet launched reads 0), and the main launches
+# by route and width ("ring_hemm:c64 k=3000", "ring_hemm:f32 trans k=750",
+# "ring_hemm_peers:bf16 k=1500"): each wrapper adds one where it launches
+# its kernel and nowhere else.  The program's counter registry
+# (``perf.COUNTS``, counted under its lock), so it also holds the solvers'
+# host syncs and QR fallbacks.
+LAUNCHES = COUNTS
+ROUTES = {torch.float32: "f32", torch.complex64: "c64",
+          torch.bfloat16: "bf16"}
 
 
-def _launched(name: str) -> None:
-    with _LAUNCH_LOCK:
-        LAUNCHES[name] += 1
+def _launched(name: str, H=None, k: int = 0, trans: bool = False) -> None:
+    """Count a launch of ``name``; for a main kernel (``H`` given) also
+    under its route and width."""
+    count(name)
+    if H is not None:
+        count(f"{name}:{ROUTES[H.dtype]}{' trans' if trans else ''} k={k}")
 
 
 def _v_dtype(h_dtype) -> torch.dtype:
@@ -492,38 +501,41 @@ def ring_hemm(H: torch.Tensor, V: torch.Tensor, *, col0: int = 0,
     pre-pass's output (2·w_pad·b_pad floats — of the (2b × 2k) B for c64 —
     or w_pad·b_pad bf16) is scratch of this call.
     """
-    _check(H, V, col0, out, accumulate, trans)
-    if H.device.type == "cpu":
-        return ring_hemm_reference(H, V, col0=col0, out=out,
-                                   accumulate=accumulate, trans=trans)
-    if H.device.type != "cuda":
-        raise RuntimeError(f"ring_hemm runs on cuda or cpu tensors, not "
-                           f"{H.device}")
-    m = H.shape[int(bool(trans))]
-    if out is None:
-        out = torch.empty((m, V.shape[1]), dtype=V.dtype, device=H.device)
-    ldh, c0, off, b_k, k_k, ldw = float_view_args(H, V, col0, out.stride(0),
-                                                  trans)
-    if ldh is None:
-        raise ValueError(
-            f"ring_hemm reads H through TMA, which needs a 16-byte-aligned "
-            f"base and a row stride of a whole number of 16 bytes (a "
-            f"multiple of 4 floats, of 2 complex64 or of 8 bfloat16 "
-            f"elements); H ({H.dtype}) has row stride {H.stride(0)} and "
-            f"base address {H.data_ptr():#x} — allocate it with a padded "
-            f"row stride (DenseOperator does)")
-    bf16 = H.dtype == torch.bfloat16
-    Vt = bf16_pack(V, off) if bf16 else tf32_split(V, off, conj=trans)
-    with torch.cuda.device(H.device):
-        err = _lib().main[H.dtype, bool(trans)](
-            H.data_ptr(), ldh, c0, Vt.data_ptr(), Vt.shape[-1],
-            Vt.shape[-2], out.data_ptr(), ldw, m, k_k, b_k,
-            int(bool(accumulate)), _stream(H.device))
-    _raise_on(err, f"ring_hemm kernel (m={m}, k={V.shape[1]}, "
-                   f"b={V.shape[0]}, col0={col0}, trans={bool(trans)}, "
-                   f"{H.dtype})")
-    _launched("ring_hemm")
-    return out
+    with span("chase.ring_hemm"):
+        _check(H, V, col0, out, accumulate, trans)
+        if H.device.type == "cpu":
+            return ring_hemm_reference(H, V, col0=col0, out=out,
+                                       accumulate=accumulate, trans=trans)
+        if H.device.type != "cuda":
+            raise RuntimeError(f"ring_hemm runs on cuda or cpu tensors, not "
+                               f"{H.device}")
+        m = H.shape[int(bool(trans))]
+        if out is None:
+            out = torch.empty((m, V.shape[1]), dtype=V.dtype,
+                              device=H.device)
+        ldh, c0, off, b_k, k_k, ldw = float_view_args(H, V, col0,
+                                                      out.stride(0), trans)
+        if ldh is None:
+            raise ValueError(
+                f"ring_hemm reads H through TMA, which needs a 16-byte-"
+                f"aligned base and a row stride of a whole number of 16 "
+                f"bytes (a multiple of 4 floats, of 2 complex64 or of 8 "
+                f"bfloat16 elements); H ({H.dtype}) has row stride "
+                f"{H.stride(0)} and base address {H.data_ptr():#x} — "
+                f"allocate it with a padded row stride (DenseOperator "
+                f"does)")
+        bf16 = H.dtype == torch.bfloat16
+        Vt = bf16_pack(V, off) if bf16 else tf32_split(V, off, conj=trans)
+        with torch.cuda.device(H.device):
+            err = _lib().main[H.dtype, bool(trans)](
+                H.data_ptr(), ldh, c0, Vt.data_ptr(), Vt.shape[-1],
+                Vt.shape[-2], out.data_ptr(), ldw, m, k_k, b_k,
+                int(bool(accumulate)), _stream(H.device))
+        _raise_on(err, f"ring_hemm kernel (m={m}, k={V.shape[1]}, "
+                       f"b={V.shape[0]}, col0={col0}, trans={bool(trans)}, "
+                       f"{H.dtype})")
+        _launched("ring_hemm", H, V.shape[1], bool(trans))
+        return out
 
 
 # -- the (p, 1) ring product on peer memory ---------------------------------
@@ -682,7 +694,7 @@ def _peer_product(H: torch.Tensor, V: torch.Tensor, peers, ldh: int,
             _stream(H.device))
     _raise_on(err, f"ring_hemm_peers kernel (m={m}, k={k}, N={H.shape[1]}, "
                    f"{H.dtype})")
-    _launched("ring_hemm_peers")
+    _launched("ring_hemm_peers", H, k)
     return out
 
 
@@ -704,25 +716,27 @@ def ring_hemm_peers(H: torch.Tensor, V: torch.Tensor, peers, *,
     (``col0`` = 0, ``accumulate`` False); W is allocated when ``out`` is
     None.
     """
-    _check(H, V, 0, out, False)
-    if H.shape[1] != peers.p * V.shape[0]:
-        raise ValueError(f"ring_hemm_peers: a stripe of {H.shape[1]} "
-                         f"columns for {peers.p} chunks of {V.shape[0]} rows")
-    if H.device.type == "cpu":
-        return ring_hemm_peers_reference(H, peers.chunks(V), peers.me,
-                                         out=out)
-    if H.device.type != "cuda":
-        raise RuntimeError(f"ring_hemm_peers runs on cuda or cpu tensors, "
-                           f"not {H.device}")
-    ldh = tma_row_stride(H)
-    if ldh is None:
-        raise ValueError(f"ring_hemm_peers reads H through TMA: H "
-                         f"({H.dtype}) has row stride {H.stride(0)} and base "
-                         f"{H.data_ptr():#x} (allocate it padded: "
-                         f"DenseOperator does)")
-    # collective when the slots must grow: before the launches, which a
-    # simulation of the ranks may serialise
-    peers.reserve(V.shape[0] * V.shape[1] * V.element_size())
-    peer_publish(V, peers)
-    peers.meet()
-    return _peer_product(H, V, peers, ldh, out)
+    with span("chase.ring_hemm"):
+        _check(H, V, 0, out, False)
+        if H.shape[1] != peers.p * V.shape[0]:
+            raise ValueError(f"ring_hemm_peers: a stripe of {H.shape[1]} "
+                             f"columns for {peers.p} chunks of {V.shape[0]} "
+                             f"rows")
+        if H.device.type == "cpu":
+            return ring_hemm_peers_reference(H, peers.chunks(V), peers.me,
+                                             out=out)
+        if H.device.type != "cuda":
+            raise RuntimeError(f"ring_hemm_peers runs on cuda or cpu tensors, "
+                               f"not {H.device}")
+        ldh = tma_row_stride(H)
+        if ldh is None:
+            raise ValueError(f"ring_hemm_peers reads H through TMA: H "
+                             f"({H.dtype}) has row stride {H.stride(0)} and "
+                             f"base {H.data_ptr():#x} (allocate it padded: "
+                             f"DenseOperator does)")
+        # collective when the slots must grow: before the launches, which a
+        # simulation of the ranks may serialise
+        peers.reserve(V.shape[0] * V.shape[1] * V.element_size())
+        peer_publish(V, peers)
+        peers.meet()
+        return _peer_product(H, V, peers, ldh, out)

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..parallel.dist import col_norms, hemm, inner
+from ..perf import host_sync
 from ..types import is_double_base, real_dtype
 
 __all__ = ["rayleigh_ritz_residuals", "eigh_polished"]
@@ -41,6 +42,7 @@ def eigh_polished(A: torch.Tensor, *, passes: int = 2, pin_cut=None):
     Returns (w, Z) ascending.
     """
     A = (A + A.mH) / 2
+    host_sync("rr.eigh")          # eigh reads cuSOLVER's info on the host
     w, Z = torch.linalg.eigh(A)
     if passes <= 0:
         return w, Z

@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from ..ops.ring_hemm import KERNEL_DTYPES, tma_ld, tma_row_stride
+from ..perf import host_sync, span
 from ..types import as_torch_dtype, low_precision_dtype, real_dtype
 
 __all__ = ["DenseOperator", "resolve_device", "padded_empty",
@@ -92,6 +93,7 @@ def _numpy_to(arr: np.ndarray, device: torch.device, dtype) -> torch.Tensor:
     transposed on the host."""
     if any(s < 0 for s in arr.strides):       # torch takes no negative stride
         arr = arr.copy()
+    host_sync("operator.to_device")
     return torch.tensor(arr, dtype=dtype, device=device)
 
 
@@ -102,6 +104,8 @@ def to_device(a, device: torch.device, dtype=None) -> torch.Tensor:
     lands (the ring kernel's plain version takes unit column stride
     only)."""
     if isinstance(a, torch.Tensor):
+        if a.device != device:
+            host_sync("operator.to_device")
         t = a.to(device=device, dtype=dtype or a.dtype)
         if t.is_conj() or t.is_neg():
             return t.resolve_conj().resolve_neg()
@@ -336,6 +340,8 @@ class DenseOperator:
             if resident and _has_operator_layout(H):
                 return H          # used as is (no N² copy)
             out = padded_empty(H.shape[0], dtype, self.device)
+            if isinstance(H, torch.Tensor) and not resident:
+                host_sync("operator.to_device")
             return out.copy_(H if isinstance(H, torch.Tensor)
                              else _numpy_to(np.asarray(H), self.device,
                                             dtype))
@@ -447,15 +453,16 @@ class DenseOperator:
         operator, built on first use and cached (the JAX package's
         ``H_low`` without its transient mode).  On CUDA it is laid out as
         ``padded_empty`` lays out an operator, so the ring kernel reads it
-        without a copy."""
+        without a copy.  The first build is the span ``chase.operator``."""
         if self._H_low is None:
-            lp = low_precision_dtype(self.dtype)
-            if self.device.type == "cuda":
-                self._H_low = padded_empty(self.H.shape[0], lp, self.device,
-                                           self.H.shape[1])
-                self._H_low.copy_(self.H)
-            else:
-                self._H_low = self.H.to(lp)
+            with span("chase.operator"):
+                lp = low_precision_dtype(self.dtype)
+                if self.device.type == "cuda":
+                    self._H_low = padded_empty(self.H.shape[0], lp,
+                                               self.device, self.H.shape[1])
+                    self._H_low.copy_(self.H)
+                else:
+                    self._H_low = self.H.to(lp)
         return self._H_low
 
     def local_rows(self, V: torch.Tensor) -> torch.Tensor:

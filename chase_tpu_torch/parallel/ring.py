@@ -92,6 +92,7 @@ import torch
 from ..ops import ring_hemm as rh
 from ..ops.filter import inj_table, refine_combine
 from ..ops.pseudo import _interval
+from ..perf import to_device
 from ..types import filter_carry_dtype, low_precision_dtype, \
     numpy_scalar_type
 from .dist import local_product
@@ -240,7 +241,8 @@ def _filter_ring(H, X, degrees, lam1, lower, upper, deg_max, products,
     c = (upper + lower) / rt(2)
     e = (upper - lower) / rt(2)
     sigma1 = e / (lam1 - c)
-    degs = torch.as_tensor(np.asarray(degrees), device=X.device)[None, :]
+    degs = to_device(np.asarray(degrees), "ring.degrees",
+                     device=X.device)[None, :]
     Xc = (X if ring2d is None else ring2d.enter(X)).to(carry)
 
     def hemm_shift(v):
@@ -332,7 +334,8 @@ def _refine_ring(H, V, R, degrees, alpha1_e, alphas, betas, inj, p_final, cc,
     carry = _carry(H, V)
     rt = numpy_scalar_type(carry)
     ccf = float(rt(cc))
-    degs = torch.as_tensor(np.asarray(degrees), device=V.device)[None, :]
+    degs = to_device(np.asarray(degrees), "ring.degrees",
+                     device=V.device)[None, :]
     injt = inj_table(inj, carry, V.device)
     rc = (R if ring2d is None else ring2d.enter(R)).to(carry)
     W = float(rt(alpha1_e)) * rc                    # w_1 = (σ1/e)·r
@@ -512,7 +515,8 @@ def chebyshev_filter_ring2d(grid, H: torch.Tensor, X: torch.Tensor, degrees,
     e = (upper - lower) / rt(2)
     sigma1 = e / (lam1 - c)
     cf = float(c)
-    degs = torch.as_tensor(np.asarray(degrees), device=X.device)[None, :]
+    degs = to_device(np.asarray(degrees), "ring.degrees",
+                     device=X.device)[None, :]
     ring = Ring2D(grid, H, kernel)
     n = max(int(deg_max), 1)
     par = "B" if n % 2 == 0 else "A"          # the last step lands in B
@@ -560,7 +564,8 @@ def chebyshev_filter_refine_ring2d(grid, H: torch.Tensor, V: torch.Tensor,
     carry = _carry(H, V)
     rt = numpy_scalar_type(carry)
     ccf = float(rt(cc))
-    degs = torch.as_tensor(np.asarray(degrees), device=V.device)[None, :]
+    degs = to_device(np.asarray(degrees), "ring.degrees",
+                     device=V.device)[None, :]
     injt = inj_table(inj, carry, V.device)
     ring = Ring2D(grid, H, kernel)
     m = max(int(deg_max) - 1, 0)

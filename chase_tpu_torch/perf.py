@@ -1,10 +1,14 @@
-"""Phase timers + analytic FLOP model.
+"""Phase timers, spans, counters + analytic FLOP model.
 
 Port of ``chase_tpu/perf.py`` (the reference's ChasePerfData: timed
 phases and the closed-form FLOP counters of performance.hpp:135-293, and
-the PerformanceDecoratorChase wrapper).  Phase times are host wall-clock
-around work that ends in a device synchronize (see solver.solve and
-:class:`PhaseTimer`).  The fraction-of-peak line of :meth:`PerfData.report`
+the PerformanceDecoratorChase wrapper).  Phase times come from the
+solvers' spans (:func:`span`): each phase's end is a CUDA event on the
+card (the host clock on the CPU), resolved after one synchronize at the
+end of the solve (:class:`PhaseClock`).  The same spans are
+``torch.profiler`` ranges when a profiler records, and :data:`COUNTS`
+holds the kernel launches, host syncs and QR fallbacks counted where
+they happen.  The fraction-of-peak line of :meth:`PerfData.report`
 holds the filter's rate against the card's published matmul peak for the
 precision the filter ran in (:func:`device_matmul_peak`): the JAX
 package's TPU table is replaced by the NVIDIA cards' data-sheet figures,
@@ -15,17 +19,24 @@ and off CUDA, or on a card the table does not name, there is no peak.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import os
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List
 
+import numpy as np
 import torch
 
 from .types import is_complex_dtype, real_dtype
 
-__all__ = ["PerfData", "PhaseTimer", "profiler_trace", "device_bf16_peak",
-           "device_matmul_peak", "filter_rung", "MATMUL_PEAKS"]
+__all__ = ["PerfData", "profiler_trace", "device_bf16_peak",
+           "device_matmul_peak", "filter_rung", "MATMUL_PEAKS", "span",
+           "SPANS", "PHASE_OF", "PhaseClock", "phase_clock", "COUNTS",
+           "count", "host_sync", "to_host", "item", "to_device",
+           "HOST_SYNC", "QR_FALLBACK"]
 
 PHASES = ("All", "InitVecs", "Lanczos", "Filter", "ApplyKconjugate",
           "Qr", "Rr", "Resids_Locking")
@@ -93,15 +104,6 @@ class PerfData:
         if self.matrix_type == 1:
             flop += 2.0 * f * (N / 2) * self.filtered_vecs
         return flop / 1e9
-
-    def get_lanczos_flops(self, N: int, lanczos_iter: int, num_lanczos: int,
-                          dtype) -> float:
-        f = self._factor(dtype)
-        flop = lanczos_iter * 2.0 * N * num_lanczos * N
-        if self.matrix_type == 1:
-            flop += lanczos_iter * (N / 2) * num_lanczos
-        flop += float(lanczos_iter) ** 2 * num_lanczos ** 2
-        return flop * f / 1e9
 
     def get_flops(self, N: int, lanczos_iter: int, num_lanczos: int, dtype) -> float:
         """Total analytic GFLOPs of a solve (mirrors performance.hpp:135-231)."""
@@ -283,34 +285,169 @@ class profiler_trace:
         return False
 
 
-class PhaseTimer:
-    """Context manager: times a phase; :meth:`done` synchronizes the
-    devices of the tensors the phase produced before it reads the
-    clock."""
+# -- spans, the phase clock and the counters ----------------------------------
+#
+# ``span(name)`` is the program's one tracing mechanism: a
+# ``torch.profiler.record_function`` range where a profiler records on the
+# running thread (the trace then ties every kernel launched inside it to
+# the span, on the profiler's clock), and the end of a PerfData phase
+# where a :class:`PhaseClock` runs on the thread.  Without either it
+# costs one flag check.
 
-    def __init__(self, perf: "PerfData | None", phase: str, *sync):
-        self.perf = perf
-        self.phase = phase
-        self.sync = sync
-        self.t0 = 0.0
+# the span names; a route or a rung goes to a counter, never into a name
+SPANS = ("chase.solve", "chase.operator", "chase.init_vecs", "chase.lanczos",
+         "chase.iteration", "chase.degrees", "chase.filter", "chase.kconj",
+         "chase.qr", "chase.rr", "chase.locking", "chase.ring_hemm")
+
+# the PerfData phase whose end each span marks (PHASES); a phase's time
+# runs from the previous mark to its own, so "Filter" holds the degrees
+PHASE_OF = {"chase.init_vecs": "InitVecs", "chase.lanczos": "Lanczos",
+            "chase.filter": "Filter", "chase.kconj": "ApplyKconjugate",
+            "chase.qr": "Qr", "chase.rr": "Rr",
+            "chase.locking": "Resids_Locking"}
+
+_profiling = torch._C._autograd._profiler_enabled   # per thread
+_local = threading.local()
+
+
+class span:
+    """Context manager: the program's span ``name`` (:data:`SPANS`)."""
+
+    __slots__ = ("name", "_range")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._range = None
 
     def __enter__(self):
-        if self.perf is not None:
-            self.t0 = time.perf_counter()
+        if _profiling():
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
         return self
 
-    def done(self, *tensors):
-        """Wait for the devices of ``tensors`` (a CUDA tensor's card is
-        synchronized; CPU work is done when it returns), then record the
-        elapsed time and restart the clock."""
-        if self.perf is None:
-            return
-        for dev in {t.device for t in tensors
-                    if isinstance(t, torch.Tensor)}:
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-        self.perf.add_time(self.phase, time.perf_counter() - self.t0)
-        self.t0 = time.perf_counter()
+    def __exit__(self, *exc):
+        clock = getattr(_local, "clock", None)
+        if clock is not None and exc[0] is None:
+            phase = PHASE_OF.get(self.name)
+            if phase is not None:
+                clock.mark(phase)
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            self._range = None
+        return False
+
+
+class PhaseClock:
+    """Context manager: the PerfData phase times of one solve on
+    ``device``.  While it runs, each span of :data:`PHASE_OF` that closes
+    on this thread marks its phase's end: a CUDA event recorded on the
+    device's current stream (no synchronize), or the host clock on the
+    CPU.  On a clean exit it marks the end of "All", waits once for the
+    device (the timer's wait, not one of the solve's ``host_sync``
+    counts), and adds each phase's time — previous mark to its own — and
+    "All" — first mark to last — to ``perf.timings``."""
+
+    def __init__(self, perf: PerfData, device: torch.device):
+        self.perf = perf
+        self.device = device
+        self.cuda = device.type == "cuda"
+        self.marks: list = []
+        self._outer = None
+
+    def _now(self):
+        if not self.cuda:
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
+
+    def mark(self, phase: str) -> None:
+        self.marks.append((phase, self._now()))
+
+    def _seconds(self, a, b) -> float:
+        return a.elapsed_time(b) / 1e3 if self.cuda else b - a
+
+    def __enter__(self):
+        self._outer = getattr(_local, "clock", None)
+        _local.clock = self
+        self.marks = [(None, self._now())]
+        return self
 
     def __exit__(self, *exc):
+        _local.clock = self._outer
+        if exc[0] is not None:
+            return False
+        self.mark("All")
+        if self.cuda:
+            torch.cuda.synchronize(self.device)
+        first = prev = self.marks[0][1]
+        for phase, t in self.marks[1:-1]:
+            self.perf.add_time(phase, self._seconds(prev, t))
+            prev = t
+        self.perf.add_time("All", self._seconds(first, self.marks[-1][1]))
         return False
+
+
+def phase_clock(perf: "PerfData | None", device: torch.device):
+    """:class:`PhaseClock` over a solve that fills ``perf``; with no
+    PerfData a context that does nothing."""
+    return (contextlib.nullcontext() if perf is None
+            else PhaseClock(perf, device))
+
+
+# Counts of the program's events, in one registry (``ops.ring_hemm.
+# LAUNCHES`` is this object), each made where the event happens, under a
+# lock — ranks simulated as threads of one process count at once; a key
+# not yet counted reads 0:
+#
+# * launches by kernel wrapper: "ring_hemm", "tf32_split", "bf16_pack",
+#   "ring_hemm_peers", "peer_gather", "peer_publish";
+# * main launches by route and width: "ring_hemm:<f32|c64|bf16>[ trans]
+#   k=<k>" and "ring_hemm_peers:<route> k=<k>" (k: V's columns);
+# * host syncs by site, "host_sync:<site>": every point of a solve where
+#   the host waits for the device — a read of a device value, or a copy
+#   of a host array onto it (a pageable copy drains the stream) — counted
+#   on every device, so that a CPU solve counts what the card would do;
+# * QR fallbacks, "qr_fallback:<to>": a Cholesky QR that broke down and
+#   was redone by Householder QR ("householder") or on the full block
+#   ("full_block").
+
+COUNTS = collections.Counter()
+_COUNT_LOCK = threading.Lock()
+HOST_SYNC = "host_sync:"
+QR_FALLBACK = "qr_fallback:"
+
+
+def count(key: str, n: int = 1) -> None:
+    with _COUNT_LOCK:
+        COUNTS[key] += n
+
+
+def host_sync(site: str) -> None:
+    """Count one host sync at ``site`` ("<module>.<what>") that a library
+    call makes inside itself (``torch.linalg.eigh`` reading its info, a
+    tensor's ``.to``/``copy_`` from the host); a read or a copy the
+    program makes itself goes through :func:`to_host`, :func:`item` or
+    :func:`to_device`, which count it."""
+    count(HOST_SYNC + site)
+
+
+def to_host(t: torch.Tensor, site: str) -> np.ndarray:
+    """``t``'s values as a numpy array: a device→host read, one host sync
+    at ``site``."""
+    host_sync(site)
+    return t.detach().cpu().numpy()
+
+
+def item(t: torch.Tensor, site: str):
+    """``t``'s one value as a Python number: a device→host read, one host
+    sync at ``site``."""
+    host_sync(site)
+    return t.item()
+
+
+def to_device(a, site: str, **kwargs) -> torch.Tensor:
+    """``torch.as_tensor(a, **kwargs)`` of host data onto a device: a
+    pageable copy that drains the stream, one host sync at ``site``."""
+    host_sync(site)
+    return torch.as_tensor(a, **kwargs)

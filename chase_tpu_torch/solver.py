@@ -59,7 +59,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import time
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -67,7 +66,7 @@ import torch
 
 from .config import ChaseConfig, set_matmul_precision
 from .logger import get_logger
-from .perf import PerfData
+from .perf import PerfData, phase_clock, span, to_host
 from .types import (as_torch_dtype, filter_carry_dtype, is_double_base,
                     low_precision_dtype, numpy_scalar_type)
 from .parallel.operator import DenseOperator
@@ -523,8 +522,61 @@ def _draw(op: DenseOperator, k: int, generator,
     return V if op.grid is None else op.local_rows(V).clone()
 
 
-def _host(t: torch.Tensor) -> np.ndarray:
-    return t.detach().cpu().numpy().astype(np.float64)
+def _host(t: torch.Tensor, site: str) -> np.ndarray:
+    """A device tensor's values on the host: one host sync at ``site``."""
+    return to_host(t, site).astype(np.float64)
+
+
+def _lanczos_dos(op: DenseOperator, V, V0, m: int, numvec: int,
+                 nevex: int, generator, log):
+    """Lanczos spectral estimation and the DoS start (algorithm.inc:
+    1438-1446, 1160-1189): (V with the DoS vectors below the DoS lower
+    bound set in, the initial Ritz value estimates, upperb)."""
+    H, N = op.H, op.N
+    if V0 is not None:
+        # user-provided basis: probe with FRESH random vectors — a Krylov
+        # space seeded with (near-)converged eigenvectors breaks down
+        # immediately and the DoS bounds collapse
+        probes = _draw(op, numvec, generator)
+    else:
+        probes = V[:, :numvec]
+    alphas, betas, basis = lz.lanczos_scan(H, probes, m=m, want_basis=True,
+                                           grid=op.grid)
+    a_np = _host(alphas, "solver.lanczos")
+    b_np = _host(betas, "solver.lanczos")
+    theta, tau, ritzV_last = lz.lanczos_tridiag_host(a_np, b_np)
+    upperb = lz.upper_bound(theta, b_np[-1])
+    lam, lowerb = lz.dos_lower_bound(theta, tau, nevex, N)
+    # extract DoS vectors below lowerb
+    theta_last = theta[-1]
+    idx = 0
+    for i in range(m):
+        if theta_last[i] > lowerb:
+            idx = i - 1
+            break
+    idx = max(idx, 0)
+    idx = min(idx, nevex - 1)
+    if V0 is not None:
+        # keep the caller's warm subspace intact — no DoS injection
+        idx = 0
+    if idx > 0:
+        mask = np.arange(m) < idx
+        Vd = lz.lanczos_dos_vectors(basis, ritzV_last, mask)
+        V = set_head_cols(V, Vd, mask)
+    ritzv = np.empty(nevex, np.float64)
+    ritzv[:idx] = theta_last[:idx]
+    ritzv[idx:nevex - 1] = lam
+    ritzv[nevex - 1] = lowerb
+    if idx > 1:
+        perm = np.arange(nevex)
+        for i in range(1, idx):
+            j = i * (nevex // idx)
+            perm[i], perm[j] = perm[j], perm[i]
+            ritzv[i], ritzv[j] = ritzv[j], ritzv[i]
+        V = permute_cols(V, perm)
+    log.debug(f"Lanczos: m={m} numvec={numvec} idx={idx} "
+              f"upperb={upperb:.6e} lowerb={lowerb:.6e}")
+    return V, ritzv, upperb
 
 
 # --------------------------------------------------------------------------
@@ -544,12 +596,19 @@ def solve(op: DenseOperator, nev: int, nex: int,
       V0: optional (N, nev+nex) starting subspace (numpy or tensor).  With
           ``config.approx=True`` this is the warm start of a problem
           sequence and ``ritzv0`` must hold the previous Ritz values.
-      perf: optional PerfData to fill with phase timings/FLOPs.
+      perf: optional PerfData to fill with phase timings/FLOPs (the
+          phases' ends are the spans', timed by ``perf.PhaseClock``).
       generator: torch.Generator on op's device for the start block and
           the Lanczos probes (default: seeded from ``config.seed``).
 
     Returns: SolveResult.
     """
+    with phase_clock(perf, op.device):
+        return _solve(op, nev, nex, config, V0, ritzv0, perf, generator)
+
+
+def _solve(op: DenseOperator, nev: int, nex: int, config, V0, ritzv0,
+           perf: Optional[PerfData], generator) -> SolveResult:
     cfg = config or ChaseConfig()
     rcfg = cfg.resolve(op.dtype, op.device)
     log = get_logger()
@@ -567,35 +626,24 @@ def solve(op: DenseOperator, nev: int, nex: int,
     polish = rcfg.polish_passes()
     device = op.device
     H = op.H
-    timing = perf is not None
-
-    def toc(phase, t0):
-        if timing:
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            perf.add_time(phase, time.perf_counter() - t0)
-        return time.perf_counter()
-
-    t_all0 = time.perf_counter()
-
-    if rcfg.sym_check:
-        from .ops.checks import check_hermitian
-        if not check_hermitian(H, grid=op.grid):
-            log.warn("input matrix failed the randomized hermiticity probe "
-                     "(checkSymmetryEasy analogue) — results may be invalid")
 
     # ---- initVecs (chase_cpu.hpp:296-327) --------------------------------
-    t0 = time.perf_counter()
-    approx = rcfg.approx and V0 is not None
-    if generator is None:
-        generator = torch.Generator(device=device).manual_seed(rcfg.seed)
-    if V0 is not None:
-        V = op.place_block(V0)
-    else:
-        V = _draw(op, nevex, generator)
-    if not approx:
-        V = qrops.orthonormalize(V, 0, 1.0, rcfg, op.grid)
-    t0 = toc("InitVecs", t0)
+    with span("chase.init_vecs"):
+        if rcfg.sym_check:
+            from .ops.checks import check_hermitian
+            if not check_hermitian(H, grid=op.grid):
+                log.warn("input matrix failed the randomized hermiticity "
+                         "probe (checkSymmetryEasy analogue) — results may "
+                         "be invalid")
+        approx = rcfg.approx and V0 is not None
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(rcfg.seed)
+        if V0 is not None:
+            V = op.place_block(V0)
+        else:
+            V = _draw(op, nevex, generator)
+        if not approx:
+            V = qrops.orthonormalize(V, 0, 1.0, rcfg, op.grid)
 
     deg0 = min(rcfg.deg + rcfg.deg % 2, rcfg.max_deg)
     degrees = np.full(nevex, deg0, dtype=np.int64)
@@ -607,65 +655,26 @@ def solve(op: DenseOperator, nev: int, nex: int,
     m -= m % 2
     m = max(m, 2)
     numvec = min(rcfg.num_lanczos, nevex)
-    if not approx:
-        if V0 is not None:
-            # user-provided basis: probe with FRESH random vectors — a
-            # Krylov space seeded with (near-)converged eigenvectors breaks
-            # down immediately and the DoS bounds collapse
-            probes = _draw(op, numvec, generator)
+    with span("chase.lanczos"):
+        if not approx:
+            V, ritzv, upperb = _lanczos_dos(op, V, V0, m, numvec, nevex,
+                                            generator, log)
         else:
-            probes = V[:, :numvec]
-        alphas, betas, basis = lz.lanczos_scan(H, probes, m=m,
-                                               want_basis=True, grid=op.grid)
-        a_np, b_np = _host(alphas), _host(betas)
-        t0 = toc("Lanczos", t0)
-        theta, tau, ritzV_last = lz.lanczos_tridiag_host(a_np, b_np)
-        upperb = lz.upper_bound(theta, b_np[-1])
-        lam, lowerb = lz.dos_lower_bound(theta, tau, nevex, N)
-        # extract DoS vectors below lowerb (algorithm.inc:1160-1189)
-        theta_last = theta[-1]
-        idx = 0
-        for i in range(m):
-            if theta_last[i] > lowerb:
-                idx = i - 1
-                break
-        idx = max(idx, 0)
-        idx = min(idx, nevex - 1)
-        if V0 is not None:
-            # keep the caller's warm subspace intact — no DoS injection
-            idx = 0
-        if idx > 0:
-            mask = np.arange(m) < idx
-            Vd = lz.lanczos_dos_vectors(basis, ritzV_last, mask)
-            V = set_head_cols(V, Vd, mask)
-        ritzv = np.empty(nevex, np.float64)
-        ritzv[:idx] = theta_last[:idx]
-        ritzv[idx:nevex - 1] = lam
-        ritzv[nevex - 1] = lowerb
-        if idx > 1:
-            perm = np.arange(nevex)
-            for i in range(1, idx):
-                j = i * (nevex // idx)
-                perm[i], perm[j] = perm[j], perm[i]
-                ritzv[i], ritzv[j] = ritzv[j], ritzv[i]
-            V = permute_cols(V, perm)
-        log.debug(f"Lanczos: m={m} numvec={numvec} idx={idx} "
-                  f"upperb={upperb:.6e} lowerb={lowerb:.6e}")
-        basis = probes = None
-    else:
-        if ritzv0 is None:
-            raise ValueError("approx mode needs ritzv0 from a previous solve")
-        # bounds-only Lanczos from a FRESH random probe: a Krylov space
-        # seeded with a converged eigenvector of the previous problem
-        # underestimates lambda_max
-        probe = _draw(op, 1, generator)
-        alphas, betas, _ = lz.lanczos_scan(H, probe, m=m, want_basis=False,
-                                           grid=op.grid)
-        a_np, b_np = _host(alphas), _host(betas)
-        t0 = toc("Lanczos", t0)
-        theta, _, _ = lz.lanczos_tridiag_host(a_np, b_np, want_vectors=False)
-        upperb = lz.upper_bound(theta, b_np[-1])
-        ritzv = np.asarray(ritzv0, np.float64).copy()
+            if ritzv0 is None:
+                raise ValueError("approx mode needs ritzv0 from a previous "
+                                 "solve")
+            # bounds-only Lanczos from a FRESH random probe: a Krylov space
+            # seeded with a converged eigenvector of the previous problem
+            # underestimates lambda_max
+            probe = _draw(op, 1, generator)
+            alphas, betas, _ = lz.lanczos_scan(H, probe, m=m,
+                                               want_basis=False, grid=op.grid)
+            a_np = _host(alphas, "solver.lanczos")
+            b_np = _host(betas, "solver.lanczos")
+            theta, _, _ = lz.lanczos_tridiag_host(a_np, b_np,
+                                                  want_vectors=False)
+            upperb = lz.upper_bound(theta, b_np[-1])
+            ritzv = np.asarray(ritzv0, np.float64).copy()
 
     # sign-aware scaling: push a negative upperb toward zero correctly
     upperb = upperb * rcfg.upperb_scale if upperb > 0 \
@@ -706,163 +715,174 @@ def solve(op: DenseOperator, nev: int, nex: int,
     try:
         # ---- main loop (algorithm.inc:1491-1722) --------------------------
         while unconverged > nex and iteration < rcfg.max_iter:
-            act = slice(locked, nevex)
+            with span("chase.iteration"):
+                act = slice(locked, nevex)
 
-            # lowerb refresh once everything is somewhat converged
-            if np.all(resid[act] <= 0.5):
-                lowerb = float(ritzv[nevex - 1])
-            log.info(f"iteration {iteration}: lambda={lam_filter:.6e} "
-                     f"lowerb={lowerb:.6e} upperb={upperb:.6e} "
-                     f"unconverged={unconverged}")
-            if lowerb > upperb:
-                log.warn("lowerb > upperb — clamping (algorithm.inc:1524)")
-                lowerb = upperb
+                # lowerb refresh once everything is somewhat converged
+                if np.all(resid[act] <= 0.5):
+                    lowerb = float(ritzv[nevex - 1])
+                log.info(f"iteration {iteration}: lambda={lam_filter:.6e} "
+                         f"lowerb={lowerb:.6e} upperb={upperb:.6e} "
+                         f"unconverged={unconverged}")
+                if lowerb > upperb:
+                    log.warn("lowerb > upperb — clamping "
+                             "(algorithm.inc:1524)")
+                    lowerb = upperb
 
-            resid_last[act] = np.minimum(resid_last[act], resid[act])
+                resid_last[act] = np.minimum(resid_last[act], resid[act])
 
-            # -- degrees (algorithm.inc:1540) --
-            if rcfg.optimization and iteration != 0:
-                _, perm = calc_degrees_host(
-                    unconverged, nex, upperb, lowerb, tol,
-                    ritzv[act], resid[act], degrees[act], rcfg, is_sp)
-                if not np.array_equal(perm, np.arange(unconverged)):
-                    full_perm = np.concatenate(
-                        [np.arange(locked), locked + perm])
-                    V = permute_cols(V, full_perm)
-                    if R_prev is not None:
-                        R_prev = permute_cols(R_prev, full_perm)
+                # -- degrees (algorithm.inc:1540) --
+                with span("chase.degrees"):
+                    if rcfg.optimization and iteration != 0:
+                        _, perm = calc_degrees_host(
+                            unconverged, nex, upperb, lowerb, tol,
+                            ritzv[act], resid[act], degrees[act], rcfg, is_sp)
+                        if not np.array_equal(perm, np.arange(unconverged)):
+                            full_perm = np.concatenate(
+                                [np.arange(locked), locked + perm])
+                            V = permute_cols(V, full_perm)
+                            if R_prev is not None:
+                                R_prev = permute_cols(R_prev, full_perm)
 
-            # -- filter (algorithm.inc:1546) --
-            B = _col_block(rcfg.col_block, nevex)
-            # precision ladder (the reference's DP→SP filter switch): while
-            # the wanted pairs are far from converged, filter in reduced
-            # precision — 64-bit problems on their f32/c64 shadow, 32-bit
-            # problems with mixed_precision on their own H at TF32
-            min_resid = (float(np.min(resid[locked:nev])) if locked < nev
-                         else 0.0)
-            use_low = (rcfg.mixed_precision and locked < nev
-                       and min_resid > rcfg.mixed_precision_threshold)
-            # bf16 rung (real f32 problems): bf16 operator, f32 carry and
-            # sums.  Gated on the spectral radius's MAGNITUDE: a signed
-            # upperb (negative-definite spectrum) would make the gate
-            # negative and the rung would never disengage
-            spec_scale = max(abs(lam_filter), abs(upperb))
-            use_bf16 = (rcfg.bf16_filter and is_sp and not is_complex
-                        and locked < nev
-                        and min_resid > rcfg.bf16_filter_threshold
-                        * spec_scale)
-            use_refine = refine_capable and R_prev is not None
-            if use_refine:
-                # fast-dtype recurrence seeded by the problem-precision
-                # residuals: no threshold, never hands back
-                use_low = use_bf16 = False
-                H_f = op.H_low
-            elif use_bf16 or (use_low and not is_sp):
-                H_f = op.H_low
-            else:
-                H_f = H
-            ring, kernel = _chunk_product(route, rcfg.ring_backend,
-                                          H_f.dtype)
-            form = hermitian_form(op.grid, kernel)
-            # the SP ladder's low phase: TF32 products off the kernel
-            tf32 = use_low and is_sp and not (ring and kernel)
-            if tf32:
-                set_matmul_precision("high")
-            try:
-                if use_refine:
-                    V, f_executed, f_hemms = _filter_refine_windowed(
-                        H_f, V, R_prev, ritzv[act], degrees[act], locked,
-                        nevex, B, lam_filter, lowerb, upperb, rcfg.max_deg,
-                        ring=ring, form=form)
-                else:
-                    V, f_executed, f_hemms = (
-                        _filter_ring if ring else _filter_windowed)(
-                        H_f, V, degrees[act], locked, nevex, B, lam_filter,
-                        lowerb, upperb, form=form)
-            finally:
-                if tf32:
-                    set_matmul_precision(rcfg.matmul_precision)
-            H_f = None
-            if perf is not None:
-                perf.add_filtered_vecs(int(np.sum(degrees[act])),
-                                       low=use_refine or use_bf16 or use_low,
-                                       executed=f_executed)
-                perf.filter_hemm_steps += f_hemms
-                perf.add_iter_blocksize(unconverged)
-            t0 = toc("Filter", t0)
+                # -- filter (algorithm.inc:1546) --
+                with span("chase.filter"):
+                    B = _col_block(rcfg.col_block, nevex)
+                    # precision ladder (the reference's DP→SP filter switch):
+                    # while the wanted pairs are far from converged, filter in
+                    # reduced precision — 64-bit problems on their f32/c64
+                    # shadow, 32-bit problems with mixed_precision on their own
+                    # H at TF32
+                    min_resid = (float(np.min(resid[locked:nev]))
+                                 if locked < nev else 0.0)
+                    use_low = (rcfg.mixed_precision and locked < nev
+                               and min_resid > rcfg.mixed_precision_threshold)
+                    # bf16 rung (real f32 problems): bf16 operator, f32 carry
+                    # and sums.  Gated on the spectral radius's MAGNITUDE: a
+                    # signed upperb (negative-definite spectrum) would make the
+                    # gate negative and the rung would never disengage
+                    spec_scale = max(abs(lam_filter), abs(upperb))
+                    use_bf16 = (rcfg.bf16_filter and is_sp and not is_complex
+                                and locked < nev
+                                and min_resid > rcfg.bf16_filter_threshold
+                                * spec_scale)
+                    use_refine = refine_capable and R_prev is not None
+                    if use_refine:
+                        # fast-dtype recurrence seeded by the problem-precision
+                        # residuals: no threshold, never hands back
+                        use_low = use_bf16 = False
+                        H_f = op.H_low
+                    elif use_bf16 or (use_low and not is_sp):
+                        H_f = op.H_low
+                    else:
+                        H_f = H
+                    ring, kernel = _chunk_product(route, rcfg.ring_backend,
+                                                  H_f.dtype)
+                    form = hermitian_form(op.grid, kernel)
+                    # the SP ladder's low phase: TF32 products off the kernel
+                    tf32 = use_low and is_sp and not (ring and kernel)
+                    if tf32:
+                        set_matmul_precision("high")
+                    try:
+                        if use_refine:
+                            V, f_executed, f_hemms = _filter_refine_windowed(
+                                H_f, V, R_prev, ritzv[act], degrees[act],
+                                locked, nevex, B, lam_filter, lowerb,
+                                upperb, rcfg.max_deg, ring=ring, form=form)
+                        else:
+                            V, f_executed, f_hemms = (
+                                _filter_ring if ring else _filter_windowed)(
+                                H_f, V, degrees[act], locked, nevex, B,
+                                lam_filter, lowerb, upperb, form=form)
+                    finally:
+                        if tf32:
+                            set_matmul_precision(rcfg.matmul_precision)
+                    H_f = None
+                    if perf is not None:
+                        perf.add_filtered_vecs(
+                            int(np.sum(degrees[act])),
+                            low=use_refine or use_bf16 or use_low,
+                            executed=f_executed)
+                        perf.filter_hemm_steps += f_hemms
+                        perf.add_iter_blocksize(unconverged)
 
-            # -- condition estimate for QR selection (algorithm.inc:1549) --
-            cc = (upperb + lowerb) / 2
-            ee = (upperb - lowerb) / 2
-            rho_1 = _rho((float(ritzv[0]) - cc) / ee)
-            rho_k = _rho((float(ritzv[locked]) - cc) / ee)
-            with np.errstate(over="ignore"):
-                cond = float(rho_k ** degrees[locked]
-                             * rho_1 ** (int(np.max(degrees[act]))
-                                         - degrees[locked]))
-            if not np.isfinite(cond):
-                cond = np.finfo(np.float64).max
+                with span("chase.qr"):
+                    # -- condition estimate for QR selection
+                    # (algorithm.inc:1549) --
+                    cc = (upperb + lowerb) / 2
+                    ee = (upperb - lowerb) / 2
+                    rho_1 = _rho((float(ritzv[0]) - cc) / ee)
+                    rho_k = _rho((float(ritzv[locked]) - cc) / ee)
+                    with np.errstate(over="ignore"):
+                        cond = float(rho_k ** degrees[locked]
+                                     * rho_1 ** (int(np.max(degrees[act]))
+                                                 - degrees[locked]))
+                    if not np.isfinite(cond):
+                        cond = np.finfo(np.float64).max
 
-            # -- QR + RR, shrunk to the padded active window once columns
-            # lock (algorithm.inc:1712-18) --
-            w_pad_rr, win_start = _window_pad(nevex, locked, B)
-            use_window = rcfg.shrink_subspace and win_start > 0
-            if use_window:
-                V = qrops.orthonormalize_window(V, win_start, w_pad_rr,
-                                                locked, cond, rcfg, op.grid)
-            else:
-                V = qrops.orthonormalize(V, locked, cond, rcfg, op.grid)
-            t0 = toc("Qr", t0)
+                    # -- QR + RR, shrunk to the padded active window once
+                    # columns lock (algorithm.inc:1712-18) --
+                    w_pad_rr, win_start = _window_pad(nevex, locked, B)
+                    use_window = rcfg.shrink_subspace and win_start > 0
+                    if use_window:
+                        V = qrops.orthonormalize_window(V, win_start, w_pad_rr,
+                                                        locked, cond, rcfg,
+                                                        op.grid)
+                    else:
+                        V = qrops.orthonormalize(V, locked, cond, rcfg,
+                                                 op.grid)
 
-            # -- RR + residuals (fused) --
-            if use_window:
-                lw = locked - win_start
-                Vw, ritz_dev, resid_dev, *Rw = rrops.rayleigh_ritz_residuals(
-                    H, slice_cols(V, win_start, w_pad_rr), lw,
-                    polish=polish, want_vectors=refine_capable,
-                    grid=op.grid)
-                V = update_cols(V, Vw, win_start)
-                if refine_capable:
-                    if R_prev is None:
-                        R_prev = torch.zeros_like(V)
-                    R_prev = update_cols(R_prev, Rw[0], win_start)
-                ritzv[act] = _host(ritz_dev)[lw:]
-                resid[act] = _host(resid_dev)[lw:]
-            else:
-                V, ritz_dev, resid_dev, *Rv = rrops.rayleigh_ritz_residuals(
-                    H, V, locked, polish=polish, want_vectors=refine_capable,
-                    grid=op.grid)
-                if refine_capable:
-                    R_prev = Rv[0]
-                ritzv[act] = _host(ritz_dev)[act]
-                resid[act] = _host(resid_dev)[act]
-            if op.grid is not None:
-                op.grid.check_peers()
-            t0 = toc("Rr", t0)
+                # -- RR + residuals (fused) --
+                with span("chase.rr"):
+                    if use_window:
+                        lw = locked - win_start
+                        Vw, ritz_dev, resid_dev, *Rw = \
+                            rrops.rayleigh_ritz_residuals(
+                                H, slice_cols(V, win_start, w_pad_rr), lw,
+                                polish=polish, want_vectors=refine_capable,
+                                grid=op.grid)
+                        V = update_cols(V, Vw, win_start)
+                        if refine_capable:
+                            if R_prev is None:
+                                R_prev = torch.zeros_like(V)
+                            R_prev = update_cols(R_prev, Rw[0], win_start)
+                        ritzv[act] = _host(ritz_dev, "solver.rr")[lw:]
+                        resid[act] = _host(resid_dev, "solver.rr")[lw:]
+                    else:
+                        V, ritz_dev, resid_dev, *Rv = \
+                            rrops.rayleigh_ritz_residuals(
+                                H, V, locked, polish=polish,
+                                want_vectors=refine_capable, grid=op.grid)
+                        if refine_capable:
+                            R_prev = Rv[0]
+                        ritzv[act] = _host(ritz_dev, "solver.rr")[act]
+                        resid[act] = _host(resid_dev, "solver.rr")[act]
+                    if op.grid is not None:
+                        op.grid.check_peers()
 
-            if resid_file is not None:
-                for _ in range(locked):
-                    resid_file.write(f"{iteration},-1.0\n")
-                for rr_ in resid[act][np.argsort(ritzv[act], kind="stable")]:
-                    resid_file.write(f"{iteration},{rr_}\n")
-
-            # -- locking (algorithm.inc:1692-1718) --
-            n_examine = unconverged - nex
-            new_converged, perm, early = locking_host(
-                ritzv[act], resid[act], resid_last[act], n_examine, tol,
-                is_sym=True)
-            early_all.extend(early)
-            if new_converged and not np.array_equal(perm,
-                                                    np.arange(unconverged)):
-                full_perm = np.concatenate([np.arange(locked), locked + perm])
-                V = permute_cols(V, full_perm)
-                if R_prev is not None:
-                    R_prev = permute_cols(R_prev, full_perm)
-            locked += new_converged
-            unconverged -= new_converged
-            iteration += 1
-            t0 = toc("Resids_Locking", t0)
-            log.info(f"  -> new_converged={new_converged} locked={locked}")
+                # -- locking (algorithm.inc:1692-1718) --
+                with span("chase.locking"):
+                    if resid_file is not None:
+                        for _ in range(locked):
+                            resid_file.write(f"{iteration},-1.0\n")
+                        for rr_ in resid[act][np.argsort(ritzv[act],
+                                                         kind="stable")]:
+                            resid_file.write(f"{iteration},{rr_}\n")
+                    n_examine = unconverged - nex
+                    new_converged, perm, early = locking_host(
+                        ritzv[act], resid[act], resid_last[act], n_examine,
+                        tol, is_sym=True)
+                    early_all.extend(early)
+                    if new_converged and not np.array_equal(
+                            perm, np.arange(unconverged)):
+                        full_perm = np.concatenate([np.arange(locked),
+                                                    locked + perm])
+                        V = permute_cols(V, full_perm)
+                        if R_prev is not None:
+                            R_prev = permute_cols(R_prev, full_perm)
+                    locked += new_converged
+                    unconverged -= new_converged
+                    iteration += 1
+                log.info(f"  -> new_converged={new_converged} locked={locked}")
     finally:
         if resid_file is not None:
             resid_file.close()
@@ -874,9 +894,6 @@ def solve(op: DenseOperator, nev: int, nex: int,
         V = permute_cols(V, full_perm)
         ritzv[:nev] = ritzv[order]
         resid[:nev] = resid[order]
-
-    if timing:
-        toc("All", t_all0)
 
     return SolveResult(
         ritzv=ritzv[:nev].copy(), V=V, resid=resid[:nev].copy(),

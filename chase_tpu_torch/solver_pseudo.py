@@ -50,7 +50,6 @@ real-pair embedding of complex BSE (complex runs natively).
 from __future__ import annotations
 
 import functools
-import time
 from typing import Optional
 
 import numpy as np
@@ -58,7 +57,7 @@ import torch
 
 from .config import ChaseConfig, set_matmul_precision
 from .logger import get_logger
-from .perf import PerfData
+from .perf import PerfData, phase_clock, span, to_device
 from .types import is_double_base
 from .parallel.operator import DenseOperator
 from .parallel import dist as pdist
@@ -323,6 +322,12 @@ def solve_pseudo(op: DenseOperator, nev: int, nex: int,
     operator's grid every rank calls with the same arguments.
     """
     del ritzv0
+    with phase_clock(perf, op.device):
+        return _solve_pseudo(op, nev, nex, config, V0, perf, generator)
+
+
+def _solve_pseudo(op: DenseOperator, nev: int, nex: int, config, V0,
+                  perf: Optional[PerfData], generator) -> SolveResult:
     cfg = config or ChaseConfig()
     rcfg = cfg.resolve(op.dtype, op.device)
     log = get_logger()
@@ -349,39 +354,29 @@ def solve_pseudo(op: DenseOperator, nev: int, nex: int,
         or (is_sp and rcfg.bf16_filter and not is_complex))
     R_prev = None              # (N, K2) pencil-RR H-residual vectors
     tol = rcfg.tol
-    timing = perf is not None
     if perf is not None:
         perf.matrix_type = 1
 
-    def toc(phase, t0):
-        if timing:
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            perf.add_time(phase, time.perf_counter() - t0)
-        return time.perf_counter()
-
-    t_all0 = time.perf_counter()
-    t0 = time.perf_counter()
-
-    if rcfg.sym_check:
-        from .ops.checks import check_pseudo_hermitian
-        if not check_pseudo_hermitian(op.H, grid=grid):
-            log.warn("input matrix failed the randomized pseudo-hermiticity "
-                     "probe (checkPseudoHermicityEasy analogue)")
-
     # ---- initVecs: random 2·nevex block, lower rows ×0.001, QR ------------
-    approx = rcfg.approx and V0 is not None
-    if generator is None:
-        generator = torch.Generator(device=device).manual_seed(rcfg.seed)
+    with span("chase.init_vecs"):
+        if rcfg.sym_check:
+            from .ops.checks import check_pseudo_hermitian
+            if not check_pseudo_hermitian(op.H, grid=grid):
+                log.warn("input matrix failed the randomized "
+                         "pseudo-hermiticity probe (checkPseudoHermicityEasy "
+                         "analogue)")
 
-    if V0 is not None and V0.shape[1] != K2:
-        raise ValueError(f"v0 has {V0.shape[1]} columns; the pseudo solver "
-                         f"takes 2·(nev+nex) = {K2}")
-    V = (op.place_block(V0) if V0 is not None
-         else _draw(op, K2, generator, damped=True))
-    if not approx:
-        V = orthonormalize(V, 0, 1.0, rcfg, grid)
-    t0 = toc("InitVecs", t0)
+        approx = rcfg.approx and V0 is not None
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(rcfg.seed)
+
+        if V0 is not None and V0.shape[1] != K2:
+            raise ValueError(f"v0 has {V0.shape[1]} columns; the pseudo "
+                             f"solver takes 2·(nev+nex) = {K2}")
+        V = (op.place_block(V0) if V0 is not None
+             else _draw(op, K2, generator, damped=True))
+        if not approx:
+            V = orthonormalize(V, 0, 1.0, rcfg, grid)
 
     deg0 = min(rcfg.deg + rcfg.deg % 2, rcfg.max_deg)
     degrees = np.full(K2, deg0, dtype=np.int64)
@@ -397,60 +392,62 @@ def solve_pseudo(op: DenseOperator, nev: int, nex: int,
     # a caller's basis is probed with FRESH random vectors: a Krylov space
     # seeded with (near-)converged eigenvectors breaks down at once and
     # the DoS quantile collapses (solver.py's approx branch, same reason)
-    probes = (_draw(op, numvec, generator, damped=True) if V0 is not None
-              else V[:, :numvec])
-    alphas, betas, basis = ps.lanczos_scan_pseudo(op.H, probes, m=m,
-                                                  want_basis=True, grid=grid)
-    a_np, b_np = _host(alphas), _host(betas)
-    t0 = toc("Lanczos", t0)
-    theta, tau, ritzV_last = lz.lanczos_tridiag_host(a_np, b_np)
+    with span("chase.lanczos"):
+        probes = (_draw(op, numvec, generator, damped=True)
+                  if V0 is not None else V[:, :numvec])
+        alphas, betas, basis = ps.lanczos_scan_pseudo(
+            op.H, probes, m=m, want_basis=True, grid=grid)
+        a_np = _host(alphas, "solver_pseudo.lanczos")
+        b_np = _host(betas, "solver_pseudo.lanczos")
+        theta, tau, ritzV_last = lz.lanczos_tridiag_host(a_np, b_np)
 
-    abs_t = np.abs(theta)
-    upperb = float(abs_t.max()) ** 2
-    mu_1 = float(abs_t.min()) ** 2
-    lam_nevnex = _dos_quantile(theta, tau, numvec, m, N, nev, nex)
-    mu_nevnex = lam_nevnex ** 2
+        abs_t = np.abs(theta)
+        upperb = float(abs_t.max()) ** 2
+        mu_1 = float(abs_t.min()) ** 2
+        lam_nevnex = _dos_quantile(theta, tau, numvec, m, N, nev, nex)
+        mu_nevnex = lam_nevnex ** 2
 
-    # DoS starting vectors from the last probe's basis
-    theta_last = theta[-1]
-    idx = 0
-    for i in range(m):
-        if theta_last[i] > lam_nevnex:
-            idx = i - 1
-            break
-        idx = i + 1
-    idx = max(idx, 0)
-    idx = min(idx, nevex - 1)
-    if V0 is not None:
-        # keep the caller's warm subspace intact — no DoS vector injection
+        # DoS starting vectors from the last probe's basis
+        theta_last = theta[-1]
         idx = 0
-    if idx > 0:
-        mask = np.arange(m) < idx
-        Vd = lz.lanczos_dos_vectors(basis, ritzV_last, mask)
-        V = set_head_cols(V, Vd, mask)
-    ritzv[:idx] = theta_last[:idx] ** 2
-    ritzv[idx:nevex - 1] = mu_1
-    ritzv[nevex - 1] = mu_nevnex
-    if idx > 1:
-        perm = np.arange(K2)
-        for i in range(1, idx):
-            j = i * (nevex // idx)
-            perm[i], perm[j] = perm[j], perm[i]
-            ritzv[i], ritzv[j] = ritzv[j], ritzv[i]
-        V = permute_cols(V, perm)
-    basis = probes = None
+        for i in range(m):
+            if theta_last[i] > lam_nevnex:
+                idx = i - 1
+                break
+            idx = i + 1
+        idx = max(idx, 0)
+        idx = min(idx, nevex - 1)
+        if V0 is not None:
+            # keep the caller's warm subspace intact — no DoS vectors
+            idx = 0
+        if idx > 0:
+            mask = np.arange(m) < idx
+            Vd = lz.lanczos_dos_vectors(basis, ritzV_last, mask)
+            V = set_head_cols(V, Vd, mask)
+        ritzv[:idx] = theta_last[:idx] ** 2
+        ritzv[idx:nevex - 1] = mu_1
+        ritzv[nevex - 1] = mu_nevnex
+        if idx > 1:
+            perm = np.arange(K2)
+            for i in range(1, idx):
+                j = i * (nevex // idx)
+                perm[i], perm[j] = perm[j], perm[i]
+                ritzv[i], ritzv[j] = ritzv[j], ritzv[i]
+            V = permute_cols(V, perm)
+        basis = probes = None
 
-    mu_1 = float(np.min(ritzv[:nevex - 1])) if nevex > 1 else float(ritzv[0])
-    mu_nevnex = float(ritzv[nevex - 1])
-    upperb = upperb * rcfg.upperb_scale if upperb > 0 \
-        else upperb / rcfg.upperb_scale
-    lambda_1 = mu_1
-    lower = mu_nevnex
-    new_mu_nevex = lower
-    b_sup = upperb
-    lower = lower * rcfg.decaying_rate
-    log.info(f"solve_pseudo H² bounds: lambda_1={lambda_1:.6e} "
-             f"lower={lower:.6e} b_sup={b_sup:.6e} (DoS idx={idx})")
+        mu_1 = (float(np.min(ritzv[:nevex - 1])) if nevex > 1
+                else float(ritzv[0]))
+        mu_nevnex = float(ritzv[nevex - 1])
+        upperb = upperb * rcfg.upperb_scale if upperb > 0 \
+            else upperb / rcfg.upperb_scale
+        lambda_1 = mu_1
+        lower = mu_nevnex
+        new_mu_nevex = lower
+        b_sup = upperb
+        lower = lower * rcfg.decaying_rate
+        log.info(f"solve_pseudo H² bounds: lambda_1={lambda_1:.6e} "
+                 f"lower={lower:.6e} b_sup={b_sup:.6e} (DoS idx={idx})")
 
     # iteration-0 degree cap: a reduced-precision first filter past ~1e6
     # amplification collapses the S-QR Gram (see _iter0_degree_cap)
@@ -481,172 +478,179 @@ def solve_pseudo(op: DenseOperator, nev: int, nex: int,
     try:
         # ---- main loop (algorithm.inc:1963-2170) ---------------------------
         while locked < nev and unconverged > 0 and iteration < rcfg.max_iter:
-            u = unconverged
-            act = slice(locked, locked + u)
+            with span("chase.iteration"):
+                u = unconverged
+                act = slice(locked, locked + u)
 
-            if iteration > 0:
-                nm2 = new_mu_nevex * new_mu_nevex
-                if lambda_1 < nm2 < lower:
-                    lower = nm2
-            log.info(f"pseudo iteration {iteration}: lambda_1="
-                     f"{lambda_1:.6e} lower={lower:.6e} b_sup={b_sup:.6e} "
-                     f"unconverged={u}")
+                if iteration > 0:
+                    nm2 = new_mu_nevex * new_mu_nevex
+                    if lambda_1 < nm2 < lower:
+                        lower = nm2
+                log.info(f"pseudo iteration {iteration}: lambda_1="
+                         f"{lambda_1:.6e} lower={lower:.6e} b_sup={b_sup:.6e} "
+                         f"unconverged={u}")
 
-            # -- degrees --
-            if rcfg.optimization and iteration != 0:
-                _, perm = calc_degrees_pseudo_h2_host(
-                    u, nex, b_sup, lower, tol, ritzv[act], resid[act],
-                    resid_last[act], degrees[act], rcfg, is_sp)
-                if not np.array_equal(perm, np.arange(u)):
-                    full_perm = np.arange(K2)
-                    full_perm[act] = locked + perm
-                    V = permute_cols(V, full_perm)
-                    if R_prev is not None:
-                        R_prev = permute_cols(R_prev, full_perm)
+                # -- degrees --
+                with span("chase.degrees"):
+                    if rcfg.optimization and iteration != 0:
+                        _, perm = calc_degrees_pseudo_h2_host(
+                            u, nex, b_sup, lower, tol, ritzv[act], resid[act],
+                            resid_last[act], degrees[act], rcfg, is_sp)
+                        if not np.array_equal(perm, np.arange(u)):
+                            full_perm = np.arange(K2)
+                            full_perm[act] = locked + perm
+                            V = permute_cols(V, full_perm)
+                            if R_prev is not None:
+                                R_prev = permute_cols(R_prev, full_perm)
 
-            # -- filter on H² over the positive-candidate window, which is
-            # right-aligned at locked + u = nevex --
-            B = _col_block(rcfg.col_block, nevex)
-            # the ladder's gates (residuals are H-space, so the bf16
-            # relative gate scales by |λ|_max ≈ √b_sup)
-            min_resid = (float(np.min(resid[locked:nev])) if locked < nev
-                         else 0.0)
-            spec_scale = float(np.sqrt(max(b_sup, 0.0)))
-            use_bf16 = (rcfg.bf16_filter and is_sp and locked < nev
-                        and not is_complex
-                        and min_resid > rcfg.bf16_filter_threshold
-                        * spec_scale)
-            use_low = (not use_bf16 and rcfg.mixed_precision and not is_sp
-                       and locked < nev
-                       and min_resid > rcfg.mixed_precision_threshold)
-            use_refine = refine_capable and R_prev is not None
-            if use_refine:
-                # the deviation-form H² ladder: no threshold, never hands
-                # back to the problem's H
-                use_low = use_bf16 = False
-            H_f = op.H_low if (use_refine or use_bf16 or use_low) else op.H
-            ring, kernel = _chunk_product(route, rcfg.ring_backend,
-                                          H_f.dtype)
-            form = h2_form(grid, kernel)
-            if use_refine:
-                # H²-space tables: expansion points θ², interval [lower,
-                # b_sup], amplification point μ₁ = lambda_1; ONE
-                # problem-precision product turns the pencil-RR
-                # H-residuals into H²-residuals: r2 = (H + θ)·r
-                V, f_executed, f_hemms = _filter_refine_windowed(
-                    H_f, V, R_prev, ritzv[act], degrees[act], locked, nevex,
-                    B, lambda_1, lower, b_sup, rcfg.max_deg, ring, form=form,
-                    seed=lambda Rw, th: (ps.h2_residual(op.H, Rw, th, grid),
-                                         th ** 2))
-            else:
-                V, f_executed, f_hemms = (
-                    _filter_ring if ring else _filter_windowed)(
-                    H_f, V, degrees[act], locked, nevex, B, lambda_1,
-                    *ps._interval(lower, b_sup), form=form)
-            H_f = None
-            if perf is not None:
-                # H² = 2 matvecs per recurrence step
-                perf.add_filtered_vecs(
-                    H2.products * int(np.sum(degrees[act])),
-                    low=use_refine or use_bf16 or use_low,
-                    executed=f_executed)
-                perf.filter_hemm_steps += f_hemms
-                perf.add_iter_blocksize(u)
-            t0 = toc("Filter", t0)
+                # -- filter on H² over the positive-candidate window, which
+                # is right-aligned at locked + u = nevex --
+                with span("chase.filter"):
+                    B = _col_block(rcfg.col_block, nevex)
+                    # the ladder's gates (residuals are H-space, so the bf16
+                    # relative gate scales by |λ|_max ≈ √b_sup)
+                    min_resid = (float(np.min(resid[locked:nev]))
+                                 if locked < nev else 0.0)
+                    spec_scale = float(np.sqrt(max(b_sup, 0.0)))
+                    use_bf16 = (rcfg.bf16_filter and is_sp and locked < nev
+                                and not is_complex
+                                and min_resid > rcfg.bf16_filter_threshold
+                                * spec_scale)
+                    use_low = (not use_bf16 and rcfg.mixed_precision
+                               and not is_sp and locked < nev
+                               and min_resid > rcfg.mixed_precision_threshold)
+                    use_refine = refine_capable and R_prev is not None
+                    if use_refine:
+                        # the deviation-form H² ladder: no threshold, never
+                        # hands back to the problem's H
+                        use_low = use_bf16 = False
+                    H_f = (op.H_low if (use_refine or use_bf16 or use_low)
+                           else op.H)
+                    ring, kernel = _chunk_product(route, rcfg.ring_backend,
+                                                  H_f.dtype)
+                    form = h2_form(grid, kernel)
+                    if use_refine:
+                        # H²-space tables: expansion points θ², interval
+                        # [lower, b_sup], amplification point μ₁ = lambda_1;
+                        # ONE problem-precision product turns the pencil-RR
+                        # H-residuals into H²-residuals: r2 = (H + θ)·r
+                        V, f_executed, f_hemms = _filter_refine_windowed(
+                            H_f, V, R_prev, ritzv[act], degrees[act], locked,
+                            nevex, B, lambda_1, lower, b_sup, rcfg.max_deg,
+                            ring, form=form,
+                            seed=lambda Rw, th: (
+                                ps.h2_residual(op.H, Rw, th, grid), th ** 2))
+                    else:
+                        V, f_executed, f_hemms = (
+                            _filter_ring if ring else _filter_windowed)(
+                            H_f, V, degrees[act], locked, nevex, B, lambda_1,
+                            *ps._interval(lower, b_sup), form=form)
+                    H_f = None
+                    if perf is not None:
+                        # H² = 2 matvecs per recurrence step
+                        perf.add_filtered_vecs(
+                            H2.products * int(np.sum(degrees[act])),
+                            low=use_refine or use_bf16 or use_low,
+                            executed=f_executed)
+                        perf.filter_hemm_steps += f_hemms
+                        perf.add_iter_blocksize(u)
+                # -- K-conjugation: mirror [locked, locked+u) → right of
+                # active --
+                with span("chase.kconj"):
+                    V = _mirror(V, K2, locked, u, grid)
+                with span("chase.qr"):
+                    # -- cond estimate (squared space,
+                    # algorithm.inc:2034-2060) --
+                    cc = (b_sup + lower) / 2
+                    ee = (b_sup - lower) / 2
+                    if ee <= 0:
+                        ee = abs(lower - b_sup) / 2 or 1.0
+                    t_1 = (lambda_1 - cc) / ee
+                    t_k = ((float(ritzv[locked]) ** 2 - cc) / ee
+                           if iteration > 0 else t_1)
+                    rho_1, rho_k = _rho(t_1), _rho(t_k)
+                    dmax = int(np.max(degrees[act]))
+                    with np.errstate(over="ignore"):
+                        cond = float(rho_k ** degrees[locked]
+                                     * rho_1 ** (dmax - degrees[locked]))
+                    if not np.isfinite(cond):
+                        cond = np.finfo(np.float64).max
 
-            # -- K-conjugation: mirror [locked, locked+u) → right of active --
-            V = _mirror(V, K2, locked, u, grid)
-            t0 = toc("ApplyKconjugate", t0)
+                    # -- QR (S-orthogonalizing against locked) --
+                    V = orthonormalize_pseudo(V, locked, cond, rcfg, grid)
+                # -- pseudo RR + residuals (fused) --
+                with span("chase.rr"):
+                    V, th_dev, rs_dev, *Rv, ok = \
+                        ps.rayleigh_ritz_residuals_pseudo(
+                            op.H, V, locked, polish=polish,
+                            want_vectors=refine_capable, grid=grid)
+                    if refine_capable:
+                        R_prev = Rv[0]
+                    if not ok:
+                        log.warn("pseudo-RR Cholesky of QᴴSHQ failed — "
+                                 "subspace drifted; results this iteration "
+                                 "may be poor", "linalg")
+                    ritzv[act] = _host(th_dev, "solver_pseudo.rr")[act]
+                    resid[act] = _host(rs_dev, "solver_pseudo.rr")[act]
+                    if grid is not None:
+                        grid.check_peers()
+                with span("chase.locking"):
+                    # -- phantom ± pair purge (the reference keeps it
+                    # disabled) --
+                    if rcfg.phantom_purge:
+                        rv = ritzv[act]
+                        n_neg = int(np.sum(rv < 0))
+                        n_pos = u - n_neg
+                        reinit = []
+                        for kk in range(min(nex, n_neg, n_pos)):
+                            i, j = n_neg - 1 - kk, n_neg + kk
+                            la, lb = abs(rv[i]), abs(rv[j])
+                            ratio = lb / (la + 1e-30) if la < lb \
+                                else la / (lb + 1e-30)
+                            if ratio > 1.5:
+                                reinit += [i, j]
+                        if reinit:
+                            log.debug(f"[purge] reinitializing {len(reinit)} "
+                                      f"outlier ± pair column(s)")
+                            cols = to_device(locked + np.asarray(reinit),
+                                             "solver_pseudo.purge",
+                                             device=device)
+                            V[:, cols] = op.local_rows(torch.randn(
+                                (N, len(reinit)), generator=generator,
+                                device=device, dtype=op.dtype))
 
-            # -- cond estimate (squared space, algorithm.inc:2034-2060) --
-            cc = (b_sup + lower) / 2
-            ee = (b_sup - lower) / 2
-            if ee <= 0:
-                ee = abs(lower - b_sup) / 2 or 1.0
-            t_1 = (lambda_1 - cc) / ee
-            t_k = ((float(ritzv[locked]) ** 2 - cc) / ee) if iteration > 0 \
-                else t_1
-            rho_1, rho_k = _rho(t_1), _rho(t_k)
-            dmax = int(np.max(degrees[act]))
-            with np.errstate(over="ignore"):
-                cond = float(rho_k ** degrees[locked]
-                             * rho_1 ** (dmax - degrees[locked]))
-            if not np.isfinite(cond):
-                cond = np.finfo(np.float64).max
+                    if resid_file is not None:
+                        for _ in range(locked):
+                            resid_file.write(f"{iteration},-1.0\n")
+                        for rr_ in resid[act][np.argsort(ritzv[act],
+                                                         kind="stable")]:
+                            resid_file.write(f"{iteration},{rr_}\n")
 
-            # -- QR (S-orthogonalizing against locked) --
-            V = orthonormalize_pseudo(V, locked, cond, rcfg, grid)
-            t0 = toc("Qr", t0)
+                    # -- bound refresh from the sorted active Ritz values --
+                    srt = np.argsort(ritzv[act], kind="stable")
+                    q95 = max(int(u * 0.95) - 1, 0)
+                    new_mu_nevex = (float(ritzv[act][srt[q95]])
+                                    * rcfg.decaying_rate)
 
-            # -- pseudo RR + residuals (fused) --
-            V, th_dev, rs_dev, *Rv, ok = ps.rayleigh_ritz_residuals_pseudo(
-                op.H, V, locked, polish=polish, want_vectors=refine_capable,
-                grid=grid)
-            if refine_capable:
-                R_prev = Rv[0]
-            if not ok:
-                log.warn("pseudo-RR Cholesky of QᴴSHQ failed — subspace "
-                         "drifted; results this iteration may be poor",
-                         "linalg")
-            ritzv[act] = _host(th_dev)[act]
-            resid[act] = _host(rs_dev)[act]
-            if grid is not None:
-                grid.check_peers()
-            t0 = toc("Rr", t0)
-
-            # -- phantom ± pair purge (the reference keeps it disabled) --
-            if rcfg.phantom_purge:
-                rv = ritzv[act]
-                n_neg = int(np.sum(rv < 0))
-                n_pos = u - n_neg
-                reinit = []
-                for kk in range(min(nex, n_neg, n_pos)):
-                    i, j = n_neg - 1 - kk, n_neg + kk
-                    la, lb = abs(rv[i]), abs(rv[j])
-                    ratio = lb / (la + 1e-30) if la < lb \
-                        else la / (lb + 1e-30)
-                    if ratio > 1.5:
-                        reinit += [i, j]
-                if reinit:
-                    log.debug(f"[purge] reinitializing {len(reinit)} "
-                              f"outlier ± pair column(s)")
-                    cols = torch.as_tensor(locked + np.asarray(reinit),
-                                           device=device)
-                    V[:, cols] = op.local_rows(torch.randn(
-                        (N, len(reinit)), generator=generator, device=device,
-                        dtype=op.dtype))
-
-            if resid_file is not None:
-                for _ in range(locked):
-                    resid_file.write(f"{iteration},-1.0\n")
-                for rr_ in resid[act][np.argsort(ritzv[act], kind="stable")]:
-                    resid_file.write(f"{iteration},{rr_}\n")
-
-            # -- bound refresh from the sorted active Ritz values --
-            srt = np.argsort(ritzv[act], kind="stable")
-            q95 = max(int(u * 0.95) - 1, 0)
-            new_mu_nevex = float(ritzv[act][srt[q95]]) * rcfg.decaying_rate
-
-            # -- locking (v3) --
-            new_converged, perm, early = locking_pseudo_v3_host(
-                ritzv[act], resid[act], resid_last[act], u, nex, tol,
-                iteration)
-            early_all.extend(early)
-            if new_converged:
-                if not np.array_equal(perm, np.arange(u)):
-                    full_perm = np.arange(K2)
-                    full_perm[act] = locked + perm
-                    V = permute_cols(V, full_perm)
-                    if R_prev is not None:
-                        R_prev = permute_cols(R_prev, full_perm)
-                # mirror the newly locked pairs into the right-end locked
-                # region
-                V = _mirror(V, K2, locked, new_converged, grid)
-            locked += new_converged
-            unconverged -= new_converged
-            iteration += 1
-            t0 = toc("Resids_Locking", t0)
-            log.info(f"  -> new_converged={new_converged} locked={locked}")
+                    # -- locking (v3) --
+                    new_converged, perm, early = locking_pseudo_v3_host(
+                        ritzv[act], resid[act], resid_last[act], u, nex, tol,
+                        iteration)
+                    early_all.extend(early)
+                    if new_converged:
+                        if not np.array_equal(perm, np.arange(u)):
+                            full_perm = np.arange(K2)
+                            full_perm[act] = locked + perm
+                            V = permute_cols(V, full_perm)
+                            if R_prev is not None:
+                                R_prev = permute_cols(R_prev, full_perm)
+                        # mirror the newly locked pairs into the right-end
+                        # locked region
+                        V = _mirror(V, K2, locked, new_converged, grid)
+                    locked += new_converged
+                    unconverged -= new_converged
+                    iteration += 1
+                log.info(f"  -> new_converged={new_converged} locked={locked}")
     finally:
         if resid_file is not None:
             resid_file.close()
@@ -662,9 +666,6 @@ def solve_pseudo(op: DenseOperator, nev: int, nex: int,
         V = permute_cols(V, full_perm)
         ritzv[:n_reorder] = vals[order]
         resid[:n_reorder] = resid[:n_reorder][order]
-
-    if timing:
-        toc("All", t_all0)
 
     return SolveResult(
         ritzv=ritzv[:nev].copy(), V=V, resid=resid[:nev].copy(),

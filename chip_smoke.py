@@ -175,7 +175,7 @@ no result line) on any fault:
            N=4096, nev=200, nex=56 natively, eigsh_pseudo and
            eigsh_pseudo_fused.  Each prints the first and warm TTS and
            iterations of both, the host syncs per fused iteration
-           (torch.cuda.set_sync_debug_mode, at most 3) and, on the kernel
+           (the program's count, at most 3) and, on the kernel
            ring, ring_hemm and pre-pass launches against the solver's HEMM
            steps (equal); the phase's gates hold for both solvers.  The
            fused solvers on the kernel's other routes, each the same way
@@ -1134,31 +1134,37 @@ def _peer_counts() -> tuple:
 # the widths k of the kernel table's rows (PERF.md §6): a ring_hemm call
 # of width k counts in the first row whose width is k or more
 WIDTH_ROWS = (750, 1500, 2250, 3000)
-ROUTES = {torch.float32: "f32", torch.complex64: "c64",
-          torch.bfloat16: "bf16"}
+# the program's count of ring_hemm launches by route and width
+# (``ops.ring_hemm.LAUNCHES``): "ring_hemm:<route>[ trans] k=<k>"
+_ROUTE_KEY = re.compile(r"ring_hemm:(\w+)(?: trans)? k=(\d+)")
+
+
+def _since(before: dict, prefix: str) -> dict:
+    """The program's counts (``perf.COUNTS``) under keys that start with
+    ``prefix``, less ``before`` (a snapshot), where they grew."""
+    from chase_tpu_torch.perf import COUNTS
+    out = {}
+    for key, n in list(COUNTS.items()):
+        if key.startswith(prefix) and n > before.get(key, 0):
+            out[key[len(prefix):]] = n - before.get(key, 0)
+    return out
 
 
 @contextlib.contextmanager
 def launch_widths():
-    """Inside the block every ring_hemm call's route and width row (of
-    :data:`WIDTH_ROWS`) is counted into the yielded Counter: the wrapper
-    is looked up at call time, so a shim records V's width and calls it;
-    the launch counts (``LAUNCHES``) are the wrapper's own, untouched."""
+    """Inside the block every ring_hemm launch's route and width row (of
+    :data:`WIDTH_ROWS`) is counted into the yielded Counter, from the
+    program's own counts by route and width, read before and after it."""
     import collections
-    from chase_tpu_torch.ops import ring_hemm as rh
-    real, seen = rh.ring_hemm, collections.Counter()
-
-    def shim(H, V, **kw):
-        k = V.shape[1]
-        seen[ROUTES.get(H.dtype, str(H.dtype)),
-             next((w for w in WIDTH_ROWS if k <= w), k)] += 1
-        return real(H, V, **kw)
-
-    rh.ring_hemm = shim
+    from chase_tpu_torch.perf import COUNTS
+    before, seen = dict(COUNTS), collections.Counter()
     try:
         yield seen
     finally:
-        rh.ring_hemm = real
+        for key, n in _since(before, "ring_hemm:").items():
+            m = _ROUTE_KEY.fullmatch("ring_hemm:" + key)
+            k = int(m[2])
+            seen[m[1], next((w for w in WIDTH_ROWS if k <= w), k)] += n
 
 
 def widths_line(seen) -> str:
@@ -1849,24 +1855,44 @@ def phase_bslice(dev, H, f32_warm: float) -> dict:
 
 
 def count_syncs(fn):
-    """``fn()`` with torch's CUDA sync debug mode on: (result, a Counter
-    by source line of the synchronizing operations it reported from the
-    port's own lines — the ``torch.cuda.synchronize`` around a timed call
-    is this script's, not the solver's)."""
+    """``fn()`` and the host syncs it made: (result, a Counter by site of
+    the program's own count, ``perf.COUNTS``' "host_sync:<site>" keys —
+    the ``torch.cuda.synchronize`` around a timed call is this script's,
+    not the solver's)."""
     import collections
+    from chase_tpu_torch.perf import COUNTS, HOST_SYNC
+    before = dict(COUNTS)
+    out = fn()
+    return out, collections.Counter(_since(before, HOST_SYNC))
+
+
+def debug_syncs(fn):
+    """``fn()`` under torch's CUDA sync debug mode: (result, the number of
+    synchronizing operations it reported with a frame of the port on the
+    stack) — a witness of :func:`count_syncs` that does not rest on the
+    program's own count."""
     import os
+    import traceback
     import warnings
-    with warnings.catch_warnings(record=True) as rec:
+    port = f"chase_tpu_torch{os.sep}"
+    found = []
+    orig = warnings.showwarning
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message) and any(
+                port in f.filename for f in traceback.extract_stack()):
+            found.append(1)
+
+    with warnings.catch_warnings():
         warnings.simplefilter("always")
+        warnings.showwarning = show
         torch.cuda.set_sync_debug_mode("warn")
         try:
             out = fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return out, collections.Counter(
-        f"{os.path.basename(w.filename)}:{w.lineno}" for w in rec
-        if "synchroniz" in str(w.message)
-        and f"chase_tpu_torch{os.sep}" in w.filename)
+            warnings.showwarning = orig
+    return out, len(found)
 
 
 def timed(fn) -> tuple:
@@ -1886,18 +1912,26 @@ def fused_runs(fused, p: int = 1) -> dict:
     :func:`launch_widths`); the warm call, its host syncs counted; and a run
     stopped after one iteration (``max_iter=1``), whose syncs are taken
     off the warm call's, over the iterations left: the syncs of an
-    iteration."""
+    iteration.  On one device that run's syncs are also counted by
+    torch's sync debug mode (:func:`debug_syncs`, ``witness``; None on a
+    grid, whose ranks share the process's debug mode)."""
     _zero_ring_counts()
     with launch_widths() as widths:
         first, res = timed(lambda: fused(None))
     launches = _ring_counts() + _peer_counts()
     (warm, res2), sites = count_syncs(lambda: timed(lambda: fused(None)))
-    (_, res1), sites1 = count_syncs(lambda: timed(lambda: fused(1)))
+    witness = None
+    if p == 1:
+        ((_, res1), sites1), witness = debug_syncs(
+            lambda: count_syncs(lambda: timed(lambda: fused(1))))
+    else:
+        (_, res1), sites1 = count_syncs(lambda: timed(lambda: fused(1)))
     syncs, syncs1 = sum(sites.values()), sum(sites1.values())
     return dict(first=first, warm=warm, res=res, res2=res2, res1=res1,
                 launches=launches, widths=widths,
                 steps=res.perf.filter_hemm_steps,
-                syncs=syncs, syncs1=syncs1, sites=sites, p=p,
+                syncs=syncs, syncs1=syncs1, witness=witness, sites=sites,
+                p=p,
                 per_iter=(syncs - syncs1) / max(res2.iterations - 1, 1))
 
 
@@ -1926,8 +1960,9 @@ LAUNCH_NAMES = ("ring_hemm / tf32_split / bf16_pack / ring_hemm_peers / "
 
 def check_fused_runs(phase: str, runs: dict, kernel: bool = True,
                      bf16_rung: bool = False) -> None:
-    """The gates of :func:`fused_runs`: the sync count works, at most 3
-    host syncs per iteration, and with ``kernel`` every HEMM step one main
+    """The gates of :func:`fused_runs`: the sync count works and, where
+    torch's sync debug mode witnessed it, agrees with it; at most 3 host
+    syncs per iteration; and with ``kernel`` every HEMM step one main
     launch of the kernel and its one pre-pass per rank
     (:func:`launches_ok`, of both routes on the ``bf16_rung``; none
     without)."""
@@ -1937,6 +1972,11 @@ def check_fused_runs(phase: str, runs: dict, kernel: bool = True,
         raise AssertionError(f"{phase}: the sync count does not work "
                              f"({syncs} syncs in {res2.iterations} "
                              f"iterations)")
+    if runs.get("witness") not in (None, runs.get("syncs1")):
+        raise AssertionError(f"{phase}: the program counted "
+                             f"{runs.get('syncs1')} host syncs in one "
+                             f"iteration's run, torch's sync debug mode "
+                             f"{runs['witness']}")
     if runs["per_iter"] > 3:
         raise AssertionError(f"{phase}: {runs['per_iter']:.2f} host syncs "
                              f"per fused iteration (at most 3)")
@@ -1992,7 +2032,7 @@ def fused_beside_host(phase: str, what: str, fused, host, gate,
                f"{res.iterations} / {res2.iterations} iterations; "
                f"{host_line}: warm fused / host {warm / host_warm[0]:.3f}; "
                f"host syncs {syncs} in the warm call, {syncs1} in one "
-               f"of 1 iteration: {per_iter:.2f} per iteration (by line: "
+               f"of 1 iteration: {per_iter:.2f} per iteration (by site: "
                f"{dict(sites.most_common(8))}); {LAUNCH_NAMES} "
                f"{launches}, the solver's HEMM steps {steps} "
                f"({widths_line(runs['widths'])}); filtered vecs "

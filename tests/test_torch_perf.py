@@ -1,8 +1,9 @@
 """The port's perf helpers (``chase_tpu_torch.perf``): the card's peaks
 (None on the CPU and for a card the table does not name; the H100 SXM's
 data-sheet figures with the device name monkeypatched), the filter's rung
-and fraction of peak in ``report``, ``PhaseTimer`` and
-``profiler_trace``, beside the JAX package's ``chase_tpu.perf``."""
+and fraction of peak in ``report``, the phase clock behind the spans
+(``PhaseClock``) and ``profiler_trace``, beside the JAX package's
+``chase_tpu.perf``."""
 
 import json
 import os
@@ -103,18 +104,29 @@ def test_report_prints_the_fraction_of_peak(card):
 
 
 def test_phase_timer():
-    """done() records the time since the last mark under the phase and
-    restarts the clock; without a PerfData it records nothing."""
+    """A PhaseClock on the CPU: each span of PHASE_OF that closes marks its
+    phase's end, the phase's time running from the previous mark; spans
+    without a phase mark nothing, and without a clock nothing is timed."""
     p = perf.PerfData()
-    with perf.PhaseTimer(p, "Qr") as t:
-        time.sleep(0.02)
-        t.done(torch.ones(3))
-        first = p.timings["Qr"]
-        time.sleep(0.01)
-        t.done()
-    assert 0.02 <= first < p.timings["Qr"]
-    with perf.PhaseTimer(None, "Qr") as t:
-        t.done(torch.ones(3))
+    with perf.PhaseClock(p, torch.device("cpu")):
+        with perf.span("chase.qr"):
+            time.sleep(0.02)
+        with perf.span("chase.iteration"):
+            time.sleep(0.01)
+            with perf.span("chase.rr"):
+                pass
+        with perf.span("chase.qr"):
+            time.sleep(0.01)
+    t = p.timings
+    assert 0.03 <= t["Qr"] and 0.01 <= t["Rr"]
+    assert t["All"] >= t["Qr"] + t["Rr"]
+    idle = perf.PerfData()
+    with perf.span("chase.qr"):
+        time.sleep(0.001)
+    assert idle.timings == perf.PerfData().timings
+    with perf.phase_clock(None, torch.device("cpu")):
+        with perf.span("chase.qr"):
+            pass
 
 
 def test_profiler_trace_writes_a_trace(tmp_path):

@@ -7,7 +7,8 @@ f32 and c64, ``bf16_pack`` for bf16); a fused solve on the bf16 rung
 filters on the bf16 shadow while its low phase holds and on the f32 H
 after it, so its pre-passes may be of both routes, ``bf16_pack`` at least
 once.  On a (p, 1) grid the peer route's three kernels, once per step,
-and no ``ring_hemm`` step.
+and no ``ring_hemm`` step.  ``launch_widths`` and ``count_syncs`` read the
+program's own counts (``perf.COUNTS``) made inside their block.
 """
 
 import importlib.util
@@ -68,3 +69,52 @@ def test_check_fused_runs_takes_the_rung_gate():
     chip_smoke.check_fused_runs("fbslice", runs, bf16_rung=True)
     with pytest.raises(AssertionError, match="against 36 HEMM steps"):
         chip_smoke.check_fused_runs("fslice", runs)
+
+
+def test_check_fused_runs_holds_the_count_to_the_debug_mode():
+    """Where torch's sync debug mode witnessed the one-iteration run, the
+    program's count of it has to agree."""
+    class Res:
+        def __init__(self, iterations):
+            self.iterations = iterations
+
+    runs = dict(res1=Res(1), res2=Res(5), syncs=15, syncs1=5, witness=5,
+                per_iter=2.5, launches=(36, 36, 0, 0, 0, 0), steps=36, p=1)
+    chip_smoke.check_fused_runs("fslice", runs)
+    runs["witness"] = 6
+    with pytest.raises(AssertionError, match="sync debug mode 6"):
+        chip_smoke.check_fused_runs("fslice", runs)
+
+
+def test_launch_widths_reads_the_program_counts():
+    """launch_widths rows the program's route-and-width launch counts made
+    inside the block (trans launches under their route) and nothing made
+    before it."""
+    from chase_tpu_torch import perf
+    perf.count("ring_hemm:f32 k=3000")
+    with chip_smoke.launch_widths() as widths:
+        perf.count("ring_hemm:c64 k=3000")
+        perf.count("ring_hemm:c64 trans k=1400")
+        perf.count("ring_hemm:bf16 k=760", 2)
+        perf.host_sync("blocks.permute_cols")
+    assert dict(widths) == {("c64", 3000): 1, ("c64", 1500): 1,
+                            ("bf16", 1500): 2}
+    assert chip_smoke.widths_line(widths) == (
+        "bf16 k≤1500: 2, c64 k≤1500: 1, c64 k≤3000: 1")
+
+
+def test_count_syncs_reads_the_program_counts():
+    from chase_tpu_torch import perf
+    for _ in range(5):
+        perf.host_sync("solver.rr")
+
+    def fn():
+        perf.host_sync("solver.rr")
+        perf.host_sync("solver.rr")
+        perf.host_sync("qr.cholqr")
+        perf.count("ring_hemm")
+        return "done"
+
+    out, sites = chip_smoke.count_syncs(fn)
+    assert out == "done"
+    assert dict(sites) == {"solver.rr": 2, "qr.cholqr": 1}

@@ -1,9 +1,10 @@
 // hopper_tf32.cuh — building blocks of the port's tensor-core kernels on
-// Hopper (sm_90a): the 3xTF32 split, the bf16 rounding, the tile of the
-// main kernels' B operand, mbarriers (also across a thread-block
+// Hopper (sm_90a): the 3xTF32 split, the bf16 rounding, the tiles of the
+// main kernels' B operands, mbarriers (also across a thread-block
 // cluster), TMA tile loads (also multicast to a cluster), the register-A
-// wgmma m64n128k8 (tf32) and the shared-memory wgmma m64nNk16 (bf16, N =
-// 128, 192, 256), with f32 accumulation, as inline PTX.
+// wgmma m64n128k8 and m64n64k8 (tf32) and the shared-memory wgmma
+// m64nNk16 (bf16, N = 128, 192, 256), with f32 accumulation, as inline
+// PTX.
 //
 // Layouts (PTX ISA, "Register fragments and shared memory matrix layouts"
 // for wgmma .tf32 and .bf16; the same as CuTe's ALayout_64x8 /
@@ -21,6 +22,9 @@
 //     CU_TENSOR_MAP_SWIZZLE_128B writes — 16-byte chunk c of row r sits
 //     at chunk c ^ (r % 8) — so a tile base must be 1024-byte aligned.
 //     32-bit operands have no transposed form, so B is K-major for both.
+//     The c64 route's B tiles have rows of 64 bytes (16 floats) with the
+//     64-byte swizzle (CU_TENSOR_MAP_SWIZZLE_64B: chunk c of row r at c ^
+//     ((r / 2) % 4), a 512-byte pattern).
 //   * a 16-bit A may also be MN-major ("transposed", the wgmma's
 //     imm-trans-a = 1): rows of 128 bytes are K rows holding 64 M
 //     elements, with the same swizzle; a 64 × 16 step reads two groups of
@@ -66,7 +70,7 @@ __device__ __forceinline__ uint16_t bf16_rne(float x) {
   return static_cast<uint16_t>((u + 0x7FFFu + ((u >> 16) & 1u)) >> 16);
 }
 
-// ---- the main kernels' B operand ---------------------------------------------
+// ---- the main kernels' B operands -------------------------------------------
 // One 32 × 32 tile of B, the layout the main kernels read V in (K-major,
 // row stride b_pad, zero-padded): rows j0 … j0+31 of a row-major float
 // matrix X (row stride ldx floats; rows outside [0, rows) and columns from
@@ -74,35 +78,25 @@ __device__ __forceinline__ uint16_t bf16_rne(float x) {
 // n0+31 at K columns K0 … K0+31 (those below kend):
 //   MODE 0 (f32): split into TF32 hi and lo, the lo plane `plane` floats
 //     after the hi one;
-//   MODE 1 (c64): the same of the real expansion of a c64 X seen as floats
-//     (rows and cols count expansion rows and floats): row 2j is X[j], row
-//     2j+1 is i·X[j] (re, im → −im, re), or −i·X[j] with conj = 1;
 //   MODE 2 (bf16): B bf16, X rounded to nearest even.
-// The pre-passes of ring_hemm.cu and the peer gather of ring_peers.cu both
-// write B with it.  X = nullptr writes NaN in place of X's entries: a
-// gather whose chunk never came poisons its product.  256 threads (32 × 8);
-// `tile` may be reused on return.
+// (MODE 1, c64, is c64_operand_tile below.)  The pre-passes of
+// ring_hemm.cu and the peer gather of ring_peers.cu both write B with
+// it.  X = nullptr writes NaN in place of X's entries: a gather whose
+// chunk never came poisons its product.  256 threads (32 × 8); `tile` may
+// be reused on return.
 template <int MODE>
 __device__ __forceinline__ void b_operand_tile(
     float (&tile)[32][33], const float* __restrict__ X, long long ldx,
-    int j0, int rows, int n0, int cols, int conj, void* __restrict__ B,
-    int K0, int kend, int b_pad, long long plane) {
+    int j0, int rows, int n0, int cols, void* __restrict__ B, int K0,
+    int kend, int b_pad, long long plane) {
   const int tx = threadIdx.x, ty = threadIdx.y;
 #pragma unroll
   for (int i = ty; i < 32; i += 8) {
     const int j = j0 + i, n = n0 + tx;
     float x = 0.0f;
-    if (j >= 0 && j < rows && n < cols) {
-      if (X == nullptr) {
-        x = __int_as_float(0x7FC00000);
-      } else if (MODE == 1) {
-        const bool odd = j & 1;                  // an ±i·X row
-        x = __ldcg(X + (long long)(j >> 1) * ldx + (odd ? n ^ 1 : n));
-        if (odd && (n & 1) == conj) x = -x;
-      } else {
-        x = __ldcg(X + (long long)j * ldx + n);
-      }
-    }
+    if (j >= 0 && j < rows && n < cols)
+      x = X == nullptr ? __int_as_float(0x7FC00000)
+                       : __ldcg(X + (long long)j * ldx + n);
     tile[i][tx] = x;
   }
   __syncthreads();
@@ -119,6 +113,54 @@ __device__ __forceinline__ void b_operand_tile(
         split_tf32(x, hi, lo);
         static_cast<float*>(B)[o] = __uint_as_float(hi);
         static_cast<float*>(B)[plane + o] = __uint_as_float(lo);
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// The c64 route's B (MODE 1): one 32 × 32 tile of a c64 X (rows j0 …
+// j0+31 of `rows`, row stride ldx floats; complex columns n0 … n0+31 of
+// `cols`; outside them 0) as six K-major planes, `plane` floats apart —
+// Vr, Vd = fl(Vi − Vr) and Vs = fl(Vr + Vi), each TF32 hi then lo — the
+// B operands of the three-product (3M) complex product (ring_hemm.cu's
+// c64 note).  conj = 1 takes conj(X) (Vi = −Im X).  Otherwise as
+// b_operand_tile.
+__device__ __forceinline__ void c64_operand_tile(
+    float (&tile)[2][32][33], const float* __restrict__ X, long long ldx,
+    int j0, int rows, int n0, int cols, int conj, float* __restrict__ B,
+    int K0, int kend, int b_pad, long long plane) {
+  const int tx = threadIdx.x, ty = threadIdx.y;
+#pragma unroll
+  for (int i = ty; i < 32; i += 8) {
+    const int j = j0 + i, n = n0 + tx;
+    float2 z = make_float2(0.0f, 0.0f);
+    if (j >= 0 && j < rows && n < cols) {
+      if (X == nullptr) {
+        z.x = z.y = __int_as_float(0x7FC00000);
+      } else {
+        z = __ldcg(reinterpret_cast<const float2*>(X + (long long)j * ldx) +
+                   n);
+        if (conj) z.y = -z.y;
+      }
+    }
+    tile[0][i][tx] = z.x;
+    tile[1][i][tx] = z.y;
+  }
+  __syncthreads();
+  const int K = K0 + tx;
+  if (K < kend) {
+#pragma unroll
+    for (int i = ty; i < 32; i += 8) {
+      const float re = tile[0][tx][i], im = tile[1][tx][i];
+      const float part[3] = {re, im - re, re + im};
+      const long long o = (long long)(n0 + i) * b_pad + K;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        uint32_t hi, lo;
+        split_tf32(part[c], hi, lo);
+        B[2 * c * plane + o] = __uint_as_float(hi);
+        B[(2 * c + 1) * plane + o] = __uint_as_float(lo);
       }
     }
   }
@@ -247,6 +289,15 @@ __device__ __forceinline__ uint64_t desc_kmajor_sw128(const void* tile) {
          (1ull << 62);
 }
 
+// the same for a K-major tile of 64-byte rows with the 64-byte swizzle
+// (8-row groups 512 B apart, layout SW64); a k-step of 8 floats advances
+// the start by 32 B, as above.
+__device__ __forceinline__ uint64_t desc_kmajor_sw64(const void* tile) {
+  const uint64_t addr = smem_u32(tile);
+  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((512ull >> 4) << 32) |
+         (2ull << 62);
+}
+
 // shared-memory descriptor of an MN-major, 128-byte-swizzled 16-bit
 // tile (K rows of 64 MN elements): the stride between 8-row K groups
 // (bits 32-45) is 1024 B, and so is the leading offset (bits 16-29), the
@@ -311,6 +362,24 @@ __device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64],
       "{%64, %65, %66, %67}, %69, p, 1, 1;\n}\n"
       : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24),
         HOPPER_D8(32), HOPPER_D8(40), HOPPER_D8(48), HOPPER_D8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(accumulate),
+        "l"(desc_b));
+}
+
+// the same for a 64 x 64 x 8 step (32 accumulator registers)
+__device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t desc_b,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %36, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, "
+      "{%32, %33, %34, %35}, %37, p, 1, 1;\n}\n"
+      : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(accumulate),
         "l"(desc_b));
 }

@@ -1,10 +1,12 @@
 // ring_hemm — the Chebyshev filter's HEMM, W (=|+=) H[:, col0:col0+b] · V,
 // hand-written in CUDA C++ for Hopper (sm_90a): TMA loads into an mbarrier
-// pipeline feeding register-A wgmma, with 3xTF32 for f32 accuracy (f32 and,
-// through its float view, c64), and the bf16 route (bf16 H, f32 V rounded
-// to bf16, f32 sums) for the bf16 rung, a kernel of its own: shared-memory
-// wgmma on a 128×192 tile in 2-CTA clusters that share V's tile by TMA
-// multicast (its note is at ring_hemm_bf16_kernel below).
+// pipeline feeding register-A wgmma, with 3xTF32 for f32 accuracy: the f32
+// route, and the c64 route in a kernel of its own that makes the complex
+// product of three real products (Gauss's 3M form; the complex64 bullet
+// below); and the bf16 route (bf16 H, f32 V rounded to bf16, f32 sums)
+// for the bf16 rung, a kernel of its own: shared-memory wgmma on a 128×192
+// tile in 2-CTA clusters that share V's tile by TMA multicast (its note is
+// at ring_hemm_bf16_kernel below).
 //
 // Replaces the TPU kernel chase_tpu/ops/pallas_ring.py::_ring_kernel
 // (built by make_hemm_local, run by parallel/ring.py::
@@ -23,10 +25,11 @@
 // ring, which the JAX package runs as XLA's matmul on h_blk.conj().T
 // (chase_tpu/parallel/ring.py::_ring2d_pair).  It reads the rank's block
 // in place, with no transposed copy: the A tile is loaded MN-major (the
-// note at tile_row; the bf16 kernel's note), the c64 conjugate is the
-// complex pre-pass's −i·V rows, and row0 is TMA's outer coordinate, so
-// the route has no `off` shift.  Same bound, tiles, stages, promotion
-// and epilogue as the route it is the transpose of.
+// note at tile_row; the bf16 kernel's note), the c64 conjugate comes of
+// Hᴴ·V = conj(Hᵀ·conj(V)) (the pre-pass splits conj(V), the epilogue
+// negates Im), and row0 is TMA's outer coordinate, so the route has no
+// `off` shift.  Same bound, tiles, stages, promotion and epilogue as the
+// route it is the transpose of.
 //
 // What bounds it on an H100: one call at the solver's shapes (K = N =
 // 30000, width k <= 3000) is 2·N²·k = 5.4 TFLOP against 3.6 GB of H, so it
@@ -70,18 +73,46 @@
 //     transposed to K-major like the f32 route's B (wgmma could read a
 //     transposed 16-bit B; K-major keeps the TMA boxes and the descriptor
 //     of both operands alike).
-//   * complex64 (ring_hemm_split_c64): the main kernel is the f32 one, run
-//     on the float view of a c64 H (m × 2n floats, [re, im, ...] rows).
-//     The complex pre-pass writes, for a c64 V (b × k), the real (2b × 2k)
-//     B with row 2j = V[j] and row 2j+1 = i·V[j], both viewed as floats;
-//     then Hf·B, over K = 2b from float column 2·col0, is H·V viewed as
-//     floats.  That is 8·m·b·k FLOPs, those of a complex product, where
-//     the JAX package's real-pair embedding (a 2N real problem) spends
-//     16·m·b·k.  Everything of the main kernel (masking, ragged edges,
-//     TMA alignment, strided W) carries over: the wrapper passes float
-//     strides and columns.  K doubles, and the per-tile promotion below
-//     keeps its error at f32's (the chip gate holds it to a c128 product).
-//   * the f32 main kernel, ring_hemm_kernel<E> for E = Tf32x3 (f32, c64),
+//   * complex64 (ring_hemm_kernel_c64, pre-pass split_c64_kernel): the
+//     complex product in three real products (3M, as cublasCgemm3m).
+//     With H = Hr + i·Hi, V = Vr + i·Vi, Hs = fl(Hr + Hi), Vd = fl(Vi −
+//     Vr), Vs = fl(Vr + Vi): k1 = Hs·Vr, k2 = Hr·Vd, k3 = Hi·Vs; Re = k1 −
+//     k3, Im = k1 + k2.  6·m·b·k FLOPs done for the complex product's
+//     8·m·b·k (which the yardstick, portbench/roofline.py, still counts):
+//     9 m64n64k8 wgmma per 8-deep complex k-step where the real expansion
+//     it replaced (rows V[j] and i·V[j] of a (2b × 2k) real B under the
+//     f32 kernel on H's float view) issued 12 m64n128k8 per 16 complex; B
+//     read by wgmma and TMA bytes per complex MAC fall by 25% and 17% (40
+//     KB a stage for 16 × 128 × 64 complex MACs).  The kernel reads H's
+//     interleaved (re, im) pairs and forms Hs in registers, so H costs no
+//     extra memory; the pre-pass writes Vr, Vd, Vs in TF32 hi/lo: 6·b·k
+//     floats of scratch where the expansion took 8·b·k.  Each k is a
+//     3xTF32 product, promoted per 16-deep K tile, as the expansion's
+//     32-float tile was.  Gauss's form (T1 = Hr·Vr, T2 = Hi·Vi, T3 =
+//     Hs·Vs; Re = T1 − T2, Im = T3 − T1 − T2) costs five adds a promotion
+//     where this one costs four, and ran 3–8% slower in this kernel
+//     (probes/c64_route_design.py; PERF.md, PR 20).  Error: Gauss's Im
+//     carries |Hs||Vs| + |Hr||Vr| + |Hi||Vi| times the products' f32-class
+//     ε; here Re carries |Hs||Vr| + |Hi||Vs| and Im |Hs||Vr| + |Hr||Vd|,
+//     each at most 2(|Hr| + |Hi|)(|Vr| + |Vi|)·ε, as Gauss's Im: up to
+//     about twice the normwise bound of the 4M product, cancellation in
+//     k1 − k3 included.  Measured against a c128 product at (30000, k):
+//     1.8–2.2e-6, the expansion's 1.8–2.2e-6, cuBLAS CGEMM's 1.0–1.3e-5
+//     (the chip gate: 1e-5 and 4× the plain CGEMM).  The A split is
+//     split_tf32's value by integer arithmetic (c64r::split_rna).  The
+//     trans route takes conj(V)'s planes and negates Im: Hᴴ·V =
+//     conj(Hᵀ·conj(V)).  Registers: 3 × 32 accumulators, 2 × 32 running
+//     sums (re, im), 2 × 24 A fragments (Hs, Hr, Hi in hi/lo for two
+//     k-steps) = 208 of the consumers' 232; ptxas (CUDA 12.9): 168
+//     registers at launch (setmaxnreg then 40 / 232), 0 bytes spilled, for
+//     both ring_hemm_kernel_c64<0> and <1>; the f32 instantiations 168, 0.
+//     What binds it (measured with the probe's variants at (30000, 3000),
+//     H100 80GB HBM3 at 700 W): the wgmma alone run at 135 ms, 96% of the
+//     3xTF32 ceiling at the 8·m·b·k count; with the per-tile wait and
+//     promotion 148–155 ms; with the fragment reads and TF32 splits (24
+//     values a k-step, where the expansion split 16 per 12 wgmma) 185–192
+//     ms, against the expansion's 196–200 in the same calls.
+//   * the f32 main kernel, ring_hemm_kernel<E> for E = Tf32x3,
 //     one 128×128 W tile per block, 384 threads:
 //       - warpgroup 2 (one elected thread) is the producer: TMA loads of
 //         the H tile (128 rows × 128 bytes: 32 f32 of K, 128-byte
@@ -106,21 +137,22 @@
 //   * ragged edges: the H descriptor is exactly H[:m, :col0+b] (col0 is a
 //     TMA coordinate, not a pointer offset), so TMA zero-fills rows past m
 //     and columns past col0+b.  TMA's inner coordinate must be 16-byte
-//     aligned, so the boxes start at col0 - off, off = col0 % 4 f32 (8
-//     bf16): the pre-pass shifts V's rows by `off` columns of its output
-//     (zeros before them) and the consumers zero the first tile's `off`
+//     aligned, so the boxes start at col0 - off, off = col0 % 4 f32 (2
+//     c64, 8 bf16): the pre-pass shifts V's rows by `off` columns of its
+//     output (zeros before them) and the consumers zero the first tile's `off`
 //     leading A columns, in registers (f32) or in shared memory (bf16), so
 //     that a non-finite H entry left of the block cannot leak in as 0·inf.
 //     The pre-pass output is zero-padded; the epilogue stores (or adds
 //     into) W with masked plain stores, so W may be a strided column
 //     window and nothing outside [0,m)×[0,k) is touched.  TMA needs H
 //     16-byte aligned with a row stride of a whole number of 16 bytes (4
-//     floats, 8 bf16; the wrapper checks, DenseOperator pads).
+//     floats, 2 c64, 8 bf16; the wrapper checks, DenseOperator pads).
 //   * the one driver-API call, cuTensorMapEncodeTiled, is reached through
 //     cudaGetDriverEntryPoint, so the library needs no -lcuda.
 //
 // Shared memory per block (f32): 4 stages × (16 + 16 + 16) KB = 192 KB of
-// dynamic shared memory (plus 1 KB for alignment and the barriers).
+// dynamic shared memory (plus 1 KB for alignment and the barriers); c64:
+// 5 stages × (16 + 6 × 4) KB = 200 KB.
 // Registers: 168 at launch; setmaxnreg moves the producer to 40 and the
 // consumers to 232 (2 × 64 accumulators + 2 sets of A fragments, 2 × 32
 // registers).
@@ -148,7 +180,7 @@ constexpr int CONSUMER_WARPS = 8;
 // chunk 2 ks + (v >> 1) (hopper_tf32.cuh); `col` is the tile column of the
 // word's first element.
 
-// f32 (and c64 through its float view): 3xTF32
+// f32: 3xTF32
 struct Tf32x3 {
   static constexpr int BK = 32;              // K tile: 32 f32 = one 128 B row
   static constexpr int ALIGN = 4;            // elements per 16 bytes
@@ -196,61 +228,59 @@ __host__ __device__ constexpr int smem_bytes() {
 
 // ---- the trans route's A tile ----------------------------------------------
 // TU = 0: the tile is H[m0:m0+128, K tile] as it lies (K-major: one TMA box
-// of 128 rows × 128 bytes).  TU = 1 (f32) or 2 (c64, floats per element):
-// A = H[row0:row0+b, :]ᴴ, so the tile's K runs along H's rows and its M
-// along H's columns — MN-major.  The 128-byte swizzle caps a box's inner
-// extent at 128 bytes (32 f32 or 16 c64 columns), so the tile is 4·TU
-// boxes of BK/TU H rows × 128 bytes, box x holding H columns m0 +
-// (32/TU)·x onwards; each box is 128-byte swizzled (16-byte chunk c of
-// box row kk at c ^ (kk % 8)).
+// of 128 rows × 128 bytes).  TU = 1: A = H[row0:row0+b, :]ᴴ, so the tile's
+// K runs along H's rows and its M along H's columns — MN-major.  The
+// 128-byte swizzle caps a box's inner extent at 128 bytes (32 f32
+// columns), so the tile is 4 boxes of BK H rows × 128 bytes, box x
+// holding H columns m0 + 32x onwards; each box is 128-byte swizzled
+// (16-byte chunk c of box row kk at c ^ (kk % 8)).
 //
 // A warp's fragment load reads 8 M positions (lane/4) × 4 K positions
 // (lane%4).  Read in order, the 8 M positions share 2 chunks of a box
 // row and rows kk, kk ^ 1 swizzle onto the same chunks: a 2-way bank
 // conflict.  So the tile's M order is permuted (free: M is W's row, and
 // the epilogue writes row m0 + tile_row(L)): accumulator row L = [u3 u2 u1
-// u0 s x1 x0] (bits) reads H column tile_row(L) = [u3 u2 s u1 u0 x1 x0]
-// for f32 — lane/4 = [s x1 x0] then covers chunks 4s + (u1 u0) of one box,
-// and with the swizzle's XOR by kk % 8 = 4h + lane%4 the 32 lanes hit 32
-// banks — and [u3 u2 u1 s x1 u0 x0] for c64, whose 1 × 2 float blocks
-// (re, im) fill the 32 banks the same way (bank = 16 (s ^ ks) + 8 (x1 ^
-// h) + 4 (u0 ^ (q >> 1)) + 2 x0 + (q & 1)).
+// u0 s x1 x0] (bits) reads H column tile_row(L) = [u3 u2 s u1 u0 x1 x0] —
+// lane/4 = [s x1 x0] then covers chunks 4s + (u1 u0) of one box, and with
+// the swizzle's XOR by kk % 8 = 4h + lane%4 the 32 lanes hit 32 banks.
+// (The c64 kernel's rows are permuted too: c64r::tile_row.)
 template <int TU>
 __device__ __forceinline__ int tile_row(int L) {
   if constexpr (TU == 1)
     return (L & 0x63) | ((L & 0x04) << 2) | ((L & 0x18) >> 1);
-  else if constexpr (TU == 2)
-    return (L & 0x71) | ((L & 0x06) << 1) | ((L & 0x08) >> 2);
   else
     return L;
 }
 
 // ---- f32 pre-pass: split and transpose the V chunk --------------------------
-// Vt[0][n][off + j] = hi(B[j][n]), Vt[1][n][off + j] = lo(B[j][n]) for
-// j < b, n < k; zero elsewhere in (w_pad × b_pad).  32×32 tiles through
-// shared memory (b_operand_tile, hopper_tf32.cuh) so both the read (along
-// n) and the write (along kk) are coalesced.
-//
-// CPLX = false: B = V, f32 (b × k, row stride ldv).
-// CPLX = true: V is the float view of a c64 chunk (b/2 complex rows, row
-// stride ldv floats, k = 2·columns floats) and B is the real (b × k)
-// matrix that makes the f32 product Hf·B, with Hf the float view of a c64
-// H, equal H·V viewed as floats: row 2i of B is V[i] viewed as floats
-// (re, im, ...), row 2i+1 is i·V[i] viewed as floats (-im, re, ...).
-// With conj = 1 row 2i+1 is −i·V[i] (im, -re, ...) instead, so that the
-// trans route's A (the float view of h, read transposed in 1 × 2 blocks)
-// gives Re h·V + Im h·(−i·V) = conj(h)·V.  TF32 rounding is symmetric in
-// sign, so the negated entries split exactly as their plain version's.
-template <bool CPLX>
+// Vt[0][n][off + j] = hi(V[j][n]), Vt[1][n][off + j] = lo(V[j][n]) for j <
+// b, n < k; zero elsewhere in (w_pad × b_pad).  32×32 tiles through shared
+// memory (b_operand_tile, hopper_tf32.cuh) so both the read (along n) and
+// the write (along kk) are coalesced.
 __global__ void __launch_bounds__(256)
 split_transpose_kernel(const float* __restrict__ V, long long ldv,
                        float* __restrict__ Vt, int b, int k, int off,
-                       int b_pad, int w_pad, int conj) {
+                       int b_pad, int w_pad) {
   __shared__ float tile[32][33];
   const int kk0 = blockIdx.x * 32;
-  b_operand_tile<CPLX ? 1 : 0>(tile, V, ldv, kk0 - off, b, blockIdx.y * 32,
-                               k, conj, Vt, kk0, b_pad, b_pad,
-                               (long long)w_pad * b_pad);
+  b_operand_tile<0>(tile, V, ldv, kk0 - off, b, blockIdx.y * 32, k, Vt, kk0,
+                    b_pad, b_pad, (long long)w_pad * b_pad);
+}
+
+// ---- c64 pre-pass: the six planes of the V chunk ----------------------------
+// For a c64 V (b × k, row stride ldv floats): Vt[2c + l][n][off + j] =
+// part l (hi, lo) of the TF32 split of component c of V[j][n] — Vr, Vd =
+// fl(Vi − Vr) and Vs = fl(Vr + Vi) — for j < b, n < k; zero elsewhere in
+// (6 × w_pad × b_pad) (c64_operand_tile, hopper_tf32.cuh).  conj = 1
+// splits conj(V): the trans route's B.
+__global__ void __launch_bounds__(256)
+split_c64_kernel(const float* __restrict__ V, long long ldv,
+                 float* __restrict__ Vt, int b, int k, int off, int b_pad,
+                 int w_pad, int conj) {
+  __shared__ float tile[2][32][33];
+  const int kk0 = blockIdx.x * 32;
+  c64_operand_tile(tile, V, ldv, kk0 - off, b, blockIdx.y * 32, k, conj, Vt,
+                   kk0, b_pad, b_pad, (long long)w_pad * b_pad);
 }
 
 // ---- bf16 pre-pass: round and transpose the V chunk --------------------------
@@ -263,8 +293,8 @@ bf16_pack_kernel(const float* __restrict__ V, long long ldv,
                  int b_pad) {
   __shared__ float tile[32][33];
   const int kk0 = blockIdx.x * 32;
-  b_operand_tile<2>(tile, V, ldv, kk0 - off, b, blockIdx.y * 32, k, 0, Vb,
-                    kk0, b_pad, b_pad, 0);
+  b_operand_tile<2>(tile, V, ldv, kk0 - off, b, blockIdx.y * 32, k, Vb, kk0,
+                    b_pad, b_pad, 0);
 }
 
 // ---- main kernel ------------------------------------------------------------
@@ -319,11 +349,11 @@ ring_hemm_kernel(const __grid_constant__ CUtensorMap tmH,
         mbar_arrive_expect_tx(&full[s], STAGE_BYTES);
         if constexpr (TU == 0) {
           tma_load_2d(st, &tmH, &full[s], kbase + t * E::BK, m0);
-        } else {                 // 4·TU boxes of BK/TU rows of H (col0 = row0)
+        } else {                 // 4 boxes of BK rows of H (col0 = row0)
 #pragma unroll
-          for (int x = 0; x < 4 * TU; ++x)
-            tma_load_2d(st + x * (TILE_BYTES / (4 * TU)), &tmH, &full[s],
-                        TU * m0 + 32 * x, col0 + t * (E::BK / TU));
+          for (int x = 0; x < 4; ++x)
+            tma_load_2d(st + x * (TILE_BYTES / 4), &tmH, &full[s], m0 + 32 * x,
+                        col0 + t * E::BK);
         }
 #pragma unroll
         for (int i = 0; i < E::B_TILES; ++i)
@@ -343,23 +373,21 @@ ring_hemm_kernel(const __grid_constant__ CUtensorMap tmH,
     // ^ (row % 8), and row % 8 = l/4.
     const int arow = wg * 64 + (warp % 4) * 16 + lane / 4;
     const int q = lane % 4, r8 = lane / 4;
-    // the trans route (TU > 0): for A row arow + 8 h, H column P =
-    // tile_row(arow + 8 h) lies in box P / (32/TU) at element P % (32/TU)
-    // of each box row; its float there for K position kc = 8 ks + 4 (v >>
-    // 1) + q is fi = TU·(P % (32/TU)) + q % TU, in box row kk = kc / TU =
-    // c + qr with c = (8 ks + 4 (v >> 1)) / TU and qr = q / TU, whose bits
-    // do not meet (qr < 4/TU), so kk % 8 = (c % 8) ^ qr.  The word is then
-    // tbase[h] + 32 c + (((fi >> 2) ^ qr ^ (c % 8)) << 2): a per-thread base
-    // and XOR key, and per register two compile-time constants.
+    // the trans route (TU = 1): for A row arow + 8 h, H column P =
+    // tile_row(arow + 8 h) lies in box P / 32 at element fi = P % 32 of
+    // each box row; its K position kc = 8 ks + 4 (v >> 1) + q is box row
+    // kk = c + q with c = 8 ks + 4 (v >> 1), whose bits do not meet q's,
+    // so kk % 8 = (c % 8) ^ q.  The word is then tbase[h] + 32 c + (((fi >>
+    // 2) ^ q ^ (c % 8)) << 2): a per-thread base and XOR key, and per
+    // register two compile-time constants.
     int tbase[2] = {0, 0}, tkey[2] = {0, 0};
     if constexpr (TU > 0) {
-      const int qr = q / TU;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int P = tile_row<TU>(arow + 8 * h);
-        const int fi = TU * (P % (32 / TU)) + q % TU;
-        tbase[h] = P / (32 / TU) * (E::BK / TU) * 32 + 32 * qr + (fi & 3);
-        tkey[h] = ((fi >> 2) ^ qr) << 2;
+        const int fi = P % 32;
+        tbase[h] = P / 32 * E::BK * 32 + 32 * q + (fi & 3);
+        tkey[h] = ((fi >> 2) ^ q) << 2;
       }
     }
     using Frag = typename E::Frag;
@@ -379,7 +407,7 @@ ring_hemm_kernel(const __grid_constant__ CUtensorMap tmH,
             const int chunk = (2 * ks + (v >> 1)) ^ r8;
             E::set(f, ks, v, Ht[r * 32 + chunk * 4 + q], q, kmin);
           } else {
-            const int c = (8 * ks + 4 * (v >> 1)) / TU;   // unrolled: a constant
+            const int c = 8 * ks + 4 * (v >> 1);   // unrolled: a constant
             const int h = v & 1;
             E::set(f, ks, v, Ht[tbase[h] + 32 * c + (tkey[h] ^ ((c & 7) << 2))],
                    q, 0);
@@ -431,6 +459,289 @@ ring_hemm_kernel(const __grid_constant__ CUtensorMap tmH,
           const int c = n0 + 8 * j + 2 * q + e;
           const float x = run[4 * j + 2 * h + e];
           if (c < k) wrow[c] = accumulate ? wrow[c] + x : x;
+        }
+    }
+  }
+}
+
+// ---- the c64 route's kernel: three real products (3M) ----------------------
+// W (=|+=) H[:, col0:col0+b] · V for c64 H, V and W, with H = Hr + i·Hi and
+// V = Vr + i·Vi as
+//   k1 = (Hr + Hi)·Vr,  k2 = Hr·(Vi − Vr),  k3 = Hi·(Vr + Vi),
+//   Re W = k1 − k3,  Im W = k1 + k2,
+// each k a 3xTF32 product (the f32 route's error scheme), 6·m·b·k FLOPs
+// (the design note at the top).  One 128 × 64 (complex) W tile per block,
+// 384 threads:
+//   - the producer (warpgroup 2) brings, per K tile of BK = 16 complex,
+//     the interleaved c64 H tile (128 rows × 128 bytes, 128-byte swizzle;
+//     on the trans route 8 boxes of 16 H rows × 16 complex) and the six B
+//     tiles of the c64 pre-pass (Vr, Vd = fl(Vi − Vr), Vs = fl(Vr + Vi),
+//     each TF32 hi and lo; 64 rows × 16 floats, 64-byte swizzle): 16 + 24
+//     KB a stage;
+//   - each consumer (64 rows) reads per k-step (8 complex) its (re, im)
+//     pairs from the H tile with 8-byte loads, forms Hs = fl(Hr + Hi) in
+//     registers, splits Hs, Hr, Hi into TF32 hi and lo, and issues k1, k2
+//     and k3 small terms first (lo·Vhi, hi·Vlo, hi·Vhi; m64n64k8) into
+//     three fresh accumulators; the K tile's second k-step is read while
+//     its first runs, and the next tile's first while its second runs
+//     (two fragment sets, 2 × 24 registers);
+//   - after each K tile (16 complex, as often as the real expansion this
+//     kernel replaced promoted) it waits, releases the stage and promotes
+//     in IEEE f32: re += k1 − k3, im += k1 + k2;
+//   - the epilogue writes (re, im) pairs into W (row stride ldw floats)
+//     with masked 8-byte stores, `accumulate` as the f32 kernel.
+// TU = 1 is the trans route, W (=|+=) H[col0:col0+b, :]ᴴ · V, by Hᴴ·V =
+// conj(Hᵀ·conj(V)): the pre-pass splits conj(V), the A tile is read
+// MN-major (the f32 trans route's boxes), and the epilogue negates Im.
+// Registers per consumer thread: 3 × 32 accumulators, 2 × 32 running sums,
+// 2 × 24 fragments = 208 of 232 (setmaxnreg).
+namespace c64r {
+constexpr int BK = 16;                   // K tile: 16 complex = a 128 B H row
+constexpr int BN = 64;                   // W tile columns (complex; wgmma N)
+constexpr int ALIGN = 2;                 // complex elements per 16 bytes
+constexpr int PLANES = 6;                // Vr, Vd, Vs, each TF32 hi and lo
+constexpr int B_BYTES = BN * BK * 4;     // a plane's tile: 64 rows of 64 B
+constexpr int STAGE_BYTES = TILE_BYTES + PLANES * B_BYTES;   // 40 KB
+constexpr int STAGES = 5;
+constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8;
+static_assert(SMEM_BYTES <= 232448, "shared memory");
+
+// a k-step's A fragments: TF32 hi and lo of Hs, Hr and Hi
+struct Frag { uint32_t hi[3][4], lo[3][4]; };
+
+// split_tf32's value (x = hi + lo, each rounded to TF32 nearest, ties
+// away: cvt.rna's value for every finite x) by integer arithmetic: half a
+// TF32 ulp added to the bits, the 13 low ones cleared.  cvt.rna.tf32.f32
+// is a sequence of its own on sm_90a: with it this kernel ran 6–9% slower
+// (PERF.md, PR 20).  A NaN whose top 11 mantissa bits are set carries into
+// a zero, so Hs (an add's NaN: 0x7FFFFFFF) is held below that first.
+__device__ __forceinline__ void split_rna(float x, uint32_t& hi,
+                                          uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  lo = (__float_as_uint(x - __uint_as_float(hi)) + 0x1000u) & 0xFFFFE000u;
+}
+
+// register v of a k-step from its (re, im) pair: Hs = fl(Hr + Hi) with its
+// bits held at most 0x7FFFEFFF (a NaN stays a NaN: a NaN anywhere in H
+// reaches k1, and so both parts of its row), Hr, Hi
+__device__ __forceinline__ void set(Frag& f, int v, float2 h) {
+  const float s = __int_as_float(min(__float_as_int(h.x + h.y), 0x7FFFEFFF));
+  split_rna(s, f.hi[0][v], f.lo[0][v]);
+  split_rna(h.x, f.hi[1][v], f.lo[1][v]);
+  split_rna(h.y, f.hi[2][v], f.lo[2][v]);
+}
+
+__device__ __forceinline__ void fence(Frag& f) {
+  fence_regs(f.hi);
+  fence_regs(f.lo);
+}
+
+// The tile row (untransposed) or column (trans) that accumulator row L =
+// [.. h r2 r1 r0] (bits; r = lane/4, h the fragment's +8) reads: permuted
+// (free, as for the f32 trans route) so that a half-warp's 8-byte
+// fragment loads hit 32 distinct banks.  Untransposed, the half-warp's
+// rows r1 r0 sit at swizzle keys 2 (r1 r0) + r2 and its chunks are key ^
+// (even base + q/2): 8 chunks × 2 words of q%2.  Trans, lane (r, q) reads
+// element e = [r1 h r2 r0] of its box row kk, whose key is 4 (v >> 1) + q:
+// chunk (e >> 1) ^ kk % 8 and word e & 1 are distinct over r1 r0 q.
+template <int TU>
+__device__ __forceinline__ int tile_row(int L) {
+  if constexpr (TU == 0)
+    return (L & ~7) | ((L & 3) << 1) | ((L >> 2) & 1);
+  else
+    return (L & ~15) | ((L & 2) << 2) | ((L & 8) >> 1) | ((L & 4) >> 1) |
+           (L & 1);
+}
+}  // namespace c64r
+
+// W (=|+=) H[:, col0:col0+b] · V (TU = 1: H[col0:col0+b, :]ᴴ · V) with V
+// given as the c64 pre-pass's six planes (w_pad × b_pad each; off = col0 %
+// 2); m, k, b, col0 and off in complex elements, ldw in floats.
+template <int TU>
+__global__ void __launch_bounds__(NTHREADS, 1)
+ring_hemm_kernel_c64(const __grid_constant__ CUtensorMap tmH,
+                     const __grid_constant__ CUtensorMap tmV,
+                     float* __restrict__ W, long long ldw, int m, int k,
+                     int b, int col0, int off, int w_pad, int accumulate) {
+  constexpr int BK = c64r::BK, BN = c64r::BN, PLANES = c64r::PLANES;
+  constexpr int B_BYTES = c64r::B_BYTES, STAGES = c64r::STAGES;
+  constexpr int STAGE_BYTES = c64r::STAGE_BYTES;
+  using Frag = c64r::Frag;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  // stage s: the H tile, then the six B tiles, 1024-aligned
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE_BYTES);
+  uint64_t* empty = full + STAGES;
+
+  // the f32 kernel's grouped raster
+  const int num_n = gridDim.x, num_m = gridDim.y;
+  const int id = blockIdx.y * num_n + blockIdx.x;
+  const int first_m = id / (GROUP_M * num_n) * GROUP_M;
+  const int gsize = min(num_m - first_m, GROUP_M);
+  const int in_group = id % (GROUP_M * num_n);
+  const int m0 = (first_m + in_group % gsize) * BM;
+  const int n0 = in_group / gsize * BN;
+  const int ntiles = (b + off + BK - 1) / BK;
+  const int kbase = 2 * (col0 - off);    // 16-byte-aligned float coordinate
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer ------------------------------------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 256) {
+      tma_prefetch_desc(&tmH);
+      tma_prefetch_desc(&tmV);
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % STAGES;
+        mbar_wait(&empty[s], ((t / STAGES) & 1) ^ 1);
+        unsigned char* st = smem + s * STAGE_BYTES;
+        mbar_arrive_expect_tx(&full[s], STAGE_BYTES);
+        if constexpr (TU == 0) {
+          tma_load_2d(st, &tmH, &full[s], kbase + 2 * BK * t, m0);
+        } else {                 // 8 boxes of BK rows of H (col0 = row0)
+#pragma unroll
+          for (int x = 0; x < 8; ++x)
+            tma_load_2d(st + x * (TILE_BYTES / 8), &tmH, &full[s],
+                        2 * m0 + 32 * x, col0 + BK * t);
+        }
+#pragma unroll
+        for (int i = 0; i < PLANES; ++i)
+          tma_load_2d(st + TILE_BYTES + i * B_BYTES, &tmV, &full[s], BK * t,
+                      i * w_pad + n0);
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns rows m0 + 64 wg .. + 63 -------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    float k1[32], k2[32], k3[32], re[32], im[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) k1[i] = k2[i] = k3[i] = re[i] = im[i] = 0.0f;
+    // A fragment register v of k-step ks: row arow + 8 (v & 1), complex K
+    // column cc = 8 ks + 4 (v >> 1) + q, read as its (re, im) floats.
+    // Untransposed: H tile row P = tile_row(arow + 8h), floats 2 cc, 2 cc
+    // + 1 in 16-byte chunk cc / 2 = 4 ks + 2 (v >> 1) + q / 2, word 2 (q %
+    // 2), the chunk swizzled by P % 8.  Trans: H column P's box P / 16 and
+    // element e = P % 16, box row kk = cc (swizzle key kk % 8 = 4 (v >> 1)
+    // + q), chunk e / 2, word 2 (e % 2).  Either way a per-thread base and
+    // XOR key, and per register compile-time constants.
+    const int arow = wg * 64 + (warp % 4) * 16 + lane / 4;
+    const int q = lane % 4;
+    int base[2], key[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int P = c64r::tile_row<TU>(arow + 8 * h);
+      if constexpr (TU == 0) {
+        base[h] = P * 32 + 2 * (q & 1);
+        key[h] = ((q >> 1) ^ (P & 7)) << 2;
+      } else {
+        // boxes of 16 rows × 32 floats
+        base[h] = (P >> 4) * 16 * 32 + 32 * q + 2 * (P & 1);
+        key[h] = (((P & 15) >> 1) ^ q) << 2;
+      }
+    }
+    // k-step ks of tile t: wait for its stage (ks = 0), read and split
+    auto load_a = [&](int t, int ks, Frag& f) {
+      const int s = t % STAGES;
+      if (ks == 0) mbar_wait(&full[s], (t / STAGES) & 1);
+      const float* Ht = reinterpret_cast<const float*>(smem + s * STAGE_BYTES);
+      // complex column 0 of the first tile lies left of the block when off
+      // = 1: zeroed, so that a non-finite entry there cannot leak in as
+      // 0·inf
+      const bool left = TU == 0 && t == 0 && ks == 0 && off > 0 && q == 0;
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int h = v & 1, hv = v >> 1;
+        const int i = TU == 0
+            ? base[h] + (key[h] ^ ((4 * ks + 2 * hv) << 2))
+            : base[h] + 32 * (8 * ks + 4 * hv) + (key[h] ^ (hv << 4));
+        float2 x = *reinterpret_cast<const float2*>(Ht + i);
+        if (hv == 0 && left) x = make_float2(0.0f, 0.0f);
+        c64r::set(f, v, x);
+      }
+    };
+    // k-step ks of tile t's wgmma: k1 (Hs·Vr), k2 (Hr·Vd), k3 (Hi·Vs)
+    // small terms first; fresh (acc = 0) overwrites the accumulators
+    auto mma = [&](int t, int ks, Frag& f, int acc) {
+      const unsigned char* bt = smem + (t % STAGES) * STAGE_BYTES + TILE_BYTES;
+      uint64_t d[PLANES];
+#pragma unroll
+      for (int i = 0; i < PLANES; ++i)
+        d[i] = desc_kmajor_sw64(bt + i * B_BYTES) + 2 * ks;
+      wgmma_m64n64k8_tf32(k1, f.lo[0], d[0], acc);
+      wgmma_m64n64k8_tf32(k2, f.lo[1], d[2], acc);
+      wgmma_m64n64k8_tf32(k3, f.lo[2], d[4], acc);
+      wgmma_m64n64k8_tf32(k1, f.hi[0], d[1], 1);
+      wgmma_m64n64k8_tf32(k2, f.hi[1], d[3], 1);
+      wgmma_m64n64k8_tf32(k3, f.hi[2], d[5], 1);
+      wgmma_m64n64k8_tf32(k1, f.hi[0], d[0], 1);
+      wgmma_m64n64k8_tf32(k2, f.hi[1], d[2], 1);
+      wgmma_m64n64k8_tf32(k3, f.hi[2], d[4], 1);
+    };
+    Frag f0, f1;
+    if (ntiles > 0) load_a(0, 0, f0);
+    for (int t = 0; t < ntiles; ++t) {
+      fence_regs(k1);
+      fence_regs(k2);
+      fence_regs(k3);
+      wgmma_fence();
+      mma(t, 0, f0, 0);
+      wgmma_commit();
+      load_a(t, 1, f1);                  // while k-step 0 runs
+      wgmma_fence();
+      mma(t, 1, f1, 1);
+      wgmma_commit();
+      if (t + 1 < ntiles) {              // k-step 0 retired: f0 is free
+        wgmma_wait<1>();
+        c64r::fence(f0);
+        load_a(t + 1, 0, f0);
+      }
+      wgmma_wait<0>();
+      fence_regs(k1);
+      fence_regs(k2);
+      fence_regs(k3);
+      c64r::fence(f0);
+      c64r::fence(f1);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[t % STAGES]);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        re[i] += k1[i] - k3[i];
+        im[i] += k1[i] + k2[i];
+      }
+    }
+    // epilogue: d[4j + 2h + e] is row tile_row(arow + 8h), complex column
+    // 8j + 2(l%4) + e
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = m0 + c64r::tile_row<TU>(arow + 8 * h);
+      if (r >= m) continue;
+      float2* wrow = reinterpret_cast<float2*>(W + (long long)r * ldw);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = n0 + 8 * j + 2 * q + e;
+          const int i = 4 * j + 2 * h + e;
+          float2 x = make_float2(re[i], TU ? -im[i] : im[i]);
+          if (c < k) {
+            if (accumulate) {
+              const float2 y = wrow[c];
+              x.x = y.x + x.x;
+              x.y = y.y + x.y;
+            }
+            wrow[c] = x;
+          }
         }
     }
   }
@@ -838,38 +1149,37 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// a 2-D map of a row-major (rows × cols) array of E's element with row
-// stride `ld` elements, read in boxes of BK elements (128 bytes) ×
-// box_rows rows with the 128-byte swizzle
-template <class E>
-CUresult make_map(CUtensorMap* map, const void* base, long long cols,
-                  long long rows, long long ld, int box_rows = 128) {
+// a 2-D map of a row-major (rows × cols) array of `type` (unit_bytes
+// each) with row stride `ld` units, read in boxes of box_cols × box_rows
+// with the given swizzle
+CUresult make_map(CUtensorMap* map, CUtensorMapDataType type, int unit_bytes,
+                  const void* base, long long cols, long long rows,
+                  long long ld, int box_cols, int box_rows,
+                  CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * (128 / E::BK)};
-  const cuuint32_t box[2] = {E::BK, (cuuint32_t)box_rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * unit_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t estr[2] = {1, 1};
-  return encode_tiled()(map, E::TMA_TYPE, 2, const_cast<void*>(base), dims,
-                        strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
+  return encode_tiled()(map, type, 2, const_cast<void*>(base), dims, strides,
+                        box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-// a 2-D map of a row-major (rows × cols) bf16 array with row stride `ld`
-// elements, read in boxes of 64 columns (128 bytes) × box_rows with the
-// 128-byte swizzle
+// the same for E's element in boxes of BK elements (128 bytes) × box_rows
+// with the 128-byte swizzle
+template <class E>
+CUresult make_map(CUtensorMap* map, const void* base, long long cols,
+                  long long rows, long long ld, int box_rows = 128) {
+  return make_map(map, E::TMA_TYPE, 128 / E::BK, base, cols, rows, ld, E::BK,
+                  box_rows);
+}
+
+// the same for bf16 in boxes of 64 columns (128 bytes) × box_rows
 CUresult make_map_bf16(CUtensorMap* map, const void* base, long long cols,
                        long long rows, long long ld, int box_rows) {
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
-  const cuuint32_t box[2] = {bf16r::BK, (cuuint32_t)box_rows};
-  const cuuint32_t estr[2] = {1, 1};
-  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                        const_cast<void*>(base), dims, strides, box, estr,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, cols, rows,
+                  ld, bf16r::BK, box_rows);
 }
 
 // error codes beside cudaError_t's (which stay below 1000)
@@ -878,9 +1188,8 @@ constexpr int ERR_ENCODE = 2000;       // + the CUresult of a failed encode
 
 // W[0:m, 0:k] (=|+=) H[0:m, col0:col0+b] · B, B given as the pre-pass
 // output (E::B_TILES planes of w_pad × b_pad) with off = col0 % E::ALIGN;
-// on the trans route (TU floats per H element) W[0:m, 0:k] (=|+=)
-// H[col0:col0+b/TU, 0:m]ᴴ · B with off = 0 (b, m, k, ldh and ldw in
-// floats, m in elements)
+// on the trans route (TU = 1) W[0:m, 0:k] (=|+=) H[col0:col0+b, 0:m]ᴴ · B
+// with off = 0
 template <class E, int TU>
 int launch(const void* H, long long ldh, int col0, const void* Vt, int b_pad,
            int w_pad, float* W, long long ldw, int m, int k, int b,
@@ -894,11 +1203,10 @@ int launch(const void* H, long long ldh, int col0, const void* Vt, int b_pad,
     // column
     r = make_map<E>(&tmH, H, col0 + b > 0 ? col0 + b : 1, m, ldh);
   } else {
-    // exactly H[:col0+b/TU, :m]: TMA zero-fills rows past the slab and
+    // exactly H[:col0+b, :m]: TMA zero-fills rows past the slab and
     // columns past m; row0 is TMA's outer coordinate, so no alignment
-    const long long rows = col0 + b / TU;
-    r = make_map<E>(&tmH, H, (long long)TU * m, rows > 0 ? rows : 1, ldh,
-                    E::BK / TU);
+    const long long rows = col0 + b;
+    r = make_map<E>(&tmH, H, m, rows > 0 ? rows : 1, ldh, E::BK);
   }
   if (r != CUDA_SUCCESS) return ERR_ENCODE + static_cast<int>(r);
   r = make_map<E>(&tmV, Vt, b_pad, (long long)E::B_TILES * w_pad, b_pad);
@@ -912,6 +1220,45 @@ int launch(const void* H, long long ldh, int col0, const void* Vt, int b_pad,
   ring_hemm_kernel<E, TU><<<grid, NTHREADS, smem_bytes<E>(), stream>>>(
       tmH, tmV, W, ldw, m, k, b, col0, TU == 0 ? col0 % E::ALIGN : 0, w_pad,
       accumulate);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// W[0:m, 0:k] (=|+=) H[0:m, col0:col0+b] · V on the c64 kernel, V given as
+// the c64 pre-pass's six planes (6 × w_pad × b_pad) with off = col0 % 2;
+// TU = 1: H[col0:col0+b, 0:m]ᴴ · V with off = 0.  m, k, b and col0 in
+// complex elements, ldh and ldw in floats.
+template <int TU>
+int launch_c64(const void* H, long long ldh, int col0, const void* Vt,
+               int b_pad, int w_pad, float* W, long long ldw, int m, int k,
+               int b, int accumulate, cudaStream_t stream) {
+  constexpr int BK = c64r::BK, BN = c64r::BN, PLANES = c64r::PLANES;
+  constexpr int SMEM_BYTES = c64r::SMEM_BYTES;
+  constexpr CUtensorMapDataType F32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  if (m <= 0 || k <= 0) return 0;
+  if (!encode_tiled()) return ERR_NO_ENCODER;
+  CUtensorMap tmH, tmV;
+  CUresult r;
+  if constexpr (TU == 0) {
+    // exactly H[:m, :col0+b] as floats, so TMA zero-fills past the block
+    const long long cols = 2LL * (col0 + b);
+    r = make_map(&tmH, F32, 4, H, cols > 0 ? cols : 1, m, ldh, 32, BM);
+  } else {
+    // exactly H[:col0+b, :m] as floats, in boxes of BK rows × 16 complex
+    const long long rows = col0 + b;
+    r = make_map(&tmH, F32, 4, H, 2LL * m, rows > 0 ? rows : 1, ldh, 32, BK);
+  }
+  if (r != CUDA_SUCCESS) return ERR_ENCODE + static_cast<int>(r);
+  r = make_map(&tmV, F32, 4, Vt, b_pad, (long long)PLANES * w_pad, b_pad, BK,
+               BN, CU_TENSOR_MAP_SWIZZLE_64B);
+  if (r != CUDA_SUCCESS) return ERR_ENCODE + static_cast<int>(r);
+  const cudaError_t e = cudaFuncSetAttribute(
+      ring_hemm_kernel_c64<TU>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_BYTES);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(w_pad / BN, (m + BM - 1) / BM);
+  ring_hemm_kernel_c64<TU><<<grid, NTHREADS, SMEM_BYTES, stream>>>(
+      tmH, tmV, W, ldw, m, k, b, col0, TU == 0 ? col0 % c64r::ALIGN : 0,
+      w_pad, accumulate);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -983,38 +1330,37 @@ extern "C" int ring_hemm_split_f32(const float* V, long long ldv, float* Vt,
                                    int w_pad, cudaStream_t stream) {
   if (b_pad <= 0 || w_pad <= 0) return 0;
   const dim3 grid(b_pad / 32, w_pad / 32);
-  split_transpose_kernel<false><<<grid, dim3(32, 8), 0, stream>>>(
-      V, ldv, Vt, b, k, off, b_pad, w_pad, 0);
+  split_transpose_kernel<<<grid, dim3(32, 8), 0, stream>>>(
+      V, ldv, Vt, b, k, off, b_pad, w_pad);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The complex pre-pass: Vt (2 × w_pad × b_pad) of the real (2b × 2k)
-// matrix B of a c64 V (b × k, row stride ldv complex elements; see
-// split_transpose_kernel), B's row r at Vt column off + r, so that
-// ring_hemm_f32 on the float view of a c64 H (row stride 2·ldh floats,
-// column 2·col0, K = 2b, width 2k) writes H[:, col0:col0+b]·V as floats.
-// w_pad >= 2k and b_pad >= 2b + off.  Launches on `stream`; returns
+// The c64 pre-pass: Vt (6 × w_pad × b_pad, contiguous) — Vr, Vd = fl(Vi −
+// Vr) and Vs = fl(Vr + Vi), each TF32 hi then lo, K-major — from a c64 V
+// (b × k, row stride ldv complex elements), V's row j at Vt column off + j
+// (off = col0 % 2).  b_pad a multiple of 16 of at least b + off, w_pad a
+// multiple of 64 of at least k.  Launches on `stream`; returns
 // cudaGetLastError().
 extern "C" int ring_hemm_split_c64(const float* V, long long ldv, float* Vt,
                                    int b, int k, int off, int b_pad,
                                    int w_pad, cudaStream_t stream) {
   if (b_pad <= 0 || w_pad <= 0) return 0;
-  const dim3 grid(b_pad / 32, w_pad / 32);
-  split_transpose_kernel<true><<<grid, dim3(32, 8), 0, stream>>>(
-      V, 2 * ldv, Vt, 2 * b, 2 * k, off, b_pad, w_pad, 0);
+  const dim3 grid((b_pad + 31) / 32, w_pad / 32);
+  split_c64_kernel<<<grid, dim3(32, 8), 0, stream>>>(
+      V, 2 * ldv, Vt, b, k, off, b_pad, w_pad, 0);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The same with B's odd rows −i·V[j] (the conjugate of the trans route,
-// ring_hemm_c64_t); arguments as ring_hemm_split_c64's.
+// The same of conj(V) (Vi = −Im V): the trans route's B
+// (ring_hemm_c64_t); arguments as ring_hemm_split_c64's.
 extern "C" int ring_hemm_split_c64_conj(const float* V, long long ldv,
                                         float* Vt, int b, int k, int off,
                                         int b_pad, int w_pad,
                                         cudaStream_t stream) {
   if (b_pad <= 0 || w_pad <= 0) return 0;
-  const dim3 grid(b_pad / 32, w_pad / 32);
-  split_transpose_kernel<true><<<grid, dim3(32, 8), 0, stream>>>(
-      V, 2 * ldv, Vt, 2 * b, 2 * k, off, b_pad, w_pad, 1);
+  const dim3 grid((b_pad + 31) / 32, w_pad / 32);
+  split_c64_kernel<<<grid, dim3(32, 8), 0, stream>>>(
+      V, 2 * ldv, Vt, b, k, off, b_pad, w_pad, 1);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1061,16 +1407,29 @@ extern "C" int ring_hemm_f32_t(const float* H, long long ldh, int row0,
                            accumulate, stream);
 }
 
-// The trans route of the c64 float view: W (m × k/2 c64 as m × k floats)
-// (=|+=) H[row0:row0+b/2, 0:m]ᴴ · V for a c64 H (row stride ldh floats)
-// and V given as ring_hemm_split_c64_conj's output (off = 0; b and k in
-// floats, m in complex rows).  The conjugate is the pre-pass's −i·V rows.
+// The c64 route: W[0:m, 0:k] (=|+=) H[0:m, col0:col0+b] · V for c64 H, V
+// and W, V given as ring_hemm_split_c64's output with off = col0 % 2, on
+// ring_hemm_kernel_c64 (three real products, 3M).  m, k, b and col0
+// in complex elements; H's row stride ldh in floats, 16-byte aligned, ldh
+// % 4 == 0; W's row stride ldw in floats, unit column stride.  Otherwise
+// as ring_hemm_f32.
+extern "C" int ring_hemm_c64(const float* H, long long ldh, int col0,
+                             const float* Vt, int b_pad, int w_pad, float* W,
+                             long long ldw, int m, int k, int b,
+                             int accumulate, cudaStream_t stream) {
+  return launch_c64<0>(H, ldh, col0, Vt, b_pad, w_pad, W, ldw, m, k, b,
+                       accumulate, stream);
+}
+
+// Its trans route: W[0:m, 0:k] (=|+=) H[row0:row0+b, 0:m]ᴴ · V with V
+// given as ring_hemm_split_c64_conj's output (off = 0); row0 any row.
+// Otherwise as ring_hemm_c64.
 extern "C" int ring_hemm_c64_t(const float* H, long long ldh, int row0,
                                const float* Vt, int b_pad, int w_pad, float* W,
                                long long ldw, int m, int k, int b,
                                int accumulate, cudaStream_t stream) {
-  return launch<Tf32x3, 2>(H, ldh, row0, Vt, b_pad, w_pad, W, ldw, m, k, b,
-                           accumulate, stream);
+  return launch_c64<1>(H, ldh, row0, Vt, b_pad, w_pad, W, ldw, m, k, b,
+                       accumulate, stream);
 }
 
 // The bf16 route: W (f32) (=|+=) H[0:m, col0:col0+b] (bf16) · V with V

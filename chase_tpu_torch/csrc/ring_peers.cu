@@ -16,10 +16,11 @@
 //     order (step s reads rank (me + s) mod p, so at every step each rank
 //     reads another peer), waits for the owner's ready flag
 //     (ld.acquire.sys) and writes the chunk where it lands as the main
-//     kernel's B: TF32 hi/lo split and transposed for f32, the (2b × 2k)
-//     real expansion split the same way for c64, rounded to bf16 and
+//     kernel's B: TF32 hi/lo split and transposed for f32, the six
+//     planes (Re, Im, Re + Im, each split) for c64, rounded to bf16 and
 //     transposed for the bf16 route — bit for bit the pre-pass of the
-//     whole V (both write B with hopper_tf32.cuh's b_operand_tile);
+//     whole V (both write B with hopper_tf32.cuh's b_operand_tile and
+//     c64_operand_tile);
 //   * release: the last block to finish a peer's chunk adds one to that
 //     owner's read count of the slot (red.release.sys); the owner's next
 //     publish into the slot (two products later) waits until all p − 1
@@ -45,7 +46,8 @@
 //
 // What bounds it on an H100: bytes.  A gather at (N, k) = (30000, 3000)
 // reads N·k·4 bytes of chunks (360 MB; c64 twice) and writes the
-// split (8·N·k bytes, the f32 route's hi and lo planes) or pack (2·N·k);
+// split (8·N·k bytes, the f32 route's hi and lo planes; 24·N·k, c64's six)
+// or pack (2·N·k);
 // at 3.35 TB/s that is 0.3–0.6 ms beside a main kernel of 12–50 ms.  A
 // simple kernel first: the single-device pre-pass's 32 × 32
 // shared-memory transposes (b_operand_tile), one 256-thread block per 32
@@ -305,25 +307,24 @@ publish_kernel(const float* __restrict__ V, long long ldv,
   }
 }
 
-// MODE 0: f32 → Vt (2 × w_pad × b_pad) hi/lo; 1: c64 → the same of the
-// real (2b × 2k) rows; 2: f32 → Vb (w_pad × b_pad) bf16 (b_operand_tile's
-// modes, hopper_tf32.cuh).  Chunk src lands at K rows [src·bK,
-// (src+1)·bK), bK = b (2b for c64); the last chunk's blocks also zero the
-// K padding up to b_pad, every block the columns past k.  A block whose
-// wait failed writes NaN over its part of the chunk, so that the product
-// comes out NaN rather than from stale memory, and does not count as a
-// reader.
+// MODE 0: f32 → Vt (2 × w_pad × b_pad) hi/lo; 1: c64 → Vt (6 × w_pad ×
+// b_pad), the c64 route's six planes (c64_operand_tile); 2: f32 → Vb
+// (w_pad × b_pad) bf16 (b_operand_tile's modes, hopper_tf32.cuh).  Chunk
+// src lands at K rows [src·b, (src+1)·b); the last chunk's blocks also
+// zero the K padding up to b_pad, every block the columns past k.  A
+// block whose wait failed writes NaN over its part of the chunk, so that
+// the product comes out NaN rather than from stale memory, and does not
+// count as a reader.
 template <int MODE>
 __global__ void __launch_bounds__(256)
 gather_kernel(const Peers pr, int p, int me, int slot,
               unsigned long long epoch, void* __restrict__ out, int b, int k,
               int b_pad, int w_pad, long long* err,
               unsigned long long timeout_ns) {
-  __shared__ float tile[32][33];
+  __shared__ float tile[MODE == 1 ? 2 : 1][32][33];
   __shared__ int go;
   const int src = (me + static_cast<int>(blockIdx.z)) % p;
-  const int bK = MODE == 1 ? 2 * b : b, kB = MODE == 1 ? 2 * k : k;
-  const int start = src * bK, end = src == p - 1 ? b_pad : start + bK;
+  const int start = src * b, end = src == p - 1 ? b_pad : start + b;
   const int ntiles = (end - start + 31) / 32;
   if (static_cast<int>(blockIdx.x) >= ntiles) return;
   unsigned* words = words_of(pr.flags[me]);
@@ -340,8 +341,13 @@ gather_kernel(const Peers pr, int p, int me, int slot,
   for (int t = 0; t < TY; ++t) {
     const int n0 = (blockIdx.y * TY + t) * 32;
     if (n0 >= w_pad) break;
-    b_operand_tile<MODE>(tile, V, pr.ld[src], kk0, bK, n0, kB, 0, out,
-                         start + kk0, end, b_pad, plane);
+    if constexpr (MODE == 1)
+      c64_operand_tile(tile, V, pr.ld[src], kk0, b, n0, k, 0,
+                       static_cast<float*>(out), start + kk0, end, b_pad,
+                       plane);
+    else
+      b_operand_tile<MODE>(tile[0], V, pr.ld[src], kk0, b, n0, k, out,
+                           start + kk0, end, b_pad, plane);
   }
   if (go && src != me && lead) {
     // this block has read its part of the chunk; the last one releases
@@ -361,10 +367,9 @@ int launch_gather(const Peers* pr, int p, int me, int slot,
                   unsigned long long epoch, void* out, int b, int k,
                   int b_pad, int w_pad, long long* err,
                   unsigned long long timeout_ns, cudaStream_t stream) {
-  const int bK = MODE == 1 ? 2 * b : b;
-  const int last = b_pad - (p - 1) * bK;      // the last chunk's K rows
+  const int last = b_pad - (p - 1) * b;       // the last chunk's K rows
   if (p < 1 || p > MAXP || me < 0 || me >= p || slot < 0 || slot > 1 ||
-      b <= 0 || k <= 0 || last < bK || w_pad % 32)
+      b <= 0 || k <= 0 || last < b || w_pad % 32)
     return ERR_ARGS;
   const dim3 grid((last + 31) / 32, (w_pad + 32 * TY - 1) / (32 * TY), p);
   gather_kernel<MODE><<<grid, dim3(32, 8), 0, stream>>>(
@@ -489,9 +494,9 @@ extern "C" int ring_peers_publish(const float* V, long long ldv,
 // Gather product `epoch` − 1 for rank `me` of p: every rank's chunk (b ×
 // k elements: f32, or c64 for the _c64 entry; pr->data[me] is the rank's
 // own V) in the main kernel's B layout `out` — Vt (2 × w_pad × b_pad f32)
-// for f32 and c64, Vb (w_pad × b_pad bf16) for bf16 — with b_pad the
-// padded K extent of the whole (p·b, or 2·p·b for c64) and w_pad a
-// multiple of 32 of at least the B width (k, or 2k for c64).
+// for f32, Vt (6 × w_pad × b_pad f32) for c64, Vb (w_pad × b_pad bf16)
+// for bf16 — with b_pad the padded K extent of the whole (p·b) and w_pad
+// a multiple of 32 of at least k.
 extern "C" int ring_peers_gather_f32(const void* pr, int p, int me, int slot,
                                      unsigned long long epoch, float* out,
                                      int b, int k, int b_pad, int w_pad,

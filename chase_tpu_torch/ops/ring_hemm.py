@@ -11,8 +11,8 @@ H[col0:col0+b, :]ᴴ · V`` (``col0`` then names the first row of H's
 slab): one ring_B step of the 2-D ring, the JAX package's
 ``_mm(h_blk.conj().T, cur)`` (``chase_tpu/parallel/ring.py``), read from
 the rank's block in place.  Every route below has it: the kernel loads
-its H tile MN-major, and for c64 the complex pre-pass writes −i·V in
-place of i·V, so that the float view's product is conj(h)·V.
+its H tile MN-major, and for c64 the complex pre-pass splits conj(V) and
+the kernel negates Im of its product, as Hᴴ·V = conj(Hᵀ·conj(V)).
 
 On a CUDA tensor one call is two launches of ``csrc/ring_hemm.cu`` (built
 on first use, see ``_build``): a pre-pass that lays V's chunk out as the
@@ -23,13 +23,16 @@ Three routes, by H's dtype:
   transposed and split into TF32 ``hi`` and ``lo`` parts, and the kernel
   multiplies in 3xTF32 (f32-class accuracy on the tensor cores; the error
   scheme is in the source's note).
-* complex64 (H, V, out c64) takes the same main kernel through the float
-  views: H (m × n) c64 is Hf (m × 2n) f32 with ``[re, im, re, im, …]``
-  rows, and the complex pre-pass writes the real (2b × 2k) matrix B whose
-  row 2j is V[j] viewed as floats and row 2j+1 is i·V[j] viewed as floats,
-  so that Hf[:, 2·col0:2·col0+2b] · B is H[:, col0:col0+b] · V viewed as
-  floats — 8·m·b·k FLOPs, those of a complex product.  The JAX package
-  reaches its kernel with complex data only through a 2N real embedding.
+* complex64 (H, V, out c64) has a kernel of its own that makes the
+  complex product of three real 3xTF32 products (the 3M form, as
+  ``cublasCgemm3m``): with H = Hr + i·Hi and V = Vr + i·Vi, k1 = (Hr +
+  Hi)·Vr, k2 = Hr·(Vi − Vr), k3 = Hi·(Vr + Vi), Re = k1 − k3, Im = k1 +
+  k2 — 6·m·b·k FLOPs for a complex product's 8·m·b·k.  The kernel reads
+  H's interleaved (re, im) floats and forms Hr + Hi in registers; the
+  pre-pass :func:`tf32_split` writes V's chunk as six planes: Vr, Vd =
+  fl(Vi − Vr) and Vs = fl(Vr + Vi), each split into TF32 ``hi`` and
+  ``lo`` and transposed.  The JAX package reaches its kernel with complex
+  data only through a 2N real embedding.
 * bf16 (H bf16, V and out f32; the bf16 rung of the precision ladder, as
   the TPU kernel streams a bf16 H): the pre-pass :func:`bf16_pack` rounds
   V's chunk to bf16 and transposes it, and a kernel of its own (128×192 W
@@ -51,7 +54,7 @@ Three routes, by H's dtype:
   ValueError.  A tensor with torch's lazy conjugate or negative bit
   (``V.conj()``) raises ValueError on every device: the kernel reads
   ``data_ptr()``, which holds the unconjugated data.
-* :func:`tf32_split` — the f32 route's pre-pass, f32 or c64
+* :func:`tf32_split` — the f32 and c64 routes' pre-pass
   (``LAUNCHES["tf32_split"]`` counts both); :func:`bf16_pack` — the bf16
   route's (``LAUNCHES["bf16_pack"]``).
 * :func:`ring_hemm_reference`, :func:`tf32_split_reference`,
@@ -89,12 +92,13 @@ from ..perf import COUNTS, count, span
 __all__ = ["ring_hemm", "ring_hemm_reference", "tf32_split",
            "tf32_split_reference", "bf16_pack", "bf16_pack_reference",
            "split_shape", "pack_shape", "tma_ld", "tma_row_stride",
-           "float_view_args", "real_rows", "load_kernels", "KERNEL_DTYPES",
+           "float_view_args", "load_kernels", "KERNEL_DTYPES",
            "ring_hemm_peers", "ring_hemm_peers_reference", "peer_publish",
            "peer_gather", "peer_gather_reference", "gather_layout",
            "LAUNCHES"]
 
 BK, BN = 32, 128          # csrc/ring_hemm.cu's f32 K tile and W column tile
+BK_C64, BN_C64 = 16, 64   # the c64 kernel's (complex elements)
 BK_BF16 = 64              # the bf16 route's K tile (64 bf16 = 128 bytes)
 BN_BF16 = 192             # its W column tile (RING_HEMM_BF16_BN)
 # H dtypes the kernel takes; V and out have H's dtype, f32 for a bf16 H
@@ -147,12 +151,14 @@ def ring_hemm_reference(H: torch.Tensor, V: torch.Tensor, *, col0: int = 0,
     return out.copy_(prod)
 
 
-def split_shape(b: int, k: int, off: int = 0) -> tuple:
+def split_shape(b: int, k: int, off: int = 0,
+                dtype=torch.float32) -> tuple:
     """(b_pad, w_pad): the pre-pass output's K extent (``off + b`` rounded
     up to the K tile, at least one tile) and column extent (a multiple of
-    the W column tile, at least one), for a real (b × k) B — a c64 V of
-    (b × k) has the B of (2b × 2k)."""
-    return BK * max(1, -(-(b + off) // BK)), BN * max(1, -(-k // BN))
+    the W column tile, at least one), for a (b × k) V of ``dtype``: f32
+    (32, 128) or c64 (16, 64 complex elements)."""
+    bk, bn = (BK_C64, BN_C64) if dtype == torch.complex64 else (BK, BN)
+    return bk * max(1, -(-(b + off) // bk)), bn * max(1, -(-k // bn))
 
 
 def pack_shape(b: int, k: int, off: int = 0) -> tuple:
@@ -168,22 +174,6 @@ def _floats(t: torch.Tensor) -> int:
     return t.element_size() // 4
 
 
-def real_rows(V: torch.Tensor, conj: bool = False) -> torch.Tensor:
-    """The real (2b × 2k) B of a c64 V (b × k): row 2j is V[j] viewed as
-    floats (re, im, …), row 2j+1 is i·V[j] viewed as floats (−im, re, …)
-    — ``torch.stack([V, 1j * V], 1).reshape(2b, k)`` viewed as real, with
-    i·V written out so that it is exact.  With ``conj`` row 2j+1 is −i·V[j]
-    (im, −re, …): the trans route's B, for which the float view of h
-    read transposed gives conj(h)·V."""
-    b, k = V.shape
-    Vr = torch.view_as_real(V)                       # (b, k, 2)
-    if conj:
-        iV = torch.stack([Vr[..., 1], -Vr[..., 0]], -1)
-    else:
-        iV = torch.stack([-Vr[..., 1], Vr[..., 0]], -1)
-    return torch.stack([Vr, iV], 1).reshape(2 * b, 2 * k)
-
-
 def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
     """f32 → TF32 (10-bit mantissa), nearest with ties away from zero, as
     ``cvt.rna.tf32.f32``: add half an ulp of TF32 to the magnitude bits and
@@ -192,21 +182,34 @@ def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
+def _split_into(Vt: torch.Tensor, X: torch.Tensor, off: int) -> None:
+    """``Vt[0, :k, off:off+b] = hi(Xᵀ)``, ``Vt[1, …] = lo(Xᵀ)``, with hi =
+    tf32(x) and lo = tf32(x − hi), for a real (b × k) X."""
+    b, k = X.shape
+    hi = _tf32_rna(X)
+    Vt[0, :k, off:off + b] = hi.T
+    Vt[1, :k, off:off + b] = _tf32_rna(X - hi).T
+
+
 def tf32_split_reference(V: torch.Tensor, off: int = 0,
                          conj: bool = False) -> torch.Tensor:
-    """Plain version of the pre-pass: ``Vt[0, :k, off:off+b] = hi(Bᵀ)``,
-    ``Vt[1, :k, off:off+b] = lo(Bᵀ)``, zeros elsewhere in (2, w_pad,
-    b_pad), with ``hi = tf32(x)`` and ``lo = tf32(x − hi)``; B (b × k) is
-    V itself for f32 and the real rows of :func:`real_rows` (with
-    ``conj``) for c64."""
-    if V.is_complex():
-        V = real_rows(V, conj)
+    """Plain version of the pre-pass: zeros in (planes, w_pad, b_pad)
+    (:func:`split_shape`) holding, from column ``off``, the TF32 ``hi``
+    and ``lo`` parts of Vᵀ — for f32 ``Vt[0]`` and ``Vt[1]``; for c64 six
+    planes, ``Vt[2c]`` and ``Vt[2c + 1]`` those of component c of (Vr, Vd
+    = fl(Vi − Vr), Vs = fl(Vr + Vi)), the 3M product's B operands — of
+    conj(V) with ``conj`` (the trans route's)."""
     b, k = V.shape
-    b_pad, w_pad = split_shape(b, k, off)
-    Vt = torch.zeros((2, w_pad, b_pad), dtype=torch.float32, device=V.device)
-    hi = _tf32_rna(V)
-    Vt[0, :k, off:off + b] = hi.T
-    Vt[1, :k, off:off + b] = _tf32_rna(V - hi).T
+    b_pad, w_pad = split_shape(b, k, off, V.dtype)
+    if V.is_complex():
+        re, im = V.real, -V.imag if conj else V.imag
+        parts = (re, im - re, re + im)
+    else:
+        parts = (V,)
+    Vt = torch.zeros((2 * len(parts), w_pad, b_pad), dtype=torch.float32,
+                     device=V.device)
+    for c, X in enumerate(parts):
+        _split_into(Vt[2 * c:2 * c + 2], X, off)
     return Vt
 
 
@@ -293,18 +296,15 @@ def tma_row_stride(H: torch.Tensor) -> Optional[int]:
 def float_view_args(H: torch.Tensor, V: torch.Tensor, col0: int,
                     ldw: int, trans: bool = False) -> tuple:
     """What the main kernel is given for ``out (=|+=) H[:, col0:col0+b]
-    · V`` (out with row stride ``ldw``), all in the kernel's units —
-    floats, or bf16 elements for a bf16 H: (ldh, col0, off, b, k, ldw).
-    For c64 these are the float views' (columns, widths and row strides
-    doubled: the module note's real-view identity); ``off`` = the column
-    mod 16 bytes (4 floats, 8 bf16) is the pre-pass's shift, and ldh is
-    None where TMA cannot read H.  With ``trans`` col0 is H's first row,
-    passed as it is (TMA's outer coordinate), and off is 0."""
+    · V`` (out with row stride ``ldw`` elements): (ldh, col0, off, b, k,
+    ldw), the row strides in the kernel's TMA units (floats — two per
+    c64 element — or bf16 elements), the rest in elements.  ``off`` =
+    col0 mod 16 bytes (4 f32, 2 c64, 8 bf16) is the pre-pass's shift, and
+    ldh is None where TMA cannot read H.  With ``trans`` col0 is H's first
+    row, passed as it is (TMA's outer coordinate), and off is 0."""
     w, ub = _tma_units(H.dtype)
-    c0 = col0 if trans else w * col0
-    off = 0 if trans else c0 % (16 // ub)
-    return (tma_row_stride(H), c0, off, w * V.shape[0], w * V.shape[1],
-            w * ldw)
+    off = 0 if trans else col0 % (16 // (w * ub))
+    return (tma_row_stride(H), col0, off, V.shape[0], V.shape[1], w * ldw)
 
 
 def _check_split_input(V: torch.Tensor):
@@ -338,7 +338,7 @@ def _lib():
     pack.restype = ctypes.c_int
     mains = {}       # (H's dtype, trans) → the main kernel
     for key, fn in (((torch.float32, False), lib.ring_hemm_f32),
-                    ((torch.complex64, False), lib.ring_hemm_f32),
+                    ((torch.complex64, False), lib.ring_hemm_c64),
                     ((torch.bfloat16, False), lib.ring_hemm_bf16),
                     ((torch.float32, True), lib.ring_hemm_f32_t),
                     ((torch.complex64, True), lib.ring_hemm_c64_t),
@@ -406,25 +406,27 @@ def _stream(dev) -> int:
 def tf32_split(V: torch.Tensor, off: int = 0,
                conj: bool = False) -> torch.Tensor:
     """The pre-pass: V (b, k) → Vt (2, w_pad, b_pad) with Vt[0] the TF32
-    ``hi`` part of Bᵀ, Vt[1] the ``lo`` part, starting at column ``off``
-    (0–3; ring_hemm passes H's float column of col0, mod 4, so that H's
-    TMA boxes start on 16 bytes), zero-padded (K-major, the layout wgmma
-    takes for 32-bit B operands).  B is V for f32 and its (2b × 2k) real
-    rows for c64 (module note; ``conj``: the trans route's −i·V rows).
-    CPU tensors run :func:`tf32_split_reference`; CUDA tensors launch the
-    kernel."""
+    ``hi`` part of Vᵀ, Vt[1] the ``lo`` part, starting at column ``off``
+    (ring_hemm passes col0 mod 16 bytes, 0–3 for f32, so that H's TMA
+    boxes start on 16 bytes), zero-padded (K-major, the layout wgmma takes
+    for 32-bit B operands).  For c64 (``off`` 0–1) Vt is (6, w_pad, b_pad):
+    the hi and lo planes of Vr, Vd = fl(Vi − Vr) and Vs = fl(Vr + Vi)
+    (module note; ``conj``: of conj(V), the trans route's).  CPU tensors
+    run :func:`tf32_split_reference`; CUDA tensors launch the kernel."""
     _check_split_input(V)
-    if not 0 <= off < 4:
-        raise ValueError(f"tf32_split offset must be 0..3, got {off}")
+    per16 = 2 if V.is_complex() else 4
+    if not 0 <= off < per16:
+        raise ValueError(f"tf32_split offset must be 0..{per16 - 1} for "
+                         f"{V.dtype}, got {off}")
     if V.device.type == "cpu":
         return tf32_split_reference(V, off, conj)
     if V.device.type != "cuda":
         raise RuntimeError(f"tf32_split runs on cuda or cpu tensors, not "
                            f"{V.device}")
     b, k = V.shape
-    w = _floats(V)
-    b_pad, w_pad = split_shape(w * b, w * k, off)
-    Vt = torch.empty((2, w_pad, b_pad), dtype=torch.float32, device=V.device)
+    b_pad, w_pad = split_shape(b, k, off, V.dtype)
+    Vt = torch.empty((6 if V.is_complex() else 2, w_pad, b_pad),
+                     dtype=torch.float32, device=V.device)
     with torch.cuda.device(V.device):
         err = _lib().split[V.dtype, bool(conj)](
             V.data_ptr(), V.stride(0), Vt.data_ptr(), b, k, off, b_pad,
@@ -498,8 +500,8 @@ def ring_hemm(H: torch.Tensor, V: torch.Tensor, *, col0: int = 0,
 
     CPU tensors run :func:`ring_hemm_reference`; CUDA tensors launch the
     pre-pass and the kernel on the current stream, or raise.  The
-    pre-pass's output (2·w_pad·b_pad floats — of the (2b × 2k) B for c64 —
-    or w_pad·b_pad bf16) is scratch of this call.
+    pre-pass's output (2·w_pad·b_pad floats, 6·w_pad·b_pad for c64, or
+    w_pad·b_pad bf16) is scratch of this call.
     """
     with span("chase.ring_hemm"):
         _check(H, V, col0, out, accumulate, trans)
@@ -554,13 +556,12 @@ class _PeersArg(ctypes.Structure):
 def gather_layout(h_dtype, p: int, b: int, k: int) -> tuple:
     """(b_pad, w_pad, bK) of the gathered B for p chunks of (b × k) and an
     H of ``h_dtype``: the main kernel's B of the whole (p·b × k) V — the
-    f32 pre-pass's (2, w_pad, b_pad) (of the real (2p·b × 2k) rows for
-    c64) or the bf16 pack's (w_pad, b_pad) — in which chunk ``src`` fills
-    K rows ``[src·bK, (src+1)·bK)``, bK = b (2b for c64)."""
+    pre-pass's (planes, w_pad, b_pad) (two planes for f32, six for c64) or
+    the bf16 pack's (w_pad, b_pad) — in which chunk ``src`` fills K rows
+    ``[src·bK, (src+1)·bK)``, bK = b."""
     if h_dtype == torch.bfloat16:
         return pack_shape(p * b, k) + (b,)
-    w = 2 if h_dtype.is_complex else 1
-    return split_shape(w * p * b, w * k) + (w * b,)
+    return split_shape(p * b, k, 0, h_dtype) + (b,)
 
 
 def peer_gather_reference(chunks, h_dtype) -> torch.Tensor:
@@ -572,9 +573,10 @@ def peer_gather_reference(chunks, h_dtype) -> torch.Tensor:
     b_pad, w_pad, bK = gather_layout(h_dtype, p, b, k)
     bf16 = h_dtype == torch.bfloat16
     dev = chunks[0].device
+    planes = 6 if h_dtype == torch.complex64 else 2
     B = (torch.zeros((w_pad, b_pad), dtype=torch.bfloat16, device=dev)
-         if bf16 else torch.zeros((2, w_pad, b_pad), dtype=torch.float32,
-                                  device=dev))
+         if bf16 else torch.zeros((planes, w_pad, b_pad),
+                                  dtype=torch.float32, device=dev))
     for src, c in enumerate(chunks):
         part = bf16_pack_reference(c) if bf16 else tf32_split_reference(c)
         B[..., src * bK:(src + 1) * bK] = part[..., :bK]
@@ -661,7 +663,8 @@ def peer_gather(V: torch.Tensor, peers, h_dtype) -> torch.Tensor:
     p = peers.p
     b_pad, w_pad, _ = gather_layout(h_dtype, p, b, k)
     bf16 = h_dtype == torch.bfloat16
-    B = torch.empty((w_pad, b_pad) if bf16 else (2, w_pad, b_pad),
+    planes = 6 if h_dtype == torch.complex64 else 2
+    B = torch.empty((w_pad, b_pad) if bf16 else (planes, w_pad, b_pad),
                     dtype=torch.bfloat16 if bf16 else torch.float32,
                     device=V.device)
     from ..parallel.peers import ready_epoch, slot_of
@@ -690,7 +693,7 @@ def _peer_product(H: torch.Tensor, V: torch.Tensor, peers, ldh: int,
     with torch.cuda.device(H.device):
         err = _lib().main[H.dtype, False](
             H.data_ptr(), ldh, 0, B.data_ptr(), B.shape[-1], B.shape[-2],
-            out.data_ptr(), w * out.stride(0), m, w * k, w * H.shape[1], 0,
+            out.data_ptr(), w * out.stride(0), m, k, H.shape[1], 0,
             _stream(H.device))
     _raise_on(err, f"ring_hemm_peers kernel (m={m}, k={k}, N={H.shape[1]}, "
                    f"{H.dtype})")

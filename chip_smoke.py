@@ -87,8 +87,9 @@ no result line) on any fault:
            0.5 of Clement's, true residuals ≤ 10·tol, computed in C), with
            its init, readHam, solve and get times beside the in-process
            warm TTS and its ring_hemm launches
-  ckernel  complex64 ring_hemm (the f32 kernel on the float views, with
-           the complex pre-pass) against its plain version (complex
+  ckernel  complex64 ring_hemm (its c64 kernel, Gauss's three real
+           products, with the complex pre-pass's six planes) against its
+           plain version (complex
            torch.matmul) and a c128 product at (1001, 37) through
            DenseOperator (row stride 1002), (30000, 750), (30000, 1500),
            (30000, 3000);
@@ -480,12 +481,12 @@ def pack_bound(b: int, k: int) -> tuple:
 
 
 def split_bound(b: int, k: int, dtype) -> tuple:
-    """The pre-pass's bound: V read once, the (2, w_pad, b_pad) f32 output
-    written once (of the real (2b × 2k) B for complex V)."""
+    """The pre-pass's bound: V read once, the (planes, w_pad, b_pad) f32
+    output written once (2 planes for f32, 6 for c64)."""
     from chase_tpu_torch.ops.ring_hemm import split_shape
-    w = dtype.itemsize // 4                  # floats per element
-    b_pad, w_pad = split_shape(w * b, w * k)
-    return bound(0.0, dtype.itemsize * b * k + 8 * w_pad * b_pad)
+    planes = 6 if dtype.is_complex else 2
+    b_pad, w_pad = split_shape(b, k, 0, dtype)
+    return bound(0.0, dtype.itemsize * b * k + 4 * planes * w_pad * b_pad)
 
 
 def rel_err(x: torch.Tensor, ref: torch.Tensor) -> float:
@@ -603,17 +604,19 @@ def _hemm_case(phase, H, V, ref, reps: int) -> dict:
 
 def _split_case(phase, V, reps: int) -> dict:
     """The pre-pass alone: bit-exact against its plain version, and
-    hi + lo within 2^-22 of the matrix it splits; timed."""
-    from chase_tpu_torch.ops.ring_hemm import (real_rows, tf32_split,
-                                               tf32_split_reference)
+    each plane pair's hi + lo within 2^-22 of the matrix it splits (V; for
+    c64 Vr, fl(Vi − Vr) and fl(Vr + Vi)); timed."""
+    from chase_tpu_torch.ops.ring_hemm import tf32_split, tf32_split_reference
     b, k = V.shape
     Vt, Vr = tf32_split(V), tf32_split_reference(V)
     torch.cuda.synchronize()
     split_err = float((Vt - Vr).abs().max())
-    B = real_rows(V) if V.is_complex() else V
-    rebuild = float(((Vt[0] + Vt[1])[:B.shape[1], :B.shape[0]] - B.T)
-                    .abs().max() / B.abs().max())
-    del Vt, Vr, B
+    parts = ((V.real, V.imag - V.real, V.real + V.imag) if V.is_complex()
+             else (V,))
+    rebuild = max(float(((Vt[2 * c] + Vt[2 * c + 1])[:k, :b] - X.T)
+                        .abs().max() / X.abs().max())
+                  for c, X in enumerate(parts))
+    del Vt, Vr, parts
     sp_plain, sp_ms = time_fns([lambda: tf32_split_reference(V),
                                 lambda: tf32_split(V)], reps)
     bound_ms, bound_by = split_bound(b, k, V.dtype)

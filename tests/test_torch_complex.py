@@ -4,8 +4,9 @@ package.
 The JAX package solves complex problems natively on the CPU, or through
 its 2N real-pair embedding (``complex_backend="real_pair"``), the only
 route on which its Pallas ring kernel sees complex data.  The port is
-native complex everywhere; its ring kernel takes c64 through its float
-view (``ops/ring_hemm.py``'s module note).
+native complex everywhere; its ring kernel has a c64 route of its own,
+the complex product in three real products (Gauss's 3M form,
+``ops/ring_hemm.py``'s module note).
 
 * c128: random Hermitian N=256, nev=24, nex=16, tol 1e-9, same V0,
   against ``chase_tpu.eigsh(complex_backend="native")``: eigenvalues
@@ -15,10 +16,12 @@ view (``ops/ring_hemm.py``'s module note).
   the CPU) against JAX's real-pair Pallas ring on a (2, 1) grid (TPU
   interpreter): eigenvalues within 1e-4 of each other and of eigvalsh,
   true residuals ≤ 10·tol.
-* the real-view identity on the plain versions, and the main kernel's
-  arithmetic emulated on the CPU from the wrapper's float arguments:
-  1e-5 of the largest entry (f32 sums in another order than a c128
-  product).
+* the c64 pre-pass's six planes written out, and the c64 kernel's 3M
+  arithmetic emulated on the CPU from the wrapper's arguments (TF32
+  splits of fl(Hr + Hi), Hr and Hi, three products small terms first,
+  promoted in IEEE f32 per K tile), untransposed and trans: 1e-5 of the
+  largest entry of a c128 product, and within 4× the plain c64
+  product's error.
 * the c64 ring filter against the JAX filter: 1e-5 per column,
   degree-0 columns bit-exact.
 """
@@ -35,9 +38,8 @@ from chase_tpu.ops.filter import chebyshev_filter as j_filter
 
 import chase_tpu_torch as ct
 from chase_tpu_torch.models import random_hermitian
-from chase_tpu_torch.ops.ring_hemm import (float_view_args, real_rows,
-                                           ring_hemm, ring_hemm_reference,
-                                           split_shape, tf32_split,
+from chase_tpu_torch.ops.ring_hemm import (BK_C64, float_view_args,
+                                           ring_hemm, split_shape, tf32_split,
                                            tf32_split_reference, tma_ld,
                                            tma_row_stride)
 from chase_tpu_torch.ops import ring_hemm as trh
@@ -137,7 +139,7 @@ def test_c128_largest_matches_jax():
     assert residual_norms(H, V, rt.ritzv).max() <= 1e-8
 
 
-# ---- the real-view identity --------------------------------------------------
+# ---- the c64 route's 3M arithmetic -------------------------------------------
 
 def _split_np(x):
     """TF32 hi/lo by bit arithmetic (cvt.rna: half a TF32 ulp, clear 13
@@ -150,29 +152,38 @@ def _split_np(x):
     return hi, tf32(x - hi)
 
 
-@pytest.mark.parametrize("off", [0, 2])
-def test_c64_split_plain_version_is_the_written_out_expansion(off):
-    rng = np.random.default_rng(10 + off)
+@pytest.mark.parametrize("conj", [False, True], ids=["plain", "conj"])
+@pytest.mark.parametrize("off", [0, 1])
+def test_c64_split_plain_version_is_the_written_out_planes(off, conj):
+    """The c64 pre-pass's plain version: six planes, Vr, fl(Vi − Vr) and
+    fl(Vr + Vi) of V (of conj(V) with ``conj``) each split into TF32 hi
+    and lo, transposed, from column ``off``, zero elsewhere."""
+    rng = np.random.default_rng(10 + off + 2 * conj)
     Vw = torch.from_numpy(_crandn(rng, 21, 70))[:, 3:68]  # strided window
     V = Vw.numpy()
     b, k = V.shape
-    B = np.empty((2 * b, 2 * k), np.float32)
+    parts = np.empty((3, b, k), np.float32)
     for j in range(b):
         for c in range(k):
-            re, im = V[j, c].real, V[j, c].imag
-            B[2 * j, 2 * c], B[2 * j, 2 * c + 1] = re, im
-            B[2 * j + 1, 2 * c], B[2 * j + 1, 2 * c + 1] = -im, re
-    Vt = tf32_split(Vw, off)
-    assert tuple(Vt.shape) == (2, *split_shape(2 * b, 2 * k, off)[::-1])
-    hi, lo = _split_np(B)
-    np.testing.assert_array_equal(Vt[0, :2 * k, off:off + 2 * b].numpy(),
-                                  hi.T)
-    np.testing.assert_array_equal(Vt[1, :2 * k, off:off + 2 * b].numpy(),
-                                  lo.T)
+            re = V[j, c].real
+            im = -V[j, c].imag if conj else V[j, c].imag
+            parts[:, j, c] = re, im - re, re + im      # float32 sums
+    Vt = tf32_split(Vw, off, conj=conj)
+    assert tuple(Vt.shape) == (6, *split_shape(b, k, off,
+                                               torch.complex64)[::-1])
+    assert Vt.shape[2] % BK_C64 == 0 and Vt.shape[1] % 64 == 0
+    for c in range(3):
+        hi, lo = _split_np(parts[c])
+        np.testing.assert_array_equal(
+            Vt[2 * c, :k, off:off + b].numpy(), hi.T)
+        np.testing.assert_array_equal(
+            Vt[2 * c + 1, :k, off:off + b].numpy(), lo.T)
     zero = torch.ones_like(Vt, dtype=torch.bool)
-    zero[:, :2 * k, off:off + 2 * b] = False
+    zero[:, :k, off:off + b] = False
     assert not Vt[zero].any()
-    assert torch.equal(Vt, tf32_split_reference(Vw.contiguous(), off))
+    assert torch.equal(Vt, tf32_split_reference(Vw.contiguous(), off, conj))
+    with pytest.raises(ValueError):
+        tf32_split(Vw, 2)
 
 
 def _float_view(H):
@@ -180,51 +191,137 @@ def _float_view(H):
     return torch.view_as_real(H) if H.is_complex() else H
 
 
-def _emulate_kernel(H, V, col0, out, accumulate):
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _emulate_c64(H, V, col0, out, accumulate, trans):
+    """The c64 kernel's arithmetic, driven by the wrapper's arguments: the
+    A tile (H's block, or its transpose with ``trans``; columns outside
+    [off, off + b) zero) split into TF32 hi/lo for Hs = fl(Hr + Hi), Hr
+    and Hi; per K tile of BK_C64 complex, k1 = Hs·Vr, k2 = Hr·Vd, k3 =
+    Hi·Vs, each lo·Vhi + hi·Vlo + hi·Vhi against the pre-pass's planes
+    (sums in f64, rounded to f32: the accumulator's own rounding is not
+    modelled), promoted in IEEE f32 as re += k1 − k3, im += k1 + k2; the
+    trans route negates Im (Hᴴ·V = conj(Hᵀ·conj V))."""
+    ldh, c0, off, b, k, ldw = float_view_args(H, V, col0, out.stride(0),
+                                              trans)
+    assert ldh is not None and c0 == col0 and ldw == 2 * out.stride(0)
+    Vt = tf32_split(V, off, conj=trans)          # the plain pre-pass
+    b_pad = Vt.shape[2]
+    A = H[col0:col0 + b, :].T if trans else H[:, col0:col0 + b]
+    m = A.shape[0]
+    parts = []
+    for X in (A.real, A.imag):
+        P = torch.zeros((m, b_pad), dtype=torch.float32)
+        P[:, off:off + b] = X
+        parts.append(P)
+    parts.insert(0, parts[0] + parts[1])                 # fl(Hr + Hi)
+    splits = [(_tf32(P), _tf32(P - _tf32(P))) for P in parts]
+    re = torch.zeros((m, k), dtype=torch.float32)
+    im = torch.zeros((m, k), dtype=torch.float32)
+    for t0 in range(0, b + off, BK_C64):
+        sl = slice(t0, t0 + BK_C64)
+        kk = []
+        for c, (Ah, Al) in enumerate(splits):
+            Bh = Vt[2 * c, :k, sl].T.double()
+            Bl = Vt[2 * c + 1, :k, sl].T.double()
+            ah, al = Ah[:, sl].double(), Al[:, sl].double()
+            kk.append((al @ Bh + ah @ Bl + ah @ Bh).float())
+        re = re + (kk[0] - kk[2])
+        im = im + (kk[0] + kk[1])
+    W = torch.complex(re, -im if trans else im)
+    out.copy_(out + W if accumulate else W)
+
+
+def _emulate_kernel(H, V, col0, out, accumulate, trans=False):
     """The main kernel's arithmetic on the CPU, driven by the wrapper's
-    float arguments: out_f (=|+=) Hf[:, c0 - off : c0 - off + b_pad] ·
-    (hi + lo)ᵀ over the pre-pass's (w_pad × b_pad) output, Hf's columns
-    outside [c0, c0 + b_f) read as zero (the first tile's mask and TMA's
-    zero fill past the descriptor's last column)."""
+    arguments: for c64 :func:`_emulate_c64`; for f32 out (=|+=) H[:, c0 -
+    off : c0 - off + b_pad] · (hi + lo)ᵀ over the pre-pass's (w_pad ×
+    b_pad) output, H's columns outside [c0, c0 + b) read as zero (the
+    first tile's mask and TMA's zero fill past the descriptor's last
+    column)."""
+    if H.is_complex():
+        return _emulate_c64(H, V, col0, out, accumulate, trans)
     m = H.shape[0]
     ldh, c0, off, b_f, k_f, ldw = float_view_args(H, V, col0, out.stride(0))
     assert ldh is not None
     Vt = tf32_split(V, off)                      # the plain pre-pass
     b_pad = Vt.shape[2]
-    Hf = torch.as_strided(_float_view(H), (m, c0 + b_f), (ldh, 1))
-    koff = c0 % 4          # the kernel's own shift (ring_hemm_f32: col0 % 4)
+    Hf = torch.as_strided(H, (m, c0 + b_f), (ldh, 1))
     A = torch.zeros((m, b_pad), dtype=torch.float64)
-    A[:, koff:koff + b_f] = Hf[:, c0:].double()
+    A[:, off:off + b_f] = Hf[:, c0:].double()
     Wf = (A @ (Vt[0].double() + Vt[1].double()).T)[:, :k_f]
-    Of = torch.as_strided(_float_view(out), (m, k_f), (ldw, 1))
+    Of = torch.as_strided(out, (m, k_f), (ldw, 1))
     Of.copy_(Of.double() + Wf if accumulate else Wf)
 
 
+@pytest.mark.parametrize("trans", [False, True], ids=["untransposed",
+                                                     "trans"])
 @pytest.mark.parametrize("m,n_cols,b,k,col0", [
     (37, 37, 37, 5, 0),            # odd N, whole H
-    (40, 101, 45, 7, 3),           # odd col0: float column ≡ 2 (mod 4)
+    (40, 101, 45, 7, 3),           # odd col0: off = 1
     (40, 101, 50, 9, 4),           # even col0
     (21, 64, 17, 1, 47),           # k = 1, odd col0, block up to the edge
 ], ids=["odd_N", "col0_3", "col0_4", "k1_col0_47"])
-def test_c64_real_view_identity(m, n_cols, b, k, col0):
-    rng = np.random.default_rng(m + b + col0)
-    H = padded_empty(n_cols, torch.complex64, "cpu")[:m]
-    H.copy_(torch.from_numpy(_crandn(rng, m, n_cols)))
+def test_c64_3m_emulation_matches_c128(m, n_cols, b, k, col0, trans):
+    """The 3M arithmetic from the wrapper's arguments against a c128
+    product: within RTOL of the largest entry and 4× the plain c64
+    product's error; the wrapper's own CPU route (the plain version) too.
+    With ``trans`` H is (n_cols × m) and the product H[col0:col0+b, :]ᴴ·V,
+    the trans route's."""
+    rng = np.random.default_rng(m + b + col0 + 7 * trans)
+    rows, cols = (n_cols, m) if trans else (m, n_cols)
+    H = padded_empty(rows, torch.complex64, "cpu", cols)
+    H.copy_(torch.from_numpy(_crandn(rng, rows, cols)))
     assert H.stride(0) % 2 == 0 and tma_row_stride(H) == 2 * H.stride(0)
     V = torch.from_numpy(_crandn(rng, b, k))
-    ref = (H[:, col0:col0 + b].to(torch.complex128)
-           @ V.to(torch.complex128)).numpy()
-    # the plain f32 product of the float view with B, viewed as c64
-    Hf = torch.view_as_real(H.contiguous()).flatten(1)
-    Wf = ring_hemm_reference(Hf, real_rows(V), col0=2 * col0)
-    W = torch.view_as_complex(Wf.reshape(m, k, 2).contiguous())
-    assert _rel(W.numpy(), ref) <= RTOL
-    # the kernel's arithmetic from the wrapper's float arguments
+    Hb = H[col0:col0 + b, :].mH if trans else H[:, col0:col0 + b]
+    ref = (Hb.to(torch.complex128) @ V.to(torch.complex128)).numpy()
+    errp = _rel((Hb @ V).numpy(), ref)
     out = torch.full((m, k), np.nan, dtype=torch.complex64)
-    _emulate_kernel(H, V, col0, out, accumulate=False)
-    assert _rel(out.numpy(), ref) <= RTOL
-    # and the wrapper's own CPU route (the plain version)
-    assert _rel(ring_hemm(H, V, col0=col0).numpy(), ref) <= RTOL
+    _emulate_kernel(H, V, col0, out, accumulate=False, trans=trans)
+    err = _rel(out.numpy(), ref)
+    assert err <= RTOL and err <= 4 * errp, (err, errp)
+    assert _rel(ring_hemm(H, V, col0=col0, trans=trans).numpy(),
+                ref) <= RTOL
+
+
+def _c64_tile_row(L):
+    """csrc/ring_hemm.cu's c64r::tile_row<0>."""
+    return (L & ~7) | ((L & 3) << 1) | ((L >> 2) & 1)
+
+
+def test_c64_tile_permutation_reads_each_element_conflict_free():
+    """The c64 kernel's untransposed A tile (csrc/ring_hemm.cu, load_a):
+    one TMA box of 128 H rows × 16 complex (128 bytes), 128-byte swizzled,
+    read as (re, im) pairs with 8-byte loads.  For every warp, k-step ks
+    and fragment register v, each lane's two words are H(tile_row(L),
+    complex column 8 ks + 4 (v >> 1) + lane % 4) — the words the kernel
+    computes from a per-thread base and XOR key and a constant per
+    register —, tile_row is a bijection of the 128 rows, and each
+    half-warp's 32 words lie on 32 distinct banks."""
+    assert sorted(_c64_tile_row(L) for L in range(128)) == list(range(128))
+    where = {}
+    for r in range(128):
+        for f in range(32):
+            word = r * 32 + ((f >> 2) ^ (r & 7)) * 4 + (f & 3)
+            where[word] = (r, f // 2, f % 2)
+    for wg, warp, ks, v in np.ndindex(2, 4, 2, 4):
+        banks = [set(), set()]
+        for lane in range(32):
+            q, hv = lane % 4, v >> 1
+            L = 64 * wg + 16 * warp + lane // 4 + 8 * (v & 1)
+            P = _c64_tile_row(L)
+            base = P * 32 + 2 * (q & 1)
+            key = ((q >> 1) ^ (P & 7)) << 2
+            i = base + (key ^ ((4 * ks + 2 * hv) << 2))
+            assert i % 2 == 0
+            for e in range(2):
+                assert where[i + e] == (P, 8 * ks + 4 * hv + q, e)
+                banks[lane // 16].add((i + e) % 32)
+        assert [len(b) for b in banks] == [32, 32]
 
 
 def test_c64_strided_window_accumulates_into_strided_out():

@@ -518,7 +518,7 @@ def test_cuda_eigsh_filter_runs_on_the_kernel(cuda):
     assert np.abs(res.ritzv - clement_eigenvalues(512)[:40]).max() <= 1e-3
 
 
-# ---- complex64 on the card: the f32 kernel through the float views ----------
+# ---- complex64 on the card: the c64 kernel (Gauss's three products) --------
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("m,n_cols,k,col0,b", [
@@ -527,8 +527,8 @@ def test_cuda_eigsh_filter_runs_on_the_kernel(cuda):
 ], ids=["200x37", "m257", "tiny", "col0_1", "col0_3", "col0_6"])
 def test_cuda_c64_kernel_matches_plain_version(cuda, m, n_cols, k, col0, b):
     """c64 against a c128 product: within 1e-5 and within 4x the plain
-    version's (cuBLAS CGEMM) error; odd col0 puts the float column at 2
-    mod 4."""
+    version's (cuBLAS CGEMM) error; odd col0 shifts the pre-pass by one
+    complex column (off = 1)."""
     g = torch.Generator(device=cuda).manual_seed(m + k + col0 + b)
     H = _padded_randn(m, n_cols, g, cuda, torch.complex64)
     V = torch.randn((b, k), generator=g, device=cuda, dtype=torch.complex64)
@@ -536,10 +536,10 @@ def test_cuda_c64_kernel_matches_plain_version(cuda, m, n_cols, k, col0, b):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,k,off", [(1000, 37, 0), (61, 129, 2)])
+@pytest.mark.parametrize("b,k,off", [(1000, 37, 0), (61, 129, 1)])
 def test_cuda_c64_split_prepass(cuda, b, k, off):
     """The complex pre-pass on the card is bit-identical to its plain
-    version (the real rows of V, split), V a strided window."""
+    version (the six planes of V), V a strided window."""
     g = torch.Generator(device=cuda).manual_seed(b + 1)
     V = torch.randn((b, 3 * k), generator=g, device=cuda,
                     dtype=torch.complex64)[:, k:2 * k]
@@ -547,8 +547,38 @@ def test_cuda_c64_split_prepass(cuda, b, k, off):
     Vt = tf32_split(V, off)
     torch.cuda.synchronize()
     assert LAUNCHES["tf32_split"] == before + 1
-    assert tuple(Vt.shape) == (2, *split_shape(2 * b, 2 * k, off)[::-1])
+    assert tuple(Vt.shape) == (6, *split_shape(b, k, off,
+                                               torch.complex64)[::-1])
     assert torch.equal(Vt, tf32_split_reference(V, off))
+
+
+@pytest.mark.gpu
+def test_cuda_c64_non_finite_in_and_left_of_the_block(cuda):
+    """A NaN or inf inside the block reaches every column of its row of W
+    — also CUDA's canonical NaN (bits 0x7FFFFFFF), which the kernel's
+    integer rounding of the A split carries into a zero hi (its lo keeps
+    the NaN) —; inf and NaN just left of the block (odd col0: the first K
+    tile starts one complex column early) stay out."""
+    g = torch.Generator(device=cuda).manual_seed(17)
+    col0, b = 3, 250
+    H = _padded_randn(200, 300, g, cuda, torch.complex64)
+    bits = torch.view_as_real(H).view(torch.int32)
+    Hf = torch.view_as_real(H)
+    Hf[:, col0 - 1, 0] = float("inf")
+    Hf[::3, col0 - 1, 1] = float("nan")
+    Hf[5, col0 + 10, 0] = float("nan")
+    bits[7, col0 + 20, 1] = 0x7FFFFFFF
+    Hf[9, col0 + 30, 0] = float("inf")
+    V = torch.randn((b, 50), generator=g, device=cuda, dtype=torch.complex64)
+    W = ring_hemm(H, V, col0=col0)
+    torch.cuda.synchronize()
+    bad = torch.zeros(200, dtype=torch.bool, device=cuda)
+    bad[[5, 7, 9]] = True
+    assert not torch.isfinite(W[bad]).any()
+    assert torch.isfinite(W[~bad]).all()
+    ref = _wide(H[~bad, col0:col0 + b]) @ _wide(V)
+    err = float((_wide(W[~bad]) - ref).abs().max() / ref.abs().max())
+    assert err <= RTOL
 
 
 @pytest.mark.gpu

@@ -6,11 +6,11 @@ in place.
 
 On the CPU the wrapper takes its plain version; these tests hold it
 against numpy and JAX on the same seeded inputs, check what the route
-refuses, and check the arithmetic the CUDA kernel is built on without a
-card: the c64 float-view identity with the pre-pass's −i·V rows, and the
-M-order permutation of the MN-major A tile (a bijection, each fragment
-read at the element it stands for, the 32 lanes of a warp on 32 shared
-memory banks).  The ``gpu``-marked tests at the end run the kernel:
+refuses, and check the arithmetic the CUDA kernels are built on without
+a card: the c64 route's conjugate identity Hᴴ·V = conj(Hᵀ·conj(V)) with
+the pre-pass's planes of conj(V), and the M-order permutation of the
+MN-major A tile (a bijection, each fragment read at the element it
+stands for, a warp's loads on distinct shared memory banks).  The ``gpu``-marked tests at the end run the kernel:
 
     python -m pytest tests/test_torch_ring_hemm_trans.py -m gpu --noconftest
 
@@ -25,7 +25,7 @@ import numpy as np
 import pytest
 import torch
 
-from chase_tpu_torch.ops.ring_hemm import (LAUNCHES, real_rows, ring_hemm,
+from chase_tpu_torch.ops.ring_hemm import (LAUNCHES, ring_hemm,
                                            ring_hemm_reference, tf32_split,
                                            tf32_split_reference, tma_ld)
 from chase_tpu_torch.parallel.ring import matmul_step, ring_steps
@@ -204,77 +204,89 @@ def test_ring_steps_trans_is_the_block_conjugate_transposed(name):
 
 
 @pytest.mark.parametrize("row0,b", [(0, 24), (7, 13)])
-def test_trans_c64_float_view_identity(row0, b):
-    """The c64 trans route on the f32 kernel: A_f[i, 2kk+e] = Hf[row0+kk,
-    2i+e] (the float view of h read transposed in 1 × 2 blocks) times the
-    pre-pass's real rows with −i·V (``real_rows(V, conj=True)``, split by
-    ``tf32_split_reference(V, conj=True)``) is hᴴ·V viewed as floats."""
+def test_trans_c64_conj_identity(row0, b):
+    """The c64 trans route: the 3M product of hᵀ (read in place) with the
+    pre-pass's planes of conj(V) (``tf32_split_reference(V, conj=True)``:
+    Vr, fl(−Vi − Vr), fl(Vr − Vi)), Im negated, is hᴴ·V; the conj planes
+    are the plain ones of V's conjugate (Vd negated: −Vi − Vr = −(Vr +
+    Vi)), and hi + lo rebuilds each component."""
     H, V = _arrays(torch.complex64, 40, 21, 6, row0 + b)
     Ht, Vt = torch.from_numpy(H), torch.from_numpy(V[row0:row0 + b])
-    Hf = torch.view_as_real(Ht).reshape(40, 42)            # float view
-    Af = Hf[row0:row0 + b].reshape(b, 21, 2).permute(1, 0, 2).reshape(
-        21, 2 * b)
-    B = real_rows(Vt, conj=True)
-    Wf = (Af.double() @ B.double()).numpy()
-    ref = _exact(Ht, Vt, row0, b)
-    assert _rel(Wf.reshape(21, 6, 2), np.stack([ref.real, ref.imag], -1)) \
-        <= RTOL
-    # the pre-pass's planes rebuild the conjugate rows (hi + lo = B)
+    A = Ht[row0:row0 + b].T                      # hᵀ, not conjugated
     Vs = tf32_split_reference(Vt, conj=True)
-    rebuilt = (Vs[0] + Vs[1])[:12, :2 * b].T
-    assert float((rebuilt - B).abs().max() / B.abs().max()) <= 2.0 ** -22
-    assert torch.equal(B[0::2], real_rows(Vt)[0::2])
-    assert torch.equal(B[1::2], -real_rows(Vt)[1::2])
+    Vp = tf32_split_reference(Vt)
+    comp = [(Vs[2 * c] + Vs[2 * c + 1])[:6, :b].T.double() for c in range(3)]
+    Ar, Ai = A.real.double(), A.imag.double()
+    k1, k2, k3 = (Ar + Ai) @ comp[0], Ar @ comp[1], Ai @ comp[2]
+    W = (k1 - k3) - 1j * (k1 + k2)               # conj(Hᵀ·conj(V))
+    assert _rel(W.numpy(), _exact(Ht, Vt, row0, b)) <= RTOL
+    re, im = Vt.real, -Vt.imag
+    for c, X in enumerate((re, im - re, re + im)):
+        rebuilt = (Vs[2 * c] + Vs[2 * c + 1])[:6, :b].T
+        assert float((rebuilt - X).abs().max() / X.abs().max()) <= 2.0 ** -22
+    assert torch.equal(Vs[:2], Vp[:2])
+    assert torch.equal(Vs[2:4], -Vp[4:6])
     # on the CPU the wrapper takes that plain version
     assert torch.equal(tf32_split(Vt, conj=True), Vs)
 
 
 def _tile_row(L, tu):
-    """csrc/ring_hemm.cu's tile_row<TU>."""
+    """csrc/ring_hemm.cu's tile_row<1> (f32) and c64r::tile_row<1>."""
     if tu == 1:
         return (L & 0x63) | ((L & 0x04) << 2) | ((L & 0x18) >> 1)
-    return (L & 0x71) | ((L & 0x06) << 1) | ((L & 0x08) >> 2)
+    return ((L & ~15) | ((L & 2) << 2) | ((L & 8) >> 1) | ((L & 4) >> 1)
+            | (L & 1))
 
 
 @pytest.mark.parametrize("tu", [1, 2], ids=["f32", "c64"])
 def test_trans_tile_permutation_reads_each_element_conflict_free(tu):
-    """The f32 kernel's MN-major A tile (csrc/ring_hemm.cu, load_a on the
-    trans route): 4·TU TMA boxes of 32/TU H rows × 128 bytes, 128-byte
-    swizzled.  For every warp, k-step ks and fragment register v, each
-    lane's word is the float of H(row kc / TU, column tile_row(L)) that
-    the wgmma fragment layout puts there (A row L = 16·(warp % 4) +
-    lane/4 + 8·(v & 1) + 64·wg, K position kc = 8 ks + 4 (v >> 1) +
-    lane % 4) — the word the kernel computes from a per-thread base and
-    XOR key and two constants per register —, tile_row is a bijection of
-    the 128 rows, and the 32 lanes hit 32 distinct banks."""
-    bk, epb = 32, 32 // tu                       # floats per K tile, per box row
+    """The MN-major A tile of the trans routes (csrc/ring_hemm.cu, load_a):
+    TMA boxes of K-tile rows × 128 bytes, 128-byte swizzled — f32: 4 boxes
+    of 32 H rows × 32 columns; c64: 8 boxes of 16 H rows × 16 complex
+    columns, read as (re, im) pairs.  For every warp, k-step ks and
+    fragment register v, each lane's word(s) hold H(row kc, column
+    tile_row(L)) that the wgmma fragment layout puts there (A row L =
+    16·(warp % 4) + lane/4 + 8·(v & 1) + 64·wg, K position kc = 8 ks + 4
+    (v >> 1) + lane % 4) — the word the kernel computes from a per-thread
+    base and XOR key and constants per register —, tile_row is a
+    bijection of the 128 rows, and the loads hit distinct banks (32-bit:
+    32 lanes; 64-bit, c64: each half-warp's 32 words)."""
     rows = sorted(_tile_row(L, tu) for L in range(128))
     assert rows == list(range(128))
+    boxes, bk, cpb = (4, 32, 32) if tu == 1 else (8, 16, 16)
+    ksteps = bk // 8
     # smem words of the tile as TMA writes them: box x, box row kk, float f
     where = {}
-    for x in range(4 * tu):
-        for kk in range(bk // tu):
+    for x in range(boxes):
+        for kk in range(bk):
             for f in range(32):
                 chunk = (f >> 2) ^ (kk & 7)
-                word = x * (bk // tu) * 32 + kk * 32 + chunk * 4 + (f & 3)
-                where[word] = (kk, epb * x + f // tu, f % tu)  # (row, col, e)
-    for wg, warp, ks, v in np.ndindex(2, 4, 4, 4):
-        banks = set()
+                word = x * bk * 32 + kk * 32 + chunk * 4 + (f & 3)
+                where[word] = (kk, cpb * x + f // tu, f % tu)  # (row, col, e)
+    for wg, warp, ks, v in np.ndindex(2, 4, ksteps, 4):
+        banks = [set(), set()]
         for lane in range(32):
-            q = lane % 4
+            q, hv = lane % 4, v >> 1
             L = 64 * wg + 16 * warp + lane // 4 + 8 * (v & 1)
             P = _tile_row(L, tu)
-            # the kernel's per-thread base and key, per-register constant c
-            qr = q // tu
-            fi = tu * (P % epb) + q % tu
-            tbase = P // epb * (bk // tu) * 32 + 32 * qr + (fi & 3)
-            tkey = ((fi >> 2) ^ qr) << 2
-            c = (8 * ks + 4 * (v >> 1)) // tu
-            word = tbase + 32 * c + (tkey ^ ((c & 7) << 2))
-            kc = 8 * ks + 4 * (v >> 1) + q
-            assert where[word] == (kc // tu, P, kc % tu)
-            banks.add(word % 32)
-        assert len(banks) == 32
+            kc = 8 * ks + 4 * hv + q
+            if tu == 1:
+                fi = P % 32
+                tbase = P // 32 * bk * 32 + 32 * q + (fi & 3)
+                tkey = ((fi >> 2) ^ q) << 2
+                c = 8 * ks + 4 * hv
+                words = [tbase + 32 * c + (tkey ^ ((c & 7) << 2))]
+            else:
+                base = (P >> 4) * 16 * 32 + 32 * q + 2 * (P & 1)
+                key = (((P & 15) >> 1) ^ q) << 2
+                i = base + 32 * (8 * ks + 4 * hv) + (key ^ (hv << 4))
+                assert i % 2 == 0                # an 8-byte load
+                words = [i, i + 1]
+            for e, word in enumerate(words):
+                assert where[word] == (kc, P, e)
+                banks[lane // 16 if tu == 2 else 0].add(word % 32)
+        assert [len(bk_) for bk_ in banks] == ([32, 0] if tu == 1
+                                               else [32, 32])
 
 
 # -- on the card --------------------------------------------------------------
@@ -387,7 +399,8 @@ def test_cuda_trans_holds_the_gate_at_stripe_depths(cuda, name, K):
 @pytest.mark.gpu
 def test_cuda_trans_reads_the_c64_conjugate(cuda):
     """A c64 block whose imaginary part alone is non-zero: the route
-    multiplies by conj(h) (the pre-pass's −i·V rows), not by h."""
+    multiplies by conj(h) (the pre-pass's conj(V) and the epilogue's
+    negated Im), not by h."""
     g = torch.Generator(device=cuda).manual_seed(3)
     H = 1j * _padded(256, 256, g, cuda, torch.float32).to(torch.complex64)
     V = torch.randn((256, 64), generator=g, device=cuda,

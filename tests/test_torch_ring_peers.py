@@ -9,8 +9,8 @@ chunk transfer in ``csrc/ring_peers.cu``), held without a card:
   ``RTOL`` = 1e-5 of the largest entry (f32 sums in another order);
 * the gathered B layout: each chunk's plain pre-pass placed at the K rows
   ``gather_layout`` gives it equals the pre-pass of the whole V bit for
-  bit — f32, c64 (the 2N real expansion), bf16, and a chunk of 45 rows,
-  which straddles the 32-deep K tile;
+  bit — f32, c64 (the six planes of the 3M route), bf16, and a chunk of
+  45 rows, which straddles the K tile (32 deep; 16 for c64);
 * the publish / read protocol the wrapper passes to the kernels
   (``parallel/peers``: slot, epoch, read count), as a model run by
   hypothesis over p = 2…4 and any interleaving of the ranks: no read
@@ -145,7 +145,7 @@ def test_gather_layout_is_the_whole_prepass(dtype, p, b, k):
         V = torch.complex(V, torch.from_numpy(
             rng.standard_normal((p * b, k)).astype(np.float32)))
     b_pad, w_pad, bK = gather_layout(dtype, p, b, k)
-    assert bK == (2 * b if v_dtype.is_complex else b)
+    assert bK == b
     B = peer_gather_reference(_chunks(V, p), dtype)
     whole = bf16_pack_reference(V) if dtype == torch.bfloat16 \
         else tf32_split_reference(V)
@@ -424,7 +424,8 @@ def test_publish_refuses_a_layout_it_does_not_take(V, error):
 def test_kernel_dtypes_have_a_layout():
     for dtype in KERNEL_DTYPES:
         b_pad, w_pad, bK = gather_layout(dtype, 2, 30, 5)
-        assert b_pad >= 2 * bK and b_pad % 32 == 0 and w_pad % 32 == 0
+        tile = 16 if dtype == torch.complex64 else 32
+        assert b_pad >= 2 * bK and b_pad % tile == 0 and w_pad % 32 == 0
 
 
 # -- on the card ------------------------------------------------------------------

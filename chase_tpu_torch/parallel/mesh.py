@@ -24,7 +24,11 @@ rotation of a multivector's rows that K-conjugation across ranks needs
 (:meth:`Grid2D.reduce_scatter`) and parity flip (:meth:`Grid2D.flip`).
 Complex tensors travel as their real views.  A collective over an axis of size 1 is the
 identity and issues nothing.  ``Grid2D.stats`` counts the collectives
-issued and their payload bytes.
+issued and their payload bytes, and feeds the same counts to the
+program's registry (``perf.COUNTS``' "comm:<kind>" and
+"comm_bytes:<kind>"); each collective's issue and its wait are the span
+``chase.comm`` (``perf.span``: a profiler range only while a profiler
+records, no host sync).
 
 Data that crosses the package's boundary sharded (a DTensor H, ``res.V``,
 the sharded readers of ``io``) is a DTensor on ``grid.mesh``;
@@ -48,6 +52,8 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from ..perf import COMM, COMM_BYTES, count as perf_count, span
+
 __all__ = ["Grid2D", "make_grid", "CollectiveStats", "Sharding",
            "matrix_sharding", "colvec_sharding", "rowvec_sharding",
            "replicated_sharding"]
@@ -70,7 +76,8 @@ def _wire(t: torch.Tensor) -> torch.Tensor:
 
 class CollectiveStats:
     """Collectives issued through a grid: calls and payload bytes (the
-    local tensor each call sends or reduces) by kind."""
+    local tensor each call sends or reduces) by kind, counted here and
+    in ``perf.COUNTS`` under "comm:<kind>" and "comm_bytes:<kind>"."""
 
     def __init__(self):
         self.calls = defaultdict(int)
@@ -82,6 +89,8 @@ class CollectiveStats:
     def count(self, kind: str, nbytes: int) -> None:
         self.calls[kind] += 1
         self.bytes[kind] += int(nbytes)
+        perf_count(COMM + kind)
+        perf_count(COMM_BYTES + kind, int(nbytes))
 
     def reset(self) -> None:
         self.calls.clear()
@@ -94,14 +103,15 @@ class CollectiveStats:
 class _Requests:
     """The ring exchange's pending sends and receives; ``wait()`` waits
     for all of them (on CUDA a wait of the current stream, not the
-    host)."""
+    host), inside the span ``chase.comm``."""
 
     def __init__(self, reqs):
         self.reqs = reqs
 
     def wait(self) -> None:
-        for q in self.reqs:
-            q.wait()
+        with span("chase.comm"):
+            for q in self.reqs:
+                q.wait()
 
 
 class Grid2D:
@@ -161,8 +171,9 @@ class Grid2D:
         ``axis`` in place (``t`` must be contiguous); every member of the
         group gets the same bits.  Returns ``t``."""
         if self.size(axis) > 1:
-            self.stats.add("all_reduce", t)
-            dist.all_reduce(_wire(t), op=op, group=self.group(axis))
+            with span("chase.comm"):
+                self.stats.add("all_reduce", t)
+                dist.all_reduce(_wire(t), op=op, group=self.group(axis))
         return t
 
     def sum_rows(self, t: torch.Tensor) -> torch.Tensor:
@@ -174,9 +185,10 @@ class Grid2D:
         tensor, overwritten."""
         t = self.all_reduce(t, "r")
         if self.size("c") > 1:
-            self.stats.add("broadcast", t)
-            dist.broadcast(_wire(t), src=self.global_rank("c", 0),
-                           group=self.group("c"))
+            with span("chase.comm"):
+                self.stats.add("broadcast", t)
+                dist.broadcast(_wire(t), src=self.global_rank("c", 0),
+                               group=self.group("c"))
         return t
 
     def all_gather(self, t: torch.Tensor, axis: str = "r") -> torch.Tensor:
@@ -189,8 +201,8 @@ class Grid2D:
         t = t.contiguous()
         out = torch.empty((p * t.shape[0],) + tuple(t.shape[1:]),
                           dtype=t.dtype, device=t.device)
-        self.stats.add("all_gather", t)
-        with warnings.catch_warnings():
+        with span("chase.comm"), warnings.catch_warnings():
+            self.stats.add("all_gather", t)
             # renamed all_gather_single in newer torch, which warns on the
             # old name; the old one is the name every supported torch has
             warnings.simplefilter("ignore", FutureWarning)
@@ -211,10 +223,11 @@ class Grid2D:
             nxt = self.global_rank(axis, (me + 1) % p)
 
             def swap(send: torch.Tensor, recv: torch.Tensor) -> _Requests:
-                self.stats.add("sendrecv", send)
-                return _Requests(dist.batch_isend_irecv([
-                    dist.P2POp(dist.isend, _wire(send), prev, g),
-                    dist.P2POp(dist.irecv, _wire(recv), nxt, g)]))
+                with span("chase.comm"):
+                    self.stats.add("sendrecv", send)
+                    return _Requests(dist.batch_isend_irecv([
+                        dist.P2POp(dist.isend, _wire(send), prev, g),
+                        dist.P2POp(dist.irecv, _wire(recv), nxt, g)]))
 
             self._exchanges[axis] = swap
         return self._exchanges[axis]
@@ -235,9 +248,10 @@ class Grid2D:
                 dist.all_gather_object(out, obj, group=g)
                 return out
 
-            self._peers[axis] = PeerChunks(self.index(axis), self.size(axis),
-                                           self.device, allgather,
-                                           stats=self.stats)
+            with span("chase.comm"):
+                self._peers[axis] = PeerChunks(
+                    self.index(axis), self.size(axis), self.device,
+                    allgather, stats=self.stats)
         return self._peers[axis]
 
     def check_peers(self) -> None:
@@ -303,8 +317,9 @@ class Grid2D:
                 ops.append(dist.P2POp(dist.irecv, _wire(out[off:off + m]),
                                       self.global_rank(axis, owner), g))
         if ops:
-            for work in dist.batch_isend_irecv(ops):
-                work.wait()
+            with span("chase.comm"):
+                for work in dist.batch_isend_irecv(ops):
+                    work.wait()
         return out
 
     def reduce_scatter(self, t: torch.Tensor, axis: str) -> torch.Tensor:
@@ -319,8 +334,8 @@ class Grid2D:
         t = t.contiguous()
         out = torch.empty((t.shape[0] // p,) + tuple(t.shape[1:]),
                           dtype=t.dtype, device=t.device)
-        self.stats.add("reduce_scatter", t)
-        with warnings.catch_warnings():
+        with span("chase.comm"), warnings.catch_warnings():
+            self.stats.add("reduce_scatter", t)
             # renamed reduce_scatter_single in newer torch (as all_gather)
             warnings.simplefilter("ignore", FutureWarning)
             dist.reduce_scatter_tensor(_wire(out), _wire(t),
@@ -357,12 +372,13 @@ class Grid2D:
         src = self._holder(self.parity_chunk(to), frm)
         t = t.contiguous()
         out = torch.empty_like(t)
-        self.stats.add("flip", t)
         grid = self.mesh.mesh
-        for work in dist.batch_isend_irecv([
-                dist.P2POp(dist.isend, _wire(t), int(grid[dest])),
-                dist.P2POp(dist.irecv, _wire(out), int(grid[src]))]):
-            work.wait()
+        with span("chase.comm"):
+            self.stats.add("flip", t)
+            for work in dist.batch_isend_irecv([
+                    dist.P2POp(dist.isend, _wire(t), int(grid[dest])),
+                    dist.P2POp(dist.irecv, _wire(out), int(grid[src]))]):
+                work.wait()
         return out
 
     # -- layouts ----------------------------------------------------------

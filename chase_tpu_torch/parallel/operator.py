@@ -273,8 +273,9 @@ def _recut(t: torch.Tensor, grid, axis: str, dim: int, src: list,
             ops.append(dist.P2POp(dist.irecv, _wire(buf), peer,
                                   grid.group(axis)))
     if ops:
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
+        with span("chase.comm"):
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
     for buf, at in recvs:
         out.narrow(dim, at, buf.shape[dim]).copy_(buf)
     return out
@@ -392,8 +393,11 @@ class DenseOperator:
         split of N_orig to the padded layout point to point
         (:func:`_recut`; H's rows and columns to where the padded layout,
         half-split for a pseudo-Hermitian H, puts them) and padded with
-        the diagonal from its pieces' row sums.  ValueError for any other
-        layout."""
+        the diagonal from its pieces' row sums.  Where nothing is padded
+        and the local block already lies on the operator's device in its
+        layout (:func:`_has_operator_layout`), it is the block, as a
+        resident H is on one device: no second copy of H's block.
+        ValueError for any other layout."""
         from torch.distributed.tensor import Shard
         placements = tuple(H.placements)
         mesh, want = H.device_mesh.mesh.tolist(), self.grid.mesh.mesh.tolist()
@@ -405,10 +409,14 @@ class DenseOperator:
         r, c = self.grid.size("r"), self.grid.size("c")
         i, j = self.grid.coords
         src_r, src_c = _pieces(N, r, -(-N // r)), _pieces(N, c, -(-N // c))
-        L = H.to_local().resolve_conj().resolve_neg()
+        L = H.to_local()
         if Np == N:
-            return _padded_block([(L, 0, 0)], rows, cols, [], dtype=dtype,
+            if L.device == self.device and _has_operator_layout(L):
+                return L          # used in place (no copy of the block)
+            return _padded_block([(L.resolve_conj().resolve_neg(), 0, 0)],
+                                 rows, cols, [], dtype=dtype,
                                  device=self.device)
+        L = L.resolve_conj().resolve_neg()
         pad = _sharded_pad(L, self.grid, src_r[i], src_c[j],
                            gershgorin=not self.pseudo_hermitian)
         for axis, dim, p, src in (("r", 0, r, src_r), ("c", 1, c, src_c)):

@@ -36,7 +36,7 @@ __all__ = ["PerfData", "profiler_trace", "device_bf16_peak",
            "device_matmul_peak", "filter_rung", "MATMUL_PEAKS", "span",
            "SPANS", "PHASE_OF", "PhaseClock", "phase_clock", "COUNTS",
            "count", "host_sync", "to_host", "item", "to_device",
-           "HOST_SYNC", "QR_FALLBACK"]
+           "HOST_SYNC", "QR_FALLBACK", "COMM", "COMM_BYTES"]
 
 PHASES = ("All", "InitVecs", "Lanczos", "Filter", "ApplyKconjugate",
           "Qr", "Rr", "Resids_Locking")
@@ -297,7 +297,8 @@ class profiler_trace:
 # the span names; a route or a rung goes to a counter, never into a name
 SPANS = ("chase.solve", "chase.operator", "chase.init_vecs", "chase.lanczos",
          "chase.iteration", "chase.degrees", "chase.filter", "chase.kconj",
-         "chase.qr", "chase.rr", "chase.locking", "chase.ring_hemm")
+         "chase.qr", "chase.rr", "chase.locking", "chase.ring_hemm",
+         "chase.comm")
 
 # the PerfData phase whose end each span marks (PHASES); a phase's time
 # runs from the previous mark to its own, so "Filter" holds the degrees
@@ -410,12 +411,18 @@ def phase_clock(perf: "PerfData | None", device: torch.device):
 #   on every device, so that a CPU solve counts what the card would do;
 # * QR fallbacks, "qr_fallback:<to>": a Cholesky QR that broke down and
 #   was redone by Householder QR ("householder") or on the full block
-#   ("full_block").
+#   ("full_block");
+# * a grid's collectives by kind, "comm:<kind>" (calls) and
+#   "comm_bytes:<kind>" (payload bytes), as ``parallel.mesh.
+#   CollectiveStats`` counts them: "all_reduce", "broadcast",
+#   "all_gather", "sendrecv", "reduce_scatter", "flip", "rotate", "peer".
 
 COUNTS = collections.Counter()
 _COUNT_LOCK = threading.Lock()
 HOST_SYNC = "host_sync:"
 QR_FALLBACK = "qr_fallback:"
+COMM = "comm:"
+COMM_BYTES = "comm_bytes:"
 
 
 def count(key: str, n: int = 1) -> None:

@@ -3575,7 +3575,8 @@ def grid_child() -> int:
     the file CHASE_SMOKE_FILE names), the f64 BSE ladder of [pseudo]
     (eigsh_pseudo, cold, warm), eigsh_fused at [fslice]'s shape and
     eigsh_pseudo_fused at [fpseudo]'s (first, warm with its host syncs,
-    one iteration); rank 0 prints one line ``GRID_RESULT {json}``."""
+    one iteration); each rank prints one line ``GRID_RESULT {json}``
+    (``_run_ranks`` reads every rank's; the phases log rank 0's)."""
     import torch.distributed as dist
     import chase_tpu_torch as ct
     from chase_tpu_torch.parallel import multihost
@@ -3620,8 +3621,7 @@ def grid_child() -> int:
                                      grid=grid, collect_perf=True)
 
     out["fpseudo"] = _grid_fused(grid, fpseudo, bgate)
-    if grid.coords == (0, 0):
-        print("GRID_RESULT " + json.dumps(out), flush=True)
+    print("GRID_RESULT " + json.dumps(out), flush=True)
     grid.close()
     dist.destroy_process_group()
     return 0

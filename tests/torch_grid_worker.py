@@ -11,7 +11,7 @@ the others').  ``tests/test_torch_grid.py``,
 ``tests/test_torch_grid_ring.py``, ``tests/test_torch_grid_solve.py``,
 ``tests/test_torch_grid_pseudo.py``, ``tests/test_torch_grid_fused.py``,
 ``tests/test_torch_grid_ring2d.py``, ``tests/test_torch_grid_solve2d.py``,
-``tests/test_torch_grid_io.py``, ``tests/test_torch_grid_interface.py``
+``tests/test_torch_grid_comm.py``, ``tests/test_torch_grid_io.py``, ``tests/test_torch_grid_interface.py``
 and ``tests/test_torch_cli_interface.py`` start the ranks and compare the
 results with the JAX package in their own process (the I/O batteries read
 the files that process wrote into OUT_DIR, and write theirs there).  This script imports torch,
@@ -821,6 +821,107 @@ def case_grid_no_copy(grid, rec):
     rec["nocopy/ring_H_is_shadow"] = ring.H is low
 
 
+# the solves whose operator takes a DTensor H's block in place: Clement
+# c128 natively and the f64 ladder on the kernel's route
+INPLACE_SOLVES = (("clement_complex128", {}),
+                  ("clement_float64_ladder", {"ring_backend": "pallas",
+                                              "mixed_precision": True}))
+
+
+def _dtensor(grid, H):
+    """H (numpy, whole) as a DTensor (Shard(0), Shard(1)) on the grid."""
+    from torch.distributed.tensor import Shard, distribute_tensor
+    return distribute_tensor(torch.from_numpy(H), grid.mesh,
+                             (Shard(0), Shard(1)))
+
+
+def _comm_counts() -> dict:
+    from chase_tpu_torch import perf
+    return {k: n for k, n in perf.COUNTS.items()
+            if k.startswith((perf.COMM, perf.COMM_BYTES))}
+
+
+def case_inplace(grid, rec):
+    """A DTensor H that the grid does not pad: the operator's block is the
+    DTensor's local tensor (its storage); with the layout check forced
+    off, a copy (what every such H took before); a lazily conjugated one,
+    a copy.  Each case of INPLACE_SOLVES solved from the block in place
+    and from the copy."""
+    import chase_tpu_torch as ct
+    from chase_tpu_torch.parallel import operator as pop
+    for name, cfg in INPLACE_SOLVES:
+        H, nev, nex, tol = eig_problem(name)
+        Hd = _dtensor(grid, H)
+        ptr = Hd.to_local().data_ptr()
+        config = ct.ChaseConfig(**cfg)
+        rec[f"inplace/{name}/shares"] = \
+            ct.DenseOperator(Hd, grid=grid).H.data_ptr() == ptr
+        runs = {"in_place": ct.eigsh(Hd, nev, nex, tol=tol, grid=grid,
+                                     config=config)}
+        keep = pop._has_operator_layout
+        pop._has_operator_layout = lambda t: False
+        try:
+            rec[f"inplace/{name}/copy_shares"] = \
+                ct.DenseOperator(Hd, grid=grid).H.data_ptr() == ptr
+            runs["copy"] = ct.eigsh(Hd, nev, nex, tol=tol, grid=grid,
+                                    config=config)
+        finally:
+            pop._has_operator_layout = keep
+        for how, res in runs.items():
+            for key in ("ritzv", "resid", "iterations", "ritzv_full"):
+                rec[f"inplace/{name}/{how}/{key}"] = getattr(res, key)
+            rec[f"inplace/{name}/{how}/V"] = res.V.to_local().numpy()
+    Hc = _dtensor(grid, eig_problem("clement_complex128")[0]).conj()
+    op = ct.DenseOperator(Hc, grid=grid)
+    rec["inplace/conj_shares"] = \
+        op.H.data_ptr() == Hc.to_local().data_ptr()
+    rec["inplace/conj_block"] = op.H.numpy()
+    rec["inplace/conj_block_want"] = Hc.to_local().resolve_conj().numpy()
+
+
+def case_comm(grid, rec):
+    """A (2, 2) solve's collectives: the increase of the program's
+    "comm:<kind>" / "comm_bytes:<kind>" counts beside the grid's own
+    stats; the span ``chase.comm`` opened as a profiler range in no
+    solve without a profiler (phase clock off and on), and in a traced
+    one as often as the trace holds it."""
+    import chase_tpu_torch as ct
+    from torch.profiler import ProfilerActivity, profile
+    H, nev, nex, tol = eig_problem("clement_complex128")
+    Hd = _dtensor(grid, H)
+    before = _comm_counts()
+    grid.stats.reset()
+    ct.eigsh(Hd, nev, nex, tol=tol, grid=grid)
+    after = _comm_counts()
+    stats = grid.stats.summary()
+    grown = sorted({k.split(":", 1)[1] for k, n in after.items()
+                    if n != before.get(k, 0)})
+    rec["comm/kinds"] = sorted(stats)
+    rec["comm/grown"] = grown
+    rec["comm/stats"] = [list(stats[k]) for k in sorted(stats)]
+    rec["comm/counts"] = [
+        [after.get(f"comm:{k}", 0) - before.get(f"comm:{k}", 0),
+         after.get(f"comm_bytes:{k}", 0) - before.get(f"comm_bytes:{k}", 0)]
+        for k in sorted(stats)]
+    opened, real = [], torch.profiler.record_function
+
+    def spy(name, *a, **kw):
+        opened.append(name)
+        return real(name, *a, **kw)
+    torch.profiler.record_function = spy
+    try:
+        for perf_on in (False, True):
+            ct.eigsh(Hd, nev, nex, tol=tol, grid=grid, collect_perf=perf_on)
+            rec[f"spans/untraced/{perf_on}"] = len(opened)
+            opened.clear()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            ct.eigsh(Hd, nev, nex, tol=tol, grid=grid)
+    finally:
+        torch.profiler.record_function = real
+    rec["spans/opened"] = opened.count("chase.comm")
+    rec["spans/traced"] = sum(e.name == "chase.comm" for e in prof.events())
+
+
 def case_ring_filter_values(case_fn, cases):
     """Each case with ring_filter None and True (keys ``<case>/<value>``)."""
     def run(grid, rec):
@@ -1159,6 +1260,7 @@ BATTERIES = {
     "w21": (case_iface_whole,),
     "w12": (case_iface_whole,),
     "w22": (case_iface_whole,),
+    "c22": (case_inplace, case_comm),
 }
 
 

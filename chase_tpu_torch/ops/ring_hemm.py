@@ -95,7 +95,7 @@ __all__ = ["ring_hemm", "ring_hemm_reference", "tf32_split",
            "float_view_args", "load_kernels", "KERNEL_DTYPES",
            "ring_hemm_peers", "ring_hemm_peers_reference", "peer_publish",
            "peer_gather", "peer_gather_reference", "gather_layout",
-           "LAUNCHES"]
+           "w_tile", "LAUNCHES"]
 
 BK, BN = 32, 128          # csrc/ring_hemm.cu's f32 K tile and W column tile
 BK_C64, BN_C64 = 16, 64   # the c64 kernel's (complex elements)
@@ -115,6 +115,13 @@ KERNEL_DTYPES = (torch.float32, torch.complex64, torch.bfloat16)
 LAUNCHES = COUNTS
 ROUTES = {torch.float32: "f32", torch.complex64: "c64",
           torch.bfloat16: "bf16"}
+
+
+def w_tile(h_dtype) -> int:
+    """Columns of a W tile on the route of an H of ``h_dtype`` (the
+    kernel's BN), or 1 for a dtype the kernel does not take."""
+    return {torch.float32: BN, torch.complex64: BN_C64,
+            torch.bfloat16: BN_BF16}.get(h_dtype, 1)
 
 
 def _launched(name: str, H=None, k: int = 0, trans: bool = False) -> None:

@@ -34,7 +34,14 @@ raises, naming ``ring_backend="xla"``.  The CPU (gloo) and "xla" keep
 
 The filters run the recurrence with that product as each step's H·Y: the
 shift ``c·Y``, the three-term update, the injection and the degree mask
-are plain torch.  H may be the precision ladder's shadow, narrower than
+are plain torch.  Step t runs all of them on the window's live suffix
+only (:func:`live_suffixes`): from the first column whose degree is ≥ t,
+moved left to a whole number of the kernel's W tiles from the right edge
+(``ops.ring_hemm.w_tile``), a column view passed in place; the columns
+left of it keep their values.  The solvers sort each window's degrees in
+ascending order, so the suffix shrinks as t grows and the padding of
+degree 0 is never multiplied.  The JAX package runs every step on the
+whole window.  H may be the precision ladder's shadow, narrower than
 the window: the carry follows ``types.filter_carry_dtype`` as in the JAX
 package's ``chebyshev_filter_ring``, so a c64 shadow with a c128 window
 runs the kernel's c64 route, an f32 shadow with an f64 window its f32
@@ -76,10 +83,14 @@ and pays a trailing all-frozen step and a flip home instead.  The H²
 filters need no flip: from B one H² step is ``ring_A(S·ring_B(S·v))`` —
 ring_B computes Hᴴ·w, and Hᴴ = S·H·S for a BSE H, so ``S·ring_B(S·v)`` =
 H·v, with S by global row — and every step starts and ends in B.
-``ring_hemm`` launches per rank and filter on the kernel, d = deg_max:
-the Hermitian filter ⌈n/2⌉·r + ⌊n/2⌋·c with n = max(d, 1), the refine
-filter the same with n = max(d − 1, 0), the H² filter n·(r + c) with
-n = max(d, 1), the refine H² filter max(d − 1, 0)·(r + c).
+The retired columns keep the parity they left the suffix in, and those
+left in A are flipped to B once, at the end.
+``ring_hemm`` launches per rank and filter on the kernel, d = deg_max
+(the window's largest degree): the Hermitian filter ⌈n/2⌉·r + ⌊n/2⌋·c
+with n = d, the refine filter the same with n = max(d − 1, 0), the H²
+filter d·(r + c), the refine H² filter max(d − 1, 0)·(r + c); a step
+with no live column is not run.  Each launch is as wide as its step's
+suffix.
 """
 
 from __future__ import annotations
@@ -228,11 +239,32 @@ def _ring_shift(hemm, v, c, products: int):
     return w - c * v
 
 
+def live_suffixes(degrees, first: int, deg_max: int, tile: int) -> list:
+    """Where each recurrence step's live suffix of a window starts: for
+    t = ``first``, ``first`` + 1, … up to ``deg_max`` while some column's
+    degree is ≥ t, the first such column, moved left so that the suffix
+    from it to the window's right edge is a whole number of ``tile``
+    columns (``ops.ring_hemm.w_tile``: the kernel's W tiles), never past
+    column 0.  The suffix holds every live column in any order of the
+    degrees; ascending degrees (the solvers' windows) make it short."""
+    d = np.asarray(degrees)
+    w = d.size
+    starts = []
+    for t in range(first, int(deg_max) + 1):
+        live = np.flatnonzero(d >= t)
+        if not live.size:
+            break
+        starts.append(max(w - -(-(w - int(live[0])) // tile) * tile, 0))
+    return starts
+
+
 def _filter_ring(H, X, degrees, lam1, lower, upper, deg_max, products,
                  hemm, ring2d=None):
     """The recurrence with ``hemm`` as each product, on X's rows — or,
     with ``ring2d`` (a :class:`Ring2D`), on X's parity-B chunk, gathered
-    back to X's rows at the end."""
+    back to X's rows at the end.  Step t multiplies and updates only the
+    window's live suffix (:func:`live_suffixes`), a column view passed in
+    place; the columns left of it keep their values."""
     carry = _carry(H, X)
     # scalars in the carry's real precision, like the JAX version's traced
     # scalars
@@ -243,20 +275,24 @@ def _filter_ring(H, X, degrees, lam1, lower, upper, deg_max, products,
     sigma1 = e / (lam1 - c)
     degs = to_device(np.asarray(degrees), "ring.degrees",
                      device=X.device)[None, :]
-    Xc = (X if ring2d is None else ring2d.enter(X)).to(carry)
-
-    def hemm_shift(v):
-        return _ring_shift(hemm, v, float(c), products)
-
-    Y = float(sigma1 / e) * hemm_shift(Xc)
-    Y = torch.where(degs >= 1, Y, Xc)
-    Xp, sigma = Xc, sigma1
-    for t in range(2, int(deg_max) + 1):
-        sigma_new = rt(1) / (rt(2) / sigma1 - sigma)
-        Z = float(rt(2) * sigma_new / e) * hemm_shift(Y) \
-            - float(sigma * sigma_new) * Xp
-        Xp, Y = Y, torch.where(degs >= t, Z, Y)
-        sigma = sigma_new
+    # the iterate and the previous one, each a buffer of its own
+    Y = (X if ring2d is None else ring2d.enter(X)).to(
+        carry, memory_format=torch.contiguous_format, copy=True)
+    Xp = torch.empty_like(Y)
+    sigma = sigma1
+    for t, s in enumerate(live_suffixes(degrees, 1, deg_max,
+                                        rh.w_tile(H.dtype)), 1):
+        Ys, Xps = Y[:, s:], Xp[:, s:]
+        if t == 1:
+            Z = float(sigma1 / e) * _ring_shift(hemm, Ys, float(c), products)
+        else:
+            sigma_new = rt(1) / (rt(2) / sigma1 - sigma)
+            Z = float(rt(2) * sigma_new / e) \
+                * _ring_shift(hemm, Ys, float(c), products) \
+                - float(sigma * sigma_new) * Xps
+            sigma = sigma_new
+        Xps.copy_(Ys)
+        Ys.copy_(torch.where(degs[:, s:] >= t, Z, Ys))
     if ring2d is not None:
         Y = ring2d.leave(Y)
     # degree-0 columns bit-exact: a reduced carry must not round-trip the
@@ -268,10 +304,10 @@ def chebyshev_filter_ring_pallas(H: torch.Tensor, X: torch.Tensor, degrees,
                                  lam1, lower, upper, deg_max: int, *,
                                  grid=None) -> torch.Tensor:
     """Degree-masked scaled Chebyshev filter of the window ``X`` with
-    every H·Y product on the ring kernel: ``1 + max(deg_max − 1, 0)``
-    main launches per rank (on a (p, 1) CUDA grid each a
-    ``ring_hemm_peers`` product; p times as many ``ring_hemm`` steps on
-    the CPU's chunk ring).
+    every H·Y product on the ring kernel, each step on the window's live
+    suffix (the module note): ``deg_max`` main launches per rank (on a
+    (p, 1) CUDA grid each a ``ring_hemm_peers`` product; p times as many
+    ``ring_hemm`` steps on the CPU's chunk ring).
 
     Args:
       H: X's dtype (f32 or c64) or X's shadow (f32 for f64, c64 for c128,
@@ -314,14 +350,15 @@ def chebyshev_filter_h2_ring(H: torch.Tensor, X: torch.Tensor, degrees,
                              ) -> torch.Tensor:
     """The pseudo-Hermitian filter on H² (``ops/pseudo.
     chebyshev_filter_h2``) with both products of every step a ring
-    product: ``2·(1 + max(deg_max − 1, 0))`` products per rank with
-    ``kernel`` — one main launch each on one device and on a (p, 1) CUDA
-    grid (``ring_hemm_peers``), p ``ring_hemm`` steps on the CPU's chunk
-    ring.  Arguments as for :func:`chebyshev_filter_ring_pallas`, with
-    H²-spectrum ``lam1``, ``lower`` and ``upper`` (the interval in either
-    order); ``kernel`` False takes :func:`matmul_step` as the ring's
-    step.  On the bf16 route
-    each product rounds its input to bf16, as the plain H² shift does."""
+    product, each step on the window's live suffix: ``2·deg_max``
+    products per rank with ``kernel`` — one main launch each on one
+    device and on a (p, 1) CUDA grid (``ring_hemm_peers``), p
+    ``ring_hemm`` steps on the CPU's chunk ring.  Arguments as for
+    :func:`chebyshev_filter_ring_pallas`, with H²-spectrum ``lam1``,
+    ``lower`` and ``upper`` (the interval in either order); ``kernel``
+    False takes :func:`matmul_step` as the ring's step.  On the bf16
+    route each product rounds its input to bf16, as the plain H² shift
+    does."""
     return _filter_ring(H, X, degrees, lam1, *_interval(lower, upper),
                         deg_max, 2, _product(H, grid, kernel))
 
@@ -330,7 +367,7 @@ def _refine_ring(H, V, R, degrees, alpha1_e, alphas, betas, inj, p_final, cc,
                  deg_max, products, hemm, ring2d=None):
     """The deviation recurrence with ``hemm`` as each product, on R's
     rows — or, with ``ring2d``, on R's parity-B chunk (as
-    :func:`_filter_ring`)."""
+    :func:`_filter_ring`, each step on the window's live suffix)."""
     carry = _carry(H, V)
     rt = numpy_scalar_type(carry)
     ccf = float(rt(cc))
@@ -340,10 +377,13 @@ def _refine_ring(H, V, R, degrees, alpha1_e, alphas, betas, inj, p_final, cc,
     rc = (R if ring2d is None else ring2d.enter(R)).to(carry)
     W = float(rt(alpha1_e)) * rc                    # w_1 = (σ1/e)·r
     Wp = torch.zeros_like(W)
-    for t in range(2, int(deg_max) + 1):
-        Z = float(rt(alphas[t])) * _ring_shift(hemm, W, ccf, products) \
-            + float(rt(betas[t])) * Wp + injt[t][None, :] * rc
-        Wp, W = W, torch.where(degs >= t, Z, W)
+    for t, s in enumerate(live_suffixes(degrees, 2, deg_max,
+                                        rh.w_tile(H.dtype)), 2):
+        Ws, Wps = W[:, s:], Wp[:, s:]
+        Z = float(rt(alphas[t])) * _ring_shift(hemm, Ws, ccf, products) \
+            + float(rt(betas[t])) * Wps + injt[t][None, s:] * rc[:, s:]
+        Wps.copy_(Ws)
+        Ws.copy_(torch.where(degs[:, s:] >= t, Z, Ws))
     if ring2d is not None:
         W = ring2d.leave(W)
     return refine_combine(V, W, p_final, degrees)
@@ -357,10 +397,10 @@ def chebyshev_filter_refine_ring(H: torch.Tensor, V: torch.Tensor,
     """Deviation-form refinement filter (``ops/filter.
     chebyshev_filter_refine``) with every H·w a ring product: w₁ =
     (σ1/e)·r needs no product, so ``deg_max`` steps take ``max(deg_max −
-    1, 0)`` products, one main launch each with the kernel (p
-    ``ring_hemm`` steps on the CPU's chunk ring).  The w recurrence runs
-    in the carry dtype, seeded by the residual vectors R; the combine y =
-    p_final·v + w runs in V's.
+    1, 0)`` products, each on the window's live suffix, one main launch
+    each with the kernel (p ``ring_hemm`` steps on the CPU's chunk
+    ring).  The w recurrence runs in the carry dtype, seeded by the
+    residual vectors R; the combine y = p_final·v + w runs in V's.
 
     Args:
       H: shadow of the problem (f32, c64 or bf16) or its own dtype —
@@ -482,17 +522,32 @@ class Ring2D:
                                        "A"))
 
 
+def _park_in_b(grid, Y: torch.Tensor, parked: list) -> None:
+    """Bring the columns that left the live suffix in parity A to parity
+    B, in place: ``parked`` lists (first, end, parity) of each group of
+    columns as it left; one flip of the span that holds the A groups."""
+    groups = [(lo, hi) for lo, hi, par in parked if par == "A" and hi > lo]
+    if not groups:
+        return
+    lo0, hi0 = groups[0][0], groups[-1][1]
+    flipped = grid.flip(Y[:, lo0:hi0].contiguous(), "B")
+    for lo, hi in groups:
+        Y[:, lo:hi] = flipped[:, lo - lo0:hi - lo0]
+
+
 def chebyshev_filter_ring2d(grid, H: torch.Tensor, X: torch.Tensor, degrees,
                             lam1, lower, upper, deg_max: int, *,
                             precision="highest", kernel: bool = False
                             ) -> torch.Tensor:
     """The Chebyshev filter as the 2-D ping-pong ring on an r×c grid (the
     JAX package's ``chebyshev_filter_ring2d``).  Each step is one pass
-    (:class:`Ring2D`) into the other parity; the shift term, the previous
-    iterate and the frozen columns follow by a parity flip, and the entry
-    parity makes the last step land in B (the module note).  With
+    (:class:`Ring2D`) into the other parity on the window's live suffix
+    (:func:`live_suffixes`); the shift term, the previous iterate and the
+    frozen columns follow by a parity flip of the suffix, the entry parity
+    makes the last step land in B (the module note), and the columns that
+    left the suffix in parity A are flipped to B once at the end.  With
     ``kernel`` the passes' steps are ⌈n/2⌉·r + ⌊n/2⌋·c ``ring_hemm``
-    launches per rank, n = max(deg_max, 1).
+    launches per rank, n = deg_max.
 
     Args:
       grid: an r×c grid (r, c > 1 on the solver's "2d" route).
@@ -518,28 +573,35 @@ def chebyshev_filter_ring2d(grid, H: torch.Tensor, X: torch.Tensor, degrees,
     degs = to_device(np.asarray(degrees), "ring.degrees",
                      device=X.device)[None, :]
     ring = Ring2D(grid, H, kernel)
-    n = max(int(deg_max), 1)
-    par = "B" if n % 2 == 0 else "A"          # the last step lands in B
-    x = ring.enter(X).to(carry)
+    starts = live_suffixes(degrees, 1, deg_max, rh.w_tile(H.dtype))
+    if not starts:
+        return X.clone()
+    par = "B" if len(starts) % 2 == 0 else "A"   # the last step lands in B
+    # the iterate and the previous one, each a buffer of its own; the
+    # columns left of step 1's suffix have degree 0 and stay in B
+    Y = ring.enter(X).to(carry, memory_format=torch.contiguous_format,
+                         copy=True)
     if par == "A":
-        x = grid.flip(x.contiguous(), "A")
-
-    def substep(Y, par):
-        """(H·Y, Y flipped, their parity)."""
+        Y[:, starts[0]:] = grid.flip(Y[:, starts[0]:].contiguous(), "A")
+    Xp = torch.empty_like(Y)
+    parked, sigma = [], sigma1
+    for t, s in enumerate(starts, 1):
+        if t > 1:
+            parked.append((starts[t - 2], s, par))
         out = _other(par)
-        return ring.apply(Y, par), grid.flip(Y.contiguous(), out), out
-
-    w, flipped, out = substep(x, par)
-    Y = float(sigma1 / e) * (w - cf * flipped)
-    Y = torch.where(degs >= 1, Y, flipped)
-    Xp, par, sigma = x, out, sigma1
-    for t in range(2, n + 1):
-        sigma_new = rt(1) / (rt(2) / sigma1 - sigma)
-        w, flipped, out = substep(Y, par)
-        Z = float(rt(2) * sigma_new / e) * (w - cf * flipped) \
-            - float(sigma * sigma_new) * Xp
-        Xp, Y = Y, torch.where(degs >= t, Z, flipped)
-        par, sigma = out, sigma_new
+        Ys, Xps = Y[:, s:], Xp[:, s:]
+        w, flipped = ring.apply(Ys, par), grid.flip(Ys.contiguous(), out)
+        if t == 1:
+            Z = float(sigma1 / e) * (w - cf * flipped)
+        else:
+            sigma_new = rt(1) / (rt(2) / sigma1 - sigma)
+            Z = float(rt(2) * sigma_new / e) * (w - cf * flipped) \
+                - float(sigma * sigma_new) * Xps
+            sigma = sigma_new
+        Xps.copy_(Ys)
+        Ys.copy_(torch.where(degs[:, s:] >= t, Z, flipped))
+        par = out
+    _park_in_b(grid, Y, parked)
     Y = ring.leave(Y)
     # degree-0 columns bit-exact (a reduced carry must not round-trip them)
     return torch.where(degs >= 1, Y.to(X.dtype), X)
@@ -552,13 +614,14 @@ def chebyshev_filter_refine_ring2d(grid, H: torch.Tensor, V: torch.Tensor,
                                    kernel: bool = False) -> torch.Tensor:
     """The deviation-form refinement filter as the 2-D ping-pong ring
     (the JAX package's ``chebyshev_filter_refine_ring2d``): the w
-    recurrence alternates parity as :func:`chebyshev_filter_ring2d`'s, R
-    is held in both parities (one flip), and w₁ = (σ1/e)·r is placed in
-    the parity that makes the last step land in B.  Steps 2…deg_max take
-    one pass each: with ``kernel`` ⌈m/2⌉·r + ⌊m/2⌋·c ``ring_hemm``
-    launches per rank, m = max(deg_max − 1, 0).  V and R are this rank's
-    rows (N/r × w), the rest as for :func:`chebyshev_filter_refine_ring`
-    and :class:`Ring2D`; returns the filtered rows in V's dtype, degree-0
+    recurrence alternates parity on the window's live suffix as
+    :func:`chebyshev_filter_ring2d`'s, R is held in both parities (one
+    flip of step 2's suffix), and w₁ = (σ1/e)·r is placed in the parity
+    that makes the last step land in B.  Steps 2…deg_max take one pass
+    each: with ``kernel`` ⌈m/2⌉·r + ⌊m/2⌋·c ``ring_hemm`` launches per
+    rank, m = max(deg_max − 1, 0).  V and R are this rank's rows (N/r ×
+    w), the rest as for :func:`chebyshev_filter_refine_ring` and
+    :class:`Ring2D`; returns the filtered rows in V's dtype, degree-0
     columns V's."""
     del precision
     carry = _carry(H, V)
@@ -568,20 +631,31 @@ def chebyshev_filter_refine_ring2d(grid, H: torch.Tensor, V: torch.Tensor,
                      device=V.device)[None, :]
     injt = inj_table(inj, carry, V.device)
     ring = Ring2D(grid, H, kernel)
-    m = max(int(deg_max) - 1, 0)
+    starts = live_suffixes(degrees, 2, deg_max, rh.w_tile(H.dtype))
+    par = "B" if len(starts) % 2 == 0 else "A"   # the last step lands in B
     rc = {"B": ring.enter(R).to(carry)}
-    if m:
-        rc["A"] = grid.flip(rc["B"].contiguous(), "A")
-    par = "B" if m % 2 == 0 else "A"          # the last step lands in B
-    W = float(rt(alpha1_e)) * rc[par]
+    W = float(rt(alpha1_e)) * rc["B"]               # w_1 = (σ1/e)·r
+    if starts:
+        s0 = starts[0]
+        # R's columns of step 2's suffix in parity A, indexed from s0
+        rc["A"] = grid.flip(rc["B"][:, s0:].contiguous(), "A")
+        if par == "A":
+            W[:, s0:] = float(rt(alpha1_e)) * rc["A"]
     Wp = torch.zeros_like(W)
-    for t in range(2, m + 2):
+    parked = []
+    for t, s in enumerate(starts, 2):
+        if t > 2:
+            parked.append((starts[t - 3], s, par))
         out = _other(par)
-        flipped = grid.flip(W.contiguous(), out)
-        Z = float(rt(alphas[t])) * (ring.apply(W, par) - ccf * flipped) \
-            + float(rt(betas[t])) * Wp + injt[t][None, :] * rc[out]
-        Wp, W = W, torch.where(degs >= t, Z, flipped)
+        Ws, Wps = W[:, s:], Wp[:, s:]
+        r_out = rc[out][:, s - (s0 if out == "A" else 0):]
+        flipped = grid.flip(Ws.contiguous(), out)
+        Z = float(rt(alphas[t])) * (ring.apply(Ws, par) - ccf * flipped) \
+            + float(rt(betas[t])) * Wps + injt[t][None, s:] * r_out
+        Wps.copy_(Ws)
+        Ws.copy_(torch.where(degs[:, s:] >= t, Z, flipped))
         par = out
+    _park_in_b(grid, W, parked)
     return refine_combine(V, ring.leave(W), p_final, degrees)
 
 
@@ -591,9 +665,9 @@ def chebyshev_filter_h2_ring2d(grid, H: torch.Tensor, X: torch.Tensor,
                                ) -> torch.Tensor:
     """The pseudo-Hermitian filter on H² as the 2-D ring (the JAX
     package's ``chebyshev_filter_h2_ring2d``): every step one H²
-    application (``Ring2D.h2``) from and to parity B, no parity flip;
-    with ``kernel`` n·(r + c) ``ring_hemm`` launches per rank, n = 1 +
-    max(deg_max − 1, 0).  Arguments as for
+    application (``Ring2D.h2``) on the live suffix, from and to parity
+    B, no parity flip; with ``kernel`` deg_max·(r + c) ``ring_hemm``
+    launches per rank.  Arguments as for
     :func:`chebyshev_filter_ring2d`, with the H²-spectrum ``lam1``,
     ``lower`` and ``upper`` (in either order) of
     :func:`chebyshev_filter_h2_ring`."""
@@ -610,10 +684,10 @@ def chebyshev_filter_refine_h2_ring2d(grid, H: torch.Tensor, V: torch.Tensor,
                                       kernel: bool = False) -> torch.Tensor:
     """The deviation-form filter on H² as the 2-D ring (the JAX package's
     ``chebyshev_filter_refine_h2_ring2d``): the w recurrence in parity B,
-    each step one ``Ring2D.h2``; with ``kernel`` max(deg_max − 1, 0)·(r +
-    c) ``ring_hemm`` launches per rank.  Arguments as for
-    :func:`chebyshev_filter_refine_h2_ring` with this rank's rows of V and
-    R2, and ``kernel`` as for :class:`Ring2D`."""
+    each step one ``Ring2D.h2`` on the live suffix; with ``kernel``
+    max(deg_max − 1, 0)·(r + c) ``ring_hemm`` launches per rank.
+    Arguments as for :func:`chebyshev_filter_refine_h2_ring` with this
+    rank's rows of V and R2, and ``kernel`` as for :class:`Ring2D`."""
     del precision
     ring = Ring2D(grid, H, kernel)
     return _refine_ring(H, V, R2, degrees, alpha1_e, alphas, betas, inj,

@@ -36,7 +36,7 @@ __all__ = ["PerfData", "profiler_trace", "device_bf16_peak",
            "device_matmul_peak", "filter_rung", "MATMUL_PEAKS", "span",
            "SPANS", "PHASE_OF", "PhaseClock", "phase_clock", "COUNTS",
            "count", "host_sync", "to_host", "item", "to_device",
-           "HOST_SYNC", "QR_FALLBACK", "COMM", "COMM_BYTES"]
+           "HOST_SYNC", "QR_FALLBACK", "COMM", "COMM_BYTES", "FILTER_COLS"]
 
 PHASES = ("All", "InitVecs", "Lanczos", "Filter", "ApplyKconjugate",
           "Qr", "Rr", "Resids_Locking")
@@ -51,9 +51,10 @@ class PerfData:
     iter_blocksizes: List[int] = field(default_factory=list)
     filtered_vecs: int = 0     # sum over filter HEMM calls of columns touched
     filtered_vecs_low: int = 0  # subset filtered in a REDUCED precision
-    # EXECUTED filter column-steps (window width × recurrence steps): the
-    # windows run retired/padded columns until their bucket completes, so
-    # executed ≥ useful (filtered_vecs)
+    # EXECUTED filter column-steps (launched width × recurrence steps):
+    # the windows run retired/padded columns until their bucket completes,
+    # the rings until the live suffix leaves their W tile, so executed ≥
+    # useful (filtered_vecs)
     filtered_vecs_executed: int = 0
     # N×N HEMM calls the filter issued (one per recurrence step and
     # window segment) — on the ring path, one ring_hemm launch each
@@ -415,7 +416,12 @@ def phase_clock(perf: "PerfData | None", device: torch.device):
 # * a grid's collectives by kind, "comm:<kind>" (calls) and
 #   "comm_bytes:<kind>" (payload bytes), as ``parallel.mesh.
 #   CollectiveStats`` counts them: "all_reduce", "broadcast",
-#   "all_gather", "sendrecv", "reduce_scatter", "flip", "rotate", "peer".
+#   "all_gather", "sendrecv", "reduce_scatter", "flip", "rotate", "peer";
+# * the filter's column-products, "filter_cols:executed" (the summed
+#   width of every filter product launched) and "filter_cols:useful"
+#   (the columns whose degree the step had not passed), each × the
+#   products per step (2 for the H² filters), counted by the solvers'
+#   filter drivers.
 
 COUNTS = collections.Counter()
 _COUNT_LOCK = threading.Lock()
@@ -423,6 +429,7 @@ HOST_SYNC = "host_sync:"
 QR_FALLBACK = "qr_fallback:"
 COMM = "comm:"
 COMM_BYTES = "comm_bytes:"
+FILTER_COLS = "filter_cols:"
 
 
 def count(key: str, n: int = 1) -> None:

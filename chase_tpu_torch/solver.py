@@ -66,13 +66,13 @@ import torch
 
 from .config import ChaseConfig, set_matmul_precision
 from .logger import get_logger
-from .perf import PerfData, phase_clock, span, to_host
+from .perf import FILTER_COLS, PerfData, count, phase_clock, span, to_host
 from .types import (as_torch_dtype, filter_carry_dtype, is_double_base,
                     low_precision_dtype, numpy_scalar_type)
 from .parallel.operator import DenseOperator
 from .parallel import dist as pdist
 from .parallel import ring as pring
-from .ops.ring_hemm import KERNEL_DTYPES
+from .ops.ring_hemm import KERNEL_DTYPES, w_tile
 from .ops import filter as filt
 from .ops import lanczos as lz
 from .ops import qr as qrops
@@ -239,6 +239,31 @@ def _shrink_window(right: int, retire_to: int, B: int, start: int, w: int):
     return (off, right - new_w, new_w) if off > 0 else (0, start, w)
 
 
+def _count_filter_cols(deg_win, first: int, executed: int,
+                       products: int) -> None:
+    """Count a filter's column-products in ``perf.COUNTS``:
+    "filter_cols:executed" the widths of the products it launched (the
+    driver's ``executed``, already × ``products``), "filter_cols:useful"
+    the columns live at each of its steps from ``first`` on (degree ≥
+    the step), × ``products``."""
+    live = np.maximum(np.asarray(deg_win, np.int64) - (first - 1), 0)
+    count(FILTER_COLS + "executed", int(executed))
+    count(FILTER_COLS + "useful", int(live.sum()) * products)
+
+
+def _ring_work(H, deg_win, first: int, products: int) -> tuple:
+    """(executed column-steps, HEMM calls) of a ring filter from step
+    ``first`` on: each step on the window's live suffix in whole W tiles
+    of H's route (``parallel/ring.live_suffixes``), × ``products``;
+    counted as :func:`_count_filter_cols` says."""
+    w = len(deg_win)
+    starts = pring.live_suffixes(deg_win, first, int(np.max(deg_win)),
+                                 w_tile(H.dtype))
+    executed = sum(w - s for s in starts) * products
+    _count_filter_cols(deg_win, first, executed, products)
+    return executed, len(starts) * products
+
+
 class FilterForm(NamedTuple):
     """The operator the filter drivers apply: ``shift(H, X, c)`` is its
     shifted product (ops/filter), ``ring`` and ``refine_ring`` its ring
@@ -300,6 +325,7 @@ def _filter_windowed(H, V, degrees_act, locked, nevex, B, lam, lo, up, *,
     deg_win = np.zeros(w_pad, np.int32)
     deg_win[offset:] = degrees_act
     plan = _shrink_plan(deg_win, B, w_pad)
+    deg_all = deg_win
 
     # scalars follow the recurrence carry
     rt = numpy_scalar_type(filter_carry_dtype(H.dtype, V.dtype))
@@ -331,6 +357,7 @@ def _filter_windowed(H, V, degrees_act, locked, nevex, B, lam, lo, up, *,
                                            w_pad)
         deg_win = deg_win[off:]
         pend_off += off
+    _count_filter_cols(deg_all, 1, executed * form.products, form.products)
     return V, executed * form.products, steps * form.products
 
 
@@ -342,19 +369,18 @@ def _row_major(V):
 
 def _filter_ring(H, V, degrees_act, locked, nevex, B, lam, lo, up, *,
                  form: FilterForm = HERMITIAN):
-    """The p = 1 ring filter on the padded window (no bucket shrink, like
-    the JAX ring path); H may be the ladder's shadow.  Returns (V,
-    executed column-steps, HEMM calls)."""
+    """The ring filter (p = 1, (p, 1) or 2-D: ``form.ring``) on the padded
+    window, each step on the window's live suffix in whole W tiles (the
+    JAX ring path runs every step on the whole window); H may be the
+    ladder's shadow.  Returns (V, executed column-steps, HEMM calls)."""
     w_pad, start = _window_pad(nevex, locked, B)
     deg_win = np.zeros(w_pad, np.int32)
     deg_win[locked - start:] = degrees_act
-    deg_max = int(deg_win.max())
     V = _row_major(V)
     Y = form.ring(H, slice_cols(V, start, w_pad), deg_win, lam, lo, up,
-                  deg_max)
-    V = update_cols(V, Y, start)
-    return (V, w_pad * deg_max * form.products,
-            (1 + max(deg_max - 1, 0)) * form.products)
+                  int(deg_win.max()))
+    return (update_cols(V, Y, start),
+            *_ring_work(H, deg_win, 1, form.products))
 
 
 def _filter_refine_windowed(H_f, V, R, ritzv_act, degrees_act, locked,
@@ -369,8 +395,9 @@ def _filter_refine_windowed(H_f, V, R, ritzv_act, degrees_act, locked,
     ritz_w)`` maps the window's residuals and padded Ritz values into the
     filter operator's space — (seed residuals, expansion points); None
     keeps them (the H² filter passes (H + θ)·r and θ²).  With ``ring``
-    the whole padded window runs as the p = 1 ring (no bucket shrink,
-    like the JAX ring path); otherwise the segmented recurrence retires
+    the padded window runs as the ring (``form.refine_ring``), each step
+    on its live suffix in whole W tiles (the JAX ring path runs every
+    step on the whole window); otherwise the segmented recurrence retires
     buckets as _filter_windowed does.  Returns (V, executed column-steps,
     HEMM calls)."""
     w_pad, start = _window_pad(nevex, locked, B)
@@ -391,10 +418,11 @@ def _filter_refine_windowed(H_f, V, R, ritzv_act, degrees_act, locked,
         Y = form.refine_ring(H_f, slice_cols(V, start, w_pad), R_win,
                              deg_win, alpha1_e, alphas, betas, inj, p_final,
                              cc, deg_max)
-        return (update_cols(V, Y, start), w_pad * deg_max * form.products,
-                max(deg_max - 1, 0) * form.products)
+        return (update_cols(V, Y, start),
+                *_ring_work(H_f, deg_win, 2, form.products))
 
     plan = _shrink_plan(deg_win, B, w_pad)
+    deg_all = deg_win
     X0, Wp, Wc, Rc = filt.refine_seg_init(H_f, V, R_win, start, alpha1_e)
     executed = steps = 0
     t_done = 1
@@ -414,6 +442,7 @@ def _filter_refine_windowed(H_f, V, R, ritzv_act, degrees_act, locked,
                                            w_pad)
         deg_win, inj, p_final = deg_win[off:], inj[:, off:], p_final[off:]
         pend_off += off
+    _count_filter_cols(deg_all, 2, executed * form.products, form.products)
     return V, executed * form.products, steps * form.products
 
 

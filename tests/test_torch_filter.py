@@ -6,8 +6,19 @@
   1e-5 relative per column (f32 recurrences, different summation orders)
   and degree-0 columns bit-exact;
 * the plain filter and the solver's segmented (bucket-shrinking) filter
-  against JAX's in f64: 1e-12 relative per column.
+  against JAX's in f64: 1e-12 relative per column;
+* the p = 1 ring filters' live suffix (each step on the columns from the
+  first one still below its degree, in whole W tiles) against the
+  full-width recurrence (``torch_grid_worker.full_width_*``) on windows
+  wider than a tile — classic, refine, H² and refine H², f32 on the
+  kernel's route (128-column tiles) and f64 on torch.matmul (tile 1),
+  sorted, unsorted and equal degrees after a pad of degree 0: 1e-5 / 1e-12
+  relative per column, degree-0 columns bit-exact, every product as wide
+  as its step's suffix; and the solvers' ring drivers' executed count and
+  ``perf.COUNTS``' "filter_cols:*" against those widths.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -22,10 +33,16 @@ from chase_tpu.ops.filter import chebyshev_filter as j_filter
 from chase_tpu.parallel.ring import (
     chebyshev_filter_ring_pallas as j_ring_filter)
 
+from chase_tpu_torch import perf as tperf
 from chase_tpu_torch import solver as tsolver
+from chase_tpu_torch import solver_pseudo as tsolver_pseudo
+from chase_tpu_torch.ops import ring_hemm as rh
 from chase_tpu_torch.ops.filter import chebyshev_filter as t_filter
+from chase_tpu_torch.parallel import ring as pring
 from chase_tpu_torch.parallel.ring import (
     chebyshev_filter_ring_pallas as t_ring_filter)
+
+import torch_grid_worker as gw
 
 torch.set_num_threads(1)
 
@@ -143,3 +160,166 @@ def test_ring_filter_equals_plain_filter_on_cpu():
     Yr = t_ring_filter(Ht, Xt, degrees, lam1, lo, up, 9).double().numpy()
     Yp = t_filter(Ht, Xt, degrees, lam1, lo, up, 9).double().numpy()
     assert _col_rel(Yr, Yp) <= 1e-5
+
+
+# -- the live suffix ---------------------------------------------------------
+
+N_SUF, W_SUF, PAD_SUF, DEG_SUF = 384, 320, 40, 7
+# window dtype → W tile: f32 on the kernel's route, f64 on torch.matmul
+SUF_TILE = {"f32": (np.float32, 128), "f64": (np.float64, 1)}
+KINDS = {"filter": (1, 1), "refine": (2, 1), "h2": (1, 2),
+         "refine_h2": (2, 2)}           # (first step, products a step)
+
+
+@pytest.fixture
+def widths(monkeypatch):
+    """The width of every ring product, as the rings call their step (the
+    kernel's wrapper, looked up at call time, or matmul_step)."""
+    seen = []
+
+    def recording(real):
+        def step(H, V, **kw):
+            seen.append(V.shape[1])
+            return real(H, V, **kw)
+        return step
+
+    monkeypatch.setattr(rh, "ring_hemm", recording(rh.ring_hemm))
+    monkeypatch.setattr(pring, "matmul_step", recording(pring.matmul_step))
+    return seen
+
+
+@functools.lru_cache(maxsize=None)
+def _suffix_base(case, h2):
+    """(H, X, λ₁, lower, upper) of a window wider than a tile; the
+    H²-spectrum's interval with ``h2``."""
+    H, X, lam1, lo, up = _problem(N_SUF, W_SUF, SUF_TILE[case][0], seed=31)
+    if h2:
+        mu = np.sort(np.linalg.eigvalsh(H.astype(np.float64)) ** 2)
+        lam1, lo, up = float(mu[0]), float(mu[W_SUF]), float(mu[-1] * 1.01)
+    return H, X, lam1, lo, up
+
+
+def _suffix_problem(case, kind, degrees):
+    """(H, the ring filter's inputs after H, the window's first input)
+    for ``kind`` on a window of ``degrees``."""
+    h2 = kind in ("h2", "refine_h2")
+    H, X, lam1, lo, up = _suffix_base(case, h2)
+    if kind in ("filter", "h2"):
+        return torch.from_numpy(H), (torch.from_numpy(X), degrees, lam1, lo,
+                                     up, DEG_SUF), X
+    V, R, tabs, cc = gw.suffix_refine_inputs(H, X, degrees, lam1, lo, up,
+                                             power=2 if h2 else 1)
+    return torch.from_numpy(H), (torch.from_numpy(V), torch.from_numpy(R),
+                                 degrees, *tabs, cc, DEG_SUF), V
+
+
+def _ring_filter(kind, kernel):
+    return {"filter": (t_ring_filter if kernel else
+                       lambda H, *a: pring.chebyshev_filter_ring(None, H,
+                                                                 *a)),
+            "refine": lambda H, *a: pring.chebyshev_filter_refine_ring(
+                H, *a, kernel=kernel),
+            "h2": lambda H, *a: pring.chebyshev_filter_h2_ring(
+                H, *a, kernel=kernel),
+            "refine_h2": lambda H, *a: pring.chebyshev_filter_refine_h2_ring(
+                H, *a, kernel=kernel)}[kind]
+
+
+@pytest.mark.parametrize("degs", ["sorted", "unsorted", "equal"])
+@pytest.mark.parametrize("case", list(SUF_TILE))
+@pytest.mark.parametrize("kind", list(KINDS))
+def test_ring_suffix_matches_full_width(widths, kind, case, degs):
+    dt, tile = SUF_TILE[case]
+    first, products = KINDS[kind]
+    degrees = gw.suffix_degrees(degs, W_SUF, PAD_SUF, DEG_SUF)
+    H, args, first_in = _suffix_problem(case, kind, degrees)
+    kernel = H.dtype in rh.KERNEL_DTYPES
+    Y = _ring_filter(kind, kernel)(H, *args).numpy()
+    launched = list(widths)
+    if kind in ("filter", "h2"):
+        ref = gw.full_width_filter(H, *args, products=products)
+    else:
+        ref = gw.full_width_refine(H, *args, products=products)
+    ref = ref.numpy()
+    zero = degrees == 0
+    assert _col_rel(Y[:, ~zero], ref[:, ~zero]) <= (
+        1e-5 if dt == np.float32 else 1e-12)
+    np.testing.assert_array_equal(Y[:, zero], first_in[:, zero])
+    want = [w for w in gw.suffix_widths(degrees, first, tile)
+            for _ in range(products)]
+    assert launched == want
+    full = W_SUF * (DEG_SUF - first + 1) * products
+    assert sum(launched) < 0.8 * full if degs == "sorted" else (
+        sum(launched) <= full)
+
+
+def _counted(before):
+    return {k: n - before.get(k, 0) for k, n in tperf.COUNTS.items()
+            if k.startswith(tperf.FILTER_COLS)}
+
+
+@pytest.mark.parametrize("degs", ["sorted", "equal"])
+@pytest.mark.parametrize("driver", ["filter", "refine", "refine_h2"])
+def test_ring_driver_counts_its_suffix(widths, driver, degs):
+    """solver._filter_ring and _filter_refine_windowed(ring=True) on the
+    padded window of an f32 problem (64-column buckets, 40 locked): the
+    executed column-steps are the launched widths, the HEMM calls the
+    launches, and "filter_cols:executed" / ":useful" grow by the launched
+    widths and by the columns live at each step."""
+    nevex, locked, B = W_SUF, PAD_SUF, 64
+    H, X, lam1, lo, up = _suffix_base("f32", False)
+    Ht = torch.from_numpy(H)
+    deg_act = gw.suffix_degrees(degs, W_SUF, PAD_SUF, DEG_SUF)[locked:]
+    w_pad, start = tsolver._window_pad(nevex, locked, B)
+    assert (w_pad, start) == (W_SUF, 0)
+    first, products = KINDS[driver]
+    before = dict(tperf.COUNTS)
+    if driver == "filter":
+        _, executed, hemms = tsolver._filter_ring(
+            Ht, torch.from_numpy(X), deg_act, locked, nevex, B, lam1, lo, up)
+    else:
+        form = tsolver.HERMITIAN if driver == "refine" else tsolver_pseudo.H2
+        V, R, _, _ = gw.suffix_refine_inputs(
+            H, X, np.zeros(nevex, np.int32), lam1, lo, up, deg_max=1)
+        ritz = np.linspace(lam1, lo, nevex - locked)
+        _, executed, hemms = tsolver._filter_refine_windowed(
+            Ht, torch.from_numpy(V), torch.from_numpy(R), ritz, deg_act,
+            locked, nevex, B, lam1, lo, up, DEG_SUF, ring=True, form=form)
+    assert executed == sum(widths)
+    assert hemms == len(widths) == (DEG_SUF - first + 1) * products
+    live = np.maximum(deg_act.astype(np.int64) - (first - 1), 0).sum()
+    assert _counted(before) == {"filter_cols:executed": executed,
+                                "filter_cols:useful": live * products}
+    full = w_pad * (DEG_SUF - first + 1) * products
+    assert executed < full if degs == "sorted" else executed <= full
+
+
+def test_windowed_driver_counts_its_columns():
+    """The windowed (cuBLAS) driver counts what it launches too: its
+    executed column-steps, and the live columns of each step."""
+    H, V, lam1, lo, up = _problem(160, 32, np.float64, seed=33)
+    degrees = np.sort(2 * np.random.default_rng(3).integers(1, 7, 27))
+    before = dict(tperf.COUNTS)
+    _, executed, _ = tsolver._filter_windowed(
+        torch.from_numpy(H), torch.from_numpy(V.copy()), degrees, 5, 32, 8,
+        lam1, lo, up)
+    assert _counted(before) == {"filter_cols:executed": executed,
+                                "filter_cols:useful": int(degrees.sum())}
+
+
+def test_live_suffixes_cover_every_live_column():
+    """Each step's suffix starts at or left of every column still below
+    its degree, on whole tiles from the right edge and never past column
+    0, in any order of the degrees; a step with no live column ends the
+    list."""
+    rng = np.random.default_rng(7)
+    for tile in (1, 64, 128):
+        for _ in range(20):
+            d = rng.integers(0, 9, rng.integers(1, 400))
+            starts = pring.live_suffixes(d, 1, 12, tile)
+            assert len(starts) == d.max()
+            for t, s in enumerate(starts, 1):
+                live = np.flatnonzero(d >= t)
+                assert 0 <= s <= live[0]
+                assert s == 0 or (d.size - s) % tile == 0
+                assert s == 0 or s + tile > live[0]

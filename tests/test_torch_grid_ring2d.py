@@ -28,7 +28,14 @@ rings call it.  Tolerances:
   note of ``parallel/ring.py`` states;
 * no copy: every kernel step of both passes reads the rank's filter
   operator (ring_B's on the ``trans=True`` route), and neither the
-  operator nor the ring holds another tensor.
+  operator nor the ring holds another tensor;
+* the live suffix on (2, 2): the Hermitian and refine 2-D filters on a
+  window wider than a W tile (f64 on torch.matmul, c64 and a c128 window
+  on its c64 shadow on the kernel), sorted, unsorted and equal degrees
+  after a pad of degree 0, against the full-width recurrence on the whole
+  operator (``torch_grid_worker.full_width_*``): 1e-12 / 1e-5 relative
+  per column, degree-0 columns bit-exact, each kernel step as wide as its
+  step's suffix in 64-column tiles.
 """
 
 import functools
@@ -221,3 +228,51 @@ def test_fused_route_keeps_dist_hemm_on_2d():
     assert _chunk_product("p1", "xla", f32, fused=True) == (True, True)
     assert functools.partial(_chunk_product, "2d", "pallas",
                              fused=True)(torch.bfloat16) == (False, False)
+
+
+SUFFIX = {c[0]: c for c in gw.SUFFIX_CASES_2D}
+
+
+@functools.lru_cache(maxsize=None)
+def _suffix_problem(case):
+    _, dt, _, seed = SUFFIX[case]
+    return gw.problem(gw.N_SUF, gw.W_SUF, dt, seed)
+
+
+@pytest.mark.parametrize("kind", gw.SUFFIX_DEGREES)
+@pytest.mark.parametrize("case", list(SUFFIX))
+@pytest.mark.parametrize("filt", ["f", "r"], ids=["filter", "refine"])
+def test_suffix2d_matches_full_width(groups, filt, case, kind):
+    H, X, lam1, lo, up = _suffix_problem(case)
+    deg = gw.suffix_degrees(kind)
+    Hw = gw._whole_op(H, SUFFIX[case][2])
+    key = f"suf2d/{case}/{kind}/{filt}"
+    if filt == "f":
+        ref = gw.full_width_filter(Hw, torch.from_numpy(X), deg, lam1, lo,
+                                   up, gw.DEG_SUF)
+        first_in, first = X, 1
+    else:
+        V, R, tabs, cc = gw.suffix_refine_inputs(H, X, deg, lam1, lo, up)
+        ref = gw.full_width_refine(Hw, torch.from_numpy(V),
+                                   torch.from_numpy(R), deg, *tabs, cc,
+                                   gw.DEG_SUF)
+        first_in, first = V, 2
+    ref = ref.numpy()
+    zero = deg == 0
+    tol = 1e-12 if case == "f64" else 1e-5
+    r, c = SHAPES["r22"]
+    for rec in groups["r22"].results():
+        Y = rec[key]
+        assert Y.dtype == first_in.dtype
+        assert _col_rel(Y[:, ~zero], ref[:, ~zero]) <= tol
+        np.testing.assert_array_equal(Y[:, zero], first_in[:, zero])
+        launched = [int(w) for w in rec[f"{key}/widths"]]
+        if case == "f64":
+            assert launched == []
+            continue
+        # each step one pass of r (ring_A) or c (ring_B) kernel steps
+        assert launched == [w for w in gw.suffix_widths(deg, first, 64)
+                            for _ in range(r)]
+        full = gw.W_SUF * (gw.DEG_SUF - first + 1) * r
+        assert sum(launched) < 0.8 * full if kind == "sorted" else (
+            sum(launched) <= full)

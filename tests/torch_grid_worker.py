@@ -132,6 +132,125 @@ def refine_inputs(H, X, deg, deg_max=DEG_FILT):
     return Q.astype(H.dtype), R.astype(H.dtype), tabs, (up + lo) / 2.0
 
 
+# -- the live suffix: windows wider than a W tile, and the full-width
+# recurrence the ring filters ran before it ------------------------------
+
+N_SUF, W_SUF, PAD_SUF = 240, 200, 24     # rows, window, degree-0 pad
+DEG_SUF = 7
+
+
+def suffix_degrees(kind: str, w: int = W_SUF, pad: int = PAD_SUF,
+                   deg_max: int = DEG_SUF) -> np.ndarray:
+    """A window's degrees: "sorted" (a pad of degree 0, then ascending
+    and spread, as the solvers hand them), "unsorted" (the same
+    shuffled) or "equal" (the pad, then every column deg_max)."""
+    d = np.zeros(w, np.int32)
+    if kind == "equal":
+        d[pad:] = deg_max
+        return d
+    rest = w - pad
+    d[pad:] = 1 + (np.arange(rest) * deg_max) // rest   # 1 … deg_max
+    if kind == "unsorted":
+        np.random.default_rng(5).shuffle(d)
+    return d
+
+
+def suffix_widths(degrees, first: int, tile: int) -> list:
+    """The width of each step's product from step ``first`` on: from the
+    first live column to the right edge, rounded up to whole tiles."""
+    d = np.asarray(degrees)
+    w, out = d.size, []
+    for t in range(first, int(d.max()) + 1):
+        j = int(np.flatnonzero(d >= t)[0])
+        out.append(min(w, -(-(w - j) // tile) * tile))
+    return out
+
+
+def suffix_refine_inputs(H, X, deg, lam1, lower, upper, power: int = 1,
+                         deg_max: int = DEG_SUF):
+    """The refine filters' inputs on the window X itself (no QR: the
+    recurrence does not need an orthonormal V): V = X, θ the Rayleigh
+    quotients of Hᵖ (p = ``power``, 2 for the H² filter), R = Hᵖ·V −
+    V·diag(θ), and the tables from θ on (λ₁, lower, upper)."""
+    from chase_tpu_torch.ops.filter import refine_tables
+    Hw, V = H.astype(np.complex128), X.astype(np.complex128)
+    HV = V
+    for _ in range(power):
+        HV = Hw @ HV
+    theta = np.real(np.einsum("ij,ij->j", V.conj(), HV)) \
+        / np.real(np.einsum("ij,ij->j", V.conj(), V))
+    R = HV - V * theta
+    if not np.issubdtype(H.dtype, np.complexfloating):
+        R = R.real
+    tabs = refine_tables(theta, deg, lam1, lower, upper, deg_max)
+    return X, R.astype(H.dtype), tabs, (upper + lower) / 2.0
+
+
+def _full_product(H):
+    from chase_tpu_torch.ops import ring_hemm as rh
+    if H.dtype in rh.KERNEL_DTYPES:
+        return lambda v: rh.ring_hemm_reference(H, v)
+    return lambda v: H @ v
+
+
+def full_width_filter(H, X, degrees, lam1, lower, upper, deg_max,
+                      products: int = 1):
+    """The degree-masked Chebyshev recurrence as the ring filters ran it
+    before the live suffix: every step's ``products`` products on the
+    whole window, the retired columns masked after (plain torch)."""
+    from chase_tpu_torch.types import filter_carry_dtype, numpy_scalar_type
+    carry = filter_carry_dtype(H.dtype, X.dtype)
+    rt = numpy_scalar_type(carry)
+    lam1, lower, upper = rt(lam1), rt(lower), rt(upper)
+    c = (upper + lower) / rt(2)
+    e = (upper - lower) / rt(2)
+    sigma1 = e / (lam1 - c)
+    degs = torch.as_tensor(np.asarray(degrees))[None, :]
+    prod = _full_product(H)
+
+    def shift(v):
+        w = v
+        for _ in range(products):
+            w = prod(w)
+        return w - float(c) * v
+
+    Xc = X.to(carry)
+    Y = torch.where(degs >= 1, float(sigma1 / e) * shift(Xc), Xc)
+    Xp, sigma = Xc, sigma1
+    for t in range(2, int(deg_max) + 1):
+        sigma_new = rt(1) / (rt(2) / sigma1 - sigma)
+        Z = float(rt(2) * sigma_new / e) * shift(Y) \
+            - float(sigma * sigma_new) * Xp
+        Xp, Y = Y, torch.where(degs >= t, Z, Y)
+        sigma = sigma_new
+    return torch.where(degs >= 1, Y.to(X.dtype), X)
+
+
+def full_width_refine(H, V, R, degrees, alpha1_e, alphas, betas, inj,
+                      p_final, cc, deg_max, products: int = 1):
+    """The deviation-form recurrence as the refine ring filters ran it
+    before the live suffix (plain torch, whole window every step)."""
+    from chase_tpu_torch.ops.filter import inj_table, refine_combine
+    from chase_tpu_torch.types import filter_carry_dtype, numpy_scalar_type
+    carry = filter_carry_dtype(H.dtype, V.dtype)
+    rt = numpy_scalar_type(carry)
+    ccf = float(rt(cc))
+    degs = torch.as_tensor(np.asarray(degrees))[None, :]
+    injt = inj_table(inj, carry, V.device)
+    prod = _full_product(H)
+    rc = R.to(carry)
+    W = float(rt(alpha1_e)) * rc
+    Wp = torch.zeros_like(W)
+    for t in range(2, int(deg_max) + 1):
+        w = W
+        for _ in range(products):
+            w = prod(w)
+        Z = float(rt(alphas[t])) * (w - ccf * W) \
+            + float(rt(betas[t])) * Wp + injt[t][None, :] * rc
+        Wp, W = W, torch.where(degs >= t, Z, W)
+    return refine_combine(V, W, p_final, degrees)
+
+
 def eig_problem(name: str):
     """(H, nev, nex, tol) of a solve case; the name gives its matrix
     ("clement" or "random"), dtype, size ("_N130"; default 128) and, with
@@ -219,20 +338,28 @@ def full(grid, t: torch.Tensor) -> np.ndarray:
 
 class _Counter:
     """Counts the ring's kernel steps: calls of ``ops.ring_hemm.ring_hemm``
-    (looked up there by every ring product at call time)."""
+    (looked up there by every ring product at call time), and records
+    each one's width (V's columns)."""
 
     def __init__(self):
         from chase_tpu_torch.ops import ring_hemm as rh
-        real, self.n = rh.ring_hemm, 0
+        real, self.n, self.widths = rh.ring_hemm, 0, []
 
-        def counting(*a, **k):
+        def counting(H, V, **k):
             self.n += 1
-            return real(*a, **k)
+            self.widths.append(V.shape[1])
+            return real(H, V, **k)
         rh.ring_hemm = counting
 
     def take(self) -> int:
         n, self.n = self.n, 0
+        self.widths = []
         return n
+
+    def take_widths(self) -> list:
+        widths = self.widths
+        self.take()
+        return widths
 
 
 _COUNTER = []
@@ -787,6 +914,44 @@ def case_filters2d(grid, rec):
                            (deg, *tabs, cc, dm), kernel)
 
 
+# (name, window dtype, shadow dtype or None, problem seed): the f64
+# window on torch.matmul (W tile 1), c64 and a c128 window on its c64
+# shadow (the grid cell's route) on the kernel (W tile 64)
+SUFFIX_CASES_2D = (("f64", np.float64, None, 71),
+                   ("c64", np.complex64, None, 72),
+                   ("c128_on_c64", np.complex128, "complex64", 73))
+SUFFIX_DEGREES = ("sorted", "unsorted", "equal")
+
+
+def case_suffix2d(grid, rec):
+    """The 2-D Hermitian and refine ring filters on windows wider than a
+    W tile, with a pad of degree 0 and sorted, unsorted and equal
+    degrees: the gathered result and every kernel step's width."""
+    from chase_tpu_torch import DenseOperator
+    from chase_tpu_torch.ops.ring_hemm import KERNEL_DTYPES
+    from chase_tpu_torch.parallel import ring as pring
+    count = step_counter()
+    for name, dt, shadow, seed in SUFFIX_CASES_2D:
+        H, X, lam1, lo, up = problem(N_SUF, W_SUF, dt, seed)
+        op = DenseOperator(H, grid=grid)
+        Hg = _low(op, shadow)
+        kernel = Hg.dtype in KERNEL_DTYPES
+        for kind in SUFFIX_DEGREES:
+            deg = suffix_degrees(kind)
+            key = f"suf2d/{name}/{kind}"
+            Y = pring.chebyshev_filter_ring2d(
+                grid, Hg, op.place_block(X), deg, lam1, lo, up, DEG_SUF,
+                kernel=kernel)
+            rec[f"{key}/f/widths"] = count.take_widths()
+            rec[f"{key}/f"] = full(grid, Y)
+            V, R, tabs, cc = suffix_refine_inputs(H, X, deg, lam1, lo, up)
+            Y = pring.chebyshev_filter_refine_ring2d(
+                grid, Hg, op.place_block(V), op.place_block(R), deg, *tabs,
+                cc, DEG_SUF, kernel=kernel)
+            rec[f"{key}/r/widths"] = count.take_widths()
+            rec[f"{key}/r"] = full(grid, Y)
+
+
 def case_grid_no_copy(grid, rec):
     """Ring2D on the kernel's steps over this rank's c64 shadow of a c128
     block: which operator each ring_hemm call of ring_A and ring_B reads
@@ -1244,7 +1409,8 @@ BATTERIES = {
             case_bse_dtensor),
     "f21": (case_fused(FUSED["f21"]), case_fused_warmup),
     "f22": (case_fused(FUSED["f22"]), case_fused_warmup),
-    "r22": (case_passes2d, case_filters2d, case_grid_no_copy),
+    "r22": (case_passes2d, case_filters2d, case_grid_no_copy,
+            case_suffix2d),
     "r23": (case_passes2d, case_filters2d),
     "s22": (case_ring_filter_values(solve_case, SOLVES_2D), case_sequence,
             case_fused2d),

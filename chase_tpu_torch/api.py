@@ -66,10 +66,10 @@ import torch
 from .config import ChaseConfig, set_matmul_precision
 from .logger import get_logger
 from .parallel.operator import DenseOperator
+from .parallel.ring import filter_product
 from .perf import PerfData, item, span, to_device, to_host
 from . import solver_pseudo
-from .solver import (solve, SolveResult, _chunk_product, _draw,
-                     _ring_route)
+from .solver import solve, SolveResult, _draw, _ring_route
 
 __all__ = ["eigsh", "eigsh_fused", "eigsh_sequence", "eigsh_pseudo",
            "eigsh_pseudo_fused", "estimate_spectral_bounds"]
@@ -302,10 +302,9 @@ def _fused_result(out, nev: int, t0: float, rcfg, collect_perf: bool,
 def _fused_setup(op: DenseOperator, cfg: ChaseConfig, generator):
     """The resolved config, the solve's generator and the solver keywords
     every fused solve shares (the ladder's shadow, the grid, and the
-    filter products' routing: ``solver._chunk_product`` on the route of
-    ``solver._ring_route``, with ``fused``: on an r×c grid the fused
-    solvers take ``dist.hemm``, as the JAX package's, which have no
-    ring)."""
+    filter products' routing: ``parallel/ring.filter_product`` on the
+    route of ``solver._ring_route``, which ``fused.FilterProducts`` takes
+    only where it is the kernel)."""
     rcfg = cfg.resolve(op.dtype, op.device)
     if rcfg.small_dense_backend not in ("auto", "device"):
         get_logger().info(f"small_dense_backend="
@@ -331,8 +330,8 @@ def _fused_setup(op: DenseOperator, cfg: ChaseConfig, generator):
               bf16_threshold=rcfg.bf16_filter_threshold,
               refine_filter=refine, qr_hi_prec=rcfg.qr_hi_prec,
               H_low=op.H_low if (refine or bf16) else None,
-              chunk=functools.partial(_chunk_product, route,
-                                      rcfg.ring_backend, fused=True),
+              chunk=functools.partial(filter_product, route,
+                                      pallas=rcfg.ring_backend == "pallas"),
               grid=op.grid)
     return rcfg, generator, kw
 

@@ -56,7 +56,6 @@ from .ops import lanczos as lz
 from .ops import rr as rrops
 from .ops.qr import _rows, tsqr
 from .parallel.dist import hemm, inner
-from .parallel.ring import _product
 from .perf import QR_FALLBACK, count, host_sync, item, to_host
 from .types import eps, is_double_base, low_precision_dtype, real_dtype
 
@@ -147,33 +146,35 @@ def _tier_offsets(k: int, tiers: int):
 
 
 class FilterProducts:
-    """The fused filters' products H·X.  ``chunk(dtype) -> (ring,
-    kernel)`` routes each operator (``solver._chunk_product`` bound to the
-    solve's route and backend): with both set the product runs on the
-    ``ring_hemm`` kernel through the ring filters' product
-    (``parallel/ring._product``) — one call on one device, one
-    ``ring_hemm_peers`` call on a (p, 1) CUDA grid, the p-step chunk ring
-    with the grid's exchange on a (p, 1) CPU grid.  Otherwise — ``chunk``
-    None, or an r×c grid, where ``_chunk_product(fused=True)`` says no
-    ring — ``dist.hemm``: the local product (``narrow_matmul`` for the
-    bf16 shadow) with the grid's collectives.  ``steps`` counts every
+    """The fused filters' products H·X.  ``chunk(H, grid)`` is the host
+    solvers' product of a filter step (``parallel/ring.filter_product``
+    bound to the solve's route and backend).  The fused solvers have no
+    ring of their own, as the JAX package's have none: they take that
+    product only where it is the ``ring_hemm`` kernel's v ↦ H·v — one
+    call on one device, one ``ring_hemm_peers`` call on a (p, 1) CUDA
+    grid, the p-step chunk ring with the grid's exchange on a (p, 1) CPU
+    grid — and never on an r×c grid; every other product (``chunk``
+    None too) is ``dist.hemm``: the local product (``narrow_matmul`` for
+    the bf16 shadow) with the grid's collectives.  ``steps`` counts every
     call: the solver's HEMM-step counter, which equals the kernel's main
     launches per rank on the card when every filter operator takes the
     kernel (``ring_hemm`` on one device, ``ring_hemm_peers`` on a (p, 1)
     grid), and p times as many ``ring_hemm`` steps on a CPU grid."""
 
     def __init__(self, chunk=None, grid=None):
-        self.chunk = chunk
+        two_d = grid is not None and grid.size("r") > 1 \
+            and grid.size("c") > 1
+        self.chunk = None if two_d else chunk
         self.grid = grid
         self.steps = 0
 
     def __call__(self, H: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
         self.steps += 1
-        if self.chunk is not None and all(self.chunk(H.dtype)):
+        prod = self.chunk(H, self.grid) if self.chunk is not None else None
+        if prod is not None and prod.kernel:
             # the kernel reads row-major windows; torch.linalg may hand
             # back column-major blocks
-            return _product(H, self.grid, True)(
-                X if X.stride(1) == 1 else X.contiguous())
+            return prod.hemm(X if X.stride(1) == 1 else X.contiguous())
         return hemm(H, X, self.grid)
 
 

@@ -7,15 +7,16 @@ modified) and per-column degree retirement is a mask: step ``t`` updates
 column ``j`` iff ``t <= degrees[j]``; degree-0 columns pass through
 bit-exact.
 
-* :func:`chebyshev_filter` — the whole recurrence on one window (the
-  reference filter the ring path and the tests are held against);
-* :func:`filter_seg_init` / :func:`filter_seg_steps` — the segmented
-  filter the solver drives (``solver._filter_windowed``): the window
-  shrinks whenever a whole bucket of columns has retired;
+* :func:`chebyshev_filter` — the whole recurrence on one window, every
+  step on every column: the plain reference filter the tests hold the
+  solvers' filters against;
 * the deviation-form refinement filter of the precision ladder —
   :func:`refine_tables`, :func:`chebyshev_filter_refine`,
-  :func:`refine_steps`, :func:`refine_combine` and the segmented
-  :func:`refine_seg_init` / :func:`refine_seg_steps`.
+  :func:`refine_steps` and :func:`refine_combine`.
+
+The solvers filter with ``parallel/ring.py``'s recurrences on every
+route (each step on the window's live suffix); they take the tables,
+the injection table and the combine from here.
 
 H may be the ladder's reduced-precision shadow (``DenseOperator.H_low``):
 the recurrence carry follows ``types.filter_carry_dtype`` (f32/c64 for an
@@ -36,10 +37,8 @@ import torch
 from ..perf import to_device
 from ..types import filter_carry_dtype, numpy_scalar_type, real_dtype
 
-__all__ = ["chebyshev_filter", "filter_seg_init", "filter_seg_steps",
-           "refine_tables", "chebyshev_filter_refine", "refine_steps",
-           "refine_combine", "refine_seg_init", "refine_seg_steps",
-           "narrow_matmul"]
+__all__ = ["chebyshev_filter", "refine_tables", "chebyshev_filter_refine",
+           "refine_steps", "refine_combine", "narrow_matmul"]
 
 
 def narrow_matmul(H: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
@@ -119,40 +118,6 @@ def chebyshev_filter(H: torch.Tensor, X: torch.Tensor, degrees, lam1, lower,
     return torch.where(deg >= 1, Y.to(X.dtype), X)
 
 
-def filter_seg_init(H: torch.Tensor, V: torch.Tensor, start: int, deg_win,
-                    c, e, sigma1, *, w_pad: int, shift=_hemm_shift):
-    """Copy the window [start, start + w_pad) out of V and run step 1.
-
-    Returns (X0, Xp, Yc, sigma): the window's original columns, the two
-    recurrence carries (``filter_carry_dtype(H, V)``) and σ1."""
-    X0 = V[:, start:start + w_pad].clone()
-    Xc = X0.to(filter_carry_dtype(H.dtype, V.dtype))
-    Y = float(sigma1 / e) * shift(H, Xc, c)
-    Y = torch.where(_mask(deg_win, V.device) >= 1, Y, Xc)
-    return X0, Xc, Y, sigma1
-
-
-def filter_seg_steps(H: torch.Tensor, V: torch.Tensor, X0, Xp, Yc, deg_win,
-                     sigma, sigma1, c, e, off: int, start_new: int,
-                     t0: int, t1: int, *, w_new: int, shift=_hemm_shift):
-    """One segment: shrink the carries by ``off`` columns (0 = no
-    shrink), run steps t in [t0, t1), write the masked window back into
-    V's columns [start_new, start_new + w_new) in place.
-
-    Returns (V, X0, Xp, Yc, sigma) at the new width."""
-    if w_new != Xp.shape[1]:
-        X0 = X0[:, off:off + w_new]
-        Xp = Xp[:, off:off + w_new]
-        Yc = Yc[:, off:off + w_new]
-    deg = _mask(deg_win, V.device)
-    Xp, Yc, sigma = _cheb_steps(H, Xp, Yc, deg, sigma, sigma1, c, e, t0, t1,
-                                shift)
-    # degree-0 (locked pad) columns bit-exact from the original window
-    V[:, start_new:start_new + w_new] = torch.where(deg >= 1,
-                                                    Yc.to(V.dtype), X0)
-    return V, X0, Xp, Yc, sigma
-
-
 # -- deviation-form refinement filter (the precision ladder) ----------------
 #
 # For any per-column scalar shift λ_j the deviation w_t = p_t(Hs)v_j −
@@ -227,11 +192,10 @@ def inj_table(inj, carry, device) -> torch.Tensor:
 
 def refine_steps(H, Wp, Wc, Rc, degrees, alphas, betas, inj, cc, t0, t1, *,
                  shift=_hemm_shift):
-    """Deviation-recurrence steps t in [t0, t1) on a (possibly shrunk)
-    window — the refine analogue of :func:`filter_seg_steps`.  ``alphas``
-    and ``betas`` are the host tables, ``inj`` the device table of
-    :func:`inj_table`, all sliced to the window's columns.  Returns (Wp,
-    Wc)."""
+    """Deviation-recurrence steps t in [t0, t1) on the window — the
+    refine analogue of :func:`_cheb_steps`.  ``alphas`` and ``betas`` are
+    the host tables, ``inj`` the device table of :func:`inj_table`.
+    Returns (Wp, Wc)."""
     rt = numpy_scalar_type(Wc.dtype)
     ccf = float(rt(cc))
     deg = _mask(degrees, Wc.device)
@@ -244,8 +208,9 @@ def refine_steps(H, Wp, Wc, Rc, degrees, alphas, betas, inj, cc, t0, t1, *,
 
 def refine_combine(V, W, p_final, degrees):
     """y_j = p_final_j·v_j + w_j in the problem precision (deg-0 columns
-    untouched) — the refine filter's epilogue, split out so the segmented
-    path can write retired buckets back early."""
+    untouched) — the refine filter's epilogue, shared by
+    :func:`chebyshev_filter_refine` and the ring filters
+    (``parallel/ring._refine_ring``)."""
     pf = to_device(np.asarray(p_final), "filter.refine_combine",
                    dtype=real_dtype(V.dtype), device=V.device)
     Y = pf[None, :] * V + W.to(V.dtype)
@@ -278,35 +243,3 @@ def chebyshev_filter_refine(H, V, R, degrees, alpha1_e, alphas, betas, inj,
                          betas, inj_table(inj, carry, V.device), cc, 2,
                          int(deg_max) + 1, shift=shift)
     return refine_combine(V, Wc, p_final, degrees)
-
-
-def refine_seg_init(H, V, R_win, start: int, alpha1_e):
-    """Copy the V window [start, start + w) out, take its residual window
-    ``R_win`` (N, w) in the carry dtype and seed w₁ = (σ1/e)·r.  ``H``
-    only supplies the carry dtype.  Returns (X0, Wp, Wc, Rc)."""
-    carry = filter_carry_dtype(H.dtype, V.dtype)
-    X0 = V[:, start:start + R_win.shape[1]].clone()
-    Rc = R_win.to(carry)
-    Wc = float(numpy_scalar_type(carry)(alpha1_e)) * Rc
-    return X0, torch.zeros_like(Wc), Wc, Rc
-
-
-def refine_seg_steps(H, V, X0, Wp, Wc, Rc, deg_win, alphas, betas, inj,
-                     p_final, cc, off: int, start_new: int, t0: int, t1: int,
-                     *, w_new: int, shift=_hemm_shift):
-    """One refine segment: shrink the carries by ``off`` columns, run the
-    deviation steps [t0, t1), combine y = p_final·v + w and write it back
-    into V's columns [start_new, start_new + w_new) in place.  ``inj`` and
-    ``p_final`` arrive sliced to the window.  Returns (V, X0, Wp, Wc,
-    Rc)."""
-    if w_new != Wc.shape[1]:
-        X0 = X0[:, off:off + w_new]
-        Wp = Wp[:, off:off + w_new]
-        Wc = Wc[:, off:off + w_new]
-        Rc = Rc[:, off:off + w_new]
-    Wp, Wc = refine_steps(H, Wp, Wc, Rc, deg_win, alphas, betas,
-                          inj_table(inj, Wc.dtype, V.device), cc, t0, t1,
-                          shift=shift)
-    V[:, start_new:start_new + w_new] = refine_combine(X0, Wc, p_final,
-                                                       deg_win)
-    return V, X0, Wp, Wc, Rc

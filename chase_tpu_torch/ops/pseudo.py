@@ -6,9 +6,9 @@ process grid: below):
 
 * ``flipLowerHalfMatrixSign`` (applying S = diag(I_{N/2}, −I_{N/2})) is a
   sign flip of the lower rows (:func:`apply_s`, :func:`flip_locked_cols`);
-* ``HEMM_H2`` is two products and an axpy (:func:`_h2_shift`): the H²
-  filters are ``ops/filter.py``'s recurrences with this shift (whole,
-  segmented and deviation form);
+* ``HEMM_H2`` is two products and an axpy (:func:`_h2_shift`): the
+  plain H² filters are ``ops/filter.py``'s recurrences with this shift
+  (whole and deviation form);
 * ``ApplyKconjugate`` maps the eigenvector of λ to the one of −λ,
   K x = conj([x_lower; x_upper]) (:func:`k_conjugate_cols`), materialized
   — never a lazy conj view, which the ring kernel would read unconjugated;
@@ -140,10 +140,10 @@ def chebyshev_filter_h2(H: torch.Tensor, X: torch.Tensor, degrees, lam1,
                                  shift=_h2_shift)
 
 
-# The segmented H² filters (the JAX package's h2_carry_init/h2_steps,
-# h2_seg_* and refine_h2_seg_steps) are ops/filter's segments with
-# shift=_h2_shift, driven by solver._filter_windowed and
-# solver._filter_refine_windowed with solver_pseudo.H2.
+# The solver's H² filters (the JAX package's h2_carry_init/h2_steps,
+# h2_seg_* and refine_h2_seg_steps) are parallel/ring's recurrences with
+# two products a step, driven by solver._filter_ring and
+# solver._filter_refine_windowed.
 
 # -- deviation-form refinement filter on H² (the BSE ladder) -----------------
 #

@@ -13,9 +13,7 @@ local blocks (``parallel/mesh.py``: H in ``P('r', 'c')``, multivectors in
   every rank (``Grid2D.sum_rows``), so the host decisions that read them
   agree everywhere;
 * :func:`rotate_rows` — the rows of a multivector rotated across the
-  'r' axis (``Grid2D.rotate_rows``), the BSE's K-conjugation;
-* :func:`grid_shift` — the windowed filter's ``(H − c·I)·X`` on the grid,
-  and :func:`grid_h2_shift` the BSE filter's ``(H² − c·I)·X``.
+  'r' axis (``Grid2D.rotate_rows``), the BSE's K-conjugation.
 
 With ``grid=None`` every function is the plain single-device expression,
 and on a grid whose 'r' axis has one member the reductions are too, so a
@@ -30,7 +28,7 @@ import torch
 from ..ops.filter import narrow_matmul
 
 __all__ = ["hemm", "inner", "col_dots", "col_norms", "rotate_rows",
-           "grid_shift", "grid_h2_shift", "local_product"]
+           "local_product"]
 
 
 def local_product(H: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
@@ -82,20 +80,3 @@ def rotate_rows(t: torch.Tensor, shift: int, grid=None) -> torch.Tensor:
     if grid is None:
         return torch.cat([t[shift:], t[:shift]])
     return grid.rotate_rows(t, shift)
-
-
-def grid_shift(grid):
-    """The windowed filter's ``shift(H, X, c) = (H − c·I)·X`` with the
-    product on ``grid`` (``ops/filter._hemm_shift`` for one device)."""
-    def shift(H, X, c):
-        return hemm(H, X, grid) - float(c) * X
-    return shift
-
-
-def grid_h2_shift(grid):
-    """The windowed H² filter's ``shift(H, X, c) = (H² − c·I)·X`` as two
-    products on ``grid`` (``ops/pseudo._h2_shift`` for one device; a bf16
-    shadow rounds each product's input to bf16 as there)."""
-    def shift(H, X, c):
-        return hemm(H, hemm(H, X, grid), grid) - float(c) * X
-    return shift

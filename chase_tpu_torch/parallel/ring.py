@@ -36,12 +36,20 @@ The filters run the recurrence with that product as each step's H·Y: the
 shift ``c·Y``, the three-term update, the injection and the degree mask
 are plain torch.  Step t runs all of them on the window's live suffix
 only (:func:`live_suffixes`): from the first column whose degree is ≥ t,
-moved left to a whole number of the kernel's W tiles from the right edge
-(``ops.ring_hemm.w_tile``), a column view passed in place; the columns
-left of it keep their values.  The solvers sort each window's degrees in
-ascending order, so the suffix shrinks as t grows and the padding of
-degree 0 is never multiplied.  The JAX package runs every step on the
-whole window.  H may be the precision ladder's shadow, narrower than
+moved left to a whole number of tiles from the right edge — the kernel's
+W tiles (``ops.ring_hemm.w_tile``) where the step is the kernel, single
+columns on ``torch.matmul`` —, a column view passed in place; the
+columns left of it keep their values.  The solvers sort each window's
+degrees in ascending order, so the suffix shrinks as t grows and the
+padding of degree 0 is never multiplied.  The JAX package runs every
+step on the whole window.
+
+These recurrences are the solvers' only filter drivers, on every route:
+:func:`filter_product` picks each step's product from the solve's route
+— the kernel, :func:`matmul_step` (the windowed route on one device is
+the p = 1 recurrence on ``torch.matmul``), the chunk ring,
+``ring_hemm_peers``, ``dist.hemm`` on a grid with no ring, or the 2-D
+ring's passes.  H may be the precision ladder's shadow, narrower than
 the window: the carry follows ``types.filter_carry_dtype`` as in the JAX
 package's ``chebyshev_filter_ring``, so a c64 shadow with a c128 window
 runs the kernel's c64 route, an f32 shadow with an f64 window its f32
@@ -95,7 +103,7 @@ suffix.
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -106,9 +114,11 @@ from ..ops.pseudo import _interval
 from ..perf import to_device
 from ..types import filter_carry_dtype, low_precision_dtype, \
     numpy_scalar_type
+from . import dist
 from .dist import local_product
 
 __all__ = ["ring_hemm", "ring_steps", "matmul_step", "uses_peers",
+           "FilterProduct", "filter_product",
            "chebyshev_filter_ring", "chebyshev_filter_ring_pallas",
            "chebyshev_filter_refine_ring", "chebyshev_filter_h2_ring",
            "chebyshev_filter_refine_h2_ring", "Ring2D",
@@ -209,6 +219,65 @@ def _product(H: torch.Tensor, grid, kernel: bool,
                                 step=step)
 
 
+class FilterProduct(NamedTuple):
+    """What multiplies a filter step: ``hemm`` v ↦ H·v for this rank's
+    rows, or None where ``ring2d`` (a :class:`Ring2D`) runs the 2-D
+    ring's passes; ``tile`` the column tile of each step's live suffix
+    (:func:`live_suffixes`): the kernel's W tile where the step is the
+    kernel (``kernel``), else 1."""
+    hemm: Optional[Callable]
+    ring2d: Optional["Ring2D"]
+    tile: int
+    kernel: bool
+
+
+def _tile(H: torch.Tensor, kernel: bool) -> int:
+    return rh.w_tile(H.dtype) if kernel else 1
+
+
+def _ring_product(H: torch.Tensor, grid, kernel: bool) -> FilterProduct:
+    """The 1-D ring's product (:func:`_product`) on ``grid``."""
+    return FilterProduct(_product(H, grid, kernel), None, _tile(H, kernel),
+                         kernel)
+
+
+def _ring2d_product(grid, H: torch.Tensor, kernel: bool) -> FilterProduct:
+    """The 2-D ring's passes (:class:`Ring2D`) on ``grid``."""
+    return FilterProduct(None, Ring2D(grid, H, kernel), _tile(H, kernel),
+                         kernel)
+
+
+def filter_product(route: Optional[str], H: torch.Tensor, grid,
+                   pallas: bool) -> FilterProduct:
+    """The product of each filter step with the operator H (the
+    problem's or its ladder shadow) on a solve's ``route``
+    (``solver._ring_route``: "p1", "1d", "2d" or None).  The host
+    solvers and the fused ones (``fused.FilterProducts``) take every
+    filter product from here.
+
+    The step is the ring_hemm kernel where ``pallas``
+    (``ring_backend="pallas"``), the route is a ring and the kernel takes
+    H's dtype, else ``torch.matmul``.  The product:
+
+    * "2d": the 2-D ring's passes (:class:`Ring2D`);
+    * None on a grid of more than one rank (``ring_filter=False``, or a
+      (1, c) grid): ``dist.hemm``;
+    * otherwise v ↦ H·v by :func:`_product`: one call on one device or a
+      1×1 grid, ``ring_hemm_peers`` or the p-step chunk ring on a (p, 1)
+      grid.
+
+    Each step's live suffix is in whole W tiles on the kernel, in single
+    columns on ``torch.matmul``."""
+    kernel = bool(pallas) and route is not None \
+        and H.dtype in rh.KERNEL_DTYPES
+    if route == "2d":
+        return _ring2d_product(grid, H, kernel)
+    if route is None and grid is not None and grid.nprocs > 1:
+        return FilterProduct(lambda v: dist.hemm(H, v, grid), None, 1,
+                             False)
+    return _ring_product(H, grid, kernel)
+
+
 def ring_hemm(grid, H: torch.Tensor, V: torch.Tensor, *, axis: str = "r",
               precision="highest") -> torch.Tensor:
     """The JAX package's ``ring_hemm``: W = H·V on the 1-D ring along
@@ -259,12 +328,21 @@ def live_suffixes(degrees, first: int, deg_max: int, tile: int) -> list:
 
 
 def _filter_ring(H, X, degrees, lam1, lower, upper, deg_max, products,
-                 hemm, ring2d=None):
-    """The recurrence with ``hemm`` as each product, on X's rows — or,
-    with ``ring2d`` (a :class:`Ring2D`), on X's parity-B chunk, gathered
-    back to X's rows at the end.  Step t multiplies and updates only the
-    window's live suffix (:func:`live_suffixes`), a column view passed in
-    place; the columns left of it keep their values."""
+                 prod: FilterProduct):
+    """The filter of H (``products`` 1) or H² (2) with ``prod``'s product:
+    the recurrence on X's rows — on the 2-D ring on X's parity-B chunk,
+    gathered back to X's rows at the end, each H² step one
+    ``Ring2D.h2``; its Hermitian filter alternates parity
+    (:func:`_filter_ring2d`).  Step t multiplies and updates only the
+    window's live suffix (:func:`live_suffixes` in ``prod.tile``), a
+    column view passed in place; the columns left of it keep their
+    values."""
+    ring2d = prod.ring2d
+    if ring2d is not None and products == 1:
+        return _filter_ring2d(ring2d, H, X, degrees, lam1, lower, upper,
+                              deg_max, prod.tile)
+    hemm, products = ((prod.hemm, products) if ring2d is None
+                      else (ring2d.h2, 1))
     carry = _carry(H, X)
     # scalars in the carry's real precision, like the JAX version's traced
     # scalars
@@ -280,8 +358,7 @@ def _filter_ring(H, X, degrees, lam1, lower, upper, deg_max, products,
         carry, memory_format=torch.contiguous_format, copy=True)
     Xp = torch.empty_like(Y)
     sigma = sigma1
-    for t, s in enumerate(live_suffixes(degrees, 1, deg_max,
-                                        rh.w_tile(H.dtype)), 1):
+    for t, s in enumerate(live_suffixes(degrees, 1, deg_max, prod.tile), 1):
         Ys, Xps = Y[:, s:], Xp[:, s:]
         if t == 1:
             Z = float(sigma1 / e) * _ring_shift(hemm, Ys, float(c), products)
@@ -324,7 +401,7 @@ def chebyshev_filter_ring_pallas(H: torch.Tensor, X: torch.Tensor, degrees,
     degree-0 columns are bit-exact copies of X's.
     """
     return _filter_ring(H, X, degrees, lam1, lower, upper, deg_max, 1,
-                        _product(H, grid, True))
+                        _ring_product(H, grid, True))
 
 
 def chebyshev_filter_ring(grid, H: torch.Tensor, X: torch.Tensor, degrees,
@@ -341,7 +418,7 @@ def chebyshev_filter_ring(grid, H: torch.Tensor, X: torch.Tensor, degrees,
     if axis != "r":
         raise ValueError("the port's rings run along 'r'")
     return _filter_ring(H, X, degrees, lam1, lower, upper, deg_max, 1,
-                        _product(H, grid, False))
+                        _ring_product(H, grid, False))
 
 
 def chebyshev_filter_h2_ring(H: torch.Tensor, X: torch.Tensor, degrees,
@@ -360,14 +437,22 @@ def chebyshev_filter_h2_ring(H: torch.Tensor, X: torch.Tensor, degrees,
     route each product rounds its input to bf16, as the plain H² shift
     does."""
     return _filter_ring(H, X, degrees, lam1, *_interval(lower, upper),
-                        deg_max, 2, _product(H, grid, kernel))
+                        deg_max, 2, _ring_product(H, grid, kernel))
 
 
 def _refine_ring(H, V, R, degrees, alpha1_e, alphas, betas, inj, p_final, cc,
-                 deg_max, products, hemm, ring2d=None):
-    """The deviation recurrence with ``hemm`` as each product, on R's
-    rows — or, with ``ring2d``, on R's parity-B chunk (as
-    :func:`_filter_ring`, each step on the window's live suffix)."""
+                 deg_max, products, prod: FilterProduct):
+    """The deviation-form filter of H (``products`` 1) or H² (2) with
+    ``prod``'s product: the recurrence on R's rows — on the 2-D ring on
+    R's parity-B chunk, as :func:`_filter_ring`'s, and its Hermitian
+    filter alternates parity (:func:`_refine_ring2d`) —, each step on the
+    window's live suffix."""
+    ring2d = prod.ring2d
+    if ring2d is not None and products == 1:
+        return _refine_ring2d(ring2d, H, V, R, degrees, alpha1_e, alphas,
+                              betas, inj, p_final, cc, deg_max, prod.tile)
+    hemm, products = ((prod.hemm, products) if ring2d is None
+                      else (ring2d.h2, 1))
     carry = _carry(H, V)
     rt = numpy_scalar_type(carry)
     ccf = float(rt(cc))
@@ -377,8 +462,7 @@ def _refine_ring(H, V, R, degrees, alpha1_e, alphas, betas, inj, p_final, cc,
     rc = (R if ring2d is None else ring2d.enter(R)).to(carry)
     W = float(rt(alpha1_e)) * rc                    # w_1 = (σ1/e)·r
     Wp = torch.zeros_like(W)
-    for t, s in enumerate(live_suffixes(degrees, 2, deg_max,
-                                        rh.w_tile(H.dtype)), 2):
+    for t, s in enumerate(live_suffixes(degrees, 2, deg_max, prod.tile), 2):
         Ws, Wps = W[:, s:], Wp[:, s:]
         Z = float(rt(alphas[t])) * _ring_shift(hemm, Ws, ccf, products) \
             + float(rt(betas[t])) * Wps + injt[t][None, s:] * rc[:, s:]
@@ -416,7 +500,8 @@ def chebyshev_filter_refine_ring(H: torch.Tensor, V: torch.Tensor,
     Returns: the filtered window in V's dtype; degree-0 columns are V's.
     """
     return _refine_ring(H, V, R, degrees, alpha1_e, alphas, betas, inj,
-                        p_final, cc, deg_max, 1, _product(H, grid, kernel))
+                        p_final, cc, deg_max, 1,
+                        _ring_product(H, grid, kernel))
 
 
 def chebyshev_filter_refine_h2_ring(H: torch.Tensor, V: torch.Tensor,
@@ -432,7 +517,8 @@ def chebyshev_filter_refine_h2_ring(H: torch.Tensor, V: torch.Tensor,
     come from ``refine_tables`` on the H²-space quantities; otherwise as
     :func:`chebyshev_filter_refine_ring`."""
     return _refine_ring(H, V, R2, degrees, alpha1_e, alphas, betas, inj,
-                        p_final, cc, deg_max, 2, _product(H, grid, kernel))
+                        p_final, cc, deg_max, 2,
+                        _ring_product(H, grid, kernel))
 
 
 # -- the 2-D ping-pong rings -------------------------------------------------
@@ -563,6 +649,15 @@ def chebyshev_filter_ring2d(grid, H: torch.Tensor, X: torch.Tensor, degrees,
     every rank of a grid row; degree-0 columns bit-exact copies of X's.
     """
     del precision
+    return _filter_ring(H, X, degrees, lam1, lower, upper, deg_max, 1,
+                        _ring2d_product(grid, H, kernel))
+
+
+def _filter_ring2d(ring: Ring2D, H, X, degrees, lam1, lower, upper, deg_max,
+                   tile: int):
+    """:func:`chebyshev_filter_ring2d`'s recurrence on ``ring``, each
+    step's live suffix in ``tile`` columns."""
+    grid = ring.grid
     carry = _carry(H, X)
     rt = numpy_scalar_type(carry)
     lam1, lower, upper = rt(lam1), rt(lower), rt(upper)
@@ -572,8 +667,7 @@ def chebyshev_filter_ring2d(grid, H: torch.Tensor, X: torch.Tensor, degrees,
     cf = float(c)
     degs = to_device(np.asarray(degrees), "ring.degrees",
                      device=X.device)[None, :]
-    ring = Ring2D(grid, H, kernel)
-    starts = live_suffixes(degrees, 1, deg_max, rh.w_tile(H.dtype))
+    starts = live_suffixes(degrees, 1, deg_max, tile)
     if not starts:
         return X.clone()
     par = "B" if len(starts) % 2 == 0 else "A"   # the last step lands in B
@@ -624,14 +718,23 @@ def chebyshev_filter_refine_ring2d(grid, H: torch.Tensor, V: torch.Tensor,
     :class:`Ring2D`; returns the filtered rows in V's dtype, degree-0
     columns V's."""
     del precision
+    return _refine_ring(H, V, R, degrees, alpha1_e, alphas, betas, inj,
+                        p_final, cc, deg_max, 1,
+                        _ring2d_product(grid, H, kernel))
+
+
+def _refine_ring2d(ring: Ring2D, H, V, R, degrees, alpha1_e, alphas, betas,
+                   inj, p_final, cc, deg_max, tile: int):
+    """:func:`chebyshev_filter_refine_ring2d`'s recurrence on ``ring``,
+    each step's live suffix in ``tile`` columns."""
+    grid = ring.grid
     carry = _carry(H, V)
     rt = numpy_scalar_type(carry)
     ccf = float(rt(cc))
     degs = to_device(np.asarray(degrees), "ring.degrees",
                      device=V.device)[None, :]
     injt = inj_table(inj, carry, V.device)
-    ring = Ring2D(grid, H, kernel)
-    starts = live_suffixes(degrees, 2, deg_max, rh.w_tile(H.dtype))
+    starts = live_suffixes(degrees, 2, deg_max, tile)
     par = "B" if len(starts) % 2 == 0 else "A"   # the last step lands in B
     rc = {"B": ring.enter(R).to(carry)}
     W = float(rt(alpha1_e)) * rc["B"]               # w_1 = (σ1/e)·r
@@ -672,9 +775,8 @@ def chebyshev_filter_h2_ring2d(grid, H: torch.Tensor, X: torch.Tensor,
     ``lower`` and ``upper`` (in either order) of
     :func:`chebyshev_filter_h2_ring`."""
     del precision
-    ring = Ring2D(grid, H, kernel)
     return _filter_ring(H, X, degrees, lam1, *_interval(lower, upper),
-                        deg_max, 1, ring.h2, ring)
+                        deg_max, 2, _ring2d_product(grid, H, kernel))
 
 
 def chebyshev_filter_refine_h2_ring2d(grid, H: torch.Tensor, V: torch.Tensor,
@@ -689,6 +791,6 @@ def chebyshev_filter_refine_h2_ring2d(grid, H: torch.Tensor, V: torch.Tensor,
     Arguments as for :func:`chebyshev_filter_refine_h2_ring` with this
     rank's rows of V and R2, and ``kernel`` as for :class:`Ring2D`."""
     del precision
-    ring = Ring2D(grid, H, kernel)
     return _refine_ring(H, V, R2, degrees, alpha1_e, alphas, betas, inj,
-                        p_final, cc, deg_max, 1, ring.h2, ring)
+                        p_final, cc, deg_max, 2,
+                        _ring2d_product(grid, H, kernel))

@@ -52,12 +52,13 @@ class PerfData:
     filtered_vecs: int = 0     # sum over filter HEMM calls of columns touched
     filtered_vecs_low: int = 0  # subset filtered in a REDUCED precision
     # EXECUTED filter column-steps (launched width × recurrence steps):
-    # the windows run retired/padded columns until their bucket completes,
-    # the rings until the live suffix leaves their W tile, so executed ≥
-    # useful (filtered_vecs)
+    # each step runs on the window's live suffix, retired and padded
+    # columns only inside its tile (the kernel's W tile, one column on
+    # torch.matmul), so executed ≥ useful (filtered_vecs) but for the
+    # refine filters' first step, which needs no product
     filtered_vecs_executed: int = 0
     # N×N HEMM calls the filter issued (one per recurrence step and
-    # window segment) — on the ring path, one ring_hemm launch each
+    # product) — on the kernel's route, one ring_hemm launch each
     filter_hemm_steps: int = 0
     matrix_type: int = 0       # 0 = (real)symmetric/Hermitian, 1 = pseudo-Hermitian
 

@@ -42,14 +42,22 @@ whole on every rank from identically seeded generators and cut to each
 rank's rows, so a grid solve starts from ``grid=None``'s numbers.  The
 filter's route (``_ring_route``): a 1×1 grid as one device; a (p, 1) grid
 the p-step chunk ring (``parallel/ring.py``; with the kernel on the card
-its peer route, one ``ring_hemm_peers`` launch per product); an r×c grid with r, c > 1
-the 2-D ping-pong ring (``parallel/ring.chebyshev_filter_ring2d`` and
-its refine twin), as in the JAX package — each ring step on the ring_hemm
-kernel with ``ring_backend="pallas"`` and an operator of a dtype it
-takes (the 2-D ring's second pass on the kernel's conjugate-transposed
-A route, reading the rank's block in place), else on ``torch.matmul``
-(the JAX package's XLA ring).  ``ring_filter=False`` takes the windowed filter with the
-grid's product on any grid.
+its peer route, one ``ring_hemm_peers`` launch per product); an r×c grid
+with r, c > 1 the 2-D ping-pong ring (``parallel/ring.
+chebyshev_filter_ring2d`` and its refine twin), as in the JAX package —
+each ring step on the ring_hemm kernel with ``ring_backend="pallas"``
+and an operator of a dtype it takes (the 2-D ring's second pass on the
+kernel's conjugate-transposed A route, reading the rank's block in
+place), else on ``torch.matmul`` (the JAX package's XLA ring).  With no
+ring (``ring_filter=False``, a (1, c) grid, or one device off the
+kernel) the filter is windowed: the grid's product ``dist.hemm``, or
+``torch.matmul`` on one device.
+
+Every route runs one recurrence per filter kind, ``parallel/ring.
+_filter_ring`` and ``_refine_ring``, each step on the padded window's
+live suffix; ``parallel/ring.filter_product`` picks each step's product
+from the route.  The JAX package's windowed filter retires whole
+``col_block`` buckets instead; the live suffix is never wider.
 
 Not ported here: the wide-f64 and transient-shadow modes (TPU
 workarounds).
@@ -58,8 +66,7 @@ workarounds).
 from __future__ import annotations
 
 import dataclasses
-import functools
-from typing import Callable, NamedTuple, Optional
+from typing import Optional
 
 import numpy as np
 import torch
@@ -67,12 +74,10 @@ import torch
 from .config import ChaseConfig, set_matmul_precision
 from .logger import get_logger
 from .perf import FILTER_COLS, PerfData, count, phase_clock, span, to_host
-from .types import (as_torch_dtype, filter_carry_dtype, is_double_base,
-                    low_precision_dtype, numpy_scalar_type)
+from .types import as_torch_dtype, is_double_base, low_precision_dtype
 from .parallel.operator import DenseOperator
-from .parallel import dist as pdist
 from .parallel import ring as pring
-from .ops.ring_hemm import KERNEL_DTYPES, w_tile
+from .ops.ring_hemm import KERNEL_DTYPES
 from .ops import filter as filt
 from .ops import lanczos as lz
 from .ops import qr as qrops
@@ -175,23 +180,6 @@ def _ring_route(rcfg, op: DenseOperator, log) -> Optional[str]:
     return mode
 
 
-def _chunk_product(route: Optional[str], ring_backend: str,
-                   dtype: torch.dtype, fused: bool = False) -> tuple:
-    """(ring, kernel) for a filter operator of ``dtype`` on ``route``
-    (:func:`_ring_route`): the ring_hemm kernel for the dtypes it takes on
-    the p = 1 route, and with ``ring_backend="pallas"`` on the (p, 1) and
-    2-D rings; the ring on the "1d" and "2d" routes, and on the p = 1
-    route where the kernel runs.  The host solvers and, with ``fused``,
-    the fused ones (through ``api._fused_setup``) route every filter
-    product by it; the fused solvers have no 2-D ring (nor have the JAX
-    package's), so on "2d" they take ``dist.hemm``: (False, False)."""
-    if fused and route == "2d":
-        return False, False
-    kernel = dtype in KERNEL_DTYPES and (
-        route == "p1" or ring_backend == "pallas")
-    return route in ("1d", "2d") or (route == "p1" and kernel), kernel
-
-
 def _col_block(cfg_block, nevex: int) -> int:
     """Filter-window bucket width.  `None` auto-sizes to a multiple of 64
     that bounds a solve at ~8 distinct widths no matter how large
@@ -209,156 +197,20 @@ def _window_pad(nevex: int, locked: int, B: int):
     return w_pad, nevex - w_pad
 
 
-def _shrink_plan(deg_win, B, w_pad):
-    """Bucket-retirement plan over a degree-ascending window: list of
-    (complete_through_step, retired_left_offset) pairs, ending with
-    (deg_max, w_pad)."""
-    plan = []
-    deg_max = int(deg_win.max())
-    for p in range(B, w_pad, B):
-        if deg_win[p - 1] < deg_win[p]:
-            step = int(deg_win[p - 1])
-            if step < 1:
-                continue
-            if plan and step == plan[-1][0]:
-                plan[-1][1] = p
-            elif not plan or step > plan[-1][0]:
-                plan.append([step, p])
-    plan.append([deg_max, w_pad])
-    return plan
-
-
-def _shrink_window(right: int, retire_to: int, B: int, start: int, w: int):
-    """The right-aligned window [start, right) of width w after every
-    column left of ``retire_to`` retired: (columns to drop from its left,
-    new start, new width) — no change unless a whole B bucket retired."""
-    if retire_to >= right:
-        return 0, start, w
-    new_w = min(-(-(right - retire_to) // B) * B, w)
-    off = (right - new_w) - start
-    return (off, right - new_w, new_w) if off > 0 else (0, start, w)
-
-
-def _count_filter_cols(deg_win, first: int, executed: int,
-                       products: int) -> None:
-    """Count a filter's column-products in ``perf.COUNTS``:
-    "filter_cols:executed" the widths of the products it launched (the
-    driver's ``executed``, already × ``products``), "filter_cols:useful"
-    the columns live at each of its steps from ``first`` on (degree ≥
-    the step), × ``products``."""
+def _ring_work(tile: int, deg_win, first: int, products: int) -> tuple:
+    """(executed column-steps, HEMM calls) of a filter from step
+    ``first`` on: each step on the window's live suffix in whole ``tile``
+    columns (``parallel/ring.live_suffixes``), × ``products``.  Counted
+    in ``perf.COUNTS``: "filter_cols:executed" the executed column-steps,
+    "filter_cols:useful" the columns live at each step (degree ≥ the
+    step), × ``products``."""
+    w = len(deg_win)
+    starts = pring.live_suffixes(deg_win, first, int(np.max(deg_win)), tile)
+    executed = sum(w - s for s in starts) * products
     live = np.maximum(np.asarray(deg_win, np.int64) - (first - 1), 0)
     count(FILTER_COLS + "executed", int(executed))
     count(FILTER_COLS + "useful", int(live.sum()) * products)
-
-
-def _ring_work(H, deg_win, first: int, products: int) -> tuple:
-    """(executed column-steps, HEMM calls) of a ring filter from step
-    ``first`` on: each step on the window's live suffix in whole W tiles
-    of H's route (``parallel/ring.live_suffixes``), × ``products``;
-    counted as :func:`_count_filter_cols` says."""
-    w = len(deg_win)
-    starts = pring.live_suffixes(deg_win, first, int(np.max(deg_win)),
-                                 w_tile(H.dtype))
-    executed = sum(w - s for s in starts) * products
-    _count_filter_cols(deg_win, first, executed, products)
     return executed, len(starts) * products
-
-
-class FilterForm(NamedTuple):
-    """The operator the filter drivers apply: ``shift(H, X, c)`` is its
-    shifted product (ops/filter), ``ring`` and ``refine_ring`` its ring
-    filters (parallel/ring: p = 1, (p, 1) or 2-D), ``products`` the HEMMs
-    per recurrence step.  The drivers return executed column-steps and
-    HEMM calls already multiplied by ``products``."""
-    shift: Callable
-    ring: Callable
-    refine_ring: Callable
-    products: int
-
-
-HERMITIAN = FilterForm(filt._hemm_shift, pring.chebyshev_filter_ring_pallas,
-                       pring.chebyshev_filter_refine_ring, 1)
-
-
-def is_2d(grid) -> bool:
-    """Whether ``grid`` is r×c with r, c > 1 (the 2-D ring's grids)."""
-    return grid is not None and grid.size("r") > 1 and grid.size("c") > 1
-
-
-def hermitian_form(grid, kernel: bool = True) -> FilterForm:
-    """The Hermitian filter's form on ``grid``: the windowed shift with
-    the grid's product (``parallel/dist.grid_shift``) and the ring
-    filters — the chunk ring on a (p, 1) grid, the 2-D ring on an r×c one
-    — with the ring_hemm kernel (``kernel``) or ``torch.matmul`` as their
-    step.  :data:`HERMITIAN` for one device."""
-    if grid is None:
-        return HERMITIAN
-    if is_2d(grid):
-        return FilterForm(
-            pdist.grid_shift(grid),
-            functools.partial(pring.chebyshev_filter_ring2d, grid,
-                              kernel=kernel),
-            functools.partial(pring.chebyshev_filter_refine_ring2d, grid,
-                              kernel=kernel), 1)
-    if kernel:
-        ring = functools.partial(pring.chebyshev_filter_ring_pallas,
-                                 grid=grid)
-    else:
-        ring = functools.partial(pring.chebyshev_filter_ring, grid)
-    return FilterForm(pdist.grid_shift(grid), ring,
-                      functools.partial(pring.chebyshev_filter_refine_ring,
-                                        grid=grid, kernel=kernel), 1)
-
-
-def _filter_windowed(H, V, degrees_act, locked, nevex, B, lam, lo, up, *,
-                     form: FilterForm = HERMITIAN):
-    """Degree-retiring segmented filter.
-
-    The active columns are sorted ascending by degree, so retirement
-    happens from the left: the recurrence runs on a right-aligned window
-    that shrinks whenever a whole B-column bucket has retired; per-column
-    degree masks handle sub-bucket retirement.  Writes the filtered
-    window into V in place.  Returns (V, executed column-steps, HEMM
-    calls)."""
-    w_pad, start = _window_pad(nevex, locked, B)
-    offset = locked - start
-    deg_win = np.zeros(w_pad, np.int32)
-    deg_win[offset:] = degrees_act
-    plan = _shrink_plan(deg_win, B, w_pad)
-    deg_all = deg_win
-
-    # scalars follow the recurrence carry
-    rt = numpy_scalar_type(filter_carry_dtype(H.dtype, V.dtype))
-    lam, lo_, up_ = rt(lam), rt(lo), rt(up)
-    c = (up_ + lo_) / rt(2)
-    e = (up_ - lo_) / rt(2)
-    sigma1 = e / (lam - c)
-
-    X0, Xp, Yc, sigma = filt.filter_seg_init(
-        H, V, start, deg_win, c, e, sigma1, w_pad=w_pad, shift=form.shift)
-    executed = w_pad                      # init step runs the full window
-    steps = 1
-    t_done = 1
-    start0 = start             # V-column of the initial window's left edge
-    pend_off = 0               # shrink offset staged for the next segment
-    for (t_end, plan_off) in plan:
-        if t_end > t_done:
-            V, X0, Xp, Yc, sigma = filt.filter_seg_steps(
-                H, V, X0, Xp, Yc, deg_win, sigma, sigma1, c, e, pend_off,
-                start, t_done + 1, t_end + 1, w_new=w_pad, shift=form.shift)
-            pend_off = 0
-            executed += w_pad * (t_end - t_done)
-            steps += t_end - t_done
-            t_done = t_end
-        # plan offsets are positions in the INITIAL window; shrink relative
-        # to the CURRENT window (right edge pinned at nevex), applied at
-        # the start of the next segment
-        off, start, w_pad = _shrink_window(nevex, start0 + plan_off, B, start,
-                                           w_pad)
-        deg_win = deg_win[off:]
-        pend_off += off
-    _count_filter_cols(deg_all, 1, executed * form.products, form.products)
-    return V, executed * form.products, steps * form.products
 
 
 def _row_major(V):
@@ -367,39 +219,39 @@ def _row_major(V):
     return V if V.stride(1) == 1 else V.contiguous()
 
 
-def _filter_ring(H, V, degrees_act, locked, nevex, B, lam, lo, up, *,
-                 form: FilterForm = HERMITIAN):
-    """The ring filter (p = 1, (p, 1) or 2-D: ``form.ring``) on the padded
-    window, each step on the window's live suffix in whole W tiles (the
-    JAX ring path runs every step on the whole window); H may be the
-    ladder's shadow.  Returns (V, executed column-steps, HEMM calls)."""
+def _filter_ring(H, V, degrees_act, locked, nevex, B, lam, lo, up, prod,
+                 products: int = 1):
+    """The Chebyshev filter of H (``products`` 1) or H² (2) on the padded
+    active window (``parallel/ring._filter_ring``), each step on the
+    window's live suffix with ``prod``'s product
+    (``parallel/ring.filter_product``; the JAX package's ring path runs
+    every step on the whole window, its windowed filter retires whole
+    ``B`` buckets); H may be the ladder's shadow.  Writes the window into
+    V; returns (V, executed column-steps, HEMM calls)."""
     w_pad, start = _window_pad(nevex, locked, B)
     deg_win = np.zeros(w_pad, np.int32)
     deg_win[locked - start:] = degrees_act
     V = _row_major(V)
-    Y = form.ring(H, slice_cols(V, start, w_pad), deg_win, lam, lo, up,
-                  int(deg_win.max()))
+    Y = pring._filter_ring(H, slice_cols(V, start, w_pad), deg_win, lam, lo,
+                           up, int(deg_win.max()), products, prod)
     return (update_cols(V, Y, start),
-            *_ring_work(H, deg_win, 1, form.products))
+            *_ring_work(prod.tile, deg_win, 1, products))
 
 
 def _filter_refine_windowed(H_f, V, R, ritzv_act, degrees_act, locked,
-                            nevex, B, lam, lo, up, max_deg, ring=False, *,
-                            form: FilterForm = HERMITIAN, seed=None):
+                            nevex, B, lam, lo, up, max_deg, prod,
+                            products: int = 1, seed=None):
     """Deviation-form refinement filter on the padded active window.
 
-    Applies the SAME polynomial as _filter_windowed, factored as
+    Applies the SAME polynomial as :func:`_filter_ring`, factored as
     y = p(λ_j)v_j + [p(Hs) − p(λs_j)]v_j with the bracket recurrence
     running in H_f's fast dtype, seeded by the RR residual vectors R of
-    the problem dtype (ops/filter.chebyshev_filter_refine).  ``seed(R_w,
-    ritz_w)`` maps the window's residuals and padded Ritz values into the
-    filter operator's space — (seed residuals, expansion points); None
-    keeps them (the H² filter passes (H + θ)·r and θ²).  With ``ring``
-    the padded window runs as the ring (``form.refine_ring``), each step
-    on its live suffix in whole W tiles (the JAX ring path runs every
-    step on the whole window); otherwise the segmented recurrence retires
-    buckets as _filter_windowed does.  Returns (V, executed column-steps,
-    HEMM calls)."""
+    the problem dtype (``parallel/ring._refine_ring``, each step on the
+    window's live suffix with ``prod``'s product).  ``seed(R_w, ritz_w)``
+    maps the window's residuals and padded Ritz values into the filter
+    operator's space — (seed residuals, expansion points); None keeps
+    them (the H² filter passes (H + θ)·r and θ²).  Returns (V, executed
+    column-steps, HEMM calls)."""
     w_pad, start = _window_pad(nevex, locked, B)
     offset = locked - start
     deg_win = np.zeros(w_pad, np.int32)
@@ -409,41 +261,13 @@ def _filter_refine_windowed(H_f, V, R, ritzv_act, degrees_act, locked,
     R_win = slice_cols(R, start, w_pad)
     if seed is not None:
         R_win, ritz_win = seed(R_win, ritz_win)
-    deg_max = int(deg_win.max())
-    alpha1_e, alphas, betas, inj, p_final = filt.refine_tables(
-        ritz_win, deg_win, lam, lo, up, max_deg)
-    cc = (up + lo) / 2.0
-    if ring:
-        V = _row_major(V)
-        Y = form.refine_ring(H_f, slice_cols(V, start, w_pad), R_win,
-                             deg_win, alpha1_e, alphas, betas, inj, p_final,
-                             cc, deg_max)
-        return (update_cols(V, Y, start),
-                *_ring_work(H_f, deg_win, 2, form.products))
-
-    plan = _shrink_plan(deg_win, B, w_pad)
-    deg_all = deg_win
-    X0, Wp, Wc, Rc = filt.refine_seg_init(H_f, V, R_win, start, alpha1_e)
-    executed = steps = 0
-    t_done = 1
-    start0 = start
-    pend_off = 0
-    for (t_end, plan_off) in plan:
-        if t_end > t_done:
-            V, X0, Wp, Wc, Rc = filt.refine_seg_steps(
-                H_f, V, X0, Wp, Wc, Rc, deg_win, alphas, betas, inj,
-                p_final, cc, pend_off, start, t_done + 1, t_end + 1,
-                w_new=w_pad, shift=form.shift)
-            pend_off = 0
-            executed += w_pad * (t_end - t_done)
-            steps += t_end - t_done
-            t_done = t_end
-        off, start, w_pad = _shrink_window(nevex, start0 + plan_off, B, start,
-                                           w_pad)
-        deg_win, inj, p_final = deg_win[off:], inj[:, off:], p_final[off:]
-        pend_off += off
-    _count_filter_cols(deg_all, 2, executed * form.products, form.products)
-    return V, executed * form.products, steps * form.products
+    tables = filt.refine_tables(ritz_win, deg_win, lam, lo, up, max_deg)
+    V = _row_major(V)
+    Y = pring._refine_ring(H_f, slice_cols(V, start, w_pad), R_win, deg_win,
+                           *tables, (up + lo) / 2.0, int(deg_win.max()),
+                           products, prod)
+    return (update_cols(V, Y, start),
+            *_ring_work(prod.tile, deg_win, 2, products))
 
 
 # --------------------------------------------------------------------------
@@ -804,11 +628,10 @@ def _solve(op: DenseOperator, nev: int, nex: int, config, V0, ritzv0,
                         H_f = op.H_low
                     else:
                         H_f = H
-                    ring, kernel = _chunk_product(route, rcfg.ring_backend,
-                                                  H_f.dtype)
-                    form = hermitian_form(op.grid, kernel)
+                    prod = pring.filter_product(
+                        route, H_f, op.grid, rcfg.ring_backend == "pallas")
                     # the SP ladder's low phase: TF32 products off the kernel
-                    tf32 = use_low and is_sp and not (ring and kernel)
+                    tf32 = use_low and is_sp and not prod.kernel
                     if tf32:
                         set_matmul_precision("high")
                     try:
@@ -816,16 +639,15 @@ def _solve(op: DenseOperator, nev: int, nex: int, config, V0, ritzv0,
                             V, f_executed, f_hemms = _filter_refine_windowed(
                                 H_f, V, R_prev, ritzv[act], degrees[act],
                                 locked, nevex, B, lam_filter, lowerb,
-                                upperb, rcfg.max_deg, ring=ring, form=form)
+                                upperb, rcfg.max_deg, prod)
                         else:
-                            V, f_executed, f_hemms = (
-                                _filter_ring if ring else _filter_windowed)(
+                            V, f_executed, f_hemms = _filter_ring(
                                 H_f, V, degrees[act], locked, nevex, B,
-                                lam_filter, lowerb, upperb, form=form)
+                                lam_filter, lowerb, upperb, prod)
                     finally:
                         if tf32:
                             set_matmul_precision(rcfg.matmul_precision)
-                    H_f = None
+                    H_f = prod = None
                     if perf is not None:
                         perf.add_filtered_vecs(
                             int(np.sum(degrees[act])),

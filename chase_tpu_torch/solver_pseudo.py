@@ -17,19 +17,20 @@ its bf16 shadow (complex BSE never takes bf16); from iteration 1
 H²-residuals (H + θ)·r computed on the problem's own H, keeps every
 filter product on the shadow.
 
-Routing, as in the Hermitian solver (``solver._ring_route``): with
-``ring_backend="pallas"`` every filter whose operator is a dtype the
-kernel takes (f32, c64, bf16) runs as the p = 1 ring, both products of
-each H² step on the ring_hemm kernel (``parallel/ring.py``); otherwise
-the segmented windowed filter on ``torch.matmul``.  The JAX package has no
-ring on one device; both apply the same polynomial, so the converged
-spectra agree.
+Routing, as in the Hermitian solver (``solver._ring_route``,
+``parallel/ring.filter_product``): with ``ring_backend="pallas"`` every
+filter whose operator is a dtype the kernel takes (f32, c64, bf16) runs
+as the p = 1 ring, both products of each H² step on the ring_hemm kernel
+(``parallel/ring.py``); otherwise the same recurrence on
+``torch.matmul``, each step on the window's live suffix.  The JAX
+package has no ring on one device and retires whole buckets instead;
+both apply the same polynomial, so the converged spectra agree.
 
 On a process grid (``DenseOperator(H, grid=grid, pseudo_hermitian=True)``,
 the S-preserving pad) the loop runs on every rank with its blocks, as
 ``solver.solve`` does: a 1×1 grid as one device; a (p, 1) grid the p-step
-chunk ring in every filter (:func:`h2_form`: both products of each H²
-step on the kernel with "pallas" and a kernel operator — on the card one
+chunk ring in every filter (both products of each H² step on the kernel
+with "pallas" and a kernel operator — on the card one
 ``ring_hemm_peers`` launch each, p ring_hemm steps on the CPU —, else
 ``matmul_step``); an r×c grid with r, c > 1 the 2-D H² rings
 (``parallel/ring.chebyshev_filter_h2_ring2d`` and its refine twin: each
@@ -49,7 +50,6 @@ real-pair embedding of complex BSE (complex runs natively).
 
 from __future__ import annotations
 
-import functools
 from typing import Optional
 
 import numpy as np
@@ -60,15 +60,13 @@ from .logger import get_logger
 from .perf import PerfData, phase_clock, span, to_device
 from .types import is_double_base
 from .parallel.operator import DenseOperator
-from .parallel import dist as pdist
 from .parallel import ring as pring
 from .ops import lanczos as lz
 from .ops import pseudo as ps
 from .ops.blocks import permute_cols, set_head_cols
 from .ops.qr import orthonormalize, orthonormalize_pseudo
-from .solver import (FilterForm, SolveResult, _chunk_product, _col_block,
-                     _draw, _filter_refine_windowed, _filter_ring,
-                     _filter_windowed, _host, _rho, _ring_route, is_2d)
+from .solver import (SolveResult, _col_block, _draw, _filter_refine_windowed,
+                     _filter_ring, _host, _rho, _ring_route)
 
 __all__ = ["solve_pseudo", "detect_eigenvalue_clusters",
            "calc_degrees_pseudo_h2_host", "locking_pseudo_v3_host"]
@@ -219,38 +217,6 @@ def _iter0_degree_cap(lambda_1, lower, b_sup, deg0,
     cap = int(np.log(dyn_range) / np.log(rho1))
     cap = max(8, cap - (cap % 2))
     return min(cap, deg0)
-
-
-# --------------------------------------------------------------------------
-# the filter on H²: solver's drivers with the H² shift and rings
-# --------------------------------------------------------------------------
-
-H2 = FilterForm(ps._h2_shift, pring.chebyshev_filter_h2_ring,
-                pring.chebyshev_filter_refine_h2_ring, 2)
-
-
-def h2_form(grid, kernel: bool = True) -> FilterForm:
-    """The H² filter's form on ``grid`` (``solver.hermitian_form``'s
-    counterpart): the windowed H² shift with the grid's product
-    (``parallel/dist.grid_h2_shift``) and the H² rings — the chunk rings
-    on a (p, 1) grid, the 2-D rings on an r×c one — with the ring_hemm
-    kernel (``kernel``) or ``torch.matmul`` as their step.  :data:`H2`
-    for one device."""
-    if grid is None:
-        return H2
-    if is_2d(grid):
-        return FilterForm(
-            pdist.grid_h2_shift(grid),
-            functools.partial(pring.chebyshev_filter_h2_ring2d, grid,
-                              kernel=kernel),
-            functools.partial(pring.chebyshev_filter_refine_h2_ring2d, grid,
-                              kernel=kernel), 2)
-    return FilterForm(
-        pdist.grid_h2_shift(grid),
-        functools.partial(pring.chebyshev_filter_h2_ring, grid=grid,
-                          kernel=kernel),
-        functools.partial(pring.chebyshev_filter_refine_h2_ring, grid=grid,
-                          kernel=kernel), 2)
 
 
 # --------------------------------------------------------------------------
@@ -526,9 +492,8 @@ def _solve_pseudo(op: DenseOperator, nev: int, nex: int, config, V0,
                         use_low = use_bf16 = False
                     H_f = (op.H_low if (use_refine or use_bf16 or use_low)
                            else op.H)
-                    ring, kernel = _chunk_product(route, rcfg.ring_backend,
-                                                  H_f.dtype)
-                    form = h2_form(grid, kernel)
+                    prod = pring.filter_product(
+                        route, H_f, grid, rcfg.ring_backend == "pallas")
                     if use_refine:
                         # H²-space tables: expansion points θ², interval
                         # [lower, b_sup], amplification point μ₁ = lambda_1;
@@ -537,19 +502,17 @@ def _solve_pseudo(op: DenseOperator, nev: int, nex: int, config, V0,
                         V, f_executed, f_hemms = _filter_refine_windowed(
                             H_f, V, R_prev, ritzv[act], degrees[act], locked,
                             nevex, B, lambda_1, lower, b_sup, rcfg.max_deg,
-                            ring, form=form,
-                            seed=lambda Rw, th: (
+                            prod, 2, seed=lambda Rw, th: (
                                 ps.h2_residual(op.H, Rw, th, grid), th ** 2))
                     else:
-                        V, f_executed, f_hemms = (
-                            _filter_ring if ring else _filter_windowed)(
+                        V, f_executed, f_hemms = _filter_ring(
                             H_f, V, degrees[act], locked, nevex, B, lambda_1,
-                            *ps._interval(lower, b_sup), form=form)
-                    H_f = None
+                            *ps._interval(lower, b_sup), prod, 2)
+                    H_f = prod = None
                     if perf is not None:
                         # H² = 2 matvecs per recurrence step
                         perf.add_filtered_vecs(
-                            H2.products * int(np.sum(degrees[act])),
+                            2 * int(np.sum(degrees[act])),
                             low=use_refine or use_bf16 or use_low,
                             executed=f_executed)
                         perf.filter_hemm_steps += f_hemms

@@ -8,15 +8,16 @@ size.
 Builds the cell's matrix as ``portbench/run.py`` does, warms up with a
 one-iteration solve, then solves the cell's instance 0 once with
 ``collect_perf`` on and every call of ``parallel/ring._filter_ring`` and
-``_refine_ring`` (the p = 1, (p, 1) and H² ring filters) recorded: its
-window's degrees, its products per step and the filter operator's dtype.
+``_refine_ring`` (the solvers' filters on every route) recorded: its
+window's degrees, its products per step, the filter operator's dtype and
+its product's column tile (``parallel/ring.filter_product``).
 Prints one JSON line: the iterations, the solve's seconds,
 ``PerfData.filter_window_efficiency()``, and from the recorded degrees
 the share of the launched columns that were live (a column is live at
 step t while its degree is ≥ t) for two schedules: every step on the
 whole padded window, and every step on the window's live suffix rounded
-out to whole W tiles of the kernel's route (64 columns for c64, 128 for
-f32, 192 for bf16, 1 where the step is ``torch.matmul``).  Where the
+out to whole tiles of the product (the kernel's W tiles, 64 columns for
+c64, 128 for f32, 192 for bf16; 1 where the step is ``torch.matmul``).  Where the
 program counts ``filter_cols:executed`` and ``filter_cols:useful`` in
 ``perf.COUNTS``, their increase over the solve is printed too.
 ``--out`` writes the degree arrays.  Needs a CUDA card.
@@ -42,9 +43,6 @@ import chase_tpu_torch as ct  # noqa: E402
 from chase_tpu_torch import perf  # noqa: E402
 from chase_tpu_torch.parallel import ring as pring  # noqa: E402
 from portbench.seeds import generator, sub_seed  # noqa: E402
-
-TILES = {"torch.complex64": 64, "torch.float32": 128, "torch.bfloat16": 192}
-
 
 def schedules(degrees, first: int, deg_max: int, tile: int) -> tuple:
     """(live, whole, suffix) column-steps of steps ``first``…deg_max."""
@@ -96,10 +94,11 @@ def main(argv=None) -> int:
     def recorder(name):
         def shim(H, X, *a, **kw):
             degrees = a[0] if name == "_filter_ring" else a[1]
-            deg_max, products = (a[4], a[5]) if name == "_filter_ring" \
-                else (a[8], a[9])
+            deg_max, products, prod = (a[4], a[5], a[6]) \
+                if name == "_filter_ring" else (a[8], a[9], a[10])
             calls.append({"kind": name, "dtype": str(H.dtype),
                           "deg_max": int(deg_max), "products": int(products),
+                          "tile": int(prod.tile),
                           "degrees": [int(x) for x in np.asarray(degrees)]})
             return real[name](H, X, *a, **kw)
         return shim
@@ -119,7 +118,7 @@ def main(argv=None) -> int:
     for c in calls:
         first = 1 if c["kind"] == "_filter_ring" else 2
         lv, wh, sf = schedules(c["degrees"], first, c["deg_max"],
-                               TILES.get(c["dtype"], 1))
+                               c["tile"])
         live += lv * c["products"]
         whole += wh * c["products"]
         suffix += sf * c["products"]

@@ -78,8 +78,8 @@ def test_f32_slice_ring_pallas_matches_jax(f32_case, monkeypatch):
 
 
 def test_f32_windowed_filter_path_converges(f32_case):
-    """ring_backend='xla' keeps the segmented windowed filter on one
-    device (the JAX package's single-device route)."""
+    """ring_backend='xla' keeps the windowed filter on one device (the
+    recurrence on torch.matmul; the JAX package's single-device route)."""
     H, V0, rj = f32_case
     rt = ct.eigsh(H, NEV32, NEX32, tol=TOL32, v0=V0, device="cpu")
     assert rt.converged

@@ -5,8 +5,10 @@
   kernel runs in the TPU interpreter: f32, mixed degrees including 0;
   1e-5 relative per column (f32 recurrences, different summation orders)
   and degree-0 columns bit-exact;
-* the plain filter and the solver's segmented (bucket-shrinking) filter
-  against JAX's in f64: 1e-12 relative per column;
+* the plain filter, and the solvers' filter driver on the windowed route
+  (torch.matmul, each step on its live suffix) against JAX's windowed
+  filter (whole buckets) in f64: 1e-12 relative per column, never more
+  column-steps than JAX's bucket plan;
 * the p = 1 ring filters' live suffix (each step on the columns from the
   first one still below its degree, in whole W tiles) against the
   full-width recurrence (``torch_grid_worker.full_width_*``) on windows
@@ -14,8 +16,9 @@
   kernel's route (128-column tiles) and f64 on torch.matmul (tile 1),
   sorted, unsorted and equal degrees after a pad of degree 0: 1e-5 / 1e-12
   relative per column, degree-0 columns bit-exact, every product as wide
-  as its step's suffix; and the solvers' ring drivers' executed count and
-  ``perf.COUNTS``' "filter_cols:*" against those widths.
+  as its step's suffix; and the solvers' filter drivers' executed count
+  and ``perf.COUNTS``' "filter_cols:*" against those widths, on the
+  kernel's route and on torch.matmul (``parallel/ring.filter_product``).
 """
 
 import functools
@@ -35,7 +38,6 @@ from chase_tpu.parallel.ring import (
 
 from chase_tpu_torch import perf as tperf
 from chase_tpu_torch import solver as tsolver
-from chase_tpu_torch import solver_pseudo as tsolver_pseudo
 from chase_tpu_torch.ops import ring_hemm as rh
 from chase_tpu_torch.ops.filter import chebyshev_filter as t_filter
 from chase_tpu_torch.parallel import ring as pring
@@ -129,10 +131,12 @@ def test_plain_filter_matches_jax_f64():
                                             (5, 8, np.complex128)],
                          ids=["unlocked", "locked5", "locked13_B4",
                               "locked5_c128"])
-def test_segmented_filter_matches_jax_f64(locked, B, dtype):
-    """solver._filter_windowed in both packages: same bucket plan, same
-    shrinking windows, same executed column-steps, same V (also with a
-    complex carry)."""
+def test_segmented_filter_matches_jax_f64(widths, locked, B, dtype):
+    """The port's filter driver on the windowed route (one device,
+    torch.matmul, each step on its live suffix at tile 1) against JAX's
+    solver._filter_windowed (whole B buckets retired): the same V (also
+    with a complex carry), the locked columns bitwise, and the executed
+    column-steps the live suffix's widths, never more than JAX's."""
     N, nevex = 160, 32
     H, V, lam1, lo, up = _problem(N, nevex, dtype, seed=3 + locked)
     rng = np.random.default_rng(locked)
@@ -141,10 +145,16 @@ def test_segmented_filter_matches_jax_f64(locked, B, dtype):
     Vj, exec_j = jsolver._filter_windowed(
         jnp.asarray(H), jnp.asarray(V), degrees, locked, nevex, B, lam1, lo,
         up, np.float64, "highest")
-    Vt, exec_t, hemms = tsolver._filter_windowed(
-        torch.from_numpy(H), torch.from_numpy(V.copy()), degrees, locked,
-        nevex, B, lam1, lo, up)
-    assert exec_t == exec_j
+    Ht = torch.from_numpy(H)
+    prod = pring.filter_product(None, Ht, None, False)
+    Vt, exec_t, hemms = tsolver._filter_ring(
+        Ht, torch.from_numpy(V.copy()), degrees, locked, nevex, B, lam1, lo,
+        up, prod)
+    w_pad, start = tsolver._window_pad(nevex, locked, B)
+    deg_win = np.zeros(w_pad, np.int64)
+    deg_win[locked - start:] = degrees
+    assert widths == gw.suffix_widths(deg_win, 1, 1)
+    assert exec_t == sum(widths) <= exec_j
     assert hemms == int(degrees.max())
     assert _col_rel(Vt.numpy(), np.asarray(Vj)) <= 1e-12
     np.testing.assert_array_equal(Vt.numpy()[:, :locked], V[:, :locked])
@@ -258,33 +268,50 @@ def _counted(before):
             if k.startswith(tperf.FILTER_COLS)}
 
 
+# the product's route → (problem, solve route, ring_backend="pallas"): the
+# kernel's route on one device, and the windowed route on torch.matmul
+DRIVER_ROUTES = {"kernel_f32": ("f32", "p1", True),
+                 "matmul_f64": ("f64", None, False)}
+
+
+@pytest.mark.parametrize("route", list(DRIVER_ROUTES))
 @pytest.mark.parametrize("degs", ["sorted", "equal"])
 @pytest.mark.parametrize("driver", ["filter", "refine", "refine_h2"])
-def test_ring_driver_counts_its_suffix(widths, driver, degs):
-    """solver._filter_ring and _filter_refine_windowed(ring=True) on the
-    padded window of an f32 problem (64-column buckets, 40 locked): the
-    executed column-steps are the launched widths, the HEMM calls the
-    launches, and "filter_cols:executed" / ":useful" grow by the launched
-    widths and by the columns live at each step."""
+def test_ring_driver_counts_its_suffix(widths, driver, degs, route):
+    """solver._filter_ring and _filter_refine_windowed on the padded
+    window (64-column buckets, 40 locked) with the product
+    ``parallel/ring.filter_product`` picks — the kernel for an f32
+    problem on the p = 1 route, torch.matmul for an f64 one on the
+    windowed route —: every product as wide as its step's live suffix in
+    the product's tile, the executed column-steps the launched widths,
+    the HEMM calls the launches, and "filter_cols:executed" / ":useful"
+    grow by the launched widths and by the columns live at each step."""
+    case, ring_route, pallas = DRIVER_ROUTES[route]
+    tile = SUF_TILE[case][1]
     nevex, locked, B = W_SUF, PAD_SUF, 64
-    H, X, lam1, lo, up = _suffix_base("f32", False)
+    H, X, lam1, lo, up = _suffix_base(case, False)
     Ht = torch.from_numpy(H)
-    deg_act = gw.suffix_degrees(degs, W_SUF, PAD_SUF, DEG_SUF)[locked:]
+    prod = pring.filter_product(ring_route, Ht, None, pallas)
+    assert (prod.kernel, prod.tile, prod.ring2d) == (pallas, tile, None)
+    deg_win = gw.suffix_degrees(degs, W_SUF, PAD_SUF, DEG_SUF)
+    deg_act = deg_win[locked:]
     w_pad, start = tsolver._window_pad(nevex, locked, B)
     assert (w_pad, start) == (W_SUF, 0)
     first, products = KINDS[driver]
     before = dict(tperf.COUNTS)
     if driver == "filter":
         _, executed, hemms = tsolver._filter_ring(
-            Ht, torch.from_numpy(X), deg_act, locked, nevex, B, lam1, lo, up)
+            Ht, torch.from_numpy(X), deg_act, locked, nevex, B, lam1, lo, up,
+            prod)
     else:
-        form = tsolver.HERMITIAN if driver == "refine" else tsolver_pseudo.H2
         V, R, _, _ = gw.suffix_refine_inputs(
             H, X, np.zeros(nevex, np.int32), lam1, lo, up, deg_max=1)
         ritz = np.linspace(lam1, lo, nevex - locked)
         _, executed, hemms = tsolver._filter_refine_windowed(
             Ht, torch.from_numpy(V), torch.from_numpy(R), ritz, deg_act,
-            locked, nevex, B, lam1, lo, up, DEG_SUF, ring=True, form=form)
+            locked, nevex, B, lam1, lo, up, DEG_SUF, prod, products)
+    assert widths == [w for w in gw.suffix_widths(deg_win, first, tile)
+                      for _ in range(products)]
     assert executed == sum(widths)
     assert hemms == len(widths) == (DEG_SUF - first + 1) * products
     live = np.maximum(deg_act.astype(np.int64) - (first - 1), 0).sum()
@@ -292,19 +319,6 @@ def test_ring_driver_counts_its_suffix(widths, driver, degs):
                                 "filter_cols:useful": live * products}
     full = w_pad * (DEG_SUF - first + 1) * products
     assert executed < full if degs == "sorted" else executed <= full
-
-
-def test_windowed_driver_counts_its_columns():
-    """The windowed (cuBLAS) driver counts what it launches too: its
-    executed column-steps, and the live columns of each step."""
-    H, V, lam1, lo, up = _problem(160, 32, np.float64, seed=33)
-    degrees = np.sort(2 * np.random.default_rng(3).integers(1, 7, 27))
-    before = dict(tperf.COUNTS)
-    _, executed, _ = tsolver._filter_windowed(
-        torch.from_numpy(H), torch.from_numpy(V.copy()), degrees, 5, 32, 8,
-        lam1, lo, up)
-    assert _counted(before) == {"filter_cols:executed": executed,
-                                "filter_cols:useful": int(degrees.sum())}
 
 
 def test_live_suffixes_cover_every_live_column():

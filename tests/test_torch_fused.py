@@ -36,7 +36,7 @@ from chase_tpu_torch import convert, fused as tfused
 from chase_tpu_torch.models import (clement, clement_eigenvalues,
                                     hermitian_sequence, random_hermitian)
 from chase_tpu_torch.ops import ring_hemm as trh
-from chase_tpu_torch.solver import _chunk_product
+from chase_tpu_torch.parallel.ring import filter_product
 from chase_tpu_torch.step import iteration_step
 
 from conftest import TOLS
@@ -160,8 +160,8 @@ def test_solve_fused_f32_ring_matches_jax(monkeypatch):
                         lambda *a, **k: calls.append(1) or real(*a, **k))
     a = jfused.solve_fused(jnp.asarray(H), jnp.asarray(V0), **kw)
     b = tfused.solve_fused(torch.from_numpy(H), torch.from_numpy(V0),
-                           chunk=functools.partial(_chunk_product, "p1",
-                                                   "pallas"), **kw)
+                           chunk=functools.partial(filter_product, "p1",
+                                                   pallas=True), **kw)
     assert abs(int(b["iterations"]) - int(a["iterations"])) <= 1
     assert int(b["locked"]) >= NEV
     np.testing.assert_allclose(b["ritzv"].numpy()[:NEV],

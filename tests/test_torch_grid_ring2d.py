@@ -213,21 +213,47 @@ def test_ring2d_holds_no_copy_of_the_block(kernel):
     assert (ring.step is None) == kernel
 
 
-def test_fused_route_keeps_dist_hemm_on_2d():
-    """The one routing rule: the host solvers ring on "2d", the fused
-    solvers (``fused=True``, as ``api._fused_setup`` binds it) take
-    ``dist.hemm`` there — no ring, no kernel — and ring as before on
-    the other routes."""
-    from chase_tpu_torch.solver import _chunk_product
-    f32, f64 = torch.float32, torch.float64
-    assert _chunk_product("2d", "pallas", f32) == (True, True)
-    assert _chunk_product("2d", "xla", f32) == (True, False)
-    assert _chunk_product("2d", "pallas", f64) == (True, False)
-    assert _chunk_product("2d", "pallas", f32, fused=True) == (False, False)
-    assert _chunk_product("1d", "pallas", f32, fused=True) == (True, True)
-    assert _chunk_product("p1", "xla", f32, fused=True) == (True, True)
-    assert functools.partial(_chunk_product, "2d", "pallas",
-                             fused=True)(torch.bfloat16) == (False, False)
+def test_fused_route_keeps_dist_hemm_on_2d(monkeypatch):
+    """The one routing rule, ``parallel/ring.filter_product``: on "2d"
+    the host solvers' product is the 2-D ring, its steps on the kernel
+    with "pallas" and an f32 block, else on torch.matmul; the fused
+    solvers (``fused.FilterProducts`` with the rule bound as
+    ``api._fused_setup`` binds it) take ``dist.hemm`` there — no ring,
+    no kernel — and the kernel's product on the other routes, and
+    ``dist.hemm`` wherever the step is not the kernel."""
+    from chase_tpu_torch import fused as tfused
+    from chase_tpu_torch.parallel import ring as tring
+    f32, f64 = torch.zeros(8, 8), torch.zeros(8, 8, dtype=torch.float64)
+    for H, pallas, kernel in ((f32, True, True), (f32, False, False),
+                              (f64, True, False)):
+        prod = tring.filter_product("2d", H, _FakeGrid(), pallas)
+        assert isinstance(prod.ring2d, tring.Ring2D) and prod.hemm is None
+        assert prod.kernel is kernel
+        assert (prod.ring2d.step is None) is kernel
+        assert prod.tile == (128 if kernel else 1)
+
+    class Grid21(_FakeGrid):
+        def size(self, axis):
+            return 2 if axis == "r" else 1
+
+        shape = {"r": 2, "c": 1}
+
+    monkeypatch.setattr(tring, "ring_steps", lambda *a, **k: "ring")
+    monkeypatch.setattr(tfused, "hemm", lambda *a: "dist.hemm")
+    X = torch.zeros(8, 3)
+
+    def fused(route, pallas, grid, H=f32):
+        chunk = functools.partial(tring.filter_product, route, pallas=pallas)
+        return tfused.FilterProducts(chunk, grid)(H, X)
+
+    assert fused("2d", True, _FakeGrid()) == "dist.hemm"
+    assert fused("2d", True, _FakeGrid(),
+                 torch.zeros(8, 8, dtype=torch.bfloat16)) == "dist.hemm"
+    assert fused("1d", True, Grid21()) == "ring"
+    assert fused("1d", False, Grid21()) == "dist.hemm"
+    assert fused("1d", True, Grid21(), f64) == "dist.hemm"
+    assert fused("p1", True, None) == "ring"
+    assert fused(None, True, None) == "dist.hemm"
 
 
 SUFFIX = {c[0]: c for c in gw.SUFFIX_CASES_2D}

@@ -160,23 +160,27 @@ def test_chebyshev_filter_refine_matches_jax(problem, shadow, tol):
                                         (np.float32, 1e-5)],
                          ids=["f64", "f32_shadow"])
 def test_segmented_refine_matches_jax(shadow, tol):
-    """solver._filter_refine_windowed in both packages, with a degree plan
-    that retires two buckets (shrinks the window twice) and 5 locked
-    columns inside the first bucket."""
+    """solver._filter_refine_windowed in both packages on the windowed
+    route, with a degree plan that retires two of JAX's buckets (shrinks
+    its window twice) and 5 locked columns inside the first bucket: the
+    port's steps on torch.matmul, each on its live suffix (tile 1), so
+    it executes fewer column-steps than JAX's plan."""
     N, nevex, locked, B = 150, 32, 5, 8
     H, V, R, _, lam1, lo, up = _herm(N, nevex, np.float64, seed=4)
     degs = np.array([2] * 3 + [4] * 8 + [6] * 16, np.int64)
     ritz = np.linspace(lam1 + 1, lo, nevex - locked)
-    plan = tsolver._shrink_plan(
-        np.concatenate([np.zeros(locked, np.int32), degs]), B, nevex)
-    assert len(plan) == 3
+    deg_win = np.concatenate([np.zeros(locked, np.int64), degs])
+    assert len(jsolver._shrink_plan(deg_win, B, nevex)) == 3
     Vj, ex_j = jsolver._filter_refine_windowed(
         _j(H.astype(shadow)), _j(V), _j(R), ritz, degs, locked, nevex, B,
         lam1, lo, up, 36, "highest")
+    Hs = _t(H.astype(shadow))
     Vt, ex_t, hemms = tsolver._filter_refine_windowed(
-        _t(H.astype(shadow)), _t(V.copy()), _t(R), ritz, degs, locked,
-        nevex, B, lam1, lo, up, 36)
-    assert ex_t == ex_j and hemms == int(degs.max()) - 1
+        Hs, _t(V.copy()), _t(R), ritz, degs, locked, nevex, B, lam1, lo, up,
+        36, tring.filter_product(None, Hs, None, False))
+    live = [int(np.sum(deg_win >= t)) for t in range(2, 7)]
+    assert live == [27, 24, 24, 16, 16]
+    assert ex_t == sum(live) < ex_j and hemms == int(degs.max()) - 1
     assert _col_rel(Vt.numpy()[:, locked:], np.asarray(Vj)[:, locked:]) \
         <= tol
     np.testing.assert_array_equal(Vt.numpy()[:, :locked], V[:, :locked])

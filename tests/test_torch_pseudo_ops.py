@@ -5,12 +5,12 @@ arrays to both packages (JAX with x64 on, on the CPU).  Tolerances:
 
 * generators, ``scale_lower_rows``, ``apply_s``, ``flip_locked_cols``,
   ``k_conjugate_cols`` and the host bookkeeping: exact;
-* the H² filters (whole, segmented, deviation form, p = 1 ring) per
-  column relative to the column's largest entry: 1e-12 in f64/c128 (the
-  same recurrence, products summed in another order), 1e-4 in f32/c64
-  and on an f32/c64 shadow (twice as many f32 products per step as the
-  Hermitian filter's 1e-5 covers, amplified by the polynomial); degree-0
-  columns bit-exact;
+* the H² filters (whole, the solver's windowed route, deviation form,
+  p = 1 ring) per column relative to the column's largest entry: 1e-12
+  in f64/c128 (the same recurrence, products summed in another order),
+  1e-4 in f32/c64 and on an f32/c64 shadow (twice as many f32 products
+  per step as the Hermitian filter's 1e-5 covers, amplified by the
+  polynomial); degree-0 columns bit-exact;
   on a bf16 shadow against JAX: 1e-2 (each step rounds two f32
   intermediates to bf16, and one that differs from JAX's in its last bit
   rounds to the other bf16 neighbour, 2^-9 of it, which the polynomial
@@ -32,6 +32,7 @@ import jax.numpy as jnp
 
 from chase_tpu import config as jconfig
 from chase_tpu import models as jmodels
+from chase_tpu import solver as jsolver
 from chase_tpu import solver_pseudo as jsp
 from chase_tpu.ops import blocks as jblocks
 from chase_tpu.ops import checks as jchecks
@@ -228,29 +229,22 @@ def test_chebyshev_filter_h2_on_a_shadow_matches_jax(problem, shadow, tol):
 
 
 def test_h2_carry_init_and_steps_match_jax():
-    """JAX's h2_carry_init/h2_steps against the path the port's solver
-    runs for them: ops/filter's filter_seg_init/filter_seg_steps with
-    the H² shift (no shrink, the whole window written back)."""
+    """JAX's h2_carry_init/h2_steps (steps 1…8) against the path the
+    port's solver runs for them: parallel/ring's H² recurrence on
+    torch.matmul, each step on its live suffix (the degrees unsorted, so
+    the suffix keeps the whole window) — the same iterate, degree-0
+    columns bitwise."""
     H, X, lam1, lo, up = _filter_case(80, len(DEGS), np.float64, seed=9)
     c, e = np.float64((up + lo) / 2), np.float64((up - lo) / 2)
     sigma1 = e / (np.float64(lam1) - c)
-    V = _t(X.copy())
-    X0, Xpt, Yt, st = tfilt.filter_seg_init(_t(H), V, 0, DEGS, c, e, sigma1,
-                                            w_pad=len(DEGS),
-                                            shift=tps._h2_shift)
     _, Yj, sj = jps.h2_carry_init(_j(H), _j(X), _j(DEGS), c, e, sigma1)
-    assert _col_rel(Yt.numpy(), Yj) <= 1e-12
-    V, _, Xpt, Yt, st = tfilt.filter_seg_steps(
-        _t(H), V, X0, Xpt, Yt, DEGS, st, sigma1, c, e, 0, 0, 2, 9,
-        w_new=len(DEGS), shift=tps._h2_shift)
-    Xpj, Yj, sj = jps.h2_steps(_j(H), _j(X), Yj, _j(DEGS), sj, sigma1, c, e,
-                               2, 9)
-    assert _col_rel(Yt.numpy(), Yj) <= 1e-12
-    assert _col_rel(Xpt.numpy(), Xpj) <= 1e-12
-    assert abs(float(st) - float(sj)) <= 1e-14 * abs(float(sj))
+    _, Yj, sj = jps.h2_steps(_j(H), _j(X), Yj, _j(DEGS), sj, sigma1, c, e,
+                             2, 9)
+    Yt = tring.chebyshev_filter_h2_ring(_t(H), _t(X), DEGS, lam1, lo, up, 8,
+                                        kernel=False).numpy()
     act = DEGS > 0
-    assert _col_rel(V.numpy()[:, act], np.asarray(Yj)[:, act]) <= 1e-12
-    np.testing.assert_array_equal(V.numpy()[:, ~act], X[:, ~act])
+    assert _col_rel(Yt[:, act], np.asarray(Yj)[:, act]) <= 1e-12
+    np.testing.assert_array_equal(Yt[:, ~act], X[:, ~act])
 
 
 @pytest.mark.parametrize("problem,shadow,tol", [
@@ -259,23 +253,28 @@ def test_h2_carry_init_and_steps_match_jax():
     (np.float64, np.float32, 1e-4)],
     ids=["f64", "c128", "f32", "c64", "f32_shadow"])
 def test_segmented_h2_filter_matches_jax(problem, shadow, tol):
-    """The segmented H² filter — the port's solver._filter_windowed with
-    the H² form, JAX's solver_pseudo._h2_filter_windowed — on a window
-    that retires two buckets (shrinks twice) with 5 locked columns inside
-    its first bucket; the port counts two products per step, where the
-    JAX solver doubles the executed column-steps at its call."""
+    """The H² filter on the windowed route — the port's
+    solver._filter_ring with two products a step on torch.matmul, each
+    step on its live suffix, JAX's solver_pseudo._h2_filter_windowed — on
+    a window whose bucket plan retires two of JAX's buckets (shrinks
+    twice) with 5 locked columns inside its first bucket; the port counts
+    two products per step, where the JAX solver doubles the executed
+    column-steps at its call, and executes fewer than JAX's plan."""
     N, nevex, locked, B = 150, 32, 5, 8
     H, V, lam1, lo, up = _filter_case(N, nevex, problem, seed=10)
     degs = np.array([2] * 3 + [4] * 8 + [6] * 16, np.int32)
     deg_win = np.concatenate([np.zeros(locked, np.int32), degs])
-    assert len(tsolver._shrink_plan(deg_win, B, nevex)) == 3
-    Vt, ex_t, steps = tsolver._filter_windowed(
-        _t(H.astype(shadow)), _t(V.copy()), degs, locked, nevex, B, lam1, lo,
-        up, form=tsp.H2)
+    assert len(jsolver._shrink_plan(deg_win, B, nevex)) == 3
+    Hs = _t(H.astype(shadow))
+    Vt, ex_t, steps = tsolver._filter_ring(
+        Hs, _t(V.copy()), degs, locked, nevex, B, lam1, lo, up,
+        tring.filter_product(None, Hs, None, False), 2)
     Vj, ex_j = jsp._h2_filter_windowed(
         _j(H.astype(shadow)), _j(V.copy()), deg_win, 0, B, nevex, lam1, lo,
         up, "highest")
-    assert ex_t == 2 * ex_j and steps == 2 * int(deg_win.max())
+    live = [int(np.sum(deg_win >= t)) for t in range(1, 7)]
+    assert ex_t == 2 * sum(live) < 2 * ex_j
+    assert steps == 2 * int(deg_win.max())
     assert _col_rel(Vt.numpy()[:, locked:], np.asarray(Vj)[:, locked:]) <= tol
     np.testing.assert_array_equal(Vt.numpy()[:, :locked], V[:, :locked])
 
@@ -315,11 +314,12 @@ def test_chebyshev_filter_refine_h2_matches_jax(problem, shadow, tol):
                                         (np.float32, 1e-4)],
                          ids=["f64", "f32_shadow"])
 def test_segmented_refine_h2_matches_jax(shadow, tol):
-    """The segmented deviation-form H² filter — the port's
-    solver._filter_refine_windowed with the H² form, seeded by the
-    H-residuals through h2_residual and θ², JAX's
-    solver_pseudo._h2_refine_windowed on the same seed — with two shrinks
-    and 5 locked columns in the first bucket."""
+    """The deviation-form H² filter on the windowed route — the port's
+    solver._filter_refine_windowed with two products a step on
+    torch.matmul, each step on its live suffix, seeded by the H-residuals
+    through h2_residual and θ², JAX's solver_pseudo._h2_refine_windowed
+    on the same seed — on a window whose plan shrinks JAX's twice, with 5
+    locked columns in the first bucket."""
     N, nevex, locked, B = 150, 32, 5, 8
     H, V, lam1, lo, up = _filter_case(N, nevex, np.float64, seed=12)
     degs = np.array([2] * 3 + [4] * 8 + [6] * 16, np.int32)
@@ -327,17 +327,19 @@ def test_segmented_refine_h2_matches_jax(shadow, tol):
     theta = np.linspace(np.sqrt(lam1) * 1.1, np.sqrt(lo), nevex)
     theta[:locked] = 0.0                   # the driver pads locked slots
     R = H @ V - V * theta[None, :]
-    Ht = _t(H)
+    Ht, Hs = _t(H), _t(H.astype(shadow))
     Vt, ex_t, hemms = tsolver._filter_refine_windowed(
-        _t(H.astype(shadow)), _t(V.copy()), _t(R), theta[locked:], degs,
-        locked, nevex, B, lam1, lo, up, 36, form=tsp.H2,
+        Hs, _t(V.copy()), _t(R), theta[locked:], degs, locked, nevex, B,
+        lam1, lo, up, 36, tring.filter_product(None, Hs, None, False), 2,
         seed=lambda Rw, th: (tps.h2_residual(Ht, Rw, th), th ** 2))
     tabs = tfilt.refine_tables(theta ** 2, deg_win, lam1, lo, up, 36)
     R2 = jps.h2_residual(_j(H), _j(R), _j(theta))
     Vj, ex_j = jsp._h2_refine_windowed(
         _j(H.astype(shadow)), _j(V.copy()), _j(V.copy()), R2, deg_win, 0,
         B, nevex, *tabs, (up + lo) / 2.0, "highest")
-    assert ex_t == 2 * ex_j and hemms == 2 * (int(deg_win.max()) - 1)
+    live = [int(np.sum(deg_win >= t)) for t in range(2, 7)]
+    assert ex_t == 2 * sum(live) < 2 * ex_j
+    assert hemms == 2 * (int(deg_win.max()) - 1)
     assert _col_rel(Vt.numpy()[:, locked:], np.asarray(Vj)[:, locked:]) <= tol
     np.testing.assert_array_equal(Vt.numpy()[:, :locked], V[:, :locked])
 

@@ -19,7 +19,7 @@ backend-dependent defaults).  Tolerances:
 
 ``ring_backend="pallas"`` runs every f32/c64 H² filter as the p = 1 ring
 (each product through ring_hemm's plain version on the CPU); "xla" the
-segmented windowed filter.
+windowed filter (the same recurrence on torch.matmul).
 """
 
 import dataclasses

@@ -49,8 +49,7 @@ from chase_tpu_torch.parallel.mesh import CollectiveStats
 from chase_tpu_torch.parallel.peers import (PeerChunks, ready_epoch,
                                             reads_before, slot_of,
                                             slot_row_floats)
-from chase_tpu_torch.parallel.ring import _product, uses_peers
-from chase_tpu_torch.solver import _chunk_product
+from chase_tpu_torch.parallel.ring import _product, filter_product, uses_peers
 
 torch.set_num_threads(1)
 
@@ -252,9 +251,10 @@ def test_protocol_numbers():
     ("cuda", "pallas", torch.float32, 1, False)],
     ids=["f32", "c64", "bf16", "cpu", "xla", "f64", "p1"])
 def test_routing(device, backend, dtype, p, want):
-    ring, kernel = _chunk_product("1d", backend, dtype)
-    assert ring
-    assert uses_peers(device, kernel, dtype, p) is want
+    prod = filter_product("1d", torch.zeros((4, 8), dtype=dtype), _CpuGrid(),
+                          backend == "pallas")
+    assert prod.hemm is not None and prod.ring2d is None
+    assert uses_peers(device, prod.kernel, dtype, p) is want
 
 
 class _CpuGrid:

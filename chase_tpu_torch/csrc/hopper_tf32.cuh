@@ -49,17 +49,24 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 // ---- 3xTF32 split ---------------------------------------------------------
 // x = hi + lo + O(2^-22 |x|): hi = x rounded to TF32 (10-bit mantissa,
 // nearest, ties away from zero), lo = the remainder rounded the same way.
-// x - hi is exact in f32.
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
+// x - hi is exact in f32.  The rounding is integer arithmetic: half a TF32
+// ulp added to the bits, the 13 low ones cleared — cvt.rna.tf32.f32's
+// value for every finite x, but cvt.rna is a sequence of its own on
+// sm_90a: with it the c64 kernel ran 6–9% slower (PERF.md §6).
+//
+// A NaN whose top 11 mantissa bits are set carries into a zero (0x7FFFFFFF
+// to −0, 0xFFFFFFFF to +0), and the remainder of a NaN is the FSUB's
+// canonical 0x7FFFFFFF.  KEEP_NAN holds the remainder's bits at most
+// 0x7FFFEFFF, so that lo of a NaN or an inf is a NaN (0x7FFFE000), as
+// cvt.rna's was: one integer min, for callers that may see any NaN.  The
+// c64 kernel's A split skips it: its Hs is clamped before the split.
+template <bool KEEP_NAN = true>
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
                                            uint32_t& lo) {
-  hi = tf32_rna(x);
-  lo = tf32_rna(x - __uint_as_float(hi));
+  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  int r = __float_as_int(x - __uint_as_float(hi));
+  if (KEEP_NAN) r = min(r, 0x7FFFEFFF);
+  lo = (static_cast<uint32_t>(r) + 0x1000u) & 0xFFFFE000u;
 }
 
 // f32 → bf16 bits, round to nearest even; NaN → 0x7FC0.  Bit for bit what

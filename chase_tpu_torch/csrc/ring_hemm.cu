@@ -50,11 +50,14 @@
 // every card, and what the per-tile issue gaps cost, is open (PERF.md §7).
 //
 // Error scheme of the f32 route (measured by a probe on the H100 before
-// this kernel was written; PERF.md): x = hi + lo with hi = tf32_rna(x), lo
-// = tf32_rna(x - hi), and H·V ≈ lo·Vhi + hi·Vlo + hi·Vhi, small terms
-// first (lo·Vlo, at 2^-22 relative, is dropped).  The wgmma accumulator's
-// adder is not IEEE round-to-nearest: one accumulator over K = 30000
-// drifted to 2.1e-4 relative, 63× cuBLAS.  So each K tile (32 deep, 12
+// this kernel was written; PERF.md): x = hi + lo with hi = x rounded to
+// TF32 (nearest, ties away from zero) and lo = x - hi rounded the same way
+// (split_tf32, hopper_tf32.cuh: integer arithmetic, cvt.rna's bits for
+// every finite x; its NaN guard keeps lo of a NaN or an inf a NaN), and H·V
+// ≈ lo·Vhi + hi·Vlo + hi·Vhi, small terms first (lo·Vlo, at 2^-22
+// relative, is dropped).  The wgmma accumulator's adder is not IEEE
+// round-to-nearest: one accumulator over K = 30000 drifted to 2.1e-4
+// relative, 63× cuBLAS.  So each K tile (32 deep, 12
 // wgmma) sums into a fresh accumulator that is then added, in IEEE f32, to
 // a running sum in registers (1.6e-6 at K = 30000, ≤ 1.14× cuBLAS at every
 // probed shape; every 4th tile failed the 4×-plain bound at K = 200).
@@ -99,13 +102,14 @@
 //     k1 − k3 included.  Measured against a c128 product at (30000, k):
 //     1.8–2.2e-6, the expansion's 1.8–2.2e-6, cuBLAS CGEMM's 1.0–1.3e-5
 //     (the chip gate: 1e-5 and 4× the plain CGEMM).  The A split is
-//     split_tf32's value by integer arithmetic (c64r::split_rna).  The
-//     trans route takes conj(V)'s planes and negates Im: Hᴴ·V =
-//     conj(Hᵀ·conj(V)).  Registers: 3 × 32 accumulators, 2 × 32 running
-//     sums (re, im), 2 × 24 A fragments (Hs, Hr, Hi in hi/lo for two
-//     k-steps) = 208 of the consumers' 232; ptxas (CUDA 12.9): 168
-//     registers at launch (setmaxnreg then 40 / 232), 0 bytes spilled, for
-//     both ring_hemm_kernel_c64<0> and <1>; the f32 instantiations 168, 0.
+//     split_tf32 without its NaN guard: the clamp on Hs stands for it
+//     (c64r::set).  The trans route takes conj(V)'s planes and negates
+//     Im: Hᴴ·V = conj(Hᵀ·conj(V)).  Registers: 3 × 32 accumulators,
+//     2 × 32 running sums (re, im), 2 × 24 A fragments (Hs, Hr, Hi in
+//     hi/lo for two k-steps) = 208 of the consumers' 232; ptxas (CUDA
+//     12.9): 168 registers at launch (setmaxnreg then 40 / 232), 0 bytes
+//     spilled, for both ring_hemm_kernel_c64<0> and <1>; the f32
+//     instantiations 168, 0.
 //     What binds it (measured with the probe's variants at (30000, 3000),
 //     H100 80GB HBM3 at 700 W): the wgmma alone run at 135 ms, 96% of the
 //     3xTF32 ceiling at the 8·m·b·k count; with the per-tile wait and
@@ -509,26 +513,15 @@ static_assert(SMEM_BYTES <= 232448, "shared memory");
 // a k-step's A fragments: TF32 hi and lo of Hs, Hr and Hi
 struct Frag { uint32_t hi[3][4], lo[3][4]; };
 
-// split_tf32's value (x = hi + lo, each rounded to TF32 nearest, ties
-// away: cvt.rna's value for every finite x) by integer arithmetic: half a
-// TF32 ulp added to the bits, the 13 low ones cleared.  cvt.rna.tf32.f32
-// is a sequence of its own on sm_90a: with it this kernel ran 6–9% slower
-// (PERF.md, PR 20).  A NaN whose top 11 mantissa bits are set carries into
-// a zero, so Hs (an add's NaN: 0x7FFFFFFF) is held below that first.
-__device__ __forceinline__ void split_rna(float x, uint32_t& hi,
-                                          uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-  lo = (__float_as_uint(x - __uint_as_float(hi)) + 0x1000u) & 0xFFFFE000u;
-}
-
 // register v of a k-step from its (re, im) pair: Hs = fl(Hr + Hi) with its
 // bits held at most 0x7FFFEFFF (a NaN stays a NaN: a NaN anywhere in H
-// reaches k1, and so both parts of its row), Hr, Hi
+// reaches k1, and so both parts of its row), Hr, Hi.  The clamp on Hs
+// stands for split_tf32's NaN guard, which these splits skip.
 __device__ __forceinline__ void set(Frag& f, int v, float2 h) {
   const float s = __int_as_float(min(__float_as_int(h.x + h.y), 0x7FFFEFFF));
-  split_rna(s, f.hi[0][v], f.lo[0][v]);
-  split_rna(h.x, f.hi[1][v], f.lo[1][v]);
-  split_rna(h.y, f.hi[2][v], f.lo[2][v]);
+  split_tf32<false>(s, f.hi[0][v], f.lo[0][v]);
+  split_tf32<false>(h.x, f.hi[1][v], f.lo[1][v]);
+  split_tf32<false>(h.y, f.hi[2][v], f.lo[2][v]);
 }
 
 __device__ __forceinline__ void fence(Frag& f) {

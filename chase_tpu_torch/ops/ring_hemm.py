@@ -181,21 +181,34 @@ def _floats(t: torch.Tensor) -> int:
     return t.element_size() // 4
 
 
-def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+def _tf32_rna(x: torch.Tensor, keep_nan: bool = False) -> torch.Tensor:
     """f32 → TF32 (10-bit mantissa), nearest with ties away from zero, as
-    ``cvt.rna.tf32.f32``: add half an ulp of TF32 to the magnitude bits and
-    clear the 13 bits TF32 drops."""
+    ``cvt.rna.tf32.f32`` for every finite x: add half an ulp of TF32 to the
+    magnitude bits and clear the 13 bits TF32 drops — the kernel's
+    ``split_tf32``.  A NaN whose top 11 mantissa bits are set carries into
+    a zero; ``keep_nan`` is the kernel's guard on the remainder: the card's
+    subtraction gives every NaN as 0x7FFFFFFF, held at 0x7FFFEFFF, so a
+    NaN rounds to the NaN 0x7FFFE000 (here a NaN of any bits does)."""
     bits = x.contiguous().view(torch.int32)
+    if keep_nan:
+        bits = torch.where(torch.isnan(x), 0x7FFFEFFF, bits)
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
+def _split_tf32(x: torch.Tensor) -> tuple:
+    """(hi, lo) of x: hi = tf32(x), lo = tf32(x − hi) with the NaN guard, so
+    that lo of a NaN or an inf is a NaN, as on the card."""
+    hi = _tf32_rna(x)
+    return hi, _tf32_rna(x - hi, keep_nan=True)
+
+
 def _split_into(Vt: torch.Tensor, X: torch.Tensor, off: int) -> None:
-    """``Vt[0, :k, off:off+b] = hi(Xᵀ)``, ``Vt[1, …] = lo(Xᵀ)``, with hi =
-    tf32(x) and lo = tf32(x − hi), for a real (b × k) X."""
+    """``Vt[0, :k, off:off+b] = hi(Xᵀ)``, ``Vt[1, …] = lo(Xᵀ)``
+    (:func:`_split_tf32`), for a real (b × k) X."""
     b, k = X.shape
-    hi = _tf32_rna(X)
+    hi, lo = _split_tf32(X)
     Vt[0, :k, off:off + b] = hi.T
-    Vt[1, :k, off:off + b] = _tf32_rna(X - hi).T
+    Vt[1, :k, off:off + b] = lo.T
 
 
 def tf32_split_reference(V: torch.Tensor, off: int = 0,

@@ -6,15 +6,20 @@ Drives chase_tpu_torch's main paths on the card and fails (non-zero exit,
 no result line) on any fault:
 
   device   require CUDA; print the card's name and power limit
-  build    compile the port's CUDA kernels from csrc/ (nvcc, sm_90a)
+  build    compile the port's CUDA kernels from csrc/ (nvcc, sm_90a);
+           registers and spills of the 3xTF32 main kernels (f32 and c64,
+           plain and trans), none of which may spill
   kernel   ring_hemm (TMA + wgmma, 3xTF32) against its plain version
            (torch.matmul) at the filter's shapes, both held against an f64
            product at (N, k) = (1000, 37), (30000, 750/1500/2250/3000),
            timed, with TFLOP/s and the share of the 165 TFLOP/s 3xTF32
            ceiling (the card's peaks: chase_tpu_torch.perf's data-sheet
            table); its TF32 split pre-pass against its plain
-           version (bit-exact); a strided window, a two-chunk ring step and
-           an N=1001 operator whose row stride DenseOperator pads to 1004
+           version (bit-exact); a strided window, a two-chunk ring step,
+           NaNs of either sign with every mantissa bit set and an inf in
+           H making their whole rows of W NaN (plain and trans route; the
+           pre-pass of such a V bit-exact) and an N=1001 operator whose
+           row stride DenseOperator pads to 1004
   filter   the p=1 ring Chebyshev filter (every HEMM on the kernel)
            against the plain filter at N=30000, width 750, degree 10
   slice    eigsh on the Clement matrix at the solver's reference scale
@@ -538,6 +543,36 @@ def phase_device() -> dict:
 
 
 KERNEL_SOURCES = ("ring_hemm", "ring_peers")     # csrc/<name>.cu
+# the 3xTF32 main kernels of csrc/ring_hemm.cu, by the pattern of their
+# mangled names in ptxas's report
+MAIN_KERNELS = {
+    "ring_hemm_kernel<Tf32x3, 0>": r"ring_hemm_kernelI\w*?Tf32x3E\w*?Li0E",
+    "ring_hemm_kernel<Tf32x3, 1>": r"ring_hemm_kernelI\w*?Tf32x3E\w*?Li1E",
+    "ring_hemm_kernel_c64<0>": r"ring_hemm_kernel_c64ILi0E",
+    "ring_hemm_kernel_c64<1>": r"ring_hemm_kernel_c64ILi1E",
+}
+
+
+def kernel_registers(ptxas_log: str) -> dict:
+    """{kernel: (registers, spill store bytes, spill load bytes)} of the
+    MAIN_KERNELS found in a ``ptxas -v`` report."""
+    out, fn = {}, None
+    for line in ptxas_log.splitlines():
+        if "Compiling entry function" in line or "Function properties" in line:
+            fn = next((n for n, pat in MAIN_KERNELS.items()
+                       if re.search(pat, line)), None)
+            continue
+        if fn is None:
+            continue
+        out.setdefault(fn, [None, None])
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[fn][1] = (int(m[1]), int(m[2]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[fn][0] = int(m[1])
+    return {n: (r, *(s or (None, None))) for n, (r, s) in out.items()}
 
 
 def phase_build() -> float:
@@ -560,6 +595,13 @@ def phase_build() -> float:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "Function" in line:
                 log("build", line.strip())
+    regs = kernel_registers(_build.build_log("ring_hemm"))
+    log("build", "main kernels (registers, spill store / load bytes): " +
+        "; ".join(f"{n} {regs.get(n)}" for n in MAIN_KERNELS))
+    if not (set(regs) == set(MAIN_KERNELS) and
+            all(r[1:] == (0, 0) for r in regs.values())):
+        raise AssertionError(f"a 3xTF32 main kernel spills or is missing "
+                             f"from ptxas's report: {regs}")
     return dt
 
 
@@ -677,6 +719,61 @@ def _trans_case(phase, H, row0: int, b: int, k: int, g) -> None:
         raise AssertionError(f"{phase}: ring_hemm trans route failed")
 
 
+def _nan_rows_case(phase, dev, g) -> None:
+    """NaNs in an f32 H of either sign with every mantissa bit set (bits
+    0x7FFFFFFF and 0xFFFFFFFF, which the TF32 split's integer rounding
+    carries into a zero hi; its guard keeps lo a NaN) and an inf make their
+    whole row of W NaN, on the plain route (col0 = 3, with inf and NaN in
+    the three columns left of the block, which must reach nothing) and the
+    trans route (NaN in the rows around the slab); the pre-pass of a V
+    holding both NaNs bit-exact against its plain version."""
+    from chase_tpu_torch.ops.ring_hemm import (ring_hemm, tf32_split,
+                                               tf32_split_reference)
+    col0, b, m = 3, 250, 200
+    H = torch.randn((m, 304), generator=g, device=dev)[:, :300]
+    bits = H.view(torch.int32)
+    H[:, 0] = float("inf")
+    H[::3, 1] = float("nan")
+    bits[::5, 2] = -1
+    planted = {5: 0x7FFFFFFF, 7: -1, 9: 0x7FC00000, 11: 0x7F800000}
+    for r, v in planted.items():
+        bits[r, col0 + 4 * r] = v
+    V = torch.randn((b, 50), generator=g, device=dev)
+    W = ring_hemm(H, V, col0=col0)
+    bad = torch.zeros(m, dtype=torch.bool, device=dev)
+    bad[list(planted)] = True
+    plain_ok = bool(torch.isnan(W[bad]).all() and
+                    torch.isfinite(W[~bad]).all())
+    row0 = 20
+    Ht = torch.randn((300, m), generator=g, device=dev)
+    bits = Ht.view(torch.int32)
+    Ht[row0 - 1] = float("nan")
+    Ht[row0 + b] = float("inf")
+    for r, v in planted.items():
+        bits[row0 + 7 * r, 3 * r] = v
+    W = ring_hemm(Ht, V, col0=row0, trans=True)
+    bad = torch.zeros(m, dtype=torch.bool, device=dev)
+    bad[[3 * r for r in planted]] = True
+    trans_ok = bool(torch.isnan(W[bad]).all() and
+                    torch.isfinite(W[~bad]).all())
+    Vn = V.clone()
+    Vn.view(torch.int32)[[3, 100], [7, 49]] = torch.tensor(
+        [0x7FFFFFFF, -1], dtype=torch.int32, device=dev)
+    Vt = tf32_split(Vn)
+    split_ok = bool(torch.equal(Vt.view(torch.int32),
+                                tf32_split_reference(Vn).view(torch.int32))
+                    and torch.isnan(Vt[1, [7, 49], [3, 100]]).all())
+    torch.cuda.synchronize()
+    log(phase, f"NaN rows (bits 0x7FFFFFFF, 0xFFFFFFFF, 0x7FC00000, inf) in "
+               f"f32 H: whole rows of W NaN, the others finite, on the "
+               f"plain route (col0={col0}, non-finite columns left of the "
+               f"block) {plain_ok} and the trans route {trans_ok}; the "
+               f"pre-pass of a V holding both NaNs bit-exact against its "
+               f"plain version, lo NaN: {split_ok}")
+    if not (plain_ok and trans_ok and split_ok):
+        raise AssertionError(f"{phase}: a NaN in H or V did not reach W")
+
+
 def phase_kernel(dev) -> dict:
     from chase_tpu_torch.ops.ring_hemm import ring_hemm, ring_hemm_reference
     t_phase = time.perf_counter()
@@ -733,6 +830,7 @@ def phase_kernel(dev) -> dict:
     _trans_case("kernel", H[:15000, :15000], 7501, 7497, 750, g)
     del H
     torch.cuda.empty_cache()
+    _nan_rows_case("kernel", dev, g)
 
     # N = 1001: TMA needs a row stride that is a multiple of 4 floats, so
     # DenseOperator pads it to 1004; an unpadded CUDA H is refused
@@ -2377,6 +2475,11 @@ def _peer_times(stripes, chunks, peers, reps: int) -> dict:
     p, h_dtype = len(peers), stripes[0].dtype
     (b, k), v_dtype = chunks[0].shape, chunks[0].dtype
     ldh = rh.tma_row_stride(stripes[0])
+    # the slots, sized by the widest product so far, grow collectively:
+    # every rank's thread at once, before this thread drives them all (a
+    # filter whose live suffix never spanned the window left them short)
+    sim_ranks(p, lambda g: peers[g.me].reserve(b * k * chunks[0]
+                                               .element_size()))
     spans = {"publish": [], "gather": [], "product": []}
     B = slot_err = None
     for what in ("gather", "product"):

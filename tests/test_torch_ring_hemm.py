@@ -280,6 +280,59 @@ def test_tf32_split_rebuilds_x_to_2_pow_minus_22():
     assert np.all(np.abs(rebuilt - x64) <= 2.0 ** -22 * np.abs(x64))
 
 
+def _rna_f64(x: np.float32) -> float:
+    """x rounded to 11 significant bits (TF32), nearest with ties away from
+    zero, in f64 arithmetic, then to f32 (a rounding past FLT_MAX is inf);
+    below 2^-126 on TF32's subnormal step, 2^-136."""
+    v = float(x)
+    if v == 0.0 or not np.isfinite(v):
+        return v
+    step = 2.0 ** (max(np.frexp(abs(v))[1], -125) - 11)
+    with np.errstate(over="ignore"):
+        return float(np.float32(np.copysign(
+            np.floor(abs(v) / step + 0.5) * step, v)))
+
+
+SPLIT_EDGES = {
+    "tie_pos": 0x3F801000, "tie_neg": 0xBF801000,
+    "tie_carries_to_2": 0x3FFFF000, "tie_neg_large": 0xC7001000,
+    "zero": 0x00000000, "neg_zero": 0x80000000,
+    "subnormal_min": 0x00000001, "subnormal_tie": 0x00001000,
+    "subnormal_max": 0x007FFFFF, "neg_subnormal": 0x80003001,
+    "flt_max": 0x7F7FFFFF, "neg_flt_max": 0xFF7FFFFF,
+    "inf": 0x7F800000, "neg_inf": 0xFF800000,
+    "nan_all_bits": 0x7FFFFFFF, "neg_nan_all_bits": 0xFFFFFFFF,
+    "nan_quiet": 0x7FC00000, "nan_signalling": 0x7F800001,
+}
+
+
+@pytest.mark.parametrize("name", list(SPLIT_EDGES))
+def test_tf32_split_plain_version_edge_values(name):
+    """The plain split (the kernel's integer rounding, its NaN guard on the
+    remainder) at ties, zeros, subnormals, FLT_MAX, infinities and NaNs of
+    both signs with every mantissa bit set: hi is x rounded half away from
+    zero to TF32, hi + lo holds x to 2^-22 (plus half TF32's subnormal
+    step), an inf keeps hi and gets a NaN lo, and a NaN stays a NaN in hi
+    or lo — 0x7FFFFFFF + 0x1000 carries to −0 and 0xFFFFFFFF to +0."""
+    from chase_tpu_torch.ops.ring_hemm import _split_tf32
+    x = np.array([SPLIT_EDGES[name]], np.uint32).view(np.float32)
+    hi, lo = (t.numpy() for t in _split_tf32(torch.from_numpy(x)))
+    assert not (hi.view(np.uint32) & 0x1FFF).any()
+    assert not (lo.view(np.uint32) & 0x1FFF).any()
+    if np.isnan(x[0]):
+        assert np.isnan(hi[0]) or np.isnan(lo[0])
+    elif np.isinf(x[0]):
+        assert hi[0] == x[0] and np.isnan(lo[0])
+    else:
+        assert float(hi[0]) == _rna_f64(x[0])
+        if np.isfinite(hi[0]):
+            x64 = float(x[0])
+            err = abs(float(hi[0]) + float(lo[0]) - x64)
+            assert err <= 2.0 ** -22 * abs(x64) + 2.0 ** -137
+        else:
+            assert lo[0] == -hi[0]      # FLT_MAX rounds to inf, lo to -inf
+
+
 def test_3xtf32_product_within_4x_of_f32_matmul_at_k4096():
     """lo·Vhi + hi·Vlo + hi·Vhi (small terms first, lo·lo dropped) in f32
     stays within 4x of torch.matmul's own f32 error against f64, as the
@@ -428,17 +481,78 @@ def test_cuda_kernel_ragged_edges(cuda, m, n_cols, k, col0, b):
 @pytest.mark.parametrize("b,k,off", [(1000, 37, 0), (61, 129, 3),
                                      (300, 256, 1)])
 def test_cuda_split_prepass(cuda, b, k, off):
-    """The pre-pass on the card: bit-identical to its plain version, and
-    Vt_hi + Vt_lo rebuilds Vᵀ to 2^-22."""
+    """The pre-pass on the card: bit-identical to its plain version, NaNs
+    of either sign with every mantissa bit set in V included (the integer
+    rounding carries them into a zero hi; the guard keeps lo a NaN), and
+    Vt_hi + Vt_lo rebuilds the finite Vᵀ to 2^-22."""
     g = torch.Generator(device=cuda).manual_seed(b)
     V = torch.randn((b, 3 * k), generator=g, device=cuda)[:, k:2 * k]
+    bits = V.view(torch.int32)
+    bits[b // 2, 0] = 0x7FFFFFFF
+    bits[b - 1, k - 1] = -1                          # 0xFFFFFFFF
+    nan = torch.isnan(V)
     before = LAUNCHES["tf32_split"]
     Vt = tf32_split(V, off)
     torch.cuda.synchronize()
     assert LAUNCHES["tf32_split"] == before + 1
-    assert torch.equal(Vt, tf32_split_reference(V, off))
+    assert torch.equal(Vt.view(torch.int32),
+                       tf32_split_reference(V, off).view(torch.int32))
+    assert torch.isnan(Vt[1, :k, off:off + b][nan.T]).all()
     rebuilt = (Vt[0] + Vt[1])[:k, off:off + b]
-    assert float((rebuilt - V.T).abs().max() / V.abs().max()) <= 2.0 ** -22
+    Vf = V.masked_fill(nan, 0.0)
+    assert float((rebuilt.masked_fill(nan.T, 0.0) - Vf.T).abs().max()
+                 / Vf.abs().max()) <= 2.0 ** -22
+
+
+@pytest.mark.gpu
+def test_cuda_f32_non_finite_in_and_left_of_the_block(cuda):
+    """The f32 twin of the c64 test below: NaNs of either sign with every
+    mantissa bit set (bits 0x7FFFFFFF, 0xFFFFFFFF, which the A split's
+    integer rounding carries into a zero hi and its guard keeps a NaN in
+    lo), torch's NaN and an inf inside the block make their whole row of W
+    NaN, on the plain route and the trans route; inf and NaN left of the
+    block (col0 = 3: the first K tile starts three columns early), or
+    outside the trans route's slab, reach no entry of W."""
+    g = torch.Generator(device=cuda).manual_seed(19)
+    col0, b = 3, 250
+    H = _padded_randn(200, 300, g, cuda)
+    bits = H.view(torch.int32)
+    H[:, col0 - 1] = float("inf")
+    H[::3, col0 - 3] = float("nan")
+    bits[::5, col0 - 2] = -1
+    bits[5, col0 + 10] = 0x7FFFFFFF
+    bits[7, col0 + 20] = -1
+    H[9, col0 + 30] = float("nan")
+    H[11, col0 + 40] = float("inf")
+    V = torch.randn((b, 50), generator=g, device=cuda)
+    W = ring_hemm(H, V, col0=col0)
+    torch.cuda.synchronize()
+    bad = torch.zeros(200, dtype=torch.bool, device=cuda)
+    bad[[5, 7, 9, 11]] = True
+    assert torch.isnan(W[bad]).all()
+    assert torch.isfinite(W[~bad]).all()
+    ref = _wide(H[~bad, col0:col0 + b]) @ _wide(V)
+    assert float((_wide(W[~bad]) - ref).abs().max() / ref.abs().max()) <= RTOL
+
+    # trans: W = H[row0:row0+b, :]ᴴ · V, so H[row0 + j, c] meets W's row c
+    row0, b = 20, 250
+    H = _padded_randn(300, 200, g, cuda)
+    bits = H.view(torch.int32)
+    H[row0 - 1] = float("nan")
+    H[row0 + b] = float("inf")
+    bits[row0 + 4, 17] = 0x7FFFFFFF
+    bits[row0 + 100, 33] = -1
+    H[row0 + b - 1, 40] = float("nan")
+    H[row0 + 31, 64] = float("-inf")
+    V = torch.randn((b, 50), generator=g, device=cuda)
+    W = ring_hemm(H, V, col0=row0, trans=True)
+    torch.cuda.synchronize()
+    bad = torch.zeros(200, dtype=torch.bool, device=cuda)
+    bad[[17, 33, 40, 64]] = True
+    assert torch.isnan(W[bad]).all()
+    assert torch.isfinite(W[~bad]).all()
+    ref = _wide(H[row0:row0 + b, ~bad]).mT @ _wide(V)
+    assert float((_wide(W[~bad]) - ref).abs().max() / ref.abs().max()) <= RTOL
 
 
 @pytest.mark.gpu
@@ -539,17 +653,25 @@ def test_cuda_c64_kernel_matches_plain_version(cuda, m, n_cols, k, col0, b):
 @pytest.mark.parametrize("b,k,off", [(1000, 37, 0), (61, 129, 1)])
 def test_cuda_c64_split_prepass(cuda, b, k, off):
     """The complex pre-pass on the card is bit-identical to its plain
-    version (the six planes of V), V a strided window."""
+    version (the six planes of V), V a strided window holding NaNs of
+    either sign with every mantissa bit set, whose lo planes stay NaN."""
     g = torch.Generator(device=cuda).manual_seed(b + 1)
     V = torch.randn((b, 3 * k), generator=g, device=cuda,
                     dtype=torch.complex64)[:, k:2 * k]
+    bits = torch.view_as_real(V).view(torch.int32)
+    bits[b // 2, 0, 0] = 0x7FFFFFFF
+    bits[b - 1, k - 1, 1] = -1                       # 0xFFFFFFFF
     before = LAUNCHES["tf32_split"]
     Vt = tf32_split(V, off)
     torch.cuda.synchronize()
     assert LAUNCHES["tf32_split"] == before + 1
     assert tuple(Vt.shape) == (6, *split_shape(b, k, off,
                                                torch.complex64)[::-1])
-    assert torch.equal(Vt, tf32_split_reference(V, off))
+    assert torch.equal(Vt.view(torch.int32),
+                       tf32_split_reference(V, off).view(torch.int32))
+    # Vd = fl(Vi − Vr) and Vs = fl(Vr + Vi) of either NaN: lo planes 3, 5
+    for j, n in ((b // 2, 0), (b - 1, k - 1)):
+        assert torch.isnan(Vt[[3, 5], n, off + j]).all()
 
 
 @pytest.mark.gpu

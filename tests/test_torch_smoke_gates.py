@@ -9,6 +9,8 @@ after it, so its pre-passes may be of both routes, ``bf16_pack`` at least
 once.  On a (p, 1) grid the peer route's three kernels, once per step,
 and no ``ring_hemm`` step.  ``launch_widths`` and ``count_syncs`` read the
 program's own counts (``perf.COUNTS``) made inside their block.
+``kernel_registers`` reads the 3xTF32 main kernels' registers and spills
+from a ptxas report.
 """
 
 import importlib.util
@@ -118,3 +120,29 @@ def test_count_syncs_reads_the_program_counts():
     out, sites = chip_smoke.count_syncs(fn)
     assert out == "done"
     assert dict(sites) == {"solver.rr": 2, "qr.cholqr": 1}
+
+
+PTXAS = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116ring_hemm_kernelINS_6Tf32x3ELi0EEEv14CUtensorMap_stS2_Pfxiiiiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_116ring_hemm_kernelINS_6Tf32x3ELi0EEEv14CUtensorMap_stS2_Pfxiiiiiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 384 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_121ring_hemm_bf16_kernelILi0EEEv14CUtensorMap_stS1_Pfxiiiiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_121ring_hemm_bf16_kernelILi0EEEv14CUtensorMap_stS1_Pfxiiiiiii
+    0 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 90 registers, used 1 barriers, 384 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120ring_hemm_kernel_c64ILi1EEEv14CUtensorMap_stS1_Pfxiiiiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_120ring_hemm_kernel_c64ILi1EEEv14CUtensorMap_stS1_Pfxiiiiiii
+    0 bytes stack frame, SPILL bytes spill stores, SPILL bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 384 bytes cmem[0]
+"""
+
+
+@pytest.mark.parametrize("spill", [0, 8])
+def test_kernel_registers_reads_the_main_kernels_from_ptxas(spill):
+    """``kernel_registers`` takes registers and spills of the 3xTF32 main
+    kernels by their mangled names, and nothing of another kernel (the
+    bf16 kernel's spill here)."""
+    regs = chip_smoke.kernel_registers(PTXAS.replace("SPILL", str(spill)))
+    assert regs == {"ring_hemm_kernel<Tf32x3, 0>": (168, 0, 0),
+                    "ring_hemm_kernel_c64<1>": (168, spill, spill)}

@@ -36,7 +36,8 @@ __all__ = ["PerfData", "profiler_trace", "device_bf16_peak",
            "device_matmul_peak", "filter_rung", "MATMUL_PEAKS", "span",
            "SPANS", "PHASE_OF", "PhaseClock", "phase_clock", "COUNTS",
            "count", "host_sync", "to_host", "item", "to_device",
-           "HOST_SYNC", "QR_FALLBACK", "COMM", "COMM_BYTES", "FILTER_COLS"]
+           "HOST_SYNC", "QR_FALLBACK", "COMM", "COMM_BYTES", "FILTER_COLS",
+           "WARM_START"]
 
 PHASES = ("All", "InitVecs", "Lanczos", "Filter", "ApplyKconjugate",
           "Qr", "Rr", "Resids_Locking")
@@ -300,7 +301,7 @@ class profiler_trace:
 SPANS = ("chase.solve", "chase.operator", "chase.init_vecs", "chase.lanczos",
          "chase.iteration", "chase.degrees", "chase.filter", "chase.kconj",
          "chase.qr", "chase.rr", "chase.locking", "chase.ring_hemm",
-         "chase.comm")
+         "chase.comm", "chase.warm_start")
 
 # the PerfData phase whose end each span marks (PHASES); a phase's time
 # runs from the previous mark to its own, so "Filter" holds the degrees
@@ -422,7 +423,11 @@ def phase_clock(perf: "PerfData | None", device: torch.device):
 #   width of every filter product launched) and "filter_cols:useful"
 #   (the columns whose degree the step had not passed), each × the
 #   products per step (2 for the H² filters), counted by the solvers'
-#   filter drivers.
+#   filter drivers;
+# * the Hermitian solver's warm starts, "warm_start:members" (solves
+#   started from a caller's block with ``approx``) and
+#   "warm_start:dos_lowered" (those whose stale lower edge the DoS
+#   quantile capped, ``solver._warm_bounds``).
 
 COUNTS = collections.Counter()
 _COUNT_LOCK = threading.Lock()
@@ -431,6 +436,7 @@ QR_FALLBACK = "qr_fallback:"
 COMM = "comm:"
 COMM_BYTES = "comm_bytes:"
 FILTER_COLS = "filter_cols:"
+WARM_START = "warm_start:"
 
 
 def count(key: str, n: int = 1) -> None:

@@ -73,7 +73,8 @@ import torch
 
 from .config import ChaseConfig, set_matmul_precision
 from .logger import get_logger
-from .perf import FILTER_COLS, PerfData, count, phase_clock, span, to_host
+from .perf import (FILTER_COLS, WARM_START, PerfData, count, phase_clock,
+                   span, to_host)
 from .types import as_torch_dtype, is_double_base, low_precision_dtype
 from .parallel.operator import DenseOperator
 from .parallel import ring as pring
@@ -432,6 +433,50 @@ def _lanczos_dos(op: DenseOperator, V, V0, m: int, numvec: int,
     return V, ritzv, upperb
 
 
+def _warm_bounds(op: DenseOperator, ritzv0, m: int, numvec: int,
+                 nevex: int, generator, log):
+    """The warm start's bounds: (the Ritz value estimates, upperb, the
+    damped interval's lower edge before ``decaying_rate``).
+
+    The bounds-only Lanczos runs on ``numvec`` FRESH random probes (a
+    Krylov space seeded with a converged eigenvector of the previous
+    problem underestimates lambda_max); the first, drawn alone, sets
+    upperb as the reference's one probe does.  The edge is the previous
+    solve's largest Ritz value, as in the reference, unless it lies above
+    the probes' DoS quantile of 2·nevex: where a cold solve's DoS edge
+    fell below lambda_nevex, its last extra columns held only the damped
+    interval's components, kept Ritz values deep in the spectrum and a
+    large residual, and the solve still converged its nev pairs.  A filter
+    damping from such a value separates nothing, so the edge becomes the
+    largest previous Ritz value at or below the DoS quantile of nevex (the
+    cold start's edge), or the quantile where none is.  A port decision:
+    the JAX package takes max(ritzv0) whatever it is."""
+    N = op.N
+    probes = torch.cat([_draw(op, 1, generator),
+                        _draw(op, numvec - 1, generator)], dim=1)
+    alphas, betas, _ = lz.lanczos_scan(op.H, probes, m=m, want_basis=False,
+                                       grid=op.grid)
+    a_np = _host(alphas, "solver.lanczos")
+    b_np = _host(betas, "solver.lanczos")
+    theta, tau, _ = lz.lanczos_tridiag_host(a_np, b_np, want_vectors=False)
+    upperb = lz.upper_bound(theta[:1], b_np[-1, :1])
+    ritzv = np.asarray(ritzv0, np.float64).copy()
+    edge = float(np.max(ritzv))
+    _, ceiling = lz.dos_lower_bound(theta, tau, 2 * nevex, N)
+    if edge > ceiling:
+        _, dos = lz.dos_lower_bound(theta, tau, nevex, N)
+        log.info(f"warm start: max(ritzv0)={edge:.6e} lies above the DoS "
+                 f"quantile of 2·nevex {ceiling:.6e}; lower edge capped by "
+                 f"the DoS quantile of nevex {dos:.6e}")
+        count(WARM_START + "dos_lowered")
+        # the quantile is a quadrature node of the probes' Lanczos, coarse
+        # by the nodes' spacing; the previous values below it estimate the
+        # eigenvalues the block's sound columns hold
+        below = ritzv[ritzv <= dos]
+        edge = float(np.max(below)) if below.size else dos
+    return ritzv, upperb, edge
+
+
 # --------------------------------------------------------------------------
 # main driver
 # --------------------------------------------------------------------------
@@ -481,6 +526,9 @@ def _solve(op: DenseOperator, nev: int, nex: int, config, V0, ritzv0,
     H = op.H
 
     # ---- initVecs (chase_cpu.hpp:296-327) --------------------------------
+    approx = rcfg.approx and V0 is not None
+    if approx and ritzv0 is None:
+        raise ValueError("approx mode needs ritzv0 from a previous solve")
     with span("chase.init_vecs"):
         if rcfg.sym_check:
             from .ops.checks import check_hermitian
@@ -488,14 +536,11 @@ def _solve(op: DenseOperator, nev: int, nex: int, config, V0, ritzv0,
                 log.warn("input matrix failed the randomized hermiticity "
                          "probe (checkSymmetryEasy analogue) — results may "
                          "be invalid")
-        approx = rcfg.approx and V0 is not None
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(rcfg.seed)
-        if V0 is not None:
-            V = op.place_block(V0)
-        else:
-            V = _draw(op, nevex, generator)
         if not approx:
+            V = (op.place_block(V0) if V0 is not None
+                 else _draw(op, nevex, generator))
             V = qrops.orthonormalize(V, 0, 1.0, rcfg, op.grid)
 
     deg0 = min(rcfg.deg + rcfg.deg % 2, rcfg.max_deg)
@@ -508,32 +553,26 @@ def _solve(op: DenseOperator, nev: int, nex: int, config, V0, ritzv0,
     m -= m % 2
     m = max(m, 2)
     numvec = min(rcfg.num_lanczos, nevex)
-    with span("chase.lanczos"):
-        if not approx:
+    if not approx:
+        with span("chase.lanczos"):
             V, ritzv, upperb = _lanczos_dos(op, V, V0, m, numvec, nevex,
                                             generator, log)
-        else:
-            if ritzv0 is None:
-                raise ValueError("approx mode needs ritzv0 from a previous "
-                                 "solve")
-            # bounds-only Lanczos from a FRESH random probe: a Krylov space
-            # seeded with a converged eigenvector of the previous problem
-            # underestimates lambda_max
-            probe = _draw(op, 1, generator)
-            alphas, betas, _ = lz.lanczos_scan(H, probe, m=m,
-                                               want_basis=False, grid=op.grid)
-            a_np = _host(alphas, "solver.lanczos")
-            b_np = _host(betas, "solver.lanczos")
-            theta, _, _ = lz.lanczos_tridiag_host(a_np, b_np,
-                                                  want_vectors=False)
-            upperb = lz.upper_bound(theta, b_np[-1])
-            ritzv = np.asarray(ritzv0, np.float64).copy()
+        edge = float(np.max(ritzv))
+    else:
+        # the warm start: the caller's block placed, the bounds-only
+        # Lanczos and the damped interval's lower edge
+        with span("chase.warm_start"):
+            count(WARM_START + "members")
+            V = op.place_block(V0)
+            with span("chase.lanczos"):
+                ritzv, upperb, edge = _warm_bounds(op, ritzv0, m, numvec,
+                                                   nevex, generator, log)
 
     # sign-aware scaling: push a negative upperb toward zero correctly
     upperb = upperb * rcfg.upperb_scale if upperb > 0 \
         else upperb / rcfg.upperb_scale
 
-    lowerb = float(np.max(ritzv)) * rcfg.decaying_rate
+    lowerb = edge * rcfg.decaying_rate
     lam_filter = float(np.min(ritzv))
 
     locked = 0
